@@ -1,0 +1,94 @@
+"""Model core: named ``nn.Module`` layers whose parameter paths are the JAX
+package's.
+
+A JAX model's parameters are a nested dict keyed by stable path strings
+(``transformer/embed/1_mix/W``; ``spacy_ray_tpu/models/core.py``). Here each
+layer is an ``nn.Module`` registered under the same key, so ``state_dict()``
+names are those paths with ``.`` for ``/`` (:func:`param_paths`), and one
+flat ``params.npz`` loads in either package. Weights keep the JAX layout
+(``W`` is ``[nI, nO]``, applied as ``X @ W``).
+
+Initialisation is explicit: :meth:`Model.init_parameters` draws from a
+``torch.Generator`` (the JAX initialisers' distributions, not their bits).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+from torch import nn
+
+
+class Model(nn.Module):
+    """A named layer with static dims and free-form meta."""
+
+    def __init__(self, name: str, dims: Optional[Dict[str, int]] = None,
+                 meta: Optional[Dict[str, Any]] = None):
+        super().__init__()
+        self.name = name
+        self.dims: Dict[str, int] = dict(dims or {})
+        self.meta: Dict[str, Any] = dict(meta or {})
+
+    def init_parameters(self, generator: torch.Generator) -> None:
+        """Draw this layer's own parameters, then its children's, in order."""
+        self.reset_own_parameters(generator)
+        for child in self.children():
+            if isinstance(child, Model):
+                child.init_parameters(generator)
+
+    def reset_own_parameters(self, generator: torch.Generator) -> None:
+        """Layers with parameters of their own override this."""
+
+    def walk(self):
+        return (m for m in self.modules() if isinstance(m, Model))
+
+
+class Chain(Model):
+    """Feed-forward composition; children keyed ``{i}_{name}``."""
+
+    def __init__(self, *layers: Model, name: str = "chain"):
+        super().__init__(name)
+        for i, layer in enumerate(layers):
+            self.add_module(f"{i}_{layer.name}", layer)
+        if layers and "nI" in layers[0].dims:
+            self.dims["nI"] = layers[0].dims["nI"]
+        if layers and "nO" in layers[-1].dims:
+            self.dims["nO"] = layers[-1].dims["nO"]
+
+    def forward(self, x: Any) -> Any:
+        for layer in self.children():
+            x = layer(x)
+        return x
+
+
+def param_paths(module: nn.Module) -> Dict[str, torch.Tensor]:
+    """The module's parameters under the JAX package's '/'-joined paths."""
+    return {k.replace(".", "/"): v for k, v in module.state_dict().items()}
+
+
+# ---------------------------------------------------------- initialisers
+
+
+def glorot_uniform_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    fan_in, fan_out = t.shape[0], t.shape[-1]
+    limit = (6.0 / (fan_in + fan_out)) ** 0.5
+    with torch.no_grad():
+        return t.uniform_(-limit, limit, generator=generator)
+
+
+def normal_(t: torch.Tensor, stddev: float, generator: torch.Generator) -> torch.Tensor:
+    with torch.no_grad():
+        return t.normal_(0.0, stddev, generator=generator)
+
+
+def zeros_param(*shape: int) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(shape), requires_grad=False)
+
+
+def ones_param(*shape: int) -> nn.Parameter:
+    return nn.Parameter(torch.ones(shape), requires_grad=False)
+
+
+def empty_param(*shape: int) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape), requires_grad=False)

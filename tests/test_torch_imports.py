@@ -1,0 +1,89 @@
+"""The port stands alone: no jax, no JAX package, and no silent CPU run."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import spacy_ray_tpu_torch as P
+
+REPO = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((REPO / "spacy_ray_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "spacy_ray_tpu")
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(encoding="utf8"))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_or_jax_package_import(path):
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_importing_the_port_loads_no_jax():
+    modules = [
+        ".".join(p.relative_to(REPO).with_suffix("").parts).replace(".__init__", "")
+        for p in PORT_FILES if p.name != "chip_smoke.py"
+    ]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r}))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120, env={**os.environ, "PYTHONPATH": str(REPO)})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    cfg = P.Config.from_str('[nlp]\npipeline = []\n')
+    nlp = P.Pipeline.from_config(cfg, device="cpu")
+    nlp.initialize()
+    nlp.to_disk(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (lambda: P.Pipeline.from_config(cfg),
+                  lambda: P.Pipeline.from_config(cfg, device="cuda"),
+                  lambda: P.Pipeline.from_disk(tmp_path)):
+        with pytest.raises(RuntimeError, match="no CUDA device.*device='cpu'"):
+            build()
+    assert P.Pipeline.from_disk(tmp_path, device="cpu").device.type == "cpu"
+
+
+def test_serve_cli_without_a_card_fails_instead_of_using_the_cpu(tmp_path):
+    nlp = P.Pipeline.from_config(P.Config.from_str('[nlp]\npipeline = []\n'), device="cpu")
+    nlp.initialize()
+    nlp.to_disk(tmp_path)
+    out = subprocess.run(
+        [sys.executable, "-m", "spacy_ray_tpu_torch", "serve", str(tmp_path), "--port", "0"],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": str(REPO), "CUDA_VISIBLE_DEVICES": ""},
+    )
+    assert out.returncode != 0
+    assert "no CUDA device is available" in out.stderr
+    assert "serving on" not in out.stdout
+
+
+def test_chip_smoke_refuses_to_run_without_a_card_or_the_package(tmp_path):
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    out = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")], cwd=REPO,
+                         capture_output=True, text=True, timeout=120, env=env)
+    assert out.returncode != 0 and '"ok"' not in out.stdout
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((REPO / "chip_smoke.py").read_text())
+    out = subprocess.run([sys.executable, str(alone)], cwd=tmp_path, capture_output=True,
+                         text=True, timeout=120, env=env)
+    assert out.returncode != 0 and '"ok"' not in out.stdout

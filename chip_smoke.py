@@ -8,10 +8,13 @@ Run from the root of a checkout. Phases, each printing one JSON line:
 1. card     — ``nvidia-smi`` name and power limit, torch and CUDA versions.
 2. build    — compiles every kernel of ``spacy_ray_tpu_torch/csrc`` with
               nvcc for sm_90a (one nvcc per source, in parallel).
-3. kernel:* — each kernel's wrapper on the card at the serving slice's
-              shapes, held against its plain PyTorch version on the same
-              inputs (tolerances below), and timed with CUDA events beside
-              its plain version, a PyTorch library call computing the same
+3. kernel:* — each kernel's wrapper on the card at the shapes its path
+              gives it (the serving slice's for K1, K2, K4; a training
+              microbatch's and the whole parameter set's for the hash-embed
+              gradient, the attention backward K3 and the fused update K5),
+              held against its plain PyTorch version on the same inputs
+              (tolerances below), and timed with CUDA events beside its
+              plain version, a PyTorch library call computing the same
               function where one exists, and its bound; ``host_us`` is the
               host's time to launch it through its wrapper.
 4. slice:*  — the transformer + tagger pipeline at the width of
@@ -27,6 +30,19 @@ Run from the root of a checkout. Phases, each printing one JSON line:
               ways.
 5. cli      — ``python -m spacy_ray_tpu_torch serve`` as a subprocess
               answers one request.
+6. train:trf — ``train()`` of the port on the card, on a config whose
+              transformer and tagger blocks and ``[training]`` block are
+              ``configs/trf.cfg``'s (``max_steps`` 40, ``eval_frequency``
+              20), over a synthetic corpus written here (2000 train and 200
+              dev docs of 8-120 words whose tags follow from the words).
+              Launch counters are zeroed just before and read just after;
+              every training kernel must have launched and the loss must
+              fall. Then one step is split into forward, backward and
+              optimizer (device and host-enqueue time), the gradients of one
+              microbatch with every kernel are held against the same
+              microbatch with every kernel swapped for its plain version
+              (dropout off), and ``best-model/`` answers one request through
+              the serving path.
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -63,6 +79,12 @@ TOL_K2_O = 1e-2     # bf16 output: about 1 ulp at |o| ~ 2 (2**-7 = 7.8e-3)
 TOL_K2_LSE = 1e-3   # f32 log-sum-exp, different summation order
 TOL_K4_REL = 1e-4   # f32 accumulation order, relative to max |out|
 TOL_TRUNK = 0.1     # bf16 trunk after 12 layers, max |diff| on real tokens
+TOL_K1_BWD = 0.0    # the same f32 adds in the same order as the CPU plain version
+TOL_K3_F32 = 1e-3   # f32 dq/dk/dv, other summation order (tests/test_flash_attention.py)
+TOL_K3_BF16 = 5e-2  # bf16 dq/dk/dv, relative to max |grad| (the JAX kernel probe's bound)
+MAXULP_K5 = 1       # p, m, v against leaf_math_plain (bit-equal when no FMA is formed)
+TOL_GRAD = 5e-2     # bf16 trunk gradients, kernels vs plain, relative to each leaf's max
+TRAIN_STEPS, TRAIN_EVAL = 40, 20
 
 UD_TAGS = ["ADJ", "ADP", "ADV", "AUX", "CCONJ", "DET", "INTJ", "NOUN", "NUM",
            "PART", "PRON", "PROPN", "PUNCT", "SCONJ", "SYM", "VERB", "X"]
@@ -295,6 +317,213 @@ def phase_kernels(torch):
     return results
 
 
+def ulp_diff(torch, a, b) -> int:
+    """Largest distance in float32 units in the last place between a and b."""
+    ia = a.contiguous().view(torch.int32).long()
+    ib = b.contiguous().view(torch.int32).long()
+    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return int((ia - ib).abs().max().item())
+
+
+def trf_param_shapes(torch):
+    """Every parameter leaf of the trf.cfg trunk + tagger (17 tags), built
+    on the CPU without initialising."""
+    from spacy_ray_tpu_torch import Pipeline
+
+    cfg = trf_tagger_config()
+    nlp = Pipeline.from_config(cfg.interpolate(), device="cpu")
+    nlp.components["tagger"].labels = list(UD_TAGS)
+    return [tuple(p.shape) for p in nlp._build_models().parameters()]
+
+
+def phase_train_kernels(torch):
+    """The training path's kernels against their plain versions and timed:
+    the hash-embed table gradient and the attention backward (K3) at one
+    training microbatch's shapes (B 64, T 128: batch_by_words 2000 on this
+    corpus takes up to 40 docs of up to 120 words), the fused update (K5)
+    over every leaf of the trf + tagger parameter set."""
+    import torch.nn.functional as F
+
+    from spacy_ray_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd, mask_to_bias,
+    )
+    from spacy_ray_tpu_torch.ops.fused_update import (
+        FusedHyper, FusedUpdate, global_norm, leaf_math_plain, step_scalars,
+    )
+    from spacy_ray_tpu_torch.ops.hashing import hash_embed_ids
+    from spacy_ray_tpu_torch.ops.pallas_kernels import (
+        hash_embed_table_grad, hash_embed_table_grad_plain,
+    )
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # > 50 MB L2
+
+    def flush():
+        scratch.zero_()
+
+    results = {}
+    B, T, D, H, Dh = 64, 128, 768, 12, 64
+    rng = random.Random(3)
+    # about 36 docs of 8-120 words, the rest batch-padding rows
+    lens = [rng.randint(8, 120) for _ in range(36)] + [0] * (B - 36)
+
+    # hash-embed table gradient: the four tables of one microbatch, with ids
+    # as skewed as the training corpus makes them (a 45-word vocabulary, and
+    # every batch-padding position hashing the zero key to the same rows),
+    # and once with uniform ids
+    vocab = torch.randint(1, 2 ** 32, (45, 2), device=dev, generator=g)
+    real = (torch.arange(T, device=dev)[None, :]
+            < torch.tensor(lens, device=dev)[:, None]).reshape(-1)
+    word = torch.randint(0, 45, (B * T,), device=dev, generator=g)
+    corpus_keys = torch.where(real[:, None], vocab[word], torch.zeros_like(vocab[word]))
+    shapes = []
+    for rows, skewed in ((20000, True), (10000, True), (20000, False)):
+        n = B * T
+        ct = torch.randn(n, D, device=dev, generator=g)
+        keys = (corpus_keys if skewed else
+                torch.randint(0, 2 ** 32, (n, 2), device=dev, generator=g))
+        ids = hash_embed_ids(keys, 777, rows)
+        got = hash_embed_table_grad(ct, ids, rows)
+        torch.cuda.synchronize()
+        want_cpu = hash_embed_table_grad_plain(ct.cpu(), ids.cpu(), rows)
+        err = (got.cpu() - want_cpu).abs().max().item()
+        if not err <= TOL_K1_BWD:
+            fail(f"K1 bwd rows={rows}: max_abs_err {err} vs the CPU plain version > {TOL_K1_BWD}")
+        want = hash_embed_table_grad_plain(ct, ids, rows)
+        err_card = (got - want).abs().max().item()
+        flat = ids.reshape(-1).long()
+        nbytes = rows * D * 4 + n * D * 4 + n * 16
+        bnd, by = bound_ms(nbytes, 4 * n * D, PEAK_F32_FLOPS)
+        row = {
+            "rows": rows, "D": D, "N": n, "ids": "corpus-skewed" if skewed else "uniform",
+            "longest_segment": int(torch.bincount(ids.reshape(-1).long()).max()),
+            "max_abs_err": err, "max_abs_err_vs_card_plain": err_card,
+            "ms": time_ms(torch, lambda: hash_embed_table_grad(ct, ids, rows), flush=flush),
+            "host_us": host_us(torch, lambda: hash_embed_table_grad(ct, ids, rows)),
+            "plain_ms": time_ms(torch, lambda: hash_embed_table_grad_plain(ct, ids, rows),
+                                flush=flush),
+            "library_ms": time_ms(torch, lambda: torch.zeros(rows, D, device=dev).index_add_(
+                0, flat, ct.repeat_interleave(4, 0)), flush=flush),
+            "bound_ms": bnd, "bound_by": by,
+            "calls_per_dispatch": 0 if not skewed else 1 if rows == 20000 else 3,
+        }
+        emit({"phase": "kernel:hash_embed_table_grad", **row})
+        shapes.append(row)
+    results["hash_embed_table_grad"] = shapes
+
+    # K3: bf16 q/k/v as views of the fused projection, ragged masks with an
+    # all-masked batch-padding row; a nonzero lse cotangent on the check
+    # shapes, none on the training shape (attention() drops the lse)
+    shapes = []
+    for b, t, dt, with_dlse in ((3, 70, torch.float32, True), (3, 70, torch.bfloat16, True),
+                                (B, T, torch.bfloat16, True), (B, T, torch.bfloat16, False)):
+        qkv = torch.randn(b, t, 3 * D, device=dev, generator=g).to(dt)
+        q, k, v = (x.view(b, t, H, Dh) for x in qkv.split(D, dim=-1))
+        bl = lens if b == B else [t, 33, 0]
+        mask = torch.arange(t, device=dev)[None, :] < torch.tensor(bl, device=dev)[:, None]
+        bias = mask_to_bias(mask)
+        scale = 1.0 / math.sqrt(Dh)
+        o, lse = flash_attention_fwd(q, k, v, bias, scale)
+        do = torch.randn(b, t, H, Dh, device=dev, generator=g).to(dt)
+        dlse = torch.randn(b, t, H, device=dev, generator=g) if with_dlse else None
+        got = flash_attention_bwd(q, k, v, bias, o, lse, do, dlse, scale)
+        want = flash_attention_bwd_plain(q, k, v, bias, o, lse, do, dlse, scale)
+        torch.cuda.synchronize()
+        if not all(bool(torch.isfinite(x.float()).all()) for x in got):
+            fail("K3: non-finite gradient (the all-masked row must stay finite)")
+        errs = [(x.float() - y.float()).abs().max().item() for x, y in zip(got, want)]
+        refs = [y.float().abs().max().item() for y in want]
+        tol = TOL_K3_F32 if dt == torch.float32 else TOL_K3_BF16
+        rel = [e / max(r, 1e-30) for e, r in zip(errs, refs)]
+        if dt == torch.float32 and not max(errs) <= tol:
+            fail(f"K3 f32 B={b} T={t}: max_abs_err {errs} > {tol}")
+        if dt == torch.bfloat16 and not max(rel) <= tol:
+            fail(f"K3 bf16 B={b} T={t}: max err relative to max |grad| {rel} > {tol}")
+        row = {"B": b, "T": t, "H": H, "Dh": Dh, "dtype": str(dt).split(".")[-1],
+               "dlse": with_dlse, "max_abs_err": max(errs), "max_abs_err_dq_dk_dv": errs,
+               "max_abs_ref": refs, "calls_per_dispatch": 0}
+        if b == B and not with_dlse:
+            qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_(True) for x in (q, k, v))
+            amask = bias.to(dt)[:, None, None, :]
+            out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=amask)
+            dot = do.transpose(1, 2)
+            n_pairs = sum(n * n for n in bl)
+            nbytes = 8 * b * t * H * Dh * 2 + b * t * H * 4 + b * t * 4
+            bnd, by = bound_ms(nbytes, 8 * H * Dh * n_pairs, PEAK_BF16_FLOPS)
+            row.update({
+                "ms": time_ms(torch, lambda: flash_attention_bwd(
+                    q, k, v, bias, o, lse, do, None, scale)),
+                "host_us": host_us(torch, lambda: flash_attention_bwd(
+                    q, k, v, bias, o, lse, do, None, scale)),
+                "plain_ms": time_ms(torch, lambda: flash_attention_bwd_plain(
+                    q, k, v, bias, o, lse, do, None, scale)),
+                "library_ms": time_ms(torch, lambda: torch.autograd.grad(
+                    out, (qt, kt, vt), dot, retain_graph=True)),
+                "bound_ms": bnd, "bound_by": by, "calls_per_dispatch": 12,
+            })
+        emit({"phase": "kernel:flash_attention_bwd", **row})
+        shapes.append(row)
+    results["flash_attention_bwd"] = shapes
+
+    # K5: every leaf of the trf + tagger parameter set, Adam as trf.cfg sets it
+    # (clip 1.0) and the other branches on the same leaves
+    leaf_shapes = trf_param_shapes(torch)
+    n_params = sum(math.prod(sh) for sh in leaf_shapes)
+    P = [torch.randn(sh, device=dev, generator=g) for sh in leaf_shapes]
+    G = [torch.randn(sh, device=dev, generator=g) * 1e-3 for sh in leaf_shapes]
+    M = [torch.randn(sh, device=dev, generator=g) * 1e-4 for sh in leaf_shapes]
+    V = [torch.rand(sh, device=dev, generator=g) * 1e-6 for sh in leaf_shapes]
+    worst = 0
+    worst_abs = 0.0
+    for hyper in (FusedHyper("adam", 0.9, 0.999, 1e-8, 1.0, 0.0, 0.0),
+                  FusedHyper("adam", 0.9, 0.999, 1e-8, 0.0, 0.01, 0.0),
+                  FusedHyper("radam", 0.9, 0.999, 1e-8, 1.0, 0.0, 0.01)):
+        gnorm = global_norm(G)
+        sc = step_scalars(hyper, 9, 9, lambda s: 0.001)
+        Pk, Mk, Vk = ([x.clone() for x in X] for X in (P, M, V))
+        FusedUpdate(hyper).step(Pk, G, Mk, Vk, gnorm, sc)
+        for i in range(len(P)):
+            want = leaf_math_plain(P[i], G[i], M[i], V[i], gnorm, *sc, hyper=hyper)
+            for a, w in zip((Pk[i], Mk[i], Vk[i]), want):
+                worst = max(worst, ulp_diff(torch, a, w))
+                worst_abs = max(worst_abs, (a - w).abs().max().item())
+        del Pk, Mk, Vk
+    torch.cuda.synchronize()
+    if not worst <= MAXULP_K5:
+        fail(f"K5: {worst} ulp from leaf_math_plain > {MAXULP_K5}")
+    hyper = FusedHyper("adam", 0.9, 0.999, 1e-8, 1.0, 0.0, 0.0)
+    fused = FusedUpdate(hyper)
+    gnorm = global_norm(G)
+    sc = step_scalars(hyper, 9, 9, lambda s: 0.001)
+
+    def plain_all():
+        for p, gg, m, v in zip(P, G, M, V):
+            leaf_math_plain(p, gg, m, v, gnorm, *sc, hyper=hyper)
+
+    lib_params = [p.clone().requires_grad_(True) for p in P]
+    for p, gg in zip(lib_params, G):
+        p.grad = gg
+    lib_opt = torch.optim.Adam(lib_params, lr=1e-3, fused=True)
+    bnd, by = bound_ms(28 * n_params, 20 * n_params, PEAK_F32_FLOPS)
+    row = {
+        "leaves": len(P), "params": n_params, "max_ulp": worst,
+        "max_abs_err": worst_abs,
+        "ms": time_ms(torch, lambda: fused.step(P, G, M, V, gnorm, sc), reps=10),
+        "host_us": host_us(torch, lambda: fused.step(P, G, M, V, gnorm, sc), reps=10),
+        "global_norm_ms": time_ms(torch, lambda: global_norm(G), reps=10),
+        "plain_ms": time_ms(torch, plain_all, reps=5, warmup=1),
+        "library_ms": time_ms(torch, lib_opt.step, reps=10),
+        "bound_ms": bnd, "bound_by": by, "calls_per_dispatch": 1,
+    }
+    emit({"phase": "kernel:fused_update", **row})
+    results["fused_update"] = [row]
+    del P, G, M, V, lib_params, lib_opt, scratch
+    torch.cuda.empty_cache()
+    return results
+
+
 def make_texts(n: int, seed: int):
     rng = random.Random(seed)
     lengths = [3, 8, 15, 30, 60, 100, 5, 90, 12, 45, 2, 80]  # words; <= 128 tokens
@@ -348,9 +577,10 @@ def plain_kernels():
         yield
 
 
-def build_model_dir(torch) -> Path:
-    """The trf.cfg trunk with the tagger head, random weights from seed 0."""
-    from spacy_ray_tpu_torch import Config, Pipeline
+def trf_tagger_config():
+    """configs/trf.cfg with its transformer and tagger blocks as they are and
+    the parser and NER heads removed."""
+    from spacy_ray_tpu_torch import Config
 
     cfg = Config.from_disk(ROOT / "configs" / "trf.cfg")
     cfg["nlp"]["pipeline"] = ["transformer", "tagger"]
@@ -361,6 +591,14 @@ def build_model_dir(torch) -> Path:
                       ("max_len", 512), ("embed_size", 20000)):
         if model[key] != want:
             fail(f"configs/trf.cfg {key} = {model[key]}, expected {want}")
+    return cfg
+
+
+def build_model_dir(torch) -> Path:
+    """The trf.cfg trunk with the tagger head, random weights from seed 0."""
+    from spacy_ray_tpu_torch import Pipeline
+
+    cfg = trf_tagger_config()
     t0 = time.perf_counter()
     nlp = Pipeline.from_config(cfg.interpolate(), device="cuda")
     nlp.initialize(labels={"tagger": UD_TAGS}, seed=0)
@@ -546,6 +784,215 @@ def phase_cli(model_dir: Path):
             proc.wait()
 
 
+def serve_once(torch, model_dir: Path):
+    """``model_dir`` through the serving entry point for one request."""
+    from spacy_ray_tpu_torch.__main__ import build_server
+
+    server = build_server([str(model_dir), "--port", "0", "--max-batch", "2",
+                           "--max-doc-len", "128"])
+    engine = server.engine
+    try:
+        _, port = server.start()
+        engine.start()
+        status, body = post(port, ["the dog sees a green tree in Tokyo"])
+        tags = body["docs"][0].get("tags") if status == 200 else None
+        if not tags:
+            fail(f"best-model did not serve: {status} {body}")
+        server.request_shutdown()
+        if server.wait() != 0:
+            fail("serving best-model did not drain cleanly")
+        return {"status": status, "tags": tags}
+    finally:
+        if engine.ready:
+            engine.stop()
+        if server._serve_thread is not None and server._serve_thread.is_alive():
+            server.httpd.shutdown()
+        server.httpd.server_close()
+        del server, engine
+        torch.cuda.empty_cache()
+
+
+def phase_train(torch):
+    """``train()`` at trf.cfg's full width on a synthetic tagged corpus,
+    with the launch counters zeroed just before and read just after."""
+    from spacy_ray_tpu_torch.ops import _cuda
+    from spacy_ray_tpu_torch.registry import registry
+    from spacy_ray_tpu_torch.training.batcher import bucket_batch_size, bucket_length
+    from spacy_ray_tpu_torch.training.loop import train
+    from spacy_ray_tpu_torch.util import write_synth_jsonl
+
+    work = WORK / "train"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    write_synth_jsonl(work / "train.jsonl", 2000, seed=0, min_len=8, max_len=120)
+    write_synth_jsonl(work / "dev.jsonl", 200, seed=1, min_len=8, max_len=120)
+    cfg = trf_tagger_config()
+    cfg["paths"] = {"train": str(work / "train.jsonl"), "dev": str(work / "dev.jsonl")}
+    cfg["training"]["max_steps"] = TRAIN_STEPS
+    cfg["training"]["eval_frequency"] = TRAIN_EVAL
+    out = work / "out"
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    nlp, result = train(cfg, out, device="cuda", stdout_log=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _cuda.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    losses = result.step_losses
+    need = ["hash_embed_gather_sum", "hash_embed_table_grad", "flash_attention_fwd",
+            "flash_attention_bwd", "fused_update"]
+    missing = [k for k in need if launches[k] == 0]
+    if missing:
+        fail(f"train: kernels never launched on the training path: {missing}")
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        fail(f"train: {len(losses)} step losses, expected {TRAIN_STEPS} finite ones")
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    if not last < first:
+        fail(f"train: the loss did not fall (first 5 steps {first}, last 5 {last})")
+    event_ms = [a.elapsed_time(b) for a, b in result.step_events]
+    host_ms = [x * 1e3 for x in result.step_host_seconds]
+
+    # one step split into forward, backward and optimizer: device time by
+    # CUDA events, host time to enqueue each part (from an idle card)
+    cfg_i = cfg.interpolate()
+    nlp.model.requires_grad_(True)
+    params = {k.replace(".", "/"): p for k, p in nlp.model.named_parameters()}
+    optimizer = registry.resolve(cfg_i["training"]["optimizer"])
+    opt_state = optimizer.init(params)
+    corpus = registry.resolve(cfg_i["corpora"]["train"])
+    batcher = registry.resolve(cfg_i["training"]["batcher"])
+    batches = []
+    for b in batcher(corpus()):
+        batches.append(b)
+        if len(batches) == 4:
+            break
+    B_pad = bucket_batch_size(max(len(b) for b in batches))
+    T_pad = bucket_length(max(len(eg) for b in batches for eg in b))
+    collated = [nlp.collate(b, with_targets=True, pad_batch_to=B_pad, pad_len_to=T_pad)
+                for b in batches]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        e0.record()
+        out = fn()
+        e1.record()
+        host = (time.perf_counter() - t) * 1e3
+        torch.cuda.synchronize()
+        return out, e0.elapsed_time(e1), host
+
+    parts = {"forward": [0.0, 0.0], "backward": [0.0, 0.0], "optimizer": [0.0, 0.0]}
+    for rep in range(3):
+        for p in params.values():
+            p.grad = None if rep == 0 else p.grad.zero_()
+        for c in collated[:3]:
+            (loss, _), dev_ms, h = timed(lambda: nlp.loss(c["tokens"], c["targets"],
+                                                          dropout=0.1, seed=rep))
+            if rep:
+                parts["forward"][0] += dev_ms / 2
+                parts["forward"][1] += h / 2
+            _, dev_ms, h = timed(loss.backward)
+            if rep:
+                parts["backward"][0] += dev_ms / 2
+                parts["backward"][1] += h / 2
+        grads = {k: p.grad for k, p in params.items()}
+        torch._foreach_div_(list(grads.values()), 3.0)
+        with torch.no_grad():
+            _, dev_ms, h = timed(lambda: optimizer.update(params, grads, opt_state))
+        if rep:
+            parts["optimizer"][0] += dev_ms / 2
+            parts["optimizer"][1] += h / 2
+
+    # one whole step under torch.profiler: device time by kernel, and the
+    # share of the step's wall time the card spent idle
+    from torch.profiler import ProfilerActivity, profile
+
+    def one_step():
+        for p in params.values():
+            p.grad.zero_()
+        for c in collated[:3]:
+            nlp.loss(c["tokens"], c["targets"], dropout=0.1, seed=7)[0].backward()
+        grads = {k: p.grad for k, p in params.items()}
+        torch._foreach_div_(list(grads.values()), 3.0)
+        with torch.no_grad():
+            optimizer.update(params, grads, opt_state)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        step_wall_ms = (time.perf_counter() - t) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    # device-side events only: an operator's row repeats its kernels' time
+    events = [e for e in prof.key_averages()
+              if str(getattr(e, "device_type", "")).endswith("CUDA") and dev_us(e) > 0]
+    busy_ms = sum(dev_us(e) for e in events) / 1e3
+    top = sorted(events, key=dev_us, reverse=True)[:15]
+    host_ops = sorted((e for e in prof.key_averages()
+                       if not str(getattr(e, "device_type", "")).endswith("CUDA")),
+                      key=lambda e: e.self_cpu_time_total, reverse=True)[:10]
+    profile_row = {
+        "step_wall_ms": step_wall_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / step_wall_ms,
+        "top_device_ms": [(e.key[:60], dev_us(e) / 1e3, e.count) for e in top],
+        "top_host_self_ms": [(e.key[:60], e.self_cpu_time_total / 1e3, e.count)
+                             for e in host_ops],
+    }
+
+    # the gradients of one microbatch with every kernel and with every kernel
+    # swapped for its plain version, dropout off
+    c = collated[3]
+    grads = []
+    for plain in (False, True):
+        for p in params.values():
+            p.grad = None
+        if plain:
+            with plain_kernels():
+                nlp.loss(c["tokens"], c["targets"], dropout=0.0)[0].backward()
+        else:
+            nlp.loss(c["tokens"], c["targets"], dropout=0.0)[0].backward()
+        grads.append({k: p.grad.detach().clone() for k, p in params.items()})
+    rel = {k: (grads[0][k] - grads[1][k]).abs().max().item()
+           / max(grads[1][k].abs().max().item(), 1e-30) for k in params}
+    worst_leaf = max(rel, key=rel.get)
+    if not rel[worst_leaf] <= TOL_GRAD:
+        fail(f"train: gradient of {worst_leaf} kernels vs plain {rel[worst_leaf]} > {TOL_GRAD}")
+    nlp.model.requires_grad_(False)
+    del nlp, params, optimizer, opt_state, grads, collated
+    torch.cuda.empty_cache()
+
+    served = serve_once(torch, out / "best-model")
+    res = {
+        "phase": "train:trf", "seconds": seconds, "steps": result.final_step,
+        "accumulate_gradient": 3, "group_shapes_B_T": sorted(set(result.step_shapes)),
+        "first_loss": losses[0], "last_loss": losses[-1],
+        "loss_first5_mean": first, "loss_last5_mean": last,
+        "dev_tag_acc": [(h["step"], h["other_scores"].get("tag_acc")) for h in result.history],
+        "step_ms_median_events": statistics.median(event_ms),
+        "step_ms_median_host": statistics.median(host_ms),
+        "words_per_s": result.wps, "words": result.words_seen,
+        "peak_memory_gb": peak_gb, "launches": launches,
+        "step_split_ms_device_host": {k: v for k, v in parts.items()},
+        "step_split_B_T": [B_pad, T_pad], "step_profile": profile_row,
+        # kernel time (under the profiler) against the unprofiled step's time
+        "device_idle_share_of_step": 1.0 - profile_row["device_busy_ms"]
+        / statistics.median(event_ms),
+        "grad_max_rel_err": rel[worst_leaf], "grad_worst_leaf": worst_leaf,
+        "grad_tol": TOL_GRAD, "best_model_served_tags": served["tags"],
+    }
+    emit(res)
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -579,6 +1026,7 @@ def main() -> int:
           "flags": " ".join(_cuda.NVCC_FLAGS)})
 
     kernels = phase_kernels(torch)
+    kernels.update(phase_train_kernels(torch))
 
     if WORK.exists():
         shutil.rmtree(WORK / "trf_tagger", ignore_errors=True)
@@ -586,6 +1034,8 @@ def main() -> int:
     runs = {p: phase_slice(torch, model_dir, p) for p in ("auto", "int8")}
     phase_cli(model_dir)
     shutil.rmtree(model_dir, ignore_errors=True)
+    runs["train"] = phase_train(torch)
+    shutil.rmtree(WORK / "train", ignore_errors=True)
 
     meta = {
         "hash_embed_gather_sum": ("spacy_ray_tpu_torch/csrc/hash_embed.cu",
@@ -594,15 +1044,22 @@ def main() -> int:
                                 "spacy_ray_tpu/ops/flash_attention.py:63"),
         "int8_weight_matmul": ("spacy_ray_tpu_torch/csrc/int8_matmul.cu",
                                "spacy_ray_tpu/ops/int8_matmul.py:148"),
+        "hash_embed_table_grad": ("spacy_ray_tpu_torch/csrc/hash_embed_grad.cu",
+                                  "spacy_ray_tpu/ops/pallas_kernels.py:40"),
+        "flash_attention_bwd": ("spacy_ray_tpu_torch/csrc/flash_attention_bwd.cu",
+                                "spacy_ray_tpu/ops/flash_attention.py:82"),
+        "fused_update": ("spacy_ray_tpu_torch/csrc/fused_update.cu",
+                         "spacy_ray_tpu/ops/fused_update.py:135"),
     }
+    per_table = ("hash_embed_gather_sum", "hash_embed_table_grad")
     line = []
     for name, (source, replaces) in meta.items():
-        # one dispatch at B=8, T=128: the shapes weighted by calls per
-        # dispatch per layer (K1: 1 NORM + 3 other tables; K2 and K4: one
-        # layer's calls)
+        # one serving dispatch at B=8, T=128 or one training microbatch at
+        # B=64, T=128 (one optimizer step for K5): the shapes weighted by
+        # calls (K1 and its gradient: 1 NORM + 3 other tables; K2, K3, K4:
+        # one layer's calls)
         rows = [r for r in kernels[name] if r["calls_per_dispatch"]]
-        w = {id(r): (r["calls_per_dispatch"] if name == "hash_embed_gather_sum" else 1)
-             for r in rows}
+        w = {id(r): (r["calls_per_dispatch"] if name in per_table else 1) for r in rows}
 
         def total(key):
             vals = [r[key] for r in rows]

@@ -3,8 +3,9 @@
 interpolation resolved against the root.
 
 A copy of the parts of ``spacy_ray_tpu/config.py`` that loading and saving a
-pipeline needs, so a config written by either package reads the same in
-both.
+pipeline and the ``train`` command need (dotted command-line overrides such
+as ``--paths.train x.jsonl --training.max_steps 40``), so a config written by
+either package reads the same in both.
 """
 
 from __future__ import annotations
@@ -138,6 +139,20 @@ class Config(dict):
     def to_disk(self, path: Union[str, Path]) -> None:
         Path(path).write_text(self.to_str(), encoding="utf8")
 
+    def apply_overrides(self, overrides: Dict[str, Any]) -> "Config":
+        """A copy with each ``dotted.key = value`` set (sections created as
+        needed)."""
+        out = Config(copy.deepcopy(dict(self)))
+        for dotted, value in overrides.items():
+            node: Dict[str, Any] = out
+            parts = dotted.split(".")
+            for part in parts[:-1]:
+                if part not in node or not isinstance(node[part], dict):
+                    node[part] = {}
+                node = node[part]
+            node[parts[-1]] = value
+        return out
+
     def interpolate(self) -> "Config":
         """Resolve ``${dotted.path}`` references against the root."""
         resolved = copy.deepcopy(dict(self))
@@ -169,3 +184,40 @@ class Config(dict):
             return value
 
         return Config(interp(resolved))
+
+
+def load_config(
+    path: Union[str, Path],
+    overrides: Optional[Dict[str, Any]] = None,
+    *,
+    interpolate: bool = False,
+) -> Config:
+    """Load a config file with optional dotted overrides."""
+    config = Config.from_disk(path)
+    if overrides:
+        config = config.apply_overrides(overrides)
+    if interpolate:
+        config = config.interpolate()
+    return config
+
+
+def parse_cli_overrides(args: List[str]) -> Dict[str, Any]:
+    """Parse ``--training.max_steps 100 --paths.train x.jsonl`` (or
+    ``--key=value``) extras into ``{dotted.key: value}``."""
+    overrides: Dict[str, Any] = {}
+    i = 0
+    while i < len(args):
+        arg = args[i]
+        if not arg.startswith("--"):
+            raise ConfigValidationError(f"Expected --dotted.name, got {arg!r}")
+        key = arg[2:]
+        if "=" in key:
+            key, _, raw = key.partition("=")
+            overrides[key] = _parse_value(raw)
+            i += 1
+        else:
+            if i + 1 >= len(args):
+                raise ConfigValidationError(f"Override {arg!r} missing a value")
+            overrides[key] = _parse_value(args[i + 1])
+            i += 2
+    return overrides

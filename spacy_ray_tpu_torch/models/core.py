@@ -10,14 +10,55 @@ flat ``params.npz`` loads in either package. Weights keep the JAX layout
 
 Initialisation is explicit: :meth:`Model.init_parameters` draws from a
 ``torch.Generator`` (the JAX initialisers' distributions, not their bits).
+
+Parameters are created frozen (``requires_grad=False``), which is what
+serving wants; training turns them trainable with ``requires_grad_(True)``
+on the pipeline's models. A :class:`Context` carries the train flag, the
+global dropout override and the integer seed that dropout masks derive from.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
+
+
+_MASK64 = (1 << 64) - 1
+
+
+def fold_in(seed: int, data: int) -> int:
+    """A new 63-bit seed from (seed, data), the role of ``jax.random.fold_in``
+    (splitmix64 of the pair; not JAX's bits)."""
+    z = (int(seed) * 0x9E3779B97F4A7C15 + int(data) + 0x632BE59BD9B4E019) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (z ^ (z >> 31)) >> 1
+
+
+@dataclass
+class Context:
+    """Per-call context of a forward: the train flag, the global training
+    dropout override (``[training] dropout``; None keeps each layer's
+    configured rate), and the integer seed dropout masks derive from (None:
+    no dropout). Counterpart of ``spacy_ray_tpu/models/core.py``'s Context,
+    with a seed where JAX threads a key."""
+
+    train: bool = False
+    dropout: Optional[float] = None
+    seed: Optional[int] = None
+
+    def dropout_rate(self, configured: float) -> float:
+        """The effective dropout rate at a site whose architecture default
+        is ``configured``: 0 outside training."""
+        if not self.train:
+            return 0.0
+        return self.dropout if self.dropout is not None else configured
+
+    def fold_in(self, data: int) -> Optional[int]:
+        return None if self.seed is None else fold_in(self.seed, data)
 
 
 class Model(nn.Module):

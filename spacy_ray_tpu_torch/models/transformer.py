@@ -1,11 +1,21 @@
-"""Transformer trunk at inference: hash-embed featurizer, learned positions,
-a stack of dense pre-LN encoder layers, a final layer norm.
+"""Transformer trunk: hash-embed featurizer, learned positions, a stack of
+dense pre-LN encoder layers, a final layer norm.
 
-Counterpart of ``spacy_ray_tpu/models/transformer.py`` for serving: the
-dense layer (``apply_transformer_layer``) without dropout, the layer stack as
-a plain loop, ``_wdot`` with both weight encodings, and the bf16 / int8
-serving overlays. MoE, ring attention, pipeline parallelism and remat are
-training or multi-chip features outside this slice.
+Counterpart of ``spacy_ray_tpu/models/transformer.py``: the dense layer
+(``apply_transformer_layer``) with dropout on the attention and FFN outputs
+in training, the layer stack as a plain loop with a per-layer dropout seed
+folded from the step's seed and the layer index (JAX: ``fold_in(key, li)``),
+remat through ``torch.utils.checkpoint``, ``_wdot`` with both weight
+encodings, and the bf16 / int8 serving overlays. MoE, ring attention and
+pipeline parallelism are multi-chip features outside this slice.
+
+Remat recomputes each layer fully in the backward for every
+``remat_policy`` ("nothing", "dots", "all_dots"); JAX's "dots" policies keep
+the weight-matmul outputs instead. That changes memory and time, never
+values. Dropout masks are drawn inside the checkpointed function from a
+generator seeded with the layer's integer seed, so the recompute draws the
+same masks (``torch.utils.checkpoint`` restores the default generators, not
+an explicit one).
 
 Precision: parameters are f32. Matmuls run in the compute dtype ("auto" =
 bfloat16 on ``cuda``, float32 on ``cpu``); layer norms and the residual
@@ -20,13 +30,14 @@ import warnings
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import ops as O
 from ..ops.flash_attention import attention
 from ..ops.int8_matmul import Int8Weight, int8_matmul, quantize_int8
 from ..registry import registry
 from ..types import Padded, TokenBatch
-from .core import Model, empty_param, normal_, ones_param, zeros_param
+from .core import Context, Model, empty_param, normal_, ones_param, zeros_param
 from .tok2vec import ATTRS, MultiHashEmbed
 
 # Leaves the bf16 overlay covers: every weight/bias the layer casts to the
@@ -40,6 +51,7 @@ TRUNK_F32_LEAF_NAMES = frozenset({"ln1_g", "ln1_b", "ln2_g", "ln2_b"})
 INT8_LEAF_NAMES = frozenset({"qkv_W", "o_W", "ffn_W1", "ffn_W2"})
 
 Overlay = Dict[str, Any]
+REMAT_POLICIES = ("nothing", "dots", "all_dots")
 
 
 def resolve_compute_dtype(name: str, device: torch.device) -> torch.dtype:
@@ -85,11 +97,18 @@ class TransformerLayer(Model):
             normal_(leaf, 0.02, generator)
 
     def forward(self, X: torch.Tensor, mask: torch.Tensor,
-                overlay: Optional[Overlay], compute_dtype: torch.dtype) -> torch.Tensor:
-        """X [B, T, D] f32, mask [B, T] bool -> [B, T, D] f32."""
+                overlay: Optional[Overlay], compute_dtype: torch.dtype,
+                dropout: float = 0.0, seed: Optional[int] = None) -> torch.Tensor:
+        """X [B, T, D] f32, mask [B, T] bool -> [B, T, D] f32. With a seed
+        and a positive rate, dropout hits the attention output and then the
+        FFN output, both masks from one generator seeded here."""
         B, T, D = X.shape
         H = self.dims["n_heads"]
         cd = compute_dtype
+        gen = None
+        if seed is not None and dropout > 0:
+            gen = torch.Generator(device=X.device)
+            gen.manual_seed(seed)
 
         def w(name: str):
             leaf = overlay.get(name) if overlay else None
@@ -100,25 +119,28 @@ class TransformerLayer(Model):
         q, k, v = (x.view(B, T, H, D // H) for x in qkv.split(D, dim=-1))
         attn = attention(q, k, v, mask).reshape(B, T, D)
         out = _wdot(attn, w("o_W"), cd) + w("o_b").to(cd)
-        X = X + out.to(torch.float32)
+        X = X + O.dropout(out.to(torch.float32), dropout, gen)
 
         h = O.layer_norm(X, self.ln2_g, self.ln2_b).to(cd)
         inner = O.gelu(_wdot(h, w("ffn_W1"), cd) + w("ffn_b1").to(cd))
         out = _wdot(inner, w("ffn_W2"), cd) + w("ffn_b2").to(cd)
-        return X + out.to(torch.float32)
+        return X + O.dropout(out.to(torch.float32), dropout, gen)
 
 
 class TransformerEncoder(Model):
     """Hash-embed featurized transformer trunk (tok2vec-compatible output)."""
 
     def __init__(self, width: int, depth: int, n_heads: int, ffn_mult: int,
-                 max_len: int, embed_size: int, compute_dtype: str):
+                 max_len: int, embed_size: int, compute_dtype: str,
+                 dropout: float = 0.0, remat: bool = False):
         super().__init__(
             "transformer_encoder",
             dims={"nO": width, "depth": depth, "n_heads": n_heads},
             meta={"compute_dtype_name": compute_dtype},
         )
         self.max_len = max_len
+        self.dropout = dropout
+        self.remat = remat
         self.embed = MultiHashEmbed(
             width=width, attrs=list(ATTRS), rows=[embed_size] + [embed_size // 2] * 3
         )
@@ -135,7 +157,9 @@ class TransformerEncoder(Model):
     def layers(self) -> List[TransformerLayer]:
         return [getattr(self, f"layer_{i}") for i in range(self.dims["depth"])]
 
-    def forward(self, batch: TokenBatch, overlay: Optional[Overlay] = None) -> Padded:
+    def forward(self, batch: TokenBatch, overlay: Optional[Overlay] = None,
+                ctx: Optional[Context] = None) -> Padded:
+        ctx = ctx or Context()
         emb: Padded = self.embed(batch)
         T = emb.X.shape[1]
         if T > self.max_len:
@@ -148,8 +172,11 @@ class TransformerEncoder(Model):
         X = emb.X + self.pos[pos_idx][None, :, :]
         mask = emb.mask
         cd = resolve_compute_dtype(self.meta["compute_dtype_name"], X.device)
-        for layer in self.layers():
-            X = layer(X, mask, (overlay or {}).get(layer.name), cd)
+        rate = ctx.dropout_rate(self.dropout)
+        remat = self.remat and ctx.train and torch.is_grad_enabled()
+        for li, layer in enumerate(self.layers()):
+            args = (X, mask, (overlay or {}).get(layer.name), cd, rate, ctx.fold_in(li))
+            X = checkpoint(layer, *args, use_reentrant=False) if remat else layer(*args)
         X = O.layer_norm(X, self.ln_f_g, self.ln_f_b)
         return Padded(X=X * mask[..., None].to(X.dtype), mask=mask)
 
@@ -174,17 +201,21 @@ def make_transformer_encoder(
     scan_layers: bool = True,
 ) -> TransformerEncoder:
     """The JAX architecture's signature, so its configs resolve unchanged.
-    ``dropout``, ``remat*``, ``pp_microbatches`` and ``scan_layers`` only
-    shape training and are accepted and unused at inference; pretrained
+    ``dropout`` and ``remat`` act in training (every ``remat_policy``
+    recomputes a layer fully); ``pp_microbatches`` and ``scan_layers`` shape
+    multi-chip and compiled programs and are accepted and unused; pretrained
     weights and MoE are not part of this port yet and raise."""
     if width % n_heads != 0:
         raise ValueError(f"width {width} not divisible by n_heads {n_heads}")
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy must be one of {sorted(REMAT_POLICIES)}, "
+                         f"got {remat_policy!r}")
     if n_experts:
         raise NotImplementedError("MoE trunks (n_experts > 0) are not ported yet")
     if init_weights:
         raise NotImplementedError("init_weights (pretrained trunks) is not ported yet")
     return TransformerEncoder(width, depth, n_heads, ffn_mult, max_len, embed_size,
-                              compute_dtype)
+                              compute_dtype, dropout=dropout, remat=remat)
 
 
 # ------------------------------------------------------- serving overlays

@@ -24,23 +24,33 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Sequence
+from typing import Dict, Iterable, Sequence, Tuple
 
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("hash_embed.cu", "flash_attention.cu", "int8_matmul.cu")
+SOURCES = (
+    "hash_embed.cu", "flash_attention.cu", "int8_matmul.cu",
+    "hash_embed_grad.cu", "flash_attention_bwd.cu", "fused_update.cu",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+#: flags of one source on top of NVCC_FLAGS. The optimizer update must not
+#: contract a*b + c into an FMA: it follows the reference's expression
+#: order to the last bit.
+SOURCE_FLAGS: Dict[str, Tuple[str, ...]] = {"fused_update.cu": ("--fmad=false",)}
 
 #: kernel name -> launches since the last :func:`reset_launch_counts`
 LAUNCHES: Dict[str, int] = {
     "hash_embed_gather_sum": 0,
     "flash_attention_fwd": 0,
     "int8_weight_matmul": 0,
+    "hash_embed_table_grad": 0,
+    "flash_attention_bwd": 0,
+    "fused_update": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -69,11 +79,15 @@ def _nvcc() -> str:
     )
 
 
+def flags_of(source: str) -> Tuple[str, ...]:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(source, ())
+
+
 def _library_path(source: str) -> Path:
     h = hashlib.sha256()
     for f in sorted(CSRC.glob("*.cuh")) + [CSRC / source]:
         h.update(f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags_of(source)).encode())
     return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
 
@@ -92,7 +106,7 @@ def build(sources: Sequence[str] = SOURCES) -> Dict[str, float]:
             continue
         nvcc = nvcc or _nvcc()
         tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        cmd = [nvcc, *flags_of(src), "-o", str(tmp), str(CSRC / src)]
         procs[src] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ), tmp, out)

@@ -1,12 +1,17 @@
-"""Elementwise and small dense ops of the slice, on padded [B, T, D] tensors.
+"""Elementwise and small dense ops, on padded [B, T, D] tensors.
 
 Same semantics as ``spacy_ray_tpu/ops/ops.py``: biased variance and eps
-1e-5 in the layer norm, the tanh approximation of GELU, and maxout weights
-laid out ``[nI, nO * nP]`` with the pieces innermost (part of the checkpoint
-contract).
+1e-5 in the layer norm, the tanh approximation of GELU, maxout weights laid
+out ``[nI, nO * nP]`` with the pieces innermost (part of the checkpoint
+contract), inverted dropout with keep = 1 - rate, and the masked mean
+cross-entropy and accuracy of the training loss. Dropout draws its bits from
+an explicit ``torch.Generator``: the same distribution as ``jax.random``,
+not the same bits.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -30,3 +35,32 @@ def maxout(X: torch.Tensor, W: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     h = X @ W
     h = h.reshape(*h.shape[:-1], nO, nP) + b
     return h.amax(dim=-1)
+
+
+def dropout(X: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout: keep each element with probability ``1 - rate``
+    (a uniform draw below it) and scale the kept ones by ``1 / keep``;
+    identity at rate 0 or without a generator (not training)."""
+    if generator is None or rate <= 0.0:
+        return X
+    keep = 1.0 - rate
+    mask = torch.rand(X.shape, generator=generator, device=X.device) < keep
+    return torch.where(mask, X / keep, torch.zeros((), dtype=X.dtype, device=X.device))
+
+
+def masked_softmax_cross_entropy(
+    logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor
+) -> torch.Tensor:
+    """Mean cross-entropy over valid positions, in f32. logits [B, T, C],
+    labels [B, T] int, mask [B, T] bool; the denominator is at least 1."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ce = -logp.gather(-1, labels.long()[..., None])[..., 0]
+    mask_f = mask.float()
+    return (ce * mask_f).sum() / torch.clamp(mask_f.sum(), min=1.0)
+
+
+def masked_accuracy(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    pred = logits.argmax(dim=-1)
+    mask_f = mask.float()
+    correct = (pred == labels.long()).float() * mask_f
+    return correct.sum() / torch.clamp(mask_f.sum(), min=1.0)

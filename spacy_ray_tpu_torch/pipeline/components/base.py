@@ -1,13 +1,15 @@
 """Pipeline component protocol (counterpart of
-``spacy_ray_tpu/pipeline/components/base.py``, inference side): labels,
-the model resolved from the component's config block, a forward on the
-device and annotation decoding on the host."""
+``spacy_ray_tpu/pipeline/components/base.py``): labels, the model resolved
+from the component's config block, targets collated on the host, a loss and
+a forward on the device, annotation decoding and scoring on the host."""
 
 from __future__ import annotations
 
 from typing import Any, Dict, Iterable, List, Optional
 
-from ...models.core import Model
+import numpy as np
+
+from ...models.core import Context, Model
 from ...registry import registry
 from ..doc import Doc, Example
 
@@ -15,6 +17,11 @@ from ..doc import Doc, Example
 class Component:
     #: does this component's model contain a Tok2VecListener?
     listens: bool = False
+    #: does this component produce a trainable loss?
+    trainable: bool = True
+    #: default [training] score weights contributed by this component when
+    #: the config declares none (spaCy's per-factory metadata)
+    default_score_weights: Dict[str, float] = {}
 
     def __init__(self, name: str, model_cfg: Dict[str, Any]):
         self.name = name
@@ -40,9 +47,21 @@ class Component:
         self.listens = bool(model.meta.get("has_listener"))
         return model
 
-    def forward(self, inputs: Any, overlay: Optional[Dict[str, Any]] = None) -> Any:
+    def make_targets(self, examples: List[Example], B: int, T: int) -> Dict[str, np.ndarray]:
+        """Lower gold annotations to padded host arrays for the loss."""
+        return {}
+
+    def loss(self, inputs: Any, targets: Dict[str, Any], ctx: Context):
+        """(scalar loss, metrics dict) on the device."""
+        raise NotImplementedError
+
+    def forward(self, inputs: Any, overlay: Optional[Dict[str, Any]] = None,
+                ctx: Optional[Context] = None) -> Any:
         assert self.model is not None, "build_model() first"
         return self.model(inputs)
 
     def set_annotations(self, docs: List[Doc], outputs: Any, lengths: List[int]) -> None:
         """Decode device outputs into doc annotations."""
+
+    def score(self, examples: List[Example]) -> Dict[str, Any]:
+        return {}

@@ -1,17 +1,20 @@
-"""Pipeline: the ``nlp`` object, built from ``config.cfg`` (inference side
-of ``spacy_ray_tpu/pipeline/language.py``).
+"""Pipeline: the ``nlp`` object, built from ``config.cfg`` (counterpart of
+``spacy_ray_tpu/pipeline/language.py``).
 
 It resolves the components, initializes or loads their parameters onto one
-device, lowers texts to bucket-shaped padded batches, runs the trunk once
-per batch and feeds every listening head, and decodes the outputs into
-docs. ``to_disk``/``from_disk`` use the JAX package's on-disk layout
+device, lowers examples to bucket-shaped padded batches (with the heads'
+targets for training), runs the trunk once per batch and feeds every
+listening head, sums the heads' losses, and decodes and scores the outputs.
+``to_disk``/``from_disk`` use the JAX package's on-disk layout
 (``config.cfg``, ``meta.json``, a flat ``params.npz`` keyed by parameter
 path), so a model directory written by either package loads in both.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
+import time
 from pathlib import Path
 from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence
 
@@ -22,7 +25,7 @@ from torch import nn
 from .. import __version__
 from ..config import Config
 from ..devices import DeviceLike, resolve_device
-from ..models.core import param_paths
+from ..models.core import Context, fold_in, param_paths
 from ..registry import registry
 from ..training import checkpoint
 from ..training.batcher import DEFAULT_LENGTH_BUCKETS, bucket_batch_size, bucket_length
@@ -32,6 +35,9 @@ from .components.tok2vec import Tok2VecComponent
 from .doc import Doc, Example
 from .tokenizer import Tokenizer
 from .vocab import ATTRS, Vocab
+
+#: examples read from the train corpus to collect labels at initialize
+LABEL_SAMPLE_LIMIT = 10000
 
 
 class Pipeline:
@@ -103,12 +109,14 @@ class Pipeline:
         """Set labels, build the models and draw their parameters.
 
         ``labels`` maps a component to its label list, used as given (in
-        final order); otherwise labels are collected from ``get_examples``.
+        final order); otherwise labels are collected from the first 10 000
+        examples of ``get_examples``.
         Parameters are drawn on the CPU from ``torch.Generator(seed)``, in
         pipeline order, then moved to the device, so a seed gives the same
         weights on every device."""
         labels = labels or {}
-        sample = list(get_examples()) if get_examples is not None else []
+        sample = (list(itertools.islice(get_examples(), LABEL_SAMPLE_LIMIT))
+                  if get_examples is not None else [])
         for name in self.pipe_names:
             comp = self.components[name]
             if name in labels:
@@ -160,10 +168,9 @@ class Pipeline:
         pad_batch_to: Optional[int] = None,
         pad_len_to: Optional[int] = None,
     ) -> Dict[str, Any]:
-        """Lower ragged Examples into a padded batch on the device. The
-        serving slice has no targets: ``with_targets`` must stay False."""
-        if with_targets:
-            raise NotImplementedError("training targets are not part of this port yet")
+        """Lower ragged Examples into a padded batch on the device; with
+        ``with_targets`` also each head's targets from the gold docs, as
+        ``{component: {name: tensor}}`` under ``"targets"``."""
         lengths = [len(eg) for eg in examples]
         T = pad_len_to or bucket_length(max(lengths, default=1), self.length_buckets)
         B = pad_batch_to or bucket_batch_size(len(examples))
@@ -182,12 +189,52 @@ class Pipeline:
             attr_keys=torch.from_numpy(attr_keys.astype(np.int64)).to(self.device),
             mask=torch.from_numpy(mask).to(self.device),
         )
-        return {"tokens": tokens, "n_words": int(sum(min(l, T) for l in lengths)),
-                "lengths": lengths}
+        batch = {"tokens": tokens, "n_words": int(sum(min(l, T) for l in lengths)),
+                 "lengths": lengths}
+        if with_targets:
+            targets: Dict[str, Dict[str, torch.Tensor]] = {}
+            for name in self.head_names():
+                t = self.components[name].make_targets(examples, B, T)
+                if t:
+                    targets[name] = {
+                        k: torch.from_numpy(v).to(self.device) for k, v in t.items()
+                    }
+            batch["targets"] = targets
+        return batch
 
     # ------------------------------------------------------------------
     # Forward and prediction
     # ------------------------------------------------------------------
+    def loss(self, tokens: TokenBatch, targets: Dict[str, Any], *,
+             dropout: Optional[float] = None, seed: Optional[int] = None):
+        """(total loss, metrics) of one batch in training mode: the trunk once,
+        then each trainable head with targets on its output, the losses
+        summed. Metrics are named per component as the JAX loss names them
+        (``loss_tagger``, ``tagger_tag_acc_batch``). ``dropout`` overrides
+        every dropout site's rate (``[training] dropout``); ``seed`` (an int)
+        seeds the masks, None for no dropout."""
+        assert self.model is not None, "Pipeline not initialized"
+        metrics: Dict[str, Any] = {}
+        total = torch.zeros((), dtype=torch.float32, device=self.device)
+        t2v_name = self.tok2vec_name
+        t2v_out = None
+        if t2v_name is not None:
+            ctx = Context(train=True, dropout=dropout,
+                          seed=None if seed is None else fold_in(seed, 0))
+            t2v_out = self.components[t2v_name].forward(tokens, None, ctx)
+        for i, name in enumerate(self.head_names()):
+            comp = self.components[name]
+            if not comp.trainable or name not in targets:
+                continue
+            ctx = Context(train=True, dropout=dropout,
+                          seed=None if seed is None else fold_in(seed, i + 1))
+            loss, comp_metrics = comp.loss(t2v_out if comp.listens else tokens,
+                                           targets[name], ctx)
+            metrics[f"loss_{name}"] = loss.detach()
+            metrics.update({f"{name}_{k}": v for k, v in comp_metrics.items()})
+            total = total + loss
+        return total, metrics
+
     def forward(self, tokens: TokenBatch, overlay: Optional[Dict[str, Any]] = None):
         """{component: output}: the trunk once, then every head on its
         output. ``overlay`` is a serving precision overlay keyed by
@@ -236,6 +283,25 @@ class Pipeline:
         doc = self.tokenizer(text)
         self.predict_docs([doc])
         return doc
+
+    def evaluate(self, examples: List[Example], batch_size: int = 128) -> Dict[str, Any]:
+        """Predict over gold examples (into fresh shells set as each
+        example's ``predicted``), then score: every head's scores plus
+        ``speed``, the words per second of the prediction."""
+        docs = [eg.reference.copy_shell() for eg in examples]
+        t0 = time.perf_counter()
+        self.predict_docs(docs, batch_size=batch_size)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        seconds = time.perf_counter() - t0
+        for eg, doc in zip(examples, docs):
+            eg.predicted = doc
+        scores: Dict[str, Any] = {}
+        for name in self.head_names():
+            scores.update(self.components[name].score(examples))
+        n_words = sum(len(d) for d in docs)
+        scores["speed"] = n_words / seconds if seconds > 0 else 0.0
+        return scores
 
     # ------------------------------------------------------------------
     # Serialization (the JAX package's on-disk layout)

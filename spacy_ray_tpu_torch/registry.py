@@ -45,10 +45,12 @@ class _SubRegistry:
 
 
 class Registry:
-    """Top-level registry of registries. The serving slice needs two
-    namespaces: model architectures and pipeline component factories."""
+    """Top-level registry of registries: model architectures, pipeline
+    component factories, and the training blocks (optimizers, schedules,
+    batchers, corpus readers, loggers)."""
 
-    NAMESPACES = ("architectures", "factories")
+    NAMESPACES = ("architectures", "factories", "optimizers", "schedules", "batchers",
+                  "readers", "loggers")
 
     def __init__(self):
         for ns in self.NAMESPACES:

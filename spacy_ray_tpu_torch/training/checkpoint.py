@@ -1,14 +1,35 @@
-"""The flat ``params.npz`` of a saved pipeline, in the JAX package's layout
-(``spacy_ray_tpu/training/checkpoint.py`` ``save_params``/``load_params``):
-one array per parameter, keyed by its '/'-joined path, e.g.
-``transformer/layer_3/qkv_W``."""
+"""Saved parameters and training checkpoints, in the JAX package's layout
+(``spacy_ray_tpu/training/checkpoint.py``).
+
+* ``save_params``/``load_params``: the flat ``params.npz`` of a saved
+  pipeline, one array per parameter keyed by its '/'-joined path, e.g.
+  ``transformer/layer_3/qkv_W``; either package loads the other's.
+* :class:`TrainCheckpoint`: training generations in ``last-model/``.
+  Generation ``stamp`` (the step it was written at) is ``params-{stamp}.npz``,
+  ``opt_state-{stamp}.npz`` and ``train_meta-{stamp}.json`` (step, epoch,
+  best score and step, the loop's RNG state and data position under
+  ``extra``, and the SHA-256 of both array files); the pointer
+  ``train_meta.json`` is written last with ``os.replace``. The newest
+  ``keep`` generations stay, and ``load`` falls back past a torn or missing
+  file to the newest intact one. The optimizer state file is the port's
+  format (flat ``mu/<path>``, ``nu/<path>``, ``count``, ``sched_count``):
+  the JAX package pickles optax's state instead, and neither reads the
+  other's; the params files load in both.
+"""
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import hashlib
+import json
+import logging
+import os
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+logger = logging.getLogger("spacy_ray_tpu_torch.training")
 
 
 def flatten(tree: Any, prefix: str = "") -> Dict[str, Any]:
@@ -46,3 +67,161 @@ def load_params(path) -> Dict[str, np.ndarray]:
     """Read a flat npz into {path: numpy array}."""
     with np.load(str(path)) as data:
         return {k: data[k] for k in data.files}
+
+
+class CheckpointCorrupt(RuntimeError):
+    """A checkpoint generation is torn, truncated or missing pieces."""
+
+
+def _sha256_file(path: Path) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def _write_npz(path: Path, name: str, flat: Dict[str, Any]) -> str:
+    """Write ``path/name`` through a tmp file and os.replace; its SHA-256
+    (np.savez appends .npz to the tmp name)."""
+    tmp = path / (name + ".tmp")
+    save_params(tmp, flat)
+    os.replace(tmp.with_suffix(tmp.suffix + ".npz"), path / name)
+    return _sha256_file(path / name)
+
+
+def _gen_stamp(meta_path: Path) -> Optional[int]:
+    name = meta_path.name
+    if not (name.startswith("train_meta-") and name.endswith(".json")):
+        return None
+    try:
+        return int(name[len("train_meta-"):-len(".json")])
+    except ValueError:
+        return None
+
+
+def _retention_sweep(path: Path, stamp: int, keep: int) -> None:
+    """Keep the generation just written and the newest ``keep - 1`` below
+    it; stamps above it belong to an abandoned run (a restart without
+    --resume counts from 0 into the same directory) and go, with tmp
+    stragglers of crashed saves."""
+    committed = sorted(s for s in (_gen_stamp(p) for p in path.glob("train_meta-*.json"))
+                       if s is not None and s < stamp)
+    retained = set(committed[-(keep - 1):]) if keep > 1 else set()
+    retained.add(stamp)
+    for prefix, suffix in (("params-", ".npz"), ("opt_state-", ".npz"),
+                           ("train_meta-", ".json")):
+        for old in path.glob(f"{prefix}*{suffix}"):
+            try:
+                old_stamp = int(old.name[len(prefix):-len(suffix)])
+            except ValueError:
+                continue
+            if old_stamp not in retained:
+                old.unlink(missing_ok=True)
+    for pattern in ("*.tmp", "*.tmp.npz"):
+        for stray in path.glob(pattern):
+            stray.unlink(missing_ok=True)
+
+
+def flatten_opt_state(state: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    flat = {f"{m}/{k}": state[m][k] for m in ("mu", "nu") for k in state[m]}
+    flat["count"] = np.asarray(state["count"], dtype=np.int64)
+    flat["sched_count"] = np.asarray(state["sched_count"], dtype=np.int64)
+    return flat
+
+
+class TrainCheckpoint:
+    """Training generations with history (layout in the module docstring)."""
+
+    @staticmethod
+    def save(path, *, params: Dict[str, Any], opt_state: Dict[str, Any], step: int,
+             epoch: int, best_score: float, best_step: int,
+             extra: Optional[Dict[str, Any]] = None, keep: int = 2) -> None:
+        """Array files first, then the generation's meta, then the pointer:
+        a crash at any point leaves the earlier generations loadable."""
+        path = Path(path)
+        path.mkdir(parents=True, exist_ok=True)
+        stamp = int(step)
+        digests = {
+            f"params-{stamp}.npz": _write_npz(path, f"params-{stamp}.npz", params),
+            f"opt_state-{stamp}.npz": _write_npz(path, f"opt_state-{stamp}.npz",
+                                                 flatten_opt_state(opt_state)),
+        }
+        meta = {
+            "step": int(step), "epoch": int(epoch), "rng": [],
+            "best_score": float(best_score), "best_step": int(best_step),
+            "extra": extra or {}, "stamp": stamp, "digests": digests,
+        }
+        text = json.dumps(meta, indent=2)
+        for name in (f"train_meta-{stamp}.json", "train_meta.json"):
+            tmp = path / (name + ".tmp")
+            tmp.write_text(text, encoding="utf8")
+            os.replace(tmp, path / name)
+        _retention_sweep(path, stamp, max(int(keep), 1))
+
+    @staticmethod
+    def _load_generation(path: Path, meta: Dict[str, Any]) -> Dict[str, Any]:
+        stamp = meta.get("stamp")
+        if stamp is None:
+            raise CheckpointCorrupt(f"{path}: a generation meta without a stamp")
+        files = [path / f"params-{int(stamp)}.npz", path / f"opt_state-{int(stamp)}.npz"]
+        digests = meta.get("digests") or {}
+        for f in files:
+            if not f.exists():
+                raise CheckpointCorrupt(f"checkpoint file missing: {f}")
+            if f.name not in digests or _sha256_file(f) != digests[f.name]:
+                raise CheckpointCorrupt(f"checkpoint digest mismatch: {f} (torn or tampered)")
+        try:
+            return {
+                "params": load_params(files[0]),
+                "opt_state": load_params(files[1]),
+                "step": int(meta["step"]),
+                "epoch": int(meta["epoch"]),
+                "best_score": float(meta["best_score"]),
+                "best_step": int(meta["best_step"]),
+                "extra": meta.get("extra", {}),
+            }
+        except (OSError, ValueError, KeyError) as e:
+            raise CheckpointCorrupt(f"corrupt checkpoint generation {stamp} in {path}: "
+                                    f"{type(e).__name__}: {e}") from e
+
+    @staticmethod
+    def generation_stamps(path) -> List[int]:
+        """Stamps of every generation whose meta was committed, ascending."""
+        return sorted(s for s in (_gen_stamp(p) for p in Path(path).glob("train_meta-*.json"))
+                      if s is not None)
+
+    @staticmethod
+    def load(path) -> Optional[Dict[str, Any]]:
+        """The newest intact generation, or None when ``path`` holds none.
+        The pointer is tried first, then every generation newest first; a
+        corrupt one is logged and skipped. Raises :class:`CheckpointCorrupt`
+        only when every generation present is corrupt."""
+        path = Path(path)
+        candidates: List[Tuple[int, Path]] = sorted(
+            ((s, p) for p in path.glob("train_meta-*.json")
+             if (s := _gen_stamp(p)) is not None), reverse=True)
+        pointer = path / "train_meta.json"
+        if pointer.exists():
+            candidates.insert(0, (-1, pointer))
+        if not candidates:
+            return None
+        tried = set()
+        last_err: Optional[CheckpointCorrupt] = None
+        for _, meta_path in candidates:
+            try:
+                try:
+                    meta = json.loads(meta_path.read_text(encoding="utf8"))
+                except (OSError, ValueError) as e:
+                    raise CheckpointCorrupt(f"unreadable checkpoint meta {meta_path}: {e}") from e
+                if not isinstance(meta, dict) or meta.get("stamp") in tried:
+                    continue
+                tried.add(meta.get("stamp"))
+                state = TrainCheckpoint._load_generation(path, meta)
+            except CheckpointCorrupt as e:
+                last_err = e
+                logger.warning("checkpoint fallback: %s; trying the previous generation", e)
+                continue
+            return state
+        raise CheckpointCorrupt(f"no intact checkpoint generation in {path} "
+                                f"(last error: {last_err})")

@@ -94,7 +94,8 @@ def test_parse_and_healthz_have_the_jax_servers_shape(model_dir, port_server):
         assert {k: ph[k] for k in shared} == {k: jh[k] for k in shared}
         assert ph["device"] == "cpu"
         assert set(ph["kernel_launches"]) == {
-            "hash_embed_gather_sum", "flash_attention_fwd", "int8_weight_matmul"}
+            "hash_embed_gather_sum", "flash_attention_fwd", "int8_weight_matmul",
+            "hash_embed_table_grad", "flash_attention_bwd", "fused_update"}
     finally:
         jserver.request_shutdown()
         jserver.wait()

@@ -81,10 +81,12 @@ TOL_K4_REL = 1e-4   # f32 accumulation order, relative to max |out|
 TOL_TRUNK = 0.1     # bf16 trunk after 12 layers, max |diff| on real tokens
 TOL_K1_BWD = 0.0    # the same f32 adds in the same order as the CPU plain version
 TOL_K3_F32 = 1e-3   # f32 dq/dk/dv, other summation order (tests/test_flash_attention.py)
-TOL_K3_BF16 = 5e-2  # bf16 dq/dk/dv, relative to max |grad| (the JAX kernel probe's bound)
+TOL_K3_BF16 = 5e-2  # bf16 dq/dk/dv, relative to max |grad| (the JAX kernel probe's bound),
+#                     over the rows with a real key and over all-masked rows apart
 MAXULP_K5 = 1       # p, m, v against leaf_math_plain (bit-equal when no FMA is formed)
 TOL_GRAD = 5e-2     # bf16 trunk gradients, kernels vs plain, relative to each leaf's max
 TRAIN_STEPS, TRAIN_EVAL = 40, 20
+TRAIN_B, TRAIN_T = 64, 128  # one training microbatch (batch_by_words 2000 on this corpus)
 
 UD_TAGS = ["ADJ", "ADP", "ADV", "AUX", "CCONJ", "DET", "INTJ", "NOUN", "NUM",
            "PART", "PRON", "PROPN", "PUNCT", "SCONJ", "SYM", "VERB", "X"]
@@ -110,19 +112,45 @@ def fail(msg: str) -> None:
     raise RuntimeError(msg)
 
 
+def grad_rel_errs(got, want, real) -> dict:
+    """For each of dq, dk, dv: max |got - want| relative to max |want| over
+    the same batch rows, taken apart for the rows with a real key (``real``,
+    [B] bool) and the all-masked rows. An all-masked row recomputes p = 1 on
+    every key, so its dq and dv are sums over all T keys or queries, an order
+    larger than a real row's: one maximum over both would let a wrong real
+    row pass."""
+    errs = {"real": [], "masked": []}
+    for x, y in zip(got, want):
+        for name, rows in (("real", real), ("masked", ~real)):
+            if bool(rows.any()):
+                a, b = x[rows].float(), y[rows].float()
+                errs[name].append((a - b).abs().max().item()
+                                  / max(b.abs().max().item(), 1e-30))
+    return errs
+
+
 # ----------------------------------------------------------- measurement
 
 
 def time_ms(torch, fn, *, reps: int = 25, warmup: int = 3, flush=None) -> float:
-    """Median milliseconds of one call, each timed with CUDA events; with
-    ``flush``, L2 is overwritten before each timed call."""
+    """Median device milliseconds of one call, each timed with CUDA events
+    around the call alone. Before each call the card spins
+    (``torch.cuda._sleep``) for about twice the host's time to enqueue it,
+    so its kernels run back to back and the host's launch cost is not
+    counted. With ``flush``, L2 is overwritten before each timed call."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    spin = int(min(2 * host_s + 20e-6, 0.05) * 2e9)  # cycles, at up to 2 GHz
     pairs = []
     for _ in range(reps):
         if flush is not None:
             flush()
+        torch.cuda._sleep(spin)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -172,6 +200,42 @@ def percentile(xs, q):
     return xs[min(len(xs) - 1, max(0, math.ceil(q * len(xs)) - 1))]
 
 
+def train_lengths():
+    """Lengths of a training microbatch's rows: about 36 docs of 8-120
+    words, the rest batch-padding rows."""
+    rng = random.Random(3)
+    return [rng.randint(8, 120) for _ in range(36)] + [0] * (TRAIN_B - 36)
+
+
+def ptxas_summary(log: str):
+    """Registers, shared memory and spills of each kernel in an
+    ``nvcc -Xptxas -v`` log."""
+    import re
+
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spills = (int(m.group(1)), int(m.group(2)))
+            out.append({"kernel": name, "spill_stores": spills[0], "spill_loads": spills[1]})
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and out and out[-1]["kernel"] == name:
+            smem = re.search(r"(\d+) bytes smem", line)  # absent: dynamic shared memory
+            out[-1].update({"registers": int(m.group(1)),
+                            "smem_static": int(smem.group(1)) if smem else 0})
+    for row in out:  # mangled names: keep the kernel and its head dim
+        k = re.search(r"\d(flash_(?:fwd|bwd)_\w+?)I", row["kernel"])
+        dh = re.search(r"ILi(\d+)E", row["kernel"])
+        row["kernel"] = (k.group(1) if k else row["kernel"][:40]) + (
+            f"<{dh.group(1)}>" if dh else "")
+    return out
+
+
 # ---------------------------------------------------------------- phases
 
 
@@ -180,7 +244,7 @@ def phase_kernels(torch):
     import torch.nn.functional as F
 
     from spacy_ray_tpu_torch.ops.flash_attention import (
-        flash_attention_fwd, flash_attention_plain, mask_to_bias,
+        flash_attention_fwd, flash_attention_plain, key_padding,
     )
     from spacy_ray_tpu_torch.ops.hashing import hash_embed_ids
     from spacy_ray_tpu_torch.ops.int8_matmul import (
@@ -217,7 +281,7 @@ def phase_kernels(torch):
         nbytes = n * (4 * D * 4 + D * 4 + 16)
         bnd, by = bound_ms(nbytes, 3 * n * D, PEAK_F32_FLOPS)
         row = {
-            "rows": rows, "D": D, "N": n, "max_abs_err": err,
+            "rows": rows, "D": D, "N": n, "max_abs_err": err, "dispatch": "serving",
             "ms": time_ms(torch, lambda: hash_embed_gather_sum(table, ids), flush=flush),
             "host_us": host_us(torch, lambda: hash_embed_gather_sum(table, ids)),
             "plain_ms": time_ms(torch, lambda: hash_embed_gather_sum_plain(table, ids),
@@ -231,17 +295,20 @@ def phase_kernels(torch):
     results["hash_embed_gather_sum"] = shapes
 
     # K2: bf16 q/k/v as views of the fused qkv projection, ragged masks with
-    # an all-masked batch-padding row
+    # an all-masked batch-padding row, the key extent the trunk passes: the
+    # serving shapes, and a training microbatch's (lengths and padding rows
+    # as phase_train_kernels builds them; forward and remat recompute)
     shapes = []
-    for b, t in ((B, T), (2, 512)):
+    for b, t in ((B, T), (2, 512), (TRAIN_B, TRAIN_T)):
         qkv = torch.randn(b, t, 3 * D, device=dev, generator=g).to(torch.bfloat16)
         q, k, v = (x.view(b, t, H, Dh) for x in qkv.split(D, dim=-1))
-        lens = [t] + [max(t - 29 * i, 1) for i in range(1, b - 1)] + [0]
+        lens = (train_lengths() if b == TRAIN_B else
+                [t] + [max(t - 29 * i, 1) for i in range(1, b - 1)] + [0])
         mask = torch.arange(t, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
-        bias = mask_to_bias(mask)
+        bias, extent = key_padding(mask)
         scale = 1.0 / math.sqrt(Dh)
-        o, lse = flash_attention_fwd(q, k, v, bias, scale)
-        o2, lse2 = flash_attention_plain(q, k, v, bias, scale)
+        o, lse = flash_attention_fwd(q, k, v, bias, scale, extent)
+        o2, lse2 = flash_attention_plain(q, k, v, bias, scale)  # every key
         torch.cuda.synchronize()
         if not bool(torch.isfinite(o.float()).all()):
             fail("K2: non-finite output (the all-masked row must stay finite)")
@@ -255,15 +322,17 @@ def phase_kernels(torch):
         nbytes = 4 * b * t * H * Dh * 2 + b * t * 4 + b * t * H * 4
         flops = 4 * H * Dh * sum(n * n for n in lens)
         bnd, by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
+        dispatch = ("serving" if (b, t) == (B, T) else "training" if b == TRAIN_B else None)
         row = {
             "B": b, "T": t, "H": H, "Dh": Dh, "dtype": "bf16", "max_abs_err": err,
             "lse_max_abs_err": err_lse,
-            "ms": time_ms(torch, lambda: flash_attention_fwd(q, k, v, bias, scale)),
-            "host_us": host_us(torch, lambda: flash_attention_fwd(q, k, v, bias, scale)),
+            "ms": time_ms(torch, lambda: flash_attention_fwd(q, k, v, bias, scale, extent)),
+            "host_us": host_us(torch, lambda: flash_attention_fwd(q, k, v, bias, scale, extent)),
             "plain_ms": time_ms(torch, lambda: flash_attention_plain(q, k, v, bias, scale)),
             "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=amask)),
-            "bound_ms": bnd, "bound_by": by, "calls_per_dispatch": 12 if t == T else 0,
+            "bound_ms": bnd, "bound_by": by, "dispatch": dispatch,
+            "calls_per_dispatch": {"serving": 12, "training": 24}.get(dispatch, 0),
         }
         emit({"phase": "kernel:flash_attention_fwd", **row})
         shapes.append(row)
@@ -291,6 +360,8 @@ def phase_kernels(torch):
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         ref = want.abs().max().item()
+        w_deq = q8.float() * s  # cuBLAS f32 on it is timed beside the library call
+        library, library_fn = int8_library_call(torch, x, q8, s, want, w_deq)
         if not err <= TOL_K4_REL * ref:
             fail(f"K4 K={K} N={N}: max_abs_err {err} > {TOL_K4_REL} * {ref}")
         # x holds bf16 values, as on the serving path, and |q8| <= 127, so
@@ -307,7 +378,9 @@ def phase_kernels(torch):
             "ms": time_ms(torch, lambda: int8_weight_matmul(x, q8, s), flush=flush),
             "host_us": host_us(torch, lambda: int8_weight_matmul(x, q8, s)),
             "plain_ms": time_ms(torch, lambda: int8_matmul_plain(x, q8, s), flush=flush),
-            "library_ms": None, "bound_ms": bnd, "bound_by": by,
+            "library": library, "library_ms": time_ms(torch, library_fn, flush=flush),
+            "cublas_dequant_ms": time_ms(torch, lambda: torch.mm(x, w_deq), flush=flush),
+            "bound_ms": bnd, "bound_by": by, "dispatch": "serving" if M == B * T else None,
             "calls_per_dispatch": 12 if M == B * T else 0,
         }
         emit({"phase": "kernel:int8_weight_matmul", **row})
@@ -315,6 +388,23 @@ def phase_kernels(torch):
     results["int8_weight_matmul"] = shapes
     del scratch
     return results
+
+
+def int8_library_call(torch, x, q8, scale, want, w_deq):
+    """(label, call) of one PyTorch call computing x @ (q8 * scale):
+    ``torch._weight_int8pack_mm`` where this build runs it on the card and
+    it agrees with the plain version, else cuBLAS on the dequantized weight."""
+    op = getattr(torch, "_weight_int8pack_mm", None)
+    if op is not None:
+        w_nk = q8.t().contiguous()
+        try:
+            out = op(x, w_nk, scale)
+        except (RuntimeError, NotImplementedError):  # no CUDA kernel in this build
+            out = None
+        ref = want.abs().max().item()
+        if out is not None and (out - want).abs().max().item() <= TOL_K4_REL * ref:
+            return "torch._weight_int8pack_mm", lambda: op(x, w_nk, scale)
+    return "cuBLAS f32 mm on the dequantized weight", lambda: torch.mm(x, w_deq)
 
 
 def ulp_diff(torch, a, b) -> int:
@@ -346,7 +436,8 @@ def phase_train_kernels(torch):
     import torch.nn.functional as F
 
     from spacy_ray_tpu_torch.ops.flash_attention import (
-        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd, mask_to_bias,
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+        flash_attention_plain, key_padding,
     )
     from spacy_ray_tpu_torch.ops.fused_update import (
         FusedHyper, FusedUpdate, global_norm, leaf_math_plain, step_scalars,
@@ -364,10 +455,8 @@ def phase_train_kernels(torch):
         scratch.zero_()
 
     results = {}
-    B, T, D, H, Dh = 64, 128, 768, 12, 64
-    rng = random.Random(3)
-    # about 36 docs of 8-120 words, the rest batch-padding rows
-    lens = [rng.randint(8, 120) for _ in range(36)] + [0] * (B - 36)
+    B, T, D, H, Dh = TRAIN_B, TRAIN_T, 768, 12, 64
+    lens = train_lengths()
 
     # hash-embed table gradient: the four tables of one microbatch, with ids
     # as skewed as the training corpus makes them (a 45-word vocabulary, and
@@ -406,16 +495,18 @@ def phase_train_kernels(torch):
                                 flush=flush),
             "library_ms": time_ms(torch, lambda: torch.zeros(rows, D, device=dev).index_add_(
                 0, flat, ct.repeat_interleave(4, 0)), flush=flush),
-            "bound_ms": bnd, "bound_by": by,
+            "bound_ms": bnd, "bound_by": by, "dispatch": "training" if skewed else None,
             "calls_per_dispatch": 0 if not skewed else 1 if rows == 20000 else 3,
         }
         emit({"phase": "kernel:hash_embed_table_grad", **row})
         shapes.append(row)
     results["hash_embed_table_grad"] = shapes
 
-    # K3: bf16 q/k/v as views of the fused projection, ragged masks with an
-    # all-masked batch-padding row; a nonzero lse cotangent on the check
-    # shapes, none on the training shape (attention() drops the lse)
+    # K3: q/k/v as views of the fused projection, ragged masks with an
+    # all-masked batch-padding row, the key extent the trunk passes; a
+    # nonzero lse cotangent on the check shapes, none on the training shape
+    # (the trunk drops the lse). The forward (K2) is held against its plain
+    # version on the same inputs, f32 included
     shapes = []
     for b, t, dt, with_dlse in ((3, 70, torch.float32, True), (3, 70, torch.bfloat16, True),
                                 (B, T, torch.bfloat16, True), (B, T, torch.bfloat16, False)):
@@ -423,27 +514,36 @@ def phase_train_kernels(torch):
         q, k, v = (x.view(b, t, H, Dh) for x in qkv.split(D, dim=-1))
         bl = lens if b == B else [t, 33, 0]
         mask = torch.arange(t, device=dev)[None, :] < torch.tensor(bl, device=dev)[:, None]
-        bias = mask_to_bias(mask)
+        bias, extent = key_padding(mask)
         scale = 1.0 / math.sqrt(Dh)
-        o, lse = flash_attention_fwd(q, k, v, bias, scale)
+        o, lse = flash_attention_fwd(q, k, v, bias, scale, extent)
+        o2, lse2 = flash_attention_plain(q, k, v, bias, scale)
+        fwd_err = ((o.float() - o2.float()).abs().max().item(), (lse - lse2).abs().max().item())
+        if not (fwd_err[0] <= TOL_K2_O and fwd_err[1] <= TOL_K2_LSE):
+            fail(f"K2 {dt} B={b} T={t}: max_abs_err o, lse {fwd_err}")
         do = torch.randn(b, t, H, Dh, device=dev, generator=g).to(dt)
         dlse = torch.randn(b, t, H, device=dev, generator=g) if with_dlse else None
-        got = flash_attention_bwd(q, k, v, bias, o, lse, do, dlse, scale)
+        got = flash_attention_bwd(q, k, v, bias, o, lse, do, dlse, scale, extent)
         want = flash_attention_bwd_plain(q, k, v, bias, o, lse, do, dlse, scale)
+        again = flash_attention_bwd(q, k, v, bias, o, lse, do, dlse, scale, extent)
         torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            fail(f"K3 {dt} B={b} T={t}: two runs on the same inputs differ")
         if not all(bool(torch.isfinite(x.float()).all()) for x in got):
             fail("K3: non-finite gradient (the all-masked row must stay finite)")
         errs = [(x.float() - y.float()).abs().max().item() for x, y in zip(got, want)]
         refs = [y.float().abs().max().item() for y in want]
-        tol = TOL_K3_F32 if dt == torch.float32 else TOL_K3_BF16
-        rel = [e / max(r, 1e-30) for e, r in zip(errs, refs)]
-        if dt == torch.float32 and not max(errs) <= tol:
-            fail(f"K3 f32 B={b} T={t}: max_abs_err {errs} > {tol}")
-        if dt == torch.bfloat16 and not max(rel) <= tol:
-            fail(f"K3 bf16 B={b} T={t}: max err relative to max |grad| {rel} > {tol}")
+        rel = grad_rel_errs(got, want, mask.any(dim=1))
+        if dt == torch.float32 and not max(errs) <= TOL_K3_F32:
+            fail(f"K3 f32 B={b} T={t}: max_abs_err {errs} > {TOL_K3_F32}")
+        if dt == torch.bfloat16 and not max(rel["real"] + rel["masked"]) <= TOL_K3_BF16:
+            fail(f"K3 bf16 B={b} T={t}: max err relative to max |grad| over the same rows "
+                 f"{rel} > {TOL_K3_BF16}")
         row = {"B": b, "T": t, "H": H, "Dh": Dh, "dtype": str(dt).split(".")[-1],
                "dlse": with_dlse, "max_abs_err": max(errs), "max_abs_err_dq_dk_dv": errs,
-               "max_abs_ref": refs, "calls_per_dispatch": 0}
+               "max_abs_ref": refs, "rel_err_real_rows": rel["real"],
+               "rel_err_masked_rows": rel["masked"], "fwd_max_abs_err_o_lse": fwd_err,
+               "bit_identical_rerun": True, "dispatch": None, "calls_per_dispatch": 0}
         if b == B and not with_dlse:
             qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_(True) for x in (q, k, v))
             amask = bias.to(dt)[:, None, None, :]
@@ -454,14 +554,15 @@ def phase_train_kernels(torch):
             bnd, by = bound_ms(nbytes, 8 * H * Dh * n_pairs, PEAK_BF16_FLOPS)
             row.update({
                 "ms": time_ms(torch, lambda: flash_attention_bwd(
-                    q, k, v, bias, o, lse, do, None, scale)),
+                    q, k, v, bias, o, lse, do, None, scale, extent)),
                 "host_us": host_us(torch, lambda: flash_attention_bwd(
-                    q, k, v, bias, o, lse, do, None, scale)),
+                    q, k, v, bias, o, lse, do, None, scale, extent)),
                 "plain_ms": time_ms(torch, lambda: flash_attention_bwd_plain(
                     q, k, v, bias, o, lse, do, None, scale)),
                 "library_ms": time_ms(torch, lambda: torch.autograd.grad(
                     out, (qt, kt, vt), dot, retain_graph=True)),
-                "bound_ms": bnd, "bound_by": by, "calls_per_dispatch": 12,
+                "bound_ms": bnd, "bound_by": by, "dispatch": "training",
+                "calls_per_dispatch": 12,
             })
         emit({"phase": "kernel:flash_attention_bwd", **row})
         shapes.append(row)
@@ -515,7 +616,7 @@ def phase_train_kernels(torch):
         "global_norm_ms": time_ms(torch, lambda: global_norm(G), reps=10),
         "plain_ms": time_ms(torch, plain_all, reps=5, warmup=1),
         "library_ms": time_ms(torch, lib_opt.step, reps=10),
-        "bound_ms": bnd, "bound_by": by, "calls_per_dispatch": 1,
+        "bound_ms": bnd, "bound_by": by, "dispatch": "training", "calls_per_dispatch": 1,
     }
     emit({"phase": "kernel:fused_update", **row})
     results["fused_update"] = [row]
@@ -556,7 +657,7 @@ def plain_kernels():
     to produce the reference output; the port itself has no such switch)."""
     import spacy_ray_tpu_torch.models.layers as L
     import spacy_ray_tpu_torch.models.transformer as TR
-    from spacy_ray_tpu_torch.ops.flash_attention import flash_attention_plain, mask_to_bias
+    from spacy_ray_tpu_torch.ops.flash_attention import flash_attention_plain
     from spacy_ray_tpu_torch.ops.int8_matmul import int8_matmul_plain
     from spacy_ray_tpu_torch.ops.pallas_kernels import hash_embed_gather_sum_plain
 
@@ -564,15 +665,15 @@ def plain_kernels():
         flat = ids.reshape(-1, 4)
         return hash_embed_gather_sum_plain(table, flat).reshape(*ids.shape[:-1], -1)
 
-    def attention(q, k, v, mask):
-        return flash_attention_plain(q, k, v, mask_to_bias(mask), q.shape[-1] ** -0.5)[0]
+    def attention(q, k, v, keys):  # over every key: the kernels' extent is checked too
+        return flash_attention_plain(q, k, v, keys.bias, q.shape[-1] ** -0.5)[0]
 
     def int8mm(x, q8, scale):
         x2 = x.reshape(-1, x.shape[-1]).float()
         return int8_matmul_plain(x2, q8, scale).reshape(*x.shape[:-1], -1)
 
     with mock.patch.object(L, "hash_embed_lookup", lookup), \
-            mock.patch.object(TR, "attention", attention), \
+            mock.patch.object(TR, "masked_attention", attention), \
             mock.patch.object(TR, "int8_matmul", int8mm):
         yield
 
@@ -936,6 +1037,12 @@ def phase_train(torch):
     events = [e for e in prof.key_averages()
               if str(getattr(e, "device_type", "")).endswith("CUDA") and dev_us(e) > 0]
     busy_ms = sum(dev_us(e) for e in events) / 1e3
+    # the attention kernels' device time in the step, by kernel (K2: forward
+    # and remat recompute; K3: its two passes)
+    attention_ms = {name: sum(dev_us(e) for e in events if name in e.key) / 1e3
+                    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")}
+    attention_calls = {name: sum(e.count for e in events if name in e.key)
+                       for name in attention_ms}
     top = sorted(events, key=dev_us, reverse=True)[:15]
     host_ops = sorted((e for e in prof.key_averages()
                        if not str(getattr(e, "device_type", "")).endswith("CUDA")),
@@ -943,6 +1050,7 @@ def phase_train(torch):
     profile_row = {
         "step_wall_ms": step_wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / step_wall_ms,
+        "attention_kernels_ms": attention_ms, "attention_kernel_calls": attention_calls,
         "top_device_ms": [(e.key[:60], dev_us(e) / 1e3, e.count) for e in top],
         "top_host_self_ms": [(e.key[:60], e.self_cpu_time_total / 1e3, e.count)
                              for e in host_ops],
@@ -1023,7 +1131,9 @@ def main() -> int:
     t = time.perf_counter()
     per_source = _cuda.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t, "per_source_s": per_source,
-          "flags": " ".join(_cuda.NVCC_FLAGS)})
+          "flags": " ".join(_cuda.NVCC_FLAGS),
+          "ptxas": {src: ptxas_summary(_cuda.BUILD_LOGS.get(src, ""))
+                    for src in ("flash_attention.cu", "flash_attention_bwd.cu")}})
 
     kernels = phase_kernels(torch)
     kernels.update(phase_train_kernels(torch))
@@ -1052,13 +1162,19 @@ def main() -> int:
                          "spacy_ray_tpu/ops/fused_update.py:135"),
     }
     per_table = ("hash_embed_gather_sum", "hash_embed_table_grad")
+    totals_for = {
+        "serving": "one serving dispatch at B 8, T 128",
+        "training": "one training microbatch at B 64, T 128",
+    }
     line = []
     for name, (source, replaces) in meta.items():
-        # one serving dispatch at B=8, T=128 or one training microbatch at
-        # B=64, T=128 (one optimizer step for K5): the shapes weighted by
-        # calls (K1 and its gradient: 1 NORM + 3 other tables; K2, K3, K4:
-        # one layer's calls)
-        rows = [r for r in kernels[name] if r["calls_per_dispatch"]]
+        # one serving dispatch at B=8, T=128 (K1, K2, K4) or one training
+        # microbatch at B=64, T=128 (K1 bwd, K3; one optimizer step for K5):
+        # the shapes weighted by calls (K1 and its gradient: 1 NORM + 3 other
+        # tables; K2, K3, K4: one layer's calls)
+        dispatch = "training" if name in ("hash_embed_table_grad", "flash_attention_bwd",
+                                          "fused_update") else "serving"
+        rows = [r for r in kernels[name] if r["dispatch"] == dispatch]
         w = {id(r): (r["calls_per_dispatch"] if name in per_table else 1) for r in rows}
 
         def total(key):
@@ -1073,6 +1189,8 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in kernels[name]),
             "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
             "bound_by": rows[0]["bound_by"], "library_ms": total("library_ms"),
+            "totals_for": totals_for[dispatch] + (" (one optimizer step)" if name == "fused_update"
+                                                  else ""),
             "shapes": kernels[name],
         })
     emit({"kernels": line})

@@ -33,7 +33,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import ops as O
-from ..ops.flash_attention import attention
+from ..ops.flash_attention import KeyPadding, key_padding, masked_attention
 from ..ops.int8_matmul import Int8Weight, int8_matmul, quantize_int8
 from ..registry import registry
 from ..types import Padded, TokenBatch
@@ -96,12 +96,12 @@ class TransformerLayer(Model):
         for leaf in (self.qkv_W, self.o_W, self.ffn_W1, self.ffn_W2):
             normal_(leaf, 0.02, generator)
 
-    def forward(self, X: torch.Tensor, mask: torch.Tensor,
+    def forward(self, X: torch.Tensor, keys: KeyPadding,
                 overlay: Optional[Overlay], compute_dtype: torch.dtype,
                 dropout: float = 0.0, seed: Optional[int] = None) -> torch.Tensor:
-        """X [B, T, D] f32, mask [B, T] bool -> [B, T, D] f32. With a seed
-        and a positive rate, dropout hits the attention output and then the
-        FFN output, both masks from one generator seeded here."""
+        """X [B, T, D] f32, keys the trunk's key padding -> [B, T, D] f32.
+        With a seed and a positive rate, dropout hits the attention output
+        and then the FFN output, both masks from one generator seeded here."""
         B, T, D = X.shape
         H = self.dims["n_heads"]
         cd = compute_dtype
@@ -117,7 +117,7 @@ class TransformerLayer(Model):
         h = O.layer_norm(X, self.ln1_g, self.ln1_b).to(cd)
         qkv = _wdot(h, w("qkv_W"), cd) + w("qkv_b").to(cd)
         q, k, v = (x.view(B, T, H, D // H) for x in qkv.split(D, dim=-1))
-        attn = attention(q, k, v, mask).reshape(B, T, D)
+        attn = masked_attention(q, k, v, keys).reshape(B, T, D)
         out = _wdot(attn, w("o_W"), cd) + w("o_b").to(cd)
         X = X + O.dropout(out.to(torch.float32), dropout, gen)
 
@@ -174,8 +174,9 @@ class TransformerEncoder(Model):
         cd = resolve_compute_dtype(self.meta["compute_dtype_name"], X.device)
         rate = ctx.dropout_rate(self.dropout)
         remat = self.remat and ctx.train and torch.is_grad_enabled()
+        keys = key_padding(mask)  # the attention bias and key extent, for every layer
         for li, layer in enumerate(self.layers()):
-            args = (X, mask, (overlay or {}).get(layer.name), cd, rate, ctx.fold_in(li))
+            args = (X, keys, (overlay or {}).get(layer.name), cd, rate, ctx.fold_in(li))
             X = checkpoint(layer, *args, use_reentrant=False) if remat else layer(*args)
         X = O.layer_norm(X, self.ln_f_g, self.ln_f_b)
         return Padded(X=X * mask[..., None].to(X.dtype), mask=mask)

@@ -40,8 +40,13 @@ NVCC_FLAGS = (
 )
 #: flags of one source on top of NVCC_FLAGS. The optimizer update must not
 #: contract a*b + c into an FMA: it follows the reference's expression
-#: order to the last bit.
-SOURCE_FLAGS: Dict[str, Tuple[str, ...]] = {"fused_update.cu": ("--fmad=false",)}
+#: order to the last bit. The attention kernels report their registers,
+#: shared memory and spills (ptxas -v) into BUILD_LOGS.
+SOURCE_FLAGS: Dict[str, Tuple[str, ...]] = {
+    "fused_update.cu": ("--fmad=false",),
+    "flash_attention.cu": ("-Xptxas", "-v"),
+    "flash_attention_bwd.cu": ("-Xptxas", "-v"),
+}
 
 #: kernel name -> launches since the last :func:`reset_launch_counts`
 LAUNCHES: Dict[str, int] = {
@@ -52,6 +57,9 @@ LAUNCHES: Dict[str, int] = {
     "flash_attention_bwd": 0,
     "fused_update": 0,
 }
+
+#: source -> the compiler's output of its last build in this process
+BUILD_LOGS: Dict[str, str] = {}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -115,6 +123,7 @@ def build(sources: Sequence[str] = SOURCES) -> Dict[str, float]:
     for src, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         seconds[src] = time.perf_counter() - t0
+        BUILD_LOGS[src] = log
         if proc.returncode != 0:
             failures.append(f"{src} (nvcc exit {proc.returncode}):\n{log}")
             continue

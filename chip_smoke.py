@@ -16,7 +16,12 @@ Run from the root of a checkout. Phases, each printing one JSON line:
               (tolerances below), and timed with CUDA events beside its
               plain version, a PyTorch library call computing the same
               function where one exists, and its bound; ``host_us`` is the
-              host's time to launch it through its wrapper.
+              host's time to launch it through its wrapper. K4 runs with
+              bf16 x (the serving path's input; bytes bound at 2 bytes per
+              element) and with f32 x; its library call is cuBLAS f32 on
+              the dequantized weight, with cuBLAS bf16 beside it; the table
+              gradient reports its device operations per call by name and
+              time (``torch.profiler``) and is rerun bit-identical.
 4. slice:*  — the transformer + tagger pipeline at the width of
               ``configs/trf.cfg`` (768 wide, 12 layers, 12 heads, FFN 3072,
               embed 20000; random weights from a seed), saved with
@@ -228,11 +233,31 @@ def ptxas_summary(log: str):
             smem = re.search(r"(\d+) bytes smem", line)  # absent: dynamic shared memory
             out[-1].update({"registers": int(m.group(1)),
                             "smem_static": int(smem.group(1)) if smem else 0})
-    for row in out:  # mangled names: keep the kernel and its head dim
-        k = re.search(r"\d(flash_(?:fwd|bwd)_\w+?)I", row["kernel"])
-        dh = re.search(r"ILi(\d+)E", row["kernel"])
-        row["kernel"] = (k.group(1) if k else row["kernel"][:40]) + (
-            f"<{dh.group(1)}>" if dh else "")
+    for row in out:  # mangled names: keep the kernel and its head dim or x type
+        name = row["kernel"]
+        k = re.search(r"\d((?:flash_(?:fwd|bwd)|int8|table_grad|reduce)_\w+?)[IE]", name)
+        dh = re.search(r"ILi(\d+)E", name)
+        xt = "<bf16>" if "I13__nv_bfloat16E" in name else "<f32>" if "IfE" in name else ""
+        row["kernel"] = (k.group(1) if k else name[:40]) + (f"<{dh.group(1)}>" if dh else xt)
+    return out
+
+
+def device_ops(torch, fn) -> dict:
+    """The device operations (kernels, copies, fills) that one call of
+    ``fn`` puts on the card, by name: ``{name: [count, device ms]}``, from
+    ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+            out[e.key[:60]] = [e.count, us / 1e3]
     return out
 
 
@@ -340,47 +365,61 @@ def phase_kernels(torch):
 
     # K4: the four trunk weights of one layer at the top bucket's M = B*T
     # (in the kernels line), and at M = 64 (two docs of 32 tokens, where the
-    # weight bytes dominate); first ragged shapes that take the kernel's
-    # unvectorised edges, one of them with K split across CTAs
+    # weight bytes dominate), with bf16 x as the serving path gives it and
+    # with f32 x (values that are not bf16-exact); first ragged shapes that
+    # take the kernel's guarded edges (K not a multiple of 16, rows not
+    # 16-byte aligned), one of them with K split across CTAs
     shapes = []
-    for M, K, N in ((37, 50, 70), (20, 770, 70)):
-        x = torch.randn(M, K, device=dev, generator=g)
+    for M, K, N in ((37, 50, 70), (20, 770, 70), (129, 771, 136)):
         q8, s = quantize_int8(torch.randn(K, N, device=dev, generator=g))
-        err = (int8_weight_matmul(x, q8, s) - int8_matmul_plain(x, q8, s)).abs().max().item()
-        ref = int8_matmul_plain(x, q8, s).abs().max().item()
-        if not err <= TOL_K4_REL * ref:
-            fail(f"K4 ragged M={M} K={K} N={N}: max_abs_err {err} > {TOL_K4_REL} * {ref}")
+        x = torch.randn(M, K, device=dev, generator=g)
+        for xx in (x, x.to(torch.bfloat16)):
+            want = int8_matmul_plain(xx, q8, s)
+            err = (int8_weight_matmul(xx, q8, s) - want).abs().max().item()
+            ref = want.abs().max().item()
+            if not err <= TOL_K4_REL * ref:
+                fail(f"K4 ragged M={M} K={K} N={N} x {xx.dtype}: max_abs_err {err} > "
+                     f"{TOL_K4_REL} * {ref}")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     for M, K, N in [(m, k, n) for m in (B * T, 64)
                     for k, n in ((768, 2304), (768, 768), (768, 3072), (3072, 768))]:
         w = torch.randn(K, N, device=dev, generator=g) * 0.02
         q8, s = quantize_int8(w)
-        x = torch.randn(M, K, device=dev, generator=g).to(torch.bfloat16).float()
-        got = int8_weight_matmul(x, q8, s)
-        want = int8_matmul_plain(x, q8, s)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        ref = want.abs().max().item()
-        w_deq = q8.float() * s  # cuBLAS f32 on it is timed beside the library call
-        library, library_fn = int8_library_call(torch, x, q8, s, want, w_deq)
-        if not err <= TOL_K4_REL * ref:
-            fail(f"K4 K={K} N={N}: max_abs_err {err} > {TOL_K4_REL} * {ref}")
-        # x holds bf16 values, as on the serving path, and |q8| <= 127, so
-        # bf16 tensor cores accumulating in f32 compute this exactly: the
-        # operations are counted at the bf16 peak, and the bytes bound it
-        if not torch.equal(x, x.to(torch.bfloat16).float()):
-            fail("K4: x must hold bf16 values for the bf16 operation bound")
-        nbytes = M * K * 4 + K * N + N * 4 + M * N * 4
-        bnd, by = bound_ms(nbytes, 2 * M * N * K, PEAK_BF16_FLOPS)
+        xf = torch.randn(M, K, device=dev, generator=g)  # f32, not bf16-exact
+        xb = xf.to(torch.bfloat16)                       # the serving path's input
+        x = xb.float()                                   # its values in f32
+        errs, refs = [], []
+        for xx in (xb, xf):
+            got = int8_weight_matmul(xx, q8, s)
+            want = int8_matmul_plain(xx, q8, s)
+            torch.cuda.synchronize()
+            errs.append((got - want).abs().max().item())
+            refs.append(want.abs().max().item())
+            if not errs[-1] <= TOL_K4_REL * refs[-1]:
+                fail(f"K4 K={K} N={N} x {xx.dtype}: max_abs_err {errs[-1]} > "
+                     f"{TOL_K4_REL} * {refs[-1]}")
+        w_deq = q8.float() * s  # made once: the library call is the product alone
+        w_deq_bf16 = w_deq.to(torch.bfloat16)
+        # bf16 x and |q8| <= 127: the bf16 tensor cores accumulating in f32
+        # compute each product exactly, so the operations count at the bf16
+        # peak; the bytes count x in its own type (2 bytes, 4 for f32 x,
+        # which takes two products)
+        bnd, by = bound_ms(M * K * 2 + K * N + N * 4 + M * N * 4, 2 * M * N * K, PEAK_BF16_FLOPS)
+        bnd_f, by_f = bound_ms(M * K * 4 + K * N + N * 4 + M * N * 4, 4 * M * N * K,
+                               PEAK_BF16_FLOPS)
         row = {
-            "M": M, "K": K, "N": N, "max_abs_err": err, "max_abs_ref": ref,
-            "k_splits": split_k(M, N, K, torch.cuda.get_device_properties(dev)
-                                .multi_processor_count)[0],
-            "ms": time_ms(torch, lambda: int8_weight_matmul(x, q8, s), flush=flush),
-            "host_us": host_us(torch, lambda: int8_weight_matmul(x, q8, s)),
-            "plain_ms": time_ms(torch, lambda: int8_matmul_plain(x, q8, s), flush=flush),
-            "library": library, "library_ms": time_ms(torch, library_fn, flush=flush),
-            "cublas_dequant_ms": time_ms(torch, lambda: torch.mm(x, w_deq), flush=flush),
-            "bound_ms": bnd, "bound_by": by, "dispatch": "serving" if M == B * T else None,
+            "M": M, "K": K, "N": N, "x": "bf16", "max_abs_err": max(errs),
+            "max_abs_err_bf16_f32x": errs, "max_abs_ref": refs,
+            "k_splits": split_k(M, N, K, n_sm)[0],
+            "ms": time_ms(torch, lambda: int8_weight_matmul(xb, q8, s), flush=flush),
+            "host_us": host_us(torch, lambda: int8_weight_matmul(xb, q8, s)),
+            "ms_f32x": time_ms(torch, lambda: int8_weight_matmul(xf, q8, s), flush=flush),
+            "plain_ms": time_ms(torch, lambda: int8_matmul_plain(xb, q8, s), flush=flush),
+            "library": "torch.mm (cuBLAS f32) of x's values and the dequantized weight",
+            "library_ms": time_ms(torch, lambda: torch.mm(x, w_deq), flush=flush),
+            "bf16_mm_ms": time_ms(torch, lambda: torch.mm(xb, w_deq_bf16), flush=flush),
+            "bound_ms": bnd, "bound_by": by, "bound_ms_f32x": bnd_f, "bound_by_f32x": by_f,
+            "dispatch": "serving" if M == B * T else None,
             "calls_per_dispatch": 12 if M == B * T else 0,
         }
         emit({"phase": "kernel:int8_weight_matmul", **row})
@@ -388,23 +427,6 @@ def phase_kernels(torch):
     results["int8_weight_matmul"] = shapes
     del scratch
     return results
-
-
-def int8_library_call(torch, x, q8, scale, want, w_deq):
-    """(label, call) of one PyTorch call computing x @ (q8 * scale):
-    ``torch._weight_int8pack_mm`` where this build runs it on the card and
-    it agrees with the plain version, else cuBLAS on the dequantized weight."""
-    op = getattr(torch, "_weight_int8pack_mm", None)
-    if op is not None:
-        w_nk = q8.t().contiguous()
-        try:
-            out = op(x, w_nk, scale)
-        except (RuntimeError, NotImplementedError):  # no CUDA kernel in this build
-            out = None
-        ref = want.abs().max().item()
-        if out is not None and (out - want).abs().max().item() <= TOL_K4_REL * ref:
-            return "torch._weight_int8pack_mm", lambda: op(x, w_nk, scale)
-    return "cuBLAS f32 mm on the dequantized weight", lambda: torch.mm(x, w_deq)
 
 
 def ulp_diff(torch, a, b) -> int:
@@ -475,11 +497,16 @@ def phase_train_kernels(torch):
                 torch.randint(0, 2 ** 32, (n, 2), device=dev, generator=g))
         ids = hash_embed_ids(keys, 777, rows)
         got = hash_embed_table_grad(ct, ids, rows)
+        again = hash_embed_table_grad(ct, ids, rows)
         torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            fail(f"K1 bwd rows={rows}: two runs on the same inputs differ")
         want_cpu = hash_embed_table_grad_plain(ct.cpu(), ids.cpu(), rows)
         err = (got.cpu() - want_cpu).abs().max().item()
         if not err <= TOL_K1_BWD:
             fail(f"K1 bwd rows={rows}: max_abs_err {err} vs the CPU plain version > {TOL_K1_BWD}")
+
+        ops = device_ops(torch, lambda: hash_embed_table_grad(ct, ids, rows))
         want = hash_embed_table_grad_plain(ct, ids, rows)
         err_card = (got - want).abs().max().item()
         flat = ids.reshape(-1).long()
@@ -491,6 +518,9 @@ def phase_train_kernels(torch):
             "max_abs_err": err, "max_abs_err_vs_card_plain": err_card,
             "ms": time_ms(torch, lambda: hash_embed_table_grad(ct, ids, rows), flush=flush),
             "host_us": host_us(torch, lambda: hash_embed_table_grad(ct, ids, rows)),
+            "launches_per_call": sum(n for n, _ in ops.values()),
+            "device_ms_by_op": ops,
+            "bit_identical_rerun": True,
             "plain_ms": time_ms(torch, lambda: hash_embed_table_grad_plain(ct, ids, rows),
                                 flush=flush),
             "library_ms": time_ms(torch, lambda: torch.zeros(rows, D, device=dev).index_add_(
@@ -1043,6 +1073,9 @@ def phase_train(torch):
                     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")}
     attention_calls = {name: sum(e.count for e in events if name in e.key)
                        for name in attention_ms}
+    # the table gradient's kernels (first design: table_grad_vec4; now
+    # table_grad_pieces and table_grad_spans), its sort apart
+    table_grad = [e for e in events if "table_grad" in e.key]
     top = sorted(events, key=dev_us, reverse=True)[:15]
     host_ops = sorted((e for e in prof.key_averages()
                        if not str(getattr(e, "device_type", "")).endswith("CUDA")),
@@ -1051,6 +1084,9 @@ def phase_train(torch):
         "step_wall_ms": step_wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / step_wall_ms,
         "attention_kernels_ms": attention_ms, "attention_kernel_calls": attention_calls,
+        "table_grad_kernels_ms": sum(dev_us(e) for e in table_grad) / 1e3,
+        "table_grad_kernel_calls": sum(e.count for e in table_grad),
+        "table_grad_share_of_busy": sum(dev_us(e) for e in table_grad) / 1e3 / busy_ms,
         "top_device_ms": [(e.key[:60], dev_us(e) / 1e3, e.count) for e in top],
         "top_host_self_ms": [(e.key[:60], e.self_cpu_time_total / 1e3, e.count)
                              for e in host_ops],
@@ -1090,6 +1126,8 @@ def phase_train(torch):
         "words_per_s": result.wps, "words": result.words_seen,
         "peak_memory_gb": peak_gb, "launches": launches,
         "step_split_ms_device_host": {k: v for k, v in parts.items()},
+        # device work still queued when the host has enqueued the backward
+        "backward_device_tail_ms": parts["backward"][0] - parts["backward"][1],
         "step_split_B_T": [B_pad, T_pad], "step_profile": profile_row,
         # kernel time (under the profiler) against the unprofiled step's time
         "device_idle_share_of_step": 1.0 - profile_row["device_busy_ms"]
@@ -1133,7 +1171,8 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t, "per_source_s": per_source,
           "flags": " ".join(_cuda.NVCC_FLAGS),
           "ptxas": {src: ptxas_summary(_cuda.BUILD_LOGS.get(src, ""))
-                    for src in ("flash_attention.cu", "flash_attention_bwd.cu")}})
+                    for src in ("flash_attention.cu", "flash_attention_bwd.cu",
+                                "int8_matmul.cu", "hash_embed_grad.cu")}})
 
     kernels = phase_kernels(torch)
     kernels.update(phase_train_kernels(torch))

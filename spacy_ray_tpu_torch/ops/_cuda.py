@@ -40,12 +40,15 @@ NVCC_FLAGS = (
 )
 #: flags of one source on top of NVCC_FLAGS. The optimizer update must not
 #: contract a*b + c into an FMA: it follows the reference's expression
-#: order to the last bit. The attention kernels report their registers,
-#: shared memory and spills (ptxas -v) into BUILD_LOGS.
+#: order to the last bit. The attention kernels, the int8 matmul and the
+#: table gradient report their registers, shared memory and spills
+#: (ptxas -v) into BUILD_LOGS.
 SOURCE_FLAGS: Dict[str, Tuple[str, ...]] = {
     "fused_update.cu": ("--fmad=false",),
     "flash_attention.cu": ("-Xptxas", "-v"),
     "flash_attention_bwd.cu": ("-Xptxas", "-v"),
+    "int8_matmul.cu": ("-Xptxas", "-v"),
+    "hash_embed_grad.cu": ("-Xptxas", "-v"),
 }
 
 #: kernel name -> launches since the last :func:`reset_launch_counts`

@@ -7,8 +7,9 @@ computes ``(x @ f32(q8)) * scale`` with f32 accumulation. Activations stay
 unquantized.
 
 On CUDA tensors :func:`int8_matmul` launches the hand-written kernel
-``csrc/int8_matmul.cu`` (:func:`int8_weight_matmul`); on CPU tensors it runs
-:func:`int8_matmul_plain`.
+``csrc/int8_matmul.cu`` (:func:`int8_weight_matmul`) on the bf16 tensor
+cores; on CPU tensors it runs :func:`int8_matmul_plain`. The activations
+reach the kernel in their own type: bf16 (the serving path's) or f32.
 """
 
 from __future__ import annotations
@@ -26,10 +27,11 @@ _SIGNATURES = {
     "srt_int8_weight_matmul": (
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ),
 }
-_TILE_M, _TILE_N, _TILE_K = 64, 64, 32  # the kernel's output tile and K step
+_TILE_M, _TILE_N, _TILE_K = 128, 128, 32  # the kernel's output tile and K step
+_X_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 @dataclass(frozen=True)
@@ -52,30 +54,33 @@ def quantize_int8(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def int8_matmul_plain(x2: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """[M, K] f32, [K, N] int8, [N] f32 -> [M, N] f32."""
-    return (x2 @ q8.to(torch.float32)) * scale
+    """[M, K] f32 or bf16, [K, N] int8, [N] f32 -> [M, N] f32, in f32."""
+    return (x2.to(torch.float32) @ q8.to(torch.float32)) * scale
 
 
 def split_k(M: int, N: int, K: int, n_sm: int) -> Tuple[int, int]:
-    """How the kernel cuts K: ``(splits, k_chunk)``. K is split until about
-    two CTAs per SM are in flight, keeping at least 4 K steps per split;
+    """How the kernel cuts K: ``(splits, k_chunk)``. Where the output has
+    fewer tiles than the card has SMs, K is split until every SM has a CTA,
+    keeping at least 4 K steps per split;
     ``k_chunk`` is a multiple of the K step and ``splits * k_chunk >= K``
     with no empty split."""
     tiles = -(-M // _TILE_M) * -(-N // _TILE_N)
     steps = max(1, -(-K // _TILE_K))
-    splits = max(1, min(-(-2 * n_sm // tiles), steps // 4))
+    splits = max(1, min(-(-n_sm // tiles), steps // 4))
     chunk_steps = -(-steps // splits)
     return -(-steps // chunk_steps), chunk_steps * _TILE_K
 
 
 def int8_weight_matmul(x2: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel: x2 [M, K] f32, q8 [K, N] int8, scale [N] f32, all
-    contiguous, -> [M, N] f32 on PyTorch's current stream."""
+    """The CUDA kernel: x2 [M, K] bf16 or f32, q8 [K, N] int8, scale [N] f32,
+    all contiguous, -> [M, N] f32 on PyTorch's current stream. bf16 x takes
+    one bf16 product per K step; f32 x is split into two bf16 parts (hi and
+    the rest), two products into the same f32 accumulators."""
     _cuda.require(x2.is_cuda and q8.device == x2.device and scale.device == x2.device,
                   "int8_weight_matmul: x, q8 and scale must be on one CUDA device")
-    _cuda.require(x2.dtype == torch.float32 and q8.dtype == torch.int8
+    _cuda.require(x2.dtype in _X_DTYPE_CODE and q8.dtype == torch.int8
                   and scale.dtype == torch.float32,
-                  f"int8_weight_matmul: need f32 x, int8 q8, f32 scale; got "
+                  f"int8_weight_matmul: need bf16 or f32 x, int8 q8, f32 scale; got "
                   f"{x2.dtype}, {q8.dtype}, {scale.dtype}")
     _cuda.require(x2.dim() == 2 and q8.dim() == 2 and x2.shape[1] == q8.shape[0]
                   and scale.shape == (q8.shape[1],),
@@ -94,7 +99,7 @@ def int8_weight_matmul(x2: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor) 
     rc = lib.srt_int8_weight_matmul(
         x2.data_ptr(), q8.data_ptr(), scale.data_ptr(), out.data_ptr(),
         None if part is None else part.data_ptr(), M, N, K, splits, k_chunk,
-        x2.device.index or 0, _cuda.stream_of(x2),
+        _X_DTYPE_CODE[x2.dtype], x2.device.index or 0, _cuda.stream_of(x2),
     )
     _cuda.check(lib, rc, "int8_weight_matmul")
     _cuda.LAUNCHES["int8_weight_matmul"] += 1
@@ -102,10 +107,14 @@ def int8_weight_matmul(x2: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor) 
 
 
 def int8_matmul(x: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """Weight-only int8 matmul: x [..., K] (any float dtype, cast to f32)
-    times q8 [K, N] int8 with per-channel scale [N]; returns f32 [..., N]."""
+    """Weight-only int8 matmul: x [..., K] (bf16 or f32 as it comes; another
+    float type is cast to f32) times q8 [K, N] int8 with per-channel scale
+    [N]; returns f32 [..., N]."""
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1]).to(torch.float32).contiguous()
+    x2 = x.reshape(-1, x.shape[-1])
+    if x2.dtype not in _X_DTYPE_CODE:
+        x2 = x2.to(torch.float32)
+    x2 = x2.contiguous()
     if x2.is_cuda:
         out = int8_weight_matmul(x2, q8, scale)
     elif x2.device.type == "cpu":

@@ -8,7 +8,8 @@ the JAX kernel's ``custom_vjp``. On a CUDA tensor the forward launches
 ``csrc/hash_embed_grad.cu`` (:func:`hash_embed_table_grad`); on a CPU tensor
 they run the plain versions (:func:`hash_embed_gather_sum_plain`, which adds
 the four rows in the kernel's order, and :func:`hash_embed_table_grad_plain`,
-which sums each row's cotangents in the kernel's order). There is no other
+which sums each row's cotangents in the kernel's order: pieces of at most
+:data:`TABLE_GRAD_CHUNK` sorted pairs, then the pieces). There is no other
 path.
 """
 
@@ -31,9 +32,15 @@ _GRAD_SOURCE = "hash_embed_grad.cu"
 _GRAD_SIGNATURES = {
     "srt_hash_embed_table_grad": (
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ),
 }
+#: C, the sorted pairs per chunk of the table gradient's order of summation;
+#: the wrapper passes it to the kernel, which sizes its shared memory by it.
+#: A larger C gives the batch-padding row fewer pieces to add in pass 2 and
+#: each chunk's CTA more pairs to walk in order.
+TABLE_GRAD_CHUNK = 64
 
 
 def hash_embed_gather_sum_plain(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -72,20 +79,34 @@ def hash_embed_gather_sum(table: torch.Tensor, ids: torch.Tensor) -> torch.Tenso
 
 
 def hash_embed_table_grad_plain(ct: torch.Tensor, ids: torch.Tensor, rows: int) -> torch.Tensor:
-    """[N, D], [N, 4] -> [rows, D]: each row the sum of the cotangents of
-    the (token, j) pairs that name it, added in ascending (token, j) order
-    from zero (``index_add_`` on the CPU walks its index in order)."""
+    """[N, D], [N, 4] -> [rows, D] in the kernel's order of summation: the
+    (row, token*4 + j) pairs stably sorted by row and cut into chunks of
+    :data:`TABLE_GRAD_CHUNK`; each piece (row and chunk) summed from zero in
+    ascending (token, j) order, each row the sum of its pieces from zero in
+    chunk order. ``index_add_`` on the CPU walks its index in order, so both
+    sums run in that order there."""
+    d = ct.shape[1]
     flat = ids.reshape(-1).long()
-    return torch.zeros((rows, ct.shape[1]), dtype=ct.dtype, device=ct.device).index_add_(
-        0, flat, ct.repeat_interleave(4, dim=0))
+    out = torch.zeros((rows, d), dtype=ct.dtype, device=ct.device)
+    if flat.numel() == 0:
+        return out
+    row_sorted, order = torch.sort(flat, stable=True)
+    chunk = torch.arange(flat.numel(), device=ct.device) // TABLE_GRAD_CHUNK
+    starts = torch.ones_like(flat, dtype=torch.bool)
+    starts[1:] = (row_sorted[1:] != row_sorted[:-1]) | (chunk[1:] != chunk[:-1])
+    piece = torch.cumsum(starts, 0) - 1
+    pieces = torch.zeros((int(starts.sum()), d), dtype=ct.dtype, device=ct.device)
+    pieces.index_add_(0, piece, ct[order // 4])
+    return out.index_add_(0, row_sorted[starts], pieces)
 
 
 def hash_embed_table_grad(ct: torch.Tensor, ids: torch.Tensor, rows: int) -> torch.Tensor:
-    """The CUDA kernel: ct [N, D] f32, ids [N, 4] int32 -> [rows, D] f32, every
-    row written, on PyTorch's current stream, without synchronising. The
-    (row, token*4 + j) pairs are put in row order by a stable sort first, so
-    each row's sum runs in ascending (token, j) order, as the plain
-    version's does."""
+    """The CUDA kernel: ct [N, D] f32, ids [N, 4] int32 in [0, rows) -> [rows, D]
+    f32, every row written, on PyTorch's current stream, without
+    synchronising. The (row, token*4 + j) pairs are put in row order by a
+    stable sort first; then two launches sum them in the plain version's
+    order (chunks of :data:`TABLE_GRAD_CHUNK` sorted pairs, then each row's
+    pieces)."""
     _cuda.require(ct.is_cuda and ids.device == ct.device,
                   "hash_embed_table_grad: ct and ids must be on one CUDA device")
     _cuda.require(ct.dtype == torch.float32 and ct.dim() == 2 and ct.is_contiguous(),
@@ -99,15 +120,17 @@ def hash_embed_table_grad(ct: torch.Tensor, ids: torch.Tensor, rows: int) -> tor
     _cuda.require(d % 4 == 0 and ct.data_ptr() % 16 == 0,
                   f"hash_embed_table_grad: needs a width divisible by 4 and a "
                   f"16-byte aligned ct, got width {d}")
-    row_of_pair, order = torch.sort(ids.reshape(-1), stable=True)
-    offsets = torch.searchsorted(
-        row_of_pair, torch.arange(rows + 1, dtype=torch.int32, device=ct.device)
-    ).to(torch.int32)
-    order = order.to(torch.int32)
+    keys = ids.reshape(-1)
+    if rows <= 2 ** 15:  # the ids lie in [0, rows): int16 keys halve the radix sort's passes
+        keys = keys.to(torch.int16)
+    row_of_pair, order = torch.sort(keys, stable=True)  # sorted rows, int64 pair indices
+    n_chunks = -(-4 * n // TABLE_GRAD_CHUNK)
+    carry = torch.empty((n_chunks, 2, d), dtype=torch.float32, device=ct.device)
     out = torch.empty((rows, d), dtype=torch.float32, device=ct.device)
     lib = _cuda.library(_GRAD_SOURCE, _GRAD_SIGNATURES)
     rc = lib.srt_hash_embed_table_grad(
-        ct.data_ptr(), order.data_ptr(), offsets.data_ptr(), out.data_ptr(), rows, d,
+        ct.data_ptr(), row_of_pair.data_ptr(), order.data_ptr(), carry.data_ptr(),
+        out.data_ptr(), 4 * n, rows, d, TABLE_GRAD_CHUNK, row_of_pair.element_size(),
         ct.device.index or 0, _cuda.stream_of(ct),
     )
     _cuda.check(lib, rc, "hash_embed_table_grad")

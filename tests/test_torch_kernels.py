@@ -3,8 +3,8 @@
 Each kernel's plain PyTorch version (what a CPU tensor runs) is held against
 the Pallas kernel run in interpret mode and against the JAX reference, on
 the same inputs made with numpy from a seed. The CUDA kernels themselves are
-held against these plain versions on the card (``chip_smoke.py`` and the
-``cuda``-marked test below).
+held against these plain versions on the card (``chip_smoke.py`` and
+``tests/test_torch_cuda_kernels.py``).
 
 Tolerances: K1 1e-5 (four f32 adds; the JAX probe's bound), K2 1e-4 in f32
 and 2e-2 in bf16 (the JAX kernel tests' bounds), K4 1e-4 (the JAX probe's
@@ -145,6 +145,41 @@ def test_int8_plain_matches_pallas_kernel(M, K, N):
     np.testing.assert_allclose(lead[0].numpy(), kernel, atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("M,K,N", [(33, 96, 160), (130, 200, 64)])
+def test_int8_matmul_bf16_x_matches_f32_x_and_pallas_kernel(M, K, N):
+    # the serving path hands the kernel bf16 activations as they are (no cast
+    # to f32 first): the same values in f32 give the same output
+    rng = np.random.default_rng(M + 1)
+    w = (rng.standard_normal((K, N)) * 0.05).astype(np.float32)
+    xb = _t(rng.standard_normal((M, K)).astype(np.float32)).to(torch.bfloat16)
+    x_vals = xb.float().numpy()
+    q8, scale = ji8.quantize_int8(jnp.asarray(w))
+    kernel = np.asarray(ji8._int8_matmul_raw(jnp.asarray(x_vals), q8, scale, interpret=True))
+    q, s = _t(np.asarray(q8)), _t(np.asarray(scale))
+    got_b = int8_matmul(xb.reshape(1, M, K), q, s)
+    got_f = int8_matmul(_t(x_vals).reshape(1, M, K), q, s)
+    assert got_b.dtype == torch.float32 and got_b.shape == (1, M, N)
+    assert torch.equal(got_b, got_f)
+    np.testing.assert_allclose(got_b[0].numpy(), kernel, atol=1e-4, rtol=1e-4)
+
+
+def test_int8_f32_x_as_two_bf16_parts_is_within_tolerance():
+    # the kernel's f32 path: x = hi + lo with hi = bf16(x), lo = bf16(x - hi),
+    # both products exact against the int8 weight (|q| <= 127), summed in f32;
+    # the split loses about 2**-16 of |x|, far inside 1e-4 of max |out|
+    rng = np.random.default_rng(5)
+    x = _t(rng.standard_normal((64, 768)).astype(np.float32))
+    q8, s = quantize_int8(_t((rng.standard_normal((768, 96)) * 0.05).astype(np.float32)))
+    hi = x.to(torch.bfloat16).float()
+    lo = (x - hi).to(torch.bfloat16).float()
+    assert not torch.equal(hi, x)  # x is not bf16-exact
+    assert (x - hi - lo).abs().max() <= 2.0 ** -16 * x.abs().max()
+    split = (hi @ q8.float() + lo @ q8.float()) * s
+    want = int8_matmul_plain(x, q8, s)
+    assert (split - want).abs().max() <= 1e-4 * want.abs().max()
+    assert (hi @ q8.float() * s - want).abs().max() > 1e-4 * want.abs().max()  # hi alone is not
+
+
 @pytest.mark.parametrize("shape", [(96, 160), (3, 40, 24), (7, 5)])
 def test_quantize_int8_bit_equal(shape):
     rng = np.random.default_rng(len(shape))
@@ -205,40 +240,15 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                    (64, 3072, 768), (37, 50, 70), (1, 3, 5), (8, 4000, 16)])
 def test_int8_split_k_covers_k_once(M, K, N):
     # the K ranges of the int8 kernel's splits tile [0, K) exactly, in
-    # whole K steps, none empty, and never more than the K steps allow
+    # whole K steps, none empty, and never more than the K steps allow; K
+    # is split only where the 128 x 128 output tiles leave SMs idle
     splits, chunk = split_k(M, N, K, n_sm=132)
     assert splits >= 1 and chunk % 32 == 0
     assert (splits - 1) * chunk < K <= splits * chunk
     if splits > 1:
         assert chunk >= 4 * 32
-    tiles = -(-M // 64) * -(-N // 64)
-    if tiles >= 2 * 132:
+    tiles = -(-M // 128) * -(-N // 128)
+    if tiles >= 132:
         assert splits == 1
+    assert splits * tiles < 2 * 132 or splits == 1
 
-
-@pytest.mark.cuda
-def test_cuda_kernels_match_plain_versions():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card and nvcc: the CUDA kernels have no CPU mode")
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(0)
-    table = torch.randn(1000, 64, device=dev, generator=g)
-    ids = torch.randint(0, 1000, (77, 4), device=dev, generator=g, dtype=torch.int32)
-    assert torch.equal(hash_embed_gather_sum(table, ids), hash_embed_gather_sum_plain(table, ids))
-    qkv = torch.randn(3, 70, 3 * 64, device=dev, generator=g)
-    q, k, v = (x.view(3, 70, 4, 16) for x in qkv.split(64, dim=-1))
-    mask = torch.arange(70, device=dev)[None] < torch.tensor([70, 33, 0], device=dev)[:, None]
-    bias = mask_to_bias(mask)
-    o, lse = flash_attention_fwd(q, k, v, bias, 0.25)
-    o2, lse2 = flash_attention_plain(q, k, v, bias, 0.25)
-    torch.testing.assert_close(o, o2, atol=1e-4, rtol=0)
-    torch.testing.assert_close(lse, lse2, atol=1e-4, rtol=0)
-    w8, s = quantize_int8(torch.randn(96, 40, device=dev, generator=g) * 0.05)
-    x = torch.randn(33, 96, device=dev, generator=g)
-    torch.testing.assert_close(int8_weight_matmul(x, w8, s), int8_matmul_plain(x, w8, s),
-                               atol=1e-4, rtol=1e-4)
-    w8, s = quantize_int8(torch.randn(768, 70, device=dev, generator=g) * 0.05)
-    x = torch.randn(20, 768, device=dev, generator=g)  # K split across CTAs
-    assert split_k(20, 70, 768, torch.cuda.get_device_properties(dev).multi_processor_count)[0] > 1
-    torch.testing.assert_close(int8_weight_matmul(x, w8, s), int8_matmul_plain(x, w8, s),
-                               atol=1e-4, rtol=1e-4)

@@ -4,11 +4,12 @@ The plain PyTorch versions (what CPU tensors run) of the hash-embed table
 gradient, the flash-attention backward (K3) and the fused Adam/RAdam update
 (K5) are held against the JAX functions they replace, on the same inputs
 made with numpy from a seed. The CUDA kernels themselves are held against
-these plain versions on the card (``chip_smoke.py`` and the ``cuda``-marked
-tests at the end).
+these plain versions on the card (``chip_smoke.py`` and
+``tests/test_torch_cuda_kernels.py``).
 
 Tolerances and why:
-* table gradient: bit-equal to the same sums in order; 1e-5 relative to
+* table gradient: bit-equal to the same sums in the kernel's order (pieces
+  of at most C sorted pairs, then each row's pieces); 1e-5 relative to
   max |ct| against the JAX scatter-add (another summation order);
 * K3: 1e-3 in f32 (the JAX kernel tests' bound) and 5e-2 in bf16 (the JAX
   kernel probe's), against the interpret-mode kernel's VJP with a nonzero
@@ -34,13 +35,13 @@ from spacy_ray_tpu.ops.pallas_kernels import _reference_lookup, _table_grad
 from spacy_ray_tpu.training import optimizers as jopt
 
 from spacy_ray_tpu_torch.ops.flash_attention import (
-    FlashAttention, flash_attention_bwd, flash_attention_bwd_plain, mask_to_bias,
+    FlashAttention, flash_attention_bwd, mask_to_bias,
 )
 from spacy_ray_tpu_torch.ops.fused_update import (
     FusedHyper, FusedUpdate, global_norm, leaf_math_plain, step_scalars,
 )
 from spacy_ray_tpu_torch.ops.pallas_kernels import (
-    hash_embed_lookup, hash_embed_table_grad, hash_embed_table_grad_plain,
+    TABLE_GRAD_CHUNK, hash_embed_lookup, hash_embed_table_grad, hash_embed_table_grad_plain,
 )
 from spacy_ray_tpu_torch.training import optimizers as popt
 
@@ -59,21 +60,63 @@ def interpret(monkeypatch):
 # ------------------------------------------------------ table gradient
 
 
+def _piecewise_table_grad(ct, ids, rows):
+    """The kernel's order of summation as a numpy loop: the (row, pair)
+    pairs stably sorted by row and cut into chunks of C; each piece (row and
+    chunk) summed from zero in ascending (token, j) order, each row the sum
+    of its pieces from zero in chunk order."""
+    flat = ids.reshape(-1)
+    order = np.argsort(flat, kind="stable")
+    out = np.zeros((rows, ct.shape[1]), f32)
+    piece = None
+    for k, pair in enumerate(order):
+        row = flat[pair]
+        if piece is None or row != flat[order[k - 1]] or k % TABLE_GRAD_CHUNK == 0:
+            if piece is not None:
+                out[flat[order[k - 1]]] = out[flat[order[k - 1]]] + piece
+            piece = np.zeros(ct.shape[1], f32)
+        piece = piece + ct[pair // 4]
+    if piece is not None:
+        out[flat[order[-1]]] = out[flat[order[-1]]] + piece
+    return out
+
+
+def _check_table_grad(ct, ids, rows):
+    got = hash_embed_table_grad_plain(_t(ct), _t(ids), rows).numpy()
+    want = np.asarray(_table_grad(jnp.asarray(ids), jnp.asarray(ct), rows))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(ct).max())
+    assert np.array_equal(got.view(np.uint32), _piecewise_table_grad(ct, ids, rows).view(np.uint32))
+    assert np.all(got[np.setdiff1d(np.arange(rows), ids)] == 0)  # untouched rows
+    return got
+
+
 @pytest.mark.parametrize("rows,N,D", [(50, 300, 16), (500, 512, 64)])
 def test_table_grad_plain_matches_jax_and_is_ordered(rows, N, D):
     rng = np.random.default_rng(rows)
     ct = (rng.standard_normal((N, D)) * 10.0 ** rng.integers(-3, 3, (N, 1))).astype(f32)
     ids = rng.integers(0, rows, (N, 4)).astype(np.int32)
-    got = hash_embed_table_grad_plain(_t(ct), _t(ids), rows).numpy()
-    want = np.asarray(_table_grad(jnp.asarray(ids), jnp.asarray(ct), rows))
-    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(ct).max())
-    # the kernel's order: each row summed from zero in ascending (token, j)
-    seq = np.zeros((rows, D), f32)
-    for n in range(N):
-        for j in range(4):
-            seq[ids[n, j]] = seq[ids[n, j]] + ct[n]
-    assert np.array_equal(got.view(np.uint32), seq.view(np.uint32))
-    assert np.all(got[np.setdiff1d(np.arange(rows), ids)] == 0)  # untouched rows
+    _check_table_grad(ct, ids, rows)
+
+
+@pytest.mark.parametrize("lead,n_skew", [(0, 2000), (1, 3000), (TABLE_GRAD_CHUNK - 1, 4100)])
+def test_table_grad_plain_skewed_row_over_many_chunks(lead, n_skew):
+    # one row takes thousands of pairs (batch padding's), rows 7 and 11 take
+    # exactly C and C + 1, rows 0-2 take `lead` pairs so those runs start at
+    # different places in their chunk; rows 12-19 stay untouched
+    C = TABLE_GRAD_CHUNK
+    rows, N, D = 300, 1600, 16
+    rng = np.random.default_rng(lead)
+    flat = rng.integers(20, rows, 4 * N)
+    pos = rng.permutation(4 * N - 4)  # the last token's pairs keep random rows
+    for row, count in ((3, n_skew), (7, C), (11, C + 1), (int(rng.integers(0, 3)), lead)):
+        flat[pos[:count]] = row
+        pos = pos[count:]
+    ids = flat.reshape(N, 4).astype(np.int32)
+    ct = (rng.standard_normal((N, D)) * 0.01).astype(f32)
+    ct[-1] *= 300.0  # max |ct| ~ 10: the skewed row's rounding stays far inside 1e-5 of it
+    got = _check_table_grad(ct, ids, rows)
+    assert np.count_nonzero(ids == 3) == n_skew and -(-n_skew // C) >= 30
+    assert np.all(got[12:20] == 0)
 
 
 def test_hash_embed_lookup_gradient_matches_jax_grad():
@@ -361,55 +404,3 @@ def test_training_kernel_wrappers_refuse_cpu_tensors():
         FusedUpdate(HYPERS[0]).kernel_step(p, p, p, p, torch.zeros(()),
                                            step_scalars(HYPERS[0], 0, 0, lambda s: 0.1))
 
-
-# ------------------------------------------------------------- on the card
-
-
-def _card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card and nvcc: the CUDA kernels have no CPU mode")
-    return torch.device("cuda"), torch.Generator(device="cuda").manual_seed(0)
-
-
-@pytest.mark.cuda
-def test_cuda_table_grad_matches_plain_version():
-    dev, g = _card()
-    ct = torch.randn(300, 64, device=dev, generator=g)
-    ids = torch.randint(0, 97, (300, 4), device=dev, generator=g, dtype=torch.int32)
-    got = hash_embed_table_grad(ct, ids, 97).cpu()
-    assert torch.equal(got, hash_embed_table_grad_plain(ct.cpu(), ids.cpu(), 97))
-
-
-@pytest.mark.cuda
-def test_cuda_attention_bwd_matches_plain_version():
-    dev, g = _card()
-    from spacy_ray_tpu_torch.ops.flash_attention import flash_attention_fwd
-
-    qkv = torch.randn(3, 70, 3 * 64, device=dev, generator=g)
-    q, k, v = (x.view(3, 70, 4, 16) for x in qkv.split(64, dim=-1))
-    mask = torch.arange(70, device=dev)[None] < torch.tensor([70, 33, 0], device=dev)[:, None]
-    bias = mask_to_bias(mask)
-    o, lse = flash_attention_fwd(q, k, v, bias, 0.25)
-    do = torch.randn(3, 70, 4, 16, device=dev, generator=g)
-    dlse = torch.randn(3, 70, 4, device=dev, generator=g)
-    for a, b in zip(flash_attention_bwd(q, k, v, bias, o, lse, do, dlse, 0.25),
-                    flash_attention_bwd_plain(q, k, v, bias, o, lse, do, dlse, 0.25)):
-        torch.testing.assert_close(a, b, atol=1e-3, rtol=0)
-
-
-@pytest.mark.cuda
-def test_cuda_fused_update_matches_plain_version():
-    dev, g = _card()
-    from spacy_ray_tpu_torch.ops.fused_update import global_norm
-
-    for hyper in HYPERS:
-        P, G, M, V = ([torch.randn(s, device=dev, generator=g) * sc for s in ((700, 3), (70001,))]
-                      for sc in (1.0, 0.1, 0.01, 0.01))
-        V = [v.abs() for v in V]
-        gn = global_norm(G)
-        sc = step_scalars(hyper, 6, 6, lambda s: 0.001)
-        want = [leaf_math_plain(p, gg, m, v, gn, *sc, hyper=hyper) for p, gg, m, v in zip(P, G, M, V)]
-        FusedUpdate(hyper).step(P, G, M, V, gn, sc)
-        for got, w in zip(zip(P, M, V), want):
-            for a, b in zip(got, w):
-                assert _ulp(a.cpu().numpy(), b.cpu().numpy()) <= 1

@@ -7,9 +7,11 @@ Run from the root of a checkout. Phases, each printing one JSON line:
 
 1. card     — ``nvidia-smi`` name and power limit, torch and CUDA versions.
 2. build    — compiles every kernel of ``spacy_ray_tpu_torch/csrc`` with
-              nvcc for sm_90a (one nvcc per source, in parallel).
+              nvcc for sm_90a (one nvcc per source, in parallel), with each
+              kernel's registers and spills (``ptxas -v``).
 3. kernel:* — each kernel's wrapper on the card at the shapes its path
-              gives it (the serving slice's for K1, K2, K4; a training
+              gives it (the serving slice's for K1, K2, K4, and K1 also for
+              one one-text request and a training microbatch; a training
               microbatch's and the whole parameter set's for the hash-embed
               gradient, the attention backward K3 and the fused update K5),
               held against its plain PyTorch version on the same inputs
@@ -77,6 +79,7 @@ WORK = ROOT / ".smoke"
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12        # dense bf16 tensor cores
 PEAK_F32_FLOPS = 67e12          # f32 outside the tensor cores
+STREAM_COPIES = 16              # K1 fwd back to back: 16 copies of each table, past L2
 
 # tolerances of kernel vs plain version on the same inputs
 TOL_K1 = 0.0        # the same four f32 adds in the same order: bit-equal
@@ -166,6 +169,19 @@ def time_ms(torch, fn, *, reps: int = 25, warmup: int = 3, flush=None) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def back_to_back_ms(torch, fns, *, reps: int = 10, flush=None) -> float:
+    """Median device milliseconds per call of the calls ``fns`` run back to
+    back between one pair of CUDA events, after the card spins for twice the
+    host's time to enqueue them all (so they queue up and the host's launch
+    cost is not counted). With ``flush``, L2 is overwritten before each
+    timed run."""
+    def run():
+        for fn in fns:
+            fn()
+
+    return time_ms(torch, run, reps=reps, warmup=1, flush=flush) / len(fns)
+
+
 def enqueue_ms(torch, fn, *, reps: int = 10) -> float:
     """Median host milliseconds to enqueue one call, starting from an idle
     card. Close to the device time of the call when the host, not the
@@ -212,6 +228,22 @@ def train_lengths():
     return [rng.randint(8, 120) for _ in range(36)] + [0] * (TRAIN_B - 36)
 
 
+def corpus_keys(torch, g=None):
+    """The hash keys [B*T, 2] of one training microbatch (B 64, T 128), as
+    skewed as the training corpus makes them: a 45-word vocabulary, and
+    every batch-padding position the zero key. Drawn first from ``g`` (a new
+    generator of seed 1 when none is given, so that every caller gets the
+    keys ``phase_train_kernels`` draws)."""
+    dev = torch.device("cuda")
+    if g is None:
+        g = torch.Generator(device=dev).manual_seed(1)
+    vocab = torch.randint(1, 2 ** 32, (45, 2), device=dev, generator=g)
+    real = (torch.arange(TRAIN_T, device=dev)[None, :]
+            < torch.tensor(train_lengths(), device=dev)[:, None]).reshape(-1)
+    word = torch.randint(0, 45, (TRAIN_B * TRAIN_T,), device=dev, generator=g)
+    return torch.where(real[:, None], vocab[word], torch.zeros_like(vocab[word]))
+
+
 def ptxas_summary(log: str):
     """Registers, shared memory and spills of each kernel in an
     ``nvcc -Xptxas -v`` log."""
@@ -235,6 +267,13 @@ def ptxas_summary(log: str):
                             "smem_static": int(smem.group(1)) if smem else 0})
     for row in out:  # mangled names: keep the kernel and its head dim or x type
         name = row["kernel"]
+        if "gather_sum" in name:
+            row["kernel"] = "gather_sum"
+            continue
+        if "fused_update" in name:  # keep the template arguments
+            args = re.findall(r"L[bi](\d+)E", name.split("fused_update", 1)[1].split("EEv")[0])
+            row["kernel"] = f"fused_update<{','.join(args)}>"
+            continue
         k = re.search(r"\d((?:flash_(?:fwd|bwd)|int8|table_grad|reduce)_\w+?)[IE]", name)
         dh = re.search(r"ILi(\d+)E", name)
         xt = "<bf16>" if "I13__nv_bfloat16E" in name else "<f32>" if "IfE" in name else ""
@@ -289,32 +328,61 @@ def phase_kernels(torch):
     results = {}
     B, T, D, H, Dh = 8, 128, 768, 12, 64
 
-    # K1: the four hash tables of one dispatch (NORM 20000, three of 10000)
+    # K1: the four hash tables of one serving dispatch (NORM 20000, three of
+    # 10000), then the NORM table for one one-text request (B 1, T 128) and
+    # for a training microbatch (B 64, T 128) on the corpus's skewed ids.
+    # The bound counts each distinct table row a call names once (repeated
+    # ids can never lift the share past 100 %), the output and the ids;
+    # bound_ms_all_rows counts four rows a token, as the earlier count did.
+    # A call of a few microseconds sits on the timer's floor (an empty kernel
+    # timed alike, timer_floor_ms), so ms_back_to_back also times the call's
+    # throughput: STREAM_COPIES calls back to back, each on its own copy of
+    # the table, so that every call reads its rows from HBM.
     shapes = []
+    floor_ms = time_ms(torch, lambda: torch.cuda._sleep(1), flush=flush)
+    tables = {rows: torch.randn(rows, D, device=dev, generator=g) for rows in (20000, 10000)}
+    copies = {rows: [t.clone() for _ in range(STREAM_COPIES)] for rows, t in tables.items()}
+    cases = []
     for rows in (20000, 10000):
-        table = torch.randn(rows, D, device=dev, generator=g)
         keys = torch.randint(0, 2 ** 32, (B * T, 2), device=dev, generator=g)
-        ids = hash_embed_ids(keys, 12345, rows)
+        cases.append((rows, hash_embed_ids(keys, 12345, rows), "uniform", "serving",
+                      1 if rows == 20000 else 3))
+    keys = torch.randint(0, 2 ** 32, (T, 2), device=dev, generator=g)
+    cases.append((20000, hash_embed_ids(keys, 12345, 20000), "uniform", "one-request", 1))
+    cases.append((20000, hash_embed_ids(corpus_keys(torch), 12345, 20000), "corpus-skewed",
+                  "training", 1))
+    for rows, ids, kind, dispatch, calls in cases:
+        table = tables[rows]
         got = hash_embed_gather_sum(table, ids)
         want = hash_embed_gather_sum_plain(table, ids)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         if not err <= TOL_K1:
-            fail(f"K1 rows={rows}: max_abs_err {err} > {TOL_K1}")
+            fail(f"K1 rows={rows} N={ids.shape[0]}: max_abs_err {err} > {TOL_K1}")
         ids_l = ids.long()
-        n = B * T
-        nbytes = n * (4 * D * 4 + D * 4 + 16)
-        bnd, by = bound_ms(nbytes, 3 * n * D, PEAK_F32_FLOPS)
+        n = ids.shape[0]
+        distinct = int(torch.unique(ids).numel())
+        bnd, by = bound_ms(distinct * D * 4 + n * D * 4 + n * 16, 3 * n * D, PEAK_F32_FLOPS)
         row = {
-            "rows": rows, "D": D, "N": n, "max_abs_err": err, "dispatch": "serving",
+            "rows": rows, "D": D, "N": n, "ids": kind, "distinct_rows": distinct,
+            "max_abs_err": err, "dispatch": dispatch,
             "ms": time_ms(torch, lambda: hash_embed_gather_sum(table, ids), flush=flush),
+            "ms_back_to_back": back_to_back_ms(
+                torch, [lambda t=t: hash_embed_gather_sum(t, ids) for t in copies[rows]],
+                flush=flush),
             "host_us": host_us(torch, lambda: hash_embed_gather_sum(table, ids)),
             "plain_ms": time_ms(torch, lambda: hash_embed_gather_sum_plain(table, ids),
                                 flush=flush),
             "library_ms": time_ms(torch, lambda: F.embedding_bag(ids_l, table, mode="sum"),
                                   flush=flush),
-            "bound_ms": bnd, "bound_by": by, "calls_per_dispatch": 1 if rows == 20000 else 3,
+            "bound_ms": bnd, "bound_by": by,
+            "bound_ms_all_rows": bound_ms(n * (4 * D * 4 + D * 4 + 16), 3 * n * D,
+                                          PEAK_F32_FLOPS)[0],
+            "calls_per_dispatch": calls,
         }
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["share_of_bound_back_to_back"] = row["bound_ms"] / row["ms_back_to_back"]
+        row["timer_floor_ms"] = floor_ms
         emit({"phase": "kernel:hash_embed_gather_sum", **row})
         shapes.append(row)
     results["hash_embed_gather_sum"] = shapes
@@ -484,16 +552,12 @@ def phase_train_kernels(torch):
     # as skewed as the training corpus makes them (a 45-word vocabulary, and
     # every batch-padding position hashing the zero key to the same rows),
     # and once with uniform ids
-    vocab = torch.randint(1, 2 ** 32, (45, 2), device=dev, generator=g)
-    real = (torch.arange(T, device=dev)[None, :]
-            < torch.tensor(lens, device=dev)[:, None]).reshape(-1)
-    word = torch.randint(0, 45, (B * T,), device=dev, generator=g)
-    corpus_keys = torch.where(real[:, None], vocab[word], torch.zeros_like(vocab[word]))
+    corpus = corpus_keys(torch, g)
     shapes = []
     for rows, skewed in ((20000, True), (10000, True), (20000, False)):
         n = B * T
         ct = torch.randn(n, D, device=dev, generator=g)
-        keys = (corpus_keys if skewed else
+        keys = (corpus if skewed else
                 torch.randint(0, 2 ** 32, (n, 2), device=dev, generator=g))
         ids = hash_embed_ids(keys, 777, rows)
         got = hash_embed_table_grad(ct, ids, rows)
@@ -648,6 +712,10 @@ def phase_train_kernels(torch):
         "library_ms": time_ms(torch, lib_opt.step, reps=10),
         "bound_ms": bnd, "bound_by": by, "dispatch": "training", "calls_per_dispatch": 1,
     }
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    # the chunks of the table the timed launches ran over
+    row["chunks"] = fused._table.shape[0]
+    row["scalar_chunks"] = int((fused._table[:, 5] == 0).sum())
     emit({"phase": "kernel:fused_update", **row})
     results["fused_update"] = [row]
     del P, G, M, V, lib_params, lib_opt, scratch
@@ -1076,6 +1144,8 @@ def phase_train(torch):
     # the table gradient's kernels (first design: table_grad_vec4; now
     # table_grad_pieces and table_grad_spans), its sort apart
     table_grad = [e for e in events if "table_grad" in e.key]
+    update = [e for e in events if "fused_update" in e.key]
+    gather = [e for e in events if "gather_sum" in e.key]
     top = sorted(events, key=dev_us, reverse=True)[:15]
     host_ops = sorted((e for e in prof.key_averages()
                        if not str(getattr(e, "device_type", "")).endswith("CUDA")),
@@ -1087,6 +1157,9 @@ def phase_train(torch):
         "table_grad_kernels_ms": sum(dev_us(e) for e in table_grad) / 1e3,
         "table_grad_kernel_calls": sum(e.count for e in table_grad),
         "table_grad_share_of_busy": sum(dev_us(e) for e in table_grad) / 1e3 / busy_ms,
+        "fused_update_kernel_ms": sum(dev_us(e) for e in update) / 1e3,
+        "gather_sum_kernels_ms": sum(dev_us(e) for e in gather) / 1e3,
+        "gather_sum_kernel_calls": sum(e.count for e in gather),
         "top_device_ms": [(e.key[:60], dev_us(e) / 1e3, e.count) for e in top],
         "top_host_self_ms": [(e.key[:60], e.self_cpu_time_total / 1e3, e.count)
                              for e in host_ops],
@@ -1172,7 +1245,15 @@ def main() -> int:
           "flags": " ".join(_cuda.NVCC_FLAGS),
           "ptxas": {src: ptxas_summary(_cuda.BUILD_LOGS.get(src, ""))
                     for src in ("flash_attention.cu", "flash_attention_bwd.cu",
-                                "int8_matmul.cu", "hash_embed_grad.cu")}})
+                                "int8_matmul.cu", "hash_embed_grad.cu", "hash_embed.cu")}})
+    # K5 is 24 instantiations (its branches): the main path's (Adam with
+    # clipping: <1,0,0,0>) in full, the rest as their worst
+    update = ptxas_summary(_cuda.BUILD_LOGS.get("fused_update.cu", ""))
+    emit({"phase": "build", "ptxas": {"fused_update.cu": {
+        "main_path": [r for r in update if r["kernel"] == "fused_update<1,0,0,0>"],
+        "instantiations": len(update),
+        "max_registers": max((r.get("registers", 0) for r in update), default=None),
+        "spill_bytes": sum(r["spill_stores"] + r["spill_loads"] for r in update)}}})
 
     kernels = phase_kernels(torch)
     kernels.update(phase_train_kernels(torch))

@@ -17,18 +17,20 @@ Counterpart of ``spacy_ray_tpu/ops/fused_update.py``. One step is
   ``p + u``), in place.
 
 On CUDA tensors the per-element chain is one launch of ``csrc/fused_update.cu``
-over every leaf (:meth:`FusedUpdate.kernel_step`); on CPU tensors it is
-:func:`leaf_math_plain`, a line-for-line copy of ``_leaf_math`` in the same
-expression order, per leaf. The two agree bit for bit (the kernel is built
-without FMA contraction). Against the JAX package run op by op they agree to
-1 ulp; a jitted XLA CPU program contracts ``(1 - b1) * g + b1 * m`` into an
-FMA and so differs from both by more ulp where the two terms cancel.
+over every leaf (:meth:`FusedUpdate.kernel_step`), over the chunks of
+:func:`chunk_plan`; on CPU tensors it is :func:`leaf_math_plain`, a
+line-for-line copy of ``_leaf_math`` in the same expression order, per leaf.
+The two agree bit for bit (the kernel is built without FMA contraction).
+Against the JAX package run op by op they agree to 1 ulp; a jitted XLA CPU
+program contracts ``(1 - b1) * g + b1 * m`` into an FMA and so differs from
+both by more ulp where the two terms cancel.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, List, NamedTuple, Optional, Tuple
+import operator
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,13 +41,17 @@ _SOURCE = "fused_update.cu"
 _F = ctypes.c_float
 _SIGNATURES = {
     "srt_fused_update": (
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        _F, _F, _F, _F, _F, _F, _F, _F, _F, ctypes.c_int, _F, _F, _F, _F, _F,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        _F, _F, _F, _F, _F, _F, _F, _F, ctypes.c_int, _F, _F, _F, _F,
         ctypes.c_int, ctypes.c_void_p,
     ),
 }
-#: elements per CTA of the fused kernel
-CHUNK = 65536
+#: elements per chunk (one CTA of 256 threads each) of the fused kernel, a
+#: multiple of VEC: 4096 gives each thread one pass of four float4s per
+#: tensor (PERF.md)
+CHUNK = 4096
+#: floats in one 16-byte vector
+VEC = 4
 _INT32_MAX = 2 ** 31 - 1
 
 
@@ -145,17 +151,66 @@ def leaf_math_plain(
     return p + u, m2, v2
 
 
+class Chunk(NamedTuple):
+    """Elements ``[start, stop)`` of leaf ``leaf``, as float4s (``vec``) or
+    one float at a time."""
+
+    leaf: int
+    start: int
+    stop: int
+    vec: bool
+
+
+def chunk_plan(leaves: Sequence[Tuple[int, int, int, int, int]],
+               chunk: int = CHUNK) -> List[Chunk]:
+    """The K5 kernel's work list. ``leaves`` gives each leaf's element count
+    and the byte addresses of its p, g, m and v: ``(numel, p, g, m, v)``.
+    Every element of every leaf lies in exactly one chunk of at most
+    ``chunk`` elements, in leaf order. Where the four addresses agree modulo
+    16 bytes, a leaf is its scalar head up to the first 16-byte boundary,
+    vector chunks (16-byte aligned in all four tensors, a multiple of
+    :data:`VEC` long) and its scalar tail; where they disagree, it is scalar
+    chunks only."""
+    if chunk <= 0 or chunk % VEC or chunk >= 2 ** 31:
+        raise ValueError(f"fused_update: chunk must be a positive multiple of {VEC} "
+                         f"below 2**31, got {chunk}")
+    plan = []
+    for i, (n, *addrs) in enumerate(leaves):
+        if any(a % 4 for a in addrs):
+            raise ValueError(f"fused_update: leaf {i} is not 4-byte aligned")
+        if len({a % 16 for a in addrs}) == 1:
+            head = min(n, -addrs[0] % 16 // 4)
+            body = (n - head) // VEC * VEC
+        else:
+            head, body = n, 0
+        for lo, hi, vec in ((0, head, False), (head, head + body, True), (head + body, n, False)):
+            plan += [Chunk(i, s, min(s + chunk, hi), vec) for s in range(lo, hi, chunk)]
+    return plan
+
+
+def chunk_rows(leaves: Sequence[Tuple[int, int, int, int, int]],
+               chunk: int = CHUNK) -> List[List[int]]:
+    """The kernel's table, one row per chunk of :func:`chunk_plan`: the byte
+    addresses of the chunk's first element in p, g, m and v, its length, and
+    1 for a vector chunk or 0."""
+    return [[a + 4 * c.start for a in leaves[c.leaf][1:]] + [c.stop - c.start, int(c.vec)]
+            for c in chunk_plan(leaves, chunk)]
+
+
 class FusedUpdate:
     """The per-element chain over a list of leaves, in place. Holds the K5
-    kernel's device table of leaf addresses, built once per parameter set
-    (the same tensors step after step) and rebuilt when any address
-    changes."""
+    kernel's device table of chunks (:func:`chunk_plan`), built and checked
+    once per parameter set: the same tensors step after step. Each step
+    compares only the tensors' identities and addresses with the table's;
+    any change rebuilds and rechecks it."""
 
     def __init__(self, hyper: FusedHyper):
         if hyper.kind not in ("adam", "radam"):
             raise ValueError(f"unknown fused optimizer kind {hyper.kind!r}")
         self.hyper = hyper
-        self._table: Optional[Tuple[tuple, torch.Tensor, torch.Tensor]] = None
+        self._tensors: List[torch.Tensor] = []
+        self._ptrs: List[int] = []
+        self._table: Optional[torch.Tensor] = None
 
     def step(self, params: List[torch.Tensor], grads: List[torch.Tensor],
              mu: List[torch.Tensor], nu: List[torch.Tensor],
@@ -176,44 +231,48 @@ class FusedUpdate:
                 m.copy_(m2)
                 v.copy_(v2)
 
-    def _leaf_table(self, params, grads, mu, nu) -> Tuple[torch.Tensor, torch.Tensor]:
-        key = tuple((p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(), p.numel())
-                    for p, g, m, v in zip(params, grads, mu, nu))
-        if self._table is None or self._table[0] != key:
-            chunks = [(i, s) for i, (*_, n) in enumerate(key) for s in range(0, n, CHUNK)]
-            dev = params[0].device
-            leaves = torch.tensor(key, dtype=torch.int64).to(dev)
-            table = torch.tensor(chunks, dtype=torch.int64).reshape(-1, 2).to(dev)
-            self._table = (key, leaves, table)
-        return self._table[1], self._table[2]
+    def _chunk_table(self, params, grads, mu, nu) -> torch.Tensor:
+        tensors = [*params, *grads, *mu, *nu]
+        ptrs = [t.data_ptr() for t in tensors]
+        if (self._table is not None and ptrs == self._ptrs
+                and all(map(operator.is_, tensors, self._tensors))):
+            return self._table
+        dev = params[0].device
+        _cuda.require(len(params) == len(grads) == len(mu) == len(nu),
+                      "fused_update: p, g, m, v must be lists of one length")
+        for t in tensors:
+            _cuda.require(t.is_cuda and t.device == dev and t.dtype == torch.float32
+                          and t.is_contiguous(),
+                          "fused_update: p, g, m, v must be contiguous float32 "
+                          "tensors on one CUDA device")
+        _cuda.require(all(p.shape == g.shape == m.shape == v.shape
+                          for p, g, m, v in zip(params, grads, mu, nu)),
+                      "fused_update: p, g, m, v of a leaf must share a shape")
+        n = len(params)
+        leaves = [(params[i].numel(), *ptrs[i::n]) for i in range(n)]
+        rows = chunk_rows(leaves, CHUNK)
+        self._table = torch.tensor(rows, dtype=torch.int64).reshape(-1, 6).to(dev)
+        self._tensors, self._ptrs = tensors, ptrs
+        return self._table
 
     def kernel_step(self, params, grads, mu, nu, gnorm, sc: StepScalars) -> None:
         """The CUDA kernel: one launch over every leaf, on PyTorch's current
         stream, without synchronising. Every tensor f32, contiguous, on one
         card; gnorm a 0-dim f32 tensor there (read when clipping)."""
         h = self.hyper
+        table = self._chunk_table(params, grads, mu, nu)
         dev = params[0].device
-        for group in (params, grads, mu, nu):
-            for t in group:
-                _cuda.require(t.is_cuda and t.device == dev and t.dtype == torch.float32
-                              and t.is_contiguous(),
-                              "fused_update: p, g, m, v must be contiguous float32 "
-                              "tensors on one CUDA device")
-        _cuda.require(all(p.shape == g.shape == m.shape == v.shape
-                          for p, g, m, v in zip(params, grads, mu, nu)),
-                      "fused_update: p, g, m, v of a leaf must share a shape")
         if h.grad_clip > 0:
             _cuda.require(gnorm is not None and gnorm.is_cuda and gnorm.device == dev
                           and gnorm.dtype == torch.float32 and gnorm.numel() == 1,
                           "fused_update: clipping needs the global norm as one f32 on the card")
-        leaves, chunks = self._leaf_table(params, grads, mu, nu)
+        # RAdam's branch is one host comparison, as in leaf_math_plain
+        mode = 0 if h.kind == "adam" else 1 if sc.ro >= h.radam_threshold else 2
         lib = _cuda.library(_SOURCE, _SIGNATURES)
         rc = lib.srt_fused_update(
-            leaves.data_ptr(), chunks.data_ptr(), chunks.shape[0], CHUNK,
-            gnorm.data_ptr() if h.grad_clip > 0 else None,
+            table.data_ptr(), table.shape[0], gnorm.data_ptr() if h.grad_clip > 0 else None,
             1 - h.b1, h.b1, 1 - h.b2, h.b2, h.eps, h.grad_clip, h.l2_grad, h.l2_decay,
-            h.radam_threshold, int(h.kind == "radam"),
-            sc.bc1, sc.bc2, sc.step_size, sc.ro, sc.rect,
+            mode, sc.bc1, sc.bc2, sc.step_size, sc.rect,
             dev.index or 0, _cuda.stream_of(params[0]),
         )
         _cuda.check(lib, rc, "fused_update")

@@ -9,7 +9,8 @@ only PyTorch is installed:
 Tolerances are those of ``chip_smoke.py``: K1 and its table gradient
 bit-equal (the same f32 adds in the same order; the gradient against the
 CPU plain version, and two runs bit-identical), K4 within 1e-4 of max |out|
-for bf16 and f32 x, K2 and K3 in f32 within 1e-4 and 1e-3, K5 within 1 ulp.
+for bf16 and f32 x, K2 and K3 in f32 within 1e-4 and 1e-3, K5 within 1 ulp
+(0 ulp, bit-equal, on odd-sized and misaligned leaves).
 """
 
 import pytest
@@ -138,3 +139,49 @@ def test_cuda_fused_update_matches_plain_version():
         for got, w in zip(zip(P, M, V), want):
             for a, b in zip(got, w):
                 assert ulp_diff(torch, a, b) <= 1
+
+
+@pytest.mark.cuda
+def test_cuda_gather_sum_bit_equal_at_every_shape():
+    # uniform ids, and half the tokens on one quadruple (batch padding's)
+    dev, g = _card()
+    for D in (4, 64, 96, 768, 772):
+        table = torch.randn(3000, D, device=dev, generator=g)
+        for N in (1, 3, 128, 1024, 8192):
+            ids = torch.randint(0, 3000, (N, 4), device=dev, generator=g, dtype=torch.int32)
+            rep = ids.clone()
+            rep[torch.randperm(N, device=dev, generator=g)[: N // 2]] = torch.tensor(
+                [7, 2999, 7, 0], device=dev, dtype=torch.int32)
+            for x in (ids, rep):
+                got = hash_embed_gather_sum(table, x)
+                assert torch.equal(got, hash_embed_gather_sum_plain(table, x)), (D, N)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_update_odd_and_misaligned_leaves_bit_equal():
+    # leaves of odd sizes, as views at float offsets 0-3 into larger buffers:
+    # p, g, m, v at one offset (scalar head and tail, vector body) and each at
+    # its own (scalar chunks); RAdam unrectified (count 1) and rectified
+    # (count 6); clipping that scales (g ~ 0.1) and that does not (g ~ 1e-6)
+    dev, g = _card()
+    sizes = (1, 3, 4, 5, 65535, 65537, 262147)
+    for hyper in HYPERS:
+        for count in (1, 6):
+            for g_scale in (0.1, 1e-6):
+                leaves = ([], [], [], [])
+                for j, n in enumerate(sizes):
+                    for offs in ((j % 4,) * 4, tuple((j + k) % 4 for k in range(4))):
+                        for X, o, s in zip(leaves, offs, (1.0, g_scale, 0.01, 0.01)):
+                            buf = torch.randn(n + 4, device=dev, generator=g) * s
+                            X.append(buf[o:o + n])
+                P, G, M, V = leaves
+                for v in V:
+                    v.abs_()
+                gn = global_norm(G)
+                sc = step_scalars(hyper, count, count, lambda s: 0.001)
+                want = [leaf_math_plain(p, gg, m, v, gn, *sc, hyper=hyper)
+                        for p, gg, m, v in zip(P, G, M, V)]
+                FusedUpdate(hyper).step(P, G, M, V, gn, sc)
+                for got, w in zip(zip(P, M, V), want):
+                    for a, b in zip(got, w):
+                        assert ulp_diff(torch, a, b) == 0, (hyper, count, g_scale, a.numel())

@@ -58,6 +58,22 @@ def test_hash_embed_plain_matches_pallas_kernel(rows, D, N):
     np.testing.assert_allclose(got, ref, atol=1e-5)
 
 
+@pytest.mark.parametrize("rows,D,N", [(500, 64, TOKEN_BLOCK), (40, 772, 2 * TOKEN_BLOCK)])
+def test_hash_embed_plain_matches_pallas_kernel_on_repeated_ids(rows, D, N):
+    # batch padding as training makes it: half the tokens name one quadruple
+    # (with a row twice in it), the rest a handful of rows
+    rng = np.random.default_rng(D)
+    table = rng.standard_normal((rows, D)).astype(np.float32)
+    ids = rng.integers(0, 6, (N, 4)).astype(np.int32)
+    ids[rng.permutation(N)[: N // 2]] = (3, rows - 1, 3, 0)
+    got = hash_embed_gather_sum_plain(_t(table), _t(ids)).numpy()
+    kernel = np.asarray(_pallas_lookup_raw(jnp.asarray(table), jnp.asarray(ids),
+                                           interpret=True))
+    np.testing.assert_allclose(got, kernel, atol=1e-5)
+    want = ((table[ids[:, 0]] + table[ids[:, 1]]) + table[ids[:, 2]]) + table[ids[:, 3]]
+    assert np.array_equal(got, want)  # the kernel's order of the four adds
+
+
 def test_hash_embed_lookup_any_token_count():
     # the port pads nothing: [B, T, 4] ids with B*T not a multiple of 256
     rng = np.random.default_rng(1)

@@ -50,6 +50,27 @@ Run from the root of a checkout. Phases, each printing one JSON line:
               microbatch with every kernel swapped for its plain version
               (dropout off), and ``best-model/`` answers one request through
               the serving path.
+7. train:full — ``train()`` on ``configs/trf.cfg`` as written (tagger,
+              parser and NER heads, its score weights), ``max_steps`` 40 and
+              ``eval_frequency`` 20, on a pseudo-UD corpus written here
+              (``udgen``: 2000 train and 200 dev docs, seeds 0 and 1). The
+              five training kernels must launch and each head's loss must
+              fall to at most 2/3 of its start (means of the first and last
+              5 steps); one microbatch's forward + backward is timed with
+              every head and with the tagger alone (events, host clock,
+              and kernel time and device operations under the
+              profiler), and its gradients of
+              every leaf, the heads' included, are held against the plain
+              versions (dropout off).
+8. slice:full — ``train:full``'s ``last-model/`` served at ``--precision
+              auto`` with slice:auto's traffic over the dev texts: every doc
+              answered with tags, heads and deps, the heads' decodes
+              replayed as CUDA graphs. For one B 8, T 128 batch: the graph
+              replay bit-equal to the eager decode of the same trunk output,
+              the card's decode against a CPU decode (>= 0.99 agreement),
+              the kernels against their plain versions (heads >= 0.95,
+              entity sets F >= 0.95), and the decodes' device and enqueue
+              times and device operations, as replays and eagerly.
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -140,12 +161,14 @@ def grad_rel_errs(got, want, real) -> dict:
 # ----------------------------------------------------------- measurement
 
 
-def time_ms(torch, fn, *, reps: int = 25, warmup: int = 3, flush=None) -> float:
+def time_ms(torch, fn, *, reps: int = 25, warmup: int = 3, flush=None,
+            spin_cap_s: float = 0.05) -> float:
     """Median device milliseconds of one call, each timed with CUDA events
     around the call alone. Before each call the card spins
     (``torch.cuda._sleep``) for about twice the host's time to enqueue it,
-    so its kernels run back to back and the host's launch cost is not
-    counted. With ``flush``, L2 is overwritten before each timed call."""
+    at most ``spin_cap_s``, so its kernels run back to back and the host's
+    launch cost is not counted. With ``flush``, L2 is overwritten before
+    each timed call."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -153,7 +176,7 @@ def time_ms(torch, fn, *, reps: int = 25, warmup: int = 3, flush=None) -> float:
     fn()
     host_s = time.perf_counter() - t
     torch.cuda.synchronize()
-    spin = int(min(2 * host_s + 20e-6, 0.05) * 2e9)  # cycles, at up to 2 GHz
+    spin = int(min(2 * host_s + 20e-6, spin_cap_s) * 2e9)  # cycles, at up to 2 GHz
     pairs = []
     for _ in range(reps):
         if flush is not None:
@@ -296,7 +319,8 @@ def device_ops(torch, fn) -> dict:
     for e in prof.key_averages():
         if str(getattr(e, "device_type", "")).endswith("CUDA"):
             us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-            out[e.key[:60]] = [e.count, us / 1e3]
+            count, ms = out.get(e.key[:60], (0, 0.0))  # names cut to 60 may collide
+            out[e.key[:60]] = [count + e.count, ms + us / 1e3]
     return out
 
 
@@ -506,23 +530,47 @@ def ulp_diff(torch, a, b) -> int:
     return int((ia - ib).abs().max().item())
 
 
-def trf_param_shapes(torch):
-    """Every parameter leaf of the trf.cfg trunk + tagger (17 tags), built
-    on the CPU without initialising."""
+def trf_param_shapes(torch, train_path=None):
+    """The shape of every parameter leaf, built on the CPU: of the trf.cfg
+    trunk + tagger (17 tags), without initialising; with ``train_path``, of
+    trf.cfg as written, every component's labels collected from that corpus
+    as ``train()`` collects them (``Pipeline.initialize``)."""
     from spacy_ray_tpu_torch import Pipeline
+    from spacy_ray_tpu_torch.registry import registry
+    from spacy_ray_tpu_torch.training import corpus  # noqa: F401  (spacy.Corpus.v1)
 
-    cfg = trf_tagger_config()
-    nlp = Pipeline.from_config(cfg.interpolate(), device="cpu")
-    nlp.components["tagger"].labels = list(UD_TAGS)
-    return [tuple(p.shape) for p in nlp._build_models().parameters()]
+    if train_path is None:
+        nlp = Pipeline.from_config(trf_tagger_config().interpolate(), device="cpu")
+        nlp.components["tagger"].labels = list(UD_TAGS)
+        return [tuple(p.shape) for p in nlp._build_models().parameters()]
+    cfg = trf_full_config()
+    cfg["paths"] = {"train": str(train_path), "dev": str(train_path)}
+    cfg = cfg.interpolate()
+    nlp = Pipeline.from_config(cfg, device="cpu")
+    nlp.initialize(registry.resolve(cfg["corpora"]["train"]), seed=0)
+    return [tuple(p.shape) for p in nlp.model.parameters()]
 
 
-def phase_train_kernels(torch):
+def write_udgen_corpus():
+    """The pseudo-UD corpus ``train:full`` trains on: 2000 train and 200 dev
+    docs (seeds 0 and 1). Returns (train path, dev path)."""
+    from spacy_ray_tpu_torch.udgen import write_ud_jsonl
+
+    work = WORK / "udgen"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    write_ud_jsonl(work / "train.jsonl", 2000, seed=0)
+    write_ud_jsonl(work / "dev.jsonl", 200, seed=1)
+    return work / "train.jsonl", work / "dev.jsonl"
+
+
+def phase_train_kernels(torch, full_shapes):
     """The training path's kernels against their plain versions and timed:
     the hash-embed table gradient and the attention backward (K3) at one
     training microbatch's shapes (B 64, T 128: batch_by_words 2000 on this
     corpus takes up to 40 docs of up to 120 words), the fused update (K5)
-    over every leaf of the trf + tagger parameter set."""
+    over every leaf of the trf + tagger parameter set (``train:trf``) and of
+    trf.cfg as written (``full_shapes``, the leaves ``train:full`` updates)."""
     import torch.nn.functional as F
 
     from spacy_ray_tpu_torch.ops.flash_attention import (
@@ -662,64 +710,75 @@ def phase_train_kernels(torch):
         shapes.append(row)
     results["flash_attention_bwd"] = shapes
 
-    # K5: every leaf of the trf + tagger parameter set, Adam as trf.cfg sets it
-    # (clip 1.0) and the other branches on the same leaves
-    leaf_shapes = trf_param_shapes(torch)
-    n_params = sum(math.prod(sh) for sh in leaf_shapes)
-    P = [torch.randn(sh, device=dev, generator=g) for sh in leaf_shapes]
-    G = [torch.randn(sh, device=dev, generator=g) * 1e-3 for sh in leaf_shapes]
-    M = [torch.randn(sh, device=dev, generator=g) * 1e-4 for sh in leaf_shapes]
-    V = [torch.rand(sh, device=dev, generator=g) * 1e-6 for sh in leaf_shapes]
-    worst = 0
-    worst_abs = 0.0
-    for hyper in (FusedHyper("adam", 0.9, 0.999, 1e-8, 1.0, 0.0, 0.0),
-                  FusedHyper("adam", 0.9, 0.999, 1e-8, 0.0, 0.01, 0.0),
-                  FusedHyper("radam", 0.9, 0.999, 1e-8, 1.0, 0.0, 0.01)):
+    # K5: every leaf of the trf + tagger parameter set (train:trf) and of
+    # trf.cfg as written (train:full: the heads' leaves too, the odd-sized
+    # out_b of nA elements among them), Adam as trf.cfg sets it (clip 1.0)
+    # and the other branches on the same leaves; the kernels line totals
+    # the set train:full updates
+    del scratch
+    rows = []
+    for leaf_set, leaf_shapes in (("trf+tagger", trf_param_shapes(torch)),
+                                  ("trf.cfg as written", full_shapes)):
+        main_path = leaf_set == "trf.cfg as written"
+        n_params = sum(math.prod(sh) for sh in leaf_shapes)
+        P = [torch.randn(sh, device=dev, generator=g) for sh in leaf_shapes]
+        G = [torch.randn(sh, device=dev, generator=g) * 1e-3 for sh in leaf_shapes]
+        M = [torch.randn(sh, device=dev, generator=g) * 1e-4 for sh in leaf_shapes]
+        V = [torch.rand(sh, device=dev, generator=g) * 1e-6 for sh in leaf_shapes]
+        worst = 0
+        worst_abs = 0.0
+        for hyper in (FusedHyper("adam", 0.9, 0.999, 1e-8, 1.0, 0.0, 0.0),
+                      FusedHyper("adam", 0.9, 0.999, 1e-8, 0.0, 0.01, 0.0),
+                      FusedHyper("radam", 0.9, 0.999, 1e-8, 1.0, 0.0, 0.01)):
+            gnorm = global_norm(G)
+            sc = step_scalars(hyper, 9, 9, lambda s: 0.001)
+            Pk, Mk, Vk = ([x.clone() for x in X] for X in (P, M, V))
+            FusedUpdate(hyper).step(Pk, G, Mk, Vk, gnorm, sc)
+            for i in range(len(P)):
+                want = leaf_math_plain(P[i], G[i], M[i], V[i], gnorm, *sc, hyper=hyper)
+                for a, w in zip((Pk[i], Mk[i], Vk[i]), want):
+                    worst = max(worst, ulp_diff(torch, a, w))
+                    worst_abs = max(worst_abs, (a - w).abs().max().item())
+            del Pk, Mk, Vk
+        torch.cuda.synchronize()
+        if not worst <= MAXULP_K5:
+            fail(f"K5 over {leaf_set}: {worst} ulp from leaf_math_plain > {MAXULP_K5}")
+        hyper = FusedHyper("adam", 0.9, 0.999, 1e-8, 1.0, 0.0, 0.0)
+        fused = FusedUpdate(hyper)
         gnorm = global_norm(G)
         sc = step_scalars(hyper, 9, 9, lambda s: 0.001)
-        Pk, Mk, Vk = ([x.clone() for x in X] for X in (P, M, V))
-        FusedUpdate(hyper).step(Pk, G, Mk, Vk, gnorm, sc)
-        for i in range(len(P)):
-            want = leaf_math_plain(P[i], G[i], M[i], V[i], gnorm, *sc, hyper=hyper)
-            for a, w in zip((Pk[i], Mk[i], Vk[i]), want):
-                worst = max(worst, ulp_diff(torch, a, w))
-                worst_abs = max(worst_abs, (a - w).abs().max().item())
-        del Pk, Mk, Vk
-    torch.cuda.synchronize()
-    if not worst <= MAXULP_K5:
-        fail(f"K5: {worst} ulp from leaf_math_plain > {MAXULP_K5}")
-    hyper = FusedHyper("adam", 0.9, 0.999, 1e-8, 1.0, 0.0, 0.0)
-    fused = FusedUpdate(hyper)
-    gnorm = global_norm(G)
-    sc = step_scalars(hyper, 9, 9, lambda s: 0.001)
 
-    def plain_all():
-        for p, gg, m, v in zip(P, G, M, V):
-            leaf_math_plain(p, gg, m, v, gnorm, *sc, hyper=hyper)
+        def plain_all():
+            for p, gg, m, v in zip(P, G, M, V):
+                leaf_math_plain(p, gg, m, v, gnorm, *sc, hyper=hyper)
 
-    lib_params = [p.clone().requires_grad_(True) for p in P]
-    for p, gg in zip(lib_params, G):
-        p.grad = gg
-    lib_opt = torch.optim.Adam(lib_params, lr=1e-3, fused=True)
-    bnd, by = bound_ms(28 * n_params, 20 * n_params, PEAK_F32_FLOPS)
-    row = {
-        "leaves": len(P), "params": n_params, "max_ulp": worst,
-        "max_abs_err": worst_abs,
-        "ms": time_ms(torch, lambda: fused.step(P, G, M, V, gnorm, sc), reps=10),
-        "host_us": host_us(torch, lambda: fused.step(P, G, M, V, gnorm, sc), reps=10),
-        "global_norm_ms": time_ms(torch, lambda: global_norm(G), reps=10),
-        "plain_ms": time_ms(torch, plain_all, reps=5, warmup=1),
-        "library_ms": time_ms(torch, lib_opt.step, reps=10),
-        "bound_ms": bnd, "bound_by": by, "dispatch": "training", "calls_per_dispatch": 1,
-    }
-    row["share_of_bound"] = row["bound_ms"] / row["ms"]
-    # the chunks of the table the timed launches ran over
-    row["chunks"] = fused._table.shape[0]
-    row["scalar_chunks"] = int((fused._table[:, 5] == 0).sum())
-    emit({"phase": "kernel:fused_update", **row})
-    results["fused_update"] = [row]
-    del P, G, M, V, lib_params, lib_opt, scratch
-    torch.cuda.empty_cache()
+        lib_params = [p.clone().requires_grad_(True) for p in P]
+        for p, gg in zip(lib_params, G):
+            p.grad = gg
+        lib_opt = torch.optim.Adam(lib_params, lr=1e-3, fused=True)
+        bnd, by = bound_ms(28 * n_params, 20 * n_params, PEAK_F32_FLOPS)
+        row = {
+            "leaf_set": leaf_set, "leaves": len(P), "params": n_params,
+            "odd_sized_leaves": sum(math.prod(sh) % 4 != 0 for sh in leaf_shapes),
+            "max_ulp": worst, "max_abs_err": worst_abs,
+            "ms": time_ms(torch, lambda: fused.step(P, G, M, V, gnorm, sc), reps=10),
+            "host_us": host_us(torch, lambda: fused.step(P, G, M, V, gnorm, sc), reps=10),
+            "global_norm_ms": time_ms(torch, lambda: global_norm(G), reps=10),
+            "plain_ms": time_ms(torch, plain_all, reps=5, warmup=1),
+            "library_ms": time_ms(torch, lib_opt.step, reps=10),
+            "bound_ms": bnd, "bound_by": by,
+            "dispatch": "training" if main_path else None,
+            "calls_per_dispatch": 1 if main_path else 0,
+        }
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        # the chunks of the table the timed launches ran over
+        row["chunks"] = fused._table.shape[0]
+        row["scalar_chunks"] = int((fused._table[:, 5] == 0).sum())
+        emit({"phase": "kernel:fused_update", **row})
+        rows.append(row)
+        del P, G, M, V, lib_params, lib_opt
+        torch.cuda.empty_cache()
+    results["fused_update"] = rows
     return results
 
 
@@ -779,18 +838,45 @@ def plain_kernels():
 def trf_tagger_config():
     """configs/trf.cfg with its transformer and tagger blocks as they are and
     the parser and NER heads removed."""
-    from spacy_ray_tpu_torch import Config
-
-    cfg = Config.from_disk(ROOT / "configs" / "trf.cfg")
+    cfg = trf_full_config()
     cfg["nlp"]["pipeline"] = ["transformer", "tagger"]
     for name in ("parser", "ner"):
         cfg["components"].pop(name)
+    return cfg
+
+
+def trf_full_config():
+    """configs/trf.cfg as written: the trunk with the tagger, parser and NER
+    heads, its [training] block and score weights."""
+    from spacy_ray_tpu_torch import Config
+
+    cfg = Config.from_disk(ROOT / "configs" / "trf.cfg")
+    if cfg["nlp"]["pipeline"] != ["transformer", "tagger", "parser", "ner"]:
+        fail(f"configs/trf.cfg pipeline = {cfg['nlp']['pipeline']}")
     model = cfg["components"]["transformer"]["model"]
     for key, want in (("width", 768), ("depth", 12), ("n_heads", 12), ("ffn_mult", 4),
                       ("max_len", 512), ("embed_size", 20000)):
         if model[key] != want:
             fail(f"configs/trf.cfg {key} = {model[key]}, expected {want}")
     return cfg
+
+
+def grad_errs_vs_plain(torch, nlp, params, batch) -> dict:
+    """{leaf: max |g - g_plain| / max |g_plain|}: the gradients of one
+    microbatch (dropout off) with every kernel and with every kernel swapped
+    for its plain version."""
+    grads = []
+    for plain in (False, True):
+        for p in params.values():
+            p.grad = None
+        if plain:
+            with plain_kernels():
+                nlp.loss(batch["tokens"], batch["targets"], dropout=0.0)[0].backward()
+        else:
+            nlp.loss(batch["tokens"], batch["targets"], dropout=0.0)[0].backward()
+        grads.append({k: p.grad.detach().clone() for k, p in params.items()})
+    return {k: (grads[0][k] - grads[1][k]).abs().max().item()
+            / max(grads[1][k].abs().max().item(), 1e-30) for k in params}
 
 
 def build_model_dir(torch) -> Path:
@@ -1167,19 +1253,7 @@ def phase_train(torch):
 
     # the gradients of one microbatch with every kernel and with every kernel
     # swapped for its plain version, dropout off
-    c = collated[3]
-    grads = []
-    for plain in (False, True):
-        for p in params.values():
-            p.grad = None
-        if plain:
-            with plain_kernels():
-                nlp.loss(c["tokens"], c["targets"], dropout=0.0)[0].backward()
-        else:
-            nlp.loss(c["tokens"], c["targets"], dropout=0.0)[0].backward()
-        grads.append({k: p.grad.detach().clone() for k, p in params.items()})
-    rel = {k: (grads[0][k] - grads[1][k]).abs().max().item()
-           / max(grads[1][k].abs().max().item(), 1e-30) for k in params}
+    rel = grad_errs_vs_plain(torch, nlp, params, collated[3])
     worst_leaf = max(rel, key=rel.get)
     if not rel[worst_leaf] <= TOL_GRAD:
         fail(f"train: gradient of {worst_leaf} kernels vs plain {rel[worst_leaf]} > {TOL_GRAD}")
@@ -1210,6 +1284,350 @@ def phase_train(torch):
     }
     emit(res)
     return res
+
+
+def entity_set(actions, lengths, labels):
+    """{(row, start, end, label)} of BILUO action ids [B, T]."""
+    from spacy_ray_tpu_torch.pipeline.components.ner import action_to_biluo
+    from spacy_ray_tpu_torch.pipeline.doc import Doc
+
+    acts = actions.cpu().tolist()
+    out = set()
+    for i, n in enumerate(lengths):
+        tags = [action_to_biluo(a, labels) for a in acts[i][:n]]
+        out.update((i, s.start, s.end, s.label) for s in Doc.spans_from_biluo(tags))
+    return out
+
+
+def set_f(a, b) -> float:
+    return 1.0 if not a and not b else 2 * len(a & b) / (len(a) + len(b))
+
+
+def phase_train_full(torch, udgen, full_shapes):
+    """``train()`` on configs/trf.cfg as written (tagger, parser and NER over
+    the full-width trunk) on the pseudo-UD corpus ``udgen`` (train, dev),
+    launch counters zeroed just before and read just after. Fails unless
+    the leaves it trained are ``full_shapes``, those K5 was held at."""
+    from spacy_ray_tpu_torch.ops import _cuda
+    from spacy_ray_tpu_torch.training.batcher import bucket_batch_size, bucket_length
+    from spacy_ray_tpu_torch.training.loop import train
+
+    work = WORK / "train_full"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cfg = trf_full_config()
+    cfg["paths"] = {"train": str(udgen[0]), "dev": str(udgen[1])}
+    cfg["training"]["max_steps"] = TRAIN_STEPS
+    cfg["training"]["eval_frequency"] = TRAIN_EVAL
+    out = work / "out"
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    nlp, result = train(cfg, out, device="cuda", stdout_log=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _cuda.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    need = ["hash_embed_gather_sum", "hash_embed_table_grad", "flash_attention_fwd",
+            "flash_attention_bwd", "fused_update"]
+    missing = [k for k in need if launches[k] == 0]
+    if missing:
+        fail(f"train:full: kernels never launched on the training path: {missing}")
+    if len(result.step_head_losses) != TRAIN_STEPS:
+        fail(f"train:full: {len(result.step_head_losses)} steps' losses, expected {TRAIN_STEPS}")
+    head_losses = {}
+    for head in ("tagger", "parser", "ner"):
+        xs = [step[head] for step in result.step_head_losses]
+        if not all(math.isfinite(x) for x in xs):
+            fail(f"train:full: loss_{head} is not finite: {xs}")
+        first, last = statistics.mean(xs[:5]), statistics.mean(xs[-5:])
+        head_losses[head] = {"first5_mean": first, "last5_mean": last, "first": xs[0],
+                             "last": xs[-1]}
+        if not last <= 2 / 3 * first:
+            fail(f"train:full: loss_{head} fell from {first} to only {last} (> 2/3)")
+    event_ms = [a.elapsed_time(b) for a, b in result.step_events]
+    trained_shapes = [tuple(p.shape) for p in nlp.model.parameters()]
+    if trained_shapes != full_shapes:
+        fail(f"train:full: trained {len(trained_shapes)} leaves, not the "
+             f"{len(full_shapes)} leaves K5 was held at")
+
+    # one microbatch of B 64, T 128 (the corpus's bucket): forward + backward
+    # with every head and with the tagger alone (the parser's and the NER's
+    # cost in the step), and the gradients of every leaf with the kernels
+    # against the plain versions (dropout off)
+    from spacy_ray_tpu_torch.registry import registry
+
+    cfg_i = cfg.interpolate()
+    corpus = registry.resolve(cfg_i["corpora"]["train"])
+    batcher = registry.resolve(cfg_i["training"]["batcher"])
+    batch = next(iter(batcher(corpus())))
+    B_pad, T_pad = bucket_batch_size(len(batch)), bucket_length(max(len(eg) for eg in batch))
+    c = nlp.collate(batch, with_targets=True, pad_batch_to=B_pad, pad_len_to=T_pad)
+    nlp.model.requires_grad_(True)
+    params = {k.replace(".", "/"): p for k, p in nlp.model.named_parameters()}
+
+    def fwd_bwd(targets):
+        for p in params.values():
+            p.grad = None
+        nlp.loss(c["tokens"], targets, dropout=0.1, seed=1)[0].backward()
+
+    split = {}
+    for label, targets in (("all_heads", c["targets"]),
+                           ("tagger_only", {"tagger": c["targets"]["tagger"]})):
+        fwd_bwd(targets)
+        dev_ms, host_ms = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t = time.perf_counter()
+            e0.record()
+            fwd_bwd(targets)
+            e1.record()
+            host_ms.append((time.perf_counter() - t) * 1e3)
+            torch.cuda.synchronize()
+            dev_ms.append(e0.elapsed_time(e1))
+        # kernel time alone (the events span host-paced gaps)
+        ops = device_ops(torch, lambda: fwd_bwd(targets))
+        split[label] = {"device_ms": statistics.median(dev_ms),
+                        "host_ms": statistics.median(host_ms),
+                        "kernel_ms": sum(v[1] for v in ops.values()),
+                        "device_ops": sum(v[0] for v in ops.values())}
+    rel = grad_errs_vs_plain(torch, nlp, params, c)
+    worst_leaf = max(rel, key=rel.get)
+    if not rel[worst_leaf] <= TOL_GRAD:
+        fail(f"train:full: gradient of {worst_leaf} kernels vs plain {rel[worst_leaf]} > {TOL_GRAD}")
+    heads_worst = max((k for k in rel if k.startswith(("parser/", "ner/"))), key=rel.get)
+    nlp.model.requires_grad_(False)
+    oracle = dict(nlp.components["parser"].oracle_stats)
+    n_leaves, n_params = len(params), sum(p.numel() for p in params.values())
+    del nlp, params, c
+    torch.cuda.empty_cache()
+
+    keys = ("tag_acc", "dep_uas", "dep_las", "ents_f")
+    res = {
+        "phase": "train:full", "seconds": seconds, "steps": result.final_step,
+        "leaves": n_leaves, "params": n_params,
+        "group_shapes_B_T": sorted(set(result.step_shapes)), "head_losses": head_losses,
+        "dev_scores": [(h["step"], {k: h["other_scores"].get(k) for k in keys})
+                       for h in result.history],
+        "dev_eval_words_per_s": [h["eval_wps"] for h in result.history],
+        "step_ms_median_events": statistics.median(event_ms),
+        "step_ms_median_host": statistics.median(x * 1e3 for x in result.step_host_seconds),
+        "words_per_s": result.wps, "words": result.words_seen, "oracle": oracle,
+        "peak_memory_gb": peak_gb, "launches": launches,
+        "microbatch_B_T": [B_pad, T_pad], "fwd_bwd_split_ms": split,
+        "heads_cost_ms_kernels": split["all_heads"]["kernel_ms"]
+        - split["tagger_only"]["kernel_ms"],
+        "heads_cost_device_ops": split["all_heads"]["device_ops"]
+        - split["tagger_only"]["device_ops"],
+        "heads_cost_ms_device": split["all_heads"]["device_ms"]
+        - split["tagger_only"]["device_ms"],
+        "heads_cost_ms_host": split["all_heads"]["host_ms"] - split["tagger_only"]["host_ms"],
+        "grad_max_rel_err": rel[worst_leaf], "grad_worst_leaf": worst_leaf,
+        "grad_heads_max_rel_err": rel[heads_worst], "grad_heads_worst_leaf": heads_worst,
+        "grad_tol": TOL_GRAD,
+    }
+    emit(res)
+    return res, out / "last-model"
+
+
+def phase_slice_full(torch, model_dir: Path, dev_path: Path, auto: dict):
+    """``model_dir`` (trained by ``train:full``) served over ``/v1/parse`` at
+    ``--precision auto`` with slice:auto's traffic over pseudo-UD dev texts;
+    then, for one B 8, T 128 batch, the heads' decodes by graph replay, eager
+    on the card, on the CPU and with every kernel swapped for its plain
+    version, and their times."""
+    import copy
+
+    from spacy_ray_tpu_torch.__main__ import build_server
+    from spacy_ray_tpu_torch.models.parser import (
+        decode_biluo, decode_biluo_viterbi, decode_parser, ner_window_features,
+    )
+    from spacy_ray_tpu_torch.ops import _cuda
+    from spacy_ray_tpu_torch.pipeline.doc import Example
+    from spacy_ray_tpu_torch.training.corpus import Corpus
+
+    t0 = time.perf_counter()
+    server = build_server([str(model_dir), "--port", "0", "--max-batch", "8",
+                           "--max-doc-len", "128", "--precision", "auto"])
+    engine = server.engine
+    nlp = engine.nlp
+    try:
+        _, port = server.start()
+        t_warm = time.perf_counter()
+        engine.start()
+        warmup_s = time.perf_counter() - t_warm
+        graphs = nlp.decode_graphs
+        if graphs is None or len(graphs) == 0:
+            fail("slice:full: the warmup captured no decode graph")
+        capture = {"graphs": len(graphs), "capture_s": graphs.capture_seconds,
+                   "warmup_s": warmup_s, "buckets": len(engine.warmed)}
+        setup_s = time.perf_counter() - t0
+
+        texts = [" ".join(eg.reference.words) for eg in Corpus(dev_path)()
+                 if len(eg.reference.words) <= 100][:24]
+        latencies, answers = [], []
+        lock = threading.Lock()
+
+        def client(batch):
+            for ts in batch:
+                t = time.perf_counter()
+                status, body = post(port, ts)
+                with lock:
+                    latencies.append(time.perf_counter() - t)
+                    answers.append((status, ts, body))
+
+        sequential = [[t] for t in texts[:4]]
+        concurrent = [[[texts[4 + 5 * c + i]] if i % 2 else texts[4 + 5 * c + i: 6 + 5 * c + i]
+                       for i in range(3)] for c in range(4)]
+        replays0 = graphs.replays
+        _cuda.reset_launch_counts()
+        client(sequential)
+        threads = [threading.Thread(target=client, args=(c,)) for c in concurrent]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        torch.cuda.synchronize()
+        launches = _cuda.launch_counts()
+        replays = graphs.replays - replays0
+        missing = [k for k in ("hash_embed_gather_sum", "flash_attention_fwd") if launches[k] == 0]
+        if missing:
+            fail(f"slice:full: kernels never launched on the main path: {missing}")
+        if replays == 0:
+            fail("slice:full: no decode graph was replayed on the main path")
+        n_docs = n_with_ents = n_ents = 0
+        labels_dep = set(nlp.components["parser"].labels) | {"ROOT"}
+        for status, ts, body in answers:
+            if status != 200 or len(body["docs"]) != len(ts):
+                fail(f"slice:full: /v1/parse answered {status}: {body}")
+            for d in body["docs"]:
+                n = len(d["tokens"])
+                if not (len(d.get("tags", [])) == len(d.get("heads", [])) == len(d.get("deps", []))
+                        == n) or not all(0 <= h < n for h in d["heads"]):
+                    fail(f"slice:full: doc without tags, heads or deps: {d}")
+                if not set(d["deps"]) <= {l.split("||")[0] for l in labels_dep}:
+                    fail(f"slice:full: unknown dep labels in {d['deps']}")
+                n_docs += 1
+                n_with_ents += bool(d.get("ents"))
+                n_ents += len(d.get("ents", []))
+        if n_ents == 0:
+            fail("slice:full: no response carried an entity")
+
+        # one batch at the top bucket (B 8, T 128)
+        docs = [nlp.tokenizer(t) for t in texts[:8]]
+        tokens = nlp.collate([Example.from_gold(d) for d in docs], pad_batch_to=8,
+                             pad_len_to=128)["tokens"]
+        overlay = engine.overlay.overlay
+        parser, ner = nlp.components["parser"], nlp.components["ner"]
+        with torch.inference_mode():
+            out_k = nlp.forward(tokens, overlay)
+            with plain_kernels():
+                out_p = nlp.forward(tokens, overlay)
+            X, mask = out_k["transformer"].X, out_k["transformer"].mask
+            lengths = mask.sum(1)
+            eager = {n: nlp.components[n].device_decode(X, lengths) for n in ("parser", "ner")}
+            replay = {n: {k: v.clone() for k, v in
+                          graphs.run(n, nlp.components[n], X, lengths).items()}
+                      for n in ("parser", "ner")}
+            for n in eager:
+                for k in eager[n]:
+                    if not torch.equal(eager[n][k], replay[n][k]):
+                        fail(f"slice:full: {n} {k}: graph replay differs from the eager decode")
+            # the same trunk output and head weights decoded on the CPU
+            Xc, lc = X.float().cpu(), lengths.cpu()
+            up_p = copy.deepcopy(parser.model.upper).cpu()
+            up_n = copy.deepcopy(ner.model.upper).cpu()
+            heads_c, labels_c = decode_parser(up_p, Xc, lc, len(parser.labels))
+            ner_fn = decode_biluo_viterbi if ner.decode == "viterbi" else decode_biluo
+            acts_c = ner_fn(up_n.step_logits(Xc, ner_window_features(128, lc)), lc,
+                            len(ner.labels))
+        real = mask.cpu()
+
+        def agree(a, b):
+            return (a.cpu()[real] == b.cpu()[real]).float().mean().item()
+
+        cpu_agree = {"heads": agree(eager["parser"]["heads"], heads_c),
+                     "labels": agree(eager["parser"]["labels"], labels_c),
+                     "biluo_actions": agree(eager["ner"]["actions"], acts_c)}
+        if min(cpu_agree.values()) < 0.99:
+            fail(f"slice:full: card and CPU decodes agree only {cpu_agree} (< 0.99)")
+        lens = lengths.tolist()
+        plain_agree = {
+            "heads": agree(out_k["parser"]["heads"], out_p["parser"]["heads"]),
+            "ents_f": set_f(entity_set(out_k["ner"]["actions"], lens, ner.labels),
+                            entity_set(out_p["ner"]["actions"], lens, ner.labels)),
+        }
+        if plain_agree["heads"] < 0.95 or plain_agree["ents_f"] < 0.95:
+            fail(f"slice:full: kernels vs plain versions agree only {plain_agree} (< 0.95)")
+
+        # the decodes' device and host-enqueue times at B 8, T 128, as a graph
+        # replay and eagerly, and the device operations of each
+        decode_times = {}
+        with torch.inference_mode():
+            for n in ("parser", "ner"):
+                comp = nlp.components[n]
+
+                def run_graph():
+                    graphs.run(n, comp, X, lengths)
+
+                def run_eager():
+                    comp.device_decode(X, lengths)
+
+                ops_g, ops_e = device_ops(torch, run_graph), device_ops(torch, run_eager)
+                # spin_cap_s 1.0: the eager decode takes ~105 ms to enqueue, past the
+                # default 50 ms cap, and its device time must not count host pacing
+                decode_times[n] = {
+                    "graph_ms": time_ms(torch, run_graph, reps=10, spin_cap_s=1.0),
+                    "graph_enqueue_ms": enqueue_ms(torch, run_graph),
+                    "eager_ms": time_ms(torch, run_eager, reps=5, spin_cap_s=1.0),
+                    "eager_enqueue_ms": enqueue_ms(torch, run_eager, reps=5),
+                    "device_ops_graph": sum(v[0] for v in ops_g.values()),
+                    "device_ops_eager": sum(v[0] for v in ops_e.values()),
+                    "device_ops_eager_ms": sum(v[1] for v in ops_e.values()),
+                    "top_ops_eager": sorted(ops_e.items(), key=lambda kv: -kv[1][0])[:8],
+                }
+
+            def forward_graphs():
+                nlp.forward(tokens, overlay, graphs)
+
+            # spin_cap_s 1.0: the trunk's enqueue outlasts the default cap, as above
+            forward = {"ms": time_ms(torch, forward_graphs, reps=10, spin_cap_s=1.0),
+                       "enqueue_ms": enqueue_ms(torch, forward_graphs)}
+
+        server.request_shutdown()
+        rc = server.wait()
+        if rc != 0:
+            fail(f"slice:full: serve drain returned {rc}")
+        result = {
+            "phase": "slice:full", "precision_label": engine.overlay.label,
+            "requests": len(answers), "docs": n_docs, "docs_with_ents": n_with_ents,
+            "ents": n_ents, "batches_seen": sorted({(b["batch"]["B"], b["batch"]["T"],
+                                                     b["batch"]["occupancy"])
+                                                    for _, _, b in answers}),
+            "launches": launches, "graph_replays": replays,
+            "latency_p50_ms": percentile(latencies, 0.50) * 1e3,
+            "latency_p99_ms": percentile(latencies, 0.99) * 1e3,
+            "auto_latency_p50_ms": auto["latency_p50_ms"],
+            "auto_latency_p99_ms": auto["latency_p99_ms"],
+            "setup_s": setup_s, "capture": capture,
+            "graph_equals_eager": True, "card_vs_cpu_agreement": cpu_agree,
+            "kernels_vs_plain": plain_agree, "decode_B8_T128": decode_times,
+            "forward_B8_T128_with_graphs": forward,
+        }
+        emit(result)
+        return result
+    finally:
+        if engine.ready:
+            engine.stop()
+        if server._serve_thread is not None and server._serve_thread.is_alive():
+            server.httpd.shutdown()
+        server.httpd.server_close()
+        del server, engine, nlp
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1256,7 +1674,9 @@ def main() -> int:
         "spill_bytes": sum(r["spill_stores"] + r["spill_loads"] for r in update)}}})
 
     kernels = phase_kernels(torch)
-    kernels.update(phase_train_kernels(torch))
+    udgen = write_udgen_corpus()
+    full_shapes = trf_param_shapes(torch, udgen[0])
+    kernels.update(phase_train_kernels(torch, full_shapes))
 
     if WORK.exists():
         shutil.rmtree(WORK / "trf_tagger", ignore_errors=True)
@@ -1266,6 +1686,10 @@ def main() -> int:
     shutil.rmtree(model_dir, ignore_errors=True)
     runs["train"] = phase_train(torch)
     shutil.rmtree(WORK / "train", ignore_errors=True)
+    runs["train:full"], full_model = phase_train_full(torch, udgen, full_shapes)
+    runs["slice:full"] = phase_slice_full(torch, full_model, udgen[1], runs["auto"])
+    shutil.rmtree(WORK / "train_full", ignore_errors=True)
+    shutil.rmtree(WORK / "udgen", ignore_errors=True)
 
     meta = {
         "hash_embed_gather_sum": ("spacy_ray_tpu_torch/csrc/hash_embed.cu",
@@ -1309,8 +1733,8 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in kernels[name]),
             "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
             "bound_by": rows[0]["bound_by"], "library_ms": total("library_ms"),
-            "totals_for": totals_for[dispatch] + (" (one optimizer step)" if name == "fused_update"
-                                                  else ""),
+            "totals_for": totals_for[dispatch] + (
+                " (one optimizer step over trf.cfg's leaves)" if name == "fused_update" else ""),
             "shapes": kernels[name],
         })
     emit({"kernels": line})

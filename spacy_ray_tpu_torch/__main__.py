@@ -9,7 +9,10 @@
 ``eval_frequency`` steps, and writes ``best-model/`` and ``last-model/``
 (with its training generations, which ``--resume`` continues from).
 Dotted ``--section.key value`` arguments override the config.
-``evaluate`` prints the scores of a saved model on a gold corpus as JSON.
+``evaluate`` prints the scores of a saved model on a gold corpus as the JAX
+package's table (per-type scores as rows of p/r/f), then the prediction's
+words/s, then the scores as one JSON line (the same keys as the JAX
+package's).
 ``serve`` loads a model directory (written by this package or by the JAX
 package), builds the precision overlay, starts the HTTP listener (the bound
 port is printed), runs the bucket warmup sweep and serves ``/v1/parse``
@@ -103,6 +106,12 @@ def train_command(argv: List[str]) -> int:
     nlp, result = train(config, args.output, device=args.device, resume=args.resume)
     print(f"Done. steps={result.final_step} best_score={result.best_score:.4f} "
           f"(step {result.best_step}) words/sec={result.wps:,.0f}", flush=True)
+    for comp_name in nlp.pipe_names:
+        stats = getattr(nlp.components[comp_name], "oracle_stats", None)
+        if stats and (stats["projectivized"] or stats["skipped"]):
+            print(f"[{comp_name}] collation: {stats['docs']} doc-passes, "
+                  f"{stats['projectivized']} pseudo-projectivized, "
+                  f"{stats['skipped']} skipped (unusable trees)", flush=True)
     return 0
 
 
@@ -118,7 +127,17 @@ def evaluate_command(argv: List[str]) -> int:
     from .training.corpus import Corpus
 
     nlp = Pipeline.from_disk(args.model_path, device=args.device)
-    scores = nlp.evaluate(list(Corpus(args.data_path)()))
+    scores, words_per_s = nlp.evaluate_timed(list(Corpus(args.data_path)()))
+    for key, value in sorted(scores.items()):
+        if isinstance(value, dict):  # per-type tables (ents_per_type, ...)
+            for sub, prf in sorted(value.items()):
+                line = "  ".join(f"{m}={prf[m]:.4f}" for m in ("p", "r", "f"))
+                print(f"{key:24s} {sub:14s} {line}")
+        elif value is None:
+            print(f"{key:24s} -")  # no gold annotation for this metric
+        else:
+            print(f"{key:24s} {value:.4f}")
+    print(f"{'words/s':24s} {words_per_s:.1f}")
     print(json.dumps(scores, sort_keys=True), flush=True)
     return 0
 

@@ -57,7 +57,15 @@ def _is_continuation(line: str) -> bool:
 
 
 class Config(dict):
-    """Nested-dict config with parse/serialize/interpolate support."""
+    """Nested-dict config with parse/serialize/interpolate support.
+
+    ``origin_path`` is the file the config was loaded from (set by
+    :meth:`from_disk`, carried through :meth:`apply_overrides` and
+    :meth:`interpolate`): relative paths inside the config, such as
+    ``[initialize.components.<name>] labels``, resolve against its directory.
+    """
+
+    origin_path: Optional[Path] = None
 
     @classmethod
     def from_str(cls, text: str) -> "Config":
@@ -110,7 +118,9 @@ class Config(dict):
 
     @classmethod
     def from_disk(cls, path: Union[str, Path]) -> "Config":
-        return cls.from_str(Path(path).read_text(encoding="utf8"))
+        config = cls.from_str(Path(path).read_text(encoding="utf8"))
+        config.origin_path = Path(path)
+        return config
 
     def to_str(self) -> str:
         lines: List[str] = []
@@ -143,6 +153,7 @@ class Config(dict):
         """A copy with each ``dotted.key = value`` set (sections created as
         needed)."""
         out = Config(copy.deepcopy(dict(self)))
+        out.origin_path = self.origin_path
         for dotted, value in overrides.items():
             node: Dict[str, Any] = out
             parts = dotted.split(".")
@@ -183,7 +194,9 @@ class Config(dict):
                 return [interp(v, depth) for v in value]
             return value
 
-        return Config(interp(resolved))
+        out = Config(interp(resolved))
+        out.origin_path = self.origin_path
+        return out
 
 
 def load_config(

@@ -1,4 +1,4 @@
-"""Pipeline components of the serving slice; importing the package
-registers their factories."""
+"""Pipeline components of the port; importing the package registers their
+factories."""
 
-from . import tagger, tok2vec  # noqa: F401
+from . import ner, parser, tagger, tok2vec  # noqa: F401

@@ -5,7 +5,7 @@ a forward on the device, annotation decoding and scoring on the host."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, List, Optional
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 
@@ -22,6 +22,10 @@ class Component:
     #: default [training] score weights contributed by this component when
     #: the config declares none (spaCy's per-factory metadata)
     default_score_weights: Dict[str, float] = {}
+    #: is this head's decode captured as a CUDA graph per (B, T) bucket when
+    #: a prediction is pinned to one (``pipeline/decode_graph.py``)? Such a
+    #: head defines ``trunk_output``, ``device_decode`` and ``decode_signature``
+    graph_capturable: bool = False
 
     def __init__(self, name: str, model_cfg: Dict[str, Any]):
         self.name = name
@@ -59,6 +63,19 @@ class Component:
                 ctx: Optional[Context] = None) -> Any:
         assert self.model is not None, "build_model() first"
         return self.model(inputs)
+
+    def trunk_output(self, inputs: Any) -> Any:
+        """The trunk output (``Padded``) a graph-captured decode reads."""
+        raise NotImplementedError(f"{self.name} has no graph-captured decode")
+
+    def decode_signature(self) -> Tuple[Any, ...]:
+        """What, beside (B, T), tells one captured decode from another."""
+        return ()
+
+    def device_decode(self, X: Any, lengths: Any) -> Dict[str, Any]:
+        """The decode of trunk output X [B, T, D] with true lengths [B], with
+        no host synchronisation (what a CUDA graph captures)."""
+        raise NotImplementedError(f"{self.name} has no graph-captured decode")
 
     def set_annotations(self, docs: List[Doc], outputs: Any, lengths: List[int]) -> None:
         """Decode device outputs into doc annotations."""

@@ -1,6 +1,6 @@
 """Doc / Span / Example: host-side annotation containers (copies of
 ``spacy_ray_tpu/pipeline/doc.py``). The device never sees them: collation
-lowers them to padded tensors."""
+lowers them to padded tensors; entity spans go to BILUO tags and back."""
 
 from __future__ import annotations
 
@@ -16,6 +16,9 @@ class Span:
     end: int
     label: str
     kb_id: str = ""
+
+    def __iter__(self):
+        yield from (self.start, self.end, self.label)
 
 
 @dataclass
@@ -34,6 +37,17 @@ class Doc:
     ents: List[Span] = field(default_factory=list)
     spans: Dict[str, List[Span]] = field(default_factory=dict)
     cats: Dict[str, float] = field(default_factory=dict)
+    # tri-state entity-annotation marker (spaCy's has_annotation("ENT_IOB")):
+    # True = annotated (no ents means "no entities here": predictions count
+    # as false positives), False = unannotated (the scorer skips the doc),
+    # None = annotated iff ents is non-empty
+    ents_annotated: Optional[bool] = None
+
+    @property
+    def has_ents_annotation(self) -> bool:
+        if self.ents_annotated is not None:
+            return self.ents_annotated
+        return bool(self.ents)
 
     def __len__(self) -> int:
         return len(self.words)
@@ -43,6 +57,45 @@ class Doc:
         if self.spaces is None:
             return " ".join(self.words)
         return "".join(w + (" " if sp else "") for w, sp in zip(self.words, self.spaces))
+
+    def ents_biluo(self) -> List[str]:
+        """The entity spans as per-token BILUO tags (O outside)."""
+        tags = ["O"] * len(self.words)
+        for span in self.ents:
+            if span.end <= span.start:
+                continue
+            if span.end - span.start == 1:
+                tags[span.start] = f"U-{span.label}"
+            else:
+                tags[span.start] = f"B-{span.label}"
+                for i in range(span.start + 1, span.end - 1):
+                    tags[i] = f"I-{span.label}"
+                tags[span.end - 1] = f"L-{span.label}"
+        return tags
+
+    @staticmethod
+    def spans_from_biluo(tags: List[str]) -> List[Span]:
+        """Spans of a BILUO tag sequence; malformed runs are dropped."""
+        spans: List[Span] = []
+        start, label = None, None
+        for i, tag in enumerate(tags):
+            if tag == "O" or tag == "-":
+                start, label = None, None
+                continue
+            prefix, _, lab = tag.partition("-")
+            if prefix == "U":
+                spans.append(Span(i, i + 1, lab))
+                start, label = None, None
+            elif prefix == "B":
+                start, label = i, lab
+            elif prefix == "I":
+                if start is None or lab != label:
+                    start, label = None, None
+            elif prefix == "L":
+                if start is not None and lab == label:
+                    spans.append(Span(start, i + 1, lab))
+                start, label = None, None
+        return spans
 
     def copy_shell(self) -> "Doc":
         """A prediction shell: same tokens, no annotations."""

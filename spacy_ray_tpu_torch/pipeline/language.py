@@ -8,6 +8,12 @@ listening head, sums the heads' losses, and decodes and scores the outputs.
 ``to_disk``/``from_disk`` use the JAX package's on-disk layout
 (``config.cfg``, ``meta.json``, a flat ``params.npz`` keyed by parameter
 path), so a model directory written by either package loads in both.
+
+A head's output is what its ``set_annotations`` takes: the tagger's
+``Padded`` logits, the parser's and the NER's decoded ids (dicts of
+tensors). On the card, a prediction pinned to a (B, T) bucket (the serving
+engine's) replays each decoding head's CUDA graph for that bucket
+(``pipeline/decode_graph.py``); everything else decodes eagerly.
 """
 
 from __future__ import annotations
@@ -16,7 +22,7 @@ import itertools
 import json
 import time
 from pathlib import Path
-from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +33,7 @@ from ..config import Config
 from ..devices import DeviceLike, resolve_device
 from ..models.core import Context, fold_in, param_paths
 from ..registry import registry
+from .decode_graph import DecodeGraphs
 from ..training import checkpoint
 from ..training.batcher import DEFAULT_LENGTH_BUCKETS, bucket_batch_size, bucket_length
 from ..types import TokenBatch
@@ -38,6 +45,42 @@ from .vocab import ATTRS, Vocab
 
 #: examples read from the train corpus to collect labels at initialize
 LABEL_SAMPLE_LIMIT = 10000
+
+
+def resolve_config_path(config: Optional[Config], raw: Any) -> Path:
+    """A path found inside a config: relative paths anchor to the config
+    file's directory (``Config.origin_path``), falling back to the working
+    directory when only that one exists (the JAX package's rule)."""
+    p = Path(raw)
+    if p.is_absolute():
+        return p
+    origin = getattr(config, "origin_path", None) if config is not None else None
+    if origin is not None:
+        anchored = Path(origin).parent / p
+        if anchored.exists() or not p.exists():
+            return anchored
+    return p
+
+
+def read_labels_file(name: str, raw: Any, config: Optional[Config]) -> List[str]:
+    """``[initialize.components.<name>] labels``: a non-empty JSON list of
+    distinct strings, kept in its order (it is already final: the
+    component's ``finish_labels`` does not run on it)."""
+    loaded = json.loads(resolve_config_path(config, raw).read_text(encoding="utf8"))
+    if (not isinstance(loaded, list) or not loaded
+            or not all(isinstance(l, str) for l in loaded)):
+        raise ValueError(
+            f"[initialize.components.{name}] labels file {raw!r} must hold a "
+            "non-empty JSON list of strings (write it with the init-labels command)"
+        )
+    if len(set(loaded)) != len(loaded):
+        dupes = sorted({l for l in loaded if loaded.count(l) > 1})
+        raise ValueError(
+            f"[initialize.components.{name}] labels file {raw!r} contains "
+            f"duplicates {dupes}: the head would be sized by the padded count "
+            "while classes silently collapse"
+        )
+    return list(loaded)
 
 
 class Pipeline:
@@ -52,6 +95,9 @@ class Pipeline:
         self.device = device
         self.length_buckets: Sequence[int] = DEFAULT_LENGTH_BUCKETS
         self.model: Optional[nn.ModuleDict] = None  # set by initialize/from_disk
+        #: the heads' decode graphs by bucket, made at the first pinned
+        #: prediction on the card (None until then, and after a rebuild)
+        self.decode_graphs: Optional[DecodeGraphs] = None
 
     # ------------------------------------------------------------------
     # Construction
@@ -94,6 +140,7 @@ class Pipeline:
         return [n for n in self.pipe_names if n != self.tok2vec_name]
 
     def _build_models(self) -> nn.ModuleDict:
+        self.decode_graphs = None  # they hold the old models' parameters
         return nn.ModuleDict({n: self.components[n].build_model() for n in self.pipe_names})
 
     # ------------------------------------------------------------------
@@ -108,19 +155,29 @@ class Pipeline:
     ) -> Dict[str, Any]:
         """Set labels, build the models and draw their parameters.
 
-        ``labels`` maps a component to its label list, used as given (in
-        final order); otherwise labels are collected from the first 10 000
-        examples of ``get_examples``.
-        Parameters are drawn on the CPU from ``torch.Generator(seed)``, in
-        pipeline order, then moved to the device, so a seed gives the same
-        weights on every device."""
+        A component's labels are, in this order: ``labels[name]`` as given;
+        the JSON file of ``[initialize.components.<name>] labels`` (the
+        config's directory anchors a relative path), in its order; or those
+        collected from the first 10 000 examples of ``get_examples``, sorted.
+        ``[initialize] vectors`` and ``init_tok2vec`` are not ported yet and
+        raise. Parameters are drawn on the CPU from
+        ``torch.Generator(seed)``, in pipeline order, then moved to the
+        device, so a seed gives the same weights on every device."""
+        init_cfg = self.config.get("initialize", {}) or {}
+        for key in ("vectors", "init_tok2vec"):
+            if init_cfg.get(key):
+                raise NotImplementedError(f"[initialize] {key} is not ported yet")
+        init_components = init_cfg.get("components", {}) or {}
         labels = labels or {}
         sample = (list(itertools.islice(get_examples(), LABEL_SAMPLE_LIMIT))
                   if get_examples is not None else [])
         for name in self.pipe_names:
             comp = self.components[name]
+            labels_path = (init_components.get(name) or {}).get("labels")
             if name in labels:
                 comp.labels = list(labels[name])
+            elif labels_path:
+                comp.labels = read_labels_file(name, labels_path, self.config)
             elif sample:
                 comp.add_labels_from(sample)
                 comp.finish_labels()
@@ -235,10 +292,12 @@ class Pipeline:
             total = total + loss
         return total, metrics
 
-    def forward(self, tokens: TokenBatch, overlay: Optional[Dict[str, Any]] = None):
+    def forward(self, tokens: TokenBatch, overlay: Optional[Dict[str, Any]] = None,
+                graphs: Optional[DecodeGraphs] = None):
         """{component: output}: the trunk once, then every head on its
         output. ``overlay`` is a serving precision overlay keyed by
-        component name (serving/overlay.py)."""
+        component name (serving/overlay.py); with ``graphs``, a decoding
+        head that can be captured replays its graph for this (B, T)."""
         overlay = overlay or {}
         outputs: Dict[str, Any] = {}
         t2v_name = self.tok2vec_name
@@ -248,8 +307,12 @@ class Pipeline:
             outputs[t2v_name] = t2v_out
         for name in self.head_names():
             comp = self.components[name]
-            outputs[name] = comp.forward(t2v_out if comp.listens else tokens,
-                                         overlay.get(name))
+            inputs = t2v_out if comp.listens else tokens
+            if graphs is not None and comp.graph_capturable:
+                t2v = comp.trunk_output(inputs)
+                outputs[name] = graphs.run(name, comp, t2v.X, t2v.mask.sum(1))
+            else:
+                outputs[name] = comp.forward(inputs, overlay.get(name))
         return outputs
 
     def predict_docs(
@@ -263,8 +326,14 @@ class Pipeline:
     ) -> List[Doc]:
         """Batched prediction, annotating ``docs`` in place.
         ``pad_batch_to``/``pad_len_to`` pin the padded (B, T), as the serving
-        engine does with its bucket."""
+        engine does with its bucket; on the card the heads' decodes then
+        run as that bucket's CUDA graphs (captured at its first use)."""
         assert self.model is not None, "Pipeline not initialized"
+        graphs = None
+        if self.device.type == "cuda" and pad_batch_to and pad_len_to:
+            if self.decode_graphs is None:
+                self.decode_graphs = DecodeGraphs()
+            graphs = self.decode_graphs
         with torch.inference_mode():
             for start in range(0, len(docs), batch_size):
                 chunk = docs[start:start + batch_size]
@@ -272,7 +341,7 @@ class Pipeline:
                     [Example.from_gold(d) for d in chunk],
                     pad_batch_to=pad_batch_to, pad_len_to=pad_len_to,
                 )
-                outputs = self.forward(batch["tokens"], overlay)
+                outputs = self.forward(batch["tokens"], overlay, graphs)
                 T = batch["tokens"].seq_len
                 lengths = [min(len(d), T) for d in chunk]
                 for name in self.head_names():
@@ -286,8 +355,14 @@ class Pipeline:
 
     def evaluate(self, examples: List[Example], batch_size: int = 128) -> Dict[str, Any]:
         """Predict over gold examples (into fresh shells set as each
-        example's ``predicted``), then score: every head's scores plus
-        ``speed``, the words per second of the prediction."""
+        example's ``predicted``), then score: every head's scores, the keys
+        the JAX package's ``evaluate`` gives."""
+        return self.evaluate_timed(examples, batch_size)[0]
+
+    def evaluate_timed(self, examples: List[Example],
+                       batch_size: int = 128) -> Tuple[Dict[str, Any], float]:
+        """``(scores, words_per_second)``: :meth:`evaluate`'s scores and the
+        speed of the prediction, kept apart from them."""
         docs = [eg.reference.copy_shell() for eg in examples]
         t0 = time.perf_counter()
         self.predict_docs(docs, batch_size=batch_size)
@@ -300,8 +375,7 @@ class Pipeline:
         for name in self.head_names():
             scores.update(self.components[name].score(examples))
         n_words = sum(len(d) for d in docs)
-        scores["speed"] = n_words / seconds if seconds > 0 else 0.0
-        return scores
+        return scores, (n_words / seconds if seconds > 0 else 0.0)
 
     # ------------------------------------------------------------------
     # Serialization (the JAX package's on-disk layout)

@@ -4,9 +4,12 @@ yield :class:`Example` streams (counterpart of
 
 ``.jsonl`` files hold one doc per line: ``{"tokens": [...], "tags": [...],
 "heads": [...], "deps": [...], "ents": [[start, end, label], ...], "spans":
-{"group": [[s, e, label], ...]}, "cats": {...}}``. A directory is read file
-by file in sorted order. The binary corpora (``.spacy``, ``.msgdoc``) and
-``.conllu`` are not ported yet and raise.
+{"group": [[s, e, label], ...]}, "cats": {...}}``. A line carries no
+entity-annotation marker: a doc's ``ents_annotated`` stays None, so it
+counts as annotated for the NER's scores exactly when it has entities (the
+JAX reader's rule). A directory is read file by file in sorted order. The
+binary corpora (``.spacy``, ``.msgdoc``) and ``.conllu`` are not ported yet
+and raise.
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
 """Training loggers: the ``[training.logger]`` block (counterpart of the
-console logger of ``spacy_ray_tpu/training/loggers.py``). The factory
-returns a setup function taking the pipeline and returning ``(log_step,
-finalize)``; ``log_step(info_or_None)`` is called every step, with an info
-dict at each evaluation (None = no new row)."""
+console logger of ``spacy_ray_tpu/training/loggers.py``, with one column
+more: ``EvalWPS``, the dev prediction's words/s, which the scores do not
+carry). The factory returns a setup function taking the pipeline and
+returning ``(log_step, finalize)``; ``log_step(info_or_None)`` is called
+every step, with an info dict at each evaluation (None = no new row)."""
 
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ def console_logger(progress_bar: bool = False):
 
             score_keys = [k for k, v in default_pipeline_score_weights(nlp).items() if v > 0]
         header = (["T", "E", "#", "W"] + [f"Loss {n}" for n in pipe_names] + score_keys
-                  + ["Stp50", "Stp95", "WPS", "EvalS", "Score"])
+                  + ["Stp50", "Stp95", "WPS", "EvalS", "EvalWPS", "Score"])
         widths = [max(len(h), 8) for h in header]
         stdout.write(" ".join(h.rjust(w) for h, w in zip(header, widths)) + "\n")
         stdout.write(" ".join("-" * w for w in widths) + "\n")
@@ -73,10 +74,12 @@ def console_logger(progress_bar: bool = False):
                 row.append(_fmt(float(val) * 100, col) if val is not None else " " * col)
             for j, key in enumerate(("step_ms_p50", "step_ms_p95")):
                 val = info.get(key)
-                col = widths[-5 + j]
+                col = widths[-6 + j]
                 row.append(_fmt(float(val), col, 1) if val is not None else " " * col)
-            row.append(_fmt(float(info.get("wps", 0.0)), widths[-3], 0))
-            row.append(_fmt(float(info.get("eval_seconds", 0.0)), widths[-2]))
+            row.append(_fmt(float(info.get("wps", 0.0)), widths[-4], 0))
+            row.append(_fmt(float(info.get("eval_seconds", 0.0)), widths[-3]))
+            # the prediction's words/s on the dev set, beside the scores
+            row.append(_fmt(float(info.get("eval_wps", 0.0)), widths[-2], 0))
             score = info.get("score")
             row.append(_fmt(float(score) * 100, widths[-1]) if score is not None
                        else " " * widths[-1])

@@ -247,6 +247,8 @@ class TrainResult:
         #: the same span
         self.step_shapes: List[Tuple[int, int]] = []
         self.step_losses: List[float] = []
+        #: per step, each trained head's loss (``{"tagger": ..., "parser": ...}``)
+        self.step_head_losses: List[Dict[str, float]] = []
         self.step_host_seconds: List[float] = []
         self.step_events: List[Tuple[Any, Any]] = []
 
@@ -413,6 +415,11 @@ def train(
                    "seed_generator": seeds.get_state().tolist()},
         )
 
+    def record_losses(loss_t: torch.Tensor, m: Dict[str, torch.Tensor]) -> None:
+        result.step_losses.append(float(loss_t))
+        result.step_head_losses.append(
+            {k[5:]: float(v) for k, v in m.items() if k.startswith("loss_")})
+
     loss_accum: Dict[str, float] = {}
     pending: List[Tuple[torch.Tensor, Dict[str, torch.Tensor]]] = []
     words_since_log = 0
@@ -471,14 +478,13 @@ def train(
         info: Optional[Dict[str, Any]] = None
         if step % eval_frequency == 0:
             for loss_t, m in pending:
-                result.step_losses.append(float(loss_t))
-                for key, value in m.items():
-                    if key.startswith("loss_"):
-                        loss_accum[key[5:]] = loss_accum.get(key[5:], 0.0) + float(value)
+                record_losses(loss_t, m)
+                for key, value in result.step_head_losses[-1].items():
+                    loss_accum[key] = loss_accum.get(key, 0.0) + value
             pending.clear()
             backup = swap_in(avg_params) if use_averages else None
             eval_t0 = time.perf_counter()
-            scores = nlp.evaluate(dev_examples)
+            scores, eval_wps = nlp.evaluate_timed(dev_examples)
             eval_seconds = time.perf_counter() - eval_t0
             score = weighted_score(scores, score_weights)
             now = time.perf_counter()
@@ -486,7 +492,7 @@ def train(
             last_log_time, words_since_log = now, 0
             info = {"epoch": group["epoch"], "step": step, "words": result.words_seen,
                     "losses": dict(loss_accum), "other_scores": scores, "score": score,
-                    "wps": wps, "eval_seconds": eval_seconds,
+                    "wps": wps, "eval_seconds": eval_seconds, "eval_wps": eval_wps,
                     "grad_norm": float(metrics["grad_norm"])}
             result.history.append(info)
             loss_accum = {}
@@ -506,8 +512,8 @@ def train(
         if stop:
             break
 
-    for loss_t, _ in pending:
-        result.step_losses.append(float(loss_t))
+    for loss_t, m in pending:
+        record_losses(loss_t, m)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     result.seconds = time.perf_counter() - start_time

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import spacy_ray_tpu as J
+from spacy_ray_tpu import udgen as judgen
 from spacy_ray_tpu.ops import int8_matmul as ji8
 from spacy_ray_tpu.serving.overlay import build_params_overlay as j_overlay
 from spacy_ray_tpu.training.checkpoint import _flatten
@@ -21,6 +22,8 @@ from spacy_ray_tpu_torch.models.core import param_paths
 from spacy_ray_tpu_torch.models.transformer import resolve_compute_dtype
 from spacy_ray_tpu_torch.registry import RegistryError
 from spacy_ray_tpu_torch.serving.overlay import build_params_overlay as p_overlay
+
+from test_torch_parser import FULL_CFG
 
 TRF_TAGGER_CFG = """
 [nlp]
@@ -129,12 +132,25 @@ def test_loaded_jax_model_gives_identical_tags(jax_model, port_nlp):
         assert port_nlp(t).tags == jnlp(t).tags
 
 
-def test_param_paths_and_shapes_match_jax(jax_model, port_nlp):
+def test_param_paths_and_shapes_match_jax(jax_model, port_nlp, tmp_path):
     jnlp, _ = jax_model
     jflat = {k: v.shape for k, v in _flatten(jnlp.params).items()}
     pflat = {k: tuple(v.shape) for k, v in param_paths(port_nlp.model).items()}
     assert pflat == jflat
     assert "transformer/layer_1/qkv_W" in pflat and "tagger/1_output/W" in pflat
+    # the full pipeline of configs/trf.cfg (tagger, parser and NER heads)
+    # at a small width: the JAX package's directory loads with the same paths
+    full = J.Pipeline.from_config(J.Config.from_str(FULL_CFG).interpolate())
+    egs = judgen.synth_ud_corpus(20, seed=0, max_sents=2)
+    full.initialize(lambda: egs, seed=0)
+    full.to_disk(tmp_path)
+    jflat = {k: v.shape for k, v in _flatten(full.params).items()}
+    pflat = {k: tuple(v.shape) for k, v in
+             param_paths(P.Pipeline.from_disk(tmp_path, device="cpu").model).items()}
+    assert pflat == jflat
+    for head in ("parser", "ner"):
+        assert {k for k in pflat if k.startswith(head)} == {
+            f"{head}/upper/{leaf}" for leaf in ("hidden_W", "hidden_b", "out_W", "out_b")}
 
 
 def test_load_params_takes_jax_flat_tree_and_checks_it(jax_model):
@@ -226,6 +242,6 @@ def test_unknown_names_list_what_is_registered():
     nlp = P.Pipeline.from_config(cfg.interpolate(), device="cpu")
     with pytest.raises(RegistryError, match="spacy.Tagger.v2"):
         nlp.initialize(labels={"tagger": TAGS})
-    cfg = P.Config.from_str(TRF_TAGGER_CFG.replace('factory = "tagger"', 'factory = "parser"'))
-    with pytest.raises(RegistryError, match="Available: tagger, transformer"):
+    cfg = P.Config.from_str(TRF_TAGGER_CFG.replace('factory = "tagger"', 'factory = "textcat"'))
+    with pytest.raises(RegistryError, match="Available: ner, parser, tagger, transformer"):
         P.Pipeline.from_config(cfg.interpolate(), device="cpu")

@@ -4,7 +4,10 @@ JAX package's loop, at a small size (width 64, depth 2, 4 heads, embed 500).
 Both packages train the same config on the same synthetic corpus (tags
 follow from the words); the port's dev ``tag_acc`` must come within 5
 points of the JAX loop's (dropout bits and initial weights differ: the
-packages draw them from different generators). The port's ``best-model/``
+packages draw them from different generators). With the parser and NER
+heads added (trf.cfg's pipeline and score weights), on the pseudo-UD
+corpus, the port's dev ``dep_las`` and ``ents_f`` must come within 5 points
+of the JAX loop's too. The port's ``best-model/``
 loads in the JAX package and tags the same; training generations resume,
 and fall back past a torn one; without ``--device cpu`` and without a card
 the command fails.
@@ -22,6 +25,7 @@ import pytest
 import spacy_ray_tpu as J
 from spacy_ray_tpu.training.checkpoint import load_params as j_load_params
 from spacy_ray_tpu.training.loop import train as j_train
+from spacy_ray_tpu.udgen import write_ud_jsonl as j_write_ud
 from spacy_ray_tpu.util import write_synth_jsonl as j_write_synth
 
 import spacy_ray_tpu_torch as P
@@ -96,11 +100,54 @@ tolerance = 0.2
 """
 
 
+PARSER_NER = """
+[components.parser]
+factory = "parser"
+
+[components.parser.model]
+@architectures = "spacy.TransitionBasedParser.v2"
+state_type = "parser"
+hidden_width = 32
+maxout_pieces = 2
+
+[components.parser.model.tok2vec]
+@architectures = "spacy.Tok2VecListener.v1"
+width = 64
+
+[components.ner]
+factory = "ner"
+
+[components.ner.model]
+@architectures = "spacy.TransitionBasedParser.v2"
+state_type = "ner"
+hidden_width = 32
+maxout_pieces = 2
+
+[components.ner.model.tok2vec]
+@architectures = "spacy.Tok2VecListener.v1"
+width = 64
+"""
+
+
+def _full_config(pkg, data):
+    """The tagger config with trf.cfg's parser and NER heads and score
+    weights, on the pseudo-UD corpus: 24 steps of 400 words at lr 0.004."""
+    cfg = pkg.Config.from_str(CFG + PARSER_NER)
+    cfg["nlp"]["pipeline"] = ["transformer", "tagger", "parser", "ner"]
+    cfg["paths"] = {"train": str(data / "ud_train.jsonl"), "dev": str(data / "ud_dev.jsonl")}
+    cfg["training"]["batcher"]["size"] = 400
+    cfg["training"]["optimizer"]["learn_rate"] = 0.004
+    cfg["training"]["score_weights"] = {"tag_acc": 0.33, "dep_las": 0.33, "ents_f": 0.34}
+    return cfg
+
+
 @pytest.fixture(scope="module")
 def data(tmp_path_factory):
     d = tmp_path_factory.mktemp("data")
     j_write_synth(d / "train.jsonl", 120, kind="tagger", seed=0)
     j_write_synth(d / "dev.jsonl", 30, kind="tagger", seed=1)
+    j_write_ud(d / "ud_train.jsonl", 200, seed=0, max_sents=2)
+    j_write_ud(d / "ud_dev.jsonl", 80, seed=1, max_sents=2)
     return d
 
 
@@ -128,6 +175,17 @@ def test_port_train_reaches_the_jax_loop_tag_acc(data, port_run, tmp_path):
     assert abs(p_acc - j_acc) <= 0.05, (p_acc, j_acc)
     assert presult.step_losses[-1] < presult.step_losses[0]
     assert len(presult.step_shapes) == 24 and presult.final_step == 24
+    # tagger, parser and NER over one trunk
+    _, pfull = p_train(_full_config(P, data), tmp_path / "port_full", device="cpu",
+                       stdout_log=False)
+    _, jfull = j_train(_full_config(J, data), tmp_path / "jax_full", n_workers=1,
+                       stdout_log=False)
+    pscores, jscores = pfull.history[-1]["other_scores"], jfull.history[-1]["other_scores"]
+    assert set(pscores) == set(jscores)
+    for key in ("tag_acc", "dep_las", "ents_f"):
+        assert abs(pscores[key] - jscores[key]) <= 0.05, (key, pscores[key], jscores[key])
+    assert pscores["dep_las"] > 0.5 and pscores["ents_f"] > 0.5
+    assert pfull.history[-1]["eval_wps"] > 0
 
 
 def test_port_best_model_loads_in_jax_and_tags_the_same(data, port_run):
@@ -203,5 +261,7 @@ def test_cli_train_needs_the_card_and_evaluate_runs_on_the_cpu(data, port_run, t
     ev = _run(["evaluate", str(out / "best-model"), str(data / "dev.jsonl"), "--device", "cpu"],
               {})
     assert ev.returncode == 0, ev.stderr
-    scores = json.loads(ev.stdout.strip().splitlines()[-1])
-    assert 0.0 <= scores["tag_acc"] <= 1.0 and scores["speed"] > 0
+    lines = ev.stdout.strip().splitlines()
+    scores = json.loads(lines[-1])
+    assert 0.0 <= scores["tag_acc"] <= 1.0 and "speed" not in scores
+    assert float(lines[-2].split()[-1]) > 0 and lines[-2].startswith("words/s")

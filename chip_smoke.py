@@ -72,6 +72,37 @@ Run from the root of a checkout. Phases, each printing one JSON line:
               entity sets F >= 0.95), and the decodes' device and enqueue
               times and device operations, as replays and eagerly.
 
+9. kernel:* at the CNN's shapes (after the training kernels) — K1 fwd
+              and K1 bwd at D 96 over the 2000- and 1000-row tables of
+              configs/cnn.cfg, at ``train:cnn``'s first microbatch (the
+              corpus's ids) and at one request (N 128), bit-equal to the
+              plain versions; K5 over cnn.cfg's and sm.cfg's leaves under
+              three hyper sets at 0 ulp; each with kernel, plain, library and
+              bound ms and the timer's floor.
+10. train:cnn — ``train()`` on configs/cnn.cfg as written (HashEmbedCNN
+              width 96, depth 4, embed_size 2000; tagger), ``max_steps`` 60
+              and ``eval_frequency`` 20, on the pseudo-UD corpus written as
+              ``.spacy`` files by the port's writer. K1 fwd, K1 bwd and K5
+              must launch and the loss fall to <= 2/3; reports step time
+              (events and host clock), words/s, peak memory, dev scores, the
+              card's idle share over 5 profiled steps with the top kernels,
+              the device operations of a microbatch with the hash ids'
+              share, the host's collate time, and the gradients of every
+              leaf against the plain versions.
+11. slice:cnn — ``train:cnn``'s ``best-model/`` served at ``--precision
+              auto`` (f32: the overlay needs a transformer trunk) with
+              slice:auto's request pattern over dev texts; the card's tags
+              against the same model on the CPU (>= 0.99 of tokens).
+12. train:sm, slice:sm — configs/sm.cfg as written (tagger, parser and NER
+              over the same CNN) the same way: every head's loss falls to
+              <= 2/3, dev tag_acc, dep_las and ents_f, the oracle's
+              doc-passes; served with its decodes as CUDA graphs captured at
+              width 96, graph replay bit-equal to the eager decode, card vs
+              CPU decode >= 0.99, and the served answers against the CPU's.
+13. cli:cnn — ``python -m spacy_ray_tpu_torch train configs/cnn.cfg`` on
+              the .spacy corpus (20 steps) and ``evaluate`` on its
+              best-model, as subprocesses on the card.
+
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 before the last line. Without a card, or without the package beside this
@@ -114,8 +145,12 @@ TOL_K3_BF16 = 5e-2  # bf16 dq/dk/dv, relative to max |grad| (the JAX kernel prob
 #                     over the rows with a real key and over all-masked rows apart
 MAXULP_K5 = 1       # p, m, v against leaf_math_plain (bit-equal when no FMA is formed)
 TOL_GRAD = 5e-2     # bf16 trunk gradients, kernels vs plain, relative to each leaf's max
+TOL_GRAD_CNN = 1e-4  # f32 CNN gradients, the same measure: the kernels' adds in another order
 TRAIN_STEPS, TRAIN_EVAL = 40, 20
 TRAIN_B, TRAIN_T = 64, 128  # one training microbatch (batch_by_words 2000 on this corpus)
+CNN_WIDTH = 96              # configs/cnn.cfg and sm.cfg: HashEmbedCNN width 96, depth 4
+CNN_STEPS, CNN_EVAL = 60, 20  # train:cnn and train:sm cut max_steps and eval_frequency only
+PROFILE_STEPS = 5           # train:cnn / train:sm steps under torch.profiler
 
 UD_TAGS = ["ADJ", "ADP", "ADV", "AUX", "CCONJ", "DET", "INTJ", "NOUN", "NUM",
            "PART", "PRON", "PROPN", "PUNCT", "SCONJ", "SYM", "VERB", "X"]
@@ -861,10 +896,10 @@ def trf_full_config():
     return cfg
 
 
-def grad_errs_vs_plain(torch, nlp, params, batch) -> dict:
+def grad_errs_vs_plain(torch, nlp, params, batch, plain_out=None) -> dict:
     """{leaf: max |g - g_plain| / max |g_plain|}: the gradients of one
     microbatch (dropout off) with every kernel and with every kernel swapped
-    for its plain version."""
+    for its plain version (kept in ``plain_out`` when it is given)."""
     grads = []
     for plain in (False, True):
         for p in params.values():
@@ -875,6 +910,8 @@ def grad_errs_vs_plain(torch, nlp, params, batch) -> dict:
         else:
             nlp.loss(batch["tokens"], batch["targets"], dropout=0.0)[0].backward()
         grads.append({k: p.grad.detach().clone() for k, p in params.items()})
+    if plain_out is not None:
+        plain_out.update(grads[1])
     return {k: (grads[0][k] - grads[1][k]).abs().max().item()
             / max(grads[1][k].abs().max().item(), 1e-30) for k in params}
 
@@ -1434,12 +1471,18 @@ def phase_train_full(torch, udgen, full_shapes):
     return res, out / "last-model"
 
 
-def phase_slice_full(torch, model_dir: Path, dev_path: Path, auto: dict):
-    """``model_dir`` (trained by ``train:full``) served over ``/v1/parse`` at
-    ``--precision auto`` with slice:auto's traffic over pseudo-UD dev texts;
-    then, for one B 8, T 128 batch, the heads' decodes by graph replay, eager
-    on the card, on the CPU and with every kernel swapped for its plain
-    version, and their times."""
+def phase_slice_full(torch, model_dir: Path, dev_path: Path, auto: dict,
+                     phase: str = "slice:full",
+                     need=("hash_embed_gather_sum", "flash_attention_fwd"),
+                     cpu_compare: bool = False):
+    """``model_dir`` (trained by ``train:full``, or by ``train:sm`` for
+    ``phase`` slice:sm) served over ``/v1/parse`` at ``--precision auto``
+    with slice:auto's traffic over pseudo-UD dev texts, every kernel of
+    ``need`` launched, its p50 and p99 set beside ``auto``'s (slice:auto's
+    run, or slice:cnn's for slice:sm); with ``cpu_compare`` (an f32 model),
+    the answers against the same model directory run on the CPU; then, for one B 8, T 128 batch, the heads' decodes by graph
+    replay, eager on the card, on the CPU and with every kernel swapped for
+    its plain version, and their times."""
     import copy
 
     from spacy_ray_tpu_torch.__main__ import build_server
@@ -1462,7 +1505,7 @@ def phase_slice_full(torch, model_dir: Path, dev_path: Path, auto: dict):
         warmup_s = time.perf_counter() - t_warm
         graphs = nlp.decode_graphs
         if graphs is None or len(graphs) == 0:
-            fail("slice:full: the warmup captured no decode graph")
+            fail(f"{phase}: the warmup captured no decode graph")
         capture = {"graphs": len(graphs), "capture_s": graphs.capture_seconds,
                    "warmup_s": warmup_s, "buckets": len(engine.warmed)}
         setup_s = time.perf_counter() - t0
@@ -1494,28 +1537,35 @@ def phase_slice_full(torch, model_dir: Path, dev_path: Path, auto: dict):
         torch.cuda.synchronize()
         launches = _cuda.launch_counts()
         replays = graphs.replays - replays0
-        missing = [k for k in ("hash_embed_gather_sum", "flash_attention_fwd") if launches[k] == 0]
+        missing = [k for k in need if launches[k] == 0]
         if missing:
-            fail(f"slice:full: kernels never launched on the main path: {missing}")
+            fail(f"{phase}: kernels never launched on the main path: {missing}")
         if replays == 0:
-            fail("slice:full: no decode graph was replayed on the main path")
+            fail(f"{phase}: no decode graph was replayed on the main path")
         n_docs = n_with_ents = n_ents = 0
         labels_dep = set(nlp.components["parser"].labels) | {"ROOT"}
         for status, ts, body in answers:
             if status != 200 or len(body["docs"]) != len(ts):
-                fail(f"slice:full: /v1/parse answered {status}: {body}")
+                fail(f"{phase}: /v1/parse answered {status}: {body}")
             for d in body["docs"]:
                 n = len(d["tokens"])
                 if not (len(d.get("tags", [])) == len(d.get("heads", [])) == len(d.get("deps", []))
                         == n) or not all(0 <= h < n for h in d["heads"]):
-                    fail(f"slice:full: doc without tags, heads or deps: {d}")
+                    fail(f"{phase}: doc without tags, heads or deps: {d}")
                 if not set(d["deps"]) <= {l.split("||")[0] for l in labels_dep}:
-                    fail(f"slice:full: unknown dep labels in {d['deps']}")
+                    fail(f"{phase}: unknown dep labels in {d['deps']}")
                 n_docs += 1
                 n_with_ents += bool(d.get("ents"))
                 n_ents += len(d.get("ents", []))
         if n_ents == 0:
-            fail("slice:full: no response carried an entity")
+            fail(f"{phase}: no response carried an entity")
+        pipeline_vs_cpu = None
+        if cpu_compare:
+            pipeline_vs_cpu = card_vs_cpu(model_dir, answers)
+            low = {k: v for k, v in pipeline_vs_cpu.items()
+                   if v < (0.95 if k == "ents_f" else 0.99)}
+            if low:
+                fail(f"{phase}: served answers and the CPU's agree only {pipeline_vs_cpu}")
 
         # one batch at the top bucket (B 8, T 128)
         docs = [nlp.tokenizer(t) for t in texts[:8]]
@@ -1527,7 +1577,7 @@ def phase_slice_full(torch, model_dir: Path, dev_path: Path, auto: dict):
             out_k = nlp.forward(tokens, overlay)
             with plain_kernels():
                 out_p = nlp.forward(tokens, overlay)
-            X, mask = out_k["transformer"].X, out_k["transformer"].mask
+            X, mask = out_k[nlp.tok2vec_name].X, out_k[nlp.tok2vec_name].mask
             lengths = mask.sum(1)
             eager = {n: nlp.components[n].device_decode(X, lengths) for n in ("parser", "ner")}
             replay = {n: {k: v.clone() for k, v in
@@ -1536,7 +1586,7 @@ def phase_slice_full(torch, model_dir: Path, dev_path: Path, auto: dict):
             for n in eager:
                 for k in eager[n]:
                     if not torch.equal(eager[n][k], replay[n][k]):
-                        fail(f"slice:full: {n} {k}: graph replay differs from the eager decode")
+                        fail(f"{phase}: {n} {k}: graph replay differs from the eager decode")
             # the same trunk output and head weights decoded on the CPU
             Xc, lc = X.float().cpu(), lengths.cpu()
             up_p = copy.deepcopy(parser.model.upper).cpu()
@@ -1554,7 +1604,7 @@ def phase_slice_full(torch, model_dir: Path, dev_path: Path, auto: dict):
                      "labels": agree(eager["parser"]["labels"], labels_c),
                      "biluo_actions": agree(eager["ner"]["actions"], acts_c)}
         if min(cpu_agree.values()) < 0.99:
-            fail(f"slice:full: card and CPU decodes agree only {cpu_agree} (< 0.99)")
+            fail(f"{phase}: card and CPU decodes agree only {cpu_agree} (< 0.99)")
         lens = lengths.tolist()
         plain_agree = {
             "heads": agree(out_k["parser"]["heads"], out_p["parser"]["heads"]),
@@ -1562,7 +1612,7 @@ def phase_slice_full(torch, model_dir: Path, dev_path: Path, auto: dict):
                             entity_set(out_p["ner"]["actions"], lens, ner.labels)),
         }
         if plain_agree["heads"] < 0.95 or plain_agree["ents_f"] < 0.95:
-            fail(f"slice:full: kernels vs plain versions agree only {plain_agree} (< 0.95)")
+            fail(f"{phase}: kernels vs plain versions agree only {plain_agree} (< 0.95)")
 
         # the decodes' device and host-enqueue times at B 8, T 128, as a graph
         # replay and eagerly, and the device operations of each
@@ -1601,9 +1651,9 @@ def phase_slice_full(torch, model_dir: Path, dev_path: Path, auto: dict):
         server.request_shutdown()
         rc = server.wait()
         if rc != 0:
-            fail(f"slice:full: serve drain returned {rc}")
+            fail(f"{phase}: serve drain returned {rc}")
         result = {
-            "phase": "slice:full", "precision_label": engine.overlay.label,
+            "phase": phase, "precision_label": engine.overlay.label,
             "requests": len(answers), "docs": n_docs, "docs_with_ents": n_with_ents,
             "ents": n_ents, "batches_seen": sorted({(b["batch"]["B"], b["batch"]["T"],
                                                      b["batch"]["occupancy"])
@@ -1615,6 +1665,7 @@ def phase_slice_full(torch, model_dir: Path, dev_path: Path, auto: dict):
             "auto_latency_p99_ms": auto["latency_p99_ms"],
             "setup_s": setup_s, "capture": capture,
             "graph_equals_eager": True, "card_vs_cpu_agreement": cpu_agree,
+            "served_vs_cpu_pipeline": pipeline_vs_cpu,
             "kernels_vs_plain": plain_agree, "decode_B8_T128": decode_times,
             "forward_B8_T128_with_graphs": forward,
         }
@@ -1628,6 +1679,571 @@ def phase_slice_full(torch, model_dir: Path, dev_path: Path, auto: dict):
         server.httpd.server_close()
         del server, engine, nlp
         torch.cuda.empty_cache()
+
+# ------------------------------------------------------------- CNN paths
+
+
+def cnn_config(name: str, paths):
+    """configs/<name>.cfg as written (cnn.cfg: tok2vec + tagger; sm.cfg: the
+    same with parser and NER), its corpora pointed at ``paths`` (train, dev)."""
+    from spacy_ray_tpu_torch import Config
+
+    cfg = Config.from_disk(ROOT / "configs" / f"{name}.cfg")
+    want = {"cnn": ["tok2vec", "tagger"], "sm": ["tok2vec", "tagger", "parser", "ner"]}[name]
+    if cfg["nlp"]["pipeline"] != want:
+        fail(f"configs/{name}.cfg pipeline = {cfg['nlp']['pipeline']}")
+    model = cfg["components"]["tok2vec"]["model"]
+    for key, value in (("@architectures", "spacy.HashEmbedCNN.v2"), ("width", CNN_WIDTH),
+                       ("depth", 4), ("embed_size", 2000)):
+        if model[key] != value:
+            fail(f"configs/{name}.cfg tok2vec {key} = {model[key]}, expected {value}")
+    cfg["paths"] = {"train": str(paths[0]), "dev": str(paths[1])}
+    return cfg
+
+
+def write_spacy_corpus(udgen):
+    """The udgen corpus (train, dev .jsonl) written as spaCy DocBins by the
+    port's writer: the CNN phases read .spacy files. Returns (train, dev)."""
+    from spacy_ray_tpu_torch.training.corpus import read_jsonl_docs
+    from spacy_ray_tpu_torch.training.spacy_docbin import write_docbin
+
+    work = WORK / "spacy_corpus"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    out = (work / "train.spacy", work / "dev.spacy")
+    for src, dst in zip(udgen, out):
+        write_docbin(dst, read_jsonl_docs(src))
+    return out
+
+
+def cnn_setup(torch, corpus):
+    """Built on the CPU from the configs, labels collected from ``corpus``
+    as ``train()`` collects them: the leaf shapes of cnn.cfg and sm.cfg
+    (those ``train:cnn`` and ``train:sm`` update), and the hash keys of
+    ``train:cnn``'s first microbatch with each table's (rows, seed)."""
+    from spacy_ray_tpu_torch import Pipeline
+    from spacy_ray_tpu_torch.models.layers import HashEmbed
+    from spacy_ray_tpu_torch.registry import registry
+    from spacy_ray_tpu_torch.training.batcher import bucket_batch_size, bucket_length
+
+    info = {}
+    for name in ("cnn", "sm"):
+        cfg = cnn_config(name, corpus).interpolate()
+        nlp = Pipeline.from_config(cfg, device="cpu")
+        nlp.initialize(registry.resolve(cfg["corpora"]["train"]), seed=0)
+        info[name] = [tuple(p.shape) for p in nlp.model.parameters()]
+        if name == "cnn":
+            batcher = registry.resolve(cfg["training"]["batcher"])
+            batch = next(iter(batcher(registry.resolve(cfg["corpora"]["train"])())))
+            B, T = bucket_batch_size(len(batch)), bucket_length(max(len(eg) for eg in batch))
+            tokens = nlp.collate(batch, pad_batch_to=B, pad_len_to=T)["tokens"]
+            info["microbatch"] = {"B": B, "T": T, "docs": len(batch),
+                                  "words": int(tokens.mask.sum())}
+            info["keys"] = tokens.attr_keys.reshape(B * T, -1, 2)
+            info["tables"] = [(m.dims["rows"], m.seed, m.attr_index)
+                              for m in nlp.model["tok2vec"].modules() if isinstance(m, HashEmbed)]
+    return info
+
+
+def phase_cnn_kernels(torch, info):
+    """K1 fwd, K1 bwd and K5 at the CNN's shapes, each against its plain
+    version and timed: K1 at D 96 over the 2000- and 1000-row tables, at
+    ``train:cnn``'s first microbatch (the corpus's ids) and at one request
+    (N 128, uniform keys); K5 over cnn.cfg's and sm.cfg's leaves (labels
+    from the corpus) under three hyper sets, at 0 ulp."""
+    import torch.nn.functional as F
+
+    from spacy_ray_tpu_torch.ops.fused_update import (
+        FusedHyper, FusedUpdate, global_norm, leaf_math_plain, step_scalars,
+    )
+    from spacy_ray_tpu_torch.ops.hashing import hash_embed_ids
+    from spacy_ray_tpu_torch.ops.pallas_kernels import (
+        hash_embed_gather_sum, hash_embed_gather_sum_plain, hash_embed_table_grad,
+        hash_embed_table_grad_plain,
+    )
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # > 50 MB L2
+
+    def flush():
+        scratch.zero_()
+
+    D = CNN_WIDTH
+    mb = info["microbatch"]
+    floor_ms = time_ms(torch, lambda: torch.cuda._sleep(1), flush=flush)
+    keys_mb = info["keys"].to(dev)
+    keys_one = torch.randint(0, 2 ** 32, (128, 2), device=dev, generator=g)
+    fwd, bwd = [], []
+    for ti, (rows, seed, attr) in enumerate(info["tables"]):
+        for keys, ids_kind in ((keys_mb[:, attr], "corpus"), (keys_one, "uniform")):
+            if ids_kind == "uniform" and ti > 1:
+                continue  # one request: the NORM table and one 1000-row table
+            ids = hash_embed_ids(keys, seed, rows)
+            n = ids.shape[0]
+            dispatch = ("train:cnn microbatch" if ids_kind == "corpus"
+                        else "one request (N 128)")
+            table = torch.randn(rows, D, device=dev, generator=g)
+            got = hash_embed_gather_sum(table, ids)
+            err = (got - hash_embed_gather_sum_plain(table, ids)).abs().max().item()
+            if not err <= TOL_K1:
+                fail(f"K1 D={D} rows={rows} N={n}: max_abs_err {err} > {TOL_K1}")
+            ids_l = ids.long()
+            distinct = int(torch.unique(ids).numel())
+            bnd, by = bound_ms(distinct * D * 4 + n * D * 4 + n * 16, 3 * n * D, PEAK_F32_FLOPS)
+            row = {
+                "rows": rows, "D": D, "N": n, "ids": ids_kind, "distinct_rows": distinct,
+                "max_abs_err": err, "dispatch": dispatch, "calls_per_dispatch": 1,
+                "ms": time_ms(torch, lambda: hash_embed_gather_sum(table, ids), flush=flush),
+                "host_us": host_us(torch, lambda: hash_embed_gather_sum(table, ids)),
+                "plain_ms": time_ms(torch, lambda: hash_embed_gather_sum_plain(table, ids),
+                                    flush=flush),
+                "library_ms": time_ms(torch, lambda: F.embedding_bag(ids_l, table, mode="sum"),
+                                      flush=flush),
+                "bound_ms": bnd, "bound_by": by, "timer_floor_ms": floor_ms,
+            }
+            emit({"phase": "kernel:hash_embed_gather_sum", **row})
+            fwd.append(row)
+
+            ct = torch.randn(n, D, device=dev, generator=g)
+            got = hash_embed_table_grad(ct, ids, rows)
+            again = hash_embed_table_grad(ct, ids, rows)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                fail(f"K1 bwd D={D} rows={rows}: two runs on the same inputs differ")
+            want_cpu = hash_embed_table_grad_plain(ct.cpu(), ids.cpu(), rows)
+            err = (got.cpu() - want_cpu).abs().max().item()
+            err_card = (got - hash_embed_table_grad_plain(ct, ids, rows)).abs().max().item()
+            # the card's plain version sums with atomics, in no fixed order:
+            # the kernel is held bit-equal to the CPU's, which walks its index
+            # in order, and its distance from the card's is reported
+            if not err <= TOL_K1_BWD:
+                fail(f"K1 bwd D={D} rows={rows} N={n}: max_abs_err {err} vs the CPU plain "
+                     f"version > {TOL_K1_BWD}")
+            flat = ids.reshape(-1).long()
+            ct4 = ct.repeat_interleave(4, 0)
+            bnd, by = bound_ms(rows * D * 4 + n * D * 4 + n * 16, 4 * n * D, PEAK_F32_FLOPS)
+            row = {
+                "rows": rows, "D": D, "N": n, "ids": ids_kind, "dispatch": dispatch,
+                "calls_per_dispatch": 1,
+                "longest_segment": int(torch.bincount(flat).max()),
+                "max_abs_err": err, "max_abs_err_vs_card_plain": err_card,
+                "bit_identical_rerun": True,
+                "ms": time_ms(torch, lambda: hash_embed_table_grad(ct, ids, rows), flush=flush),
+                "host_us": host_us(torch, lambda: hash_embed_table_grad(ct, ids, rows)),
+                "plain_ms": time_ms(torch, lambda: hash_embed_table_grad_plain(ct, ids, rows),
+                                    flush=flush),
+                "library_ms": time_ms(torch, lambda: torch.zeros(rows, D, device=dev).index_add_(
+                    0, flat, ct4), flush=flush),
+                "bound_ms": bnd, "bound_by": by, "timer_floor_ms": floor_ms,
+            }
+            emit({"phase": "kernel:hash_embed_table_grad", **row})
+            bwd.append(row)
+    del scratch
+
+    upd = []
+    for leaf_set, leaf_shapes in (("cnn.cfg", info["cnn"]), ("sm.cfg", info["sm"])):
+        n_params = sum(math.prod(sh) for sh in leaf_shapes)
+        P = [torch.randn(sh, device=dev, generator=g) for sh in leaf_shapes]
+        G = [torch.randn(sh, device=dev, generator=g) * 1e-3 for sh in leaf_shapes]
+        M = [torch.randn(sh, device=dev, generator=g) * 1e-4 for sh in leaf_shapes]
+        V = [torch.rand(sh, device=dev, generator=g) * 1e-6 for sh in leaf_shapes]
+        worst, worst_abs = 0, 0.0
+        for hyper in (FusedHyper("adam", 0.9, 0.999, 1e-8, 1.0, 0.0, 0.0),
+                      FusedHyper("adam", 0.9, 0.999, 1e-8, 0.0, 0.01, 0.0),
+                      FusedHyper("radam", 0.9, 0.999, 1e-8, 1.0, 0.0, 0.01)):
+            gnorm = global_norm(G)
+            sc = step_scalars(hyper, 9, 9, lambda s: 0.001)
+            Pk, Mk, Vk = ([x.clone() for x in X] for X in (P, M, V))
+            FusedUpdate(hyper).step(Pk, G, Mk, Vk, gnorm, sc)
+            for i in range(len(P)):
+                want = leaf_math_plain(P[i], G[i], M[i], V[i], gnorm, *sc, hyper=hyper)
+                for a, w in zip((Pk[i], Mk[i], Vk[i]), want):
+                    worst = max(worst, ulp_diff(torch, a, w))
+                    worst_abs = max(worst_abs, (a - w).abs().max().item())
+        if worst != 0:
+            fail(f"K5 over {leaf_set}'s leaves: {worst} ulp from leaf_math_plain (want 0)")
+        hyper = FusedHyper("adam", 0.9, 0.999, 1e-8, 1.0, 0.0, 0.0)  # cnn.cfg's Adam.v1
+        fused = FusedUpdate(hyper)
+        gnorm = global_norm(G)
+        sc = step_scalars(hyper, 9, 9, lambda s: 0.001)
+
+        def plain_all():
+            for p, gg, m, v in zip(P, G, M, V):
+                leaf_math_plain(p, gg, m, v, gnorm, *sc, hyper=hyper)
+
+        lib_params = [p.clone().requires_grad_(True) for p in P]
+        for p, gg in zip(lib_params, G):
+            p.grad = gg
+        lib_opt = torch.optim.Adam(lib_params, lr=1e-3, fused=True)
+        bnd, by = bound_ms(28 * n_params, 20 * n_params, PEAK_F32_FLOPS)
+        row = {
+            "leaf_set": leaf_set, "leaves": len(P), "params": n_params,
+            "odd_sized_leaves": sum(math.prod(sh) % 4 != 0 for sh in leaf_shapes),
+            "max_ulp": worst, "max_abs_err": worst_abs,
+            "ms": time_ms(torch, lambda: fused.step(P, G, M, V, gnorm, sc)),
+            "host_us": host_us(torch, lambda: fused.step(P, G, M, V, gnorm, sc)),
+            "global_norm_ms": time_ms(torch, lambda: global_norm(G)),
+            "plain_ms": time_ms(torch, plain_all, reps=10),
+            "library_ms": time_ms(torch, lib_opt.step),
+            "bound_ms": bnd, "bound_by": by, "timer_floor_ms": floor_ms,
+            "dispatch": f"train:{leaf_set.split('.')[0]} step", "calls_per_dispatch": 1,
+            "chunks": fused._table.shape[0],
+        }
+        emit({"phase": "kernel:fused_update", **row})
+        upd.append(row)
+    return {"hash_embed_gather_sum": fwd, "hash_embed_table_grad": bwd, "fused_update": upd}
+
+
+def head_losses_fell(result, heads, phase):
+    """Each head's mean loss over the first and last 5 steps; fails unless
+    the last is at most 2/3 of the first."""
+    out = {}
+    for head in heads:
+        xs = [step[head] for step in result.step_head_losses]
+        if not xs or not all(math.isfinite(x) for x in xs):
+            fail(f"{phase}: loss_{head} is not finite: {xs}")
+        first, last = statistics.mean(xs[:5]), statistics.mean(xs[-5:])
+        out[head] = {"first5_mean": first, "last5_mean": last, "first": xs[0], "last": xs[-1]}
+        if not last <= 2 / 3 * first:
+            fail(f"{phase}: loss_{head} fell from {first} to only {last} (> 2/3)")
+    return out
+
+
+def phase_train_cnn(torch, name, corpus, leaf_shapes):
+    """``train()`` on configs/<name>.cfg as written (``max_steps`` and
+    ``eval_frequency`` cut) over the .spacy corpus, launch counters zeroed
+    just before and read just after; then, on its first microbatch, the step under the profiler (the card's idle share over 5
+    steps, top kernels, launches), the device operations of a microbatch
+    with the hash ids' share, the host's featurize + collate time, and
+    every leaf's gradient with the kernels against the plain versions
+    (dropout off)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from spacy_ray_tpu_torch.ops import _cuda
+    from spacy_ray_tpu_torch.ops.hashing import hash_embed_ids
+    from spacy_ray_tpu_torch.models.layers import HashEmbed
+    from spacy_ray_tpu_torch.pipeline.doc import Example
+    from spacy_ray_tpu_torch.registry import registry
+    from spacy_ray_tpu_torch.training.batcher import bucket_batch_size, bucket_length
+    from spacy_ray_tpu_torch.training.loop import train
+
+    phase = f"train:{name}"
+    work = WORK / f"train_{name}"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cfg = cnn_config(name, corpus)
+    cfg["training"]["max_steps"] = CNN_STEPS
+    cfg["training"]["eval_frequency"] = CNN_EVAL
+    out = work / "out"
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    nlp, result = train(cfg, out, device="cuda", stdout_log=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _cuda.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    missing = [k for k in ("hash_embed_gather_sum", "hash_embed_table_grad", "fused_update")
+               if launches[k] == 0]
+    if missing:
+        fail(f"{phase}: kernels never launched on the training path: {missing}")
+    if len(result.step_head_losses) != CNN_STEPS:
+        fail(f"{phase}: {len(result.step_head_losses)} steps' losses, expected {CNN_STEPS}")
+    heads = nlp.head_names()
+    head_losses = head_losses_fell(result, heads, phase)
+    trained = [tuple(p.shape) for p in nlp.model.parameters()]
+    if trained != leaf_shapes:
+        fail(f"{phase}: trained {len(trained)} leaves, not the {len(leaf_shapes)} K5 was held at")
+    event_ms = [a.elapsed_time(b) for a, b in result.step_events]
+
+    cfg_i = cfg.interpolate()
+    batcher = registry.resolve(cfg_i["training"]["batcher"])
+    batch = next(iter(batcher(registry.resolve(cfg_i["corpora"]["train"])())))
+    B_pad, T_pad = bucket_batch_size(len(batch)), bucket_length(max(len(eg) for eg in batch))
+    c = nlp.collate(batch, with_targets=True, pad_batch_to=B_pad, pad_len_to=T_pad)
+    # the featurize + collate of one microbatch, its copy to the card
+    # included: fresh Examples (their keys hashed) and the same Examples
+    # again (the feature cache)
+    fresh = [Example.from_gold(eg.reference) for eg in batch]
+    collate_ms = {}
+    for label, egs in (("uncached", fresh), ("cached", fresh)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        nlp.collate(egs, with_targets=True, pad_batch_to=B_pad, pad_len_to=T_pad)
+        torch.cuda.synchronize()
+        collate_ms[label] = (time.perf_counter() - t) * 1e3
+
+    nlp.model.requires_grad_(True)
+    params = {k.replace(".", "/"): p for k, p in nlp.model.named_parameters()}
+    optimizer = registry.resolve(cfg_i["training"]["optimizer"])
+    opt_state = optimizer.init(params)
+
+    def fwd_bwd():
+        for p in params.values():
+            p.grad = None
+        nlp.loss(c["tokens"], c["targets"], dropout=0.1, seed=1)[0].backward()
+
+    def step():  # the loop's step: the collate (cached keys), fwd + bwd, K5
+        b = nlp.collate(batch, with_targets=True, pad_batch_to=B_pad, pad_len_to=T_pad)
+        for p in params.values():
+            p.grad = None
+        nlp.loss(b["tokens"], b["targets"], dropout=0.1, seed=1)[0].backward()
+        with torch.no_grad():
+            optimizer.update(params, {k: p.grad for k, p in params.items()}, opt_state)
+
+    ops = device_ops(torch, fwd_bwd)
+    tables = [(m.dims["rows"], m.seed, m.attr_index)
+              for m in nlp.model["tok2vec"].modules() if isinstance(m, HashEmbed)]
+    keys = c["tokens"].attr_keys
+    ids_ops = device_ops(torch, lambda: [hash_embed_ids(keys[..., a, :], s, r)
+                                         for r, s, a in tables])
+    n_ops = sum(v[0] for v in ops.values())
+    n_ids = sum(v[0] for v in ids_ops.values())
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(PROFILE_STEPS):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    events = [e for e in prof.key_averages()
+              if str(getattr(e, "device_type", "")).endswith("CUDA") and dev_us(e) > 0]
+    busy_ms = sum(dev_us(e) for e in events) / 1e3
+    launch_calls = sum(e.count for e in prof.key_averages() if e.key == "cudaLaunchKernel")
+    top = sorted(events, key=dev_us, reverse=True)[:10]
+    host_ops = sorted((e for e in prof.key_averages()
+                       if not str(getattr(e, "device_type", "")).endswith("CUDA")),
+                      key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
+
+    plain = {}
+    rel = grad_errs_vs_plain(torch, nlp, params, c, plain_out=plain)
+    worst_leaf = max(rel, key=rel.get)
+    if not rel[worst_leaf] <= TOL_GRAD_CNN:
+        fail(f"{phase}: gradient of {worst_leaf} kernels vs plain {rel[worst_leaf]} "
+             f"> {TOL_GRAD_CNN}")
+    # the control: what leaving out one typical row's adds (K1 bwd) would
+    # read on the same measure, the median over a table's touched rows of
+    # max |g_row| / max |g|, at its least over the tables; the limit must
+    # sit below it
+    row_drop = []
+    for k, g in plain.items():
+        if k.endswith("/E"):
+            rows = g.abs().amax(dim=1)
+            rows = rows[rows > 0]
+            row_drop.append((rows.median() / rows.max()).item())
+    control = min(row_drop)
+    if not control > TOL_GRAD_CNN:
+        fail(f"{phase}: a dropped table row would read {control}, not above {TOL_GRAD_CNN}")
+    nlp.model.requires_grad_(False)
+    oracle = (dict(nlp.components["parser"].oracle_stats) if "parser" in nlp.components
+              else None)
+    del nlp, params, optimizer, opt_state, c, plain
+    torch.cuda.empty_cache()
+
+    keys_s = ("tag_acc", "dep_uas", "dep_las", "ents_f")
+    res = {
+        "phase": phase, "config": f"configs/{name}.cfg as written; max_steps {CNN_STEPS}, "
+        f"eval_frequency {CNN_EVAL} (cut); corpora .spacy (udgen via the port's writer)",
+        "seconds": seconds, "steps": result.final_step, "leaves": len(leaf_shapes),
+        "params": sum(math.prod(sh) for sh in leaf_shapes),
+        "group_shapes_B_T": sorted(set(result.step_shapes)), "head_losses": head_losses,
+        "dev_scores": [(h["step"], {k: h["other_scores"].get(k) for k in keys_s
+                                    if k in h["other_scores"]}) for h in result.history],
+        "step_ms_median_events": statistics.median(event_ms),
+        "step_ms_median_host": statistics.median(x * 1e3 for x in result.step_host_seconds),
+        # every step in order: the first epoch's collates hash the keys and
+        # run the oracle, the later ones read the Examples' caches
+        "step_ms_quartiles_events": statistics.quantiles(event_ms, n=4),
+        "step_ms_events": event_ms,
+        "words_per_s": result.wps, "words": result.words_seen,
+        "peak_memory_gb": peak_gb, "launches": launches, "oracle": oracle,
+        "microbatch_B_T": [B_pad, T_pad],
+        "microbatch_fwd_bwd_device_ops": n_ops,
+        "microbatch_fwd_bwd_kernel_ms": sum(v[1] for v in ops.values()),
+        "hash_ids_device_ops": n_ids, "hash_ids_share_of_ops": n_ids / max(n_ops, 1),
+        "top_ops_fwd_bwd": sorted(ops.items(), key=lambda kv: -kv[1][0])[:8],
+        "collate_ms_with_copy": collate_ms,
+        "step_profile": {
+            "steps": PROFILE_STEPS, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "cuda_launch_kernel_calls_per_step": launch_calls / PROFILE_STEPS,
+            "top_device_ms": [(e.key[:60], dev_us(e) / 1e3, e.count) for e in top],
+            "top_host_self_ms": [(e.key[:60], e.self_cpu_time_total / 1e3, e.count)
+                                 for e in host_ops],
+        },
+        "grad_max_rel_err": rel[worst_leaf], "grad_worst_leaf": worst_leaf,
+        "grad_tol": TOL_GRAD_CNN, "grad_control_row_drop": control,
+    }
+    emit(res)
+    return res, out / "best-model"
+
+
+def card_vs_cpu(model_dir: Path, answers) -> dict:
+    """Share of tokens on which the served answers equal the same model
+    directory's annotations on the CPU, per field (tags; heads and deps; the
+    entity sets' F), over the same texts."""
+    from spacy_ray_tpu_torch import Pipeline
+
+    cpu = Pipeline.from_disk(model_dir, device="cpu")
+    got, want = [], []
+    for _, ts, body in answers:
+        docs = [cpu.tokenizer(t) for t in ts]
+        cpu.predict_docs(docs)
+        for d, served in zip(docs, body["docs"]):
+            if d.words != served["tokens"]:
+                fail(f"card and CPU tokenized differently: {served['tokens']} vs {d.words}")
+            got.append(served)
+            want.append(d)
+    out = {}
+    for key in ("tags", "heads", "deps"):
+        pairs = [(a, b) for s, d in zip(got, want) if getattr(d, key) is not None
+                 for a, b in zip(s.get(key, []), getattr(d, key))]
+        if pairs:
+            out[key] = sum(a == b for a, b in pairs) / len(pairs)
+    if "ner" in cpu.pipe_names:
+        served_ents = {(i, e[0], e[1], e[2]) for i, s in enumerate(got) for e in s.get("ents", [])}
+        cpu_ents = {(i, e.start, e.end, e.label) for i, d in enumerate(want) for e in d.ents}
+        out["ents_f"] = set_f(served_ents, cpu_ents)
+    return out
+
+
+def phase_slice_cnn(torch, model_dir: Path, dev_path: Path):
+    """``model_dir`` (``train:cnn``'s best-model, tok2vec + tagger) served
+    through the ``serve`` entry point at ``--precision auto`` with
+    slice:auto's request pattern over dev texts; K1 fwd must launch, the
+    label must say f32 (a CNN has no transformer trunk to overlay), and the
+    card's tags must agree with the same model's on the CPU on >= 0.99 of
+    tokens. Then one forward at the top bucket (B 8, T 128) is timed."""
+    from spacy_ray_tpu_torch.__main__ import build_server
+    from spacy_ray_tpu_torch.ops import _cuda
+    from spacy_ray_tpu_torch.pipeline.doc import Example
+    from spacy_ray_tpu_torch.training.corpus import Corpus
+
+    t0 = time.perf_counter()
+    server = build_server([str(model_dir), "--port", "0", "--max-batch", "8",
+                           "--max-doc-len", "128", "--precision", "auto"])
+    engine = server.engine
+    nlp = engine.nlp
+    try:
+        _, port = server.start()
+        engine.start()
+        setup_s = time.perf_counter() - t0
+        label = engine.overlay.label
+        if engine.overlay.resolved != "f32" or "no transformer trunk" not in label:
+            fail(f"slice:cnn: precision auto resolved to {label!r}, expected f32 "
+                 "with the overlay refused")
+        texts = [" ".join(eg.reference.words) for eg in Corpus(dev_path)()
+                 if len(eg.reference.words) <= 100][:24]
+        latencies, answers = [], []
+        lock = threading.Lock()
+
+        def client(batch):
+            for ts in batch:
+                t = time.perf_counter()
+                status, body = post(port, ts)
+                with lock:
+                    latencies.append(time.perf_counter() - t)
+                    answers.append((status, ts, body))
+
+        sequential = [[t] for t in texts[:4]]
+        concurrent = [[[texts[4 + 5 * c + i]] if i % 2 else texts[4 + 5 * c + i: 6 + 5 * c + i]
+                       for i in range(3)] for c in range(4)]
+        _cuda.reset_launch_counts()
+        client(sequential)
+        threads = [threading.Thread(target=client, args=(c,)) for c in concurrent]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        torch.cuda.synchronize()
+        launches = _cuda.launch_counts()
+        if launches["hash_embed_gather_sum"] == 0:
+            fail("slice:cnn: K1 fwd never launched on the serving path")
+        tags = set(nlp.components["tagger"].labels)
+        for status, ts, body in answers:
+            if status != 200 or len(body["docs"]) != len(ts):
+                fail(f"slice:cnn: /v1/parse answered {status}: {body}")
+            for d in body["docs"]:
+                if len(d.get("tags", [])) != len(d["tokens"]) or not set(d["tags"]) <= tags:
+                    fail(f"slice:cnn: untagged or mis-tagged doc: {d}")
+        agree = card_vs_cpu(model_dir, answers)
+        if agree["tags"] < 0.99:
+            fail(f"slice:cnn: card and CPU tags agree on only {agree['tags']:.4f} (< 0.99)")
+
+        docs = [nlp.tokenizer(t) for t in texts[:8]]
+        top = nlp.collate([Example.from_gold(d) for d in docs], pad_batch_to=8,
+                          pad_len_to=128)["tokens"]
+
+        def forward():
+            nlp.forward(top)
+
+        with torch.inference_mode():
+            ops = device_ops(torch, forward)
+            forward_row = {"ms": time_ms(torch, forward, reps=10),
+                           "enqueue_ms": enqueue_ms(torch, forward),
+                           "device_ops": sum(v[0] for v in ops.values())}
+        server.request_shutdown()
+        if server.wait() != 0:
+            fail("slice:cnn: serve drain failed")
+        result = {
+            "phase": "slice:cnn", "precision_label": label, "requests": len(answers),
+            "batches_seen": sorted({(b["batch"]["B"], b["batch"]["T"], b["batch"]["occupancy"])
+                                    for _, _, b in answers}),
+            "launches": launches, "latency_p50_ms": percentile(latencies, 0.50) * 1e3,
+            "latency_p99_ms": percentile(latencies, 0.99) * 1e3, "setup_s": setup_s,
+            "warmed_buckets": len(engine.warmed), "card_vs_cpu_agreement": agree,
+            "forward_B8_T128": forward_row,
+        }
+        emit(result)
+        return result
+    finally:
+        if engine.ready:
+            engine.stop()
+        if server._serve_thread is not None and server._serve_thread.is_alive():
+            server.httpd.shutdown()
+        server.httpd.server_close()
+        del server, engine, nlp
+        torch.cuda.empty_cache()
+
+
+def phase_cli_cnn(corpus):
+    """The commands a user runs, as subprocesses on the card (no
+    ``--device``): ``train configs/cnn.cfg`` on the .spacy corpus (20 steps,
+    evaluated every 10), then ``evaluate`` on its ``best-model/``."""
+    out = WORK / "cli_cnn"
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    args = [sys.executable, "-m", "spacy_ray_tpu_torch"]
+    trained = subprocess.run(
+        args + ["train", "configs/cnn.cfg", "--output", str(out), "--paths.train",
+                str(corpus[0]), "--paths.dev", str(corpus[1]), "--training.max_steps", "20",
+                "--training.eval_frequency", "10"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    if trained.returncode != 0 or "Done. steps=20" not in trained.stdout:
+        fail(f"cli:cnn: train exited {trained.returncode}:\n{trained.stdout}\n{trained.stderr}")
+    evaluated = subprocess.run(
+        args + ["evaluate", str(out / "best-model"), str(corpus[1])],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    if evaluated.returncode != 0:
+        fail(f"cli:cnn: evaluate exited {evaluated.returncode}:\n{evaluated.stderr}")
+    scores = json.loads(evaluated.stdout.strip().splitlines()[-1])
+    if not scores.get("tag_acc", 0) > 0.5:
+        fail(f"cli:cnn: evaluate scored {scores}")
+    shutil.rmtree(out, ignore_errors=True)
+    emit({"phase": "cli:cnn", "seconds": time.perf_counter() - t0,
+          "train_output": trained.stdout.strip().splitlines()[-4:],
+          "evaluate_output": evaluated.stdout.strip().splitlines()[-3:-1],
+          "evaluate_tag_acc": scores["tag_acc"]})
 
 
 def main() -> int:
@@ -1677,6 +2293,10 @@ def main() -> int:
     udgen = write_udgen_corpus()
     full_shapes = trf_param_shapes(torch, udgen[0])
     kernels.update(phase_train_kernels(torch, full_shapes))
+    spacy_corpus = write_spacy_corpus(udgen)
+    cnn = cnn_setup(torch, spacy_corpus)
+    for name, rows in phase_cnn_kernels(torch, cnn).items():
+        kernels[name].extend(rows)
 
     if WORK.exists():
         shutil.rmtree(WORK / "trf_tagger", ignore_errors=True)
@@ -1689,7 +2309,17 @@ def main() -> int:
     runs["train:full"], full_model = phase_train_full(torch, udgen, full_shapes)
     runs["slice:full"] = phase_slice_full(torch, full_model, udgen[1], runs["auto"])
     shutil.rmtree(WORK / "train_full", ignore_errors=True)
+    runs["train:cnn"], cnn_model = phase_train_cnn(torch, "cnn", spacy_corpus, cnn["cnn"])
+    runs["slice:cnn"] = phase_slice_cnn(torch, cnn_model, spacy_corpus[1])
+    shutil.rmtree(WORK / "train_cnn", ignore_errors=True)
+    runs["train:sm"], sm_model = phase_train_cnn(torch, "sm", spacy_corpus, cnn["sm"])
+    runs["slice:sm"] = phase_slice_full(torch, sm_model, spacy_corpus[1], runs["slice:cnn"],
+                                        phase="slice:sm", need=("hash_embed_gather_sum",),
+                                        cpu_compare=True)
+    shutil.rmtree(WORK / "train_sm", ignore_errors=True)
+    phase_cli_cnn(spacy_corpus)
     shutil.rmtree(WORK / "udgen", ignore_errors=True)
+    shutil.rmtree(WORK / "spacy_corpus", ignore_errors=True)
 
     meta = {
         "hash_embed_gather_sum": ("spacy_ray_tpu_torch/csrc/hash_embed.cu",

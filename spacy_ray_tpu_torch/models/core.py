@@ -60,9 +60,18 @@ class Context:
     def fold_in(self, data: int) -> Optional[int]:
         return None if self.seed is None else fold_in(self.seed, data)
 
+    def child(self, i: int) -> "Context":
+        """The context of a chain's i-th child: the same flags, the seed
+        folded with ``i`` (JAX splits the key once per child)."""
+        return Context(self.train, self.dropout, self.fold_in(i))
+
 
 class Model(nn.Module):
-    """A named layer with static dims and free-form meta."""
+    """A named layer with static dims and free-form meta. A layer whose
+    forward takes a :class:`Context` after its input (a dropout site, or a
+    combinator with one inside) sets ``takes_ctx``."""
+
+    takes_ctx = False
 
     def __init__(self, name: str, dims: Optional[Dict[str, int]] = None,
                  meta: Optional[Dict[str, Any]] = None):
@@ -85,8 +94,16 @@ class Model(nn.Module):
         return (m for m in self.modules() if isinstance(m, Model))
 
 
+def call(layer: nn.Module, x: Any, ctx: Optional[Context]) -> Any:
+    """``layer(x)``, with ``ctx`` passed on to a layer that takes one."""
+    return layer(x, ctx) if getattr(layer, "takes_ctx", False) else layer(x)
+
+
 class Chain(Model):
-    """Feed-forward composition; children keyed ``{i}_{name}``."""
+    """Feed-forward composition; children keyed ``{i}_{name}``. Child ``i``
+    runs under ``ctx.child(i)``."""
+
+    takes_ctx = True
 
     def __init__(self, *layers: Model, name: str = "chain"):
         super().__init__(name)
@@ -97,10 +114,27 @@ class Chain(Model):
         if layers and "nO" in layers[-1].dims:
             self.dims["nO"] = layers[-1].dims["nO"]
 
-    def forward(self, x: Any) -> Any:
-        for layer in self.children():
-            x = layer(x)
+    def forward(self, x: Any, ctx: Optional[Context] = None) -> Any:
+        ctx = ctx or Context()
+        for i, layer in enumerate(self.children()):
+            x = call(layer, x, ctx.child(i))
         return x
+
+
+class Residual(Model):
+    """``x + layer(x)`` over Padded values, with the inner layer's mask; the
+    inner layer's parameters sit under ``inner`` and it runs under the
+    residual's own context (JAX ``models/core.py`` ``residual``)."""
+
+    takes_ctx = True
+
+    def __init__(self, layer: Model, name: str = "residual"):
+        super().__init__(name, dims=dict(layer.dims))
+        self.inner = layer
+
+    def forward(self, x: Any, ctx: Optional[Context] = None) -> Any:
+        out = call(self.inner, x, ctx)
+        return type(out)(X=x.X + out.X, mask=out.mask)
 
 
 def param_paths(module: nn.Module) -> Dict[str, torch.Tensor]:

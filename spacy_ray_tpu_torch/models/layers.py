@@ -3,13 +3,17 @@
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..ops import ops as O
 from ..ops.hashing import hash_embed_ids
 from ..ops.pallas_kernels import hash_embed_lookup
 from ..types import Padded, TokenBatch
-from .core import Model, empty_param, glorot_uniform_, normal_, ones_param, zeros_param
+from .core import (
+    Context, Model, empty_param, glorot_uniform_, normal_, ones_param, zeros_param,
+)
 
 
 class Linear(Model):
@@ -46,6 +50,38 @@ class LayerNorm(Model):
 
     def forward(self, x: Padded) -> Padded:
         return Padded(X=O.layer_norm(x.X, self.g, self.b), mask=x.mask)
+
+
+class Dropout(Model):
+    """A dropout site: its rate is ``rate`` unless ``[training] dropout``
+    overrides it (:meth:`Context.dropout_rate`); it drops only in training
+    and only with a seed, the mask drawn from a generator seeded with it."""
+
+    takes_ctx = True
+
+    def __init__(self, rate: float, name: str = "dropout"):
+        super().__init__(name)
+        self.rate = rate
+
+    def forward(self, x: Padded, ctx: Optional[Context] = None) -> Padded:
+        ctx = ctx or Context()
+        rate = ctx.dropout_rate(self.rate)
+        if not ctx.train or ctx.seed is None or rate <= 0:
+            return x
+        gen = torch.Generator(device=x.X.device).manual_seed(ctx.seed)
+        return Padded(X=O.dropout(x.X, rate, gen), mask=x.mask)
+
+
+class Seq2Col(Model):
+    """Each position's window of ``window`` neighbours a side, concatenated
+    (the CNN encoder's input to its maxout)."""
+
+    def __init__(self, window: int, nI: int, name: str = "seq2col"):
+        super().__init__(name, dims={"nI": nI, "nO": nI * (2 * window + 1)})
+        self.window = window
+
+    def forward(self, x: Padded) -> Padded:
+        return Padded(X=O.seq2col(x.X, self.window, x.mask), mask=x.mask)
 
 
 class HashEmbed(Model):

@@ -1,6 +1,8 @@
 """Elementwise and small dense ops, on padded [B, T, D] tensors.
 
-Same semantics as ``spacy_ray_tpu/ops/ops.py``: biased variance and eps
+Same semantics as ``spacy_ray_tpu/ops/ops.py``: the CNN's window
+concatenation (``seq2col``: padding masked to zero before the shifts, zeros
+past the sequence edges, offsets -nW .. +nW in order), biased variance and eps
 1e-5 in the layer norm, the tanh approximation of GELU, maxout weights laid
 out ``[nI, nO * nP]`` with the pieces innermost (part of the checkpoint
 contract), inverted dropout with keep = 1 - rate, and the masked mean
@@ -15,6 +17,24 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+
+def seq2col(X: torch.Tensor, window: int, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Concatenate each position's window of neighbours: X [B, T, D] (or
+    [T, D]) -> [B, T, (2 * window + 1) * D], the offsets -window .. +window
+    in that order. With a [B, T] ``mask``, X is masked first, so a real
+    token next to padding reads zeros there, as it does past the edges."""
+    squeeze = X.dim() == 2
+    if squeeze:
+        X = X[None]
+        mask = mask[None] if mask is not None else None
+    T = X.shape[1]
+    if mask is not None:
+        X = X * mask[..., None].to(X.dtype)
+    padded = F.pad(X, (0, 0, window, window))
+    out = torch.cat([padded[:, window + off: window + off + T]
+                     for off in range(-window, window + 1)], dim=-1)
+    return out[0] if squeeze else out
 
 
 def layer_norm(

@@ -227,21 +227,31 @@ class Pipeline:
     ) -> Dict[str, Any]:
         """Lower ragged Examples into a padded batch on the device; with
         ``with_targets`` also each head's targets from the gold docs, as
-        ``{component: {name: tensor}}`` under ``"targets"``."""
+        ``{component: {name: tensor}}`` under ``"targets"``.
+
+        Each Example's ``[len, 4, 2]`` keys are computed once and kept on it
+        (corpora yield the same Example objects every epoch): the docs not
+        yet featurized go through one flat vocab call, and a later epoch
+        only copies slices into the padded batch."""
         lengths = [len(eg) for eg in examples]
         T = pad_len_to or bucket_length(max(lengths, default=1), self.length_buckets)
         B = pad_batch_to or bucket_batch_size(len(examples))
         attr_keys = np.zeros((B, T, len(ATTRS), 2), dtype=np.uint32)
         mask = np.zeros((B, T), dtype=bool)
-        words = [w for eg in examples for w in eg.reference.words]
-        feats = self.vocab.featurize(words)
-        offset = 0
-        for i, eg in enumerate(examples):
-            n = len(eg.reference.words)
-            k = min(n, T)
-            attr_keys[i, :k] = feats[offset:offset + k]
+        doc_feats = [getattr(eg, "_feat_cache", None) for eg in examples]
+        uncached = [i for i, f in enumerate(doc_feats) if f is None]
+        if uncached:
+            flat = self.vocab.featurize(
+                [w for i in uncached for w in examples[i].reference.words])
+            offset = 0
+            for i in uncached:
+                n = len(examples[i].reference.words)
+                examples[i]._feat_cache = doc_feats[i] = flat[offset:offset + n]
+                offset += n
+        for i, feats in enumerate(doc_feats):
+            k = min(len(feats), T)
+            attr_keys[i, :k] = feats[:k]
             mask[i, :k] = True
-            offset += n
         tokens = TokenBatch(
             attr_keys=torch.from_numpy(attr_keys.astype(np.int64)).to(self.device),
             mask=torch.from_numpy(mask).to(self.device),

@@ -3,9 +3,10 @@
 A copy of ``spacy_ray_tpu/pipeline/vocab.py``: each token maps to its
 NORM/PREFIX/SUFFIX/SHAPE strings, each string is murmur-hashed to a uint64
 key, and the keys ship to the device as [T, n_attrs, 2] uint32 (lo, hi)
-words, re-hashed there per embedding table. Hashing is the pure-Python
-MurmurHash3 (the JAX package's C++ extension gives the same keys faster).
-Computed features are cached per word in one contiguous array.
+words, re-hashed there per embedding table. The strings of a batch's new
+words are hashed in one call to the native MurmurHash3 (``native/``, the
+keys of ``ops/hashing.py:hash_string_u64``). Computed features are cached
+per word in one contiguous array.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ from typing import Dict, List, Sequence
 
 import numpy as np
 
-from ..ops.hashing import hash_string_u64, split_u64
+from ..native import hash_strings_u64
+from ..ops.hashing import split_u64
 
 # Canonical order of lexical attributes (models/tok2vec.py ATTRS).
 ATTRS = ("NORM", "PREFIX", "SUFFIX", "SHAPE")
@@ -72,11 +74,8 @@ class Vocab:
 
     @staticmethod
     def _compute_feats(words: List[str]) -> np.ndarray:
-        keys = np.array(
-            [[hash_string_u64(s) for s in attr_strings(w)] for w in words],
-            dtype=np.uint64,
-        ).reshape(len(words), len(ATTRS))
-        return split_u64(keys)
+        strings = [s for w in words for s in attr_strings(w)]
+        return split_u64(hash_strings_u64(strings).reshape(len(words), len(ATTRS)))
 
     def _append_rows(self, feats: np.ndarray) -> int:
         k = feats.shape[0]

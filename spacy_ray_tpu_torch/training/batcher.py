@@ -1,8 +1,8 @@
 """Batchers, size schedules and shape buckets (a copy of
 ``spacy_ray_tpu/training/batcher.py`` for one device).
 
-``spacy.batch_by_words.v1`` and ``spacy.batch_by_sequence.v1`` group a
-stream of examples into batches, with ``compounding.v1`` / ``constant.v1``
+``spacy.batch_by_words.v1``, ``spacy.batch_by_sequence.v1`` and
+``spacy.batch_by_padded.v1`` group a stream of examples into batches, with ``compounding.v1`` / ``constant.v1``
 size schedules. Padded batches then take a small set of (B, T) bucket
 shapes, shared by collation, training and the serving warmup sweep.
 """
@@ -99,6 +99,46 @@ def batch_by_sequence(size, get_length: Optional[Callable] = None) -> _Batcher:
                 target = int(next(sched))
         if batch:
             yield batch
+
+    return _Batcher(fn)
+
+
+@registry.batchers("spacy.batch_by_padded.v1")
+def batch_by_padded(size, buffer: int = 256, discard_oversize: bool = False,
+                    get_length: Optional[Callable] = None) -> _Batcher:
+    """Batches whose padded size (docs x longest doc) stays within ``size``
+    (a schedule may drive it, one value a batch), the docs sorted by length
+    within each buffer of ``buffer`` examples to cut padding. A doc longer
+    than the target is a batch of one unless discarded."""
+
+    def fn(examples: Iterable[Example]) -> Iterator[List[Example]]:
+        sched = _as_schedule(size)
+        it = iter(examples)
+        while True:
+            buf = list(itertools.islice(it, buffer))
+            if not buf:
+                return
+            buf.sort(key=len)
+            target = next(sched)
+            batch: List[Example] = []
+            max_len = 0
+            for eg in buf:
+                n = len(eg)
+                new_max = max(max_len, n)
+                if batch and new_max * (len(batch) + 1) > target:
+                    yield batch
+                    target = next(sched)
+                    batch, max_len = [], 0
+                    new_max = n
+                if n > target:
+                    if not discard_oversize:
+                        yield [eg]
+                        target = next(sched)
+                    continue
+                batch.append(eg)
+                max_len = new_max
+            if batch:
+                yield batch
 
     return _Batcher(fn)
 

@@ -2,28 +2,39 @@
 yield :class:`Example` streams (counterpart of
 ``spacy_ray_tpu/training/corpus.py``).
 
-``.jsonl`` files hold one doc per line: ``{"tokens": [...], "tags": [...],
-"heads": [...], "deps": [...], "ents": [[start, end, label], ...], "spans":
-{"group": [[s, e, label], ...]}, "cats": {...}}``. A line carries no
-entity-annotation marker: a doc's ``ents_annotated`` stays None, so it
-counts as annotated for the NER's scores exactly when it has entities (the
-JAX reader's rule). A directory is read file by file in sorted order. The
-binary corpora (``.spacy``, ``.msgdoc``) and ``.conllu`` are not ported yet
-and raise.
+Formats, by suffix (a directory is read file by file in sorted order):
+
+* ``.spacy``: spaCy's DocBin, what ``spacy convert`` writes
+  (``training/spacy_docbin.py``); a gzip file under this suffix is read as
+  ``.msgdoc``, as the JAX package does;
+* ``.msgdoc``: the JAX package's DocBin, gzip'd JSON lines of the ``.jsonl``
+  schema (:class:`DocBin`);
+* ``.jsonl``: one doc per line: ``{"tokens": [...], "tags": [...], "heads":
+  [...], "deps": [...], "ents": [[start, end, label], ...], "spans":
+  {"group": [[s, e, label], ...]}, "cats": {...}}``;
+* ``.conllu``: Universal Dependencies (FORM, UPOS, XPOS, FEATS, HEAD,
+  DEPREL; multiword and empty nodes skipped).
+
+A ``.spacy`` doc carries its entity-annotation marker (``ents_annotated``:
+any ENT_IOB set); a JSON line carries none, so such a doc counts as
+annotated for the NER's scores exactly when it has entities (the JAX
+reader's rule).
 """
 
 from __future__ import annotations
 
+import gzip
 import json
 import random
 from pathlib import Path
-from typing import Callable, Iterator, List, Optional, Union
+from typing import Callable, Iterable, Iterator, List, Optional, Union
 
 from ..pipeline.doc import Doc, Example, Span, doc_to_json
 from ..registry import registry
+from .spacy_docbin import read_docbin
 
 CorpusReader = Callable[[], Iterator[Example]]
-_NOT_PORTED = (".spacy", ".msgdoc", ".conllu")
+SUFFIXES = (".jsonl", ".conllu", ".msgdoc", ".spacy")
 
 
 def _doc_from_json(obj: dict) -> Doc:
@@ -68,19 +79,81 @@ def read_jsonl_docs(path: Union[str, Path]) -> Iterator[Doc]:
                 yield _doc_from_json(json.loads(line))
 
 
+def read_conllu_docs(path: Union[str, Path]) -> Iterator[Doc]:
+    """Docs of a CoNLL-U file: a root's head is itself, a missing XPOS
+    falls back to the UPOS, a missing DEPREL to ``dep``."""
+    rows: List[List[str]] = []
+
+    def flush() -> Optional[Doc]:
+        if not rows:
+            return None
+        heads = []
+        for i, cols in enumerate(rows):
+            head = int(cols[6]) if cols[6] != "_" else 0
+            heads.append(head - 1 if head > 0 else i)
+        doc = Doc(words=[c[1] for c in rows], pos=[c[3] for c in rows],
+                  tags=[c[4] if c[4] != "_" else c[3] for c in rows],
+                  heads=heads, deps=[c[7] if c[7] != "_" else "dep" for c in rows],
+                  morphs=[c[5] if c[5] != "_" else "" for c in rows])
+        rows.clear()
+        return doc
+
+    with open(path, "r", encoding="utf8") as f:
+        for line in f:
+            line = line.rstrip("\n")
+            if not line:
+                doc = flush()
+                if doc:
+                    yield doc
+                continue
+            if line.startswith("#"):
+                continue
+            cols = line.split("\t")
+            if "-" in cols[0] or "." in cols[0]:
+                continue  # multiword tokens and empty nodes
+            rows.append(cols)
+    doc = flush()
+    if doc:
+        yield doc
+
+
+class DocBin:
+    """The JAX package's ``.msgdoc`` collection: gzip'd JSON lines."""
+
+    def __init__(self, docs: Optional[Iterable[Doc]] = None):
+        self.docs: List[Doc] = list(docs) if docs else []
+
+    def add(self, doc: Doc) -> None:
+        self.docs.append(doc)
+
+    def to_disk(self, path: Union[str, Path]) -> None:
+        with gzip.open(path, "wt", encoding="utf8") as f:
+            for doc in self.docs:
+                f.write(json.dumps(doc_to_json(doc)) + "\n")
+
+    @classmethod
+    def from_disk(cls, path: Union[str, Path]) -> "DocBin":
+        with gzip.open(path, "rt", encoding="utf8") as f:
+            return cls(_doc_from_json(json.loads(line)) for line in f if line.strip())
+
+
 def _iter_path(path: Path) -> Iterator[Doc]:
     if path.is_dir():
         for sub in sorted(path.iterdir()):
-            if sub.suffix == ".jsonl" or sub.suffix in _NOT_PORTED:
+            if sub.suffix in SUFFIXES:
                 yield from _iter_path(sub)
         return
-    if path.suffix == ".jsonl":
+    suffix = path.suffix
+    if suffix == ".jsonl":
         yield from read_jsonl_docs(path)
-    elif path.suffix in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{path}: {path.suffix} corpora are not ported yet; convert to .jsonl "
-            "with the JAX package (python -m spacy_ray_tpu convert)"
-        )
+    elif suffix == ".conllu":
+        yield from read_conllu_docs(path)
+    elif suffix == ".msgdoc":
+        yield from DocBin.from_disk(path).docs
+    elif suffix == ".spacy":
+        with open(path, "rb") as f:
+            gzipped = f.read(2) == b"\x1f\x8b"
+        yield from DocBin.from_disk(path).docs if gzipped else read_docbin(path)
     else:
         raise ValueError(f"Unsupported corpus format: {path}")
 

@@ -128,3 +128,28 @@ def test_fused_update_over_the_full_pipelines_leaves_bit_equal():
     for got, w in zip(zip(Pl, M, V), want):
         for a, b in zip(got, w):
             assert ulp_diff(torch, a, b) == 0, a.shape
+
+
+@pytest.mark.cuda
+def test_sm_cfg_decode_graphs_at_width_96_equal_the_eager_decode():
+    # configs/sm.cfg's parser and NER (hidden 128, 2 pieces) over its CNN
+    # trunk's width 96, every serving bucket up to B 8, T 128
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(3)
+    cfg = P.Config.from_disk(REPO / "configs" / "sm.cfg")
+    cfg["paths"] = {"train": "-", "dev": "-"}
+    nlp = P.Pipeline.from_config(cfg.interpolate(), device=dev)
+    nlp.initialize(labels={"tagger": ["DT", "NN", "VBD"], "parser": DEPS, "ner": ENTS}, seed=0)
+    assert nlp.components["tok2vec"].model.dims["nO"] == 96
+    graphs = DecodeGraphs()
+    with torch.inference_mode():
+        for B, T in BUCKETS:
+            for _ in range(2):
+                X, lengths = _inputs(dev, g, B, T, 96)
+                for name in ("parser", "ner"):
+                    comp = nlp.components[name]
+                    eager = comp.device_decode(X, lengths)
+                    replay = {k: v.clone() for k, v in graphs.run(name, comp, X, lengths).items()}
+                    for key in eager:
+                        assert torch.equal(replay[key], eager[key]), (name, B, T)
+    assert len(graphs) == 2 * len(BUCKETS)

@@ -185,3 +185,69 @@ def test_cuda_fused_update_odd_and_misaligned_leaves_bit_equal():
                 for got, w in zip(zip(P, M, V), want):
                     for a, b in zip(got, w):
                         assert ulp_diff(torch, a, b) == 0, (hyper, count, g_scale, a.numel())
+
+
+@pytest.mark.cuda
+def test_cuda_table_grad_at_the_cnn_tables_bit_equal():
+    # configs/cnn.cfg's tables (2000 and 1000 rows, D 96) on corpus-like
+    # ids: a zipfian vocabulary of keys hashed as HashEmbed hashes them, and
+    # a third of the tokens batch padding (the zero key)
+    dev, g = _card()
+    from spacy_ray_tpu_torch.ops.hashing import hash_embed_ids
+
+    N, D = 8192, 96
+    vocab = torch.randint(1, 2 ** 32, (300, 2), device=dev, generator=g)
+    zipf = 1.0 / torch.arange(1, 301, device=dev, dtype=torch.float32)
+    words = torch.multinomial(zipf, N, replacement=True, generator=g)
+    keys = vocab[words]
+    keys[torch.randperm(N, device=dev, generator=g)[: N // 3]] = 0
+    ct = torch.randn(N, D, device=dev, generator=g)
+    for rows, seed in ((2000, 11), (1000, 12), (1000, 13)):
+        ids = hash_embed_ids(keys, seed, rows)
+        got = hash_embed_table_grad(ct, ids, rows)
+        assert torch.equal(got, hash_embed_table_grad(ct, ids, rows))
+        # the CPU plain version sums in the kernel's order (index_add_ on the
+        # card adds with atomics, in no fixed order)
+        assert torch.equal(got.cpu(), hash_embed_table_grad_plain(ct.cpu(), ids.cpu(), rows))
+        assert torch.equal(hash_embed_gather_sum(got, ids), hash_embed_gather_sum_plain(got, ids))
+
+
+@pytest.mark.cuda
+def test_cuda_fused_update_over_the_cnn_pipelines_leaves_bit_equal():
+    # every leaf of configs/cnn.cfg and sm.cfg (LayerNorm g/b of 96, maxout
+    # b [96, 3], the heads' odd-sized biases) as consecutive views of one
+    # buffer, each buffer at its own float offset, under the three hyper sets
+    import spacy_ray_tpu_torch as P
+    from pathlib import Path
+
+    dev, g = _card()
+    labels = {"tagger": ["ADJ", "NOUN", "VERB"], "parser": ["ROOT", "nsubj", "obj"],
+              "ner": ["LOC", "PER"]}
+    for name in ("cnn", "sm"):
+        cfg = P.Config.from_disk(Path(__file__).resolve().parent.parent / "configs" / f"{name}.cfg")
+        cfg["paths"] = {"train": "-", "dev": "-"}
+        nlp = P.Pipeline.from_config(cfg.interpolate(), device="cpu")
+        nlp.initialize(labels={k: v for k, v in labels.items() if k in nlp.pipe_names})
+        shapes = [tuple(p.shape) for p in nlp.model.parameters()]
+        assert (96,) in shapes and (96, 3) in shapes
+        total = sum(torch.Size(s).numel() for s in shapes)
+        for hyper in HYPERS[:3]:
+            bufs = [torch.randn(total + 3, device=dev, generator=g) * s
+                    for s in (1.0, 1e-3, 1e-4, 1e-4)]
+            bufs[3].abs_()
+            leaves = ([], [], [], [])
+            for X, buf, start in zip(leaves, bufs, (1, 2, 3, 0)):
+                o = start
+                for s in shapes:
+                    n = torch.Size(s).numel()
+                    X.append(buf[o:o + n].view(s))
+                    o += n
+            Pl, G, M, V = leaves
+            gn = global_norm(G)
+            sc = step_scalars(hyper, 4, 4, lambda s: 0.001)
+            want = [leaf_math_plain(p, gg, m, v, gn, *sc, hyper=hyper)
+                    for p, gg, m, v in zip(Pl, G, M, V)]
+            FusedUpdate(hyper).step(Pl, G, M, V, gn, sc)
+            for got, w in zip(zip(Pl, M, V), want):
+                for a, b in zip(got, w):
+                    assert ulp_diff(torch, a, b) == 0, (name, hyper, a.shape)

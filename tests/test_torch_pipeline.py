@@ -243,5 +243,5 @@ def test_unknown_names_list_what_is_registered():
     with pytest.raises(RegistryError, match="spacy.Tagger.v2"):
         nlp.initialize(labels={"tagger": TAGS})
     cfg = P.Config.from_str(TRF_TAGGER_CFG.replace('factory = "tagger"', 'factory = "textcat"'))
-    with pytest.raises(RegistryError, match="Available: ner, parser, tagger, transformer"):
+    with pytest.raises(RegistryError, match="Available: ner, parser, tagger, tok2vec, transformer"):
         P.Pipeline.from_config(cfg.interpolate(), device="cpu")

@@ -34,6 +34,7 @@ from spacy_ray_tpu_torch.ops.ops import dropout
 from spacy_ray_tpu_torch.training import batcher as pbatcher
 from spacy_ray_tpu_torch.training import corpus as pcorpus
 from spacy_ray_tpu_torch.training import optimizers as popt
+from spacy_ray_tpu_torch.training.spacy_docbin import write_docbin
 
 TRF_TAGGER_CFG = """
 [nlp]
@@ -202,11 +203,18 @@ def test_corpus_limit_split_and_unported_formats(tmp_path, corpus_path):
     pieces = list(pcorpus.Corpus(long, max_length=10)())
     assert [len(e) for e in pieces] == [10, 10, 5]
     assert len(list(pcorpus.Corpus(corpus_path, limit=7)())) == 7
-    for suffix in (".spacy", ".msgdoc", ".conllu"):
-        bad = tmp_path / f"x{suffix}"
-        bad.write_text("")
-        with pytest.raises(NotImplementedError, match="not ported"):
-            list(pcorpus.Corpus(bad)())
+    # the binary corpora are read now (tests/test_torch_corpus.py holds them
+    # against the JAX readers); a suffix no reader knows still raises
+    docs = [eg.reference for eg in pcorpus.Corpus(corpus_path, limit=7)()]
+    write_docbin(tmp_path / "x.spacy", docs)
+    pcorpus.DocBin(docs).to_disk(tmp_path / "x.msgdoc")
+    for suffix in (".spacy", ".msgdoc"):
+        back = [eg.reference for eg in pcorpus.Corpus(tmp_path / f"x{suffix}")()]
+        assert [(d.words, d.tags) for d in back] == [(d.words, d.tags) for d in docs]
+    bad = tmp_path / "x.txt"
+    bad.write_text("")
+    with pytest.raises(ValueError, match="Unsupported corpus format"):
+        list(pcorpus.Corpus(bad)())
 
 
 def _trunk_loss_grads(nlp, batch, remat: bool, seed):

@@ -102,6 +102,26 @@ Run from the root of a checkout. Phases, each printing one JSON line:
 13. cli:cnn — ``python -m spacy_ray_tpu_torch train configs/cnn.cfg`` on
               the .spacy corpus (20 steps) and ``evaluate`` on its
               best-model, as subprocesses on the card.
+14. train:spancat, slice:spancat — configs/spancat.cfg as written
+              (tok2vec, spancat with ngram sizes 1-3 and hidden 128,
+              textcat_multilabel) the same way, on 1000 span docs and 1000
+              cat docs in turn (100 + 100 dev; the port's generators,
+              written as .spacy): each head's loss falls to <= 2/3, dev
+              ``spans_sc_f`` >= 0.5 and ``cats_micro_f`` >= 0.7 at the last
+              evaluation; served, every doc with ``spans["sc"]`` and every
+              cat, card vs CPU span sets' F and docs' top cat >= 0.99.
+15. train:textcat, slice:textcat — spaCy's default ``textcat``
+              (TextCatEnsemble.v2: cnn.cfg's tok2vec inline, TextCatBOW.v3 of
+              262144 rows) with cnn.cfg's [training] on 2000 cat docs (200
+              dev): dev ``cats_score`` >= 0.7; served and compared alike.
+16. train:tokcls, slice:tokcls — cnn.cfg with the morphologizer, senter
+              and trainable lemmatizer beside its tagger, on the pseudo-UD
+              .spacy corpus: every head's loss falls, dev tag/pos/morph/lemma
+              accuracy and ``sents_f``; served, card vs CPU >= 0.99 on every
+              token field. The kernel rows of 9. also hold K1 fwd/bwd at
+              ``train:spancat``'s microbatch (B 512, T 32) and K5 over these
+              three leaf sets (the BOW table's gradient zero but on 1 % of
+              its rows).
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -149,7 +169,12 @@ TOL_GRAD_CNN = 1e-4  # f32 CNN gradients, the same measure: the kernels' adds in
 TRAIN_STEPS, TRAIN_EVAL = 40, 20
 TRAIN_B, TRAIN_T = 64, 128  # one training microbatch (batch_by_words 2000 on this corpus)
 CNN_WIDTH = 96              # configs/cnn.cfg and sm.cfg: HashEmbedCNN width 96, depth 4
-CNN_STEPS, CNN_EVAL = 60, 20  # train:cnn and train:sm cut max_steps and eval_frequency only
+CNN_STEPS, CNN_EVAL = 60, 20  # the CNN phases (train:cnn, sm, spancat, textcat, tokcls) cut
+#                               max_steps and eval_frequency only
+#: each CNN phase's dev floors at its last evaluation (spancat's and textcat's
+#: are the JAX package's own tests' floors, tests/test_spancat_textcat.py)
+DEV_FLOORS = {"spancat": {"spans_sc_f": 0.5, "cats_micro_f": 0.7},
+              "textcat": {"cats_score": 0.7}}
 PROFILE_STEPS = 5           # train:cnn / train:sm steps under torch.profiler
 
 UD_TAGS = ["ADJ", "ADP", "ADV", "AUX", "CCONJ", "DET", "INTJ", "NOUN", "NUM",
@@ -1701,6 +1726,95 @@ def cnn_config(name: str, paths):
     return cfg
 
 
+def spancat_config(paths):
+    """configs/spancat.cfg as written (tok2vec + spancat + textcat_multilabel),
+    its corpora pointed at ``paths``."""
+    from spacy_ray_tpu_torch import Config
+
+    cfg = Config.from_disk(ROOT / "configs" / "spancat.cfg")
+    if cfg["nlp"]["pipeline"] != ["tok2vec", "spancat", "textcat_multilabel"]:
+        fail(f"configs/spancat.cfg pipeline = {cfg['nlp']['pipeline']}")
+    model = cfg["components"]["tok2vec"]["model"]
+    for key, value in (("@architectures", "spacy.HashEmbedCNN.v2"), ("width", CNN_WIDTH),
+                       ("depth", 4), ("embed_size", 2000)):
+        if model[key] != value:
+            fail(f"configs/spancat.cfg tok2vec {key} = {model[key]}, expected {value}")
+    cfg["paths"] = {"train": str(paths[0]), "dev": str(paths[1])}
+    return cfg
+
+
+def textcat_config(paths):
+    """spaCy's default ``textcat`` over cnn.cfg's trunk: a TextCatEnsemble.v2
+    whose neural half runs cnn.cfg's tok2vec block inline and whose linear
+    half is a TextCatBOW.v3 (unigrams, 262144 rows, no nO); cnn.cfg's
+    [training] block, scored by ``cats_score``."""
+    cfg = cnn_config("cnn", paths)
+    trunk = cfg["components"].pop("tok2vec")["model"]
+    cfg["components"].pop("tagger")
+    cfg["nlp"]["pipeline"] = ["textcat"]
+    cfg["components"]["textcat"] = {"factory": "textcat", "model": {
+        "@architectures": "spacy.TextCatEnsemble.v2", "tok2vec": trunk,
+        "linear_model": {"@architectures": "spacy.TextCatBOW.v3", "exclusive_classes": True,
+                         "ngram_size": 1, "no_output_layer": False, "length": 262144}}}
+    cfg["training"]["score_weights"] = {"cats_score": 1.0}
+    return cfg
+
+
+def tokcls_config(paths):
+    """cnn.cfg as written with the morphologizer, senter and trainable
+    lemmatizer (``min_tree_freq`` 3, ``top_k`` 3) beside its tagger, each a
+    ``spacy.Tagger.v2`` head over a listener; the five scores weighted alike."""
+    cfg = cnn_config("cnn", paths)
+    listener = cfg["components"]["tagger"]["model"]["tok2vec"]
+    for name in ("morphologizer", "senter", "trainable_lemmatizer"):
+        block = {"factory": name, "model": {"@architectures": "spacy.Tagger.v2",
+                                            "tok2vec": dict(listener)}}
+        if name == "trainable_lemmatizer":
+            block.update(min_tree_freq=3, top_k=3)
+        cfg["components"][name] = block
+    cfg["nlp"]["pipeline"] = ["tok2vec", "tagger", "morphologizer", "senter",
+                              "trainable_lemmatizer"]
+    cfg["training"]["score_weights"] = {k: 0.2 for k in ("tag_acc", "pos_acc", "morph_acc",
+                                                         "lemma_acc", "sents_f")}
+    return cfg
+
+
+def pipeline_config(name: str, paths):
+    if name in ("cnn", "sm"):
+        return cnn_config(name, paths)
+    return {"spancat": spancat_config, "textcat": textcat_config,
+            "tokcls": tokcls_config}[name](paths)
+
+
+def write_head_corpora():
+    """The classifiers' corpora, written as .spacy by the port's writer from
+    the port's generators: spancat's 1000 span docs and 1000 cat docs in
+    turn (100 + 100 dev), textcat's 2000 cat docs (200 dev). Returns
+    {name: (train, dev)}."""
+    from spacy_ray_tpu_torch.training.spacy_docbin import write_docbin
+    from spacy_ray_tpu_torch.util import synth_corpus
+
+    def docs(kind, n, seed):
+        return [eg.reference for eg in synth_corpus(n, kind, seed)]
+
+    work = WORK / "head_corpora"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    out = {}
+    for name, splits in (
+            ("spancat", {"train": (("spancat", 1000, 0), ("textcat", 1000, 1)),
+                         "dev": (("spancat", 100, 2), ("textcat", 100, 3))}),
+            ("textcat", {"train": (("textcat", 2000, 4),), "dev": (("textcat", 200, 5),)})):
+        paths = []
+        for split, parts in splits.items():
+            path = work / f"{name}_{split}.spacy"
+            columns = [docs(*part) for part in parts]
+            write_docbin(path, [d for row in zip(*columns) for d in row])
+            paths.append(path)
+        out[name] = tuple(paths)
+    return out
+
+
 def write_spacy_corpus(udgen):
     """The udgen corpus (train, dev .jsonl) written as spaCy DocBins by the
     port's writer: the CNN phases read .spacy files. Returns (train, dev)."""
@@ -1716,41 +1830,45 @@ def write_spacy_corpus(udgen):
     return out
 
 
-def cnn_setup(torch, corpus):
-    """Built on the CPU from the configs, labels collected from ``corpus``
-    as ``train()`` collects them: the leaf shapes of cnn.cfg and sm.cfg
-    (those ``train:cnn`` and ``train:sm`` update), and the hash keys of
-    ``train:cnn``'s first microbatch with each table's (rows, seed)."""
+def cnn_setup(torch, corpora):
+    """Built on the CPU from the configs, labels collected from each one's
+    corpus (``corpora``: {name: (train, dev)}) as ``train()`` collects them:
+    the leaf shapes of cnn.cfg, sm.cfg, spancat.cfg, the textcat ensemble and
+    the token classifiers (those their ``train:*`` phases update), and the
+    hash keys of ``train:cnn``'s and ``train:spancat``'s first microbatches
+    with each table's (rows, seed, attribute)."""
     from spacy_ray_tpu_torch import Pipeline
     from spacy_ray_tpu_torch.models.layers import HashEmbed
     from spacy_ray_tpu_torch.registry import registry
     from spacy_ray_tpu_torch.training.batcher import bucket_batch_size, bucket_length
 
-    info = {}
-    for name in ("cnn", "sm"):
-        cfg = cnn_config(name, corpus).interpolate()
+    info = {"microbatches": {}}
+    for name in ("cnn", "sm", "spancat", "textcat", "tokcls"):
+        cfg = pipeline_config(name, corpora[name]).interpolate()
         nlp = Pipeline.from_config(cfg, device="cpu")
         nlp.initialize(registry.resolve(cfg["corpora"]["train"]), seed=0)
         info[name] = [tuple(p.shape) for p in nlp.model.parameters()]
-        if name == "cnn":
+        if name in ("cnn", "spancat"):
             batcher = registry.resolve(cfg["training"]["batcher"])
             batch = next(iter(batcher(registry.resolve(cfg["corpora"]["train"])())))
             B, T = bucket_batch_size(len(batch)), bucket_length(max(len(eg) for eg in batch))
             tokens = nlp.collate(batch, pad_batch_to=B, pad_len_to=T)["tokens"]
-            info["microbatch"] = {"B": B, "T": T, "docs": len(batch),
-                                  "words": int(tokens.mask.sum())}
-            info["keys"] = tokens.attr_keys.reshape(B * T, -1, 2)
-            info["tables"] = [(m.dims["rows"], m.seed, m.attr_index)
-                              for m in nlp.model["tok2vec"].modules() if isinstance(m, HashEmbed)]
+            info["microbatches"][name] = {
+                "B": B, "T": T, "docs": len(batch), "words": int(tokens.mask.sum()),
+                "keys": tokens.attr_keys.reshape(B * T, -1, 2),
+                "tables": [(m.dims["rows"], m.seed, m.attr_index)
+                           for m in nlp.model["tok2vec"].modules() if isinstance(m, HashEmbed)]}
     return info
 
 
 def phase_cnn_kernels(torch, info):
     """K1 fwd, K1 bwd and K5 at the CNN's shapes, each against its plain
     version and timed: K1 at D 96 over the 2000- and 1000-row tables, at
-    ``train:cnn``'s first microbatch (the corpus's ids) and at one request
-    (N 128, uniform keys); K5 over cnn.cfg's and sm.cfg's leaves (labels
-    from the corpus) under three hyper sets, at 0 ulp."""
+    ``train:cnn``'s and ``train:spancat``'s first microbatches (the corpora's
+    ids) and at one request (N 128, uniform keys); K5 over the leaves of
+    cnn.cfg, sm.cfg, spancat.cfg, the textcat ensemble (its 262144 x 3 BOW
+    table's gradient zero but on the rows a microbatch touches) and the token
+    classifiers (labels from the corpora) under three hyper sets, at 0 ulp."""
     import torch.nn.functional as F
 
     from spacy_ray_tpu_torch.ops.fused_update import (
@@ -1770,82 +1888,87 @@ def phase_cnn_kernels(torch, info):
         scratch.zero_()
 
     D = CNN_WIDTH
-    mb = info["microbatch"]
     floor_ms = time_ms(torch, lambda: torch.cuda._sleep(1), flush=flush)
-    keys_mb = info["keys"].to(dev)
     keys_one = torch.randint(0, 2 ** 32, (128, 2), device=dev, generator=g)
+    cases = []
+    for phase, mb in info["microbatches"].items():
+        keys_mb = mb["keys"].to(dev)
+        for ti, (rows, seed, attr) in enumerate(mb["tables"]):
+            cases.append((rows, seed, keys_mb[:, attr], "corpus", f"train:{phase} microbatch"))
+            if phase == "cnn" and ti <= 1:  # one request: the NORM table and one 1000-row table
+                cases.append((rows, seed, keys_one, "uniform", "one request (N 128)"))
     fwd, bwd = [], []
-    for ti, (rows, seed, attr) in enumerate(info["tables"]):
-        for keys, ids_kind in ((keys_mb[:, attr], "corpus"), (keys_one, "uniform")):
-            if ids_kind == "uniform" and ti > 1:
-                continue  # one request: the NORM table and one 1000-row table
-            ids = hash_embed_ids(keys, seed, rows)
-            n = ids.shape[0]
-            dispatch = ("train:cnn microbatch" if ids_kind == "corpus"
-                        else "one request (N 128)")
-            table = torch.randn(rows, D, device=dev, generator=g)
-            got = hash_embed_gather_sum(table, ids)
-            err = (got - hash_embed_gather_sum_plain(table, ids)).abs().max().item()
-            if not err <= TOL_K1:
-                fail(f"K1 D={D} rows={rows} N={n}: max_abs_err {err} > {TOL_K1}")
-            ids_l = ids.long()
-            distinct = int(torch.unique(ids).numel())
-            bnd, by = bound_ms(distinct * D * 4 + n * D * 4 + n * 16, 3 * n * D, PEAK_F32_FLOPS)
-            row = {
-                "rows": rows, "D": D, "N": n, "ids": ids_kind, "distinct_rows": distinct,
-                "max_abs_err": err, "dispatch": dispatch, "calls_per_dispatch": 1,
-                "ms": time_ms(torch, lambda: hash_embed_gather_sum(table, ids), flush=flush),
-                "host_us": host_us(torch, lambda: hash_embed_gather_sum(table, ids)),
-                "plain_ms": time_ms(torch, lambda: hash_embed_gather_sum_plain(table, ids),
-                                    flush=flush),
-                "library_ms": time_ms(torch, lambda: F.embedding_bag(ids_l, table, mode="sum"),
-                                      flush=flush),
-                "bound_ms": bnd, "bound_by": by, "timer_floor_ms": floor_ms,
-            }
-            emit({"phase": "kernel:hash_embed_gather_sum", **row})
-            fwd.append(row)
+    for rows, seed, keys, ids_kind, dispatch in cases:
+        ids = hash_embed_ids(keys, seed, rows)
+        n = ids.shape[0]
+        table = torch.randn(rows, D, device=dev, generator=g)
+        got = hash_embed_gather_sum(table, ids)
+        err = (got - hash_embed_gather_sum_plain(table, ids)).abs().max().item()
+        if not err <= TOL_K1:
+            fail(f"K1 D={D} rows={rows} N={n}: max_abs_err {err} > {TOL_K1}")
+        ids_l = ids.long()
+        distinct = int(torch.unique(ids).numel())
+        bnd, by = bound_ms(distinct * D * 4 + n * D * 4 + n * 16, 3 * n * D, PEAK_F32_FLOPS)
+        row = {
+            "rows": rows, "D": D, "N": n, "ids": ids_kind, "distinct_rows": distinct,
+            "max_abs_err": err, "dispatch": dispatch, "calls_per_dispatch": 1,
+            "ms": time_ms(torch, lambda: hash_embed_gather_sum(table, ids), flush=flush),
+            "host_us": host_us(torch, lambda: hash_embed_gather_sum(table, ids)),
+            "plain_ms": time_ms(torch, lambda: hash_embed_gather_sum_plain(table, ids),
+                                flush=flush),
+            "library_ms": time_ms(torch, lambda: F.embedding_bag(ids_l, table, mode="sum"),
+                                  flush=flush),
+            "bound_ms": bnd, "bound_by": by, "timer_floor_ms": floor_ms,
+        }
+        emit({"phase": "kernel:hash_embed_gather_sum", **row})
+        fwd.append(row)
 
-            ct = torch.randn(n, D, device=dev, generator=g)
-            got = hash_embed_table_grad(ct, ids, rows)
-            again = hash_embed_table_grad(ct, ids, rows)
-            torch.cuda.synchronize()
-            if not torch.equal(got, again):
-                fail(f"K1 bwd D={D} rows={rows}: two runs on the same inputs differ")
-            want_cpu = hash_embed_table_grad_plain(ct.cpu(), ids.cpu(), rows)
-            err = (got.cpu() - want_cpu).abs().max().item()
-            err_card = (got - hash_embed_table_grad_plain(ct, ids, rows)).abs().max().item()
-            # the card's plain version sums with atomics, in no fixed order:
-            # the kernel is held bit-equal to the CPU's, which walks its index
-            # in order, and its distance from the card's is reported
-            if not err <= TOL_K1_BWD:
-                fail(f"K1 bwd D={D} rows={rows} N={n}: max_abs_err {err} vs the CPU plain "
-                     f"version > {TOL_K1_BWD}")
-            flat = ids.reshape(-1).long()
-            ct4 = ct.repeat_interleave(4, 0)
-            bnd, by = bound_ms(rows * D * 4 + n * D * 4 + n * 16, 4 * n * D, PEAK_F32_FLOPS)
-            row = {
-                "rows": rows, "D": D, "N": n, "ids": ids_kind, "dispatch": dispatch,
-                "calls_per_dispatch": 1,
-                "longest_segment": int(torch.bincount(flat).max()),
-                "max_abs_err": err, "max_abs_err_vs_card_plain": err_card,
-                "bit_identical_rerun": True,
-                "ms": time_ms(torch, lambda: hash_embed_table_grad(ct, ids, rows), flush=flush),
-                "host_us": host_us(torch, lambda: hash_embed_table_grad(ct, ids, rows)),
-                "plain_ms": time_ms(torch, lambda: hash_embed_table_grad_plain(ct, ids, rows),
-                                    flush=flush),
-                "library_ms": time_ms(torch, lambda: torch.zeros(rows, D, device=dev).index_add_(
-                    0, flat, ct4), flush=flush),
-                "bound_ms": bnd, "bound_by": by, "timer_floor_ms": floor_ms,
-            }
-            emit({"phase": "kernel:hash_embed_table_grad", **row})
-            bwd.append(row)
+        ct = torch.randn(n, D, device=dev, generator=g)
+        got = hash_embed_table_grad(ct, ids, rows)
+        again = hash_embed_table_grad(ct, ids, rows)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            fail(f"K1 bwd D={D} rows={rows}: two runs on the same inputs differ")
+        want_cpu = hash_embed_table_grad_plain(ct.cpu(), ids.cpu(), rows)
+        err = (got.cpu() - want_cpu).abs().max().item()
+        err_card = (got - hash_embed_table_grad_plain(ct, ids, rows)).abs().max().item()
+        # the card's plain version sums with atomics, in no fixed order:
+        # the kernel is held bit-equal to the CPU's, which walks its index
+        # in order, and its distance from the card's is reported
+        if not err <= TOL_K1_BWD:
+            fail(f"K1 bwd D={D} rows={rows} N={n}: max_abs_err {err} vs the CPU plain "
+                 f"version > {TOL_K1_BWD}")
+        flat = ids.reshape(-1).long()
+        ct4 = ct.repeat_interleave(4, 0)
+        bnd, by = bound_ms(rows * D * 4 + n * D * 4 + n * 16, 4 * n * D, PEAK_F32_FLOPS)
+        row = {
+            "rows": rows, "D": D, "N": n, "ids": ids_kind, "dispatch": dispatch,
+            "calls_per_dispatch": 1,
+            "longest_segment": int(torch.bincount(flat).max()),
+            "max_abs_err": err, "max_abs_err_vs_card_plain": err_card,
+            "bit_identical_rerun": True,
+            "ms": time_ms(torch, lambda: hash_embed_table_grad(ct, ids, rows), flush=flush),
+            "host_us": host_us(torch, lambda: hash_embed_table_grad(ct, ids, rows)),
+            "plain_ms": time_ms(torch, lambda: hash_embed_table_grad_plain(ct, ids, rows),
+                                flush=flush),
+            "library_ms": time_ms(torch, lambda: torch.zeros(rows, D, device=dev).index_add_(
+                0, flat, ct4), flush=flush),
+            "bound_ms": bnd, "bound_by": by, "timer_floor_ms": floor_ms,
+        }
+        emit({"phase": "kernel:hash_embed_table_grad", **row})
+        bwd.append(row)
     del scratch
 
     upd = []
-    for leaf_set, leaf_shapes in (("cnn.cfg", info["cnn"]), ("sm.cfg", info["sm"])):
+    for name, leaf_set in (("cnn", "cnn.cfg"), ("sm", "sm.cfg"), ("spancat", "spancat.cfg"),
+                           ("textcat", "textcat ensemble"), ("tokcls", "token classifiers")):
+        leaf_shapes = info[name]
         n_params = sum(math.prod(sh) for sh in leaf_shapes)
         P = [torch.randn(sh, device=dev, generator=g) for sh in leaf_shapes]
         G = [torch.randn(sh, device=dev, generator=g) * 1e-3 for sh in leaf_shapes]
+        for grad in G:
+            if grad.shape[0] == 262144:  # the BOW table: a microbatch touches few rows
+                grad[torch.rand(grad.shape[0], device=dev, generator=g) > 0.01] = 0
         M = [torch.randn(sh, device=dev, generator=g) * 1e-4 for sh in leaf_shapes]
         V = [torch.rand(sh, device=dev, generator=g) * 1e-6 for sh in leaf_shapes]
         worst, worst_abs = 0, 0.0
@@ -1887,7 +2010,7 @@ def phase_cnn_kernels(torch, info):
             "plain_ms": time_ms(torch, plain_all, reps=10),
             "library_ms": time_ms(torch, lib_opt.step),
             "bound_ms": bnd, "bound_by": by, "timer_floor_ms": floor_ms,
-            "dispatch": f"train:{leaf_set.split('.')[0]} step", "calls_per_dispatch": 1,
+            "dispatch": f"train:{name} step", "calls_per_dispatch": 1,
             "chunks": fused._table.shape[0],
         }
         emit({"phase": "kernel:fused_update", **row})
@@ -1910,10 +2033,24 @@ def head_losses_fell(result, heads, phase):
     return out
 
 
-def phase_train_cnn(torch, name, corpus, leaf_shapes):
-    """``train()`` on configs/<name>.cfg as written (``max_steps`` and
-    ``eval_frequency`` cut) over the .spacy corpus, launch counters zeroed
-    just before and read just after; then, on its first microbatch, the step under the profiler (the card's idle share over 5
+#: what each CNN phase trains, as its result line names it
+CNN_PHASE_CONFIGS = {
+    "cnn": "configs/cnn.cfg as written",
+    "sm": "configs/sm.cfg as written",
+    "spancat": "configs/spancat.cfg as written",
+    "textcat": "spaCy's default textcat (TextCatEnsemble.v2: cnn.cfg's tok2vec inline + "
+               "TextCatBOW.v3, 262144 rows) with cnn.cfg's [training]",
+    "tokcls": "configs/cnn.cfg as written + morphologizer, senter, trainable_lemmatizer "
+              "(Tagger.v2 heads over listeners)",
+}
+
+
+def phase_train_cnn(torch, name, cfg, leaf_shapes):
+    """``train()`` on ``cfg`` (``pipeline_config(name)``: ``max_steps`` and
+    ``eval_frequency`` cut) over its .spacy corpus, launch counters zeroed
+    just before and read just after; each head's loss must fall to <= 2/3
+    and the dev scores must hold ``DEV_FLOORS``; then, on its first
+    microbatch, the step under the profiler (the card's idle share over 5
     steps, top kernels, launches), the device operations of a microbatch
     with the hash ids' share, the host's featurize + collate time, and
     every leaf's gradient with the kernels against the plain versions
@@ -1932,7 +2069,6 @@ def phase_train_cnn(torch, name, corpus, leaf_shapes):
     work = WORK / f"train_{name}"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
-    cfg = cnn_config(name, corpus)
     cfg["training"]["max_steps"] = CNN_STEPS
     cfg["training"]["eval_frequency"] = CNN_EVAL
     out = work / "out"
@@ -1959,6 +2095,12 @@ def phase_train_cnn(torch, name, corpus, leaf_shapes):
     if trained != leaf_shapes:
         fail(f"{phase}: trained {len(trained)} leaves, not the {len(leaf_shapes)} K5 was held at")
     event_ms = [a.elapsed_time(b) for a, b in result.step_events]
+    last = result.history[-1]["other_scores"]
+    low = {k: last.get(k) for k, floor in DEV_FLOORS.get(name, {}).items()
+           if not (last.get(k) or 0) >= floor}
+    if low:
+        fail(f"{phase}: dev scores at step {result.history[-1]['step']} below their "
+             f"floors {DEV_FLOORS[name]}: {low}")
 
     cfg_i = cfg.interpolate()
     batcher = registry.resolve(cfg_i["training"]["batcher"])
@@ -1997,7 +2139,7 @@ def phase_train_cnn(torch, name, corpus, leaf_shapes):
 
     ops = device_ops(torch, fwd_bwd)
     tables = [(m.dims["rows"], m.seed, m.attr_index)
-              for m in nlp.model["tok2vec"].modules() if isinstance(m, HashEmbed)]
+              for m in nlp.model.modules() if isinstance(m, HashEmbed)]
     keys = c["tokens"].attr_keys
     ids_ops = device_ops(torch, lambda: [hash_embed_ids(keys[..., a, :], s, r)
                                          for r, s, a in tables])
@@ -2050,10 +2192,12 @@ def phase_train_cnn(torch, name, corpus, leaf_shapes):
     del nlp, params, optimizer, opt_state, c, plain
     torch.cuda.empty_cache()
 
-    keys_s = ("tag_acc", "dep_uas", "dep_las", "ents_f")
+    keys_s = ("tag_acc", "dep_uas", "dep_las", "ents_f", "spans_sc_f", "cats_micro_f",
+              "cats_macro_auc", "cats_score", "pos_acc", "morph_acc", "lemma_acc", "sents_f")
     res = {
-        "phase": phase, "config": f"configs/{name}.cfg as written; max_steps {CNN_STEPS}, "
-        f"eval_frequency {CNN_EVAL} (cut); corpora .spacy (udgen via the port's writer)",
+        "phase": phase, "config": f"{CNN_PHASE_CONFIGS[name]}; max_steps {CNN_STEPS}, "
+        f"eval_frequency {CNN_EVAL} (cut); corpora .spacy (via the port's writer)",
+        "dev_floors": DEV_FLOORS.get(name, {}),
         "seconds": seconds, "steps": result.final_step, "leaves": len(leaf_shapes),
         "params": sum(math.prod(sh) for sh in leaf_shapes),
         "group_shapes_B_T": sorted(set(result.step_shapes)), "head_losses": head_losses,
@@ -2089,9 +2233,12 @@ def phase_train_cnn(torch, name, corpus, leaf_shapes):
 
 
 def card_vs_cpu(model_dir: Path, answers) -> dict:
-    """Share of tokens on which the served answers equal the same model
-    directory's annotations on the CPU, per field (tags; heads and deps; the
-    entity sets' F), over the same texts."""
+    """How far the served answers equal the same model directory's
+    annotations on the CPU over the same texts: per token field (tags, heads,
+    deps, pos, morphs, lemmas, sent_starts) the share of tokens that agree;
+    the entity sets' and each span key's sets' F; the share of docs whose
+    top cat agrees, and ``cats_max_abs_diff``, the largest |p_card - p_cpu|
+    of any cat (reported, not a share)."""
     from spacy_ray_tpu_torch import Pipeline
 
     cpu = Pipeline.from_disk(model_dir, device="cpu")
@@ -2105,7 +2252,7 @@ def card_vs_cpu(model_dir: Path, answers) -> dict:
             got.append(served)
             want.append(d)
     out = {}
-    for key in ("tags", "heads", "deps"):
+    for key in ("tags", "heads", "deps", "pos", "morphs", "lemmas", "sent_starts"):
         pairs = [(a, b) for s, d in zip(got, want) if getattr(d, key) is not None
                  for a, b in zip(s.get(key, []), getattr(d, key))]
         if pairs:
@@ -2114,16 +2261,53 @@ def card_vs_cpu(model_dir: Path, answers) -> dict:
         served_ents = {(i, e[0], e[1], e[2]) for i, s in enumerate(got) for e in s.get("ents", [])}
         cpu_ents = {(i, e.start, e.end, e.label) for i, d in enumerate(want) for e in d.ents}
         out["ents_f"] = set_f(served_ents, cpu_ents)
+    for key in sorted({k for d in want for k in d.spans}):
+        served = {(i, *sp) for i, s in enumerate(got) for sp in s.get("spans", {}).get(key, [])}
+        on_cpu = {(i, sp.start, sp.end, sp.label) for i, d in enumerate(want)
+                  for sp in d.spans.get(key, [])}
+        out[f"spans_{key}_f"] = set_f(served, on_cpu)
+    cats = [(s.get("cats", {}), d.cats) for s, d in zip(got, want) if d.cats]
+    if cats:
+        out["cats_top"] = sum(max(a, key=a.get) == max(b, key=b.get) for a, b in cats) / len(cats)
+        out["cats_max_abs_diff"] = max(abs(a[k] - b[k]) for a, b in cats for k in b)
     return out
 
 
-def phase_slice_cnn(torch, model_dir: Path, dev_path: Path):
-    """``model_dir`` (``train:cnn``'s best-model, tok2vec + tagger) served
-    through the ``serve`` entry point at ``--precision auto`` with
-    slice:auto's request pattern over dev texts; K1 fwd must launch, the
-    label must say f32 (a CNN has no transformer trunk to overlay), and the
-    card's tags must agree with the same model's on the CPU on >= 0.99 of
-    tokens. Then one forward at the top bucket (B 8, T 128) is timed."""
+def check_served_doc(nlp, d: dict, phase: str) -> int:
+    """Fails unless the served doc ``d`` carries each head's annotation with
+    the model's labels; returns its span count."""
+    n = len(d["tokens"])
+    comps = nlp.components
+    for name, key in (("tagger", "tags"), ("morphologizer", "pos"),
+                      ("morphologizer", "morphs"), ("senter", "sent_starts"),
+                      ("trainable_lemmatizer", "lemmas")):
+        if name in comps and len(d.get(key) or []) != n:
+            fail(f"{phase}: doc without {key}: {d}")
+    if "tagger" in comps and not set(d["tags"]) <= set(comps["tagger"].labels):
+        fail(f"{phase}: unknown tags in {d}")
+    spans = 0
+    if "spancat" in comps:
+        labels = set(comps["spancat"].labels)
+        sc = d.get("spans", {}).get("sc")
+        if sc is None or not all(0 <= a < b <= n and lab in labels for a, b, lab in sc):
+            fail(f"{phase}: doc without spans['sc'] or with a span outside it: {d}")
+        spans = len(sc)
+    for name in ("textcat", "textcat_multilabel"):
+        if name in comps and set(d.get("cats", {})) != set(comps[name].labels):
+            fail(f"{phase}: doc without every cat: {d}")
+    return spans
+
+
+def phase_slice_cnn(torch, model_dir: Path, dev_path: Path, phase: str = "slice:cnn"):
+    """``model_dir`` (the best-model of ``train:cnn``, or of the phase
+    ``phase`` names) served through the ``serve`` entry point at
+    ``--precision auto`` with slice:auto's request pattern over dev texts;
+    K1 fwd must launch, the label must say f32 (a CNN has no transformer
+    trunk to overlay), every doc must carry each head's annotation (tags,
+    pos and morphs, sentence starts, lemmas, ``spans["sc"]`` inside the doc,
+    every cat), and the card's answers must agree with the same model's on
+    the CPU on >= 0.99 (tokens, span sets' F, docs' top cat). Then one
+    forward at the top bucket (B 8, T 128) is timed."""
     from spacy_ray_tpu_torch.__main__ import build_server
     from spacy_ray_tpu_torch.ops import _cuda
     from spacy_ray_tpu_torch.pipeline.doc import Example
@@ -2140,7 +2324,7 @@ def phase_slice_cnn(torch, model_dir: Path, dev_path: Path):
         setup_s = time.perf_counter() - t0
         label = engine.overlay.label
         if engine.overlay.resolved != "f32" or "no transformer trunk" not in label:
-            fail(f"slice:cnn: precision auto resolved to {label!r}, expected f32 "
+            fail(f"{phase}: precision auto resolved to {label!r}, expected f32 "
                  "with the overlay refused")
         texts = [" ".join(eg.reference.words) for eg in Corpus(dev_path)()
                  if len(eg.reference.words) <= 100][:24]
@@ -2168,17 +2352,19 @@ def phase_slice_cnn(torch, model_dir: Path, dev_path: Path):
         torch.cuda.synchronize()
         launches = _cuda.launch_counts()
         if launches["hash_embed_gather_sum"] == 0:
-            fail("slice:cnn: K1 fwd never launched on the serving path")
-        tags = set(nlp.components["tagger"].labels)
+            fail(f"{phase}: K1 fwd never launched on the serving path")
+        n_spans = 0
         for status, ts, body in answers:
             if status != 200 or len(body["docs"]) != len(ts):
-                fail(f"slice:cnn: /v1/parse answered {status}: {body}")
+                fail(f"{phase}: /v1/parse answered {status}: {body}")
             for d in body["docs"]:
-                if len(d.get("tags", [])) != len(d["tokens"]) or not set(d["tags"]) <= tags:
-                    fail(f"slice:cnn: untagged or mis-tagged doc: {d}")
+                n_spans += check_served_doc(nlp, d, phase)
+        if "spancat" in nlp.components and n_spans == 0:
+            fail(f"{phase}: no response carried a span")
         agree = card_vs_cpu(model_dir, answers)
-        if agree["tags"] < 0.99:
-            fail(f"slice:cnn: card and CPU tags agree on only {agree['tags']:.4f} (< 0.99)")
+        low = {k: v for k, v in agree.items() if k != "cats_max_abs_diff" and v < 0.99}
+        if low:
+            fail(f"{phase}: card and CPU answers agree only {agree} (< 0.99)")
 
         docs = [nlp.tokenizer(t) for t in texts[:8]]
         top = nlp.collate([Example.from_gold(d) for d in docs], pad_batch_to=8,
@@ -2194,9 +2380,10 @@ def phase_slice_cnn(torch, model_dir: Path, dev_path: Path):
                            "device_ops": sum(v[0] for v in ops.values())}
         server.request_shutdown()
         if server.wait() != 0:
-            fail("slice:cnn: serve drain failed")
+            fail(f"{phase}: serve drain failed")
         result = {
-            "phase": "slice:cnn", "precision_label": label, "requests": len(answers),
+            "phase": phase, "precision_label": label, "requests": len(answers),
+            "spans": n_spans,
             "batches_seen": sorted({(b["batch"]["B"], b["batch"]["T"], b["batch"]["occupancy"])
                                     for _, _, b in answers}),
             "launches": launches, "latency_p50_ms": percentile(latencies, 0.50) * 1e3,
@@ -2294,7 +2481,9 @@ def main() -> int:
     full_shapes = trf_param_shapes(torch, udgen[0])
     kernels.update(phase_train_kernels(torch, full_shapes))
     spacy_corpus = write_spacy_corpus(udgen)
-    cnn = cnn_setup(torch, spacy_corpus)
+    corpora = {"cnn": spacy_corpus, "sm": spacy_corpus, "tokcls": spacy_corpus,
+               **write_head_corpora()}
+    cnn = cnn_setup(torch, corpora)
     for name, rows in phase_cnn_kernels(torch, cnn).items():
         kernels[name].extend(rows)
 
@@ -2309,17 +2498,27 @@ def main() -> int:
     runs["train:full"], full_model = phase_train_full(torch, udgen, full_shapes)
     runs["slice:full"] = phase_slice_full(torch, full_model, udgen[1], runs["auto"])
     shutil.rmtree(WORK / "train_full", ignore_errors=True)
-    runs["train:cnn"], cnn_model = phase_train_cnn(torch, "cnn", spacy_corpus, cnn["cnn"])
+    runs["train:cnn"], cnn_model = phase_train_cnn(
+        torch, "cnn", pipeline_config("cnn", corpora["cnn"]), cnn["cnn"])
     runs["slice:cnn"] = phase_slice_cnn(torch, cnn_model, spacy_corpus[1])
     shutil.rmtree(WORK / "train_cnn", ignore_errors=True)
-    runs["train:sm"], sm_model = phase_train_cnn(torch, "sm", spacy_corpus, cnn["sm"])
+    runs["train:sm"], sm_model = phase_train_cnn(
+        torch, "sm", pipeline_config("sm", corpora["sm"]), cnn["sm"])
     runs["slice:sm"] = phase_slice_full(torch, sm_model, spacy_corpus[1], runs["slice:cnn"],
                                         phase="slice:sm", need=("hash_embed_gather_sum",),
                                         cpu_compare=True)
     shutil.rmtree(WORK / "train_sm", ignore_errors=True)
     phase_cli_cnn(spacy_corpus)
+    # the text, span and token classifiers over the CNN trunk
+    for name in ("spancat", "textcat", "tokcls"):
+        runs[f"train:{name}"], model = phase_train_cnn(
+            torch, name, pipeline_config(name, corpora[name]), cnn[name])
+        runs[f"slice:{name}"] = phase_slice_cnn(torch, model, corpora[name][1],
+                                                phase=f"slice:{name}")
+        shutil.rmtree(WORK / f"train_{name}", ignore_errors=True)
     shutil.rmtree(WORK / "udgen", ignore_errors=True)
     shutil.rmtree(WORK / "spacy_corpus", ignore_errors=True)
+    shutil.rmtree(WORK / "head_corpora", ignore_errors=True)
 
     meta = {
         "hash_embed_gather_sum": ("spacy_ray_tpu_torch/csrc/hash_embed.cu",

@@ -95,8 +95,9 @@ class Model(nn.Module):
 
 
 def call(layer: nn.Module, x: Any, ctx: Optional[Context]) -> Any:
-    """``layer(x)``, with ``ctx`` passed on to a layer that takes one."""
-    return layer(x, ctx) if getattr(layer, "takes_ctx", False) else layer(x)
+    """``layer(x)``, with ``ctx`` passed on (by keyword: a trunk's second
+    argument is its overlay) to a layer that takes one."""
+    return layer(x, ctx=ctx) if getattr(layer, "takes_ctx", False) else layer(x)
 
 
 class Chain(Model):

@@ -5,8 +5,11 @@ concatenation (``seq2col``: padding masked to zero before the shifts, zeros
 past the sequence edges, offsets -nW .. +nW in order), biased variance and eps
 1e-5 in the layer norm, the tanh approximation of GELU, maxout weights laid
 out ``[nI, nO * nP]`` with the pieces innermost (part of the checkpoint
-contract), inverted dropout with keep = 1 - rate, and the masked mean
-cross-entropy and accuracy of the training loss. Dropout draws its bits from
+contract), inverted dropout with keep = 1 - rate, the masked mean
+cross-entropy and accuracy of the training loss, the masked binary
+cross-entropy of the multilabel heads (its denominator is valid rows times
+classes), and the masked mean and max pools (a max's gradient split evenly
+over tied maxima, as ``jnp.max`` splits it; an all-padding row pools to 0). Dropout draws its bits from
 an explicit ``torch.Generator``: the same distribution as ``jax.random``,
 not the same bits.
 """
@@ -84,3 +87,36 @@ def masked_accuracy(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tens
     mask_f = mask.float()
     correct = (pred == labels.long()).float() * mask_f
     return correct.sum() / torch.clamp(mask_f.sum(), min=1.0)
+
+
+def masked_sigmoid_bce(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean binary cross-entropy in f32; logits and labels [..., C], the
+    mask over the leading dims. The mask is widened to [..., 1], so the
+    denominator is the count of valid rows times C (at least 1)."""
+    logits = logits.float()
+    labels = labels.float()
+    per = torch.clamp(logits, min=0) - logits * labels + torch.log1p(torch.exp(-logits.abs()))
+    if mask is None:
+        return per.mean()
+    mask_f = mask.float()
+    while mask_f.dim() < per.dim():
+        mask_f = mask_f[..., None]
+    denom = torch.clamp(mask_f.sum() * per.shape[-1] / max(mask_f.shape[-1], 1), min=1.0)
+    return (per * mask_f).sum() / denom
+
+
+def mean_pool(X: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """[B, T, D], [B, T] -> [B, D]: the mean over valid positions."""
+    mask_f = mask.to(X.dtype)[..., None]
+    return (X * mask_f).sum(dim=1) / torch.clamp(mask_f.sum(dim=1), min=1.0)
+
+
+def max_pool(X: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """[B, T, D], [B, T] -> [B, D]: the max over valid positions, 0 for a
+    row with none. ``amax`` splits the gradient evenly over ties."""
+    neg = torch.finfo(X.dtype).min
+    out = torch.where(mask[..., None], X, torch.full((), neg, dtype=X.dtype,
+                                                     device=X.device)).amax(dim=1)
+    return torch.where(mask.any(dim=1)[..., None], out, torch.zeros((), dtype=X.dtype,
+                                                                   device=X.device))

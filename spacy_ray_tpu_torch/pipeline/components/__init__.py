@@ -1,4 +1,6 @@
 """Pipeline components of the port; importing the package registers their
 factories."""
 
-from . import ner, parser, tagger, tok2vec  # noqa: F401
+from . import (  # noqa: F401
+    edit_tree_lemmatizer, ner, parser, spancat, tagger, textcat, tok2vec, token_classifiers,
+)

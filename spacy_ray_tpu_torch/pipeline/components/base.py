@@ -40,10 +40,16 @@ class Component:
         self.labels = sorted(set(self.labels))
 
     def build_model(self) -> Model:
-        """Resolve the model config block, with nO set to the label count."""
+        """Resolve the model config block, with nO set to the label count,
+        in it and in each direct sub-block that declares ``nO = null`` (as
+        a TextCatEnsemble's ``linear_model`` may: spaCy infers it)."""
         cfg = dict(self.model_cfg)
         if self.labels:
             cfg["nO"] = len(self.labels)
+            for key, sub in list(cfg.items()):
+                if (isinstance(sub, dict) and "@architectures" in sub
+                        and "nO" in sub and sub["nO"] is None):
+                    cfg[key] = {**sub, "nO": len(self.labels)}
         model = registry.resolve(cfg)
         if not isinstance(model, Model):
             raise TypeError(f"[components.{self.name}.model] did not resolve to a Model")

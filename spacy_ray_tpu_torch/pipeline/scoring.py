@@ -1,6 +1,6 @@
 """Scores of predicted against gold annotations, with spaCy's Scorer
-conventions (the part of ``spacy_ray_tpu/pipeline/scoring.py`` the tagger,
-parser and NER need):
+conventions (the part of ``spacy_ray_tpu/pipeline/scoring.py`` the
+trainable components need):
 
 * zero division gives 0.0 inside a PRF, but no gold annotation at all gives
   ``None`` for the key, so the weighted score leaves it out;
@@ -8,7 +8,10 @@ parser and NER need):
   the micro scores;
 * dependency scoring leaves out tokens labelled ``p``/``punct`` and compares
   labels lowercased;
-* a sentence is right only when both its start and its end are.
+* a sentence is right only when both its start and its end are;
+* ``morph_per_feat`` scores each UD feature apart; a text classifier's
+  macro AUC is the rank statistic with ties counted half, undefined (None)
+  for a label with one gold class.
 """
 
 from __future__ import annotations
@@ -223,3 +226,57 @@ def score_sents(examples: Sequence[Example]) -> Dict[str, Optional[float]]:
             labeled=False,
         ).items()
     }
+
+
+def parse_feats(morph: str) -> Dict[str, str]:
+    """'Number=Sing|Person=3' -> {'Number': 'Sing', 'Person': '3'}."""
+    out: Dict[str, str] = {}
+    if not morph:
+        return out
+    for part in morph.split("|"):
+        k, _, v = part.partition("=")
+        if k:
+            out[k] = v
+    return out
+
+
+def score_morph_per_feat(examples: Sequence[Example]) -> Dict[str, object]:
+    """spaCy's ``morph_per_feat``: a PRF per UD feature over the tokens with
+    gold morphs; None when no token has any."""
+    per_feat: Dict[str, PRF] = {}
+    any_annotation = False
+    for eg in examples:
+        gold_morphs = eg.reference.morphs or []
+        pred_morphs = eg.predicted.morphs or []
+        for i, gm in enumerate(gold_morphs):
+            if not gm:
+                continue
+            any_annotation = True
+            gold_feats = parse_feats(gm)
+            pred_feats = parse_feats(pred_morphs[i] if i < len(pred_morphs) else "")
+            for feat in set(gold_feats) | set(pred_feats):
+                prf = per_feat.setdefault(feat, PRF())
+                gset = {(i, feat, gold_feats[feat])} if feat in gold_feats else set()
+                pset = {(i, feat, pred_feats[feat])} if feat in pred_feats else set()
+                prf.score_sets(pset, gset)
+    if not any_annotation:
+        return {"morph_per_feat": None}
+    return {"morph_per_feat": {feat: prf.to_dict() for feat, prf in sorted(per_feat.items())}}
+
+
+def rank_auc(gold: List[int], scores: List[float]) -> Optional[float]:
+    """ROC AUC as the rank statistic (Mann-Whitney U): the chance that a
+    random positive outscores a random negative, ties counted half; None
+    when only one class is present."""
+    pos = [s for g, s in zip(gold, scores) if g]
+    neg = [s for g, s in zip(gold, scores) if not g]
+    if not pos or not neg:
+        return None
+    wins = 0.0
+    for ps in pos:
+        for ns in neg:
+            if ps > ns:
+                wins += 1.0
+            elif ps == ns:
+                wins += 0.5
+    return wins / (len(pos) * len(neg))

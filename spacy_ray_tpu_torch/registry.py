@@ -46,11 +46,11 @@ class _SubRegistry:
 
 class Registry:
     """Top-level registry of registries: model architectures, pipeline
-    component factories, and the training blocks (optimizers, schedules,
-    batchers, corpus readers, loggers)."""
+    component factories, the training blocks (optimizers, schedules,
+    batchers, corpus readers, loggers) and ``misc`` (span suggesters)."""
 
     NAMESPACES = ("architectures", "factories", "optimizers", "schedules", "batchers",
-                  "readers", "loggers")
+                  "readers", "loggers", "misc")
 
     def __init__(self):
         for ns in self.NAMESPACES:

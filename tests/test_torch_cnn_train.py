@@ -40,6 +40,18 @@ from spacy_ray_tpu_torch.training.spacy_docbin import write_docbin
 REPO = Path(__file__).resolve().parent.parent
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU ops on one thread for the module's tests: the test
+    workers share the cores, and torch's parallel regions stall when their
+    threads outnumber the cores (a CPU train loop ran ~100 x slower so).
+    Modules that import this fixture get it too."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def data(tmp_path_factory):
     """A pseudo-UD corpus as .jsonl and as .spacy (the port's writer)."""

@@ -153,3 +153,31 @@ def test_sm_cfg_decode_graphs_at_width_96_equal_the_eager_decode():
                     for key in eager:
                         assert torch.equal(replay[key], eager[key]), (name, B, T)
     assert len(graphs) == 2 * len(BUCKETS)
+
+
+@pytest.mark.cuda
+def test_spancat_cfg_decode_on_the_card_agrees_with_its_cpu_run(tmp_path):
+    # configs/spancat.cfg at its width (random weights from a seed): the
+    # spans and cats of span docs and cat docs, decoded on the card and on
+    # the CPU from the same model directory
+    from chip_smoke import set_f
+    from spacy_ray_tpu_torch.util import synth_corpus
+
+    dev = _card()
+    cfg = P.Config.from_disk(REPO / "configs" / "spancat.cfg")
+    cfg["paths"] = {"train": "-", "dev": "-"}
+    nlp = P.Pipeline.from_config(cfg.interpolate(), device="cpu")
+    nlp.initialize(labels={"spancat": ["GPE", "ORG", "PERSON"],
+                           "textcat_multilabel": ["FOOD", "SPORTS", "TECH"]}, seed=0)
+    nlp.to_disk(tmp_path)
+    docs = [eg.reference for pair in zip(synth_corpus(32, "spancat", 7),
+                                         synth_corpus(32, "textcat", 8)) for eg in pair]
+    out = {}
+    for device in (dev, "cpu"):
+        shells = [d.copy_shell() for d in docs]
+        P.Pipeline.from_disk(tmp_path, device=device).predict_docs(shells)
+        out[str(device)] = shells
+    card, cpu = out[str(dev)], out["cpu"]
+    spans = [{(i, *s) for i, d in enumerate(run) for s in d.spans["sc"]} for run in (card, cpu)]
+    assert spans[1] and set_f(*spans) >= 0.99
+    assert max(abs(a.cats[k] - b.cats[k]) for a, b in zip(card, cpu) for k in b.cats) <= 1e-4

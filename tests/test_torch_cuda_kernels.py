@@ -251,3 +251,87 @@ def test_cuda_fused_update_over_the_cnn_pipelines_leaves_bit_equal():
             for got, w in zip(zip(Pl, M, V), want):
                 for a, b in zip(got, w):
                     assert ulp_diff(torch, a, b) == 0, (name, hyper, a.shape)
+
+
+@pytest.mark.cuda
+def test_cuda_hash_embed_at_the_spancat_microbatch_bit_equal():
+    # configs/spancat.cfg's first microbatch: batch_by_words 2000 over span
+    # docs and cat docs in turn (~264 docs of ~9 words: B 512, T 32, N 16384,
+    # most of it batch padding), the trunk's four tables (D 96)
+    from pathlib import Path
+
+    import spacy_ray_tpu_torch as P
+    from spacy_ray_tpu_torch.models.layers import HashEmbed
+    from spacy_ray_tpu_torch.ops.hashing import hash_embed_ids
+    from spacy_ray_tpu_torch.registry import registry
+    from spacy_ray_tpu_torch.util import synth_corpus
+
+    dev, g = _card()
+    cfg = P.Config.from_disk(Path(__file__).resolve().parent.parent / "configs" / "spancat.cfg")
+    cfg["paths"] = {"train": "-", "dev": "-"}
+    cfg = cfg.interpolate()
+    nlp = P.Pipeline.from_config(cfg, device=dev)
+    nlp.initialize(labels={"spancat": ["GPE", "ORG", "PERSON"],
+                           "textcat_multilabel": ["FOOD", "SPORTS", "TECH"]})
+    egs = [eg for pair in zip(synth_corpus(1000, "spancat", 0), synth_corpus(1000, "textcat", 1))
+           for eg in pair]
+    batch = next(iter(registry.resolve(cfg["training"]["batcher"])(egs)))
+    keys = nlp.collate(batch)["tokens"].attr_keys
+    assert keys.shape[0] * keys.shape[1] >= 8192
+    tables = [m for m in nlp.model.modules() if isinstance(m, HashEmbed)]
+    assert [m.dims["rows"] for m in tables] == [2000, 1000, 1000, 1000]
+    for m in tables:
+        rows = m.dims["rows"]
+        ids = hash_embed_ids(keys[..., m.attr_index, :].reshape(-1, 2), m.seed, rows)
+        table = torch.randn(rows, 96, device=dev, generator=g)
+        assert torch.equal(hash_embed_gather_sum(table, ids), hash_embed_gather_sum_plain(table, ids))
+        ct = torch.randn(ids.shape[0], 96, device=dev, generator=g)
+        got = hash_embed_table_grad(ct, ids, rows)
+        assert torch.equal(got, hash_embed_table_grad(ct, ids, rows))
+        assert torch.equal(got.cpu(), hash_embed_table_grad_plain(ct.cpu(), ids.cpu(), rows))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["spancat", "textcat", "tokcls"])
+def test_cuda_fused_update_over_the_classifiers_leaves_bit_equal(name):
+    # spancat.cfg's leaves; spaCy's default textcat over cnn.cfg's trunk, its
+    # BOW table [262144, 3] with a gradient that is zero but on ~1 % of rows
+    # (those a microbatch touches); the token classifiers' odd-sized heads
+    import chip_smoke
+    import spacy_ray_tpu_torch as P
+
+    dev, g = _card()
+    cfg = chip_smoke.pipeline_config(name, ("-", "-")).interpolate()
+    nlp = P.Pipeline.from_config(cfg, device="cpu")
+    labels = {"spancat": ["GPE", "ORG", "PERSON"], "textcat_multilabel": ["A", "B", "C"],
+              "textcat": ["FOOD", "SPORTS", "TECH"], "tagger": ["DT", "NN", "VBD"],
+              "morphologizer": ["NOUN|Number=Sing", "VERB|Tense=Past", "X"], "senter": ["I", "S"],
+              "trainable_lemmatizer": ["null", '["s","a","b"]']}
+    nlp.initialize(labels={k: v for k, v in labels.items() if k in nlp.pipe_names})
+    shapes = [tuple(p.shape) for p in nlp.model.parameters()]
+    if name == "textcat":
+        assert (262144, 3) in shapes
+    total = sum(torch.Size(s).numel() for s in shapes)
+    for hyper in HYPERS[:3]:
+        bufs = [torch.randn(total + 3, device=dev, generator=g) * s
+                for s in (1.0, 1e-3, 1e-4, 1e-4)]
+        bufs[3].abs_()
+        leaves = ([], [], [], [])
+        for X, buf, start in zip(leaves, bufs, (1, 2, 3, 0)):
+            o = start
+            for s in shapes:
+                n = torch.Size(s).numel()
+                X.append(buf[o:o + n].view(s))
+                o += n
+        Pl, G, M, V = leaves
+        for grad in G:
+            if grad.shape[0] == 262144:
+                grad[torch.rand(grad.shape[0], device=dev, generator=g) > 0.01] = 0
+        gn = global_norm(G)
+        sc = step_scalars(hyper, 4, 4, lambda s: 0.001)
+        want = [leaf_math_plain(p, gg, m, v, gn, *sc, hyper=hyper)
+                for p, gg, m, v in zip(Pl, G, M, V)]
+        FusedUpdate(hyper).step(Pl, G, M, V, gn, sc)
+        for got, w in zip(zip(Pl, M, V), want):
+            for a, b in zip(got, w):
+                assert ulp_diff(torch, a, b) == 0, (name, hyper, a.shape)

@@ -33,6 +33,8 @@ from spacy_ray_tpu_torch.training.checkpoint import CheckpointCorrupt, TrainChec
 from spacy_ray_tpu_torch.training.corpus import Corpus
 from spacy_ray_tpu_torch.training.loop import train as p_train, validate_training
 
+from test_torch_cnn_train import one_torch_thread  # noqa: F401 (an autouse fixture)
+
 REPO = Path(__file__).resolve().parent.parent
 
 CFG = """

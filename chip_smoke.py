@@ -122,6 +122,21 @@ Run from the root of a checkout. Phases, each printing one JSON line:
               ``train:spancat``'s microbatch (B 512, T 32) and K5 over these
               three leaf sets (the BOW table's gradient zero but on 1 % of
               its rows).
+17. md:assets, train:md, slice:md, slice:md_jax — spaCy's md layout
+              (``md_config``: MultiHashEmbed.v2 rows 5000/1000/2500/2500
+              with static vectors, tagger, parser, attribute ruler, rule
+              lemmatizer, a NER with its own trunk, entity ruler) on the
+              pseudo-UD .spacy corpus, over 20,000 x 300 vectors made from a
+              seed and converted by the port's ``init-vectors``: K1 fwd/bwd
+              at its tables and K5 over its trainable leaves (the kernel rows
+              of 9.); trained the same way, dev ``tag_acc`` >= 0.9,
+              ``dep_las`` >= 0.8, ``ents_f`` >= 0.8 and ``lemma_acc`` within
+              1 % of the rule lemmatizer's score from gold POS, both frozen
+              tables bit-equal to the vectors after training and out of K5's
+              leaves and the opt state, a checkpoint's save time; served
+              with the rule components' host ms and card vs CPU >= 0.99 on
+              tags, POS, lemmas, heads, deps and entities; then the JAX-
+              written ``tests/data/jax_md/`` served as slice:cnn serves.
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -131,6 +146,7 @@ file, it exits 2 and prints no result.
 
 from __future__ import annotations
 
+import io
 import json
 import math
 import random
@@ -141,7 +157,7 @@ import sys
 import threading
 import time
 import urllib.request
-from contextlib import contextmanager
+from contextlib import contextmanager, redirect_stdout
 from pathlib import Path
 from unittest import mock
 
@@ -174,8 +190,16 @@ CNN_STEPS, CNN_EVAL = 60, 20  # the CNN phases (train:cnn, sm, spancat, textcat,
 #: each CNN phase's dev floors at its last evaluation (spancat's and textcat's
 #: are the JAX package's own tests' floors, tests/test_spancat_textcat.py)
 DEV_FLOORS = {"spancat": {"spans_sc_f": 0.5, "cats_micro_f": 0.7},
-              "textcat": {"cats_score": 0.7}}
+              "textcat": {"cats_score": 0.7},
+              "md": {"tag_acc": 0.9, "dep_las": 0.8, "ents_f": 0.8}}
+#: md's lemma_acc floor, as a share of what the same rule lemmatizer scores
+#: from the dev corpus's gold POS: the JAX package's rule lemmatizer
+#: lower-cases a PROPN lemma (no rule table for PROPN), and the corpus's
+#: PROPN lemmas keep their case, so that score is ~0.90 on this corpus
+LEMMA_FLOOR_OF_GOLD_POS = 0.99
 PROFILE_STEPS = 5           # train:cnn / train:sm steps under torch.profiler
+MD_ROWS = (5000, 1000, 2500, 2500)  # spaCy md's tables: NORM, PREFIX, SUFFIX, SHAPE
+MD_VECTORS = (20000, 300)   # en_core_web_md's vector width; synthetic rows from a seed
 
 UD_TAGS = ["ADJ", "ADP", "ADV", "AUX", "CCONJ", "DET", "INTJ", "NOUN", "NUM",
            "PART", "PRON", "PROPN", "PUNCT", "SCONJ", "SYM", "VERB", "X"]
@@ -1499,15 +1523,20 @@ def phase_train_full(torch, udgen, full_shapes):
 def phase_slice_full(torch, model_dir: Path, dev_path: Path, auto: dict,
                      phase: str = "slice:full",
                      need=("hash_embed_gather_sum", "flash_attention_fwd"),
-                     cpu_compare: bool = False):
-    """``model_dir`` (trained by ``train:full``, or by ``train:sm`` for
-    ``phase`` slice:sm) served over ``/v1/parse`` at ``--precision auto``
-    with slice:auto's traffic over pseudo-UD dev texts, every kernel of
-    ``need`` launched, its p50 and p99 set beside ``auto``'s (slice:auto's
-    run, or slice:cnn's for slice:sm); with ``cpu_compare`` (an f32 model),
-    the answers against the same model directory run on the CPU; then, for one B 8, T 128 batch, the heads' decodes by graph
-    replay, eager on the card, on the CPU and with every kernel swapped for
-    its plain version, and their times."""
+                     cpu_compare: bool = False, ents_floor: float = 0.95):
+    """``model_dir`` (trained by ``train:full``, or by ``train:sm`` or
+    ``train:md`` for ``phase`` slice:sm or slice:md) served over
+    ``/v1/parse`` at ``--precision auto`` with slice:auto's traffic over
+    pseudo-UD dev texts, every kernel of ``need`` launched, its p50 and p99
+    set beside ``auto``'s (slice:auto's run, or slice:cnn's for the CNNs);
+    the host ms of each rule component (no model: attribute ruler,
+    lemmatizer, entity ruler) a dispatch and a request; with
+    ``cpu_compare`` (an f32 model), the answers against the same model
+    directory run on the CPU (>= 0.99, the entity sets' F >= ``ents_floor``);
+    then, for one B 8, T 128 batch, the heads' decodes by graph replay
+    (each on its trunk's output: the shared trunk's, or the NER's own trunk
+    run eagerly), eager on the card, on the CPU and with every kernel swapped
+    for its plain version, and their times."""
     import copy
 
     from spacy_ray_tpu_torch.__main__ import build_server
@@ -1552,16 +1581,40 @@ def phase_slice_full(torch, model_dir: Path, dev_path: Path, auto: dict,
         concurrent = [[[texts[4 + 5 * c + i]] if i % 2 else texts[4 + 5 * c + i: 6 + 5 * c + i]
                        for i in range(3)] for c in range(4)]
         replays0 = graphs.replays
+        rules = [n for n in nlp.pipe_names if nlp.components[n].model is None]
+        rule_s = {n: [] for n in rules}
+
+        def timed(name, fn):
+            def wrapped(*args, **kwargs):
+                t = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    rule_s[name].append(time.perf_counter() - t)
+            return wrapped
+
+        patches = [mock.patch.object(nlp.components[n], "set_annotations",
+                                     timed(n, nlp.components[n].set_annotations))
+                   for n in rules]
+        for patch in patches:
+            patch.start()
         _cuda.reset_launch_counts()
-        client(sequential)
-        threads = [threading.Thread(target=client, args=(c,)) for c in concurrent]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join()
+        try:
+            client(sequential)
+            threads = [threading.Thread(target=client, args=(c,)) for c in concurrent]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+        finally:
+            for patch in patches:
+                patch.stop()
         torch.cuda.synchronize()
         launches = _cuda.launch_counts()
         replays = graphs.replays - replays0
+        rule_host_ms = {n: {"per_dispatch": 1e3 * statistics.mean(ts),
+                            "per_request": 1e3 * sum(ts) / len(answers), "dispatches": len(ts)}
+                        for n, ts in rule_s.items()}
         missing = [k for k in need if launches[k] == 0]
         if missing:
             fail(f"{phase}: kernels never launched on the main path: {missing}")
@@ -1577,6 +1630,7 @@ def phase_slice_full(torch, model_dir: Path, dev_path: Path, auto: dict,
                 if not (len(d.get("tags", [])) == len(d.get("heads", [])) == len(d.get("deps", []))
                         == n) or not all(0 <= h < n for h in d["heads"]):
                     fail(f"{phase}: doc without tags, heads or deps: {d}")
+                check_served_doc(nlp, d, phase)  # the rule components' pos and lemmas
                 if not set(d["deps"]) <= {l.split("||")[0] for l in labels_dep}:
                     fail(f"{phase}: unknown dep labels in {d['deps']}")
                 n_docs += 1
@@ -1588,7 +1642,7 @@ def phase_slice_full(torch, model_dir: Path, dev_path: Path, auto: dict,
         if cpu_compare:
             pipeline_vs_cpu = card_vs_cpu(model_dir, answers)
             low = {k: v for k, v in pipeline_vs_cpu.items()
-                   if v < (0.95 if k == "ents_f" else 0.99)}
+                   if v < (ents_floor if k == "ents_f" else 0.99)}
             if low:
                 fail(f"{phase}: served answers and the CPU's agree only {pipeline_vs_cpu}")
 
@@ -1602,24 +1656,31 @@ def phase_slice_full(torch, model_dir: Path, dev_path: Path, auto: dict,
             out_k = nlp.forward(tokens, overlay)
             with plain_kernels():
                 out_p = nlp.forward(tokens, overlay)
-            X, mask = out_k[nlp.tok2vec_name].X, out_k[nlp.tok2vec_name].mask
+            mask = out_k[nlp.tok2vec_name].mask
             lengths = mask.sum(1)
-            eager = {n: nlp.components[n].device_decode(X, lengths) for n in ("parser", "ner")}
+            # each head's trunk output: the shared trunk's through a
+            # listener, or its own trunk's (md's NER), run eagerly
+            Xs = {n: nlp.components[n].trunk_output(
+                      out_k[nlp.tok2vec_name] if nlp.components[n].listens else tokens).X
+                  for n in ("parser", "ner")}
+            eager = {n: nlp.components[n].device_decode(Xs[n], lengths)
+                     for n in ("parser", "ner")}
             replay = {n: {k: v.clone() for k, v in
-                          graphs.run(n, nlp.components[n], X, lengths).items()}
+                          graphs.run(n, nlp.components[n], Xs[n], lengths).items()}
                       for n in ("parser", "ner")}
             for n in eager:
                 for k in eager[n]:
                     if not torch.equal(eager[n][k], replay[n][k]):
                         fail(f"{phase}: {n} {k}: graph replay differs from the eager decode")
-            # the same trunk output and head weights decoded on the CPU
-            Xc, lc = X.float().cpu(), lengths.cpu()
+            # the same trunk outputs and head weights decoded on the CPU
+            lc = lengths.cpu()
             up_p = copy.deepcopy(parser.model.upper).cpu()
             up_n = copy.deepcopy(ner.model.upper).cpu()
-            heads_c, labels_c = decode_parser(up_p, Xc, lc, len(parser.labels))
+            heads_c, labels_c = decode_parser(up_p, Xs["parser"].float().cpu(), lc,
+                                              len(parser.labels))
             ner_fn = decode_biluo_viterbi if ner.decode == "viterbi" else decode_biluo
-            acts_c = ner_fn(up_n.step_logits(Xc, ner_window_features(128, lc)), lc,
-                            len(ner.labels))
+            acts_c = ner_fn(up_n.step_logits(Xs["ner"].float().cpu(),
+                                             ner_window_features(128, lc)), lc, len(ner.labels))
         real = mask.cpu()
 
         def agree(a, b):
@@ -1644,7 +1705,7 @@ def phase_slice_full(torch, model_dir: Path, dev_path: Path, auto: dict,
         decode_times = {}
         with torch.inference_mode():
             for n in ("parser", "ner"):
-                comp = nlp.components[n]
+                comp, X = nlp.components[n], Xs[n]
 
                 def run_graph():
                     graphs.run(n, comp, X, lengths)
@@ -1688,7 +1749,7 @@ def phase_slice_full(torch, model_dir: Path, dev_path: Path, auto: dict,
             "latency_p99_ms": percentile(latencies, 0.99) * 1e3,
             "auto_latency_p50_ms": auto["latency_p50_ms"],
             "auto_latency_p99_ms": auto["latency_p99_ms"],
-            "setup_s": setup_s, "capture": capture,
+            "setup_s": setup_s, "capture": capture, "rule_host_ms": rule_host_ms,
             "graph_equals_eager": True, "card_vs_cpu_agreement": cpu_agree,
             "served_vs_cpu_pipeline": pipeline_vs_cpu,
             "kernels_vs_plain": plain_agree, "decode_B8_T128": decode_times,
@@ -1779,6 +1840,110 @@ def tokcls_config(paths):
     return cfg
 
 
+def md_trunk(width: int = CNN_WIDTH, depth: int = 4, rows=MD_ROWS):
+    """spaCy md's trunk: Tok2Vec.v2 of MultiHashEmbed.v2 (NORM, PREFIX,
+    SUFFIX, SHAPE at ``rows``, with the static vectors) and a maxout window
+    encoder (window 1, 3 pieces)."""
+    return {"@architectures": "spacy.Tok2Vec.v2",
+            "embed": {"@architectures": "spacy.MultiHashEmbed.v2", "width": width,
+                      "attrs": ["NORM", "PREFIX", "SUFFIX", "SHAPE"], "rows": list(rows),
+                      "include_static_vectors": True},
+            "encode": {"@architectures": "spacy.MaxoutWindowEncoder.v2", "width": width,
+                       "depth": depth, "window_size": 1, "maxout_pieces": 3}}
+
+
+def md_config(paths, vectors, attr_patterns, ent_patterns, *, width: int = CNN_WIDTH,
+              depth: int = 4, rows=MD_ROWS, hidden: int = 64):
+    """spaCy's md pipeline layout from configs/sm.cfg: ``tok2vec`` (md's
+    trunk), ``tagger`` and ``parser`` (hidden 64, 2 pieces) over listeners,
+    ``attribute_ruler`` (``attr_patterns``), ``lemmatizer`` (rule mode),
+    ``ner`` (hidden 64) over a trunk of its own alike, ``entity_ruler``
+    (``ent_patterns``, ``overwrite_ents`` false); ``[initialize] vectors``
+    is ``vectors``; sm.cfg's [training] and score weights. The keyword
+    arguments shrink it for the CPU tests."""
+    cfg = cnn_config("sm", paths)
+    comps = cfg["components"]
+    comps["tok2vec"]["model"] = md_trunk(width, depth, rows)
+    for name in ("tagger", "parser"):
+        comps[name]["model"]["tok2vec"]["width"] = width
+    comps["parser"]["model"]["hidden_width"] = hidden
+    comps["ner"]["model"].update(hidden_width=hidden, tok2vec=md_trunk(width, depth, rows))
+    comps["attribute_ruler"] = {"factory": "attribute_ruler", "patterns": attr_patterns}
+    comps["lemmatizer"] = {"factory": "lemmatizer", "mode": "rule"}
+    comps["entity_ruler"] = {"factory": "entity_ruler", "patterns": ent_patterns,
+                             "overwrite_ents": False}
+    cfg["nlp"]["pipeline"] = ["tok2vec", "tagger", "parser", "attribute_ruler", "lemmatizer",
+                              "ner", "entity_ruler"]
+    cfg["initialize"] = {"vectors": str(vectors)}
+    return cfg
+
+
+def md_assets(train_path, work: Path, *, seed: int = 0, rows: int = MD_VECTORS[0],
+              dim: int = MD_VECTORS[1]):
+    """What ``md_config`` needs from the train corpus, made from ``seed``:
+
+    * the vectors: a word2vec text file of ``rows`` x ``dim`` seeded normal
+      values, converted by the port's ``init-vectors`` into
+      ``work/vectors.npz``. Its first rows are the corpus's word types by
+      frequency, with every 8th type left out (no vector: row -1) and each
+      capitalised type only in lower case (found through the lower-case
+      fallback); filler words take the rest;
+    * the attribute ruler's patterns: each TAG of the corpus mapped to its
+      most frequent POS;
+    * the entity ruler's patterns: the corpus's four most frequent entity
+      mentions with their gold labels, two as phrase patterns and two as
+      token patterns on LOWER.
+
+    Returns (vectors path, attribute patterns, entity patterns, counts)."""
+    import collections
+
+    import numpy as np
+
+    from spacy_ray_tpu_torch.__main__ import main as cli
+    from spacy_ray_tpu_torch.pipeline.vectors import Vectors
+    from spacy_ray_tpu_torch.training.corpus import Corpus
+
+    docs = [eg.reference for eg in Corpus(train_path)()]
+    words = collections.Counter(w for d in docs for w in d.words)
+    tag_pos = collections.defaultdict(collections.Counter)
+    mentions = collections.Counter()
+    for d in docs:
+        for t, p in zip(d.tags, d.pos):
+            tag_pos[t][p] += 1
+        mentions.update((tuple(d.words[e.start:e.end]), e.label) for e in d.ents)
+    types = sorted(words, key=lambda w: (-words[w], w))
+    kept = list(dict.fromkeys(w.lower() for i, w in enumerate(types) if i % 8 != 7))
+    if len(kept) > rows:
+        fail(f"md vectors: {len(kept)} corpus words do not fit {rows} rows")
+    vocab = kept + [f"filler{i:05d}" for i in range(rows - len(kept))]
+    table = np.random.default_rng(seed).standard_normal((rows, dim), dtype=np.float32)
+    work.mkdir(parents=True, exist_ok=True)
+    text = work / "vectors.txt"
+    with open(text, "w", encoding="utf8") as f:
+        f.write(f"{rows} {dim}\n")
+        for w, row in zip(vocab, table):
+            f.write(w + " " + " ".join(f"{x:.4f}" for x in row) + "\n")
+    out = work / "vectors.npz"
+    if cli(["init-vectors", str(text), str(out)]) != 0:
+        fail("md: init-vectors failed")
+    text.unlink()
+    attr = [{"patterns": [[{"TAG": t}]], "attrs": {"POS": c.most_common(1)[0][0]}}
+            for t, c in sorted(tag_pos.items())]
+    top = [m for m, _ in sorted(mentions.items(), key=lambda kv: (-kv[1], kv[0]))[:4]]
+    ents = ([{"label": lab, "pattern": " ".join(ws)} for ws, lab in top[:2]]
+            + [{"label": lab, "pattern": [{"LOWER": w.lower()} for w in ws]}
+               for ws, lab in top[2:]])
+    vec = Vectors.from_disk(out)
+    found = {w: vec.row_of(w) >= 0 for w in types}
+    exact = sum(w in vec.key_to_row for w in types)
+    counts = {"rows": len(vec), "width": vec.width, "corpus_tokens": sum(words.values()),
+              "corpus_types": len(types), "types_exact": exact,
+              "types_lower_case_fallback": sum(found.values()) - exact,
+              "types_without_a_vector": len(types) - sum(found.values()),
+              "tokens_without_a_vector": sum(n for w, n in words.items() if not found[w])}
+    return out, attr, ents, counts
+
+
 def pipeline_config(name: str, paths):
     if name in ("cnn", "sm"):
         return cnn_config(name, paths)
@@ -1830,25 +1995,26 @@ def write_spacy_corpus(udgen):
     return out
 
 
-def cnn_setup(torch, corpora):
-    """Built on the CPU from the configs, labels collected from each one's
-    corpus (``corpora``: {name: (train, dev)}) as ``train()`` collects them:
-    the leaf shapes of cnn.cfg, sm.cfg, spancat.cfg, the textcat ensemble and
-    the token classifiers (those their ``train:*`` phases update), and the
-    hash keys of ``train:cnn``'s and ``train:spancat``'s first microbatches
-    with each table's (rows, seed, attribute)."""
+def cnn_setup(torch, configs):
+    """Built on the CPU from ``configs`` ({name: config}), labels collected
+    from each one's corpus as ``train()`` collects them: the leaf shapes of
+    cnn.cfg, sm.cfg, spancat.cfg, the textcat ensemble, the token
+    classifiers and the md layout (those their ``train:*`` phases update:
+    md's frozen tables are no leaves), and the hash keys of ``train:cnn``'s,
+    ``train:spancat``'s and ``train:md``'s first microbatches with each
+    table's (rows, seed, attribute)."""
     from spacy_ray_tpu_torch import Pipeline
     from spacy_ray_tpu_torch.models.layers import HashEmbed
     from spacy_ray_tpu_torch.registry import registry
     from spacy_ray_tpu_torch.training.batcher import bucket_batch_size, bucket_length
 
     info = {"microbatches": {}}
-    for name in ("cnn", "sm", "spancat", "textcat", "tokcls"):
-        cfg = pipeline_config(name, corpora[name]).interpolate()
+    for name, cfg in configs.items():
+        cfg = cfg.interpolate()
         nlp = Pipeline.from_config(cfg, device="cpu")
         nlp.initialize(registry.resolve(cfg["corpora"]["train"]), seed=0)
         info[name] = [tuple(p.shape) for p in nlp.model.parameters()]
-        if name in ("cnn", "spancat"):
+        if name in ("cnn", "spancat", "md"):
             batcher = registry.resolve(cfg["training"]["batcher"])
             batch = next(iter(batcher(registry.resolve(cfg["corpora"]["train"])())))
             B, T = bucket_batch_size(len(batch)), bucket_length(max(len(eg) for eg in batch))
@@ -1863,12 +2029,15 @@ def cnn_setup(torch, corpora):
 
 def phase_cnn_kernels(torch, info):
     """K1 fwd, K1 bwd and K5 at the CNN's shapes, each against its plain
-    version and timed: K1 at D 96 over the 2000- and 1000-row tables, at
-    ``train:cnn``'s and ``train:spancat``'s first microbatches (the corpora's
-    ids) and at one request (N 128, uniform keys); K5 over the leaves of
-    cnn.cfg, sm.cfg, spancat.cfg, the textcat ensemble (its 262144 x 3 BOW
-    table's gradient zero but on the rows a microbatch touches) and the token
-    classifiers (labels from the corpora) under three hyper sets, at 0 ulp."""
+    version and timed: K1 at D 96 over the 2000- and 1000-row tables and
+    md's 5000-, 1000- and 2500-row tables, at ``train:cnn``'s,
+    ``train:spancat``'s and ``train:md``'s first microbatches (the corpora's
+    ids; md's two trunks hash alike, two calls a table) and at one request
+    (N 128, uniform keys); K5 over the leaves of cnn.cfg, sm.cfg,
+    spancat.cfg, the textcat ensemble (its 262144 x 3 BOW table's gradient
+    zero but on the rows a microbatch touches), the token classifiers and
+    the md layout (labels from the corpora) under three hyper sets, at 0
+    ulp."""
     import torch.nn.functional as F
 
     from spacy_ray_tpu_torch.ops.fused_update import (
@@ -1890,15 +2059,20 @@ def phase_cnn_kernels(torch, info):
     D = CNN_WIDTH
     floor_ms = time_ms(torch, lambda: torch.cuda._sleep(1), flush=flush)
     keys_one = torch.randint(0, 2 ** 32, (128, 2), device=dev, generator=g)
+    # one request (N 128): cnn.cfg's NORM table and a 1000-row table; md's
+    # 5000-, 1000- and 2500-row tables
+    one_request = {"cnn": (0, 1), "md": (0, 1, 2)}
     cases = []
     for phase, mb in info["microbatches"].items():
         keys_mb = mb["keys"].to(dev)
+        calls = 2 if phase == "md" else 1  # md: the shared trunk's and the NER's
         for ti, (rows, seed, attr) in enumerate(mb["tables"]):
-            cases.append((rows, seed, keys_mb[:, attr], "corpus", f"train:{phase} microbatch"))
-            if phase == "cnn" and ti <= 1:  # one request: the NORM table and one 1000-row table
-                cases.append((rows, seed, keys_one, "uniform", "one request (N 128)"))
+            cases.append((rows, seed, keys_mb[:, attr], "corpus", f"train:{phase} microbatch",
+                          calls))
+            if ti in one_request.get(phase, ()):
+                cases.append((rows, seed, keys_one, "uniform", "one request (N 128)", calls))
     fwd, bwd = [], []
-    for rows, seed, keys, ids_kind, dispatch in cases:
+    for rows, seed, keys, ids_kind, dispatch, calls in cases:
         ids = hash_embed_ids(keys, seed, rows)
         n = ids.shape[0]
         table = torch.randn(rows, D, device=dev, generator=g)
@@ -1911,7 +2085,7 @@ def phase_cnn_kernels(torch, info):
         bnd, by = bound_ms(distinct * D * 4 + n * D * 4 + n * 16, 3 * n * D, PEAK_F32_FLOPS)
         row = {
             "rows": rows, "D": D, "N": n, "ids": ids_kind, "distinct_rows": distinct,
-            "max_abs_err": err, "dispatch": dispatch, "calls_per_dispatch": 1,
+            "max_abs_err": err, "dispatch": dispatch, "calls_per_dispatch": calls,
             "ms": time_ms(torch, lambda: hash_embed_gather_sum(table, ids), flush=flush),
             "host_us": host_us(torch, lambda: hash_embed_gather_sum(table, ids)),
             "plain_ms": time_ms(torch, lambda: hash_embed_gather_sum_plain(table, ids),
@@ -1943,7 +2117,7 @@ def phase_cnn_kernels(torch, info):
         bnd, by = bound_ms(rows * D * 4 + n * D * 4 + n * 16, 4 * n * D, PEAK_F32_FLOPS)
         row = {
             "rows": rows, "D": D, "N": n, "ids": ids_kind, "dispatch": dispatch,
-            "calls_per_dispatch": 1,
+            "calls_per_dispatch": calls,
             "longest_segment": int(torch.bincount(flat).max()),
             "max_abs_err": err, "max_abs_err_vs_card_plain": err_card,
             "bit_identical_rerun": True,
@@ -1961,7 +2135,8 @@ def phase_cnn_kernels(torch, info):
 
     upd = []
     for name, leaf_set in (("cnn", "cnn.cfg"), ("sm", "sm.cfg"), ("spancat", "spancat.cfg"),
-                           ("textcat", "textcat ensemble"), ("tokcls", "token classifiers")):
+                           ("textcat", "textcat ensemble"), ("tokcls", "token classifiers"),
+                           ("md", "md layout (its two frozen tables left out)")):
         leaf_shapes = info[name]
         n_params = sum(math.prod(sh) for sh in leaf_shapes)
         P = [torch.randn(sh, device=dev, generator=g) for sh in leaf_shapes]
@@ -2042,6 +2217,10 @@ CNN_PHASE_CONFIGS = {
                "TextCatBOW.v3, 262144 rows) with cnn.cfg's [training]",
     "tokcls": "configs/cnn.cfg as written + morphologizer, senter, trainable_lemmatizer "
               "(Tagger.v2 heads over listeners)",
+    "md": "spaCy's md layout from configs/sm.cfg: Tok2Vec.v2 (MultiHashEmbed.v2 rows "
+          "5000/1000/2500/2500 with static vectors, 20000 x 300 from a seed; encoder depth 4), "
+          "tagger, parser (hidden 64), attribute_ruler (TAG -> POS), rule lemmatizer, ner "
+          "(hidden 64, its own trunk alike), entity_ruler; sm.cfg's [training]",
 }
 
 
@@ -2089,7 +2268,7 @@ def phase_train_cnn(torch, name, cfg, leaf_shapes):
         fail(f"{phase}: kernels never launched on the training path: {missing}")
     if len(result.step_head_losses) != CNN_STEPS:
         fail(f"{phase}: {len(result.step_head_losses)} steps' losses, expected {CNN_STEPS}")
-    heads = nlp.head_names()
+    heads = [n for n in nlp.head_names() if nlp.components[n].trainable]
     head_losses = head_losses_fell(result, heads, phase)
     trained = [tuple(p.shape) for p in nlp.model.parameters()]
     if trained != leaf_shapes:
@@ -2118,6 +2297,15 @@ def phase_train_cnn(torch, name, cfg, leaf_shapes):
         nlp.collate(egs, with_targets=True, pad_batch_to=B_pad, pad_len_to=T_pad)
         torch.cuda.synchronize()
         collate_ms[label] = (time.perf_counter() - t) * 1e3
+    vector_rows_ms = None
+    if nlp.vectors is not None:  # the vector rows' share: their lookups alone
+        fresh = [Example.from_gold(eg.reference) for eg in batch]
+        vector_rows_ms = {}
+        for label in ("uncached", "cached"):
+            t = time.perf_counter()
+            for eg in fresh:
+                nlp._vector_rows(eg)
+            vector_rows_ms[label] = (time.perf_counter() - t) * 1e3
 
     nlp.model.requires_grad_(True)
     params = {k.replace(".", "/"): p for k, p in nlp.model.named_parameters()}
@@ -2187,6 +2375,7 @@ def phase_train_cnn(torch, name, cfg, leaf_shapes):
     if not control > TOL_GRAD_CNN:
         fail(f"{phase}: a dropped table row would read {control}, not above {TOL_GRAD_CNN}")
     nlp.model.requires_grad_(False)
+    md = md_train_checks(torch, nlp, out, cfg_i, result) if name == "md" else None
     oracle = (dict(nlp.components["parser"].oracle_stats) if "parser" in nlp.components
               else None)
     del nlp, params, optimizer, opt_state, c, plain
@@ -2216,7 +2405,7 @@ def phase_train_cnn(torch, name, cfg, leaf_shapes):
         "microbatch_fwd_bwd_kernel_ms": sum(v[1] for v in ops.values()),
         "hash_ids_device_ops": n_ids, "hash_ids_share_of_ops": n_ids / max(n_ops, 1),
         "top_ops_fwd_bwd": sorted(ops.items(), key=lambda kv: -kv[1][0])[:8],
-        "collate_ms_with_copy": collate_ms,
+        "collate_ms_with_copy": collate_ms, "vector_rows_ms": vector_rows_ms,
         "step_profile": {
             "steps": PROFILE_STEPS, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
@@ -2228,8 +2417,86 @@ def phase_train_cnn(torch, name, cfg, leaf_shapes):
         "grad_max_rel_err": rel[worst_leaf], "grad_worst_leaf": worst_leaf,
         "grad_tol": TOL_GRAD_CNN, "grad_control_row_drop": control,
     }
+    if md is not None:
+        res["md"] = md
     emit(res)
     return res, out / "best-model"
+
+
+def md_train_checks(torch, nlp, out: Path, cfg, result) -> dict:
+    """What ``train:md`` adds to a CNN phase: the two frozen tables
+    bit-equal to the vectors file after training, in the model and in the
+    saved ``params.npz`` files; the leaves the loop hands K5 (no frozen
+    table among them) and an opt-state file without frozen entries; dev
+    ``lemma_acc`` against what the same lemmatizer scores from gold POS
+    (``LEMMA_FLOOR_OF_GOLD_POS``); the time of one checkpoint generation's
+    save (what ``save_last`` writes at every evaluation) and its bytes."""
+    import numpy as np
+
+    from spacy_ray_tpu_torch.models.core import param_paths
+    from spacy_ray_tpu_torch.pipeline.doc import Doc, Example
+    from spacy_ray_tpu_torch.pipeline.vectors import Vectors
+    from spacy_ray_tpu_torch.registry import registry
+    from spacy_ray_tpu_torch.training.checkpoint import TrainCheckpoint, load_params
+    from spacy_ray_tpu_torch.training.corpus import Corpus
+    from spacy_ray_tpu_torch.training.loop import _named_params
+
+    table = Vectors.from_disk(cfg["initialize"]["vectors"]).table
+    paths = param_paths(nlp.model)
+    frozen = sorted(k for k in paths if k.endswith("frozen_table"))
+    if frozen != ["ner/tok2vec/0_multi_hash_embed/0_embeds/4_static_vectors/frozen_table",
+                  "tok2vec/0_multi_hash_embed/0_embeds/4_static_vectors/frozen_table"]:
+        fail(f"train:md: frozen tables at {frozen}, not at the JAX package's paths")
+    stamp = result.final_step
+    saved = {"best-model": load_params(out / "best-model" / "params.npz"),
+             "last-model": load_params(out / "last-model" / f"params-{stamp}.npz")}
+    for k in frozen:
+        if not torch.equal(paths[k].cpu(), torch.from_numpy(table)):
+            fail(f"train:md: {k} changed in training")
+        for where, flat in saved.items():
+            if not np.array_equal(flat[k], table):
+                fail(f"train:md: {where}'s {k} differs from the vectors file")
+    leaves = _named_params(nlp)
+    opt = load_params(out / "last-model" / f"opt_state-{stamp}.npz")
+    if any("frozen" in k for k in list(leaves) + list(opt)) or \
+            len(opt) != 2 * len(leaves) + 2:
+        fail(f"train:md: K5's {len(leaves)} leaves or the opt state's {len(opt)} entries "
+             "hold a frozen table")
+
+    lem = nlp.components["lemmatizer"]
+    gold = list(Corpus(cfg["paths"]["dev"])())
+    shells = [Doc(words=list(eg.reference.words), pos=list(eg.reference.pos)) for eg in gold]
+    lem.set_annotations(shells, None, [len(d) for d in shells])
+    ceiling = lem.score([Example(d, eg.reference) for d, eg in zip(shells, gold)])["lemma_acc"]
+    lemma_acc = result.history[-1]["other_scores"]["lemma_acc"]
+    if not lemma_acc >= LEMMA_FLOOR_OF_GOLD_POS * ceiling:
+        fail(f"train:md: lemma_acc {lemma_acc} < {LEMMA_FLOOR_OF_GOLD_POS} x {ceiling}, "
+             "the rule lemmatizer's score from gold POS")
+
+    optimizer = registry.resolve(cfg["training"]["optimizer"])
+    opt_state = optimizer.init(leaves)
+    ckpt = WORK / "md_save"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    save_ms = []
+    for step in range(1, 4):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        TrainCheckpoint.save(ckpt, params=param_paths(nlp.model), opt_state=opt_state,
+                             step=step, epoch=0, best_score=0.0, best_step=0, keep=2)
+        save_ms.append((time.perf_counter() - t) * 1e3)
+    params_bytes = (ckpt / "params-3.npz").stat().st_size
+    opt_bytes = (ckpt / "opt_state-3.npz").stat().st_size
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return {
+        "frozen_tables": frozen, "frozen_tables_bit_equal_after_training": True,
+        "frozen_table_shape": list(table.shape),
+        "k5_leaves": len(leaves), "k5_params": sum(p.numel() for p in leaves.values()),
+        "opt_state_entries": len(opt),
+        "lemma_acc": lemma_acc, "lemma_acc_from_gold_pos": ceiling,
+        "lemma_floor": LEMMA_FLOOR_OF_GOLD_POS * ceiling,
+        "checkpoint_save_ms": save_ms, "params_file_bytes": params_bytes,
+        "frozen_bytes": 2 * table.nbytes, "opt_state_file_bytes": opt_bytes,
+    }
 
 
 def card_vs_cpu(model_dir: Path, answers) -> dict:
@@ -2280,7 +2547,8 @@ def check_served_doc(nlp, d: dict, phase: str) -> int:
     comps = nlp.components
     for name, key in (("tagger", "tags"), ("morphologizer", "pos"),
                       ("morphologizer", "morphs"), ("senter", "sent_starts"),
-                      ("trainable_lemmatizer", "lemmas")):
+                      ("trainable_lemmatizer", "lemmas"), ("attribute_ruler", "pos"),
+                      ("lemmatizer", "lemmas")):
         if name in comps and len(d.get(key) or []) != n:
             fail(f"{phase}: doc without {key}: {d}")
     if "tagger" in comps and not set(d["tags"]) <= set(comps["tagger"].labels):
@@ -2300,14 +2568,16 @@ def check_served_doc(nlp, d: dict, phase: str) -> int:
 
 def phase_slice_cnn(torch, model_dir: Path, dev_path: Path, phase: str = "slice:cnn"):
     """``model_dir`` (the best-model of ``train:cnn``, or of the phase
-    ``phase`` names) served through the ``serve`` entry point at
-    ``--precision auto`` with slice:auto's request pattern over dev texts;
-    K1 fwd must launch, the label must say f32 (a CNN has no transformer
-    trunk to overlay), every doc must carry each head's annotation (tags,
-    pos and morphs, sentence starts, lemmas, ``spans["sc"]`` inside the doc,
-    every cat), and the card's answers must agree with the same model's on
-    the CPU on >= 0.99 (tokens, span sets' F, docs' top cat). Then one
-    forward at the top bucket (B 8, T 128) is timed."""
+    ``phase`` names; for slice:md_jax the JAX-written md directory) served
+    through the ``serve`` entry point at ``--precision auto`` with
+    slice:auto's request pattern over dev texts; K1 fwd must launch, the
+    label must say f32 (a CNN has no transformer trunk to overlay), every
+    doc must carry each head's annotation (tags, pos and morphs, sentence
+    starts, lemmas, ``spans["sc"]`` inside the doc, every cat; the rule
+    components' pos and lemmas), and the card's answers must agree with the
+    same model's on the CPU on >= 0.99 (tokens, span and entity sets' F,
+    docs' top cat). Then one forward at the top bucket (B 8, T 128) is
+    timed."""
     from spacy_ray_tpu_torch.__main__ import build_server
     from spacy_ray_tpu_torch.ops import _cuda
     from spacy_ray_tpu_torch.pipeline.doc import Example
@@ -2390,6 +2660,7 @@ def phase_slice_cnn(torch, model_dir: Path, dev_path: Path, phase: str = "slice:
             "latency_p99_ms": percentile(latencies, 0.99) * 1e3, "setup_s": setup_s,
             "warmed_buckets": len(engine.warmed), "card_vs_cpu_agreement": agree,
             "forward_B8_T128": forward_row,
+            "vectors": None if nlp.vectors is None else list(nlp.vectors.table.shape),
         }
         emit(result)
         return result
@@ -2483,7 +2754,22 @@ def main() -> int:
     spacy_corpus = write_spacy_corpus(udgen)
     corpora = {"cnn": spacy_corpus, "sm": spacy_corpus, "tokcls": spacy_corpus,
                **write_head_corpora()}
-    cnn = cnn_setup(torch, corpora)
+    from spacy_ray_tpu_torch.training.corpus import Corpus
+
+    t = time.perf_counter()
+    with redirect_stdout(io.StringIO()) as said:
+        md_in = md_assets(spacy_corpus[0], WORK / "md")
+    emit({"phase": "md:assets", "seconds": time.perf_counter() - t, **md_in[3],
+          "dev_tokens": sum(len(eg) for eg in Corpus(spacy_corpus[1])()),
+          "attribute_rules": len(md_in[1]), "entity_patterns": md_in[2],
+          "init_vectors_said": said.getvalue().strip()})
+
+    def md_cfg():
+        return md_config(spacy_corpus, *md_in[:3])
+
+    configs = {name: pipeline_config(name, corpora[name]) for name in corpora}
+    configs["md"] = md_cfg()
+    cnn = cnn_setup(torch, configs)
     for name, rows in phase_cnn_kernels(torch, cnn).items():
         kernels[name].extend(rows)
 
@@ -2516,6 +2802,17 @@ def main() -> int:
         runs[f"slice:{name}"] = phase_slice_cnn(torch, model, corpora[name][1],
                                                 phase=f"slice:{name}")
         shutil.rmtree(WORK / f"train_{name}", ignore_errors=True)
+    # spaCy's md layout: static vectors, the rule components, a NER with its own trunk
+    runs["train:md"], md_model = phase_train_cnn(torch, "md", md_cfg(), cnn["md"])
+    runs["slice:md"] = phase_slice_full(torch, md_model, spacy_corpus[1], runs["slice:cnn"],
+                                        phase="slice:md", need=("hash_embed_gather_sum",),
+                                        cpu_compare=True, ents_floor=0.99)
+    shutil.rmtree(WORK / "train_md", ignore_errors=True)
+    shutil.rmtree(WORK / "md", ignore_errors=True)
+    # a model directory the JAX package wrote (bin/make_jax_md_fixture.py), with
+    # its vectors.npz and components.json, served on the card
+    runs["slice:md_jax"] = phase_slice_cnn(torch, ROOT / "tests" / "data" / "jax_md",
+                                           spacy_corpus[1], phase="slice:md_jax")
     shutil.rmtree(WORK / "udgen", ignore_errors=True)
     shutil.rmtree(WORK / "spacy_corpus", ignore_errors=True)
     shutil.rmtree(WORK / "head_corpora", ignore_errors=True)

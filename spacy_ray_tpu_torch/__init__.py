@@ -4,9 +4,10 @@
 This package imports ``torch`` and never ``jax`` or ``spacy_ray_tpu``. The
 module layout follows the JAX package so each part has a counterpart there.
 It trains, evaluates and serves ``transformer`` and CNN ``tok2vec``
-pipelines with tagger, parser and NER heads (``train``; ``Pipeline.from_disk`` ->
-``InferenceEngine`` -> ``POST /v1/parse``), with the Pallas kernels of that
-path rewritten as CUDA kernels for Hopper (``csrc/``). Entry points run on
+pipelines (static word vectors included) with tagger, parser, NER and
+classifier heads and the rule components (``train``; ``Pipeline.from_disk``
+-> ``InferenceEngine`` -> ``POST /v1/parse``), with the Pallas kernels of
+that path rewritten as CUDA kernels for Hopper (``csrc/``). Entry points run on
 ``cuda`` unless the caller asks for the CPU.
 """
 

@@ -4,6 +4,7 @@
         [--resume] [--paths.train x.jsonl --training.max_steps 40 ...]
     python -m spacy_ray_tpu_torch evaluate <model-dir> <data.jsonl> [--device cuda|cpu]
     python -m spacy_ray_tpu_torch serve <model-dir> [options]
+    python -m spacy_ray_tpu_torch init-vectors <input> <output.npz> [--truncate N]
 
 ``train`` trains the config's pipeline on one device, evaluating every
 ``eval_frequency`` steps, and writes ``best-model/`` and ``last-model/``
@@ -18,6 +19,9 @@ package), builds the precision overlay, starts the HTTP listener (the bound
 port is printed), runs the bucket warmup sweep and serves ``/v1/parse``
 until SIGTERM/SIGINT, which drains in-flight work and exits. Every command
 runs on the card unless ``--device cpu`` is given, and fails without one.
+``init-vectors`` converts word2vec or GloVe text (``.gz`` too) or an
+``.npz`` of words and vectors into the ``vectors.npz`` that ``[initialize]
+vectors`` reads (the JAX package's command: the same file, the same errors).
 """
 
 from __future__ import annotations
@@ -37,7 +41,8 @@ USAGE = (
     " [--resume] [--section.key value ...]\n"
     "       python -m spacy_ray_tpu_torch evaluate <model-dir> <data.jsonl> [--device cuda|cpu]\n"
     "       python -m spacy_ray_tpu_torch serve <model-dir> [--port N] [--max-batch N] "
-    "[--max-doc-len N] [--precision auto|f32|bf16|int8] [--device cuda|cpu]"
+    "[--max-doc-len N] [--precision auto|f32|bf16|int8] [--device cuda|cpu]\n"
+    "       python -m spacy_ray_tpu_torch init-vectors <input> <output.npz> [--truncate N]"
 )
 
 
@@ -142,7 +147,67 @@ def evaluate_command(argv: List[str]) -> int:
     return 0
 
 
-COMMANDS = {"train": train_command, "evaluate": evaluate_command, "serve": serve_command}
+def init_vectors_command(argv: List[str]) -> int:
+    """Convert word2vec text (an ``N D`` header line), GloVe text (no
+    header), either gzipped, or an ``.npz`` with words and vectors into the
+    npz ``[initialize] vectors`` loads; ``--truncate N`` keeps the first N
+    rows."""
+    parser = argparse.ArgumentParser(
+        prog="python -m spacy_ray_tpu_torch init-vectors",
+        description="Convert word embeddings (word2vec/glove text, optionally "
+        ".gz, or an npz with words+vectors) for [initialize] vectors.",
+    )
+    parser.add_argument("input_path", type=Path)
+    parser.add_argument("output_path", type=Path)
+    parser.add_argument("--truncate", type=int, default=0,
+                        help="keep only the first N rows (0 = all)")
+    args = parser.parse_args(argv)
+
+    import gzip
+
+    import numpy as np
+
+    from .pipeline.vectors import Vectors
+
+    if args.input_path.suffix == ".npz":
+        vec = Vectors.from_disk(args.input_path)
+        words, table = list(vec.key_to_row), vec.table
+        if args.truncate:
+            words, table = words[: args.truncate], table[: args.truncate]
+    else:
+        opener = gzip.open if args.input_path.suffix == ".gz" else open
+        words, rows = [], []
+        with opener(args.input_path, "rt", encoding="utf8") as f:
+            parts = f.readline().split()
+            if len(parts) == 2 and all(p.isdigit() for p in parts):
+                pass  # the word2vec "N D" header line
+            elif len(parts) >= 2:  # GloVe: no header, the first line is a row
+                words.append(parts[0])
+                rows.append(np.asarray(parts[1:], dtype=np.float32))
+            for line in f:
+                if args.truncate and len(words) >= args.truncate:
+                    break
+                parts = line.split()
+                if len(parts) < 2:
+                    continue
+                words.append(parts[0])
+                rows.append(np.asarray(parts[1:], dtype=np.float32))
+        if not rows:
+            print("No vectors found in input", file=sys.stderr)
+            return 1
+        widths = {r.shape[0] for r in rows}
+        if len(widths) != 1:
+            print(f"Inconsistent vector widths in input: {sorted(widths)}", file=sys.stderr)
+            return 1
+        table = np.stack(rows)
+    Vectors(words, table).to_disk(args.output_path)
+    print(f"Wrote {len(words)} vectors (dim {table.shape[1]}) to {args.output_path}; "
+          f"use via [initialize] vectors = \"{args.output_path}\"")
+    return 0
+
+
+COMMANDS = {"train": train_command, "evaluate": evaluate_command, "serve": serve_command,
+            "init-vectors": init_vectors_command}
 
 
 def main(argv: Optional[List[str]] = None) -> int:

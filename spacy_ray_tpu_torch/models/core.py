@@ -139,7 +139,8 @@ class Residual(Model):
 
 
 def param_paths(module: nn.Module) -> Dict[str, torch.Tensor]:
-    """The module's parameters under the JAX package's '/'-joined paths."""
+    """The module's parameters and persistent buffers (the frozen tables of
+    static vectors) under the JAX package's '/'-joined paths."""
     return {k.replace(".", "/"): v for k, v in module.state_dict().items()}
 
 

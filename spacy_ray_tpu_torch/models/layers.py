@@ -10,6 +10,7 @@ import torch
 from ..ops import ops as O
 from ..ops.hashing import hash_embed_ids
 from ..ops.pallas_kernels import hash_embed_lookup
+from ..pipeline.vectors import current_vectors
 from ..types import Padded, TokenBatch
 from .core import (
     Context, Model, empty_param, glorot_uniform_, normal_, ones_param, zeros_param,
@@ -103,6 +104,42 @@ class HashEmbed(Model):
         ids = hash_embed_ids(keys, self.seed, self.dims["rows"])  # [B, T, 4]
         X = hash_embed_lookup(self.E, ids)
         return Padded(X=X * batch.mask[..., None].to(X.dtype), mask=batch.mask)
+
+
+class StaticVectors(Model):
+    """Frozen pretrained vectors, projected to ``width`` by a trainable
+    ``W`` (glorot). The table is the active vectors' (``pipeline/vectors.py``),
+    copied into the persistent buffer ``frozen_table``: it is saved and
+    loaded under the JAX package's path like a parameter, but it is not one,
+    so no gradient reaches it and the optimizer never sees it. A row of -1
+    (padding, or a word with no vector) gives a zero vector. The gather and
+    the projection are an index and a matmul, as in JAX (no kernel)."""
+
+    def __init__(self, width: int, name: str = "static_vectors"):
+        vectors = current_vectors()
+        if vectors is None:
+            raise ValueError(
+                "include_static_vectors=true but no vectors are loaded — set "
+                "[initialize] vectors = \"path.npz\""
+            )
+        super().__init__(name, dims={"nO": width, "nV": len(vectors)})
+        self.register_buffer("frozen_table", torch.tensor(vectors.table))
+        self.W = empty_param(vectors.width, width)
+
+    def reset_own_parameters(self, generator: torch.Generator) -> None:
+        glorot_uniform_(self.W, generator)
+
+    def forward(self, batch: TokenBatch) -> Padded:
+        rows = batch.vector_rows
+        if rows is None:
+            raise ValueError(
+                "TokenBatch has no vector_rows — the pipeline that collated "
+                "this batch has no vectors loaded"
+            )
+        table = self.frozen_table
+        vecs = table[rows.clamp(0, table.shape[0] - 1)]  # [B, T, Dv]
+        vecs = vecs * (rows >= 0)[..., None].to(vecs.dtype)
+        return Padded(X=vecs @ self.W, mask=batch.mask)
 
 
 class ConcatPadded(Model):

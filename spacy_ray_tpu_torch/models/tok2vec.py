@@ -3,13 +3,14 @@ window encoder (counterpart of ``spacy_ray_tpu/models/tok2vec.py``).
 
 Registered under the JAX package's ``spacy.*`` names, with its parameter
 paths: ``MultiHashEmbed`` is ``0_embeds/{i}_embed_<attr>/E``, ``1_mix/{W,b}``
-and ``2_norm/{g,b}``; the encoder is ``depth`` residual blocks
-``{i}_res_{i}/inner/{1_maxout,2_norm}`` (the parameter-free ``0_seq2col``
-keeps index 0); ``HashEmbedCNN`` chains them as ``0_multi_hash_embed`` and
-``1_maxout_window_encoder`` (``2_`` when its ``dropout`` puts a Dropout
-between them). The trunk a ``tok2vec`` component holds is a
-:class:`Tok2VecModel`: it takes ``(TokenBatch, overlay, ctx)`` like the
-transformer trunk.
+and ``2_norm/{g,b}``, with ``0_embeds/{n}_static_vectors/{frozen_table,W}``
+after the ``n`` tables when it includes static vectors; the encoder is
+``depth`` residual blocks ``{i}_res_{i}/inner/{1_maxout,2_norm}`` (the
+parameter-free ``0_seq2col`` keeps index 0); ``HashEmbedCNN`` chains them
+as ``0_multi_hash_embed`` and ``1_maxout_window_encoder`` (``2_`` when its
+``dropout`` puts a Dropout between them). The trunk a ``tok2vec`` component
+holds is a :class:`Tok2VecModel`: it takes ``(TokenBatch, overlay, ctx)``
+like the transformer trunk.
 """
 
 from __future__ import annotations
@@ -20,7 +21,9 @@ from ..ops.hashing import hash_string_u64
 from ..registry import registry
 from ..types import TokenBatch
 from .core import Chain, Context, Model, Residual
-from .layers import ConcatPadded, Dropout, HashEmbed, LayerNorm, Maxout, Seq2Col
+from .layers import (
+    ConcatPadded, Dropout, HashEmbed, LayerNorm, Maxout, Seq2Col, StaticVectors,
+)
 
 # Canonical order of lexical attributes in TokenBatch.attr_keys
 # (pipeline/vocab.py featurizes in this order).
@@ -46,12 +49,6 @@ class Tok2VecModel(Chain):
         return super().forward(batch, ctx)
 
 
-def _static_vectors_not_ported() -> None:
-    raise NotImplementedError(
-        "static vectors (include_static_vectors / pretrained_vectors) are not ported yet"
-    )
-
-
 @registry.architectures("spacy.MultiHashEmbed.v2")
 def MultiHashEmbed(
     width: int,
@@ -59,16 +56,16 @@ def MultiHashEmbed(
     rows: Optional[List[int]] = None,
     include_static_vectors: bool = False,
 ) -> Model:
-    """Per attribute a HashEmbed(width, rows[i]); concatenated, mixed by a
-    Maxout back to ``width`` and layer-normed. The table seeds are the JAX
-    package's, so the same keys land on the same rows."""
+    """Per attribute a HashEmbed(width, rows[i]), and with
+    ``include_static_vectors`` the active vectors' StaticVectors(width);
+    concatenated, mixed by a Maxout back to ``width`` and layer-normed. The
+    table seeds are the JAX package's, so the same keys land on the same
+    rows."""
     attrs = list(ATTRS) if attrs is None else attrs
     rows = [5000] + [2500] * (len(attrs) - 1) if rows is None else rows
     if len(rows) != len(attrs):
         raise ValueError(f"len(rows) != len(attrs): {rows} vs {attrs}")
-    if include_static_vectors:
-        _static_vectors_not_ported()
-    embeds = [
+    embeds: List[Model] = [
         HashEmbed(
             width, int(r),
             seed=hash_string_u64(f"hashembed-{a}-{i}") & 0x7FFFFFFF,
@@ -77,9 +74,11 @@ def MultiHashEmbed(
         )
         for i, (a, r) in enumerate(zip(attrs, rows))
     ]
+    if include_static_vectors:
+        embeds.append(StaticVectors(width))
     mix = Chain(
         ConcatPadded(*embeds, name="embeds"),
-        Maxout(width * len(attrs), width, nP=3, name="mix"),
+        Maxout(width * len(embeds), width, nP=3, name="mix"),
         LayerNorm(width),
         name="multi_hash_embed",
     )
@@ -156,13 +155,13 @@ def HashEmbedCNN(
     dropout: Optional[float] = None,
 ) -> Model:
     """The standard CNN tok2vec: MultiHashEmbed (NORM at ``embed_size``
-    rows, the subword attributes at half), a Dropout when ``dropout`` is
-    set, then the maxout window encoder."""
-    if pretrained_vectors:
-        _static_vectors_not_ported()
+    rows, the subword attributes at half; the active static vectors when
+    ``pretrained_vectors`` is set), a Dropout when ``dropout`` is set, then
+    the maxout window encoder."""
     attrs = list(ATTRS) if subword_features else ["NORM"]
     rows = [embed_size] + [embed_size // 2] * (len(attrs) - 1)
-    layers: List[Model] = [MultiHashEmbed(width=width, attrs=attrs, rows=rows)]
+    layers: List[Model] = [MultiHashEmbed(width=width, attrs=attrs, rows=rows,
+                                          include_static_vectors=bool(pretrained_vectors))]
     if dropout:
         layers.append(Dropout(dropout))
     layers.append(MaxoutWindowEncoder(width=width, window_size=window_size,

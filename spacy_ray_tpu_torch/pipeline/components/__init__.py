@@ -2,5 +2,6 @@
 factories."""
 
 from . import (  # noqa: F401
-    edit_tree_lemmatizer, ner, parser, spancat, tagger, textcat, tok2vec, token_classifiers,
+    attribute_ruler, edit_tree_lemmatizer, entity_ruler, lemmatizer, ner, parser, spancat,
+    tagger, textcat, tok2vec, token_classifiers,
 )

@@ -7,17 +7,22 @@ targets for training), runs the trunk once per batch and feeds every
 listening head, sums the heads' losses, and decodes and scores the outputs.
 ``to_disk``/``from_disk`` use the JAX package's on-disk layout
 (``config.cfg``, ``meta.json``, a flat ``params.npz`` keyed by parameter
-path), so a model directory written by either package loads in both.
+path, ``components.json`` with the rule components' tables and patterns,
+``vectors.npz`` with the static vectors), so a model directory written by
+either package loads in both.
 
 A head's output is what its ``set_annotations`` takes: the tagger's
 ``Padded`` logits, the parser's and the NER's decoded ids (dicts of
-tensors). On the card, a prediction pinned to a (B, T) bucket (the serving
-engine's) replays each decoding head's CUDA graph for that bucket
+tensors); a rule component (``attribute_ruler``, ``lemmatizer``,
+``entity_ruler``) has no model and annotates from the docs alone. On the
+card, a prediction pinned to a (B, T) bucket (the serving engine's)
+replays each decoding head's CUDA graph for that bucket
 (``pipeline/decode_graph.py``); everything else decodes eagerly.
 """
 
 from __future__ import annotations
 
+import inspect
 import itertools
 import json
 import time
@@ -41,6 +46,7 @@ from .components.base import Component
 from .components.tok2vec import Tok2VecComponent
 from .doc import Doc, Example
 from .tokenizer import Tokenizer
+from .vectors import Vectors, use_vectors
 from .vocab import ATTRS, Vocab
 
 #: examples read from the train corpus to collect labels at initialize
@@ -95,6 +101,9 @@ class Pipeline:
         self.device = device
         self.length_buckets: Sequence[int] = DEFAULT_LENGTH_BUCKETS
         self.model: Optional[nn.ModuleDict] = None  # set by initialize/from_disk
+        #: the static vectors (``[initialize] vectors``, or a model
+        #: directory's ``vectors.npz``), None without them
+        self.vectors: Optional[Vectors] = None
         #: the heads' decode graphs by bucket, made at the first pinned
         #: prediction on the card (None until then, and after a rebuild)
         self.decode_graphs: Optional[DecodeGraphs] = None
@@ -122,11 +131,15 @@ class Pipeline:
             factory_name = block.pop("factory", None)
             if factory_name is None:
                 raise ValueError(f"[components.{name}] missing 'factory'")
-            model_cfg = block.pop("model", None)
-            if model_cfg is None:
-                raise ValueError(f"[components.{name}] missing model block")
             factory = registry.get("factories", factory_name)
-            components[name] = factory(name=name, model=model_cfg, **block)
+            model_cfg = block.pop("model", None)
+            if model_cfg is not None:
+                components[name] = factory(name=name, model=model_cfg, **block)
+                continue
+            model_param = inspect.signature(factory).parameters.get("model")
+            if model_param is None or model_param.default is inspect.Parameter.empty:
+                raise ValueError(f"[components.{name}] missing model block")
+            components[name] = factory(name=name, **block)  # a rule component
         return cls(nlp_cfg.get("lang", "en"), components, pipe_names, config, dev)
 
     @property
@@ -140,8 +153,12 @@ class Pipeline:
         return [n for n in self.pipe_names if n != self.tok2vec_name]
 
     def _build_models(self) -> nn.ModuleDict:
+        """Every component's model (a rule component has none), built with
+        the pipeline's static vectors active."""
         self.decode_graphs = None  # they hold the old models' parameters
-        return nn.ModuleDict({n: self.components[n].build_model() for n in self.pipe_names})
+        with use_vectors(self.vectors):
+            models = {n: self.components[n].build_model() for n in self.pipe_names}
+        return nn.ModuleDict({n: m for n, m in models.items() if m is not None})
 
     # ------------------------------------------------------------------
     # Initialization and parameters
@@ -159,14 +176,14 @@ class Pipeline:
         the JSON file of ``[initialize.components.<name>] labels`` (the
         config's directory anchors a relative path), in its order; or those
         collected from the first 10 000 examples of ``get_examples``, sorted.
-        ``[initialize] vectors`` and ``init_tok2vec`` are not ported yet and
-        raise. Parameters are drawn on the CPU from
+        ``[initialize] vectors`` loads the static vectors (the config's
+        directory anchors a relative path); ``init_tok2vec`` is not ported
+        yet and raises. Parameters are drawn on the CPU from
         ``torch.Generator(seed)``, in pipeline order, then moved to the
         device, so a seed gives the same weights on every device."""
         init_cfg = self.config.get("initialize", {}) or {}
-        for key in ("vectors", "init_tok2vec"):
-            if init_cfg.get(key):
-                raise NotImplementedError(f"[initialize] {key} is not ported yet")
+        if init_cfg.get("init_tok2vec"):
+            raise NotImplementedError("[initialize] init_tok2vec is not ported yet")
         init_components = init_cfg.get("components", {}) or {}
         labels = labels or {}
         sample = (list(itertools.islice(get_examples(), LABEL_SAMPLE_LIMIT))
@@ -181,10 +198,14 @@ class Pipeline:
             elif sample:
                 comp.add_labels_from(sample)
                 comp.finish_labels()
+        if init_cfg.get("vectors"):
+            self.vectors = Vectors.from_disk(resolve_config_path(self.config,
+                                                                 init_cfg["vectors"]))
         generator = torch.Generator().manual_seed(seed)
         model = self._build_models()
         for name in self.pipe_names:
-            model[name].init_parameters(generator)
+            if name in model:
+                model[name].init_parameters(generator)
         self.model = model.to(self.device).eval()
         return self.params
 
@@ -232,12 +253,16 @@ class Pipeline:
         Each Example's ``[len, 4, 2]`` keys are computed once and kept on it
         (corpora yield the same Example objects every epoch): the docs not
         yet featurized go through one flat vocab call, and a later epoch
-        only copies slices into the padded batch."""
+        only copies slices into the padded batch. With static vectors, each
+        token's vector row is cached on the Example beside its keys (for
+        the vectors it was looked up in), where the JAX package looks the
+        rows up again at every collate: the same rows."""
         lengths = [len(eg) for eg in examples]
         T = pad_len_to or bucket_length(max(lengths, default=1), self.length_buckets)
         B = pad_batch_to or bucket_batch_size(len(examples))
         attr_keys = np.zeros((B, T, len(ATTRS), 2), dtype=np.uint32)
         mask = np.zeros((B, T), dtype=bool)
+        vec_rows = np.full((B, T), -1, dtype=np.int64) if self.vectors is not None else None
         doc_feats = [getattr(eg, "_feat_cache", None) for eg in examples]
         uncached = [i for i, f in enumerate(doc_feats) if f is None]
         if uncached:
@@ -252,9 +277,13 @@ class Pipeline:
             k = min(len(feats), T)
             attr_keys[i, :k] = feats[:k]
             mask[i, :k] = True
+            if vec_rows is not None:
+                vec_rows[i, :k] = self._vector_rows(examples[i])[:k]
         tokens = TokenBatch(
             attr_keys=torch.from_numpy(attr_keys.astype(np.int64)).to(self.device),
             mask=torch.from_numpy(mask).to(self.device),
+            vector_rows=(torch.from_numpy(vec_rows).to(self.device)
+                         if vec_rows is not None else None),
         )
         batch = {"tokens": tokens, "n_words": int(sum(min(l, T) for l in lengths)),
                  "lengths": lengths}
@@ -268,6 +297,15 @@ class Pipeline:
                     }
             batch["targets"] = targets
         return batch
+
+    def _vector_rows(self, example: Example) -> np.ndarray:
+        """The doc's static-vector rows, cached on the Example for the
+        vectors they were looked up in."""
+        cached = getattr(example, "_vec_rows_cache", None)
+        if cached is None or cached[0] is not self.vectors:
+            cached = (self.vectors, self.vectors.rows_of(example.reference.words))
+            example._vec_rows_cache = cached
+        return cached[1]
 
     # ------------------------------------------------------------------
     # Forward and prediction
@@ -317,6 +355,8 @@ class Pipeline:
             outputs[t2v_name] = t2v_out
         for name in self.head_names():
             comp = self.components[name]
+            if comp.model is None:
+                continue  # a rule component: nothing on the device
             inputs = t2v_out if comp.listens else tokens
             if graphs is not None and comp.graph_capturable:
                 t2v = comp.trunk_output(inputs)
@@ -355,7 +395,7 @@ class Pipeline:
                 T = batch["tokens"].seq_len
                 lengths = [min(len(d), T) for d in chunk]
                 for name in self.head_names():
-                    self.components[name].set_annotations(chunk, outputs[name], lengths)
+                    self.components[name].set_annotations(chunk, outputs.get(name), lengths)
         return docs
 
     def __call__(self, text: str) -> Doc:
@@ -401,12 +441,23 @@ class Pipeline:
             "labels": {name: self.components[name].labels for name in self.pipe_names},
         }
 
+    def component_data(self) -> Dict[str, Any]:
+        """The rule components' host state (patterns, lemma tables), saved
+        as ``components.json`` beside ``meta.json``."""
+        return {name: comp.table_data() for name, comp in self.components.items()
+                if hasattr(comp, "table_data")}
+
     def to_disk(self, path) -> None:
         assert self.model is not None, "Pipeline not initialized"
         path = Path(path)
         path.mkdir(parents=True, exist_ok=True)
         (path / "config.cfg").write_text(self.config.to_str(), encoding="utf8")
         (path / "meta.json").write_text(json.dumps(self.meta(), indent=2), encoding="utf8")
+        extras = self.component_data()
+        if extras:
+            (path / "components.json").write_text(json.dumps(extras), encoding="utf8")
+        if self.vectors is not None:
+            self.vectors.to_disk(path / "vectors.npz")
         checkpoint.save_params(path / "params.npz", param_paths(self.model))
 
     @classmethod
@@ -419,6 +470,14 @@ class Pipeline:
         for name, labels in meta.get("labels", {}).items():
             if name in nlp.components:
                 nlp.components[name].labels = labels
+        if (path / "components.json").exists():
+            data = json.loads((path / "components.json").read_text(encoding="utf8"))
+            for name, table in data.items():
+                comp = nlp.components.get(name)
+                if comp is not None and hasattr(comp, "load_table_data"):
+                    comp.load_table_data(table)
+        if (path / "vectors.npz").exists():
+            nlp.vectors = Vectors.from_disk(path / "vectors.npz")
         nlp.model = nlp._build_models()
         nlp.load_params(checkpoint.load_params(path / "params.npz"))
         nlp.model = nlp.model.to(nlp.device).eval()

@@ -13,6 +13,8 @@ matter on one device:
   microbatch gradients and the loss the mean of their losses; a short last
   group ends the data;
 * the optimizer step reports the gradients' global norm (``grad_norm``);
+  frozen leaves (static-vector tables) are not the optimizer's: no update,
+  no L2, no moments, no share in the norm, no entry in the opt-state file;
 * ``eval_frequency``, ``patience``, ``max_steps`` and ``max_epochs``,
   best-model selection by the weighted score, ``use_averages``, and
   ``steps_per_dispatch`` (run as that many single steps, which the JAX
@@ -42,6 +44,7 @@ import torch
 
 from ..config import Config
 from ..devices import DeviceLike, resolve_device
+from ..models.core import param_paths
 from ..pipeline.doc import Example
 from ..pipeline.language import Pipeline
 from ..registry import registry
@@ -267,8 +270,17 @@ def _resolve_corpus(config: Config, corpora: Dict[str, Any], dot_name: str):
 
 
 def _named_params(nlp: Pipeline) -> Dict[str, torch.nn.Parameter]:
-    """The trainable tensors under their params.npz paths."""
-    return {k.replace(".", "/"): p for k, p in nlp.model.named_parameters()}
+    """The trainable tensors under their params.npz paths: every leaf of the
+    models but the frozen ones (static-vector tables, persistent buffers),
+    which the optimizer never sees. Raises unless the two sets together are
+    the models' leaves."""
+    params = {k.replace(".", "/"): p for k, p in nlp.model.named_parameters()}
+    frozen = set(param_paths(nlp.model)) - set(params)
+    wrong = sorted([k for k in params if _optimizers.is_frozen(k)]
+                   + [k for k in frozen if not _optimizers.is_frozen(k)])
+    if wrong:
+        raise ValueError(f"leaves trained against their frozen_ marking: {wrong[:5]}")
+    return params
 
 
 def train(
@@ -407,7 +419,7 @@ def train(
 
     def save_last(group: Dict[str, Any]) -> None:
         TrainCheckpoint.save(
-            last_dir, params={k: p.detach() for k, p in params.items()},
+            last_dir, params=param_paths(nlp.model),  # the frozen tables too
             opt_state=opt_state, step=step, epoch=group["epoch"], best_score=best_score,
             best_step=best_step, keep=keep,
             extra={"batches_in_epoch": group["batches_in_epoch"],

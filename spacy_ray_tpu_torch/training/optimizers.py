@@ -113,6 +113,15 @@ def cosine(initial_rate: float, total_steps: int, final_scale: float = 0.0) -> S
     return Schedule(fn)
 
 
+def is_frozen(path: str) -> bool:
+    """Is the leaf at ``path`` frozen: under a key that starts with
+    ``frozen_`` (a static-vector table)? The JAX package masks such leaves
+    out of its optax chain (``mask_frozen``: no update, no L2, no moments,
+    no share in the global norm); here they are left out of the optimizer's
+    leaves altogether, so the fused update never sees them."""
+    return any(part.startswith("frozen_") for part in path.split("/"))
+
+
 class Optimizer:
     """An update rule over named parameters. ``use_averages`` asks the loop
     to keep a running mean of the parameters for evaluation and the best

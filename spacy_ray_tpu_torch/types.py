@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -27,10 +28,14 @@ class TokenBatch:
       64-bit lexical-attribute hash keys (NORM/PREFIX/SUFFIX/SHAPE), held in
       int64 because torch has no general uint32 arithmetic.
     mask: [B, T] bool — True on real tokens.
+    vector_rows: [B, T] int64 — each token's row of the static vectors
+      table, -1 on padding and words without a vector; None when the
+      pipeline has no vectors.
     """
 
     attr_keys: torch.Tensor
     mask: torch.Tensor
+    vector_rows: Optional[torch.Tensor] = None
 
     @property
     def batch_size(self) -> int:

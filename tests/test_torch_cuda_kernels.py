@@ -335,3 +335,79 @@ def test_cuda_fused_update_over_the_classifiers_leaves_bit_equal(name):
         for got, w in zip(zip(Pl, M, V), want):
             for a, b in zip(got, w):
                 assert ulp_diff(torch, a, b) == 0, (name, hyper, a.shape)
+
+
+@pytest.mark.cuda
+def test_cuda_hash_embed_at_the_md_tables_bit_equal():
+    # spaCy md's tables (5000, 1000 and 2500 rows, D 96) on corpus-like ids
+    # at a training microbatch (N 8192, a third of it padding) and at one
+    # request (N 128): K1 fwd and its table gradient bit-equal
+    dev, g = _card()
+    from spacy_ray_tpu_torch.ops.hashing import hash_embed_ids
+
+    vocab = torch.randint(1, 2 ** 32, (2000, 2), device=dev, generator=g)
+    zipf = 1.0 / torch.arange(1, 2001, device=dev, dtype=torch.float32)
+    for N in (8192, 128):
+        keys = vocab[torch.multinomial(zipf, N, replacement=True, generator=g)]
+        keys[torch.randperm(N, device=dev, generator=g)[: N // 3]] = 0
+        ct = torch.randn(N, 96, device=dev, generator=g)
+        for rows, seed in ((5000, 21), (1000, 22), (2500, 23)):
+            ids = hash_embed_ids(keys, seed, rows)
+            table = torch.randn(rows, 96, device=dev, generator=g)
+            assert torch.equal(hash_embed_gather_sum(table, ids),
+                               hash_embed_gather_sum_plain(table, ids))
+            got = hash_embed_table_grad(ct, ids, rows)
+            assert torch.equal(got, hash_embed_table_grad(ct, ids, rows))
+            assert torch.equal(got.cpu(), hash_embed_table_grad_plain(ct.cpu(), ids.cpu(), rows))
+
+
+@pytest.mark.cuda
+def test_cuda_fused_update_over_the_md_leaves_without_the_frozen_tables(tmp_path):
+    # the md layout at full size (two trunks over 20000 x 300 vectors): the
+    # leaves the training loop hands K5 are every parameter but the two
+    # frozen tables, and K5's plan covers them and nothing else, at 0 ulp
+    import numpy as np
+
+    import chip_smoke
+    import spacy_ray_tpu_torch as P
+    from spacy_ray_tpu_torch.models.core import param_paths
+    from spacy_ray_tpu_torch.pipeline.vectors import Vectors
+    from spacy_ray_tpu_torch.training.loop import _named_params
+
+    dev, g = _card()
+    words = [f"w{i}" for i in range(20000)]
+    Vectors(words, np.random.default_rng(0).normal(size=(20000, 300)).astype(np.float32)
+            ).to_disk(tmp_path / "vectors.npz")
+    attr = [{"patterns": [[{"TAG": "NN"}]], "attrs": {"POS": "NOUN"}}]
+    ents = [{"label": "ORG", "pattern": "Acme Corp"}]
+    cfg = chip_smoke.md_config(("-", "-"), tmp_path / "vectors.npz", attr, ents).interpolate()
+    nlp = P.Pipeline.from_config(cfg, device=dev)
+    nlp.initialize(labels={"tagger": ["DT", "NN", "VBD"], "parser": ["ROOT", "nsubj", "obj"],
+                           "ner": ["GPE", "ORG"]})
+    nlp.model.requires_grad_(True)
+    leaves = _named_params(nlp)
+    frozen = [t for k, t in param_paths(nlp.model).items() if k.endswith("frozen_table")]
+    assert len(frozen) == 2 and all(t.shape == (20000, 300) for t in frozen)
+    assert len(leaves) == len(param_paths(nlp.model)) - 2
+    params = [p.detach() for p in leaves.values()]
+    for hyper in HYPERS[:3]:
+        G = [torch.randn(p.shape, device=dev, generator=g) * 1e-3 for p in params]
+        M = [torch.randn(p.shape, device=dev, generator=g) * 1e-4 for p in params]
+        V = [torch.rand(p.shape, device=dev, generator=g) * 1e-6 for p in params]
+        gn = global_norm(G)
+        sc = step_scalars(hyper, 4, 4, lambda s: 0.001)
+        want = [leaf_math_plain(p, gg, m, v, gn, *sc, hyper=hyper)
+                for p, gg, m, v in zip(params, G, M, V)]
+        fused = FusedUpdate(hyper)
+        fused.step(params, G, M, V, gn, sc)
+        for got, w in zip(zip(params, M, V), want):
+            for a, b in zip(got, w):
+                assert ulp_diff(torch, a, b) == 0, (hyper, a.shape)
+        # the plan's chunks: every trainable element once, no frozen byte
+        table = fused._table.cpu()
+        assert int(table[:, 4].sum()) == sum(p.numel() for p in params)
+        for t in frozen:
+            lo, hi = t.data_ptr(), t.data_ptr() + t.numel() * 4
+            assert not ((table[:, 0] >= lo) & (table[:, 0] < hi)).any()
+    assert all(torch.equal(t.cpu(), torch.from_numpy(Vectors.from_disk(
+        tmp_path / "vectors.npz").table)) for t in frozen)

@@ -4,18 +4,21 @@ the JAX package, on the CPU, at a small size (trunk width 32, depth 1).
 * ``[initialize.components.<name>] labels``: a JSON list, read relative to
   the config's directory and kept in its order (the head's ids follow it),
   refused when empty or duplicated, as the JAX package does;
-* ``[initialize] vectors`` and ``init_tok2vec`` are not ported yet and
-  raise instead of being ignored;
+* ``[initialize] vectors`` loads the static vectors as the JAX package
+  does (relative to the config's directory; a missing file raises);
+  ``init_tok2vec`` is not ported yet and raises instead of being ignored;
 * ``evaluate`` returns the JAX package's score keys and nothing else; the
   words/s of the prediction come apart from them (``evaluate_timed``).
 """
 
 import json
 
+import numpy as np
 import pytest
 
 import spacy_ray_tpu as J
 from spacy_ray_tpu import udgen as judgen
+from spacy_ray_tpu.pipeline.vectors import Vectors as JVectors
 from spacy_ray_tpu.training import corpus as jcorpus
 
 import spacy_ray_tpu_torch as P
@@ -77,10 +80,29 @@ def test_bad_labels_files_raise_as_in_jax(tmp_path, corpus, labels, match):
 
 
 @pytest.mark.parametrize("key", ["vectors", "init_tok2vec"])
-def test_unported_initialize_keys_raise(tmp_path, corpus, key):
+def test_unported_initialize_keys_raise(tmp_path, corpus, key, monkeypatch):
     (tmp_path / "config.cfg").write_text(FULL_CFG + f'\n[initialize]\n{key} = "missing.npz"\n')
-    with pytest.raises(NotImplementedError, match=f"{key} is not ported yet"):
-        _initialized(P, tmp_path / "config.cfg", corpus, pcorpus)
+    if key == "init_tok2vec":  # pretraining is not ported yet
+        with pytest.raises(NotImplementedError, match=f"{key} is not ported yet"):
+            _initialized(P, tmp_path / "config.cfg", corpus, pcorpus)
+        return
+    # [initialize] vectors is ported: a missing file raises in both packages,
+    # and a file beside the config loads relative to it, the same in both
+    for pkg, reader in ((P, pcorpus), (J, jcorpus)):
+        with pytest.raises(FileNotFoundError):
+            _initialized(pkg, tmp_path / "config.cfg", corpus, reader)
+    words = ["the", "The", "a", "cat"] + [f"w{i}" for i in range(20)]
+    table = np.random.default_rng(0).normal(size=(len(words), 8)).astype(np.float32)
+    JVectors(words, table).to_disk(tmp_path / "vectors.npz")
+    (tmp_path / "config.cfg").write_text(FULL_CFG + '\n[initialize]\nvectors = "vectors.npz"\n')
+    monkeypatch.chdir(tmp_path.parent)
+    pnlp = _initialized(P, tmp_path / "config.cfg", corpus, pcorpus)
+    jnlp = _initialized(J, tmp_path / "config.cfg", corpus, jcorpus)
+    assert pnlp.vectors.key_to_row == jnlp.vectors.key_to_row
+    assert np.array_equal(pnlp.vectors.table, jnlp.vectors.table)
+    rows = pnlp.collate(list(pcorpus.Corpus(corpus)())[:4])["tokens"].vector_rows
+    want = jnlp.collate(list(jcorpus.Corpus(corpus)())[:4])["tokens"].vector_rows
+    assert np.array_equal(rows.numpy(), np.asarray(want))
 
 
 def test_evaluate_keys_equal_jax_and_carry_no_speed(tmp_path, corpus):

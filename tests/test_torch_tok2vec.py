@@ -158,10 +158,28 @@ def test_architectures_register_the_jax_names_and_paths():
         registry.get("architectures", name)
     with pytest.raises(NotImplementedError):
         registry.get("architectures", "spacy.TorchBiLSTMEncoder.v1")(width=96)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        pt2v.HashEmbedCNN(96, 2, 2000, pretrained_vectors="x.npz")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        pt2v.MultiHashEmbed(96, include_static_vectors=True)
+    # static vectors: the active vectors' table, frozen, at the JAX paths;
+    # with no vectors loaded both packages raise alike
+    for m in (jt2v, pt2v):
+        with pytest.raises(ValueError, match="no vectors are loaded"):
+            m.HashEmbedCNN(96, 2, 2000, pretrained_vectors="x.npz")
+        with pytest.raises(ValueError, match="no vectors are loaded"):
+            m.MultiHashEmbed(96, include_static_vectors=True)
+    table = np.random.default_rng(0).normal(size=(7, 5)).astype(np.float32)
+    words = ["a", "b", "c", "d", "e", "f", "g"]
+    from spacy_ray_tpu.pipeline import vectors as jvec
+    from spacy_ray_tpu_torch.pipeline import vectors as pvec
+
+    with jvec.use_vectors(jvec.Vectors(words, table)), pvec.use_vectors(pvec.Vectors(words, table)):
+        for build in (lambda m: m.HashEmbedCNN(96, 2, 2000, pretrained_vectors="x.npz"),
+                      lambda m: m.MultiHashEmbedV1(32, rows=500, also_use_static_vectors=True)):
+            jmodel, pmodel = build(jt2v), build(pt2v)
+            jflat = {k: tuple(np.shape(v)) for k, v in _flatten(_jax_params(jmodel)).items()}
+            pflat = {k: tuple(v.shape) for k, v in param_paths(pmodel).items()}
+            assert pflat == jflat
+            frozen = [k for k in pflat if k.endswith("4_static_vectors/frozen_table")]
+            assert len(frozen) == 1 and pflat[frozen[0]] == (7, 5)
+            assert frozen[0] not in {k.replace(".", "/") for k, _ in pmodel.named_parameters()}
     cases = [
         (lambda m: m.HashEmbedCNN(width=96, depth=2, embed_size=2000, dropout=0.2), 3),
         (lambda m: m.HashEmbedCNN(width=32, depth=1, embed_size=300, window_size=2,

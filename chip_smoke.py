@@ -137,6 +137,30 @@ Run from the root of a checkout. Phases, each printing one JSON line:
               with the rule components' host ms and card vs CPU >= 0.99 on
               tags, POS, lemmas, heads, deps and entities; then the JAX-
               written ``tests/data/jax_md/`` served as slice:cnn serves.
+18. nel:assets, train:nel, slice:nel, slice:nel_jax — an entity linker
+              added to train:md's best-model as spaCy's ``nel_emerson``
+              tutorial adds one to a shipped pipeline (``nel_config``: every
+              md component sourced and frozen, the NER annotating, the
+              linker over its own HashEmbedCNN of width 96, depth 2), on a KB
+              and corpora made from a seed over the same .spacy corpus
+              (``nel_assets``: 120 aliases, 4-8 candidates each, independent
+              64-wide normal vectors, the gold candidate decided by the
+              mention's left context). K1 fwd/bwd at the linker's tables and
+              K5 over the leaf set (the frozen leaves with zero gradients) in
+              the kernel rows; trained the same way: frozen parameters and
+              tables bit-equal to the source, the source's own ``ents_f``,
+              ``tag_acc`` and ``dep_las``, dev ``nel_micro_f`` >= the
+              prior-only decode + 0.3 (the 0.85 floor reported, held in
+              train:nel_shared), ``before_update`` once a step in order, K1
+              bwd for the linker's 4 tables only, the linker's gradients vs
+              plain; served with the linker's host ms a dispatch, every
+              alias-matching entity linked, card vs CPU >= 0.99 with kb_ids;
+              then the JAX-written ``tests/data/jax_nel/`` served, its kb_ids
+              equal to the JAX package's answers.
+19. train:nel_shared — the same layout, seed and corpora over a KB whose
+              vectors share a direction per candidate number
+              (``nel_assets(shared=True)``): dev ``nel_micro_f`` >= 0.85 and
+              >= the prior-only decode + 0.3 at step 60, beside train:nel's.
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -191,7 +215,13 @@ CNN_STEPS, CNN_EVAL = 60, 20  # the CNN phases (train:cnn, sm, spancat, textcat,
 #: are the JAX package's own tests' floors, tests/test_spancat_textcat.py)
 DEV_FLOORS = {"spancat": {"spans_sc_f": 0.5, "cats_micro_f": 0.7},
               "textcat": {"cats_score": 0.7},
-              "md": {"tag_acc": 0.9, "dep_las": 0.8, "ents_f": 0.8}}
+              "md": {"tag_acc": 0.9, "dep_las": 0.8, "ents_f": 0.8},
+              "nel": {"nel_micro_f": 0.85}}
+#: the linker's dev nel_micro_f must also clear the prior-only decode by this
+#: much. train:nel holds only this one: on nel_assets' independent vectors its
+#: DEV_FLOORS floor is reported, and held on the shared-direction KB
+#: (train:nel_shared)
+NEL_OVER_PRIOR = 0.3
 #: md's lemma_acc floor, as a share of what the same rule lemmatizer scores
 #: from the dev corpus's gold POS: the JAX package's rule lemmatizer
 #: lower-cases a PROPN lemma (no rule table for PROPN), and the corpus's
@@ -217,7 +247,13 @@ WORDS = ("the of and to in is was he for it with as his on be at by had are but 
 PUNCT = [",", ".", ";", "!", "?", "(", ")"]
 
 
+T_IMPORT = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the script's seconds so far."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - T_IMPORT}
     print(json.dumps(obj), flush=True)
 
 
@@ -1582,7 +1618,9 @@ def phase_slice_full(torch, model_dir: Path, dev_path: Path, auto: dict,
                        for i in range(3)] for c in range(4)]
         replays0 = graphs.replays
         rules = [n for n in nlp.pipe_names if nlp.components[n].model is None]
-        rule_s = {n: [] for n in rules}
+        # the host's decodes timed alike: the rule components' and an entity linker's
+        linkers = [n for n in nlp.pipe_names if hasattr(nlp.components[n], "kb")]
+        rule_s = {n: [] for n in rules + linkers}
 
         def timed(name, fn):
             def wrapped(*args, **kwargs):
@@ -1595,7 +1633,7 @@ def phase_slice_full(torch, model_dir: Path, dev_path: Path, auto: dict,
 
         patches = [mock.patch.object(nlp.components[n], "set_annotations",
                                      timed(n, nlp.components[n].set_annotations))
-                   for n in rules]
+                   for n in rule_s]
         for patch in patches:
             patch.start()
         _cuda.reset_launch_counts()
@@ -1615,12 +1653,13 @@ def phase_slice_full(torch, model_dir: Path, dev_path: Path, auto: dict,
         rule_host_ms = {n: {"per_dispatch": 1e3 * statistics.mean(ts),
                             "per_request": 1e3 * sum(ts) / len(answers), "dispatches": len(ts)}
                         for n, ts in rule_s.items()}
+        linker_host_ms = {n: rule_host_ms.pop(n) for n in linkers}
         missing = [k for k in need if launches[k] == 0]
         if missing:
             fail(f"{phase}: kernels never launched on the main path: {missing}")
         if replays == 0:
             fail(f"{phase}: no decode graph was replayed on the main path")
-        n_docs = n_with_ents = n_ents = 0
+        n_docs = n_with_ents = n_ents = n_linked = 0
         labels_dep = set(nlp.components["parser"].labels) | {"ROOT"}
         for status, ts, body in answers:
             if status != 200 or len(body["docs"]) != len(ts):
@@ -1636,8 +1675,11 @@ def phase_slice_full(torch, model_dir: Path, dev_path: Path, auto: dict,
                 n_docs += 1
                 n_with_ents += bool(d.get("ents"))
                 n_ents += len(d.get("ents", []))
+                n_linked += sum(len(e) > 3 for e in d.get("ents", []))
         if n_ents == 0:
             fail(f"{phase}: no response carried an entity")
+        if linkers and n_linked == 0:
+            fail(f"{phase}: no served entity carried a kb_id")
         pipeline_vs_cpu = None
         if cpu_compare:
             pipeline_vs_cpu = card_vs_cpu(model_dir, answers)
@@ -1750,6 +1792,7 @@ def phase_slice_full(torch, model_dir: Path, dev_path: Path, auto: dict,
             "auto_latency_p50_ms": auto["latency_p50_ms"],
             "auto_latency_p99_ms": auto["latency_p99_ms"],
             "setup_s": setup_s, "capture": capture, "rule_host_ms": rule_host_ms,
+            "linker_host_ms": linker_host_ms, "ents_linked": n_linked,
             "graph_equals_eager": True, "card_vs_cpu_agreement": cpu_agree,
             "served_vs_cpu_pipeline": pipeline_vs_cpu,
             "kernels_vs_plain": plain_agree, "decode_B8_T128": decode_times,
@@ -1944,6 +1987,145 @@ def md_assets(train_path, work: Path, *, seed: int = 0, rows: int = MD_VECTORS[0
     return out, attr, ents, counts
 
 
+#: the md pipeline's components, sourced by ``nel_config`` and frozen there
+MD_PIPELINE = ["tok2vec", "tagger", "parser", "attribute_ruler", "lemmatizer", "ner",
+               "entity_ruler"]
+NEL_VECTOR_WIDTH = 64       # spaCy's nel_emerson tutorial's entity_vector_length
+NEL_CANDIDATES = (4, 8)     # entities an alias has, drawn from the seed (both ends included)
+#: (step, epoch) of every ``[training.before_update]`` call of ``nel_config``
+STEP_CALLS = []
+STEP_RECORDER = "chip_smoke.step_recorder.v1"
+
+
+def register_step_recorder(registry) -> None:
+    """Register, in ``registry`` (either package's), the callback
+    ``nel_config`` names: it appends each call's (step, epoch) to
+    ``STEP_CALLS``."""
+    def make():
+        def before_update(nlp, info):
+            STEP_CALLS.append((info["step"], info["epoch"]))
+        return before_update
+
+    registry.callbacks(STEP_RECORDER)(make)
+
+
+def nel_context_class(doc, start: int) -> int:
+    """The gold entity's candidate number for a mention starting at
+    ``start``: 0 when it starts its sentence, 1 after a verb, 2 after an
+    adposition, 3 after anything else."""
+    starts = doc.sent_starts
+    if start == 0 or (starts is not None and starts[start] == 1):
+        return 0
+    return {"VERB": 1, "ADP": 2}.get(doc.pos[start - 1], 3)
+
+
+def nel_assets(paths, work: Path, *, seed: int = 0, dim: int = NEL_VECTOR_WIDTH,
+               shared: bool = False):
+    """A knowledge base and entity-linking corpora made from ``seed`` over
+    the udgen ``.spacy`` corpora ``paths`` (train, dev):
+
+    * each of udgen's 120 two-word mention types is an alias (its words,
+      space-joined) with 4-8 candidate entities ``Q<alias>_<k>`` (the count
+      drawn from the seed), each with its own ``dim``-wide standard normal
+      vector and a prior drawn from a Dirichlet(2) over the alias's
+      candidates; with ``shared``, each vector is instead the sum of
+      candidate ``k``'s direction, shared by every alias, and its own
+      (halves N(0, 1/2): still standard normal), so what is learnt of one
+      alias's candidate ``k`` carries to the others;
+    * the gold entity of a mention is its alias's candidate ``k =
+      nel_context_class``: context decides the link, priors do not.
+
+    Both variants draw the same counts, priors and gold entities.
+
+    Writes ``work/kb.npz`` (the port's ``KnowledgeBase.to_disk``) and
+    ``work/{train,dev}.spacy`` with the gold kb_id on every entity. Returns
+    (kb path, (train, dev), counts with the dev ``nel_micro_f`` of the
+    prior-only decode: the top-prior candidate of each gold mention)."""
+    import numpy as np
+
+    from spacy_ray_tpu_torch.pipeline.kb import KnowledgeBase
+    from spacy_ray_tpu_torch.training.corpus import Corpus
+    from spacy_ray_tpu_torch.training.spacy_docbin import write_docbin
+    from spacy_ray_tpu_torch.udgen import _Lexicon
+
+    rng = np.random.default_rng(seed)
+    aliases = [" ".join(words) for words, _ in _Lexicon(random.Random(1234)).propn]
+    kb = KnowledgeBase(dim)
+    per_alias = []
+    senses = rng.standard_normal((NEL_CANDIDATES[1], dim))
+    for a, alias in enumerate(aliases):
+        n = int(rng.integers(NEL_CANDIDATES[0], NEL_CANDIDATES[1] + 1))
+        ents = [f"Q{a}_{k}" for k in range(n)]
+        own = rng.standard_normal((n, dim))
+        vecs = (senses[:n] + own) / math.sqrt(2) if shared else own
+        for ent, vec in zip(ents, vecs.astype(np.float32)):
+            kb.add_entity(ent, 1.0, vec)
+        kb.add_alias(alias, ents, rng.dirichlet([2.0] * n).tolist())
+        per_alias.append(n)
+    work.mkdir(parents=True, exist_ok=True)
+    kb_path = work / "kb.npz"
+    kb.to_disk(kb_path)
+    out, mentions, hits = [], {}, 0
+    alias_index = {alias: a for a, alias in enumerate(aliases)}
+    for split, src in zip(("train", "dev"), paths):
+        docs = [eg.reference for eg in Corpus(src)()]
+        n = 0
+        for doc in docs:
+            for e in doc.ents:
+                alias = " ".join(doc.words[e.start:e.end])
+                e.kb_id = f"Q{alias_index[alias]}_{nel_context_class(doc, e.start)}"
+                n += 1
+                if split == "dev":
+                    hits += kb.candidates(alias)[0].entity == e.kb_id
+        path = work / f"{split}.spacy"
+        write_docbin(path, docs)
+        out.append(path)
+        mentions[split] = n
+    counts = {"entities": len(kb), "aliases": len(aliases),
+              "candidates_per_alias": {"min": min(per_alias), "max": max(per_alias),
+                                       "mean": sum(per_alias) / len(per_alias)},
+              "mentions": mentions, "kb_file_bytes": kb_path.stat().st_size,
+              # every gold mention gets one link: precision = recall = F
+              "prior_only_dev_nel_micro_f": hits / max(mentions["dev"], 1)}
+    (work / "counts.json").write_text(json.dumps(counts), encoding="utf8")
+    return kb_path, tuple(out), counts
+
+
+def nel_config(paths, source: Path, kb_path: Path, *, width: int = CNN_WIDTH,
+               depth: int = 2, embed_size: int = 2000, sourced=MD_PIPELINE):
+    """An entity linker added to a trained md pipeline, as spaCy's
+    ``nel_emerson`` tutorial adds one to a shipped pipeline: every component
+    of ``md_config`` sourced from ``source`` (its vectors adopted) and
+    frozen, the NER annotating, and ``entity_linker`` (8 candidates, priors
+    on, trained on the NER's predicted mentions) over
+    ``spacy.EntityLinker.v2`` with a ``HashEmbedCNN.v2`` trunk of its own
+    (the tutorial's: width 96, depth 2, embed_size 2000, window 1, 3
+    pieces, subword features); ``[training.before_update]`` is the step
+    recorder; sm.cfg's [training] otherwise, scored by ``nel_micro_f``.
+    The keyword arguments shrink the linker's trunk, and ``sourced`` the
+    components taken from ``source``, for the CPU tests and fixtures."""
+    from spacy_ray_tpu_torch.registry import registry
+
+    register_step_recorder(registry)
+    cfg = cnn_config("sm", paths)
+    comps = {name: {"source": str(source)} for name in sourced}
+    comps["entity_linker"] = {
+        "factory": "entity_linker", "n_candidates": 8, "use_gold_ents": False,
+        "use_prior": True, "kb_path": str(kb_path),
+        "model": {"@architectures": "spacy.EntityLinker.v2",
+                  "tok2vec": {"@architectures": "spacy.HashEmbedCNN.v2", "width": width,
+                              "depth": depth, "embed_size": embed_size, "window_size": 1,
+                              "maxout_pieces": 3, "subword_features": True,
+                              "pretrained_vectors": None}}}
+    cfg["components"] = comps
+    cfg["nlp"]["pipeline"] = list(sourced) + ["entity_linker"]
+    cfg["training"].update(frozen_components=list(sourced),
+                           annotating_components=["ner"],
+                           before_update={"@callbacks": STEP_RECORDER},
+                           score_weights={"nel_micro_f": 1.0})
+    return cfg
+
+
 def pipeline_config(name: str, paths):
     if name in ("cnn", "sm"):
         return cnn_config(name, paths)
@@ -1995,26 +2177,31 @@ def write_spacy_corpus(udgen):
     return out
 
 
-def cnn_setup(torch, configs):
+def cnn_setup(torch, configs, trunk="tok2vec"):
     """Built on the CPU from ``configs`` ({name: config}), labels collected
     from each one's corpus as ``train()`` collects them: the leaf shapes of
     cnn.cfg, sm.cfg, spancat.cfg, the textcat ensemble, the token
-    classifiers and the md layout (those their ``train:*`` phases update:
-    md's frozen tables are no leaves), and the hash keys of ``train:cnn``'s,
-    ``train:spancat``'s and ``train:md``'s first microbatches with each
-    table's (rows, seed, attribute)."""
+    classifiers, the md layout and ``nel_config`` (those their ``train:*``
+    phases update: md's frozen tables are no leaves; a frozen component's
+    leaves are, with zero gradients, listed under ``"zero_grad_leaves"``),
+    and the hash keys of ``train:cnn``'s, ``train:spancat``'s,
+    ``train:md``'s and ``train:nel``'s first microbatches with the (rows,
+    seed, attribute) of each table of the component ``trunk``."""
     from spacy_ray_tpu_torch import Pipeline
     from spacy_ray_tpu_torch.models.layers import HashEmbed
     from spacy_ray_tpu_torch.registry import registry
     from spacy_ray_tpu_torch.training.batcher import bucket_batch_size, bucket_length
 
-    info = {"microbatches": {}}
+    info = {"microbatches": {}, "zero_grad_leaves": {}}
     for name, cfg in configs.items():
         cfg = cfg.interpolate()
         nlp = Pipeline.from_config(cfg, device="cpu")
         nlp.initialize(registry.resolve(cfg["corpora"]["train"]), seed=0)
         info[name] = [tuple(p.shape) for p in nlp.model.parameters()]
-        if name in ("cnn", "spancat", "md"):
+        nlp.requires_grad_(True)
+        info["zero_grad_leaves"][name] = [
+            i for i, p in enumerate(nlp.model.parameters()) if not p.requires_grad]
+        if name in ("cnn", "spancat", "md", "nel"):
             batcher = registry.resolve(cfg["training"]["batcher"])
             batch = next(iter(batcher(registry.resolve(cfg["corpora"]["train"])())))
             B, T = bucket_batch_size(len(batch)), bucket_length(max(len(eg) for eg in batch))
@@ -2023,11 +2210,16 @@ def cnn_setup(torch, configs):
                 "B": B, "T": T, "docs": len(batch), "words": int(tokens.mask.sum()),
                 "keys": tokens.attr_keys.reshape(B * T, -1, 2),
                 "tables": [(m.dims["rows"], m.seed, m.attr_index)
-                           for m in nlp.model["tok2vec"].modules() if isinstance(m, HashEmbed)]}
+                           for m in nlp.model[trunk].modules() if isinstance(m, HashEmbed)]}
     return info
 
 
-def phase_cnn_kernels(torch, info):
+CNN_LEAF_SETS = (("cnn", "cnn.cfg"), ("sm", "sm.cfg"), ("spancat", "spancat.cfg"),
+                 ("textcat", "textcat ensemble"), ("tokcls", "token classifiers"),
+                 ("md", "md layout (its two frozen tables left out)"))
+
+
+def phase_cnn_kernels(torch, info, leaf_sets=CNN_LEAF_SETS):
     """K1 fwd, K1 bwd and K5 at the CNN's shapes, each against its plain
     version and timed: K1 at D 96 over the 2000- and 1000-row tables and
     md's 5000-, 1000- and 2500-row tables, at ``train:cnn``'s,
@@ -2037,7 +2229,8 @@ def phase_cnn_kernels(torch, info):
     spancat.cfg, the textcat ensemble (its 262144 x 3 BOW table's gradient
     zero but on the rows a microbatch touches), the token classifiers and
     the md layout (labels from the corpora) under three hyper sets, at 0
-    ulp."""
+    ulp; or the ``leaf_sets`` given, a frozen component's leaves with zero
+    gradients (``train:nel``'s)."""
     import torch.nn.functional as F
 
     from spacy_ray_tpu_torch.ops.fused_update import (
@@ -2134,9 +2327,7 @@ def phase_cnn_kernels(torch, info):
     del scratch
 
     upd = []
-    for name, leaf_set in (("cnn", "cnn.cfg"), ("sm", "sm.cfg"), ("spancat", "spancat.cfg"),
-                           ("textcat", "textcat ensemble"), ("tokcls", "token classifiers"),
-                           ("md", "md layout (its two frozen tables left out)")):
+    for name, leaf_set in leaf_sets:
         leaf_shapes = info[name]
         n_params = sum(math.prod(sh) for sh in leaf_shapes)
         P = [torch.randn(sh, device=dev, generator=g) for sh in leaf_shapes]
@@ -2144,6 +2335,9 @@ def phase_cnn_kernels(torch, info):
         for grad in G:
             if grad.shape[0] == 262144:  # the BOW table: a microbatch touches few rows
                 grad[torch.rand(grad.shape[0], device=dev, generator=g) > 0.01] = 0
+        zero = info["zero_grad_leaves"].get(name, [])
+        for i in zero:  # a frozen component's leaf: no gradient reaches it
+            G[i].zero_()
         M = [torch.randn(sh, device=dev, generator=g) * 1e-4 for sh in leaf_shapes]
         V = [torch.rand(sh, device=dev, generator=g) * 1e-6 for sh in leaf_shapes]
         worst, worst_abs = 0, 0.0
@@ -2186,7 +2380,7 @@ def phase_cnn_kernels(torch, info):
             "library_ms": time_ms(torch, lib_opt.step),
             "bound_ms": bnd, "bound_by": by, "timer_floor_ms": floor_ms,
             "dispatch": f"train:{name} step", "calls_per_dispatch": 1,
-            "chunks": fused._table.shape[0],
+            "chunks": fused._table.shape[0], "zero_gradient_leaves": len(zero),
         }
         emit({"phase": "kernel:fused_update", **row})
         upd.append(row)
@@ -2208,6 +2402,53 @@ def head_losses_fell(result, heads, phase):
     return out
 
 
+def grad_check(torch, nlp, cfg, c, keys=None):
+    """Every trained leaf's gradient on microbatch ``c`` with the kernels
+    against the plain versions ({leaf: max |g - g_plain| / max |g_plain|}),
+    and the control: what leaving out one typical row's adds (K1 bwd) would
+    read on the same measure, the median over a table's touched rows of
+    max |g_row| / max |g|, at its least over the tables; the limit must sit
+    below it. A row is touched if its gradient is not zero, or, with
+    ``keys`` (hash keys [N, attributes, 2]), if one of those tokens hashes
+    to it."""
+    from spacy_ray_tpu_torch.ops.hashing import hash_embed_ids
+
+    nlp.requires_grad_(True)
+    params = {k.replace(".", "/"): p for k, p in nlp.model.named_parameters()
+              if p.requires_grad}
+    plain = {}
+    rel = grad_errs_vs_plain(torch, nlp, params, c, plain_out=plain)
+    row_drop = []
+    for k, g in plain.items():
+        if k.endswith("/E"):
+            rows = g.abs().amax(dim=1)
+            if keys is not None:
+                table = nlp.model.get_submodule(k[:-2].replace("/", "."))
+                ids = hash_embed_ids(keys[:, table.attr_index], table.seed,
+                                     table.dims["rows"])
+                rows = rows[torch.unique(ids.long())]
+            rows = rows[rows > 0]
+            row_drop.append((rows.median() / g.abs().max()).item())
+    return rel, min(row_drop)
+
+
+def nel_grad_probe(torch, nlp, cfg, c):
+    """``train:nel``'s gradient check: the linker at the loop's starting
+    weights (a fresh ``initialize`` of the same config), where every mention
+    has a gradient (trained, it is sure of the train set and its gradient
+    sits on a few rows); its loss reads only its mentions' tokens, so the
+    control takes the rows those tokens hash to."""
+    from spacy_ray_tpu_torch import Pipeline
+
+    fresh = Pipeline.from_config(cfg, device="cuda")
+    fresh.initialize(seed=int(cfg["training"].get("seed") or 0))
+    t = c["targets"]["entity_linker"]
+    pos = torch.arange(c["tokens"].attr_keys.shape[1], device=t["nel_start"].device)
+    inside = ((pos >= t["nel_start"][..., None]) & (pos < t["nel_end"][..., None])
+              & t["nel_mask"][..., None]).any(dim=1)  # [B, T] tokens inside a mention
+    return grad_check(torch, fresh, cfg, c, keys=c["tokens"].attr_keys[inside])
+
+
 #: what each CNN phase trains, as its result line names it
 CNN_PHASE_CONFIGS = {
     "cnn": "configs/cnn.cfg as written",
@@ -2221,19 +2462,26 @@ CNN_PHASE_CONFIGS = {
           "5000/1000/2500/2500 with static vectors, 20000 x 300 from a seed; encoder depth 4), "
           "tagger, parser (hidden 64), attribute_ruler (TAG -> POS), rule lemmatizer, ner "
           "(hidden 64, its own trunk alike), entity_ruler; sm.cfg's [training]",
+    "nel": "train:md's best-model with every component sourced and frozen, the ner "
+           "annotating, and an entity_linker (8 candidates, priors on, trained on the ner's "
+           "mentions) over its own HashEmbedCNN.v2 (width 96, depth 2, embed_size 2000, "
+           "window 1, 3 pieces: spaCy's nel_emerson trunk); before_update recorded; sm.cfg's "
+           "[training] scored by nel_micro_f",
 }
 
 
-def phase_train_cnn(torch, name, cfg, leaf_shapes):
+def phase_train_cnn(torch, name, cfg, leaf_shapes, grad_probe=None, floors=None):
     """``train()`` on ``cfg`` (``pipeline_config(name)``: ``max_steps`` and
     ``eval_frequency`` cut) over its .spacy corpus, launch counters zeroed
-    just before and read just after; each head's loss must fall to <= 2/3
-    and the dev scores must hold ``DEV_FLOORS``; then, on its first
-    microbatch, the step under the profiler (the card's idle share over 5
-    steps, top kernels, launches), the device operations of a microbatch
-    with the hash ids' share, the host's featurize + collate time, and
-    every leaf's gradient with the kernels against the plain versions
-    (dropout off)."""
+    just before and read just after; each trained head's loss must fall to
+    <= 2/3 and the dev scores must hold ``floors`` (``DEV_FLOORS[name]``
+    unless given); then, on its first microbatch, the step under the
+    profiler (the card's idle share over 5 steps, top kernels, launches),
+    the device operations of a microbatch with the hash ids' share, the
+    host's featurize + collate time, and every trained leaf's gradient with
+    the kernels against the plain versions (dropout off): ``grad_check`` on
+    the trained pipeline, or ``grad_probe(torch, nlp, cfg, microbatch)``
+    where it is given."""
     from torch.profiler import ProfilerActivity, profile
 
     from spacy_ray_tpu_torch.ops import _cuda
@@ -2268,23 +2516,29 @@ def phase_train_cnn(torch, name, cfg, leaf_shapes):
         fail(f"{phase}: kernels never launched on the training path: {missing}")
     if len(result.step_head_losses) != CNN_STEPS:
         fail(f"{phase}: {len(result.step_head_losses)} steps' losses, expected {CNN_STEPS}")
-    heads = [n for n in nlp.head_names() if nlp.components[n].trainable]
+    heads = [n for n in nlp.head_names()
+             if nlp.components[n].trainable and n not in nlp.frozen_components]
     head_losses = head_losses_fell(result, heads, phase)
     trained = [tuple(p.shape) for p in nlp.model.parameters()]
     if trained != leaf_shapes:
         fail(f"{phase}: trained {len(trained)} leaves, not the {len(leaf_shapes)} K5 was held at")
     event_ms = [a.elapsed_time(b) for a, b in result.step_events]
     last = result.history[-1]["other_scores"]
-    low = {k: last.get(k) for k, floor in DEV_FLOORS.get(name, {}).items()
-           if not (last.get(k) or 0) >= floor}
+    floors = DEV_FLOORS.get(name, {}) if floors is None else floors
+    low = {k: last.get(k) for k, floor in floors.items() if not (last.get(k) or 0) >= floor}
     if low:
         fail(f"{phase}: dev scores at step {result.history[-1]['step']} below their "
-             f"floors {DEV_FLOORS[name]}: {low}")
+             f"floors {floors}: {low}")
 
     cfg_i = cfg.interpolate()
     batcher = registry.resolve(cfg_i["training"]["batcher"])
     batch = next(iter(batcher(registry.resolve(cfg_i["corpora"]["train"])())))
     B_pad, T_pad = bucket_batch_size(len(batch)), bucket_length(max(len(eg) for eg in batch))
+    if nlp.annotating_components:  # the loop's annotating pass (train:nel's NER mentions)
+        shells = [eg.reference.copy_shell() for eg in batch]
+        nlp.predict_docs(shells, annotate=nlp.annotating_components)
+        for eg, shell in zip(batch, shells):
+            eg.predicted = shell
     c = nlp.collate(batch, with_targets=True, pad_batch_to=B_pad, pad_len_to=T_pad)
     # the featurize + collate of one microbatch, its copy to the card
     # included: fresh Examples (their keys hashed) and the same Examples
@@ -2307,8 +2561,10 @@ def phase_train_cnn(torch, name, cfg, leaf_shapes):
                 nlp._vector_rows(eg)
             vector_rows_ms[label] = (time.perf_counter() - t) * 1e3
 
-    nlp.model.requires_grad_(True)
+    nlp.requires_grad_(True)
     params = {k.replace(".", "/"): p for k, p in nlp.model.named_parameters()}
+    # a frozen component's leaves take no gradient: K5 gets zeros for them
+    zeros = {k: torch.zeros_like(p) for k, p in params.items() if not p.requires_grad}
     optimizer = registry.resolve(cfg_i["training"]["optimizer"])
     opt_state = optimizer.init(params)
 
@@ -2323,7 +2579,8 @@ def phase_train_cnn(torch, name, cfg, leaf_shapes):
             p.grad = None
         nlp.loss(b["tokens"], b["targets"], dropout=0.1, seed=1)[0].backward()
         with torch.no_grad():
-            optimizer.update(params, {k: p.grad for k, p in params.items()}, opt_state)
+            optimizer.update(params, {k: zeros.get(k, p.grad) for k, p in params.items()},
+                             opt_state)
 
     ops = device_ops(torch, fwd_bwd)
     tables = [(m.dims["rows"], m.seed, m.attr_index)
@@ -2350,43 +2607,35 @@ def phase_train_cnn(torch, name, cfg, leaf_shapes):
               if str(getattr(e, "device_type", "")).endswith("CUDA") and dev_us(e) > 0]
     busy_ms = sum(dev_us(e) for e in events) / 1e3
     launch_calls = sum(e.count for e in prof.key_averages() if e.key == "cudaLaunchKernel")
+    table_grad_kernels = sum(e.count for e in events if "table_grad_pieces" in e.key)
     top = sorted(events, key=dev_us, reverse=True)[:10]
     host_ops = sorted((e for e in prof.key_averages()
                        if not str(getattr(e, "device_type", "")).endswith("CUDA")),
                       key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
 
-    plain = {}
-    rel = grad_errs_vs_plain(torch, nlp, params, c, plain_out=plain)
+    rel, control = (grad_probe or grad_check)(torch, nlp, cfg_i, c)
     worst_leaf = max(rel, key=rel.get)
     if not rel[worst_leaf] <= TOL_GRAD_CNN:
         fail(f"{phase}: gradient of {worst_leaf} kernels vs plain {rel[worst_leaf]} "
              f"> {TOL_GRAD_CNN}")
-    # the control: what leaving out one typical row's adds (K1 bwd) would
-    # read on the same measure, the median over a table's touched rows of
-    # max |g_row| / max |g|, at its least over the tables; the limit must
-    # sit below it
-    row_drop = []
-    for k, g in plain.items():
-        if k.endswith("/E"):
-            rows = g.abs().amax(dim=1)
-            rows = rows[rows > 0]
-            row_drop.append((rows.median() / rows.max()).item())
-    control = min(row_drop)
     if not control > TOL_GRAD_CNN:
         fail(f"{phase}: a dropped table row would read {control}, not above {TOL_GRAD_CNN}")
-    nlp.model.requires_grad_(False)
+    nlp.requires_grad_(False)
     md = md_train_checks(torch, nlp, out, cfg_i, result) if name == "md" else None
+    nel = (nel_train_checks(torch, nlp, out, cfg_i, result, launches, table_grad_kernels)
+           if name == "nel" else None)
     oracle = (dict(nlp.components["parser"].oracle_stats) if "parser" in nlp.components
               else None)
-    del nlp, params, optimizer, opt_state, c, plain
+    del nlp, params, zeros, optimizer, opt_state, c
     torch.cuda.empty_cache()
 
     keys_s = ("tag_acc", "dep_uas", "dep_las", "ents_f", "spans_sc_f", "cats_micro_f",
-              "cats_macro_auc", "cats_score", "pos_acc", "morph_acc", "lemma_acc", "sents_f")
+              "cats_macro_auc", "cats_score", "pos_acc", "morph_acc", "lemma_acc", "sents_f",
+              "nel_micro_p", "nel_micro_r", "nel_micro_f")
     res = {
         "phase": phase, "config": f"{CNN_PHASE_CONFIGS[name]}; max_steps {CNN_STEPS}, "
         f"eval_frequency {CNN_EVAL} (cut); corpora .spacy (via the port's writer)",
-        "dev_floors": DEV_FLOORS.get(name, {}),
+        "dev_floors": floors,
         "seconds": seconds, "steps": result.final_step, "leaves": len(leaf_shapes),
         "params": sum(math.prod(sh) for sh in leaf_shapes),
         "group_shapes_B_T": sorted(set(result.step_shapes)), "head_losses": head_losses,
@@ -2394,6 +2643,9 @@ def phase_train_cnn(torch, name, cfg, leaf_shapes):
                                     if k in h["other_scores"]}) for h in result.history],
         "step_ms_median_events": statistics.median(event_ms),
         "step_ms_median_host": statistics.median(x * 1e3 for x in result.step_host_seconds),
+        # the annotating pass (its predictions synchronise), outside the step
+        "annotate_ms_median_host": (statistics.median(x * 1e3 for x in result.annotate_seconds)
+                                    if result.annotate_seconds else None),
         # every step in order: the first epoch's collates hash the keys and
         # run the oracle, the later ones read the Examples' caches
         "step_ms_quartiles_events": statistics.quantiles(event_ms, n=4),
@@ -2410,6 +2662,7 @@ def phase_train_cnn(torch, name, cfg, leaf_shapes):
             "steps": PROFILE_STEPS, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
             "cuda_launch_kernel_calls_per_step": launch_calls / PROFILE_STEPS,
+            "table_grad_kernels_per_step": table_grad_kernels / PROFILE_STEPS,
             "top_device_ms": [(e.key[:60], dev_us(e) / 1e3, e.count) for e in top],
             "top_host_self_ms": [(e.key[:60], e.self_cpu_time_total / 1e3, e.count)
                                  for e in host_ops],
@@ -2419,6 +2672,8 @@ def phase_train_cnn(torch, name, cfg, leaf_shapes):
     }
     if md is not None:
         res["md"] = md
+    if nel is not None:
+        res["nel"] = nel
     emit(res)
     return res, out / "best-model"
 
@@ -2499,6 +2754,103 @@ def md_train_checks(torch, nlp, out: Path, cfg, result) -> dict:
     }
 
 
+def nel_train_checks(torch, nlp, out: Path, cfg, result, launches, table_grad_kernels) -> dict:
+    """What ``train:nel`` adds to a CNN phase: every frozen component's
+    parameters and both frozen tables bit-equal to the source's after
+    training, in the model, ``best-model/`` and the last generation; dev
+    ``ents_f``, ``tag_acc`` and ``dep_las`` equal to the source model's own
+    on the same dev set; the linker's dev ``nel_micro_f`` at least the
+    prior-only baseline + ``NEL_OVER_PRIOR`` (beside ``DEV_FLOORS["nel"]``,
+    reported: see ``train_nel_shared``);
+    ``before_update`` called once a step, steps 0, 1, ... in order; K1 bwd
+    launched for the linker's 4 tables only (the loop's count and the
+    profiled steps' kernels)."""
+    import numpy as np
+
+    from spacy_ray_tpu_torch import Pipeline
+    from spacy_ray_tpu_torch.models.core import param_paths
+    from spacy_ray_tpu_torch.training.checkpoint import load_params
+    from spacy_ray_tpu_torch.training.corpus import Corpus
+
+    work = Path(cfg["components"]["entity_linker"]["kb_path"]).parent  # nel_assets' dir
+    src_dir = Path(nlp.sourced_components["tok2vec"])
+    src = load_params(src_dir / "params.npz")
+    paths = param_paths(nlp.model)
+    frozen = sorted(k for k in paths if k.split("/")[0] in nlp.frozen_components)
+    if set(frozen) != set(src):
+        fail(f"train:nel: {len(frozen)} frozen leaves, the source has {len(src)}")
+    stamp = result.final_step
+    saved = {"best-model": load_params(out / "best-model" / "params.npz"),
+             "last-model": load_params(out / "last-model" / f"params-{stamp}.npz")}
+    for k in frozen:
+        if not torch.equal(paths[k].cpu(), torch.from_numpy(src[k])):
+            fail(f"train:nel: frozen {k} changed in training")
+        for where, flat in saved.items():
+            if not np.array_equal(flat[k], src[k]):
+                fail(f"train:nel: {where}'s frozen {k} differs from the source")
+    dev = list(Corpus(cfg["paths"]["dev"])())
+    source_scores = Pipeline.from_disk(src_dir, device="cuda").evaluate(dev)
+    last = result.history[-1]["other_scores"]
+    same = {k: (last[k], source_scores[k]) for k in ("ents_f", "tag_acc", "dep_las")}
+    if any(a != b for a, b in same.values()):
+        fail(f"train:nel: frozen components' dev scores differ from the source's: {same}")
+    baseline = json.loads((work / "counts.json").read_text())["prior_only_dev_nel_micro_f"]
+    if not last["nel_micro_f"] >= baseline + NEL_OVER_PRIOR:
+        fail(f"train:nel: dev nel_micro_f {last['nel_micro_f']} < the prior-only decode's "
+             f"{baseline} + {NEL_OVER_PRIOR}")
+    steps = [s for s, _ in STEP_CALLS]
+    epochs = [e for _, e in STEP_CALLS]
+    if steps != list(range(stamp)) or epochs != sorted(epochs):
+        fail(f"train:nel: before_update calls {STEP_CALLS[:5]}... are not steps 0..{stamp - 1}")
+    linker_tables = 4
+    if launches["hash_embed_table_grad"] != linker_tables * stamp \
+            or table_grad_kernels != linker_tables * PROFILE_STEPS:
+        fail(f"train:nel: K1 bwd launched {launches['hash_embed_table_grad']} times in "
+             f"{stamp} steps and {table_grad_kernels} kernels in {PROFILE_STEPS} profiled "
+             f"steps: a frozen trunk took a table gradient")
+    return {"frozen_leaves_bit_equal": len(frozen), "source": str(src_dir.relative_to(ROOT)),
+            "frozen_components": nlp.frozen_components, "dev_vs_source": same,
+            "nel_micro_f": last["nel_micro_f"], "nel_over_prior_floor": baseline + NEL_OVER_PRIOR,
+            "nel_floor": DEV_FLOORS["nel"]["nel_micro_f"],
+            "nel_floor_reached": last["nel_micro_f"] >= DEV_FLOORS["nel"]["nel_micro_f"],
+            "prior_only_dev_nel_micro_f": baseline,
+            "before_update_calls": len(STEP_CALLS), "epochs_seen": sorted(set(epochs)),
+            "table_grad_launches": launches["hash_embed_table_grad"],
+            "table_grad_kernels_in_profiled_steps": table_grad_kernels}
+
+
+def train_nel_shared(torch, cfg, baseline: float) -> dict:
+    """``train()`` on ``cfg`` (``nel_config`` over ``nel_assets(shared=True)``'s
+    KB: train:nel's layout, seed and corpora), launch counters zeroed just
+    before and read just after, evaluated once at the last step; fails
+    unless dev ``nel_micro_f`` is at least ``DEV_FLOORS["nel"]`` and the
+    prior-only decode's ``baseline`` + ``NEL_OVER_PRIOR``."""
+    from spacy_ray_tpu_torch.ops import _cuda
+    from spacy_ray_tpu_torch.training.loop import train
+
+    cfg["training"].update(max_steps=CNN_STEPS, eval_frequency=CNN_STEPS)
+    STEP_CALLS.clear()
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, result = train(cfg, None, device="cuda", stdout_log=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _cuda.launch_counts()
+    f = result.history[-1]["other_scores"]["nel_micro_f"]
+    floor = max(DEV_FLOORS["nel"]["nel_micro_f"], baseline + NEL_OVER_PRIOR)
+    if not f >= floor:
+        fail(f"train:nel_shared: dev nel_micro_f {f} < {floor} (floor "
+             f"{DEV_FLOORS['nel']['nel_micro_f']}, prior-only {baseline} + {NEL_OVER_PRIOR})")
+    res = {"phase": "train:nel_shared", "seconds": seconds, "steps": result.final_step,
+           "nel_micro_f": f, "nel_floor": floor, "prior_only_dev_nel_micro_f": baseline,
+           "linker_loss_first_last": [result.step_head_losses[0]["entity_linker"],
+                                      result.step_head_losses[-1]["entity_linker"]],
+           "launches": launches}
+    emit(res)
+    return res
+
+
 def card_vs_cpu(model_dir: Path, answers) -> dict:
     """How far the served answers equal the same model directory's
     annotations on the CPU over the same texts: per token field (tags, heads,
@@ -2528,6 +2880,12 @@ def card_vs_cpu(model_dir: Path, answers) -> dict:
         served_ents = {(i, e[0], e[1], e[2]) for i, s in enumerate(got) for e in s.get("ents", [])}
         cpu_ents = {(i, e.start, e.end, e.label) for i, d in enumerate(want) for e in d.ents}
         out["ents_f"] = set_f(served_ents, cpu_ents)
+    if "entity_linker" in cpu.pipe_names:  # the links: a served entity's kb_id is its 4th field
+        served_links = {(i, *e[:3], e[3] if len(e) > 3 else "")
+                        for i, s in enumerate(got) for e in s.get("ents", [])}
+        cpu_links = {(i, e.start, e.end, e.label, e.kb_id)
+                     for i, d in enumerate(want) for e in d.ents}
+        out["kb_ids_f"] = set_f(served_links, cpu_links)
     for key in sorted({k for d in want for k in d.spans}):
         served = {(i, *sp) for i, s in enumerate(got) for sp in s.get("spans", {}).get(key, [])}
         on_cpu = {(i, sp.start, sp.end, sp.label) for i, d in enumerate(want)
@@ -2553,6 +2911,13 @@ def check_served_doc(nlp, d: dict, phase: str) -> int:
             fail(f"{phase}: doc without {key}: {d}")
     if "tagger" in comps and not set(d["tags"]) <= set(comps["tagger"].labels):
         fail(f"{phase}: unknown tags in {d}")
+    linker = comps.get("entity_linker")
+    if linker is not None and linker.threshold == 0:  # every alias of the KB gets a link
+        for e in d.get("ents", []):
+            cands = {c.entity for c in linker.kb.candidates(
+                " ".join(d["tokens"][e[0]:e[1]]))[:linker.n_candidates]}
+            if cands and not (len(e) > 3 and e[3] in cands):
+                fail(f"{phase}: entity {e} is an alias of the KB but has no candidate's kb_id")
     spans = 0
     if "spancat" in comps:
         labels = set(comps["spancat"].labels)
@@ -2671,6 +3036,78 @@ def phase_slice_cnn(torch, model_dir: Path, dev_path: Path, phase: str = "slice:
             server.httpd.shutdown()
         server.httpd.server_close()
         del server, engine, nlp
+        torch.cuda.empty_cache()
+
+
+def phase_slice_nel_jax(torch):
+    """``tests/data/jax_nel/`` (written by the JAX package,
+    ``bin/make_jax_nel_fixture.py``) served through the ``serve`` entry point:
+    its ``answers.json`` texts as four one-text requests, then two
+    concurrent requests of the rest; K1 fwd must launch and every doc's
+    entities and kb_ids must equal the JAX package's own answers."""
+    from spacy_ray_tpu_torch.__main__ import build_server
+    from spacy_ray_tpu_torch.ops import _cuda
+
+    path = ROOT / "tests" / "data" / "jax_nel"
+    answers = json.loads((path / "answers.json").read_text(encoding="utf8"))
+    want = dict(zip(answers["texts"], answers["ents"]))
+    t0 = time.perf_counter()
+    server = build_server([str(path), "--port", "0", "--max-batch", "8",
+                           "--max-doc-len", "128", "--precision", "auto"])
+    engine = server.engine
+    try:
+        _, port = server.start()
+        engine.start()
+        setup_s = time.perf_counter() - t0
+        texts = answers["texts"]
+        latencies, got = [], []
+        lock = threading.Lock()
+
+        def client(batch):
+            for ts in batch:
+                t = time.perf_counter()
+                status, body = post(port, ts)
+                with lock:
+                    latencies.append(time.perf_counter() - t)
+                    got.append((status, ts, body))
+
+        _cuda.reset_launch_counts()
+        client([[t] for t in texts[:4]])
+        threads = [threading.Thread(target=client, args=([part],))
+                   for part in (texts[4:8], texts[8:])]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        torch.cuda.synchronize()
+        launches = _cuda.launch_counts()
+        if launches["hash_embed_gather_sum"] == 0:
+            fail("slice:nel_jax: K1 fwd never launched on the serving path")
+        n_links = 0
+        for status, ts, body in got:
+            if status != 200 or len(body["docs"]) != len(ts):
+                fail(f"slice:nel_jax: /v1/parse answered {status}: {body}")
+            for t, d in zip(ts, body["docs"]):
+                ents = [e + [""] * (4 - len(e)) for e in d.get("ents", [])]
+                if ents != want[t]:
+                    fail(f"slice:nel_jax: served {ents}, the JAX package answered {want[t]}")
+                n_links += sum(bool(e[3]) for e in ents)
+        server.request_shutdown()
+        if server.wait() != 0:
+            fail("slice:nel_jax: serve drain failed")
+        result = {"phase": "slice:nel_jax", "requests": len(got), "docs": len(texts),
+                  "links_equal_to_jax": n_links, "launches": launches, "setup_s": setup_s,
+                  "latency_p50_ms": percentile(latencies, 0.50) * 1e3,
+                  "latency_p99_ms": percentile(latencies, 0.99) * 1e3}
+        emit(result)
+        return result
+    finally:
+        if engine.ready:
+            engine.stop()
+        if server._serve_thread is not None and server._serve_thread.is_alive():
+            server.httpd.shutdown()
+        server.httpd.server_close()
+        del server, engine
         torch.cuda.empty_cache()
 
 
@@ -2807,6 +3244,39 @@ def main() -> int:
     runs["slice:md"] = phase_slice_full(torch, md_model, spacy_corpus[1], runs["slice:cnn"],
                                         phase="slice:md", need=("hash_embed_gather_sum",),
                                         cpu_compare=True, ents_floor=0.99)
+    # an entity linker added to the trained md pipeline, every md component
+    # sourced from its best-model and frozen, the NER annotating
+    t = time.perf_counter()
+    kb_path, nel_corpus, nel_counts = nel_assets(spacy_corpus, WORK / "nel")
+    emit({"phase": "nel:assets", "seconds": time.perf_counter() - t, **nel_counts,
+          "dev_floor": nel_counts["prior_only_dev_nel_micro_f"] + NEL_OVER_PRIOR,
+          "dev_floor_reported": DEV_FLOORS["nel"]["nel_micro_f"]})
+
+    def nel_cfg():
+        return nel_config(nel_corpus, md_model, kb_path)
+
+    nel = cnn_setup(torch, {"nel": nel_cfg()}, trunk="entity_linker")
+    nel_leaves = "train:nel's: md's 60 (frozen: zero gradients) and the linker's"
+    for name, rows in phase_cnn_kernels(torch, nel, leaf_sets=(("nel", nel_leaves),)).items():
+        kernels[name].extend(rows)
+    STEP_CALLS.clear()
+    # nel_assets' independent vectors: the 0.85 floor reported, not held
+    runs["train:nel"], nel_model = phase_train_cnn(torch, "nel", nel_cfg(), nel["nel"],
+                                                   grad_probe=nel_grad_probe, floors={})
+    runs["slice:nel"] = phase_slice_full(torch, nel_model, nel_corpus[1], runs["slice:md"],
+                                         phase="slice:nel", need=("hash_embed_gather_sum",),
+                                         cpu_compare=True, ents_floor=0.99)
+    shutil.rmtree(WORK / "train_nel", ignore_errors=True)
+    # the same seed and corpora over a KB whose vectors share a direction per
+    # candidate number: the 0.85 floor held there
+    shared_kb = nel_assets(spacy_corpus, WORK / "nel_shared", shared=True)[0]
+    runs["train:nel_shared"] = train_nel_shared(
+        torch, nel_config(nel_corpus, md_model, shared_kb),
+        nel_counts["prior_only_dev_nel_micro_f"])
+    shutil.rmtree(WORK / "nel", ignore_errors=True)
+    shutil.rmtree(WORK / "nel_shared", ignore_errors=True)
+    # a linker pipeline the JAX package wrote, with its own answers
+    runs["slice:nel_jax"] = phase_slice_nel_jax(torch)
     shutil.rmtree(WORK / "train_md", ignore_errors=True)
     shutil.rmtree(WORK / "md", ignore_errors=True)
     # a model directory the JAX package wrote (bin/make_jax_md_fixture.py), with

@@ -1,9 +1,11 @@
 """Per-component head architectures and the listener that feeds a head the
 shared trunk's output (counterparts of ``spacy_ray_tpu/models/heads.py``):
-the tagger, and the text classifiers (pooled ``TextCatReduce``, hashed
-bag-of-words ``TextCatBOW``, their sum ``TextCatEnsemble``, ``TextCatCNN``).
+the tagger, the text classifiers (pooled ``TextCatReduce``, hashed
+bag-of-words ``TextCatBOW``, their sum ``TextCatEnsemble``, ``TextCatCNN``)
+and the entity linker's projection.
 
-Parameter paths are the JAX package's: the tagger's ``1_output/{W,b}``; a
+Parameter paths are the JAX package's: the tagger's ``1_output/{W,b}``, the
+entity linker's ``1_project/{W,b}`` beside its trunk's ``0_...``; a
 reduce head's ``W``, ``b`` beside its inline trunk's ``tok2vec/...`` (a
 listener has none); the BOW table ``W`` [length, nO] and ``b``; the
 ensemble's ``neural/...`` and ``linear/...``.
@@ -56,6 +58,22 @@ def make_tagger(tok2vec: Model, nO: Optional[int] = None, normalize: bool = Fals
     width = tok2vec.dims.get("nO")
     nO = 1 if nO is None else nO  # resized at initialize() from the labels
     head = Chain(tok2vec, Linear(width, nO, name="output"), name="tagger_model")
+    head.dims.update({"nO": nO, "width": width})
+    head.meta["has_listener"] = has_listener(tok2vec)
+    return head
+
+
+@registry.architectures("spacy.EntityLinker.v1")
+@registry.architectures("spacy.EntityLinker.v2")
+def make_entity_linker(tok2vec: Model, nO: Optional[int] = None) -> Model:
+    """The entity linker's encoder: the trunk, then a linear projection into
+    the KB's entity-vector space. ``nO`` is the KB's
+    ``entity_vector_length``, set by the component at ``build_model``
+    (1 until then). Mention pooling, candidate scoring and the decode are
+    the component's (``pipeline/components/nel.py``)."""
+    width = tok2vec.dims.get("nO")
+    nO = 1 if nO is None else nO
+    head = Chain(tok2vec, Linear(width, nO, name="project"), name="entity_linker_model")
     head.dims.update({"nO": nO, "width": width})
     head.meta["has_listener"] = has_listener(tok2vec)
     return head

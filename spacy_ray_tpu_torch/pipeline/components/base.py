@@ -19,6 +19,9 @@ class Component:
     listens: bool = False
     #: does this component produce a trainable loss?
     trainable: bool = True
+    #: does this component write ``doc.ents`` (the NER, the entity ruler)?
+    #: ``evaluate`` and the training loop's ``use_gold_ents`` checks read it
+    sets_ents: bool = False
     #: default [training] score weights contributed by this component when
     #: the config declares none (spaCy's per-factory metadata)
     default_score_weights: Dict[str, float] = {}

@@ -7,9 +7,12 @@ targets for training), runs the trunk once per batch and feeds every
 listening head, sums the heads' losses, and decodes and scores the outputs.
 ``to_disk``/``from_disk`` use the JAX package's on-disk layout
 (``config.cfg``, ``meta.json``, a flat ``params.npz`` keyed by parameter
-path, ``components.json`` with the rule components' tables and patterns,
-``vectors.npz`` with the static vectors), so a model directory written by
-either package loads in both.
+path, ``components.json`` with the rule components' tables and patterns
+and the entity linker's settings, ``vectors.npz`` with the static vectors,
+``{name}.kb.npz`` with a linker's knowledge base), so a model directory
+written by either package loads in both. A component may be taken from a
+saved pipeline (``source``); a frozen one (``[training]
+frozen_components``) keeps its parameters out of autograd in training.
 
 A head's output is what its ``set_annotations`` takes: the tagger's
 ``Padded`` logits, the parser's and the NER's decoded ids (dicts of
@@ -22,6 +25,7 @@ replays each decoding head's CUDA graph for that bucket
 
 from __future__ import annotations
 
+import copy
 import inspect
 import itertools
 import json
@@ -44,7 +48,7 @@ from ..training.batcher import DEFAULT_LENGTH_BUCKETS, bucket_batch_size, bucket
 from ..types import TokenBatch
 from .components.base import Component
 from .components.tok2vec import Tok2VecComponent
-from .doc import Doc, Example
+from .doc import Doc, Example, Span
 from .tokenizer import Tokenizer
 from .vectors import Vectors, use_vectors
 from .vocab import ATTRS, Vocab
@@ -107,6 +111,11 @@ class Pipeline:
         #: the heads' decode graphs by bucket, made at the first pinned
         #: prediction on the card (None until then, and after a rebuild)
         self.decode_graphs: Optional[DecodeGraphs] = None
+        #: ``[training] frozen_components`` and ``annotating_components``
+        self.frozen_components: List[str] = []
+        self.annotating_components: List[str] = []
+        #: component name -> the ``source`` it was taken from
+        self.sourced_components: Dict[str, str] = {}
 
     # ------------------------------------------------------------------
     # Construction
@@ -114,20 +123,61 @@ class Pipeline:
     @classmethod
     def from_config(cls, config: Config, device: DeviceLike = None) -> "Pipeline":
         """Build the pipeline skeleton from an interpolated config. The
-        device defaults to ``cuda`` and raises when no card is present."""
+        device defaults to ``cuda`` and raises when no card is present.
+
+        A block ``[components.X] source = "<model dir>"`` (and no other key)
+        takes component X from that saved pipeline, with its labels,
+        settings and parameters; each directory loads once, relative paths
+        anchor to the config's directory, and either package may have
+        written it. The first source with vectors gives the pipeline its
+        vectors; another source with a different table is refused. The
+        block is then rewritten in ``config`` to the source's own, so the
+        saved pipeline reloads without the source directory."""
         dev = resolve_device(device)
         nlp_cfg = config.get("nlp", {})
         pipe_names = list(nlp_cfg.get("pipeline", []))
         comp_cfgs = config.get("components", {})
         components: Dict[str, Component] = {}
+        sourced: Dict[str, str] = {}
+        sourced_vectors: Optional[Vectors] = None
+        sources: Dict[str, "Pipeline"] = {}
         for name in pipe_names:
             if name not in comp_cfgs:
                 raise ValueError(f"Pipeline names component {name!r} but no [components.{name}]")
             block = dict(comp_cfgs[name])
-            if "source" in block:
-                raise NotImplementedError(
-                    f"[components.{name}] source = ...: sourced components are not ported yet"
-                )
+            source = block.pop("source", None)
+            if source is not None:
+                if block:
+                    raise ValueError(
+                        f"[components.{name}] mixes source = {source!r} with other "
+                        f"keys {sorted(block)} — a sourced component can't be "
+                        "overridden; drop `source` or the extra keys"
+                    )
+                if source not in sources:
+                    sources[source] = cls.from_disk(resolve_config_path(config, source),
+                                                    device=dev)
+                src = sources[source]
+                if name not in src.components:
+                    raise ValueError(
+                        f"[components.{name}] source {source!r} has no component "
+                        f"{name!r} (has: {src.pipe_names})"
+                    )
+                components[name] = src.components[name]
+                sourced[name] = source
+                if src.vectors is not None:
+                    if sourced_vectors is None:
+                        sourced_vectors = src.vectors
+                    elif sourced_vectors is not src.vectors and (
+                            sourced_vectors.table.shape != src.vectors.table.shape
+                            or not np.array_equal(sourced_vectors.table, src.vectors.table)):
+                        raise ValueError(
+                            f"[components.{name}] source {source!r} carries a "
+                            "different vectors table than an earlier source — "
+                            "sourced components must share one vectors asset"
+                        )
+                config["components"][name] = copy.deepcopy(
+                    src.config.get("components", {})[name])
+                continue
             factory_name = block.pop("factory", None)
             if factory_name is None:
                 raise ValueError(f"[components.{name}] missing 'factory'")
@@ -140,7 +190,13 @@ class Pipeline:
             if model_param is None or model_param.default is inspect.Parameter.empty:
                 raise ValueError(f"[components.{name}] missing model block")
             components[name] = factory(name=name, **block)  # a rule component
-        return cls(nlp_cfg.get("lang", "en"), components, pipe_names, config, dev)
+        nlp = cls(nlp_cfg.get("lang", "en"), components, pipe_names, config, dev)
+        nlp.sourced_components = sourced
+        nlp.vectors = sourced_vectors
+        training = config.get("training", {}) or {}
+        nlp.frozen_components = list(training.get("frozen_components") or [])
+        nlp.annotating_components = list(training.get("annotating_components") or [])
+        return nlp
 
     @property
     def tok2vec_name(self) -> Optional[str]:
@@ -154,10 +210,12 @@ class Pipeline:
 
     def _build_models(self) -> nn.ModuleDict:
         """Every component's model (a rule component has none), built with
-        the pipeline's static vectors active."""
+        the pipeline's static vectors active; a sourced component keeps the
+        model it came with."""
         self.decode_graphs = None  # they hold the old models' parameters
         with use_vectors(self.vectors):
-            models = {n: self.components[n].build_model() for n in self.pipe_names}
+            models = {n: (self.components[n].model if n in self.sourced_components
+                          else self.components[n].build_model()) for n in self.pipe_names}
         return nn.ModuleDict({n: m for n, m in models.items() if m is not None})
 
     # ------------------------------------------------------------------
@@ -176,11 +234,13 @@ class Pipeline:
         the JSON file of ``[initialize.components.<name>] labels`` (the
         config's directory anchors a relative path), in its order; or those
         collected from the first 10 000 examples of ``get_examples``, sorted.
+        A sourced component keeps its labels and parameters.
         ``[initialize] vectors`` loads the static vectors (the config's
-        directory anchors a relative path); ``init_tok2vec`` is not ported
-        yet and raises. Parameters are drawn on the CPU from
-        ``torch.Generator(seed)``, in pipeline order, then moved to the
-        device, so a seed gives the same weights on every device."""
+        directory anchors a relative path; it wins over a source's);
+        ``init_tok2vec`` is not ported yet and raises. Parameters are drawn
+        on the CPU from ``torch.Generator(seed)``, in pipeline order, then
+        moved to the device, so a seed gives the same weights on every
+        device. A listening head whose width is not the trunk's raises."""
         init_cfg = self.config.get("initialize", {}) or {}
         if init_cfg.get("init_tok2vec"):
             raise NotImplementedError("[initialize] init_tok2vec is not ported yet")
@@ -189,6 +249,8 @@ class Pipeline:
         sample = (list(itertools.islice(get_examples(), LABEL_SAMPLE_LIMIT))
                   if get_examples is not None else [])
         for name in self.pipe_names:
+            if name in self.sourced_components:
+                continue
             comp = self.components[name]
             labels_path = (init_components.get(name) or {}).get("labels")
             if name in labels:
@@ -204,10 +266,43 @@ class Pipeline:
         generator = torch.Generator().manual_seed(seed)
         model = self._build_models()
         for name in self.pipe_names:
-            if name in model:
+            if name in model and name not in self.sourced_components:
                 model[name].init_parameters(generator)
+        self._check_listener_widths()
         self.model = model.to(self.device).eval()
         return self.params
+
+    def _check_listener_widths(self) -> None:
+        """A listening head (sourced or not) must take the trunk's width."""
+        t2v = self.tok2vec_name
+        if t2v is None:
+            return
+        trunk_w = self.components[t2v].model.dims.get("nO")
+        for name in self.head_names():
+            comp = self.components[name]
+            head_w = (comp.model.dims or {}).get("width") if comp.model is not None else None
+            if comp.listens and trunk_w and head_w and head_w != trunk_w:
+                src = self.sourced_components.get(name)
+                hint = f" (sourced from {src!r})" if src else ""
+                raise ValueError(
+                    f"Component {name!r}{hint} expects tok2vec width "
+                    f"{head_w} but the pipeline trunk {t2v!r} produces "
+                    f"{trunk_w}"
+                )
+
+    def requires_grad_(self, on: bool = True) -> "Pipeline":
+        """Turn autograd on for every parameter but a frozen component's,
+        or off for all. A frozen component's parameters take no gradient
+        (JAX's ``stop_gradient`` on them), while the gradient of its loss
+        still flows through it into a trunk that is not frozen; a frozen
+        trunk's tables then launch no table gradient."""
+        assert self.model is not None, "Pipeline not initialized"
+        self.model.requires_grad_(on)
+        if on:
+            for name in self.frozen_components:
+                if name in self.model:
+                    self.model[name].requires_grad_(False)
+        return self
 
     @property
     def params(self) -> Dict[str, Any]:
@@ -317,7 +412,10 @@ class Pipeline:
         summed. Metrics are named per component as the JAX loss names them
         (``loss_tagger``, ``tagger_tag_acc_batch``). ``dropout`` overrides
         every dropout site's rate (``[training] dropout``); ``seed`` (an int)
-        seeds the masks, None for no dropout."""
+        seeds the masks, None for no dropout. A frozen component
+        (``frozen_components``) runs, and a frozen head's loss counts, as
+        in JAX; :meth:`requires_grad_` keeps its parameters from a
+        gradient."""
         assert self.model is not None, "Pipeline not initialized"
         metrics: Dict[str, Any] = {}
         total = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -341,22 +439,25 @@ class Pipeline:
         return total, metrics
 
     def forward(self, tokens: TokenBatch, overlay: Optional[Dict[str, Any]] = None,
-                graphs: Optional[DecodeGraphs] = None):
+                graphs: Optional[DecodeGraphs] = None, only: Optional[Sequence[str]] = None):
         """{component: output}: the trunk once, then every head on its
         output. ``overlay`` is a serving precision overlay keyed by
         component name (serving/overlay.py); with ``graphs``, a decoding
-        head that can be captured replays its graph for this (B, T)."""
+        head that can be captured replays its graph for this (B, T).
+        ``only`` restricts the heads to those listed (the training loop's
+        annotating pass); the trunk then runs only if one of them listens."""
         overlay = overlay or {}
         outputs: Dict[str, Any] = {}
+        heads = [n for n in self.head_names() if self.components[n].model is not None
+                 and (only is None or n in only)]
         t2v_name = self.tok2vec_name
         t2v_out = None
-        if t2v_name is not None:
+        if t2v_name is not None and (only is None
+                                     or any(self.components[n].listens for n in heads)):
             t2v_out = self.components[t2v_name].forward(tokens, overlay.get(t2v_name))
             outputs[t2v_name] = t2v_out
-        for name in self.head_names():
+        for name in heads:
             comp = self.components[name]
-            if comp.model is None:
-                continue  # a rule component: nothing on the device
             inputs = t2v_out if comp.listens else tokens
             if graphs is not None and comp.graph_capturable:
                 t2v = comp.trunk_output(inputs)
@@ -373,11 +474,14 @@ class Pipeline:
         overlay: Optional[Dict[str, Any]] = None,
         pad_batch_to: Optional[int] = None,
         pad_len_to: Optional[int] = None,
+        annotate: Optional[Sequence[str]] = None,
     ) -> List[Doc]:
         """Batched prediction, annotating ``docs`` in place.
         ``pad_batch_to``/``pad_len_to`` pin the padded (B, T), as the serving
         engine does with its bucket; on the card the heads' decodes then
-        run as that bucket's CUDA graphs (captured at its first use)."""
+        run as that bucket's CUDA graphs (captured at its first use).
+        ``annotate`` restricts the forward and ``set_annotations`` to the
+        listed components (``[training] annotating_components``)."""
         assert self.model is not None, "Pipeline not initialized"
         graphs = None
         if self.device.type == "cuda" and pad_batch_to and pad_len_to:
@@ -391,11 +495,13 @@ class Pipeline:
                     [Example.from_gold(d) for d in chunk],
                     pad_batch_to=pad_batch_to, pad_len_to=pad_len_to,
                 )
-                outputs = self.forward(batch["tokens"], overlay, graphs)
+                outputs = self.forward(batch["tokens"], overlay, graphs, only=annotate)
                 T = batch["tokens"].seq_len
                 lengths = [min(len(d), T) for d in chunk]
                 for name in self.head_names():
-                    self.components[name].set_annotations(chunk, outputs.get(name), lengths)
+                    if annotate is None or name in annotate:
+                        self.components[name].set_annotations(chunk, outputs.get(name),
+                                                              lengths)
         return docs
 
     def __call__(self, text: str) -> Doc:
@@ -406,7 +512,10 @@ class Pipeline:
     def evaluate(self, examples: List[Example], batch_size: int = 128) -> Dict[str, Any]:
         """Predict over gold examples (into fresh shells set as each
         example's ``predicted``), then score: every head's scores, the keys
-        the JAX package's ``evaluate`` gives."""
+        the JAX package's ``evaluate`` gives. When a component has
+        ``use_gold_ents`` (an entity linker) and none writes ``doc.ents``,
+        each shell starts with the gold entities' boundaries and labels
+        (never their kb_ids), as in JAX."""
         return self.evaluate_timed(examples, batch_size)[0]
 
     def evaluate_timed(self, examples: List[Example],
@@ -414,6 +523,10 @@ class Pipeline:
         """``(scores, words_per_second)``: :meth:`evaluate`'s scores and the
         speed of the prediction, kept apart from them."""
         docs = [eg.reference.copy_shell() for eg in examples]
+        if (any(getattr(self.components[n], "use_gold_ents", False) for n in self.pipe_names)
+                and not any(self.components[n].sets_ents for n in self.pipe_names)):
+            for eg, doc in zip(examples, docs):
+                doc.ents = [Span(s.start, s.end, s.label) for s in eg.reference.ents]
         t0 = time.perf_counter()
         self.predict_docs(docs, batch_size=batch_size)
         if self.device.type == "cuda":
@@ -442,8 +555,9 @@ class Pipeline:
         }
 
     def component_data(self) -> Dict[str, Any]:
-        """The rule components' host state (patterns, lemma tables), saved
-        as ``components.json`` beside ``meta.json``."""
+        """The host state of the components that have one (patterns, lemma
+        tables, the entity linker's settings), saved as ``components.json``
+        beside ``meta.json``."""
         return {name: comp.table_data() for name, comp in self.components.items()
                 if hasattr(comp, "table_data")}
 
@@ -456,6 +570,9 @@ class Pipeline:
         extras = self.component_data()
         if extras:
             (path / "components.json").write_text(json.dumps(extras), encoding="utf8")
+        for name, comp in self.components.items():
+            if hasattr(comp, "save_binary"):  # the entity linker's KB
+                comp.save_binary(path, name)
         if self.vectors is not None:
             self.vectors.to_disk(path / "vectors.npz")
         checkpoint.save_params(path / "params.npz", param_paths(self.model))
@@ -476,6 +593,9 @@ class Pipeline:
                 comp = nlp.components.get(name)
                 if comp is not None and hasattr(comp, "load_table_data"):
                     comp.load_table_data(table)
+        for name, comp in nlp.components.items():
+            if hasattr(comp, "load_binary"):
+                comp.load_binary(path, name)
         if (path / "vectors.npz").exists():
             nlp.vectors = Vectors.from_disk(path / "vectors.npz")
         nlp.model = nlp._build_models()

@@ -47,10 +47,11 @@ class _SubRegistry:
 class Registry:
     """Top-level registry of registries: model architectures, pipeline
     component factories, the training blocks (optimizers, schedules,
-    batchers, corpus readers, loggers) and ``misc`` (span suggesters)."""
+    batchers, corpus readers, loggers, the ``[training.before_update]``
+    callbacks) and ``misc`` (span suggesters)."""
 
     NAMESPACES = ("architectures", "factories", "optimizers", "schedules", "batchers",
-                  "readers", "loggers", "misc")
+                  "readers", "loggers", "callbacks", "misc")
 
     def __init__(self):
         for ns in self.NAMESPACES:

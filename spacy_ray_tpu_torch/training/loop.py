@@ -15,6 +15,14 @@ matter on one device:
 * the optimizer step reports the gradients' global norm (``grad_norm``);
   frozen leaves (static-vector tables) are not the optimizer's: no update,
   no L2, no moments, no share in the norm, no entry in the opt-state file;
+* ``frozen_components`` run in the loss with their parameters out of
+  autograd (``Pipeline.requires_grad_``): their leaves stay the optimizer's
+  with zero gradients, as in JAX (so an L2 decay still moves them), and
+  their losses still train a trunk that is not frozen;
+  ``annotating_components`` predict each raw batch onto ``eg.predicted``
+  with the current parameters before it is collated;
+  ``[training.before_update]`` (a ``@callbacks`` block) is called with
+  ``(nlp, {"step": step, "epoch": epoch})`` before every update;
 * ``eval_frequency``, ``patience``, ``max_steps`` and ``max_epochs``,
   best-model selection by the weighted score, ``use_averages``, and
   ``steps_per_dispatch`` (run as that many single steps, which the JAX
@@ -193,14 +201,55 @@ def validate_training(raw: Dict[str, Any]) -> None:
 def resolve_training(config: Config) -> Dict[str, Any]:
     raw = config.get("training", {})
     validate_training(raw)
-    for key in ("frozen_components", "annotating_components"):
-        if raw.get(key):
-            raise NotImplementedError(f"[training] {key} is not ported yet")
-    if raw.get("before_update"):
-        raise NotImplementedError("[training.before_update] is not ported yet")
     t = dict(DEFAULT_TRAINING)
     t.update(raw)
     return t
+
+
+def _unknown_name_error(what: str, name: str, allowed) -> ValueError:
+    allowed = sorted(allowed)
+    close = difflib.get_close_matches(name, allowed, n=1)
+    hint = f" — did you mean {close[0]!r}?" if close else ""
+    return ValueError(f"{what} {name!r}{hint} (known: {', '.join(allowed)})")
+
+
+def check_component_lists(nlp: Pipeline, T: Dict[str, Any]) -> None:
+    """``annotating_components`` and ``frozen_components`` name pipeline
+    components, and a component with ``use_gold_ents = false`` trains on
+    what an annotating component that sets entities predicts (the JAX
+    loop's checks and messages)."""
+    annotating = list(T.get("annotating_components") or [])
+    for key in ("annotating_components", "frozen_components"):
+        for comp_name in T.get(key) or []:
+            if comp_name not in nlp.pipe_names:
+                raise _unknown_name_error(f"[training] {key} names", comp_name,
+                                          nlp.pipe_names)
+    for comp_name in nlp.pipe_names:
+        if getattr(nlp.components[comp_name], "use_gold_ents", True):
+            continue
+        if not any(nlp.components[n].sets_ents for n in annotating):
+            raise ValueError(
+                f"[components.{comp_name}] sets use_gold_ents = false, so its "
+                "training mentions come from predicted doc.ents — but no "
+                "[training] annotating_components entry writes entities. Add "
+                "an entity-setting component (ner / entity_ruler) to "
+                "annotating_components, or set use_gold_ents = true"
+            )
+
+
+def resolve_before_update(T: Dict[str, Any]) -> Optional[Callable]:
+    """``[training.before_update]`` resolved through the registry; it must
+    be a callable (an ``@callbacks`` block)."""
+    if not T.get("before_update"):
+        return None
+    before_update = registry.resolve(T["before_update"])
+    if not callable(before_update):
+        raise ValueError(
+            "[training.before_update] must resolve to a callable — add "
+            "an @callbacks line to the block (got "
+            f"{type(before_update).__name__})"
+        )
+    return before_update
 
 
 def default_pipeline_score_weights(nlp: Pipeline) -> Dict[str, float]:
@@ -254,6 +303,9 @@ class TrainResult:
         self.step_head_losses: List[Dict[str, float]] = []
         self.step_host_seconds: List[float] = []
         self.step_events: List[Tuple[Any, Any]] = []
+        #: per step, the host seconds of the annotating pass (its
+        #: predictions synchronise with the card), outside the step's span
+        self.annotate_seconds: List[float] = []
 
     @property
     def wps(self) -> float:
@@ -312,7 +364,10 @@ def train(
 
     nlp = Pipeline.from_config(config, device=dev)
     nlp.initialize(train_corpus, seed=seed)
-    nlp.model.requires_grad_(True)
+    check_component_lists(nlp, T)
+    annotating = list(T.get("annotating_components") or [])
+    before_update = resolve_before_update(T)
+    nlp.requires_grad_(True)
     params = _named_params(nlp)
     optimizer = registry.resolve(T.get("optimizer") or {"@optimizers": "Adam.v1"})
     if not isinstance(optimizer, _optimizers.Optimizer):
@@ -354,6 +409,11 @@ def train(
     avg_params = ({k: p.detach().clone() for k, p in params.items()}
                   if use_averages else None)
     avg_count = 0
+    if int(T.get("steps_per_dispatch") or 1) > 1 and (
+            annotating or before_update is not None or use_averages):
+        logger.info("steps-per-dispatch-bypass: steps_per_dispatch > 1 needs the host "
+                    "between steps for annotating_components / before_update / "
+                    "use_averages; running with K=1")
 
     logger_cfg = T.get("logger") or {"@loggers": "spacy_ray_tpu.ConsoleLogger.v1"}
     log_step, log_finalize = registry.resolve(logger_cfg)(
@@ -440,6 +500,16 @@ def train(
     group: Optional[Dict[str, Any]] = None
     stop = False
     for group in groups():
+        if annotating:
+            t_ann = time.perf_counter()
+            for b in group["raw"]:
+                shells = [eg.reference.copy_shell() for eg in b]
+                nlp.predict_docs(shells, annotate=annotating)
+                for eg, shell in zip(b, shells):
+                    eg.predicted = shell
+            result.annotate_seconds.append(time.perf_counter() - t_ann)
+        if before_update is not None:
+            before_update(nlp, {"step": step, "epoch": group["epoch"]})
         t_host = time.perf_counter()
         if use_events:
             ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
@@ -532,7 +602,7 @@ def train(
     result.best_score, result.best_step = best_score, best_step
     result.final_step = step
     result.epoch = group["epoch"] if (stop and group is not None) else epoch
-    nlp.model.requires_grad_(False)
+    nlp.requires_grad_(False)
     if output_path is not None:
         nlp.to_disk(Path(output_path) / "last-model")
     log_finalize()

@@ -411,3 +411,119 @@ def test_cuda_fused_update_over_the_md_leaves_without_the_frozen_tables(tmp_path
             assert not ((table[:, 0] >= lo) & (table[:, 0] < hi)).any()
     assert all(torch.equal(t.cpu(), torch.from_numpy(Vectors.from_disk(
         tmp_path / "vectors.npz").table)) for t in frozen)
+
+
+@pytest.mark.cuda
+def test_cuda_hash_embed_at_the_linker_tables_bit_equal():
+    # the entity linker's own HashEmbedCNN (spaCy's nel_emerson trunk:
+    # 2000 and 3 x 1000 rows, D 96) at a training microbatch and one request
+    dev, g = _card()
+    from spacy_ray_tpu_torch.ops.hashing import hash_embed_ids
+
+    vocab = torch.randint(1, 2 ** 32, (2000, 2), device=dev, generator=g)
+    zipf = 1.0 / torch.arange(1, 2001, device=dev, dtype=torch.float32)
+    for N in (8192, 128):
+        keys = vocab[torch.multinomial(zipf, N, replacement=True, generator=g)]
+        keys[torch.randperm(N, device=dev, generator=g)[: N // 3]] = 0
+        ct = torch.randn(N, 96, device=dev, generator=g)
+        for rows, seed in ((2000, 31), (1000, 32), (1000, 33), (1000, 34)):
+            ids = hash_embed_ids(keys, seed, rows)
+            table = torch.randn(rows, 96, device=dev, generator=g)
+            assert torch.equal(hash_embed_gather_sum(table, ids),
+                               hash_embed_gather_sum_plain(table, ids))
+            got = hash_embed_table_grad(ct, ids, rows)
+            assert torch.equal(got, hash_embed_table_grad(ct, ids, rows))
+            assert torch.equal(got.cpu(), hash_embed_table_grad_plain(ct.cpu(), ids.cpu(), rows))
+
+
+def _nel_on_the_card(tmp_path, dev):
+    """chip_smoke.nel_config at the linker's full width over a small md
+    source (width 32, 200 x 24 vectors) saved from the card, with a one-alias
+    KB; and one collated batch of linked mentions."""
+    import numpy as np
+
+    import chip_smoke
+    import spacy_ray_tpu_torch as P
+    from spacy_ray_tpu_torch.pipeline.kb import KnowledgeBase
+    from spacy_ray_tpu_torch.pipeline.vectors import Vectors
+
+    rng = np.random.default_rng(0)
+    Vectors([f"w{i}" for i in range(200)], rng.normal(size=(200, 24)).astype(np.float32)
+            ).to_disk(tmp_path / "vectors.npz")
+    md = chip_smoke.md_config(("-", "-"), tmp_path / "vectors.npz",
+                              [{"patterns": [[{"TAG": "NN"}]], "attrs": {"POS": "NOUN"}}],
+                              [{"label": "ORG", "pattern": "Acme Corp"}], width=32, depth=2,
+                              rows=(500, 100, 250, 250), hidden=32).interpolate()
+    src = P.Pipeline.from_config(md, device=dev)
+    src.initialize(labels={"tagger": ["DT", "NN", "VBD"], "parser": ["ROOT", "nsubj", "obj"],
+                           "ner": ["GPE", "ORG"]})
+    src.to_disk(tmp_path / "md")
+    kb = KnowledgeBase(64)
+    for k in range(5):
+        kb.add_entity(f"Q{k}", 1.0, rng.normal(size=64))
+    kb.add_alias("Acme Corp", [f"Q{k}" for k in range(5)], [0.3, 0.2, 0.2, 0.2, 0.1])
+    kb.to_disk(tmp_path / "kb.npz")
+    cfg = chip_smoke.nel_config(("-", "-"), tmp_path / "md", tmp_path / "kb.npz")
+    nlp = P.Pipeline.from_config(cfg.interpolate(), device=dev)
+    nlp.initialize(seed=0)
+    egs = []
+    for i in range(16):
+        words = ["w1", "saw", "Acme", "Corp", "w2"][: 4 + i % 2]
+        ent = P.Span(2, 4, "ORG", kb_id=f"Q{i % 5}")
+        eg = P.Example.from_gold(P.Doc(words=words, ents=[ent]))
+        eg.predicted.ents = [P.Span(2, 4, "ORG")]
+        egs.append(eg)
+    return nlp, nlp.collate(egs, with_targets=True)
+
+
+@pytest.mark.cuda
+def test_cuda_frozen_trunks_launch_no_table_gradient_and_k5_covers_them(tmp_path):
+    # an entity linker added to a frozen md source: a microbatch's backward
+    # launches K1 bwd for the linker's 4 tables and for no frozen trunk; K5
+    # runs over every parameter (the frozen components' with zero
+    # gradients) but the frozen tables at 0 ulp, and at L2 0 leaves the
+    # frozen components bit-equal
+    from spacy_ray_tpu_torch.models.core import param_paths
+    from spacy_ray_tpu_torch.training.loop import _named_params
+
+    dev, g = _card()
+    nlp, batch = _nel_on_the_card(tmp_path, dev)
+    nlp.requires_grad_(True)
+    leaves = _named_params(nlp)
+    _cuda.reset_launch_counts()
+    loss, metrics = nlp.loss(batch["tokens"], batch["targets"], dropout=0.0)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts()["hash_embed_table_grad"] == 4
+    assert {"loss_ner", "loss_entity_linker"} <= set(metrics)
+    frozen_keys = [k for k in leaves if not k.startswith("entity_linker/")]
+    assert frozen_keys and all(leaves[k].grad is None for k in frozen_keys)
+    params = [p.detach() for p in leaves.values()]
+    before = {k: p.detach().clone() for k, p in leaves.items()}
+    G = [(p.grad if p.grad is not None else torch.zeros_like(p)).detach()
+         for p in leaves.values()]
+    tables = [t for k, t in param_paths(nlp.model).items() if k.endswith("frozen_table")]
+    # sm.cfg's Adam.v1 (no L2): the frozen leaves stay bit-equal; then an
+    # L2 into the gradient (HYPERS[1]) moves them, as JAX's chain does
+    for hyper, frozen_move in ((FusedHyper("adam", 0.9, 0.999, 1e-8, 1.0, 0.0, 0.0), False),
+                               (HYPERS[1], True)):
+        M = [torch.zeros_like(p) for p in params]
+        V = [torch.zeros_like(p) for p in params]
+        gn = global_norm(G)
+        sc = step_scalars(hyper, 0, 0, lambda s: 0.001)
+        want = [leaf_math_plain(p, gg, m, v, gn, *sc, hyper=hyper)
+                for p, gg, m, v in zip(params, G, M, V)]
+        fused = FusedUpdate(hyper)
+        fused.step(params, G, M, V, gn, sc)
+        for got, w in zip(zip(params, M, V), want):
+            for a, b in zip(got, w):
+                assert ulp_diff(torch, a, b) == 0, (hyper, a.shape)
+        table = fused._table.cpu()
+        assert int(table[:, 4].sum()) == sum(p.numel() for p in params)
+        for t in tables:
+            lo, hi = t.data_ptr(), t.data_ptr() + t.numel() * 4
+            assert not ((table[:, 0] >= lo) & (table[:, 0] < hi)).any()
+        moved = [not torch.equal(before[k], leaves[k].detach()) for k in frozen_keys]
+        # an L2 moves every frozen leaf but those still all zero (fresh biases)
+        assert moved == [frozen_move and bool(before[k].any()) for k in frozen_keys]
+        assert any(moved) == frozen_move

@@ -243,8 +243,8 @@ def test_unknown_names_list_what_is_registered():
     with pytest.raises(RegistryError, match="spacy.Tagger.v2"):
         nlp.initialize(labels={"tagger": TAGS})
     cfg = P.Config.from_str(TRF_TAGGER_CFG.replace('factory = "tagger"', 'factory = "nope"'))
-    with pytest.raises(RegistryError, match="Available: attribute_ruler, entity_ruler, "
-                       "lemmatizer, morphologizer, ner, parser, senter, "
+    with pytest.raises(RegistryError, match="Available: attribute_ruler, entity_linker, "
+                       "entity_ruler, lemmatizer, morphologizer, ner, parser, senter, "
                        "spancat, tagger, textcat, textcat_multilabel, tok2vec, "
                        "trainable_lemmatizer, transformer"):
         P.Pipeline.from_config(cfg.interpolate(), device="cpu")

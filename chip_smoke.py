@@ -161,6 +161,30 @@ Run from the root of a checkout. Phases, each printing one JSON line:
               vectors share a direction per candidate number
               (``nel_assets(shared=True)``): dev ``nel_micro_f`` >= 0.85 and
               >= the prior-only decode + 0.3 at step 60, beside train:nel's.
+20. pretrain:chars, pretrain:vectors, train:cnn_pretrained, train:trf_init
+              — a trunk started from weights. K5 rows over the two
+              pretraining leaf sets (trunk + head) in the kernel rows of 9.;
+              ``python -m spacy_ray_tpu_torch pretrain`` of configs/cnn.cfg's
+              trunk over udgen's 2000 training docs as raw text
+              (``spacy.JsonlCorpus.v1``): the characters objective (4
+              characters, hidden 300, batch 64, Adam.v1 0.001, 200 steps; the
+              loss of the last 5 steps <= 2/3 of the first 5, ``char_acc``
+              rising, ``model-last.npz`` the trunk's key set and shapes, one
+              batch's gradients vs plain within 1e-4 x max |g| beside the
+              table-row control) and the vectors objective over md:assets'
+              20,000 x 300 vectors (cosine, 60 steps; the loss <= 2/3, the
+              targets only on tokens with a vector); ``python -m
+              spacy_ray_tpu_torch train`` of cnn.cfg with ``--code`` (a
+              callback and a logger), ``--initialize.init_tok2vec`` at
+              pretrain:chars' file and a ``spacy.orth_variants.v1`` augmenter:
+              the trunk at step 0 bit-equal to the file, ``before_update`` for
+              steps 0-59 in order, dev ``tag_acc`` >= 0.9, the collate ms of a
+              microbatch uncached, cached and as the augmented epoch yields
+              it; ``train()`` of trf.cfg's trunk + tagger with
+              ``init_weights`` at a 340 MB RoBERTa-base-layout
+              ``.safetensors`` made from a seed: every encoder leaf and
+              ``pos``'s 512 rows bit-equal to the remap at step 0, the loss
+              falling over 20 steps, K1, K2, K3 and K5 launched.
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -2421,15 +2445,25 @@ def grad_check(torch, nlp, cfg, c, keys=None):
     row_drop = []
     for k, g in plain.items():
         if k.endswith("/E"):
-            rows = g.abs().amax(dim=1)
+            touched = None
             if keys is not None:
                 table = nlp.model.get_submodule(k[:-2].replace("/", "."))
                 ids = hash_embed_ids(keys[:, table.attr_index], table.seed,
                                      table.dims["rows"])
-                rows = rows[torch.unique(ids.long())]
-            rows = rows[rows > 0]
-            row_drop.append((rows.median() / g.abs().max()).item())
+                touched = torch.unique(ids.long())
+            row_drop.append(table_row_share(g, touched))
     return rel, min(row_drop)
+
+
+def table_row_share(g, touched=None) -> float:
+    """The median over a table gradient's touched rows (the ids
+    ``touched``, or the rows that are not zero) of max |g_row| / max |g|:
+    what leaving out one typical row's adds would read."""
+    rows = g.abs().amax(dim=1)
+    if touched is not None:
+        rows = rows[touched]
+    rows = rows[rows > 0]
+    return (rows.median() / g.abs().max()).item()
 
 
 def nel_grad_probe(torch, nlp, cfg, c):
@@ -3141,6 +3175,551 @@ def phase_cli_cnn(corpus):
           "evaluate_tag_acc": scores["tag_acc"]})
 
 
+# ------------------------------------------------- a trunk started from weights
+
+PRETRAIN_STEPS = 200         # pretrain:chars ([pretraining] max_steps cut from 1000)
+PRETRAIN_VECTOR_STEPS = 60   # pretrain:vectors
+PRETRAIN_BATCH = 64          # [pretraining] batch_size, in docs
+CHAR_HIDDEN = 300            # spaCy's PretrainCharacters hidden width
+#: train:cnn_pretrained's dev floor: train:cnn holds no tag_acc floor in
+#: DEV_FLOORS, so md's tagger floor on the same corpus
+CNN_PRETRAINED_FLOORS = {"tag_acc": 0.9}
+TRF_INIT_STEPS = 20          # train:trf_init: trf.cfg's [training], max_steps cut
+#: spaCy's English orth variants (``spacy/lang/en``): the single group of
+#: dashes, and the quote pairs as spaCy writes them
+EN_ORTH_VARIANTS = {
+    "single": [{"tags": [":"], "variants": ["-", "—", "–", "--", "---", "——"]}],
+    "paired": [{"tags": ["``", "''"], "variants": [["'", "'"], ["‘", "’"]]},
+               {"tags": ["``", "''"], "variants": [['"', '"'], ["“", "”"]]}],
+}
+#: what ``--code`` imports in train:cnn_pretrained
+USER_CODE = '''"""A user's file for ``--code``: a ``[training.before_update]`` callback
+that records each call's (step, epoch) and, at step 0, a digest of the
+trunk's parameters; and a ``[training.logger]`` that keeps each
+evaluation's scores beside the console logger's table."""
+
+import hashlib
+import json
+from pathlib import Path
+
+import numpy as np
+
+from spacy_ray_tpu_torch.models.core import param_paths
+from spacy_ray_tpu_torch.registry import registry
+
+
+def digest(flat):
+    """SHA-256 over the sorted keys and each array's float32 bytes."""
+    h = hashlib.sha256()
+    for k in sorted(flat):
+        h.update(k.encode("utf8"))
+        h.update(np.ascontiguousarray(flat[k], dtype=np.float32).tobytes())
+    return h.hexdigest()
+
+
+@registry.callbacks("chip_smoke_user.record_steps.v1")
+def record_steps(path: str, component: str = "tok2vec"):
+    record = {"calls": [], "step0_digest": None}
+
+    def before_update(nlp, info):
+        if info["step"] == 0:
+            trunk = param_paths(nlp.model[component])
+            record["step0_digest"] = digest({k: v.cpu().numpy() for k, v in trunk.items()})
+        record["calls"].append([info["step"], info["epoch"]])
+        Path(path).write_text(json.dumps(record))
+
+    return before_update
+
+
+@registry.loggers("chip_smoke_user.scores.v1")
+def scores_logger(path: str):
+    console = registry.get("loggers", "spacy_ray_tpu.ConsoleLogger.v1")()
+
+    def setup(nlp, stdout, stderr):
+        log_step, finalize = console(nlp, stdout, stderr)
+        rows = []
+
+        def step(info):
+            log_step(info)
+            if info is not None:
+                rows.append({"step": info["step"], "losses": info["losses"],
+                             "scores": {k: v for k, v in info["other_scores"].items()
+                                        if isinstance(v, (int, float))}})
+                Path(path).write_text(json.dumps(rows))
+
+        return step, finalize
+
+    return setup
+'''
+
+
+def write_raw_text(train_path) -> Path:
+    """The pretraining corpus: udgen's training docs joined into text, one
+    ``{"text": ...}`` line each (``spacy.JsonlCorpus.v1``'s raw lines)."""
+    from spacy_ray_tpu_torch.training.corpus import read_jsonl_docs
+
+    work = WORK / "pretrain"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    out = work / "raw.jsonl"
+    with open(out, "w", encoding="utf8") as f:
+        for doc in read_jsonl_docs(train_path):
+            f.write(json.dumps({"text": doc.text}) + "\n")
+    return out
+
+
+def pretrain_config(paths, raw: Path, objective: str, steps: int, vectors=None):
+    """configs/cnn.cfg as written (its trunk: HashEmbedCNN.v2, width 96,
+    depth 4, embed_size 2000) with a ``[pretraining]`` block over ``raw``:
+    the characters objective (4 characters, hidden 300) or the vectors one
+    (cosine, over ``vectors`` as ``[initialize] vectors``), batch_size 64,
+    Adam.v1 at 0.001, ``steps`` steps."""
+    cfg = cnn_config("cnn", paths)
+    cfg["corpora"]["pretrain"] = {"@readers": "spacy.JsonlCorpus.v1", "path": str(raw)}
+    obj = ({"type": "characters", "n_characters": 4, "hidden_size": CHAR_HIDDEN}
+           if objective == "characters" else {"type": "vectors", "loss": "cosine"})
+    cfg["pretraining"] = {"component": "tok2vec", "corpus": "corpora.pretrain",
+                          "max_steps": steps, "batch_size": PRETRAIN_BATCH, "seed": 0,
+                          "objective": obj,
+                          "optimizer": {"@optimizers": "Adam.v1", "learn_rate": 0.001}}
+    if vectors is not None:
+        cfg["initialize"] = {"vectors": str(vectors)}
+    return cfg
+
+
+def pretrain_leaf_shapes(cfg):
+    """The shapes of the leaves a pretraining step hands K5: the trunk's and
+    the objective head's (built on the CPU)."""
+    from spacy_ray_tpu_torch.training.pretrain import Pretraining
+
+    return [tuple(p.shape) for p in Pretraining(cfg, device="cpu").params().values()]
+
+
+def pretrain_grad_check(torch, cfg):
+    """One pretraining batch's gradients of every leaf, trunk and head,
+    with the kernels against the plain versions (weights fresh from the
+    seed, no dropout: {leaf: max |g - g_plain| / max |g_plain|}), and the
+    control of ``grad_check``: what one dropped table row would read."""
+    import contextlib
+    import itertools
+
+    from spacy_ray_tpu_torch.models.core import Context
+    from spacy_ray_tpu_torch.training.corpus import use_raw_text_tokenizer
+    from spacy_ray_tpu_torch.training.pretrain import Pretraining
+
+    run = Pretraining(cfg, device="cuda")
+    with use_raw_text_tokenizer(run.nlp.tokenizer):
+        egs = list(itertools.islice(run.corpus(), PRETRAIN_BATCH))
+    tokens, targets, _ = run.batch(egs)
+    params = run.params()
+    for p in params.values():
+        p.requires_grad_(True)
+    grads = []
+    for plain in (False, True):
+        for p in params.values():
+            p.grad = None
+        with plain_kernels() if plain else contextlib.nullcontext():
+            run.loss_fn(tokens, targets, Context(train=True))[0].backward()
+        grads.append({k: p.grad.detach().clone() for k, p in params.items()})
+    rel = {k: (grads[0][k] - grads[1][k]).abs().max().item()
+           / max(grads[1][k].abs().max().item(), 1e-30) for k in params}
+    control = min(table_row_share(g) for k, g in grads[1].items() if k.endswith("/E"))
+    return rel, control, list(tokens.mask.shape)
+
+
+def phase_pretrain(torch, name: str, cfg, steps: int):
+    """``python -m spacy_ray_tpu_torch pretrain`` on ``cfg`` (the command's
+    ``main``, in this process, so that the launch counters and the peak
+    memory can be read; counters zeroed just before, read just after):
+    K1 fwd, K1 bwd and K5 must launch, the loss of the last 5 steps must be
+    <= 2/3 of the first 5 steps' mean (and ``char_acc`` rise, for the
+    characters), and ``model-last.npz`` must hold the trunk's own key set
+    and shapes. Reports the step ms (events and host, from the run's
+    ``log.jsonl``), words/s, the peak memory; for the characters, every
+    leaf's gradient with the kernels against the plain versions."""
+    import numpy as np
+
+    from spacy_ray_tpu_torch import Pipeline
+    from spacy_ray_tpu_torch.__main__ import main as cli
+    from spacy_ray_tpu_torch.models.core import param_paths
+    from spacy_ray_tpu_torch.ops import _cuda
+
+    phase = f"pretrain:{name}"
+    work = WORK / f"pretrain_{name}"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cfg.to_disk(work / "pretrain.cfg")
+    out = work / "out"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    with redirect_stdout(io.StringIO()) as said:
+        rc = cli(["pretrain", str(work / "pretrain.cfg"), str(out)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _cuda.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    printed = said.getvalue().strip().splitlines()
+    if rc != 0 or not printed or not printed[-1].startswith("Pretraining done."):
+        fail(f"{phase}: pretrain exited {rc}: {printed[-3:]}")
+    missing = [k for k in ("hash_embed_gather_sum", "hash_embed_table_grad", "fused_update")
+               if launches[k] == 0]
+    if missing:
+        fail(f"{phase}: kernels never launched: {missing}")
+    log = [json.loads(line) for line in (out / "log.jsonl").read_text().splitlines()]
+    if [r["step"] for r in log] != list(range(1, steps + 1)):
+        fail(f"{phase}: log.jsonl holds steps {[r['step'] for r in log][:3]}..., "
+             f"not 1..{steps}")
+    losses = [r["loss"] for r in log]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{phase}: a loss is not finite")
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    if not last <= 2 / 3 * first:
+        fail(f"{phase}: the loss fell from {first} to only {last} (> 2/3)")
+    res = {"phase": phase, "config": "configs/cnn.cfg's trunk as written + [pretraining] "
+           f"({cfg['pretraining']['objective']}, batch_size {PRETRAIN_BATCH}, Adam.v1 0.001, "
+           f"{steps} steps) over udgen's 2000 training docs as raw text",
+           "seconds": seconds, "printed": printed[-1], "steps": len(log),
+           "epochs": log[-1]["epoch"], "loss_first5_mean": first, "loss_last5_mean": last,
+           "loss_first": losses[0], "loss_last": losses[-1], "launches": launches,
+           "peak_memory_gb": peak_gb}
+    if "char_acc" in log[0]:
+        acc = [r["char_acc"] for r in log]
+        a_first, a_last = statistics.mean(acc[:5]), statistics.mean(acc[-5:])
+        if not a_last > a_first:
+            fail(f"{phase}: char_acc did not rise ({a_first} -> {a_last})")
+        res.update(char_acc_first5_mean=a_first, char_acc_last5_mean=a_last)
+    with np.load(out / "model-last.npz") as saved:
+        got = {k: saved[k].shape for k in saved.files}
+    trunk = Pipeline.from_config(cfg.interpolate(), device="cpu").components["tok2vec"]
+    want = {k: tuple(v.shape) for k, v in param_paths(trunk.build_model()).items()}
+    if got != want:
+        fail(f"{phase}: model-last.npz keys/shapes differ from the trunk's: "
+             f"{sorted(set(got) ^ set(want))[:5]}")
+    event_ms = [r["step_ms_events"] for r in log]
+    words = sum(r["words"] for r in log)
+    res.update(
+        model_last_keys=len(got), step_ms_median_events=statistics.median(event_ms),
+        step_ms_median_host=statistics.median(r["step_s_host"] * 1e3 for r in log),
+        step_ms_quartiles_events=statistics.quantiles(event_ms, n=4),
+        words=words, words_per_s_events=words / (sum(event_ms) / 1e3),
+        words_per_s_wall=words / seconds)
+    if name == "chars":
+        rel, control, shape = pretrain_grad_check(torch, cfg)
+        worst = max(rel, key=rel.get)
+        if not rel[worst] <= TOL_GRAD_CNN:
+            fail(f"{phase}: gradient of {worst} kernels vs plain {rel[worst]} > {TOL_GRAD_CNN}")
+        if not control > TOL_GRAD_CNN:
+            fail(f"{phase}: a dropped table row would read {control}, not above {TOL_GRAD_CNN}")
+        res.update(grad_batch_B_T=shape, grad_leaves=len(rel), grad_max_rel_err=rel[worst],
+                   grad_worst_leaf=worst, grad_tol=TOL_GRAD_CNN, grad_control_row_drop=control)
+    else:
+        res["targets"] = vector_target_mask(torch, cfg)
+    emit(res)
+    return res, out / "model-last.npz"
+
+
+def vector_target_mask(torch, cfg) -> dict:
+    """The vectors objective's first batch: its targets only on real tokens
+    that have a vector (a row of the table, the lower-case fallback
+    included), and equal to those rows."""
+    import itertools
+
+    from spacy_ray_tpu_torch.training.corpus import use_raw_text_tokenizer
+    from spacy_ray_tpu_torch.training.pretrain import Pretraining
+
+    run = Pretraining(cfg, device="cuda")
+    with use_raw_text_tokenizer(run.nlp.tokenizer):
+        egs = list(itertools.islice(run.corpus(), PRETRAIN_BATCH))
+    tokens, targets, _ = run.batch(egs)
+    mask, has = tokens.mask, targets["has_vec"]
+    rows = tokens.vector_rows
+    if bool((has & ~mask).any()) or not torch.equal(has, mask & (rows >= 0)):
+        fail("pretrain:vectors: targets outside the tokens that have a vector")
+    table = torch.from_numpy(run.nlp.vectors.table).to(rows.device)
+    if not torch.equal(targets["vectors"][has], table[rows[has]]):
+        fail("pretrain:vectors: a target is not its token's vector")
+    if bool(targets["vectors"][~has].any()):
+        fail("pretrain:vectors: a masked target is not zero")
+    return {"real_tokens": int(mask.sum()), "with_a_vector": int(has.sum()),
+            "without": int((mask & ~has).sum())}
+
+
+def cnn_pretrained_config(paths, work: Path):
+    """configs/cnn.cfg as written, with what train:cnn_pretrained adds: an
+    ``spacy.orth_variants.v1`` augmenter on the train corpus (level 0.1,
+    lower 0.5, ``EN_ORTH_VARIANTS``), the ``--code`` file's callback as
+    ``[training.before_update]`` and its logger as ``[training.logger]``;
+    ``max_steps`` and ``eval_frequency`` cut."""
+    cfg = cnn_config("cnn", paths)
+    cfg["corpora"]["train"]["augmenter"] = {
+        "@augmenters": "spacy.orth_variants.v1", "level": 0.1, "lower": 0.5,
+        "orth_variants": EN_ORTH_VARIANTS}
+    cfg["training"].update(max_steps=CNN_STEPS, eval_frequency=CNN_EVAL)
+    cfg["training"]["before_update"] = {"@callbacks": "chip_smoke_user.record_steps.v1",
+                                        "path": str(work / "steps.json")}
+    cfg["training"]["logger"] = {"@loggers": "chip_smoke_user.scores.v1",
+                                 "path": str(work / "scores.json")}
+    return cfg
+
+
+def phase_train_cnn_pretrained(torch, paths, pretrained: Path):
+    """``python -m spacy_ray_tpu_torch train`` (its ``main``, in this
+    process; counters zeroed just before, read just after) on
+    ``cnn_pretrained_config`` with ``--code`` (the file ``USER_CODE``) and
+    ``--initialize.init_tok2vec`` at pretrain:chars' ``model-last.npz``:
+    the trunk at step 0 bit-equal to the file (the callback's digest),
+    ``before_update`` for every step in order, the tagger's loss falling to
+    <= 2/3 and dev ``tag_acc`` holding ``CNN_PRETRAINED_FLOORS`` at the last
+    evaluation; then, over the augmented corpus, a microbatch's collate ms
+    uncached, cached and as an augmented epoch yields it (its copies fresh,
+    its originals cached)."""
+    import importlib
+
+    import numpy as np
+
+    from spacy_ray_tpu_torch import Pipeline
+    from spacy_ray_tpu_torch.__main__ import main as cli
+    from spacy_ray_tpu_torch.ops import _cuda
+    from spacy_ray_tpu_torch.pipeline.doc import Example
+    from spacy_ray_tpu_torch.registry import registry
+    from spacy_ray_tpu_torch.training.batcher import bucket_batch_size, bucket_length
+
+    phase = "train:cnn_pretrained"
+    work = WORK / "cnn_pretrained"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    code = work / "user_code.py"
+    code.write_text(USER_CODE)
+    cfg = cnn_pretrained_config(paths, work)
+    cfg.to_disk(work / "config.cfg")
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    with redirect_stdout(io.StringIO()) as said:
+        rc = cli(["train", str(work / "config.cfg"), "--output", str(work / "out"),
+                  "--code", str(code), "--initialize.init_tok2vec", str(pretrained)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _cuda.launch_counts()
+    printed = said.getvalue().strip().splitlines()
+    if rc != 0 or not any(line.startswith(f"Done. steps={CNN_STEPS}") for line in printed):
+        fail(f"{phase}: train exited {rc}: {printed[-3:]}")
+    missing = [k for k in ("hash_embed_gather_sum", "hash_embed_table_grad", "fused_update")
+               if launches[k] == 0]
+    if missing:
+        fail(f"{phase}: kernels never launched: {missing}")
+    user = importlib.import_module("_user_code_user_code")
+    steps = json.loads((work / "steps.json").read_text())
+    with np.load(pretrained) as saved:
+        file_digest = user.digest({k: saved[k] for k in saved.files})
+    if steps["step0_digest"] != file_digest:
+        fail(f"{phase}: the trunk at step 0 is not the pretrained file's")
+    if [s for s, _ in steps["calls"]] != list(range(CNN_STEPS)):
+        fail(f"{phase}: before_update calls {steps['calls'][:4]}..., not steps "
+             f"0..{CNN_STEPS - 1} in order")
+    rows = json.loads((work / "scores.json").read_text())
+    losses = [r["losses"]["tagger"] for r in rows]
+    if not losses[-1] <= 2 / 3 * losses[0]:
+        fail(f"{phase}: the tagger's loss per evaluation {losses} did not fall to <= 2/3")
+    last = rows[-1]
+    low = {k: last["scores"].get(k) for k, v in CNN_PRETRAINED_FLOORS.items()
+           if not (last["scores"].get(k) or 0) >= v}
+    if last["step"] != CNN_STEPS or low:
+        fail(f"{phase}: dev scores at step {last['step']} below {CNN_PRETRAINED_FLOORS}: {low}")
+
+    # the collate over the augmented corpus: an epoch collated once, then a
+    # microbatch of the next epoch as the loop collates it, the same again
+    # (every Example now cached), and fresh copies of it (none cached)
+    cfg_i = cfg.interpolate()
+    nlp = Pipeline.from_disk(work / "out" / "best-model", device="cuda")
+    corpus = registry.resolve(cfg_i["corpora"]["train"])
+    batcher = registry.resolve(cfg_i["training"]["batcher"])
+    for b in batcher(corpus()):
+        nlp.collate(b, with_targets=True)
+    batch = next(iter(batcher(corpus())))
+    copies = sum(not any(eg is c for c in corpus._examples) for eg in batch)
+    if copies == 0 or any(getattr(eg, "_feat_cache", None) is not None
+                          for eg in batch if not any(eg is c for c in corpus._examples)):
+        fail(f"{phase}: {copies} augmented copies in the microbatch, or a copy came cached")
+    B, T = bucket_batch_size(len(batch)), bucket_length(max(len(eg) for eg in batch))
+    collate_ms = {}
+    for label, egs in (("augmented_epoch", batch), ("cached", batch),
+                       ("uncached", [Example.from_gold(eg.reference) for eg in batch])):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        nlp.collate(egs, with_targets=True, pad_batch_to=B, pad_len_to=T)
+        torch.cuda.synchronize()
+        collate_ms[label] = (time.perf_counter() - t) * 1e3
+    del nlp
+    shutil.rmtree(work, ignore_errors=True)
+    res = {"phase": phase, "config": "configs/cnn.cfg as written + spacy.orth_variants.v1 "
+           "(level 0.1, lower 0.5, spaCy's English dash and quote groups) + --code "
+           "(before_update, logger) + --initialize.init_tok2vec pretrain:chars' "
+           f"model-last.npz; max_steps {CNN_STEPS}, eval_frequency {CNN_EVAL} (cut)",
+           "seconds": seconds, "printed": [line for line in printed
+                                           if line.startswith("Done.")],
+           "step0_trunk_equals_pretrained_file": True,
+           "before_update_calls": len(steps["calls"]), "epochs": steps["calls"][-1][1],
+           "tagger_loss_per_evaluation": losses,
+           "dev_scores": [(r["step"], {k: r["scores"].get(k) for k in ("tag_acc", "pos_acc")
+                                       if k in r["scores"]}) for r in rows],
+           "dev_floors": CNN_PRETRAINED_FLOORS, "launches": launches,
+           "collate_microbatch_B_T": [B, T], "augmented_copies_in_microbatch": copies,
+           "collate_ms_with_copy": collate_ms}
+    emit(res)
+    return res
+
+
+def write_roberta_checkpoint(path: Path, *, layers: int, width: int, ffn: int,
+                             pos_rows: int, seed: int = 0) -> dict:
+    """A checkpoint in RoBERTa-base's layout, made from ``seed`` with the
+    port's ``write_safetensors`` (no real checkpoint is in the repository):
+    ``roberta.encoder.layer.N.*`` for ``layers`` layers of ``width`` (FFN
+    ``ffn``), ``[out, in]`` weights and biases N(0, 0.02), layer norms 1 +
+    N(0, 0.02) and N(0, 0.02), and the ``pos_rows``-row position table
+    (RoBERTa's two padding rows first); F32, ~340 MB at RoBERTa-base's
+    sizes (12 layers, 768 wide, FFN 3072, 514 rows). Returns the tensors."""
+    import numpy as np
+
+    from spacy_ray_tpu_torch.models.pretrained import write_safetensors
+
+    rng = np.random.default_rng(seed)
+
+    def w(*shape):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(0.02)
+
+    hf = {}
+    for i in range(layers):
+        pre = f"roberta.encoder.layer.{i}."
+        for part in ("query", "key", "value"):
+            hf[f"{pre}attention.self.{part}.weight"] = w(width, width)
+            hf[f"{pre}attention.self.{part}.bias"] = w(width)
+        for block, n_in in (("attention.output", width), ("output", ffn)):
+            hf[f"{pre}{block}.dense.weight"] = w(width, n_in)
+            hf[f"{pre}{block}.dense.bias"] = w(width)
+            hf[f"{pre}{block}.LayerNorm.weight"] = 1 + w(width)
+            hf[f"{pre}{block}.LayerNorm.bias"] = w(width)
+        hf[f"{pre}intermediate.dense.weight"] = w(ffn, width)
+        hf[f"{pre}intermediate.dense.bias"] = w(ffn)
+    hf["roberta.embeddings.position_embeddings.weight"] = w(pos_rows, width)
+    write_safetensors(path, hf)
+    return hf
+
+
+#: the trunk's encoder leaves at train:trf_init's first before_update call
+TRUNK_AT_STEP_0 = {}
+TRUNK_SNAPSHOT = "chip_smoke.trunk_snapshot.v1"
+
+
+def register_trunk_snapshot(registry) -> None:
+    """Register the callback train:trf_init names: at step 0 it copies the
+    transformer's parameters to the host into ``TRUNK_AT_STEP_0``."""
+    def make():
+        def before_update(nlp, info):
+            if info["step"] == 0:
+                from spacy_ray_tpu_torch.models.core import param_paths
+
+                TRUNK_AT_STEP_0.update({k: v.cpu().numpy().copy() for k, v in
+                                        param_paths(nlp.model["transformer"]).items()})
+        return before_update
+
+    registry.callbacks(TRUNK_SNAPSHOT)(make)
+
+
+def phase_train_trf_init(torch):
+    """``train()`` of trf.cfg's trunk + tagger (``trf_tagger_config``) with
+    ``init_weights`` at a checkpoint in RoBERTa-base's layout from seed 0
+    at the trunk's sizes (``write_roberta_checkpoint``, in a temporary
+    directory deleted after), on train:trf's synthetic tagged corpus (its
+    microbatch B 64, T 128), ``max_steps`` 20: the
+    trunk's 12 x 12 encoder leaves and ``pos`` (its 512 rows; the file's
+    514 less RoBERTa's two padding rows) at step 0 on the card bit-equal to
+    ``hf_encoder_to_native`` of the file, the load's one-line report, the
+    loss falling, and K1 fwd/bwd, K2, K3 and K5 launched (counters zeroed
+    just before, read just after)."""
+    import tempfile
+
+    import numpy as np
+
+    from spacy_ray_tpu_torch.models.pretrained import hf_encoder_to_native
+    from spacy_ray_tpu_torch.ops import _cuda
+    from spacy_ray_tpu_torch.registry import registry
+    from spacy_ray_tpu_torch.training.loop import train
+    from spacy_ray_tpu_torch.util import write_synth_jsonl
+
+    phase = "train:trf_init"
+    register_trunk_snapshot(registry)
+    TRUNK_AT_STEP_0.clear()
+    cfg = trf_tagger_config()
+    model = cfg["components"]["transformer"]["model"]
+    depth, width, max_len = model["depth"], model["width"], model["max_len"]
+    with tempfile.TemporaryDirectory(dir=WORK) as tmp:
+        ckpt = Path(tmp) / "roberta-base-layout.safetensors"
+        t = time.perf_counter()
+        hf = write_roberta_checkpoint(ckpt, layers=depth, width=width,
+                                      ffn=width * model["ffn_mult"], pos_rows=max_len + 2)
+        write_s, file_mb = time.perf_counter() - t, ckpt.stat().st_size / 1e6
+        want = hf_encoder_to_native(hf, native_pos_rows=max_len)
+        del hf
+        for split, n, seed in (("train", 2000, 0), ("dev", 200, 1)):
+            write_synth_jsonl(Path(tmp) / f"{split}.jsonl", n, seed=seed, min_len=8,
+                              max_len=120)
+        cfg["paths"] = {"train": str(Path(tmp) / "train.jsonl"),
+                        "dev": str(Path(tmp) / "dev.jsonl")}
+        model["init_weights"] = str(ckpt)
+        cfg["training"].update(max_steps=TRF_INIT_STEPS, eval_frequency=TRF_INIT_STEPS,
+                               before_update={"@callbacks": TRUNK_SNAPSHOT})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        with redirect_stdout(io.StringIO()) as said:
+            nlp, result = train(cfg, None, device="cuda", stdout_log=False)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _cuda.launch_counts()
+    report = [line for line in said.getvalue().splitlines() if line.startswith("[transformer]")]
+    if len(report) != 1:
+        fail(f"{phase}: the load printed {report}")
+    encoder = [k for k in want if k.startswith("layer_")]
+    if len(encoder) != 12 * depth or want["pos"].shape != (max_len, width):
+        fail(f"{phase}: the remap gave {len(encoder)} encoder leaves, pos {want['pos'].shape}")
+    bad = [k for k, v in want.items() if not np.array_equal(TRUNK_AT_STEP_0.get(k), v)]
+    if bad:
+        fail(f"{phase}: trunk leaves at step 0 differ from the remapped file: {bad[:5]}")
+    need = ["hash_embed_gather_sum", "hash_embed_table_grad", "flash_attention_fwd",
+            "flash_attention_bwd", "fused_update"]
+    missing = [k for k in need if launches[k] == 0]
+    if missing:
+        fail(f"{phase}: kernels never launched: {missing}")
+    losses = result.step_losses
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    if len(losses) != TRF_INIT_STEPS or not all(math.isfinite(x) for x in losses) \
+            or not last < first:
+        fail(f"{phase}: the loss did not fall ({first} -> {last}, {len(losses)} steps)")
+    event_ms = [a.elapsed_time(b) for a, b in result.step_events]
+    res = {"phase": phase, "config": "configs/trf.cfg's transformer + tagger and [training] "
+           f"(max_steps {TRF_INIT_STEPS}, cut), init_weights = a RoBERTa-base-layout "
+           ".safetensors from seed 0 (12 layers, 768 wide, [out, in], 514 position rows, F32)",
+           "checkpoint_mb": file_mb, "checkpoint_write_s": write_s, "load_report": report[0],
+           "encoder_leaves_bit_equal": len(encoder), "pos_rows_bit_equal": max_len,
+           "seconds": seconds, "steps": result.final_step,
+           "group_shapes_B_T": sorted(set(result.step_shapes)),
+           "loss_first5_mean": first, "loss_last5_mean": last,
+           "dev_tag_acc": [(h["step"], h["other_scores"].get("tag_acc")) for h in result.history],
+           "step_ms_median_events": statistics.median(event_ms),
+           "step_ms_median_host": statistics.median(x * 1e3 for x in result.step_host_seconds),
+           "words_per_s": result.wps, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches}
+    TRUNK_AT_STEP_0.clear()
+    del nlp, result
+    torch.cuda.empty_cache()
+    emit(res)
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -3277,6 +3856,30 @@ def main() -> int:
     shutil.rmtree(WORK / "nel_shared", ignore_errors=True)
     # a linker pipeline the JAX package wrote, with its own answers
     runs["slice:nel_jax"] = phase_slice_nel_jax(torch)
+    # a trunk started from weights: cnn.cfg's trunk pretrained (characters,
+    # then md's vectors), cnn.cfg trained from the pretrained trunk through
+    # the CLI with --code and an augmenter, trf.cfg's trunk from a file in
+    # RoBERTa-base's layout
+    raw = write_raw_text(udgen[0])
+    pt_cfgs = {"chars": pretrain_config(spacy_corpus, raw, "characters", PRETRAIN_STEPS),
+               "vectors": pretrain_config(spacy_corpus, raw, "vectors", PRETRAIN_VECTOR_STEPS,
+                                          vectors=md_in[0])}
+    pt_leaves = {f"pretrain_{k}": pretrain_leaf_shapes(c) for k, c in pt_cfgs.items()}
+    for name, rows in phase_cnn_kernels(
+            torch, {**pt_leaves, "microbatches": {}, "zero_grad_leaves": {}},
+            leaf_sets=(("pretrain_chars", "pretrain:chars: cnn.cfg's trunk + the characters "
+                        "head (Maxout 300 x 3 pieces, Linear 2056)"),
+                       ("pretrain_vectors", "pretrain:vectors: cnn.cfg's trunk + the vectors "
+                        "head (Linear 300)"))).items():
+        kernels[name].extend(rows)
+    runs["pretrain:chars"], pretrained = phase_pretrain(torch, "chars", pt_cfgs["chars"],
+                                                        PRETRAIN_STEPS)
+    runs["pretrain:vectors"], _ = phase_pretrain(torch, "vectors", pt_cfgs["vectors"],
+                                                 PRETRAIN_VECTOR_STEPS)
+    runs["train:cnn_pretrained"] = phase_train_cnn_pretrained(torch, spacy_corpus, pretrained)
+    for name in ("pretrain", "pretrain_chars", "pretrain_vectors"):
+        shutil.rmtree(WORK / name, ignore_errors=True)
+    runs["train:trf_init"] = phase_train_trf_init(torch)
     shutil.rmtree(WORK / "train_md", ignore_errors=True)
     shutil.rmtree(WORK / "md", ignore_errors=True)
     # a model directory the JAX package wrote (bin/make_jax_md_fixture.py), with

@@ -1,8 +1,11 @@
 """Command line of the port::
 
     python -m spacy_ray_tpu_torch train <config.cfg> --output <dir> [--device cuda|cpu]
-        [--resume] [--paths.train x.jsonl --training.max_steps 40 ...]
+        [--code F] [--resume] [--paths.train x.jsonl --training.max_steps 40 ...]
+    python -m spacy_ray_tpu_torch pretrain <config.cfg> <output-dir> [--device cuda|cpu]
+        [--code F] [--section.key value ...]
     python -m spacy_ray_tpu_torch evaluate <model-dir> <data.jsonl> [--device cuda|cpu]
+        [--code F]
     python -m spacy_ray_tpu_torch serve <model-dir> [options]
     python -m spacy_ray_tpu_torch init-vectors <input> <output.npz> [--truncate N]
 
@@ -10,6 +13,12 @@
 ``eval_frequency`` steps, and writes ``best-model/`` and ``last-model/``
 (with its training generations, which ``--resume`` continues from).
 Dotted ``--section.key value`` arguments override the config.
+``--code`` imports a Python file first, so that the functions it registers
+(callbacks, architectures, readers, augmenters) resolve in the config.
+``pretrain`` runs the config's ``[pretraining]`` block (the characters or
+vectors objective over raw-text lines) and writes the trunk's weights as
+``model-last.npz``, which ``[initialize] init_tok2vec`` loads; it ends with
+"Pretraining done. ...".
 ``evaluate`` prints the scores of a saved model on a gold corpus as the JAX
 package's table (per-type scores as rows of p/r/f), then the prediction's
 words/s, then the scores as one JSON line (the same keys as the JAX
@@ -38,8 +47,11 @@ from .serving.overlay import PRECISION_CHOICES
 
 USAGE = (
     "usage: python -m spacy_ray_tpu_torch train <config.cfg> [--output DIR] [--device cuda|cpu]"
-    " [--resume] [--section.key value ...]\n"
-    "       python -m spacy_ray_tpu_torch evaluate <model-dir> <data.jsonl> [--device cuda|cpu]\n"
+    " [--code F] [--resume] [--section.key value ...]\n"
+    "       python -m spacy_ray_tpu_torch pretrain <config.cfg> <output-dir> [--device cuda|cpu]"
+    " [--code F] [--section.key value ...]\n"
+    "       python -m spacy_ray_tpu_torch evaluate <model-dir> <data.jsonl> [--device cuda|cpu]"
+    " [--code F]\n"
     "       python -m spacy_ray_tpu_torch serve <model-dir> [--port N] [--max-batch N] "
     "[--max-doc-len N] [--precision auto|f32|bf16|int8] [--device cuda|cpu]\n"
     "       python -m spacy_ray_tpu_torch init-vectors <input> <output.npz> [--truncate N]"
@@ -97,6 +109,8 @@ def train_command(argv: List[str]) -> int:
     parser.add_argument("--output", "-o", type=Path, default=None)
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="cuda (default; fails without a card) or cpu")
+    parser.add_argument("--code", type=Path, default=None,
+                        help="a Python file to import first (its registered functions)")
     parser.add_argument("--resume", action="store_true",
                         help="continue from the newest intact generation in <output>/last-model")
     parser.add_argument("--verbose", "-V", action="store_true")
@@ -105,8 +119,10 @@ def train_command(argv: List[str]) -> int:
                         format="%(levelname)s %(name)s: %(message)s")
 
     from .config import load_config, parse_cli_overrides
+    from .registry import import_code
     from .training.loop import train
 
+    import_code(str(args.code) if args.code else None)
     config = load_config(args.config_path, parse_cli_overrides(extra))
     nlp, result = train(config, args.output, device=args.device, resume=args.resume)
     print(f"Done. steps={result.final_step} best_score={result.best_score:.4f} "
@@ -126,10 +142,15 @@ def evaluate_command(argv: List[str]) -> int:
     parser.add_argument("data_path", type=Path)
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="cuda (default; fails without a card) or cpu")
+    parser.add_argument("--code", type=Path, default=None,
+                        help="a Python file to import first (its registered functions)")
     args = parser.parse_args(argv)
 
     from .pipeline.language import Pipeline
+    from .registry import import_code
     from .training.corpus import Corpus
+
+    import_code(str(args.code) if args.code else None)
 
     nlp = Pipeline.from_disk(args.model_path, device=args.device)
     scores, words_per_s = nlp.evaluate_timed(list(Corpus(args.data_path)()))
@@ -144,6 +165,38 @@ def evaluate_command(argv: List[str]) -> int:
             print(f"{key:24s} {value:.4f}")
     print(f"{'words/s':24s} {words_per_s:.1f}")
     print(json.dumps(scores, sort_keys=True), flush=True)
+    return 0
+
+
+def pretrain_command(argv: List[str]) -> int:
+    """Pretrain the trunk from the config's ``[pretraining]`` block; the
+    weights go to ``<output-dir>/model-last.npz`` for ``[initialize]
+    init_tok2vec``."""
+    parser = argparse.ArgumentParser(
+        prog="python -m spacy_ray_tpu_torch pretrain",
+        description="Pretrain the tok2vec/transformer trunk on raw text "
+        "([pretraining] config block); load results with "
+        "[initialize] init_tok2vec.", allow_abbrev=False,
+    )
+    parser.add_argument("config_path", type=Path)
+    parser.add_argument("output_dir", type=Path)
+    parser.add_argument("--n-workers", type=int, default=None, dest="n_workers",
+                        help="cards to pretrain on (only 1 in this port)")
+    parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                        help="cuda (default; fails without a card) or cpu")
+    parser.add_argument("--code", type=Path, default=None,
+                        help="a Python file to import first (its registered functions)")
+    args, extra = parser.parse_known_args(argv)
+
+    from .config import load_config, parse_cli_overrides
+    from .registry import import_code
+    from .training.pretrain import pretrain
+
+    import_code(str(args.code) if args.code else None)
+    config = load_config(args.config_path, parse_cli_overrides(extra))
+    stats = pretrain(config, args.output_dir, device=args.device, n_workers=args.n_workers)
+    print(f"Pretraining done. steps={stats['steps']} loss={stats['loss']:.4f} "
+          f"words={stats['words']:,} -> {stats['output']}", flush=True)
     return 0
 
 
@@ -206,7 +259,8 @@ def init_vectors_command(argv: List[str]) -> int:
     return 0
 
 
-COMMANDS = {"train": train_command, "evaluate": evaluate_command, "serve": serve_command,
+COMMANDS = {"train": train_command, "pretrain": pretrain_command,
+            "evaluate": evaluate_command, "serve": serve_command,
             "init-vectors": init_vectors_command}
 
 

@@ -6,8 +6,11 @@ Counterpart of ``spacy_ray_tpu/models/transformer.py``: the dense layer
 in training, the layer stack as a plain loop with a per-layer dropout seed
 folded from the step's seed and the layer index (JAX: ``fold_in(key, li)``),
 remat through ``torch.utils.checkpoint``, ``_wdot`` with both weight
-encodings, and the bf16 / int8 serving overlays. MoE, ring attention and
-pipeline parallelism are multi-chip features outside this slice.
+encodings, the bf16 / int8 serving overlays, ``init_weights`` (a local
+checkpoint loaded over the seeded initialisation, ``models/pretrained.py``)
+and ``spacy-transformers.TransformerModel.v3`` on a local path. The layers'
+parameters sit under ``layer_{i}``, the JAX package's checkpoint names.
+MoE, ring attention and pipeline parallelism are not ported yet.
 
 Remat recomputes each layer fully in the backward for every
 ``remat_policy`` ("nothing", "dots", "all_dots"); JAX's "dots" policies keep
@@ -27,6 +30,7 @@ a leaf, or an :class:`~..ops.int8_matmul.Int8Weight`.
 from __future__ import annotations
 
 import warnings
+from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -38,6 +42,7 @@ from ..ops.int8_matmul import Int8Weight, int8_matmul, quantize_int8
 from ..registry import registry
 from ..types import Padded, TokenBatch
 from .core import Context, Model, empty_param, normal_, ones_param, zeros_param
+from .pretrained import load_trunk_weights
 from .tok2vec import ATTRS, MultiHashEmbed
 
 # Leaves the bf16 overlay covers: every weight/bias the layer casts to the
@@ -132,7 +137,8 @@ class TransformerEncoder(Model):
 
     def __init__(self, width: int, depth: int, n_heads: int, ffn_mult: int,
                  max_len: int, embed_size: int, compute_dtype: str,
-                 dropout: float = 0.0, remat: bool = False):
+                 dropout: float = 0.0, remat: bool = False,
+                 init_weights: Optional[str] = None):
         super().__init__(
             "transformer_encoder",
             dims={"nO": width, "depth": depth, "n_heads": n_heads},
@@ -141,6 +147,7 @@ class TransformerEncoder(Model):
         self.max_len = max_len
         self.dropout = dropout
         self.remat = remat
+        self.init_weights = init_weights
         self.embed = MultiHashEmbed(
             width=width, attrs=list(ATTRS), rows=[embed_size] + [embed_size // 2] * 3
         )
@@ -153,6 +160,12 @@ class TransformerEncoder(Model):
 
     def reset_own_parameters(self, generator: torch.Generator) -> None:
         normal_(self.pos, 0.02, generator)
+
+    def init_parameters(self, generator: torch.Generator) -> None:
+        """The seeded draw, then ``init_weights`` over it, as JAX orders them."""
+        super().init_parameters(generator)
+        if self.init_weights:
+            load_trunk_weights(self, self.init_weights)
 
     def layers(self) -> List[TransformerLayer]:
         return [getattr(self, f"layer_{i}") for i in range(self.dims["depth"])]
@@ -204,8 +217,10 @@ def make_transformer_encoder(
     """The JAX architecture's signature, so its configs resolve unchanged.
     ``dropout`` and ``remat`` act in training (every ``remat_policy``
     recomputes a layer fully); ``pp_microbatches`` and ``scan_layers`` shape
-    multi-chip and compiled programs and are accepted and unused; pretrained
-    weights and MoE are not part of this port yet and raise."""
+    multi-chip and compiled programs and are accepted and unused (the layers
+    are never stacked: their names stay ``layer_{i}``); ``init_weights`` is
+    a local .npz or .safetensors file (``models/pretrained.py``) loaded at
+    initialisation; MoE is not part of this port yet and raises."""
     if width % n_heads != 0:
         raise ValueError(f"width {width} not divisible by n_heads {n_heads}")
     if remat_policy not in REMAT_POLICIES:
@@ -213,10 +228,36 @@ def make_transformer_encoder(
                          f"got {remat_policy!r}")
     if n_experts:
         raise NotImplementedError("MoE trunks (n_experts > 0) are not ported yet")
-    if init_weights:
-        raise NotImplementedError("init_weights (pretrained trunks) is not ported yet")
     return TransformerEncoder(width, depth, n_heads, ffn_mult, max_len, embed_size,
-                              compute_dtype, dropout=dropout, remat=remat)
+                              compute_dtype, dropout=dropout, remat=remat,
+                              init_weights=init_weights)
+
+
+@registry.architectures("spacy-transformers.TransformerModel.v3")
+def make_hf_transformer_model(
+    name: str = "roberta-base",
+    get_spans=None,
+    tokenizer_config: Optional[dict] = None,
+    transformer_config: Optional[dict] = None,
+) -> TransformerEncoder:
+    """spacy-transformers' registered name, so its configs resolve: ``name``
+    must be a local .safetensors or .npz checkpoint, remapped into a
+    RoBERTa-base-shaped trunk (``transformer_config`` may set width, depth,
+    n_heads and max_len); a hub name raises, as nothing is downloaded."""
+    if not Path(name).exists():
+        raise NotImplementedError(
+            f"{name!r} is not a local file, and downloading HuggingFace "
+            "checkpoints is impossible in this zero-egress environment. "
+            "Point `name` at a local .safetensors/.npz checkpoint, or use "
+            '@architectures "spacy_ray_tpu.TransformerEncoder.v1" with '
+            "init_weights=<path> (same RoBERTa-base shape)."
+        )
+    cfg = dict(transformer_config or {})
+    return make_transformer_encoder(
+        width=int(cfg.get("width", 768)), depth=int(cfg.get("depth", 12)),
+        n_heads=int(cfg.get("n_heads", 12)), max_len=int(cfg.get("max_len", 512)),
+        init_weights=name,
+    )
 
 
 # ------------------------------------------------------- serving overlays

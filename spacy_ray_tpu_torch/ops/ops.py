@@ -3,7 +3,8 @@
 Same semantics as ``spacy_ray_tpu/ops/ops.py``: the CNN's window
 concatenation (``seq2col``: padding masked to zero before the shifts, zeros
 past the sequence edges, offsets -nW .. +nW in order), biased variance and eps
-1e-5 in the layer norm, the tanh approximation of GELU, maxout weights laid
+1e-5 in the layer norm, the tanh approximation of GELU, mish (its softplus
+JAX's ``logaddexp(X, 0)``), maxout weights laid
 out ``[nI, nO * nP]`` with the pieces innermost (part of the checkpoint
 contract), inverted dropout with keep = 1 - rate, the masked mean
 cross-entropy and accuracy of the training loss, the masked binary
@@ -46,6 +47,11 @@ def layer_norm(
     mu = X.mean(dim=-1, keepdim=True)
     var = (X - mu).square().mean(dim=-1, keepdim=True)
     return (X - mu) * torch.rsqrt(var + eps) * scale + bias
+
+
+def mish(X: torch.Tensor) -> torch.Tensor:
+    """``X * tanh(softplus(X))``, softplus as JAX's ``logaddexp(X, 0)``."""
+    return X * torch.tanh(torch.logaddexp(X, torch.zeros_like(X)))
 
 
 def gelu(X: torch.Tensor) -> torch.Tensor:

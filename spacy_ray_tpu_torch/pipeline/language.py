@@ -236,14 +236,15 @@ class Pipeline:
         collected from the first 10 000 examples of ``get_examples``, sorted.
         A sourced component keeps its labels and parameters.
         ``[initialize] vectors`` loads the static vectors (the config's
-        directory anchors a relative path; it wins over a source's);
-        ``init_tok2vec`` is not ported yet and raises. Parameters are drawn
-        on the CPU from ``torch.Generator(seed)``, in pipeline order, then
-        moved to the device, so a seed gives the same weights on every
-        device. A listening head whose width is not the trunk's raises."""
+        directory anchors a relative path; it wins over a source's).
+        Parameters are drawn on the CPU from ``torch.Generator(seed)``, in
+        pipeline order, then moved to the device, so a seed gives the same
+        weights on every device. ``[initialize] init_tok2vec`` then loads the
+        trunk from a flat npz (what ``pretrain`` writes, in either package;
+        relative to the config's directory), its persistent buffers
+        (``frozen_table``) too: its key set and every shape must be the
+        trunk's. A listening head whose width is not the trunk's raises."""
         init_cfg = self.config.get("initialize", {}) or {}
-        if init_cfg.get("init_tok2vec"):
-            raise NotImplementedError("[initialize] init_tok2vec is not ported yet")
         init_components = init_cfg.get("components", {}) or {}
         labels = labels or {}
         sample = (list(itertools.islice(get_examples(), LABEL_SAMPLE_LIMIT))
@@ -268,9 +269,40 @@ class Pipeline:
         for name in self.pipe_names:
             if name in model and name not in self.sourced_components:
                 model[name].init_parameters(generator)
+        if init_cfg.get("init_tok2vec"):
+            self._init_tok2vec(model, init_cfg["init_tok2vec"])
         self._check_listener_widths()
         self.model = model.to(self.device).eval()
         return self.params
+
+    def _init_tok2vec(self, model: nn.ModuleDict, raw: Any) -> None:
+        """Copy the pretrained trunk at ``raw`` into the trunk's parameters
+        and buffers, after the key sets and shapes are checked (the JAX
+        package's check and message)."""
+        t2v_name = self.tok2vec_name
+        if t2v_name is None or t2v_name not in model:
+            raise ValueError(
+                "[initialize] init_tok2vec is set but the pipeline has "
+                "no tok2vec/transformer trunk with parameters"
+            )
+        loaded = checkpoint.load_params(resolve_config_path(self.config, raw))
+        have = param_paths(model[t2v_name])
+        if {k: tuple(v.shape) for k, v in have.items()} != {
+                k: tuple(v.shape) for k, v in loaded.items()}:
+            missing = sorted(set(have) - set(loaded))[:5]
+            extra = sorted(set(loaded) - set(have))[:5]
+            mismatched = sorted(k for k in set(have) & set(loaded)
+                                if tuple(have[k].shape) != tuple(loaded[k].shape))[:5]
+            raise ValueError(
+                f"init_tok2vec weights at {raw!r} do not match the "
+                f"{t2v_name!r} trunk this config builds "
+                f"(missing={missing}, unexpected={extra}, "
+                f"shape-mismatched={mismatched}); pretrain with the same "
+                "trunk architecture settings"
+            )
+        with torch.no_grad():
+            for k, t in have.items():
+                t.copy_(torch.from_numpy(np.array(loaded[k], dtype=np.float32)))
 
     def _check_listener_widths(self) -> None:
         """A listening head (sourced or not) must take the trunk's width."""

@@ -5,13 +5,18 @@ The port's own registry object, with the same resolution rules as the JAX
 package's (``spacy_ray_tpu/registry.py``): a config block holding an
 ``@<namespace>`` key is replaced by the registered function called with the
 block's other keys, nested blocks first. Both packages register the same
-``spacy.*`` names, so they must not share one table.
+``spacy.*`` names, so they must not share one table. :func:`import_code`
+runs a user's Python file (the CLI's ``--code``) so that its registrations
+exist before a config resolves.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import inspect
-from typing import Any, Callable, Dict
+import sys
+from pathlib import Path
+from typing import Any, Callable, Dict, Optional
 
 
 class RegistryError(ValueError):
@@ -47,11 +52,11 @@ class _SubRegistry:
 class Registry:
     """Top-level registry of registries: model architectures, pipeline
     component factories, the training blocks (optimizers, schedules,
-    batchers, corpus readers, loggers, the ``[training.before_update]``
-    callbacks) and ``misc`` (span suggesters)."""
+    batchers, corpus readers and their augmenters, loggers, the
+    ``[training.before_update]`` callbacks) and ``misc`` (span suggesters)."""
 
     NAMESPACES = ("architectures", "factories", "optimizers", "schedules", "batchers",
-                  "readers", "loggers", "callbacks", "misc")
+                  "readers", "augmenters", "loggers", "callbacks", "misc")
 
     def __init__(self):
         for ns in self.NAMESPACES:
@@ -121,3 +126,20 @@ def _validate_args(
 
 
 registry = Registry()
+
+
+def import_code(code_path: Optional[str]) -> None:
+    """Import a user's Python file so that its registry decorators run,
+    under the module name ``_user_code_<stem>``; None does nothing."""
+    if code_path is None:
+        return
+    path = Path(code_path)
+    if not path.exists():
+        raise FileNotFoundError(f"--code path not found: {code_path}")
+    module_name = f"_user_code_{path.stem}"
+    spec = importlib.util.spec_from_file_location(module_name, str(path))
+    if spec is None or spec.loader is None:
+        raise ImportError(f"--code path is not a Python file: {code_path}")
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[module_name] = module
+    spec.loader.exec_module(module)

@@ -19,6 +19,11 @@ A ``.spacy`` doc carries its entity-annotation marker (``ents_annotated``:
 any ENT_IOB set); a JSON line carries none, so such a doc counts as
 annotated for the NER's scores exactly when it has entities (the JAX
 reader's rule).
+
+A raw-text line (``{"text": ...}``, no tokens) is read only inside
+:func:`use_raw_text_tokenizer`, with the pipeline's tokenizer; ``pretrain``
+runs in it. Elsewhere such a line raises. ``spacy.Corpus.v1`` takes an
+``augmenter`` (``training/augment.py``), applied per epoch after the cache.
 """
 
 from __future__ import annotations
@@ -26,24 +31,48 @@ from __future__ import annotations
 import gzip
 import json
 import random
+from contextlib import contextmanager
 from pathlib import Path
 from typing import Callable, Iterable, Iterator, List, Optional, Union
 
 from ..pipeline.doc import Doc, Example, Span, doc_to_json
 from ..registry import registry
+from . import augment  # noqa: F401  (registers the augmenters)
 from .spacy_docbin import read_docbin
 
 CorpusReader = Callable[[], Iterator[Example]]
 SUFFIXES = (".jsonl", ".conllu", ".msgdoc", ".spacy")
 
 
+_raw_text_tokenizer: Optional[Callable[[str], Doc]] = None
+
+
+@contextmanager
+def use_raw_text_tokenizer(tokenizer: Callable[[str], Doc]) -> Iterator[None]:
+    """Read raw-text corpus lines with ``tokenizer`` (the pipeline's) inside
+    this context; outside it a raw-text line in a supervised corpus stays an
+    error, as training on annotation-free docs would train on nothing."""
+    global _raw_text_tokenizer
+    prev = _raw_text_tokenizer
+    _raw_text_tokenizer = tokenizer
+    try:
+        yield
+    finally:
+        _raw_text_tokenizer = prev
+
+
 def _doc_from_json(obj: dict) -> Doc:
     words = obj.get("tokens") or obj.get("words")
     if words is None:
-        if obj.get("text") is not None:
+        text = obj.get("text")
+        if text is not None and _raw_text_tokenizer is not None:
+            return _raw_text_tokenizer(text)
+        if text is not None:
             raise ValueError(
-                "Corpus line has raw 'text' but no 'tokens': supervised corpora "
-                "need tokenized, annotated lines"
+                "Corpus line has raw 'text' but no 'tokens': raw-text lines "
+                "are only readable under a pretraining run (use the "
+                "`pretrain` command); supervised corpora need tokenized, "
+                "annotated lines"
             )
         raise ValueError(f"Corpus line missing 'tokens': keys={list(obj)}")
     doc = Doc(
@@ -165,16 +194,20 @@ class Corpus:
     ``limit`` keeps the first N examples (after shuffling); ``shuffle``
     orders each epoch by ``random.Random(seed + epoch)``; ``cache`` (default)
     reads the files once and yields the same Example objects every epoch.
+    ``augmenter`` maps each of an epoch's Examples to the ones it yields:
+    the original object (which keeps its caches) or fresh copies.
     """
 
     def __init__(self, path: Union[str, Path], *, max_length: int = 0, limit: int = 0,
-                 shuffle: bool = False, seed: int = 0, cache: bool = True):
+                 shuffle: bool = False, seed: int = 0, cache: bool = True,
+                 augmenter: Optional[Callable[[Example], Iterator[Example]]] = None):
         self.path = Path(path)
         self.max_length = max_length
         self.limit = limit
         self.shuffle = shuffle
         self.seed = seed
         self.cache = cache
+        self.augmenter = augmenter
         self._examples: Optional[List[Example]] = None
         self._epoch = 0
 
@@ -229,7 +262,7 @@ class Corpus:
         if not self.cache and not self.shuffle:
             n = 0
             for eg in self._read_examples():
-                yield eg
+                yield from self._augment(eg)
                 n += 1
                 if self.limit and n >= self.limit:
                     return
@@ -247,7 +280,14 @@ class Corpus:
             examples = [examples[i] for i in order]
         if self.limit:
             examples = examples[: self.limit]
-        yield from examples
+        for eg in examples:
+            yield from self._augment(eg)
+
+    def _augment(self, eg: Example) -> Iterator[Example]:
+        if self.augmenter is None:
+            yield eg
+        else:
+            yield from self.augmenter(eg)
 
 
 @registry.readers("spacy.Corpus.v1")
@@ -263,10 +303,8 @@ def create_corpus(
 ) -> Corpus:
     if path is None:
         raise ValueError("Corpus path is required (set [paths.train]/[paths.dev])")
-    if augmenter is not None:
-        raise NotImplementedError("corpus augmenters are not ported yet")
     return Corpus(path, max_length=max_length, limit=limit, shuffle=shuffle, seed=seed,
-                  cache=cache)
+                  cache=cache, augmenter=augmenter)
 
 
 @registry.readers("spacy.JsonlCorpus.v1")

@@ -527,3 +527,136 @@ def test_cuda_frozen_trunks_launch_no_table_gradient_and_k5_covers_them(tmp_path
         # an L2 moves every frozen leaf but those still all zero (fresh biases)
         assert moved == [frozen_move and bool(before[k].any()) for k in frozen_keys]
         assert any(moved) == frozen_move
+
+
+PRETRAIN_CFG = """
+[nlp]
+lang = "en"
+pipeline = ["tok2vec"]
+
+[components.tok2vec]
+factory = "tok2vec"
+
+[components.tok2vec.model]
+@architectures = "spacy.HashEmbedCNN.v2"
+width = 64
+depth = 2
+embed_size = 300
+window_size = 1
+maxout_pieces = 2
+subword_features = true
+pretrained_vectors = null
+
+[corpora.pretrain]
+@readers = "spacy.JsonlCorpus.v1"
+path = "{raw}"
+
+[pretraining]
+max_steps = 6
+batch_size = 8
+
+[pretraining.objective]
+type = "characters"
+n_characters = 3
+hidden_size = 32
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_pretraining_runs_the_kernels_and_its_file_loads_bit_equal(tmp_path):
+    import contextlib
+    import itertools
+    import json
+
+    import numpy as np
+
+    from chip_smoke import plain_kernels
+    from spacy_ray_tpu_torch import Config, Pipeline
+    from spacy_ray_tpu_torch.models.core import Context, param_paths
+    from spacy_ray_tpu_torch.training.corpus import use_raw_text_tokenizer
+    from spacy_ray_tpu_torch.training.pretrain import Pretraining, pretrain
+
+    _card()
+    texts = ["The quick brown fox jumps over the lazy dog.", "Naïve café — 日本 too!",
+             "Hash embeddings use murmur keys for subword features."]
+    with open(tmp_path / "raw.jsonl", "w", encoding="utf8") as f:
+        for t in texts * 6:
+            f.write(json.dumps({"text": t}) + "\n")
+    cfg = Config.from_str(PRETRAIN_CFG.replace("{raw}", str(tmp_path / "raw.jsonl")))
+    _cuda.reset_launch_counts()
+    stats = pretrain(cfg, tmp_path / "out")
+    launches = _cuda.launch_counts()
+    assert stats["steps"] == 6 and np.isfinite(stats["loss"])
+    assert launches["hash_embed_gather_sum"] == launches["hash_embed_table_grad"] == 6 * 4
+    assert launches["fused_update"] == 6
+    # one batch's gradients with the kernels against the plain versions
+    run = Pretraining(cfg)
+    with use_raw_text_tokenizer(run.nlp.tokenizer):
+        egs = list(itertools.islice(run.corpus(), 8))
+    tokens, targets, _ = run.batch(egs)
+    params = run.params()
+    for p in params.values():
+        p.requires_grad_(True)
+    grads = []
+    for plain in (False, True):
+        for p in params.values():
+            p.grad = None
+        with plain_kernels() if plain else contextlib.nullcontext():
+            run.loss_fn(tokens, targets, Context(train=True))[0].backward()
+        grads.append({k: p.grad.clone() for k, p in params.items()})
+    for k in params:
+        scale = grads[1][k].abs().max().item()
+        assert (grads[0][k] - grads[1][k]).abs().max().item() <= 1e-4 * max(scale, 1e-30), k
+    # [initialize] init_tok2vec on the card: the trunk is the file, bit for bit
+    cfg["initialize"] = {"init_tok2vec": str(tmp_path / "out" / "model-last.npz")}
+    nlp = Pipeline.from_config(cfg.interpolate())
+    nlp.initialize(seed=3)
+    with np.load(tmp_path / "out" / "model-last.npz") as saved:
+        have = param_paths(nlp.model["tok2vec"])
+        assert set(have) == set(saved.files)
+        for k in saved.files:
+            assert np.array_equal(have[k].cpu().numpy(), saved[k]), k
+
+
+@pytest.mark.cuda
+def test_cuda_init_weights_from_a_roberta_layout_file_bit_equal(tmp_path):
+    import numpy as np
+
+    from chip_smoke import write_roberta_checkpoint
+    from spacy_ray_tpu_torch import Config, Pipeline
+    from spacy_ray_tpu_torch.models.core import param_paths
+    from spacy_ray_tpu_torch.models.pretrained import hf_encoder_to_native
+    from spacy_ray_tpu_torch.pipeline.doc import Doc, Example
+
+    _card()
+    hf = write_roberta_checkpoint(tmp_path / "r.safetensors", layers=2, width=64, ffn=256,
+                                  pos_rows=130)
+    want = hf_encoder_to_native(hf, native_pos_rows=128)
+    cfg = Config.from_str(f"""
+[nlp]
+pipeline = ["transformer"]
+
+[components.transformer]
+factory = "transformer"
+
+[components.transformer.model]
+@architectures = "spacy_ray_tpu.TransformerEncoder.v1"
+width = 64
+depth = 2
+n_heads = 4
+max_len = 128
+embed_size = 500
+init_weights = "{tmp_path / 'r.safetensors'}"
+""")
+    nlp = Pipeline.from_config(cfg.interpolate())
+    nlp.initialize(seed=0)
+    have = param_paths(nlp.model["transformer"])
+    assert len(want) == 2 * 12 + 1
+    for k, v in want.items():
+        assert np.array_equal(have[k].cpu().numpy(), v), k
+    _cuda.reset_launch_counts()
+    tokens = nlp.collate([Example.from_gold(Doc(words=w))
+                          for w in (["a", "b", "c"], ["d"] * 40)])["tokens"]
+    with torch.inference_mode():
+        out = nlp.forward(tokens)["transformer"].X
+    assert torch.isfinite(out).all() and _cuda.launch_counts()["flash_attention_fwd"] == 2

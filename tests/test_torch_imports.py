@@ -10,6 +10,7 @@ import pytest
 import torch
 
 import spacy_ray_tpu_torch as P
+from spacy_ray_tpu_torch.training.pretrain import pretrain
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "spacy_ray_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -55,9 +56,11 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     nlp.initialize()
     nlp.to_disk(tmp_path)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pt_cfg = P.Config.from_str('[nlp]\npipeline = []\n[pretraining]\nmax_steps = 1\n')
     for build in (lambda: P.Pipeline.from_config(cfg),
                   lambda: P.Pipeline.from_config(cfg, device="cuda"),
-                  lambda: P.Pipeline.from_disk(tmp_path)):
+                  lambda: P.Pipeline.from_disk(tmp_path),
+                  lambda: pretrain(pt_cfg, tmp_path / "pretrain")):
         with pytest.raises(RuntimeError, match="no CUDA device.*device='cpu'"):
             build()
     assert P.Pipeline.from_disk(tmp_path, device="cpu").device.type == "cpu"

@@ -5,8 +5,9 @@ the JAX package, on the CPU, at a small size (trunk width 32, depth 1).
   the config's directory and kept in its order (the head's ids follow it),
   refused when empty or duplicated, as the JAX package does;
 * ``[initialize] vectors`` loads the static vectors as the JAX package
-  does (relative to the config's directory; a missing file raises);
-  ``init_tok2vec`` is not ported yet and raises instead of being ignored;
+  does (relative to the config's directory; a missing file raises), and a
+  missing ``init_tok2vec`` file raises in both packages
+  (``test_torch_pretrain.py`` loads real ones);
 * ``evaluate`` returns the JAX package's score keys and nothing else; the
   words/s of the prediction come apart from them (``evaluate_timed``).
 """
@@ -82,15 +83,13 @@ def test_bad_labels_files_raise_as_in_jax(tmp_path, corpus, labels, match):
 @pytest.mark.parametrize("key", ["vectors", "init_tok2vec"])
 def test_unported_initialize_keys_raise(tmp_path, corpus, key, monkeypatch):
     (tmp_path / "config.cfg").write_text(FULL_CFG + f'\n[initialize]\n{key} = "missing.npz"\n')
-    if key == "init_tok2vec":  # pretraining is not ported yet
-        with pytest.raises(NotImplementedError, match=f"{key} is not ported yet"):
-            _initialized(P, tmp_path / "config.cfg", corpus, pcorpus)
-        return
-    # [initialize] vectors is ported: a missing file raises in both packages,
-    # and a file beside the config loads relative to it, the same in both
+    # both keys are ported: a missing file raises in both packages
     for pkg, reader in ((P, pcorpus), (J, jcorpus)):
         with pytest.raises(FileNotFoundError):
             _initialized(pkg, tmp_path / "config.cfg", corpus, reader)
+    if key == "init_tok2vec":  # tests/test_torch_pretrain.py loads real files
+        return
+    # a vectors file beside the config loads relative to it, the same in both
     words = ["the", "The", "a", "cat"] + [f"w{i}" for i in range(20)]
     table = np.random.default_rng(0).normal(size=(len(words), 8)).astype(np.float32)
     JVectors(words, table).to_disk(tmp_path / "vectors.npz")

@@ -73,6 +73,18 @@ def test_seq2col_equals_jax_with_ragged_masks(window):
     assert np.all(row[window + 1:] == 0) and np.array_equal(row[window], X[1, 0])
 
 
+def test_mish_equals_jax_including_its_saturated_ends():
+    x = np.concatenate([np.linspace(-30, 30, 601), [-100.0, -20.0, 20.0, 88.0, 100.0, 0.0]])
+    x = x.astype(np.float32)
+    want = np.asarray(jops.mish(jnp.asarray(x)))
+    got = pops.mish(torch.from_numpy(x)).numpy()
+    assert got.dtype == np.float32 and np.isfinite(got).all()
+    # 1e-6 absolute, and relative where |x| > 1: tanh rounds to one ulp of 1
+    # apart near saturation in the two libraries, one ulp of x in the product
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    assert np.array_equal(got[x >= 20], x[x >= 20]) and np.abs(got[x <= -20]).max() < 1e-7
+
+
 def _jax_params(model, seed=0):
     import jax
 

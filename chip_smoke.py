@@ -40,7 +40,7 @@ Run from the root of a checkout. Phases, each printing one JSON line:
 6. train:trf — ``train()`` of the port on the card, on a config whose
               transformer and tagger blocks and ``[training]`` block are
               ``configs/trf.cfg``'s (``max_steps`` 40, ``eval_frequency``
-              20), over a synthetic corpus written here (2000 train and 200
+              20; the trunk at depth ``TRF_CUT_DEPTH``, full width), over a synthetic corpus written here (2000 train and 200
               dev docs of 8-120 words whose tags follow from the words).
               Launch counters are zeroed just before and read just after;
               every training kernel must have launched and the loss must
@@ -180,11 +180,36 @@ Run from the root of a checkout. Phases, each printing one JSON line:
               the trunk at step 0 bit-equal to the file, ``before_update`` for
               steps 0-59 in order, dev ``tag_acc`` >= 0.9, the collate ms of a
               microbatch uncached, cached and as the augmented epoch yields
-              it; ``train()`` of trf.cfg's trunk + tagger with
-              ``init_weights`` at a 340 MB RoBERTa-base-layout
+              it; ``train()`` of trf.cfg's trunk + tagger (depth
+              ``TRF_CUT_DEPTH``) with ``init_weights`` at a RoBERTa-base-layout
               ``.safetensors`` made from a seed: every encoder leaf and
               ``pos``'s 512 rows bit-equal to the remap at step 0, the loss
               falling over 20 steps, K1, K2, K3 and K5 launched.
+21. train:moe, slice:moe, serve:swap, serve:telemetry, slice:moe_jax — a
+              switch-MoE trunk. K5 over its 177 leaves (531 M parameters;
+              the expert leaves [8, 768, 3072]) in the kernel rows of 3.;
+              ``python -m spacy_ray_tpu_torch train configs/trf.cfg
+              --components.transformer.model.n_experts 8`` at full width on
+              the udgen corpus (its [training] with max_steps 30,
+              eval_frequency 15 and batches of 330 words: microbatches of
+              B 16): K1 fwd/bwd, K2, K3, K5 launched, every head's loss
+              falling, two checkpoint generations, ``loss_aux`` against
+              ``router_aux_weight`` x the layers' aux from a recompute, the
+              real tokens dropped at capacity per layer, one step's device
+              time by part (attention, expert ``bmm``, dispatch and combine,
+              router, K5) and every leaf's gradient against the plain
+              versions with the routing of the kernels' run replayed;
+              ``best-model`` served (``--max-batch 4 --max-doc-len 64``): at
+              bf16 under 20 one-text requests a second, open loop, for 4 s
+              (p50, p99), its ``/metrics`` keys and counters, Prometheus
+              text, ``/trace`` spans, the same load with ``--no-telemetry``;
+              on the same server ``/admin/swap`` to each generation under a
+              steady stream, every response bit-equal to its generation's
+              fresh engine (own decode graphs), ``/admin/rollback`` the first
+              generation's bytes, 403 outside ``--swap-dir``, 409 for a torn
+              generation; f32 answers against the CPU's at the same buckets;
+              ``--precision int8`` refused with the JAX package's label; the
+              JAX-written ``tests/data/jax_moe/`` answering as JAX did.
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -204,8 +229,9 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
-from contextlib import contextmanager, redirect_stdout
+from contextlib import contextmanager, nullcontext, redirect_stdout
 from pathlib import Path
 from unittest import mock
 
@@ -231,6 +257,7 @@ MAXULP_K5 = 1       # p, m, v against leaf_math_plain (bit-equal when no FMA is 
 TOL_GRAD = 5e-2     # bf16 trunk gradients, kernels vs plain, relative to each leaf's max
 TOL_GRAD_CNN = 1e-4  # f32 CNN gradients, the same measure: the kernels' adds in another order
 TRAIN_STEPS, TRAIN_EVAL = 40, 20
+TRF_CUT_DEPTH = 6  # train:trf, train:trf_init: trf.cfg's trunk at 6 of its 12 layers (time)
 TRAIN_B, TRAIN_T = 64, 128  # one training microbatch (batch_by_words 2000 on this corpus)
 CNN_WIDTH = 96              # configs/cnn.cfg and sm.cfg: HashEmbedCNN width 96, depth 4
 CNN_STEPS, CNN_EVAL = 60, 20  # the CNN phases (train:cnn, sm, spancat, textcat, tokcls) cut
@@ -708,13 +735,15 @@ def write_udgen_corpus():
     return work / "train.jsonl", work / "dev.jsonl"
 
 
-def phase_train_kernels(torch, full_shapes):
+def phase_train_kernels(torch, full_shapes, moe_shapes):
     """The training path's kernels against their plain versions and timed:
     the hash-embed table gradient and the attention backward (K3) at one
     training microbatch's shapes (B 64, T 128: batch_by_words 2000 on this
     corpus takes up to 40 docs of up to 120 words), the fused update (K5)
-    over every leaf of the trf + tagger parameter set (``train:trf``) and of
-    trf.cfg as written (``full_shapes``, the leaves ``train:full`` updates)."""
+    over every leaf of the trf + tagger parameter set at trf.cfg's depth
+    (``build_model_dir``'s; ``train:trf`` runs at ``TRF_CUT_DEPTH``), of
+    trf.cfg as written (``full_shapes``, the leaves ``train:full`` updates)
+    and of trf.cfg with 8 experts (``moe_shapes``, ``train:moe``'s)."""
     import torch.nn.functional as F
 
     from spacy_ray_tpu_torch.ops.flash_attention import (
@@ -854,7 +883,7 @@ def phase_train_kernels(torch, full_shapes):
         shapes.append(row)
     results["flash_attention_bwd"] = shapes
 
-    # K5: every leaf of the trf + tagger parameter set (train:trf) and of
+    # K5: every leaf of the trf + tagger parameter set (slice:auto's) and of
     # trf.cfg as written (train:full: the heads' leaves too, the odd-sized
     # out_b of nA elements among them), Adam as trf.cfg sets it (clip 1.0)
     # and the other branches on the same leaves; the kernels line totals
@@ -862,7 +891,8 @@ def phase_train_kernels(torch, full_shapes):
     del scratch
     rows = []
     for leaf_set, leaf_shapes in (("trf+tagger", trf_param_shapes(torch)),
-                                  ("trf.cfg as written", full_shapes)):
+                                  ("trf.cfg as written", full_shapes),
+                                  (f"trf.cfg, n_experts {MOE_EXPERTS}", moe_shapes)):
         main_path = leaf_set == "trf.cfg as written"
         n_params = sum(math.prod(sh) for sh in leaf_shapes)
         P = [torch.randn(sh, device=dev, generator=g) for sh in leaf_shapes]
@@ -938,10 +968,13 @@ def make_texts(n: int, seed: int):
     return texts
 
 
-def post(port: int, texts, timeout: float = 60.0):
+def post(port: int, texts, timeout: float = 60.0, request_id=None):
+    headers = {"Content-Type": "application/json"}
+    if request_id is not None:
+        headers["X-SRT-Request-Id"] = request_id
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}/v1/parse", data=json.dumps({"texts": texts}).encode(),
-        headers={"Content-Type": "application/json"},
+        headers=headers,
     )
     with urllib.request.urlopen(req, timeout=timeout) as r:
         return r.status, json.loads(r.read())
@@ -1244,8 +1277,9 @@ def serve_once(torch, model_dir: Path):
 
 
 def phase_train(torch):
-    """``train()`` at trf.cfg's full width on a synthetic tagged corpus,
-    with the launch counters zeroed just before and read just after."""
+    """``train()`` at trf.cfg's full width (depth ``TRF_CUT_DEPTH``) on a
+    synthetic tagged corpus, with the launch counters zeroed just before
+    and read just after."""
     from spacy_ray_tpu_torch.ops import _cuda
     from spacy_ray_tpu_torch.registry import registry
     from spacy_ray_tpu_torch.training.batcher import bucket_batch_size, bucket_length
@@ -1258,6 +1292,7 @@ def phase_train(torch):
     write_synth_jsonl(work / "train.jsonl", 2000, seed=0, min_len=8, max_len=120)
     write_synth_jsonl(work / "dev.jsonl", 200, seed=1, min_len=8, max_len=120)
     cfg = trf_tagger_config()
+    cfg["components"]["transformer"]["model"]["depth"] = TRF_CUT_DEPTH
     cfg["paths"] = {"train": str(work / "train.jsonl"), "dev": str(work / "dev.jsonl")}
     cfg["training"]["max_steps"] = TRAIN_STEPS
     cfg["training"]["eval_frequency"] = TRAIN_EVAL
@@ -1409,7 +1444,8 @@ def phase_train(torch):
 
     served = serve_once(torch, out / "best-model")
     res = {
-        "phase": "train:trf", "seconds": seconds, "steps": result.final_step,
+        "phase": "train:trf", "depth": TRF_CUT_DEPTH, "seconds": seconds,
+        "steps": result.final_step,
         "accumulate_gradient": 3, "group_shapes_B_T": sorted(set(result.step_shapes)),
         "first_loss": losses[0], "last_loss": losses[-1],
         "loss_first5_mean": first, "loss_last5_mean": last,
@@ -3633,8 +3669,8 @@ def phase_train_trf_init(torch):
     ``init_weights`` at a checkpoint in RoBERTa-base's layout from seed 0
     at the trunk's sizes (``write_roberta_checkpoint``, in a temporary
     directory deleted after), on train:trf's synthetic tagged corpus (its
-    microbatch B 64, T 128), ``max_steps`` 20: the
-    trunk's 12 x 12 encoder leaves and ``pos`` (its 512 rows; the file's
+    microbatch B 64, T 128), ``max_steps`` 20, the trunk at depth
+    ``TRF_CUT_DEPTH``: its 12 x depth encoder leaves and ``pos`` (its 512 rows; the file's
     514 less RoBERTa's two padding rows) at step 0 on the card bit-equal to
     ``hf_encoder_to_native`` of the file, the load's one-line report, the
     loss falling, and K1 fwd/bwd, K2, K3 and K5 launched (counters zeroed
@@ -3654,6 +3690,7 @@ def phase_train_trf_init(torch):
     TRUNK_AT_STEP_0.clear()
     cfg = trf_tagger_config()
     model = cfg["components"]["transformer"]["model"]
+    model["depth"] = TRF_CUT_DEPTH
     depth, width, max_len = model["depth"], model["width"], model["max_len"]
     with tempfile.TemporaryDirectory(dir=WORK) as tmp:
         ckpt = Path(tmp) / "roberta-base-layout.safetensors"
@@ -3702,7 +3739,8 @@ def phase_train_trf_init(torch):
     event_ms = [a.elapsed_time(b) for a, b in result.step_events]
     res = {"phase": phase, "config": "configs/trf.cfg's transformer + tagger and [training] "
            f"(max_steps {TRF_INIT_STEPS}, cut), init_weights = a RoBERTa-base-layout "
-           ".safetensors from seed 0 (12 layers, 768 wide, [out, in], 514 position rows, F32)",
+           f".safetensors from seed 0 ({depth} layers, cut from 12; 768 wide, [out, in], "
+           "514 position rows, F32)",
            "checkpoint_mb": file_mb, "checkpoint_write_s": write_s, "load_report": report[0],
            "encoder_leaves_bit_equal": len(encoder), "pos_rows_bit_equal": max_len,
            "seconds": seconds, "steps": result.final_step,
@@ -3716,6 +3754,738 @@ def phase_train_trf_init(torch):
     TRUNK_AT_STEP_0.clear()
     del nlp, result
     torch.cuda.empty_cache()
+    emit(res)
+    return res
+
+
+# ------------------------------------------------------------ MoE trunks
+
+MOE_EXPERTS = 8            # bench.py's trf_moe: trf.cfg's trunk with 8 experts
+MOE_STEPS, MOE_EVAL = 30, 15   # train:moe: max_steps cut; two evaluations, two generations
+MOE_BATCH_WORDS = 330      # batch_by_words size: microbatches of B 16 (T 64 or 128) on udgen
+MOE_SERVE = ["--max-batch", "4", "--max-doc-len", "64"]
+MOE_RPS, MOE_LOAD_S = 20.0, 4.0  # slice:moe's fixed offered load, open loop
+MOE_TEXTS = 16             # dev texts of <= 64 words the MoE phases serve
+SWAP_CLIENTS, SWAP_TEXTS = 4, 2  # serve:swap's concurrent clients, texts a request
+TOL_MOE_AUX = 1e-5         # loss_aux against the recompute, relative: the same ops
+TOL_MOE_JAX_TRUNK = 1e-4   # f32 trunk on the card against JAX's f32 on the CPU, max |diff|
+FLOOR_MOE_F32 = 0.99       # f32 served answers against the CPU's, per token field
+FLOOR_MOE_BF16 = 0.95      # bf16 served answers against the CPU's f32 (kernels vs plain's floor)
+
+
+def moe_cli_args(udgen, out: Path):
+    """``python -m spacy_ray_tpu_torch train configs/trf.cfg`` with 8
+    experts on the udgen corpus, its [training] block cut in max_steps,
+    eval_frequency and the batcher's size (microbatches of B 16)."""
+    return ["train", str(ROOT / "configs" / "trf.cfg"), "--output", str(out),
+            "--paths.train", str(udgen[0]), "--paths.dev", str(udgen[1]),
+            "--components.transformer.model.n_experts", str(MOE_EXPERTS),
+            "--training.max_steps", str(MOE_STEPS),
+            "--training.eval_frequency", str(MOE_EVAL),
+            "--training.batcher.size", str(MOE_BATCH_WORDS)]
+
+
+def moe_param_shapes(torch, udgen):
+    """The leaf shapes train:moe updates: trf.cfg with 8 experts, labels
+    collected from the udgen corpus as ``train()`` collects them."""
+    from spacy_ray_tpu_torch import Pipeline
+    from spacy_ray_tpu_torch.registry import registry
+    from spacy_ray_tpu_torch.training import corpus  # noqa: F401  (spacy.Corpus.v1)
+
+    cfg = trf_full_config()
+    cfg["components"]["transformer"]["model"]["n_experts"] = MOE_EXPERTS
+    cfg["paths"] = {"train": str(udgen[0]), "dev": str(udgen[0])}
+    cfg = cfg.interpolate()
+    nlp = Pipeline.from_config(cfg, device="cpu")
+    nlp.initialize(registry.resolve(cfg["corpora"]["train"]), seed=0)
+    return [tuple(p.shape) for p in nlp.model.parameters()]
+
+
+@contextmanager
+def moe_recorder(calls, replay=None):
+    """Every ``moe_ffn`` call appends (routing, real tokens, kept, aux) to
+    ``calls``, the routing recomputed from the call's inputs as the layer
+    computes it. With ``replay`` (the routings of an earlier run, in call
+    order) each call routes its tokens as that run did: its ``argmax`` is
+    the recorded one (the gradient check holds two runs of the same
+    function, the kernels' and the plain versions', to the same routing)."""
+    import torch
+
+    import spacy_ray_tpu_torch.models.transformer as TR
+
+    real = TR.moe_ffn
+    pending = [r[0] for r in replay or []]
+
+    def recording(w, h, token_mask, *, capacity_factor, compute_dtype):
+        with torch.no_grad():
+            idx = torch.argmax(torch.softmax(h @ w("router_W"), dim=-1), dim=-1)
+        if replay is None:
+            out, aux = real(w, h, token_mask, capacity_factor=capacity_factor,
+                            compute_dtype=compute_dtype)
+        else:
+            forced = pending.pop(0)
+            with mock.patch.object(torch, "argmax", lambda x, dim=-1: forced):
+                out, aux = real(w, h, token_mask, capacity_factor=capacity_factor,
+                                compute_dtype=compute_dtype)
+        with torch.no_grad():
+            E = w("e_W1").shape[0]
+            onehot = torch.nn.functional.one_hot(idx, E).float() * token_mask.float()[:, None]
+            arrival = ((torch.cumsum(onehot, 0) - onehot) * onehot).sum(-1)
+            kept = (arrival < TR.moe_capacity(capacity_factor, h.shape[0], E)) & token_mask
+            calls.append((idx.clone(), int(token_mask.sum()), int(kept.sum()),
+                          float(aux.detach())))
+        return out, aux
+
+    with mock.patch.object(TR, "moe_ffn", recording):
+        yield
+    if pending:
+        raise RuntimeError(f"{len(pending)} recorded routings were not replayed")
+
+
+def phase_train_moe(torch, udgen, moe_shapes):
+    """``python -m spacy_ray_tpu_torch train configs/trf.cfg
+    --components.transformer.model.n_experts 8`` (``moe_cli_args``; its
+    ``main`` in this process, counters zeroed just before and read just
+    after): K1 fwd/bwd, K2, K3 and K5 launched, every head's loss falling,
+    ``loss_aux`` finite every step, two checkpoint generations, the leaves
+    those K5 was held at. Then, on one microbatch: ``loss_aux`` against
+    ``router_aux_weight`` x the layers' aux from a recompute, the share of
+    real tokens dropped at capacity per layer, one step's device time by
+    part under ``torch.profiler``, and every leaf's gradient with the
+    kernels against the plain versions (the expert and router leaves held
+    when no token routes differently between the two runs)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from spacy_ray_tpu_torch.__main__ import main as cli
+    from spacy_ray_tpu_torch.models.core import Context
+    from spacy_ray_tpu_torch.ops import _cuda
+    from spacy_ray_tpu_torch.registry import registry
+    from spacy_ray_tpu_torch.training import loop
+    from spacy_ray_tpu_torch.training.batcher import bucket_batch_size, bucket_length
+    from spacy_ray_tpu_torch.training.checkpoint import Checkpoints
+
+    phase = "train:moe"
+    work = WORK / "train_moe"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    out = work / "out"
+    captured = {}
+    real_train = loop.train
+
+    def recording_train(*a, **k):
+        captured["run"] = real_train(*a, **k)
+        return captured["run"]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(loop, "train", recording_train), \
+            redirect_stdout(io.StringIO()) as said:
+        rc = cli(moe_cli_args(udgen, out))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _cuda.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    printed = said.getvalue().strip().splitlines()
+    if rc != 0 or not any(line.startswith(f"Done. steps={MOE_STEPS}") for line in printed):
+        fail(f"{phase}: train exited {rc}: {printed[-3:]}")
+    nlp, result = captured["run"]
+    need = ["hash_embed_gather_sum", "hash_embed_table_grad", "flash_attention_fwd",
+            "flash_attention_bwd", "fused_update"]
+    missing = [k for k in need if launches[k] == 0]
+    if missing:
+        fail(f"{phase}: kernels never launched on the training path: {missing}")
+    if len(result.step_head_losses) != MOE_STEPS:
+        fail(f"{phase}: {len(result.step_head_losses)} steps' losses, expected {MOE_STEPS}")
+    head_losses = {}
+    for head in ("tagger", "parser", "ner", "aux"):
+        xs = [step[head] for step in result.step_head_losses]
+        if not all(math.isfinite(x) for x in xs):
+            fail(f"{phase}: loss_{head} is not finite: {xs}")
+        first, last = statistics.mean(xs[:5]), statistics.mean(xs[-5:])
+        head_losses[head] = {"first5_mean": first, "last5_mean": last, "ratio": last / first}
+        if head != "aux" and not last < first:
+            fail(f"{phase}: loss_{head} did not fall: {first} -> {last}")
+    gens = Checkpoints(out / "last-model").generations()
+    if gens != [MOE_EVAL, MOE_STEPS]:
+        fail(f"{phase}: checkpoint generations {gens}, expected {[MOE_EVAL, MOE_STEPS]}")
+    trained_shapes = [tuple(p.shape) for p in nlp.model.parameters()]
+    if trained_shapes != moe_shapes:
+        fail(f"{phase}: trained {len(trained_shapes)} leaves, not the "
+             f"{len(moe_shapes)} leaves K5 was held at")
+    event_ms = [a.elapsed_time(b) for a, b in result.step_events]
+
+    # one microbatch (the corpus's first, as the loop pads it)
+    cfg_i = nlp.config.interpolate()
+    batcher = registry.resolve(cfg_i["training"]["batcher"])
+    corpus = registry.resolve(cfg_i["corpora"]["train"])
+    raw = list(zip(range(3), batcher(corpus())))
+    B_pad = bucket_batch_size(max(len(b) for _, b in raw))
+    T_pad = max(bucket_length(max(len(eg) for eg in b)) for _, b in raw)
+    collated = [nlp.collate(b, with_targets=True, pad_batch_to=B_pad, pad_len_to=T_pad)
+                for _, b in raw]
+    c = collated[0]
+    trunk = nlp.components["transformer"].model
+    calls = []
+    with moe_recorder(calls), torch.no_grad():
+        _, metrics = nlp.loss(c["tokens"], c["targets"], dropout=0.0)
+        sink = []
+        trunk(c["tokens"], ctx=Context(aux_losses=sink))
+    depth = trunk.dims["depth"]
+    loss_aux = float(metrics["loss_aux"])
+    recompute = trunk.router_aux_weight * sum(a for *_, a in calls[depth:2 * depth])
+    if not (math.isfinite(loss_aux)
+            and abs(loss_aux - recompute) <= TOL_MOE_AUX * abs(recompute)):
+        fail(f"{phase}: loss_aux {loss_aux} != router_aux_weight x the layers' aux {recompute}")
+    dropped = [1.0 - kept / max(real, 1) for _, real, kept, _ in calls[:depth]]
+
+    # one step (3 microbatches + K5) under the profiler: device time by part
+    nlp.model.requires_grad_(True)
+    params = {k.replace(".", "/"): p for k, p in nlp.model.named_parameters()}
+    optimizer = registry.resolve(cfg_i["training"]["optimizer"])
+    opt_state = optimizer.init(params)
+
+    def one_step():
+        # gradients zeroed in place, as the loop's step zeroes them: new
+        # gradient tensors would make K5 rebuild its chunk table every step
+        for p in params.values():
+            if p.grad is not None:
+                p.grad.zero_()
+        for b in collated:
+            nlp.loss(b["tokens"], b["targets"], dropout=0.1, seed=7)[0].backward()
+        grads = {k: p.grad for k, p in params.items()}
+        torch._foreach_div_(list(grads.values()), float(len(collated)))
+        with torch.no_grad():
+            optimizer.update(params, grads, opt_state)
+
+    def timed_step():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    one_step()
+    # the idle share divides the profiled step's device time by an
+    # unprofiled step's wall time: the profiler's own host cost stretches
+    # the step it traces
+    step_wall_ms = statistics.median(timed_step() for _ in range(3))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiled_wall_ms = timed_step()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    rows = prof.key_averages()
+    device = [e for e in rows if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    ops = {e.key: dev_us(e) / 1e3 for e in rows
+           if not str(getattr(e, "device_type", "")).endswith("CUDA")}
+    busy_ms = sum(dev_us(e) for e in device) / 1e3
+    # attributed by kernel name (the port's kernels) or by operator (the
+    # MoE's library calls; an index or a cat elsewhere in the step counts too)
+    groups = {"expert_bmm": ("aten::bmm",),
+              "dispatch_combine": ("aten::index", "aten::_index_put_impl_", "aten::scatter_",
+                                   "aten::cat"),
+              "router": ("aten::_softmax", "aten::_softmax_backward_data", "aten::argmax",
+                         "aten::cumsum", "aten::gather")}
+    split = {name: sum(ops.get(k, 0.0) for k in keys) for name, keys in groups.items()}
+    split["attention_k2_k3"] = sum(dev_us(e) for e in device if "flash" in e.key) / 1e3
+    split["k5_fused_update"] = sum(dev_us(e) for e in device
+                                   if "fused_update" in e.key) / 1e3
+    split["other"] = busy_ms - sum(split.values())
+
+    # every leaf's gradient with the kernels and with their plain versions,
+    # the plain run routing every token as the kernels' run did: a token
+    # that crosses a near-tie to another expert would change every leaf's
+    # gradient below it, which is no measure of the kernels. Remat off: its
+    # recompute stops once the saved tensors are back, mid-layer (remat
+    # gives the same gradients: tests/test_torch_moe.py)
+    b = collated[1]
+    grads, routes, natural = [], [], []
+    trunk.remat = False
+    for plain in (False, True):
+        for p in params.values():
+            p.grad = None
+        kernels = plain_kernels() if plain else nullcontext()
+        with kernels, moe_recorder(natural if plain else routes,
+                                   replay=routes if plain else None):
+            nlp.loss(b["tokens"], b["targets"], dropout=0.0)[0].backward()
+        grads.append({k: p.grad.detach().clone() for k, p in params.items()})
+    trunk.remat = True
+    rel = {k: (grads[0][k] - grads[1][k]).abs().max().item()
+           / max(grads[1][k].abs().max().item(), 1e-30) for k in params}
+    flips = sum(int((a[0] != c[0]).sum()) for a, c in zip(routes, natural))
+    worst = max(rel, key=rel.get)
+    if not rel[worst] <= TOL_GRAD:
+        fail(f"{phase}: gradient of {worst} kernels vs plain {rel[worst]} > {TOL_GRAD}")
+    expert = [k for k in rel if k.rsplit("/", 1)[-1] in ("router_W", "e_W1", "e_W2")]
+    worst_expert = max(expert, key=rel.get)
+    del grads
+    nlp.model.requires_grad_(False)
+    n_leaves, n_params = len(params), sum(p.numel() for p in params.values())
+    del nlp, params, optimizer, opt_state, collated, c, prof
+    captured.clear()
+    torch.cuda.empty_cache()
+    keys = ("tag_acc", "dep_las", "ents_f")
+    res = {
+        "phase": phase, "argv": " ".join(moe_cli_args(("<udgen train>", "<udgen dev>"),
+                                                      Path("<out>"))[:3]) + " ...",
+        "seconds": seconds, "steps": result.final_step, "leaves": n_leaves,
+        "params": n_params, "experts": MOE_EXPERTS, "generations": gens,
+        "group_shapes_B_T": sorted(set(result.step_shapes)), "head_losses": head_losses,
+        "dev_scores": [(h["step"], {k: h["other_scores"].get(k) for k in keys})
+                       for h in result.history],
+        "step_ms_median_events": statistics.median(event_ms),
+        "step_ms_quartiles_events": statistics.quantiles(event_ms, n=4),
+        "step_ms_median_host": statistics.median(x * 1e3 for x in result.step_host_seconds),
+        # the loop's words/s (its evaluations and checkpoints in the time) and
+        # the steps' own (their events)
+        "words_per_s": result.wps, "words_per_s_steps": result.words_seen / sum(event_ms) * 1e3,
+        "words": result.words_seen, "peak_memory_gb": peak_gb,
+        "launches": launches, "loss_aux": loss_aux, "loss_aux_recompute": recompute,
+        "dropped_share_per_layer": dropped, "microbatch_B_T": [B_pad, T_pad],
+        "step_profile": {"step_wall_ms_unprofiled_median3": step_wall_ms,
+                         "step_wall_ms_profiled": profiled_wall_ms,
+                         "device_busy_ms": busy_ms,
+                         "device_idle_share": 1.0 - busy_ms / step_wall_ms,
+                         "device_idle_share_vs_loop_step_events":
+                             1.0 - busy_ms / statistics.median(event_ms),
+                         "split_device_ms": split,
+                         "top_device_ms": [(e.key[:60], dev_us(e) / 1e3, e.count) for e in
+                                           sorted(device, key=dev_us, reverse=True)[:10]],
+                         "top_ops_device_ms": sorted(ops.items(), key=lambda kv: -kv[1])[:10]},
+        "grad_max_rel_err": rel[worst], "grad_worst_leaf": worst, "grad_tol": TOL_GRAD,
+        "grad_expert_router_max_rel_err": rel[worst_expert],
+        "grad_expert_router_worst_leaf": worst_expert,
+        # routing decisions the plain run would have made otherwise (replayed)
+        "grad_plain_routing_flips": flips,
+        "grad_routing_decisions": sum(int(r[1]) for r in routes),
+    }
+    emit(res)
+    return res, out
+
+
+def moe_texts(dev_path):
+    from spacy_ray_tpu_torch.training.corpus import Corpus
+
+    return [" ".join(eg.reference.words) for eg in Corpus(dev_path)()
+            if len(eg.reference.words) <= 60][:MOE_TEXTS]
+
+
+def open_loop(port: int, texts, rps: float, seconds: float):
+    """One-text requests sent at ``rps`` a second for ``seconds``, each at
+    its scheduled time on its own thread: [(text, latency s, status, body)]."""
+    out, lock = [], threading.Lock()
+    t_start = time.perf_counter()
+    n = int(rps * seconds)
+
+    def send(i):
+        text = texts[i % len(texts)]
+        status, body = post(port, [text])
+        with lock:
+            out.append((text, time.perf_counter() - (t_start + i / rps), status, body))
+
+    threads = []
+    for i in range(n):
+        delay = t_start + i / rps - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        th = threading.Thread(target=send, args=(i,))
+        th.start()
+        threads.append(th)
+    for th in threads:
+        th.join()
+    return out
+
+
+def moe_server(model_dir: Path, *extra):
+    """``serve`` (its ``build_server``) on ``model_dir``, started and warmed:
+    (server, port, seconds)."""
+    from spacy_ray_tpu_torch.__main__ import build_server
+
+    t = time.perf_counter()
+    server = build_server([str(model_dir), "--port", "0", *MOE_SERVE, *extra])
+    _, port = server.start()
+    server.engine.start()
+    return server, port, time.perf_counter() - t
+
+
+def stop_server(torch, server):
+    server.request_shutdown()
+    if server.wait() != 0:
+        fail("the MoE server did not drain cleanly")
+    del server
+    torch.cuda.empty_cache()
+
+
+def moe_vs_cpu(cpu, answers, done=None) -> dict:
+    """The served one-text answers against the same model on the CPU at the
+    same (B, T) bucket (an expert's capacity depends on it): the share of
+    tokens whose tag, head and dep agree, and the entity sets' F. ``done``
+    keeps the CPU's docs by (text, B, T) across calls."""
+    done = {} if done is None else done
+    got, want = [], []
+    for text, body in answers:
+        key = (text, body["batch"]["B"], body["batch"]["T"])
+        if key not in done:
+            d = cpu.tokenizer(text)
+            cpu.predict_docs([d], batch_size=1, pad_batch_to=key[1], pad_len_to=key[2])
+            done[key] = d
+        got.append(body["docs"][0])
+        want.append(done[key])
+    out = {}
+    for key in ("tags", "heads", "deps"):
+        pairs = [(a, b) for s, d in zip(got, want) for a, b in zip(s[key], getattr(d, key))]
+        out[key] = sum(a == b for a, b in pairs) / len(pairs)
+    out["ents_f"] = set_f({(i, *e[:3]) for i, s in enumerate(got) for e in s.get("ents", [])},
+                          {(i, e.start, e.end, e.label) for i, d in enumerate(want)
+                           for e in d.ents})
+    return out
+
+
+def moe_refusal_label(params) -> str:
+    """The JAX package's int8 refusal label for an MoE trunk
+    (``spacy_ray_tpu/serving/overlay.py``), written out from the leaf names."""
+    layers = sorted(int(k[len("layer_"):]) for k in params["transformer"]
+                    if k.startswith("layer_"))
+    moe = [f"transformer/layer_{i}/{k}" for i in layers for k in ("e_W1", "e_W2")]
+    return (f"f32 (overlay refused: {len(moe)} MoE expert weight leaf(s) outside int8 "
+            f"coverage ({', '.join(moe[:4])}" + (", ..." if len(moe) > 4 else "") + "))")
+
+
+def phase_slice_moe(torch, out: Path, dev_path: Path):
+    """train:moe's ``best-model`` through the serving entry point. slice:moe:
+    at ``--precision auto`` (bf16) under a fixed open-loop load (p50, p99),
+    every doc tagged and parsed; at ``f32``, one request at a time, the
+    answers against the CPU's >= ``FLOOR_MOE_F32`` (bf16's reported, held
+    at ``FLOOR_MOE_BF16``); ``--precision int8`` refused with the JAX
+    package's label and ``/healthz`` saying f32. serve:telemetry: the same
+    server's ``/metrics`` keys and request counters, the Prometheus text
+    parsed, ``/trace`` a Chrome trace with one span per batch, and p50 with
+    ``--no-telemetry`` at the same load. serve:swap: on the same server,
+    ``/admin/swap`` to the first generation, then to the second while
+    ``SWAP_CLIENTS`` clients send ``SWAP_TEXTS``-text requests: every batch
+    (its requests from its ``/trace`` span) holds one generation, and each
+    response equals, bit for bit, that batch run on a fresh engine of the
+    generation it is stamped with (best-model's directory with that
+    generation's params file; its own decode graphs);
+    ``/admin/rollback`` gives the first generation's bytes again; 403
+    outside the allowlist, 409 for a torn generation; stage and flip
+    seconds."""
+    from spacy_ray_tpu_torch import Pipeline
+    from spacy_ray_tpu_torch.ops import _cuda
+    from spacy_ray_tpu_torch.pipeline.doc import doc_to_json
+    from spacy_ray_tpu_torch.serving.engine import InferenceEngine
+    from spacy_ray_tpu_torch.training.checkpoint import Checkpoints
+
+    best, last = out / "best-model", out / "last-model"
+    texts = moe_texts(dev_path)
+    g1, g2 = Checkpoints(last).generations()
+    # a torn generation: the meta of generation g2 over a truncated params file
+    torn = WORK / "moe_torn"
+    shutil.rmtree(torn, ignore_errors=True)
+    torn.mkdir(parents=True)
+    with open(last / f"params-{g2}.npz", "rb") as f:
+        (torn / f"params-{g2}.npz").write_bytes(f.read(1 << 20))
+    shutil.copy(last / f"train_meta-{g2}.json", torn)
+
+    server, port, setup_s = moe_server(best, "--swap-dir", str(last), "--swap-dir", str(torn))
+    runs = {}
+    try:
+        # one request at a time (an expert's capacity depends on the batch),
+        # for the comparison with the CPU
+        bf16_answers = [(t, post(port, [t])[1]) for t in texts]
+        _cuda.reset_launch_counts()
+        load = open_loop(port, texts, MOE_RPS, MOE_LOAD_S)
+        torch.cuda.synchronize()
+        runs["slice:moe"] = {"launches": _cuda.launch_counts()}
+        bad = [(s, b) for _, _, s, b in load if s != 200 or not all(
+            d.get("tags") and d.get("heads") is not None and d.get("deps")
+            for d in b["docs"])]
+        if bad:
+            fail(f"slice:moe: {len(bad)} bad answers, e.g. {bad[0]}")
+        missing = [k for k in ("hash_embed_gather_sum", "flash_attention_fwd")
+                   if runs["slice:moe"]["launches"][k] == 0]
+        if missing:
+            fail(f"slice:moe: kernels never launched on the serving path: {missing}")
+        lat_on = sorted(x[1] * 1e3 for x in load)
+        health = get(port, "/healthz")[1]
+
+        # serve:telemetry on the same server
+        _, snap = get(port, "/metrics")
+        need = {"counters", "gauges", "histograms", "slo", "slo_window", "process",
+                "generation", "swap_count"}
+        sent = len(texts) + len(load)
+        if not need <= set(snap) or snap["counters"]["requests"] != sent:
+            fail(f"serve:telemetry: /metrics keys {sorted(snap)} or requests "
+                 f"{snap['counters'].get('requests')} != {sent} sent")
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics?format=prometheus",
+                                    timeout=30) as r:
+            prom = r.read().decode()
+        series = 0
+        for line in prom.splitlines():
+            if line and not line.startswith("#"):
+                float(line.rsplit(" ", 1)[1])
+                series += 1
+        _, trace = get(port, "/trace")
+        spans = [e for e in trace["traceEvents"] if e.get("name") == "serve_batch"]
+        if len(spans) != snap["counters"]["batches"] or not all(e["ph"] == "X" for e in spans):
+            fail(f"serve:telemetry: {len(spans)} batch spans for "
+                 f"{snap['counters']['batches']} batches")
+        telemetry = {"metrics_keys": sorted(snap), "requests": snap["counters"]["requests"],
+                     "batches": snap["counters"]["batches"], "prometheus_series": series,
+                     "trace_batch_spans": len(spans),
+                     "slo": snap["slo"], "p50_ms_telemetry_on": percentile(lat_on, 0.5)}
+
+        # serve:swap on the same server, under SWAP_CLIENTS clients sending
+        # SWAP_TEXTS-text requests back to back, so a batch holds one or two
+        # requests (max-batch 4) and runs at the B 2 or B 4 bucket's graphs
+        def one_by_one():
+            return [(t, post(port, [t])) for t in texts]
+
+        forbidden = post_status(port, "/admin/swap", {"dir": str(WORK)})
+        torn_status = post_status(port, "/admin/swap", {"dir": str(torn), "generation": g2})
+        if forbidden != 403 or torn_status != 409:
+            fail(f"serve:swap: a dir outside the allowlist answered {forbidden}, "
+                 f"a torn generation {torn_status}")
+        first = admin(port, "/admin/swap", {"dir": str(last), "generation": g1})
+        r1 = {t: json.dumps(b["docs"]) for t, (s, b) in one_by_one()}
+        _cuda.reset_launch_counts()
+        stream, stop, lock = {}, threading.Event(), threading.Lock()
+
+        def client(c):
+            i = 0
+            while not stop.is_set():
+                k = (i * SWAP_CLIENTS + c) * SWAP_TEXTS
+                sent = [texts[(k + j) % len(texts)] for j in range(SWAP_TEXTS)]
+                rid = f"swap-{c}-{i}"
+                status, body = post(port, sent, request_id=rid)
+                with lock:
+                    stream[rid] = (sent, status, body)
+                i += 1
+
+        clients = [threading.Thread(target=client, args=(c,)) for c in range(SWAP_CLIENTS)]
+        for th in clients:
+            th.start()
+        while len(stream) < len(texts):
+            time.sleep(0.01)
+        swap = admin(port, "/admin/swap", {"dir": str(last), "generation": g2})
+        n_before = len(stream)
+        while len(stream) < n_before + 2 * len(texts):
+            time.sleep(0.01)
+        stop.set()
+        for th in clients:
+            th.join()
+        back = admin(port, "/admin/rollback", {})
+        after_rollback = {t: json.dumps(b["docs"]) for t, (s, b) in one_by_one()}
+        torch.cuda.synchronize()
+        runs["serve:swap"] = {"launches": _cuda.launch_counts()}
+        # each batch's requests, in the order their docs ran, from its span
+        _, trace = get(port, "/trace")
+        batches = [tuple(e["args"]["request_ids"]) for e in trace["traceEvents"]
+                   if e.get("name") == "serve_batch"
+                   and e.get("args", {}).get("request_ids", [""])[0] in stream]
+    finally:
+        stop_server(torch, server)
+
+    ran = sorted(rid for b in batches for rid in b)
+    if ran != sorted(stream):
+        fail(f"serve:swap: {len(stream)} responses, {len(ran)} requests in batch spans")
+    # every batch replayed as one request of its docs, in order, on a fresh
+    # engine of the generation its responses are stamped with (a token's
+    # expert slot depends on the tokens before it in the batch)
+    per_gen = {}
+    for b in batches:
+        gens = {stream[rid][2]["batch"]["generation"] for rid in b}
+        if len(gens) != 1 or any(stream[rid][1] != 200 for rid in b):
+            fail(f"serve:swap: a batch of {len(b)} requests stamped {gens}")
+        per_gen.setdefault(gens.pop(), []).append(b)
+    if sorted(per_gen) != [g1, g2]:
+        fail(f"serve:swap: batches stamped {sorted(per_gen)}, not [{g1}, {g2}]")
+    fresh_one, fresh_s, replays = {}, {}, 0
+    for gen, gen_batches in per_gen.items():
+        t = time.perf_counter()
+        # best-model's directory with the generation's params file in place
+        # of its own: one 2.1 GB read where from_disk + load_params take two
+        gen_dir = WORK / f"moe_generation_{gen}"
+        shutil.rmtree(gen_dir, ignore_errors=True)
+        gen_dir.mkdir(parents=True)
+        for f in best.iterdir():
+            if f.name != "params.npz":
+                (gen_dir / f.name).symlink_to(f.resolve())
+        (gen_dir / "params.npz").symlink_to((last / f"params-{gen}.npz").resolve())
+        nlp = Pipeline.from_disk(gen_dir, device="cuda")
+        fresh = InferenceEngine(nlp, max_batch_docs=4, max_doc_len=64).start()
+        fresh_s[gen] = time.perf_counter() - t
+        fresh_one[gen] = {t: json.dumps([doc_to_json(d) for d in fresh.submit_texts([t]).docs])
+                          for t in texts}
+        ran_as = {}  # the clients repeat their requests: one replay per batch's texts
+        for b in gen_batches:
+            key = tuple(t for rid in b for t in stream[rid][0])
+            if key not in ran_as:
+                ref = fresh.submit_texts(list(key))
+                ran_as[key] = (ref.batch_info, [doc_to_json(d) for d in ref.docs])
+                replays += 1
+            info, docs = ran_as[key]
+            for rid in b:
+                sent, _, body = stream[rid]
+                want, docs = docs[:len(sent)], docs[len(sent):]
+                got = {k: body["batch"][k] for k in ("B", "T", "occupancy")}
+                if got != {k: info[k] for k in got}:
+                    fail(f"serve:swap: {rid} ran at {got}, its batch at {info}")
+                if json.dumps(body["docs"]) != json.dumps(want):
+                    fail(f"serve:swap: {rid} stamped {gen} (a batch of {len(b)} requests) "
+                         "differs from that generation's fresh engine")
+        fresh.stop()
+        del fresh, nlp
+        torch.cuda.empty_cache()
+        shutil.rmtree(gen_dir)
+    multi = {gen: sum(len(b) > 1 for b in bs) for gen, bs in per_gen.items()}
+    if fresh_one[g1] != r1 or after_rollback != r1 or r1 == fresh_one[g2] or not all(
+            multi.values()):
+        fail(f"serve:swap: fresh {g1} bit-equal {fresh_one[g1] == r1}; rollback bit-equal "
+             f"{after_rollback == r1}; the generations answer alike {r1 == fresh_one[g2]}; "
+             f"batches of more than one request {multi}")
+    emit({"phase": "serve:swap", "generations": [g1, g2], "clients": SWAP_CLIENTS,
+          "texts_per_request": SWAP_TEXTS, "responses": len(stream),
+          "stamped": {gen: sum(len(b) for b in bs) for gen, bs in per_gen.items()},
+          "batches": {gen: len(bs) for gen, bs in per_gen.items()},
+          "batches_of_more_than_one_request": multi, "replayed_batches": replays,
+          "fresh_engine_s": fresh_s,
+          # (B, T, docs, requests) of every batch in the swap window
+          "batches_seen": sorted({(stream[b[0]][2]["batch"]["B"], stream[b[0]][2]["batch"]["T"],
+                                   stream[b[0]][2]["batch"]["occupancy"], len(b))
+                                  for b in batches}),
+          "bit_equal_to_each_generation": True, "rollback_bit_equal": True,
+          "forbidden_status": forbidden, "torn_status": torn_status,
+          "stage_s": swap["stage_s"], "flip_s": swap["flip_s"], "flip_wait_s": swap["wait_s"],
+          "first_swap_stage_s": first["stage_s"], "rollback_flip_s": back["flip_s"],
+          "launches": runs["serve:swap"]["launches"]})
+
+    # the same load with --no-telemetry
+    server, port, _ = moe_server(best, "--no-telemetry")
+    try:
+        load_off = open_loop(port, texts, MOE_RPS, MOE_LOAD_S)
+        if any(s != 200 for _, _, s, _ in load_off):
+            fail("slice:moe: --no-telemetry server failed a request")
+        if get(port, "/metrics")[1].get("telemetry") != "disabled":
+            fail("slice:moe: --no-telemetry server reports telemetry")
+    finally:
+        stop_server(torch, server)
+    lat_off = sorted(x[1] * 1e3 for x in load_off)
+    telemetry["p50_ms_telemetry_off"] = percentile(lat_off, 0.5)
+    telemetry["p99_ms_on_off"] = [percentile(lat_on, 0.99), percentile(lat_off, 0.99)]
+    emit({"phase": "serve:telemetry", **telemetry})
+
+    # f32, one request at a time, against the CPU; int8 refused
+    server, port, _ = moe_server(best, "--precision", "f32")
+    try:
+        f32_answers = [(t, post(port, [t])[1]) for t in texts]
+    finally:
+        stop_server(torch, server)
+    cpu = Pipeline.from_disk(best, device="cpu")
+    cpu_docs = {}
+    agree_f32 = moe_vs_cpu(cpu, f32_answers, cpu_docs)
+    agree_bf16 = moe_vs_cpu(cpu, bf16_answers, cpu_docs)
+    label = moe_refusal_label(cpu.params)
+    del cpu
+    low = {k: v for k, v in agree_f32.items() if not v >= FLOOR_MOE_F32}
+    low.update({f"bf16_{k}": v for k, v in agree_bf16.items() if not v >= FLOOR_MOE_BF16})
+    if low:
+        fail(f"slice:moe: card vs CPU below the floors: {low}")
+    from spacy_ray_tpu_torch.__main__ import build_server
+
+    server = build_server([str(best), "--port", "0", *MOE_SERVE, "--precision", "int8"])
+    try:
+        _, port = server.start()
+        server.engine.start(warmup=False)
+        int8_health = get(port, "/healthz")[1]
+    finally:
+        stop_server(torch, server)
+    if int8_health["precision"] != "f32" or int8_health["precision_label"] != label:
+        fail(f"slice:moe: --precision int8 served {int8_health['precision']} "
+             f"{int8_health['precision_label']!r}, not JAX's {label!r}")
+    res = {"phase": "slice:moe", "setup_s": setup_s, "precision_label": health["precision_label"],
+           "offered_rps": MOE_RPS, "requests": len(load),
+           "p50_ms": percentile(lat_on, 0.5), "p99_ms": percentile(lat_on, 0.99),
+           "batches_seen": sorted({(b["batch"]["B"], b["batch"]["T"], b["batch"]["occupancy"])
+                                   for *_, b in load}),
+           "card_vs_cpu_f32": agree_f32, "card_bf16_vs_cpu_f32": agree_bf16,
+           "floors": {"f32": FLOOR_MOE_F32, "bf16": FLOOR_MOE_BF16},
+           "int8_label": int8_health["precision_label"],
+           "launches": runs["slice:moe"]["launches"]}
+    emit(res)
+    shutil.rmtree(torn, ignore_errors=True)
+    return {"slice:moe": res, "serve:swap": runs["serve:swap"]}
+
+
+def post_status(port: int, path: str, payload) -> int:
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=json.dumps(payload).encode())
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status
+    except urllib.error.HTTPError as e:
+        e.read()
+        return e.code
+
+
+def admin(port: int, path: str, payload) -> dict:
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=json.dumps(payload).encode())
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        fail(f"{path} answered {e.code}: {e.read()[:300]}")
+
+
+def phase_slice_moe_jax(torch):
+    """``tests/data/jax_moe`` (written by the JAX package:
+    bin/make_jax_moe_fixture.py) served at f32 through the serving entry
+    point, one text a request: tags, heads, deps and entities equal the JAX
+    package's ``answers.json``, and the trunk's output of its first texts
+    within ``TOL_MOE_JAX_TRUNK`` of JAX's."""
+    import numpy as np
+
+    from spacy_ray_tpu_torch.ops import _cuda
+    from spacy_ray_tpu_torch.pipeline.doc import Doc, Example
+
+    path = ROOT / "tests" / "data" / "jax_moe"
+    answers = json.loads((path / "answers.json").read_text(encoding="utf8"))
+    server, port, _ = moe_server(path, "--precision", "f32")
+    try:
+        _cuda.reset_launch_counts()
+        served = [post(port, [t])[1] for t in answers["texts"]]
+        torch.cuda.synchronize()
+        launches = _cuda.launch_counts()
+        nlp = server.engine.nlp
+        trunk_err = 0.0
+        for i, rows in enumerate(answers["trunk"]):
+            B, T = answers["buckets"][i]
+            words = list(nlp.tokenizer(answers["texts"][i]).words)
+            c = nlp.collate([Example.from_gold(Doc(words=words))], pad_batch_to=B, pad_len_to=T)
+            with torch.no_grad():
+                X = nlp.forward(c["tokens"])["transformer"].X[0, :len(words)].cpu().numpy()
+            trunk_err = max(trunk_err, float(np.abs(X - np.asarray(rows)).max()))
+    finally:
+        stop_server(torch, server)
+    for i, body in enumerate(served):
+        d, bucket = body["docs"][0], [body["batch"]["B"], body["batch"]["T"]]
+        got = (d["tags"], d["heads"], d["deps"], [e[:3] for e in d.get("ents", [])], bucket)
+        want = (answers["tags"][i], answers["heads"][i], answers["deps"][i],
+                answers["ents"][i], answers["buckets"][i])
+        if got != want:
+            fail(f"slice:moe_jax: text {i} served {got}, JAX answered {want}")
+    if not trunk_err <= TOL_MOE_JAX_TRUNK:
+        fail(f"slice:moe_jax: trunk output {trunk_err} from JAX's > {TOL_MOE_JAX_TRUNK}")
+    missing = [k for k in ("hash_embed_gather_sum", "flash_attention_fwd") if launches[k] == 0]
+    if missing:
+        fail(f"slice:moe_jax: kernels never launched: {missing}")
+    res = {"phase": "slice:moe_jax", "texts": len(served), "answers_equal": True,
+           "trunk_max_abs_err": trunk_err, "trunk_tol": TOL_MOE_JAX_TRUNK,
+           "launches": launches}
     emit(res)
     return res
 
@@ -3766,7 +4536,8 @@ def main() -> int:
     kernels = phase_kernels(torch)
     udgen = write_udgen_corpus()
     full_shapes = trf_param_shapes(torch, udgen[0])
-    kernels.update(phase_train_kernels(torch, full_shapes))
+    moe_shapes = moe_param_shapes(torch, udgen)
+    kernels.update(phase_train_kernels(torch, full_shapes, moe_shapes))
     spacy_corpus = write_spacy_corpus(udgen)
     corpora = {"cnn": spacy_corpus, "sm": spacy_corpus, "tokcls": spacy_corpus,
                **write_head_corpora()}
@@ -3886,6 +4657,13 @@ def main() -> int:
     # its vectors.npz and components.json, served on the card
     runs["slice:md_jax"] = phase_slice_cnn(torch, ROOT / "tests" / "data" / "jax_md",
                                            spacy_corpus[1], phase="slice:md_jax")
+    # trf.cfg's trunk with 8 switch experts: trained through the CLI,
+    # served, its telemetry read and its generations hot-swapped; then the
+    # JAX-written MoE directory served
+    runs["train:moe"], moe_out = phase_train_moe(torch, udgen, moe_shapes)
+    runs.update(phase_slice_moe(torch, moe_out, udgen[1]))
+    shutil.rmtree(WORK / "train_moe", ignore_errors=True)
+    runs["slice:moe_jax"] = phase_slice_moe_jax(torch)
     shutil.rmtree(WORK / "udgen", ignore_errors=True)
     shutil.rmtree(WORK / "spacy_corpus", ignore_errors=True)
     shutil.rmtree(WORK / "head_corpora", ignore_errors=True)

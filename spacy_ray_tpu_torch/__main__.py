@@ -26,6 +26,9 @@ package's).
 ``serve`` loads a model directory (written by this package or by the JAX
 package), builds the precision overlay, starts the HTTP listener (the bound
 port is printed), runs the bucket warmup sweep and serves ``/v1/parse``
+with ``/metrics``, ``/trace`` and ``/admin/exemplars`` (``--no-telemetry``
+turns them off) and, for each ``--swap-dir``, ``/admin/swap`` and
+``/admin/rollback`` between that directory's checkpoint generations,
 until SIGTERM/SIGINT, which drains in-flight work and exits. Every command
 runs on the card unless ``--device cpu`` is given, and fails without one.
 ``init-vectors`` converts word2vec or GloVe text (``.gz`` too) or an
@@ -53,7 +56,8 @@ USAGE = (
     "       python -m spacy_ray_tpu_torch evaluate <model-dir> <data.jsonl> [--device cuda|cpu]"
     " [--code F]\n"
     "       python -m spacy_ray_tpu_torch serve <model-dir> [--port N] [--max-batch N] "
-    "[--max-doc-len N] [--precision auto|f32|bf16|int8] [--device cuda|cpu]\n"
+    "[--max-doc-len N] [--precision auto|f32|bf16|int8] [--device cuda|cpu]"
+    " [--no-telemetry] [--swap-dir CKPT_DIR ...]\n"
     "       python -m spacy_ray_tpu_torch init-vectors <input> <output.npz> [--truncate N]"
 )
 
@@ -61,7 +65,8 @@ USAGE = (
 def _serve_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m spacy_ray_tpu_torch serve",
-        description="Serve a saved pipeline as a JSON HTTP API (/v1/parse, /healthz).",
+        description="Serve a saved pipeline as a JSON HTTP API (/v1/parse, /healthz, "
+                    "/metrics, /trace, /admin/exemplars, /admin/swap, /admin/rollback).",
     )
     p.add_argument("model_path", type=Path)
     p.add_argument("--host", default="127.0.0.1")
@@ -76,6 +81,14 @@ def _serve_parser() -> argparse.ArgumentParser:
                    help="serving precision overlay: auto = bf16 on cuda, f32 on cpu")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="cuda (default; fails without a card) or cpu")
+    p.add_argument("--no-telemetry", action="store_true",
+                   help="no metrics registry, trace buffer or exemplars: /metrics, /trace "
+                        "and /admin/exemplars answer 'disabled'")
+    p.add_argument("--swap-dir", type=Path, action="append", default=[],
+                   metavar="CKPT_DIR",
+                   help="a training run's checkpoint directory (its last-model/) that "
+                        "/admin/swap may load generations from; repeatable. Without one "
+                        "/admin/swap and /admin/rollback answer 403")
     return p
 
 
@@ -83,14 +96,16 @@ def build_server(argv: List[str]):
     """Parse ``serve`` arguments, load the model and build the (not yet
     started) :class:`~.serving.server.Server`."""
     from .pipeline.language import Pipeline
-    from .serving.engine import InferenceEngine
+    from .serving.engine import InferenceEngine, ServingTelemetry
     from .serving.server import Server
 
     args = _serve_parser().parse_args(argv)
     nlp = Pipeline.from_disk(args.model_path, device=args.device)
-    engine = InferenceEngine(nlp, max_batch_docs=args.max_batch,
-                             max_doc_len=args.max_doc_len, precision=args.precision)
-    return Server(engine, args.host, args.port)
+    tel = None if args.no_telemetry else ServingTelemetry()
+    engine = InferenceEngine(nlp, max_batch_docs=args.max_batch, max_doc_len=args.max_doc_len,
+                             precision=args.precision, telemetry=tel)
+    return Server(engine, args.host, args.port, telemetry=tel,
+                  swap_dirs=[str(d) for d in args.swap_dir])
 
 
 def serve_command(argv: List[str]) -> int:

@@ -14,13 +14,14 @@ Initialisation is explicit: :meth:`Model.init_parameters` draws from a
 Parameters are created frozen (``requires_grad=False``), which is what
 serving wants; training turns them trainable with ``requires_grad_(True)``
 on the pipeline's models. A :class:`Context` carries the train flag, the
-global dropout override and the integer seed that dropout masks derive from.
+global dropout override, the integer seed that dropout masks derive from and
+the sink that auxiliary losses (an MoE router's) are appended to.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 from torch import nn
@@ -42,13 +43,17 @@ def fold_in(seed: int, data: int) -> int:
 class Context:
     """Per-call context of a forward: the train flag, the global training
     dropout override (``[training] dropout``; None keeps each layer's
-    configured rate), and the integer seed dropout masks derive from (None:
-    no dropout). Counterpart of ``spacy_ray_tpu/models/core.py``'s Context,
-    with a seed where JAX threads a key."""
+    configured rate), the integer seed dropout masks derive from (None: no
+    dropout), and ``aux_losses``, the list a layer with a regularizer term
+    (the MoE router's load-balancing loss) appends to, which the loss sums
+    into the total (None: no sink, the term is dropped). Counterpart of
+    ``spacy_ray_tpu/models/core.py``'s Context, with a seed where JAX
+    threads a key."""
 
     train: bool = False
     dropout: Optional[float] = None
     seed: Optional[int] = None
+    aux_losses: Optional[List[Any]] = None
 
     def dropout_rate(self, configured: float) -> float:
         """The effective dropout rate at a site whose architecture default
@@ -61,9 +66,15 @@ class Context:
         return None if self.seed is None else fold_in(self.seed, data)
 
     def child(self, i: int) -> "Context":
-        """The context of a chain's i-th child: the same flags, the seed
-        folded with ``i`` (JAX splits the key once per child)."""
-        return Context(self.train, self.dropout, self.fold_in(i))
+        """The context of a chain's i-th child: the same flags and the same
+        aux sink (the list itself, as JAX's ``split`` passes it on), the
+        seed folded with ``i`` (JAX splits the key once per child)."""
+        return Context(self.train, self.dropout, self.fold_in(i), self.aux_losses)
+
+    def add_aux_loss(self, value: Any) -> None:
+        """Append ``value`` to the sink; without one, drop it."""
+        if self.aux_losses is not None:
+            self.aux_losses.append(value)
 
 
 class Model(nn.Module):

@@ -45,7 +45,7 @@ from ..ops import ops as O
 from ..pipeline import transition as TS
 from ..registry import registry
 from ..types import Padded
-from .core import Model, empty_param, glorot_uniform_, zeros_param
+from .core import Context, Model, call, empty_param, glorot_uniform_, zeros_param
 
 PARSER_N_FEATURES = TS.N_FEATURES
 NER_N_FEATURES = 5  # token window [t-2, t-1, t, t+1, t+2]
@@ -133,7 +133,10 @@ class ParserUpper(Model):
 
 class TransitionModel(Model):
     """tok2vec (a listener, or a trunk of its own) + :class:`ParserUpper`;
-    parameters at ``tok2vec/...`` and ``upper/...``."""
+    parameters at ``tok2vec/...`` and ``upper/...``. The trunk of its own
+    runs under the loss's context (dropout, the aux sink), as in JAX."""
+
+    takes_ctx = True
 
     def __init__(self, tok2vec: Model, upper: ParserUpper, state_type: str):
         super().__init__(
@@ -146,10 +149,10 @@ class TransitionModel(Model):
         self.tok2vec = tok2vec
         self.upper = upper
 
-    def forward(self, x) -> torch.Tensor:
+    def forward(self, x, ctx: Optional[Context] = None) -> torch.Tensor:
         """x = (trunk input or output, feats [B, S, F]) -> [B, S, nA]."""
         inputs, feats = x
-        t2v: Padded = self.tok2vec(inputs)
+        t2v: Padded = call(self.tok2vec, inputs, ctx or Context())
         return self.upper.step_logits(t2v.X, feats)
 
 

@@ -18,7 +18,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ...models.core import Context
+from ...models.core import Context, call
 from ...models.parser import BiluoPlan, decode_biluo, decode_biluo_viterbi, ner_window_features
 from ...ops import ops as O
 from ...registry import registry
@@ -93,7 +93,7 @@ class NERComponent(Component):
         return {"actions": actions, "feats": feats, "ner_mask": mask}
 
     def loss(self, inputs: Any, targets: Dict[str, Any], ctx: Context):
-        logits = self.model((inputs, targets["feats"]))
+        logits = call(self.model, (inputs, targets["feats"]), ctx)
         loss = O.masked_softmax_cross_entropy(logits, targets["actions"], targets["ner_mask"])
         acc = O.masked_accuracy(logits.detach(), targets["actions"], targets["ner_mask"])
         return loss, {"ner_action_acc": acc}

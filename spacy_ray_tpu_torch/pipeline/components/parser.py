@@ -18,7 +18,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ...models.core import Context
+from ...models.core import Context, call
 from ...models.parser import NEG, ArcEagerPlan, decode_parser, decode_parser_beam
 from ...registry import registry
 from ...types import Padded
@@ -120,7 +120,7 @@ class ParserComponent(Component):
 
     # ------------------------------------------------------------------
     def loss(self, inputs: Any, targets: Dict[str, Any], ctx: Context):
-        logits = self.model((inputs, targets["feats"]))
+        logits = call(self.model, (inputs, targets["feats"]), ctx)
         masked = torch.where(targets["valid"], logits, NEG)
         logp = torch.log_softmax(masked.float(), dim=-1)
         actions = targets["actions"].long()

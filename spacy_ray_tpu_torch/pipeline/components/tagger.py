@@ -8,7 +8,7 @@ from typing import Any, Dict, List
 
 import numpy as np
 
-from ...models.core import Context
+from ...models.core import Context, call
 from ...ops import ops as O
 from ...registry import registry
 from ..doc import Doc, Example
@@ -54,7 +54,7 @@ class TaggerComponent(Component):
         return {"tags": tags, "tag_mask": mask}
 
     def loss(self, inputs: Any, targets: Dict[str, Any], ctx: Context):
-        logits = self.model(inputs).X
+        logits = call(self.model, inputs, ctx).X
         loss = O.masked_softmax_cross_entropy(logits, targets["tags"], targets["tag_mask"])
         acc = O.masked_accuracy(logits.detach(), targets["tags"], targets["tag_mask"])
         return loss, {"tag_acc_batch": acc}

@@ -447,27 +447,40 @@ class Pipeline:
         seeds the masks, None for no dropout. A frozen component
         (``frozen_components``) runs, and a frozen head's loss counts, as
         in JAX; :meth:`requires_grad_` keeps its parameters from a
-        gradient."""
+        gradient. The trunk and every head share one aux sink (a head's
+        inline trunk may be an MoE trunk too); its terms, the MoE router's
+        load-balancing losses, are summed into ``loss_aux`` and the total
+        unless the shared trunk is frozen (JAX ``pipeline/language.py``
+        ``make_loss_fn``)."""
         assert self.model is not None, "Pipeline not initialized"
         metrics: Dict[str, Any] = {}
         total = torch.zeros((), dtype=torch.float32, device=self.device)
         t2v_name = self.tok2vec_name
         t2v_out = None
+        aux_sink: List[Any] = []
         if t2v_name is not None:
             ctx = Context(train=True, dropout=dropout,
-                          seed=None if seed is None else fold_in(seed, 0))
+                          seed=None if seed is None else fold_in(seed, 0),
+                          aux_losses=aux_sink)
             t2v_out = self.components[t2v_name].forward(tokens, None, ctx)
         for i, name in enumerate(self.head_names()):
             comp = self.components[name]
             if not comp.trainable or name not in targets:
                 continue
             ctx = Context(train=True, dropout=dropout,
-                          seed=None if seed is None else fold_in(seed, i + 1))
+                          seed=None if seed is None else fold_in(seed, i + 1),
+                          aux_losses=aux_sink)
             loss, comp_metrics = comp.loss(t2v_out if comp.listens else tokens,
                                            targets[name], ctx)
             metrics[f"loss_{name}"] = loss.detach()
             metrics.update({f"{name}_{k}": v for k, v in comp_metrics.items()})
             total = total + loss
+        if aux_sink and (t2v_name is None or t2v_name not in self.frozen_components):
+            aux_total = aux_sink[0]
+            for a in aux_sink[1:]:
+                aux_total = aux_total + a
+            metrics["loss_aux"] = aux_total.detach()
+            total = total + aux_total
         return total, metrics
 
     def forward(self, tokens: TokenBatch, overlay: Optional[Dict[str, Any]] = None,

@@ -59,13 +59,30 @@ class RequestTooLarge(ServingError):
     code = "request_too_large"
 
 
+class SwapFailed(ServingError):
+    """A hot-swap or rollback could not be honored: the candidate generation
+    is torn (``CheckpointCorrupt``), its tree does not match the resident
+    one, or there is no previous resident to roll back to. The engine keeps
+    serving the current generation."""
+
+    http_status = 409
+    code = "swap_failed"
+
+
 class ServeRequest:
     """One admitted request: tokenized docs plus completion plumbing. The
     handler thread blocks on ``wait``; the dispatch thread annotates
-    ``docs`` in place (or sets ``error``) and completes it."""
+    ``docs`` in place (or sets ``error``) and completes it.
+
+    Stamps for telemetry (the engine's clock): ``started_at`` when batch
+    assembly takes the request off the queue, ``dispatched_at`` when its
+    batch is handed to the device, ``latency_s`` admission to completion
+    (set by the submitting thread), ``device_s`` the predict time of its
+    batch, results on the host (kept off ``batch_info``, so a response's
+    body depends only on the parameters and the texts)."""
 
     __slots__ = ("docs", "deadline", "enqueued_at", "_done", "error", "batch_info",
-                 "request_id")
+                 "request_id", "started_at", "dispatched_at", "latency_s", "device_s")
 
     def __init__(self, docs: List[Any], deadline: float, enqueued_at: float,
                  request_id: Optional[str] = None):
@@ -73,6 +90,10 @@ class ServeRequest:
         self.deadline = float(deadline)
         self.enqueued_at = float(enqueued_at)
         self.request_id = request_id or uuid.uuid4().hex[:16]
+        self.started_at: Optional[float] = None
+        self.dispatched_at: Optional[float] = None
+        self.latency_s: Optional[float] = None
+        self.device_s: Optional[float] = None
         self._done = threading.Event()
         self.error: Optional[ServingError] = None
         self.batch_info: Dict[str, Any] = {}
@@ -162,6 +183,7 @@ class DynamicBatcher:
                     break  # whole requests only
                 self._queue.popleft()
                 self._queued_docs -= len(head.docs)
+                head.started_at = now
                 batch.append(head)
                 have += len(head.docs)
             return batch

@@ -12,7 +12,8 @@ place of "accelerator":
   and its plain version on ``cpu``; there is no probe.
 * The overlay is refused (f32 served, reason in the label) when the model
   has no transformer trunk, or a trunk layer carries leaves the overlay
-  scheme does not know.
+  scheme does not know; ``int8`` is refused for an MoE trunk, whose expert
+  weights the int8 overlay does not cover (JAX's label, word for word).
 """
 
 from __future__ import annotations
@@ -23,7 +24,12 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from ..models.transformer import build_int8_overlay, build_param_shadow, shadow_coverage
+from ..models.transformer import (
+    build_int8_overlay,
+    build_param_shadow,
+    int8_unsupported_leaves,
+    shadow_coverage,
+)
 
 logger = logging.getLogger("spacy_ray_tpu_torch.serving")
 
@@ -83,6 +89,11 @@ def build_params_overlay(params: Dict[str, Any], precision: str,
     if eligible == 0:
         return f32("overlay refused: no transformer trunk in the pipeline")
     if resolved == "int8":
+        moe = int8_unsupported_leaves(params)
+        if moe:
+            return f32(f"overlay refused: {len(moe)} MoE expert weight leaf(s) "
+                       f"outside int8 coverage ({', '.join(moe[:4])}"
+                       + (", ..." if len(moe) > 4 else "") + ")")
         tree, n = build_int8_overlay(params)
         label = f"int8 (overlay: {n} trunk weights quantized per-channel; {reason})"
     else:

@@ -15,6 +15,8 @@
   format (flat ``mu/<path>``, ``nu/<path>``, ``count``, ``sched_count``):
   the JAX package pickles optax's state instead, and neither reads the
   other's; the params files load in both.
+* :class:`Checkpoints`: a reader of those generations beside a running
+  trainer (the serving hot-swap), parameters only, digest-verified.
 """
 
 from __future__ import annotations
@@ -225,3 +227,69 @@ class TrainCheckpoint:
             return state
         raise CheckpointCorrupt(f"no intact checkpoint generation in {path} "
                                 f"(last error: {last_err})")
+
+
+class Checkpoints:
+    """Read-only view of a :class:`TrainCheckpoint` directory for a reader
+    running beside the trainer that writes it (the serving hot-swap), of
+    generations written by either package. Array files land before their
+    generation's meta, every rename is atomic and retention deletes the
+    oldest generations after a new one is committed, so a meta's existence
+    means its files are complete, and a file that went missing or whose
+    SHA-256 differs from the meta's raises :class:`CheckpointCorrupt`
+    (JAX ``training/checkpoint.py`` ``Checkpoints``). Parameters only: the
+    optimizer state files differ by design between the packages, and a
+    swap discards them."""
+
+    def __init__(self, path) -> None:
+        self.path = Path(path)
+
+    def generations(self) -> List[int]:
+        """Committed generation stamps, ascending (a directory scan)."""
+        return TrainCheckpoint.generation_stamps(self.path)
+
+    def _meta_for(self, stamp: int) -> Dict[str, Any]:
+        meta_path = self.path / f"train_meta-{int(stamp)}.json"
+        try:
+            meta = json.loads(meta_path.read_text(encoding="utf8"))
+        except (OSError, ValueError) as e:
+            raise CheckpointCorrupt(f"unreadable checkpoint meta {meta_path}: {e}") from e
+        if not isinstance(meta, dict) or meta.get("stamp") != int(stamp):
+            raise CheckpointCorrupt(
+                f"generation meta {meta_path.name} carries stamp "
+                f"{meta.get('stamp') if isinstance(meta, dict) else None!r}")
+        return meta
+
+    def _verified_params_file(self, stamp: int) -> Tuple[Path, Dict[str, Any]]:
+        meta = self._meta_for(stamp)
+        f = self.path / f"params-{int(stamp)}.npz"
+        if not f.exists():
+            raise CheckpointCorrupt(f"checkpoint file missing: {f}")
+        expect = (meta.get("digests") or {}).get(f.name)
+        if expect is not None and _sha256_file(f) != expect:
+            raise CheckpointCorrupt(f"checkpoint digest mismatch: {f} (torn or tampered write)")
+        return f, meta
+
+    def latest_intact_generation(self) -> Optional[int]:
+        """The newest stamp whose parameters file digest-verifies, or None;
+        a torn newest generation falls back to the next (JAX's
+        ``latest_intact_generation(params_only=True)``)."""
+        for stamp in sorted(self.generations(), reverse=True):
+            try:
+                self._verified_params_file(stamp)
+            except CheckpointCorrupt:
+                continue
+            return stamp
+        return None
+
+    def load_generation_params(self, stamp: int) -> Dict[str, Any]:
+        """One generation's parameters, digest-verified:
+        ``{"params": {path: array}, "step": int}``. Raises
+        :class:`CheckpointCorrupt` on a torn, missing or retired piece."""
+        f, meta = self._verified_params_file(stamp)
+        try:
+            params = load_params(f)
+        except Exception as e:  # a corrupt zip raises many types
+            raise CheckpointCorrupt(f"corrupt checkpoint generation stamp {stamp} in "
+                                    f"{self.path}: {type(e).__name__}: {e}") from e
+        return {"params": params, "step": int(meta.get("step", stamp))}

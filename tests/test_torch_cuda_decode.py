@@ -181,3 +181,53 @@ def test_spancat_cfg_decode_on_the_card_agrees_with_its_cpu_run(tmp_path):
     spans = [{(i, *s) for i, d in enumerate(run) for s in d.spans["sc"]} for run in (card, cpu)]
     assert spans[1] and set_f(*spans) >= 0.99
     assert max(abs(a.cats[k] - b.cats[k]) for a, b in zip(card, cpu) for k in b.cats) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_hot_swap_on_the_card_serves_each_generation_through_its_decode_graphs():
+    # the JAX-written switch-MoE fixture (tagger, parser, NER) served on the
+    # card with its decode graphs live: a swap exchanges the parameters' values
+    # in place, so the graphs captured at warmup replay the new generation,
+    # bit-equal to a fresh engine of it; the rollback gives the first answers
+    import json
+
+    import numpy as np
+
+    from spacy_ray_tpu_torch.pipeline.doc import doc_to_json
+    from spacy_ray_tpu_torch.serving.engine import InferenceEngine
+    from spacy_ray_tpu_torch.training.checkpoint import flatten
+
+    dev = _card()
+    path = REPO / "tests" / "data" / "jax_moe"
+    texts = json.loads((path / "answers.json").read_text())["texts"][:6]
+    nlp = P.Pipeline.from_disk(path, device=dev)
+    rng = np.random.default_rng(0)
+    flat_b = {k: (v.cpu().numpy() + rng.normal(0, 0.5 * (float(v.std()) + 1e-2), v.shape)
+                  ).astype(np.float32) for k, v in flatten(nlp.params).items()}
+
+    def answers(engine):
+        return [json.dumps([doc_to_json(d) for d in engine.submit_texts([t]).docs])
+                for t in texts]
+
+    engine = InferenceEngine(nlp, max_batch_docs=4, max_doc_len=64).start()
+    fresh = None
+    try:
+        graphs = nlp.decode_graphs
+        n_graphs, replays = len(graphs), graphs.replays
+        assert n_graphs > 0
+        first = answers(engine)
+        out = engine.swap_params(flat_b, 2)
+        assert out["flip_s"] < out["stage_s"]
+        swapped = answers(engine)
+        assert nlp.decode_graphs is graphs and len(graphs) == n_graphs
+        assert graphs.replays >= replays + 2 * 2 * len(texts)  # parser + NER, twice
+        nlp_b = P.Pipeline.from_disk(path, device=dev)
+        nlp_b.load_params(flat_b)
+        fresh = InferenceEngine(nlp_b, max_batch_docs=4, max_doc_len=64).start()
+        assert swapped == answers(fresh) and swapped != first
+        engine.rollback()
+        assert answers(engine) == first
+    finally:
+        engine.stop()
+        if fresh is not None:
+            fresh.stop()

@@ -108,3 +108,28 @@ def test_chunk_rows_address_the_leaves_they_update(hyper):
         for a, w in zip((at[0], at[2], at[3]), (p2, m2, v2)):
             assert torch.equal(got[a:a + n], w)
         assert torch.equal(got[at[1]:at[1] + n], flat[at[1]:at[1] + n])  # g untouched
+
+
+def test_chunk_rows_at_the_moe_leaf_sets_size_stay_within_the_kernels_types():
+    # trf.cfg with 8 experts: 177 leaves, 531 M elements. Each expert leaf is
+    # [8, 768, 3072] (18.9 M elements); the four buffers of the step sit
+    # gigabytes apart, above 2**32 bytes. Every row's length must fit the
+    # kernel's int, its addresses its 64-bit words, and the chunk count the
+    # grid's x dimension.
+    expert = 8 * 768 * 3072
+    sizes = ([expert] * 24 + [768 * 2304, 768 * 768] * 12 + [20000 * 768]
+             + [10000 * 768] * 3 + [768] * 125)
+    total = sum(sizes)
+    assert len(sizes) == 177 and total > 500_000_000
+    base = [(1 << 33) + k * (4 * total + 4096) for k in range(4)]
+    leaves, offset = [], 0
+    for n in sizes:
+        leaves.append((n, *(b + 4 * offset for b in base)))
+        offset += n + (-n % 4)
+    rows = chunk_rows(leaves)
+    lengths = np.array([r[4] for r in rows], dtype=np.int64)
+    assert lengths.sum() == total and lengths.max() <= CHUNK < 2 ** 31
+    assert len(rows) < 2 ** 31 - 1
+    last = rows[-1]
+    assert last[0] + 4 * last[4] == leaves[-1][1] + 4 * leaves[-1][0]
+    assert max(max(r[:4]) for r in rows) < 2 ** 63 and min(r[0] for r in rows) >= 1 << 33

@@ -108,7 +108,10 @@ def test_typed_errors_map_to_statuses(port_server):
     assert _post(port, b"not json")[0] == 400
     assert _post(port, {"texts": []})[0] == 400
     assert _post(port, {"texts": ["a"]}, path="/v2/nope")[0] == 404
-    assert _get(port, "/metrics")[0] == 404
+    # /metrics exists since the serving telemetry; this server has none
+    assert _get(port, "/metrics") == (200, {"telemetry": "disabled", "generation": None,
+                                            "swap_count": 0})
+    assert _get(port, "/admin/alerts")[0] == 404
     status, _, headers = _post(port, {"texts": ["a b"]})
     assert status == 200 and "X-SRT-Request-Id" in headers
 

@@ -100,8 +100,9 @@ Run from the root of a checkout. Phases, each printing one JSON line:
               width 96, graph replay bit-equal to the eager decode, card vs
               CPU decode >= 0.99, and the served answers against the CPU's.
 13. cli:cnn — ``python -m spacy_ray_tpu_torch train configs/cnn.cfg`` on
-              the .spacy corpus (20 steps) and ``evaluate`` on its
-              best-model, as subprocesses on the card.
+              the .spacy corpus and ``evaluate`` on its best-model, as
+              subprocesses on the card: the trainer of serve:watch (22.),
+              40 steps, its line emitted there.
 14. train:spancat, slice:spancat — configs/spancat.cfg as written
               (tok2vec, spancat with ngram sizes 1-3 and hidden 128,
               textcat_multilabel) the same way, on 1000 span docs and 1000
@@ -210,6 +211,35 @@ Run from the root of a checkout. Phases, each printing one JSON line:
               generation; f32 answers against the CPU's at the same buckets;
               ``--precision int8`` refused with the JAX package's label; the
               JAX-written ``tests/data/jax_moe/`` answering as JAX did.
+22. serve:multimodel, serve:watch (after slice:md) — several pipelines in
+              one ``serve --model-manifest`` process: train:full's trf.cfg
+              model (the default, pinned), train:md's and train:cnn's,
+              ``--resident-models 2``, SLO classes gold (weight 4) and batch
+              (1), tenants acme, bulk and metered (5 docs/s, burst 10),
+              ``--max-batch 8 --max-doc-len 64``. 16 closed-loop clients per
+              trf tenant keep both classes queued while md and cnn bursts
+              alternate (5 loads, 4 evictions under trf's load), the metered tenant sends 4 x its quota, an
+              unknown model, ETag repeats and an ``/admin/swap`` of md
+              alone: no failed request, answers vs the CPU (trf >= 0.95
+              bf16, md and cnn >= 0.99), a reload's captures while a trf
+              batch was in flight, trf's gold:batch docs within 3.2-4.8,
+              429s and the quota held, 404, every repeat 304 undispatched,
+              md's ETags changed by its swap and trf's not, memory after the
+              2nd and last eviction within 64 MB and each eviction giving
+              back >= 90 % of its parameters and overlay, K1 fwd (trf: and
+              K2) in each model's sequential probe; each load's from_disk,
+              warmup and capture s, each eviction's drain s, p50/p99 by
+              model and class, trf's during and outside reloads. Then cnn
+              alone at ``--batching window --max-wait-ms 5`` and continuous
+              under one open loop: the same answers, occupancy and p50/p99.
+              serve:watch: ``serve <cnn> --watch <out>/last-model`` beside
+              ``train configs/cnn.cfg`` (40 steps, a generation every 10) as
+              subprocesses on the card, 4 clients of 2-text requests, then a
+              torn higher generation: the trainer exits 0, at least two
+              flips, no client's generation going back, the torn stamp never
+              served and logged once, every batch bit-equal to its replay on
+              a fresh engine of its generation; each flip's delay from its
+              meta file, stage and flip s.
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -2935,11 +2965,17 @@ def card_vs_cpu(model_dir: Path, answers) -> dict:
     for _, ts, body in answers:
         docs = [cpu.tokenizer(t) for t in ts]
         cpu.predict_docs(docs)
-        for d, served in zip(docs, body["docs"]):
-            if d.words != served["tokens"]:
-                fail(f"card and CPU tokenized differently: {served['tokens']} vs {d.words}")
-            got.append(served)
-            want.append(d)
+        got.extend(body["docs"])
+        want.extend(docs)
+    return agreement(cpu, got, want)
+
+
+def agreement(cpu, got, want) -> dict:
+    """``card_vs_cpu``'s measures of the served docs ``got`` (JSON) against
+    the CPU pipeline ``cpu``'s docs ``want``, one for one."""
+    for d, served in zip(got, want):
+        if served.words != d["tokens"]:
+            fail(f"card and CPU tokenized differently: {d['tokens']} vs {served.words}")
     out = {}
     for key in ("tags", "heads", "deps", "pos", "morphs", "lemmas", "sent_starts"):
         pairs = [(a, b) for s, d in zip(got, want) if getattr(d, key) is not None
@@ -3179,36 +3215,6 @@ def phase_slice_nel_jax(torch):
         server.httpd.server_close()
         del server, engine
         torch.cuda.empty_cache()
-
-
-def phase_cli_cnn(corpus):
-    """The commands a user runs, as subprocesses on the card (no
-    ``--device``): ``train configs/cnn.cfg`` on the .spacy corpus (20 steps,
-    evaluated every 10), then ``evaluate`` on its ``best-model/``."""
-    out = WORK / "cli_cnn"
-    shutil.rmtree(out, ignore_errors=True)
-    t0 = time.perf_counter()
-    args = [sys.executable, "-m", "spacy_ray_tpu_torch"]
-    trained = subprocess.run(
-        args + ["train", "configs/cnn.cfg", "--output", str(out), "--paths.train",
-                str(corpus[0]), "--paths.dev", str(corpus[1]), "--training.max_steps", "20",
-                "--training.eval_frequency", "10"],
-        cwd=ROOT, capture_output=True, text=True, timeout=300)
-    if trained.returncode != 0 or "Done. steps=20" not in trained.stdout:
-        fail(f"cli:cnn: train exited {trained.returncode}:\n{trained.stdout}\n{trained.stderr}")
-    evaluated = subprocess.run(
-        args + ["evaluate", str(out / "best-model"), str(corpus[1])],
-        cwd=ROOT, capture_output=True, text=True, timeout=300)
-    if evaluated.returncode != 0:
-        fail(f"cli:cnn: evaluate exited {evaluated.returncode}:\n{evaluated.stderr}")
-    scores = json.loads(evaluated.stdout.strip().splitlines()[-1])
-    if not scores.get("tag_acc", 0) > 0.5:
-        fail(f"cli:cnn: evaluate scored {scores}")
-    shutil.rmtree(out, ignore_errors=True)
-    emit({"phase": "cli:cnn", "seconds": time.perf_counter() - t0,
-          "train_output": trained.stdout.strip().splitlines()[-4:],
-          "evaluate_output": evaluated.stdout.strip().splitlines()[-3:-1],
-          "evaluate_tag_acc": scores["tag_acc"]})
 
 
 # ------------------------------------------------- a trunk started from weights
@@ -4154,6 +4160,76 @@ def moe_refusal_label(params) -> str:
             f"coverage ({', '.join(moe[:4])}" + (", ..." if len(moe) > 4 else "") + "))")
 
 
+def replay_batches(torch, phase, stream, batches, model_dir: Path, ckpt_dir: Path, *,
+                   max_batch_docs: int, max_doc_len: int, texts=()):
+    """Every served batch replayed as one request of its docs, in order, on a
+    fresh engine of the generation its responses are stamped with (``None``:
+    ``model_dir`` as loaded; a stamp: ``model_dir`` with that generation's
+    params file from ``ckpt_dir``; its own decode graphs). ``stream`` maps a
+    request id to (texts, status, body), ``batches`` lists each batch's
+    request ids (from its ``/trace`` span). Fails unless every request ran in
+    a batch, each batch holds one generation, and each response equals its
+    share of the replay bit for bit and ran at the same (B, T, occupancy).
+    Returns (batches by generation, each generation's one-text answers for
+    ``texts``, its fresh engine's setup seconds, the replays)."""
+    from spacy_ray_tpu_torch import Pipeline
+    from spacy_ray_tpu_torch.pipeline.doc import doc_to_json
+    from spacy_ray_tpu_torch.serving.engine import InferenceEngine
+
+    ran = sorted(rid for b in batches for rid in b)
+    if ran != sorted(stream):
+        fail(f"{phase}: {len(stream)} responses, {len(ran)} requests in batch spans")
+    per_gen = {}
+    for b in batches:
+        gens = {stream[rid][2]["batch"]["generation"] for rid in b}
+        if len(gens) != 1 or any(stream[rid][1] != 200 for rid in b):
+            fail(f"{phase}: a batch of {len(b)} requests stamped {gens}")
+        per_gen.setdefault(gens.pop(), []).append(b)
+    fresh_one, fresh_s, replays = {}, {}, 0
+    for gen, gen_batches in per_gen.items():
+        t = time.perf_counter()
+        src = model_dir
+        if gen is not None:
+            # model_dir with the generation's params file in place of its own:
+            # one read where from_disk + load_params take two
+            src = WORK / f"{phase.replace(':', '_')}_generation_{gen}"
+            shutil.rmtree(src, ignore_errors=True)
+            src.mkdir(parents=True)
+            for f in model_dir.iterdir():
+                if f.name != "params.npz":
+                    (src / f.name).symlink_to(f.resolve())
+            (src / "params.npz").symlink_to((ckpt_dir / f"params-{gen}.npz").resolve())
+        nlp = Pipeline.from_disk(src, device="cuda")
+        fresh = InferenceEngine(nlp, max_batch_docs=max_batch_docs,
+                                max_doc_len=max_doc_len).start()
+        fresh_s[gen] = time.perf_counter() - t
+        fresh_one[gen] = {t: json.dumps([doc_to_json(d) for d in fresh.submit_texts([t]).docs])
+                          for t in texts}
+        ran_as = {}  # the clients repeat their requests: one replay per batch's texts
+        for b in gen_batches:
+            key = tuple(t for rid in b for t in stream[rid][0])
+            if key not in ran_as:
+                ref = fresh.submit_texts(list(key))
+                ran_as[key] = (ref.batch_info, [doc_to_json(d) for d in ref.docs])
+                replays += 1
+            info, docs = ran_as[key]
+            for rid in b:
+                sent, _, body = stream[rid]
+                want, docs = docs[:len(sent)], docs[len(sent):]
+                got = {k: body["batch"][k] for k in ("B", "T", "occupancy")}
+                if got != {k: info[k] for k in got}:
+                    fail(f"{phase}: {rid} ran at {got}, its batch at {info}")
+                if json.dumps(body["docs"]) != json.dumps(want):
+                    fail(f"{phase}: {rid} stamped {gen} (a batch of {len(b)} requests) "
+                         "differs from that generation's fresh engine")
+        fresh.stop()
+        del fresh, nlp
+        torch.cuda.empty_cache()
+        if src != model_dir:
+            shutil.rmtree(src)
+    return per_gen, fresh_one, fresh_s, replays
+
+
 def phase_slice_moe(torch, out: Path, dev_path: Path):
     """train:moe's ``best-model`` through the serving entry point. slice:moe:
     at ``--precision auto`` (bf16) under a fixed open-loop load (p50, p99),
@@ -4175,8 +4251,6 @@ def phase_slice_moe(torch, out: Path, dev_path: Path):
     seconds."""
     from spacy_ray_tpu_torch import Pipeline
     from spacy_ray_tpu_torch.ops import _cuda
-    from spacy_ray_tpu_torch.pipeline.doc import doc_to_json
-    from spacy_ray_tpu_torch.serving.engine import InferenceEngine
     from spacy_ray_tpu_torch.training.checkpoint import Checkpoints
 
     best, last = out / "best-model", out / "last-model"
@@ -4289,58 +4363,11 @@ def phase_slice_moe(torch, out: Path, dev_path: Path):
     finally:
         stop_server(torch, server)
 
-    ran = sorted(rid for b in batches for rid in b)
-    if ran != sorted(stream):
-        fail(f"serve:swap: {len(stream)} responses, {len(ran)} requests in batch spans")
-    # every batch replayed as one request of its docs, in order, on a fresh
-    # engine of the generation its responses are stamped with (a token's
-    # expert slot depends on the tokens before it in the batch)
-    per_gen = {}
-    for b in batches:
-        gens = {stream[rid][2]["batch"]["generation"] for rid in b}
-        if len(gens) != 1 or any(stream[rid][1] != 200 for rid in b):
-            fail(f"serve:swap: a batch of {len(b)} requests stamped {gens}")
-        per_gen.setdefault(gens.pop(), []).append(b)
+    per_gen, fresh_one, fresh_s, replays = replay_batches(
+        torch, "serve:swap", stream, batches, best, last, max_batch_docs=4, max_doc_len=64,
+        texts=texts)
     if sorted(per_gen) != [g1, g2]:
         fail(f"serve:swap: batches stamped {sorted(per_gen)}, not [{g1}, {g2}]")
-    fresh_one, fresh_s, replays = {}, {}, 0
-    for gen, gen_batches in per_gen.items():
-        t = time.perf_counter()
-        # best-model's directory with the generation's params file in place
-        # of its own: one 2.1 GB read where from_disk + load_params take two
-        gen_dir = WORK / f"moe_generation_{gen}"
-        shutil.rmtree(gen_dir, ignore_errors=True)
-        gen_dir.mkdir(parents=True)
-        for f in best.iterdir():
-            if f.name != "params.npz":
-                (gen_dir / f.name).symlink_to(f.resolve())
-        (gen_dir / "params.npz").symlink_to((last / f"params-{gen}.npz").resolve())
-        nlp = Pipeline.from_disk(gen_dir, device="cuda")
-        fresh = InferenceEngine(nlp, max_batch_docs=4, max_doc_len=64).start()
-        fresh_s[gen] = time.perf_counter() - t
-        fresh_one[gen] = {t: json.dumps([doc_to_json(d) for d in fresh.submit_texts([t]).docs])
-                          for t in texts}
-        ran_as = {}  # the clients repeat their requests: one replay per batch's texts
-        for b in gen_batches:
-            key = tuple(t for rid in b for t in stream[rid][0])
-            if key not in ran_as:
-                ref = fresh.submit_texts(list(key))
-                ran_as[key] = (ref.batch_info, [doc_to_json(d) for d in ref.docs])
-                replays += 1
-            info, docs = ran_as[key]
-            for rid in b:
-                sent, _, body = stream[rid]
-                want, docs = docs[:len(sent)], docs[len(sent):]
-                got = {k: body["batch"][k] for k in ("B", "T", "occupancy")}
-                if got != {k: info[k] for k in got}:
-                    fail(f"serve:swap: {rid} ran at {got}, its batch at {info}")
-                if json.dumps(body["docs"]) != json.dumps(want):
-                    fail(f"serve:swap: {rid} stamped {gen} (a batch of {len(b)} requests) "
-                         "differs from that generation's fresh engine")
-        fresh.stop()
-        del fresh, nlp
-        torch.cuda.empty_cache()
-        shutil.rmtree(gen_dir)
     multi = {gen: sum(len(b) > 1 for b in bs) for gen, bs in per_gen.items()}
     if fresh_one[g1] != r1 or after_rollback != r1 or r1 == fresh_one[g2] or not all(
             multi.values()):
@@ -4490,6 +4517,631 @@ def phase_slice_moe_jax(torch):
     return res
 
 
+# ------------------------------------------- several models on one card, live
+
+MM_SERVE = ["--max-batch", "8", "--max-doc-len", "64", "--precision", "auto"]
+MM_SEGMENTS = 5            # serve:multimodel: bursts md, cnn, md, cnn, md: 5 loads, 4 evictions
+MM_SEGMENT_S = 1.5         # each burst's seconds once its model answers
+MM_TRF_CLIENTS = 16        # closed-loop clients per trf tenant: both classes stay queued
+MM_TEXTS = 32              # dev texts of <= 60 words the phase sends (max-doc-len 64)
+MM_QUOTA = (5.0, 10.0)     # the metered tenant: docs a second, burst
+MM_METERED_RPS = 10.0      # its 2-text requests a second, open loop: 4 x its quota
+MM_SHARE = (3.2, 4.8)      # trf's served gold:batch docs (weights 4:1)
+MM_MEMORY_DRIFT = 64 << 20  # allocated after the 2nd and the last eviction
+MM_FREED = 0.9             # an eviction gives back this share of params + overlay
+FLOOR_MM = {"trf": 0.95, "md": 0.99, "cnn": 0.99}  # slice:full's kernels-vs-plain, slice:md/cnn's
+WINDOW_RPS, WINDOW_S = 100.0, 3.0  # serve:multimodel's window sub-run, open loop
+WATCH_STEPS, WATCH_EVERY = 40, 10  # serve:watch's trainer: a generation every 10 steps
+WATCH_CLIENTS = 4
+
+
+def request(port: int, path: str, texts, headers=None, timeout: float = 300.0):
+    """POST ``texts`` to ``path``: (status, body or None, headers), an HTTP
+    error's status included."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps({"texts": texts}).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            raw, status, hdrs = r.read(), r.status, dict(r.headers)
+    except urllib.error.HTTPError as e:
+        raw, status, hdrs = e.read(), e.code, dict(e.headers)
+    return status, (json.loads(raw) if raw else None), hdrs
+
+
+def engine_bytes(engine) -> int:
+    """Device bytes of an engine's parameters and precision overlay."""
+    seen, total = set(), 0
+
+    def walk(x):
+        nonlocal total
+        if isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif hasattr(x, "untyped_storage") and x.is_cuda:
+            key = x.untyped_storage().data_ptr()
+            if key not in seen:
+                seen.add(key)
+                total += x.untyped_storage().nbytes()
+
+    walk(engine._live)
+    walk(engine.overlay.overlay or {})
+    return total
+
+
+def latency_ms(rows) -> dict:
+    lat = sorted((t1 - t0) * 1e3 for t0, t1 in rows)
+    return {"n": len(lat), "p50": percentile(lat, 0.5) if lat else None,
+            "p99": percentile(lat, 0.99) if lat else None}
+
+
+def phase_serve_multimodel(torch, trf_dir: Path, md_dir: Path, md_last: Path, cnn_dir: Path,
+                           dev_path: Path):
+    """One ``serve --model-manifest`` process over train:full's trf (the
+    default, pinned), train:md's and train:cnn's models, two resident at a
+    time (``--resident-models 2``), classes gold (weight 4) and batch (1),
+    tenants acme (gold), bulk (batch) and metered (batch, 5 docs/s, burst
+    10). ``MM_TRF_CLIENTS`` closed-loop clients per trf tenant keep both
+    classes queued while two burst clients alternate md and cnn
+    (``MM_SEGMENTS`` bursts: the LRU loads and evicts under trf's load), the
+    metered tenant sends past its quota, and the conductor sends an unknown
+    model, ETag repeats and, in md's last burst, ``/admin/swap {"model":
+    "md"}`` to a generation of train:md's last-model. Fails on any 5xx or
+    client error, answers below ``FLOOR_MM`` against the CPU, no capture
+    while a trf batch was in flight, a gold:batch share outside
+    ``MM_SHARE``, no 429 or too many admitted metered docs, no 404, a repeat
+    not 304 or dispatched, md's ETags unchanged by its swap or trf's
+    changed, memory after the 2nd and last eviction apart by more than
+    ``MM_MEMORY_DRIFT`` or an eviction giving back less than ``MM_FREED``,
+    or a model whose sequential probe launched no K1 fwd (trf: no K2). Then
+    the window sub-run: cnn alone at ``--batching window --max-wait-ms 5``
+    and continuous under the same open loop, the same answers."""
+    from spacy_ray_tpu_torch import Pipeline
+    from spacy_ray_tpu_torch.__main__ import build_server
+    from spacy_ray_tpu_torch.devices import DEVICE_GATE
+    from spacy_ray_tpu_torch.ops import _cuda
+    from spacy_ray_tpu_torch.pipeline.decode_graph import DecodeGraphs
+    from spacy_ray_tpu_torch.training.checkpoint import Checkpoints
+    from spacy_ray_tpu_torch.training.corpus import Corpus
+
+    work = WORK / "multimodel"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    manifest = work / "manifest.json"
+    manifest.write_text(json.dumps({
+        "default_model": "trf",
+        "models": {"trf": {"path": str(trf_dir)}, "md": {"path": str(md_dir)},
+                   "cnn": {"path": str(cnn_dir)}},
+        "classes": {"gold": {"weight": 4, "p99_target_ms": 500}, "batch": {"weight": 1}},
+        "tenants": {"acme": {"class": "gold"}, "bulk": {"class": "batch"},
+                    "metered": {"class": "batch", "quota_docs_per_s": MM_QUOTA[0],
+                                "quota_burst": MM_QUOTA[1]}},
+    }), encoding="utf-8")
+    texts = [" ".join(eg.reference.words) for eg in Corpus(dev_path)()
+             if len(eg.reference.words) <= 60][:MM_TEXTS]
+    t0 = time.perf_counter()
+    server = build_server(["ignored", "--model-manifest", str(manifest), "--port", "0",
+                           *MM_SERVE, "--resident-models", "2", "--swap-dir", str(md_last)])
+    res, trf = server.residency, server.engine
+    lock = threading.Lock()
+    # the phase's own instruments: trf batches in flight, every capture, and
+    # each load and eviction of the residency (wrapped, not changed)
+    trf_inflight, captures = [0], {"total": 0, "trf_in_flight": 0}
+    run_batch = trf._run_batch
+
+    def trf_batch(requests):
+        with lock:
+            trf_inflight[0] += 1
+        try:
+            run_batch(requests)
+        finally:
+            with lock:
+                trf_inflight[0] -= 1
+
+    trf._run_batch = trf_batch
+    capture = DecodeGraphs._capture
+
+    def watched_capture(self, comp, X, lengths):
+        with lock:
+            captures["total"] += 1
+            captures["trf_in_flight"] += int(trf_inflight[0] > 0)
+        return capture(self, comp, X, lengths)
+
+    loads, evictions = [], []
+    factory, retire = res.engine_factory, res._retire
+
+    def timed_factory(spec):
+        before, wait0 = dict(captures), DEVICE_GATE.exclusive_wait_s
+        t = time.perf_counter()
+        eng = factory(spec)
+        total = time.perf_counter() - t
+        graphs = eng.nlp.decode_graphs
+        with lock:
+            loads.append({
+                "model": spec.name, "at_s": t - t0, "t": (t, t + total), "load_s": total,
+                "from_disk_and_build_s": total - eng.warmup_s, "warmup_s": eng.warmup_s,
+                "capture_s": graphs.capture_seconds if graphs is not None else 0.0,
+                "graphs": len(graphs) if graphs is not None else 0,
+                "captures_with_trf_batch_in_flight":
+                    captures["trf_in_flight"] - before["trf_in_flight"],
+                "capture_gate_wait_s": DEVICE_GATE.exclusive_wait_s - wait0,
+                "allocated_after_load": torch.cuda.memory_allocated()})
+        return eng
+
+    def timed_retire(name, eng):
+        size, drain, drain_s = engine_bytes(eng), eng.drain, []
+
+        def timed_drain(timeout):
+            t = time.perf_counter()
+            ok = drain(timeout)
+            drain_s.append(time.perf_counter() - t)
+            return ok
+
+        eng.drain = timed_drain
+        t = time.perf_counter()
+        retire(name, eng)
+        with lock:
+            evictions.append({
+                "model": name, "at_s": t - t0, "retire_s": time.perf_counter() - t,
+                "drain_s": drain_s[0] if drain_s else None, "param_overlay_bytes": size,
+                "released_bytes": eng.released_bytes,
+                "allocated_after": eng.allocated_after_release})
+
+    res.engine_factory, res._retire = timed_factory, timed_retire
+    log = []        # (model, tenant, t0, t1, status, texts, body)
+    repeats = []    # (what, first status, repeat status, first ETag, repeat ETag, id)
+    stop = threading.Event()
+
+    def send(model, tenant, ts, headers=None):
+        path = "/v1/parse" if model == "trf" else f"/v1/models/{model}/parse"
+        t = time.perf_counter()
+        status, body, hdrs = request(port, path, ts, {"X-SRT-Tenant": tenant, **(headers or {})})
+        with lock:
+            log.append((model, tenant, t, time.perf_counter(), status, ts, body))
+        return status, body, hdrs
+
+    def trf_client(tenant, c):
+        i = 0
+        while not stop.is_set():
+            k = (7 * c + i) % len(texts)
+            send("trf", tenant, [texts[k], texts[(k + 1) % len(texts)]])
+            i += 1
+
+    def metered():
+        # six 2-text requests at once (12 docs past the burst of 10), then
+        # MM_METERED_RPS 2-text requests a second, open loop
+        sent = [threading.Thread(target=send, args=("trf", "metered", texts[2 * i:2 * i + 2]))
+                for i in range(6)]
+        for th in sent:
+            th.start()
+        i, t_start = 0, time.perf_counter()
+        while not stop.is_set():
+            th = threading.Thread(target=send, args=(
+                "trf", "metered", [texts[i % len(texts)], texts[(i + 1) % len(texts)]]))
+            th.start()
+            sent.append(th)
+            i += 1
+            time.sleep(max(t_start + i / MM_METERED_RPS - time.perf_counter(), 0.0))
+        for th in sent:
+            th.join()
+
+    def repeat(model, ts, what):
+        """A request, then the same with its ETag in If-None-Match."""
+        s1, _, h1 = send(model, "acme", ts)
+        rid = f"mm-repeat-{len(repeats)}"
+        s2, _, h2 = send(model, "acme", ts, {"If-None-Match": h1.get("ETag", ""),
+                                             "X-SRT-Request-Id": rid})
+        repeats.append((what, s1, s2, h1.get("ETag"), h2.get("ETag"), rid))
+        return h1.get("ETag")
+
+    with mock.patch.object(DecodeGraphs, "_capture", watched_capture):
+        _, port = server.start()
+        trf.start()
+        setup_s = time.perf_counter() - t0
+        mem_start = torch.cuda.memory_allocated()
+        threads = ([threading.Thread(target=trf_client, args=(tn, c))
+                    for tn in ("acme", "bulk") for c in range(MM_TRF_CLIENTS)]
+                   + [threading.Thread(target=metered)])
+        t_traffic = time.perf_counter()
+        for th in threads:
+            th.start()
+        unknown = send("nope", "acme", texts[:1])[0]
+        trf_tag = repeat("trf", texts[:2], "trf")
+        swap, md_tags = None, {}
+        md_gen = Checkpoints(md_last).generations()[0]
+        for k in range(MM_SEGMENTS):
+            model = "md" if k % 2 == 0 else "cnn"
+            seg_stop = threading.Event()
+
+            def burst(c, model=model, seg_stop=seg_stop):
+                i = 0
+                while not seg_stop.is_set():
+                    send(model, ("acme", "bulk")[c], [texts[(11 * c + i) % len(texts)]])
+                    i += 1
+
+            t_seg = time.perf_counter()
+            bursts = [threading.Thread(target=burst, args=(c,)) for c in range(2)]
+            for th in bursts:
+                th.start()
+            while not any(r[0] == model and r[2] >= t_seg and r[4] == 200 for r in list(log)):
+                if time.perf_counter() - t_seg > 240:
+                    fail(f"serve:multimodel: {model} never answered")
+                time.sleep(0.01)
+            repeat("trf", texts[:2], "trf")
+            if k == MM_SEGMENTS - 1:  # md's last burst: a swap of md alone
+                md_tags["before"] = repeat("md", texts[2:3], "md before swap")
+                swap = admin(port, "/admin/swap", {"model": "md", "dir": str(md_last),
+                                                   "generation": md_gen})
+                s, body, h = send("md", "acme", texts[2:3], {"If-None-Match": md_tags["before"]})
+                md_tags["after"] = (s, h.get("ETag"), body["batch"]["generation"] if body else None)
+                trf_after_swap = repeat("trf", texts[:2], "trf after md's swap")
+            time.sleep(max(MM_SEGMENT_S - (time.perf_counter() - t_seg), 0.0))
+            seg_stop.set()
+            for th in bursts:
+                th.join()
+        stop.set()
+        for th in threads:
+            th.join()
+        traffic_s = time.perf_counter() - t_traffic
+        n_evictions = len(evictions)
+        served_by_class = dict(trf.batcher.served_docs_by_class)
+        trf_metrics = trf.tel.snapshot()["counters"]
+        _, trace = get(port, "/trace")
+        _, health = get(port, "/healthz")
+        # sequential probes: one request a model, nothing else running
+        probes = {}
+        for model in ("cnn", "md", "trf"):
+            admin(port, "/admin/models/load", {"model": model})
+            torch.cuda.synchronize()
+            _cuda.reset_launch_counts()
+            status, _, _ = request(port, f"/v1/models/{model}/parse", texts[:2])
+            torch.cuda.synchronize()
+            probes[model] = _cuda.launch_counts()
+            if status != 200:
+                fail(f"serve:multimodel: the {model} probe answered {status}")
+        server.request_shutdown()
+        if server.wait() != 0:
+            fail("serve:multimodel: the server did not drain cleanly")
+    del server, res, trf
+    torch.cuda.empty_cache()
+
+    # -- the checks: every one is read, the phase's line emitted, then any
+    # problem fails the phase
+    problems = []
+    bad = [(m, tn, s) for m, tn, _, _, s, _, _ in log
+           if not (s == 200 or (tn == "metered" and s == 429) or (m == "nope" and s == 404)
+                   or s == 304)]
+    if bad:
+        problems.append(f"{len(bad)} failed requests, e.g. {bad[:5]}")
+    if unknown != 404:
+        problems.append(f"an unknown model answered {unknown}")
+    not_304 = [r for r in repeats if r[1] != 200 or r[2] != 304]
+    dispatched = {rid for e in trace["traceEvents"] if e.get("name") == "serve_batch"
+                  for rid in e.get("args", {}).get("request_ids", [])}
+    if not_304 or any(r[5] in dispatched for r in repeats if r[2] == 304):
+        problems.append(f"repeats {not_304} not answered 304, or dispatched")
+    trf_tags = {r[3] for r in repeats if r[0].startswith("trf")}
+    if (len(trf_tags) != 1 or md_tags["after"][0] != 200 or md_tags["after"][1] == md_tags[
+            "before"] or md_tags["after"][2] != md_gen or trf_after_swap != trf_tag):
+        problems.append(f"ETags: trf {trf_tags}, md before {md_tags['before']} "
+             f"after {md_tags['after']}")
+    if trf_metrics.get("not_modified") != sum(r[2] == 304 for r in repeats
+                                              if r[0].startswith("trf")):
+        problems.append(f"trf counted {trf_metrics.get('not_modified')} 304s")
+    share = served_by_class.get("gold", 0) / max(served_by_class.get("batch", 0), 1)
+    if not MM_SHARE[0] <= share <= MM_SHARE[1]:
+        problems.append(f"trf served gold:batch {served_by_class} ({share:.2f})")
+    metered_rows = [r for r in log if r[1] == "metered"]
+    admitted = sum(len(r[5]) for r in metered_rows if r[4] == 200)
+    metered_s = max(r[3] for r in metered_rows) - min(r[2] for r in metered_rows)
+    limit = MM_QUOTA[1] + MM_QUOTA[0] * metered_s + 1
+    if not any(r[4] == 429 for r in metered_rows) or admitted > limit:
+        problems.append(f"metered admitted {admitted} docs in {metered_s:.1f} s "
+             f"(limit {limit:.1f}), refused {sum(r[4] == 429 for r in metered_rows)}")
+    reloads = [ld for ld in loads if ld["model"] in ("md", "cnn")]
+    if n_evictions < 4 or len(reloads) < MM_SEGMENTS:
+        problems.append(f"{len(reloads)} loads, {n_evictions} evictions under load")
+    if not any(ld["captures_with_trf_batch_in_flight"] for ld in reloads):
+        problems.append(f"no reload captured while a trf batch was in flight {loads}")
+    drift = abs(evictions[1]["allocated_after"] - evictions[n_evictions - 1]["allocated_after"])
+    short = [e for e in evictions if not e["released_bytes"] >= MM_FREED * e[
+        "param_overlay_bytes"]]
+    if drift > MM_MEMORY_DRIFT or short:
+        problems.append(f"memory after the 2nd and last eviction apart by {drift} B, "
+             f"or evictions that gave back too little: {short}")
+    missing = [m for m in probes if probes[m]["hash_embed_gather_sum"] == 0]
+    if missing or probes["trf"]["flash_attention_fwd"] == 0:
+        problems.append(f"sequential probes {probes}")
+    # the answers against the CPU: each model directory (md also at its
+    # swapped generation) on the CPU over the texts it answered
+    agree = {}
+    for model, src in (("trf", trf_dir), ("md", md_dir), ("cnn", cnn_dir)):
+        cpu = Pipeline.from_disk(src, device="cpu")
+        for gen in sorted({r[6]["batch"]["generation"] for r in log
+                           if r[0] == model and r[4] == 200}, key=lambda g: g or -1):
+            if gen is not None:
+                cpu.load_params(Checkpoints(md_last).load_generation_params(gen)["params"])
+            rows = [r for r in log if r[0] == model and r[4] == 200
+                    and r[6]["batch"]["generation"] == gen]
+            unique = sorted({t for r in rows for t in r[5]})
+            docs = {t: cpu.tokenizer(t) for t in unique}
+            cpu.predict_docs(list(docs.values()), batch_size=16)
+            got = [d for r in rows for d in r[6]["docs"]]
+            want = [docs[t] for r in rows for t in r[5]]
+            agree[f"{model}@{gen}"] = a = agreement(cpu, got, want)
+            low = {k: v for k, v in a.items() if v < FLOOR_MM[model]}
+            if low:
+                problems.append(f"{model} at generation {gen} against the CPU: {low}")
+        del cpu
+    loads_out = [{k: v for k, v in ld.items() if k != "t"} for ld in loads]
+    windows = [ld["t"] for ld in reloads]
+    trf_ok = [r for r in log if r[0] == "trf" and r[4] == 200 and r[1] != "metered"]
+    during = [r for r in trf_ok if any(a < r[3] and r[2] < b for a, b in windows)]
+    outside = [r for r in trf_ok if r not in during]
+    lat = {f"{m}/{tn}": latency_ms([(r[2], r[3]) for r in log
+                                    if r[0] == m and r[1] == tn and r[4] == 200])
+           for m in ("trf", "md", "cnn") for tn in ("acme", "bulk", "metered")
+           if any(r[0] == m and r[1] == tn and r[4] == 200 for r in log)}
+    statuses = {}
+    for r in log:
+        statuses[str(r[4])] = statuses.get(str(r[4]), 0) + 1
+    result = {
+        "phase": "serve:multimodel", "setup_s": setup_s, "traffic_s": traffic_s,
+        "requests": len(log), "statuses": statuses, "latency_ms": lat,
+        "trf_latency_ms_during_reloads": latency_ms([(r[2], r[3]) for r in during]),
+        "trf_latency_ms_outside_reloads": latency_ms([(r[2], r[3]) for r in outside]),
+        "served_docs_by_class": served_by_class, "gold_to_batch": share,
+        "metered": {"admitted_docs": admitted, "seconds": metered_s, "limit": limit,
+                    "refused": sum(r[4] == 429 for r in metered_rows)},
+        "repeats_304": sum(r[2] == 304 for r in repeats), "unknown_model_status": unknown,
+        "md_swap": {k: swap[k] for k in ("generation", "stage_s", "flip_s", "wait_s")},
+        "md_etag_changed": md_tags["after"][1] != md_tags["before"],
+        "loads": loads_out, "evictions": evictions, "evictions_under_traffic": n_evictions,
+        "memory_drift_bytes": drift, "allocated_at_start": mem_start,
+        "captures": captures, "gate": {"exclusive": DEVICE_GATE.exclusive_acquisitions,
+                                       "contended": DEVICE_GATE.contended,
+                                       "exclusive_wait_s": DEVICE_GATE.exclusive_wait_s},
+        "residency": health["residency"], "card_vs_cpu": agree, "floors": FLOOR_MM,
+        "probes": probes,
+        "launches": {k: sum(p[k] for p in probes.values()) for k in probes["trf"]},
+        "problems": problems,
+    }
+    emit(result)
+    if problems:
+        fail("serve:multimodel: " + "; ".join(problems))
+    result["window"] = phase_window_batching(torch, cnn_dir, texts)
+    return result
+
+
+def phase_window_batching(torch, cnn_dir: Path, texts) -> dict:
+    """train:cnn's model alone, ``--batching window --max-wait-ms 5`` and
+    continuous, each under ``WINDOW_RPS`` one-text requests a second for
+    ``WINDOW_S`` s: the same answer for every text, occupancy and latency
+    side by side."""
+    from spacy_ray_tpu_torch.__main__ import build_server
+
+    runs = {}
+    for mode in ("window", "continuous"):
+        server = build_server([str(cnn_dir), "--port", "0", "--max-batch", "8",
+                               "--max-doc-len", "128", "--batching", mode,
+                               "--max-wait-ms", "5"])
+        _, port = server.start()
+        server.engine.start()
+        try:
+            load = open_loop(port, texts, WINDOW_RPS, WINDOW_S)
+            _, snap = get(port, "/metrics")
+        finally:
+            stop_server(torch, server)
+        if len(load) != int(WINDOW_RPS * WINDOW_S) or any(s != 200 for _, _, s, _ in load):
+            fail(f"serve:multimodel window sub-run: {mode} failed requests")
+        answers = {}
+        for text, _, _, body in load:
+            answers.setdefault(text, set()).add(json.dumps(body["docs"]))
+        c = snap["counters"]
+        lat = sorted(x[1] * 1e3 for x in load)
+        runs[mode] = {"answers": answers, "mean_occupancy": c["docs"] / c["batches"],
+                      "batches": c["batches"], "p50_ms": percentile(lat, 0.5),
+                      "p99_ms": percentile(lat, 0.99)}
+    if runs["window"]["answers"] != runs["continuous"]["answers"] or any(
+            len(v) != 1 for v in runs["window"]["answers"].values()):
+        fail("serve:multimodel window sub-run: window and continuous answers differ")
+    out = {"phase": "serve:multimodel:window", "offered_rps": WINDOW_RPS, "seconds": WINDOW_S,
+           **{mode: {k: v for k, v in r.items() if k != "answers"} for mode, r in runs.items()},
+           "answers_equal": True}
+    emit(out)
+    return out
+
+
+def phase_serve_watch(torch, cnn_dir: Path, corpus, cnn_step_ms) -> dict:
+    """``python -m spacy_ray_tpu_torch serve <train:cnn's model> --watch
+    <out>/last-model --watch-interval-s 0.5`` beside ``python -m
+    spacy_ray_tpu_torch train configs/cnn.cfg`` (``WATCH_STEPS`` steps, a
+    generation every ``WATCH_EVERY``, all kept) on the same card while
+    ``WATCH_CLIENTS`` clients send 2-text requests; after the trainer a torn
+    generation (a higher stamp, its params file cut short) is planted. Fails
+    unless the trainer exits 0, the watcher flips at least twice, no client
+    sees its generation go back, the torn stamp is never served and logged
+    once, every request succeeds, and every batch replays bit-equal on a
+    fresh engine of its stamped generation (``replay_batches``)."""
+    import os
+    import signal
+
+    from spacy_ray_tpu_torch.training.checkpoint import Checkpoints
+
+    work = WORK / "watch"
+    shutil.rmtree(work, ignore_errors=True)
+    out, t0 = work / "out", time.perf_counter()
+    ckpt = out / "last-model"
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    cli = [sys.executable, "-m", "spacy_ray_tpu_torch"]
+    serve = subprocess.Popen(
+        cli + ["serve", str(cnn_dir), "--port", "0", "--max-batch", "8", "--max-doc-len", "128",
+               "--watch", str(ckpt), "--watch-interval-s", "0.5"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    lines, errors, ready = [], [], threading.Event()
+
+    def read(pipe, into, flag=None):
+        for line in pipe:
+            into.append(line.rstrip())
+            if flag is not None and "ready" in line:
+                flag.set()
+        if flag is not None:
+            flag.set()
+
+    readers = [threading.Thread(target=read, args=(serve.stdout, lines, ready), daemon=True),
+               threading.Thread(target=read, args=(serve.stderr, errors), daemon=True)]
+    for th in readers:
+        th.start()
+    trainer = None
+    try:
+        ready.wait(timeout=300)
+        ports = [int(l.rsplit(":", 1)[1]) for l in lines if l.startswith("serving on http://")]
+        if not ports or serve.poll() is not None:
+            fail("serve:watch: serve --watch did not come up:\n" + "\n".join(lines + errors))
+        port, serve_up_s = ports[0], time.perf_counter() - t0
+        from spacy_ray_tpu_torch.training.corpus import Corpus
+
+        texts = [" ".join(eg.reference.words) for eg in Corpus(corpus[1])()
+                 if len(eg.reference.words) <= 100][:24]
+        trainer = subprocess.Popen(
+            cli + ["train", "configs/cnn.cfg", "--output", str(out), "--paths.train",
+                   str(corpus[0]), "--paths.dev", str(corpus[1]),
+                   "--training.max_steps", str(WATCH_STEPS),
+                   "--training.eval_frequency", str(WATCH_EVERY),
+                   "--training.keep_checkpoints", str(WATCH_STEPS // WATCH_EVERY + 1)],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+        t_train = time.perf_counter()
+        stream, seqs, lock, stop = {}, [[] for _ in range(WATCH_CLIENTS)], threading.Lock(), \
+            threading.Event()
+
+        def client(c):
+            i = 0
+            while not stop.is_set():
+                k = (i * WATCH_CLIENTS + c) * 2
+                sent = [texts[k % len(texts)], texts[(k + 1) % len(texts)]]
+                rid = f"watch-{c}-{i}"
+                status, body, _ = request(port, "/v1/parse", sent,
+                                          {"X-SRT-Request-Id": rid})
+                with lock:
+                    stream[rid] = (sent, status, body)
+                    seqs[c].append(body["batch"]["generation"] if status == 200 else "error")
+                i += 1
+
+        clients = [threading.Thread(target=client, args=(c,)) for c in range(WATCH_CLIENTS)]
+        for th in clients:
+            th.start()
+        train_out, _ = trainer.communicate(timeout=600)
+        train_s, train_rc = time.perf_counter() - t_train, trainer.returncode
+        gens = Checkpoints(ckpt).generations()
+        last = max(gens) if gens else None
+        end = time.perf_counter() + 10
+        while last is not None and get(port, "/healthz")[1]["generation"] != last:
+            if time.perf_counter() > end:
+                break
+            time.sleep(0.05)
+        # a torn generation above the last: its meta names the digest of a
+        # whole params file, the file is cut short
+        torn = (last or 0) + WATCH_EVERY
+        if last is not None:
+            meta = json.loads((ckpt / f"train_meta-{last}.json").read_text(encoding="utf8"))
+            data = (ckpt / f"params-{last}.npz").read_bytes()
+            (ckpt / f"params-{torn}.npz").write_bytes(data[: len(data) // 2])
+            meta.update(stamp=torn, step=torn, digests={
+                f"params-{torn}.npz": meta["digests"][f"params-{last}.npz"]})
+            (ckpt / f"train_meta-{torn}.json").write_text(json.dumps(meta), encoding="utf8")
+        time.sleep(2.5)  # five polls past the torn generation
+        stop.set()
+        for th in clients:
+            th.join()
+        _, trace = get(port, "/trace")
+        _, snap = get(port, "/metrics")
+        _, health = get(port, "/healthz")
+        serve.send_signal(signal.SIGTERM)
+        serve_rc = serve.wait(timeout=120)
+        for th in readers:
+            th.join(timeout=10)
+    finally:
+        for proc in (serve, trainer):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if train_rc != 0 or serve_rc != 0:
+        fail(f"serve:watch: trainer exited {train_rc}, server {serve_rc}:\n{train_out}")
+    failed = [rid for rid, (_, s, _) in stream.items() if s != 200]
+    served = {g for seq in seqs for g in seq}
+    backwards = [c for c, seq in enumerate(seqs)
+                 if any((b if b is not None else -1) < (a if a is not None else -1)
+                        for a, b in zip(seq, seq[1:]))]
+    skipped = [l for l in errors if "[live-generation-skipped]" in l
+               and f"generation {torn} " in l]
+    flips = snap["swap_count"]
+    if failed or backwards or torn in served or len(skipped) != 1 or flips < 2 or \
+            health["generation"] != last:
+        fail(f"serve:watch: failed {failed[:5]}, clients going back {backwards}, served "
+             f"{sorted(served, key=lambda g: g or -1)}, torn {torn} logged {len(skipped)}x, "
+             f"{flips} flips, last served {health['generation']} of {gens}")
+    batches = [tuple(e["args"]["request_ids"]) for e in trace["traceEvents"]
+               if e.get("name") == "serve_batch"
+               and e.get("args", {}).get("request_ids", [""])[0] in stream]
+    per_gen, _, fresh_s, replays = replay_batches(
+        torch, "serve:watch", stream, batches, cnn_dir, ckpt, max_batch_docs=8,
+        max_doc_len=128)
+    # each flip's wall time from its trace span and the anchor, against the
+    # generation's meta file
+    anchor = trace["anchor"]
+
+    def wall(ts_us):
+        return anchor["unix_now"] - (anchor["clock_now"] - anchor["origin"] - ts_us / 1e6)
+
+    flips_out = []
+    for e in trace["traceEvents"]:
+        if e.get("name") == "swap_flip":
+            gen = e["args"]["generation"]
+            stage = [s for s in trace["traceEvents"] if s.get("name") == "swap_stage"
+                     and s["args"]["generation"] == gen]
+            meta_t = (ckpt / f"train_meta-{gen}.json").stat().st_mtime
+            flips_out.append({"generation": gen,
+                              "meta_to_flip_s": wall(e["ts"] + e["dur"]) - meta_t,
+                              "stage_s": stage[0]["dur"] / 1e6 if stage else None,
+                              "flip_s": e["dur"] / 1e6})
+    done = [l for l in train_out.splitlines() if l.startswith("Done.")]
+    if f"Done. steps={WATCH_STEPS}" not in train_out:
+        fail(f"cli:cnn: train printed no 'Done. steps={WATCH_STEPS}':\n{train_out}")
+    # the trained model through the evaluate command (the trainer was the
+    # train command a user runs: cli:cnn's checks)
+    t_eval = time.perf_counter()
+    evaluated = subprocess.run(cli + ["evaluate", str(out / "best-model"), str(corpus[1])],
+                               cwd=ROOT, capture_output=True, text=True, timeout=300, env=env)
+    if evaluated.returncode != 0:
+        fail(f"cli:cnn: evaluate exited {evaluated.returncode}:\n{evaluated.stderr}")
+    scores = json.loads(evaluated.stdout.strip().splitlines()[-1])
+    if not scores.get("tag_acc", 0) > 0.5:
+        fail(f"cli:cnn: evaluate scored {scores}")
+    emit({"phase": "cli:cnn", "seconds": train_s + time.perf_counter() - t_eval,
+          "train_output": train_out.strip().splitlines()[-4:],
+          "evaluate_output": evaluated.stdout.strip().splitlines()[-3:-1],
+          "evaluate_tag_acc": scores["tag_acc"]})
+    mtimes = [(ckpt / f"train_meta-{g}.json").stat().st_mtime for g in gens]
+    result = {
+        "phase": "serve:watch", "serve_up_s": serve_up_s, "train_s": train_s,
+        "generations": gens, "torn_stamp": torn, "torn_logged": len(skipped),
+        "flips": flips, "flip_detail": flips_out,
+        "served_generations": sorted(served, key=lambda g: g or -1),
+        "responses": len(stream), "stamped": {str(g): sum(len(b) for b in bs)
+                                              for g, bs in per_gen.items()},
+        "replayed_batches": replays, "fresh_engine_s": {str(g): s for g, s in fresh_s.items()},
+        "bit_equal_to_each_generation": True,
+        "trainer_done": done[-1] if done else None,
+        "trainer_ms_per_step_between_generations":
+            (mtimes[-1] - mtimes[0]) / (gens[-1] - gens[0]) * 1e3 if len(gens) > 1 else None,
+        "train_cnn_step_ms_median": cnn_step_ms,
+        "launches": health["kernel_launches"],  # the server process's, warmup included
+    }
+    emit(result)
+    shutil.rmtree(work, ignore_errors=True)
+    return result
+
+
 def main() -> int:
     try:
         import torch
@@ -4570,18 +5222,16 @@ def main() -> int:
     shutil.rmtree(WORK / "train", ignore_errors=True)
     runs["train:full"], full_model = phase_train_full(torch, udgen, full_shapes)
     runs["slice:full"] = phase_slice_full(torch, full_model, udgen[1], runs["auto"])
-    shutil.rmtree(WORK / "train_full", ignore_errors=True)
+    # train:full's and train:cnn's models stay for serve:multimodel and serve:watch
     runs["train:cnn"], cnn_model = phase_train_cnn(
         torch, "cnn", pipeline_config("cnn", corpora["cnn"]), cnn["cnn"])
     runs["slice:cnn"] = phase_slice_cnn(torch, cnn_model, spacy_corpus[1])
-    shutil.rmtree(WORK / "train_cnn", ignore_errors=True)
     runs["train:sm"], sm_model = phase_train_cnn(
         torch, "sm", pipeline_config("sm", corpora["sm"]), cnn["sm"])
     runs["slice:sm"] = phase_slice_full(torch, sm_model, spacy_corpus[1], runs["slice:cnn"],
                                         phase="slice:sm", need=("hash_embed_gather_sum",),
                                         cpu_compare=True)
     shutil.rmtree(WORK / "train_sm", ignore_errors=True)
-    phase_cli_cnn(spacy_corpus)
     # the text, span and token classifiers over the CNN trunk
     for name in ("spancat", "textcat", "tokcls"):
         runs[f"train:{name}"], model = phase_train_cnn(
@@ -4594,6 +5244,14 @@ def main() -> int:
     runs["slice:md"] = phase_slice_full(torch, md_model, spacy_corpus[1], runs["slice:cnn"],
                                         phase="slice:md", need=("hash_embed_gather_sum",),
                                         cpu_compare=True, ents_floor=0.99)
+    # several models on one card: trf (pinned), md and cnn behind one manifest,
+    # then cnn served live from a training run's checkpoints
+    runs["serve:multimodel"] = phase_serve_multimodel(
+        torch, full_model, md_model, md_model.parent / "last-model", cnn_model, spacy_corpus[1])
+    runs["serve:watch"] = phase_serve_watch(
+        torch, cnn_model, spacy_corpus, runs["train:cnn"]["step_ms_median_events"])
+    shutil.rmtree(WORK / "train_full", ignore_errors=True)
+    shutil.rmtree(WORK / "train_cnn", ignore_errors=True)
     # an entity linker added to the trained md pipeline, every md component
     # sourced from its best-model and frozen, the NER annotating
     t = time.perf_counter()

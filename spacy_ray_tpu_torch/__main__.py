@@ -29,8 +29,15 @@ port is printed), runs the bucket warmup sweep and serves ``/v1/parse``
 with ``/metrics``, ``/trace`` and ``/admin/exemplars`` (``--no-telemetry``
 turns them off) and, for each ``--swap-dir``, ``/admin/swap`` and
 ``/admin/rollback`` between that directory's checkpoint generations,
-until SIGTERM/SIGINT, which drains in-flight work and exits. Every command
-runs on the card unless ``--device cpu`` is given, and fails without one.
+until SIGTERM/SIGINT, which drains in-flight work and exits.
+``--batching window --max-wait-ms N`` coalesces a batch for up to N ms
+(continuous admission is the default); ``--watch DIR`` follows a training
+run's ``last-model/`` and hot-swaps each new intact generation;
+``--model-manifest M`` serves the manifest's models (``/v1/models/<name>/
+parse``), its tenants' quotas and SLO classes, with ``--resident-models``
+engines warm at once (the default model pinned); ``--metrics-dir`` writes
+the trace and the last metrics snapshot at exit. Every command runs on the
+card unless ``--device cpu`` is given, and fails without one.
 ``init-vectors`` converts word2vec or GloVe text (``.gz`` too) or an
 ``.npz`` of words and vectors into the ``vectors.npz`` that ``[initialize]
 vectors`` reads (the JAX package's command: the same file, the same errors).
@@ -57,7 +64,10 @@ USAGE = (
     " [--code F]\n"
     "       python -m spacy_ray_tpu_torch serve <model-dir> [--port N] [--max-batch N] "
     "[--max-doc-len N] [--precision auto|f32|bf16|int8] [--device cuda|cpu]"
-    " [--no-telemetry] [--swap-dir CKPT_DIR ...]\n"
+    " [--batching continuous|window] [--max-wait-ms MS] [--queue-size N] [--timeout-ms MS]"
+    " [--drain-timeout-s S] [--no-telemetry] [--swap-dir CKPT_DIR ...] [--watch CKPT_DIR]"
+    " [--watch-interval-s S] [--no-warmup] [--model-manifest M] [--resident-models N]"
+    " [--metrics-dir DIR]\n"
     "       python -m spacy_ray_tpu_torch init-vectors <input> <output.npz> [--truncate N]"
 )
 
@@ -66,7 +76,8 @@ def _serve_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m spacy_ray_tpu_torch serve",
         description="Serve a saved pipeline as a JSON HTTP API (/v1/parse, /healthz, "
-                    "/metrics, /trace, /admin/exemplars, /admin/swap, /admin/rollback).",
+                    "/metrics, /trace, /admin/exemplars, /admin/swap, /admin/rollback; "
+                    "with a manifest /v1/models/<name>/parse and /admin/models/load).",
     )
     p.add_argument("model_path", type=Path)
     p.add_argument("--host", default="127.0.0.1")
@@ -74,6 +85,18 @@ def _serve_parser() -> argparse.ArgumentParser:
                    help="0 = ephemeral; the bound port is printed")
     p.add_argument("--max-batch", type=int, default=SERVING_DEFAULTS["max_batch_docs"],
                    help="max docs coalesced into one device batch")
+    p.add_argument("--batching", choices=["continuous", "window"],
+                   default=SERVING_DEFAULTS["batching"],
+                   help="admission: 'continuous' (default) fills the next dispatch with "
+                        "whatever is queued; 'window' coalesces up to --max-wait-ms from "
+                        "the first queued request")
+    p.add_argument("--max-wait-ms", type=float, dest="max_wait_ms",
+                   default=SERVING_DEFAULTS["max_wait_s"] * 1e3,
+                   help="window batching only: the coalescing window")
+    p.add_argument("--queue-size", type=int, default=SERVING_DEFAULTS["max_queue_docs"],
+                   help="bounded admission queue (docs); beyond it requests get 429")
+    p.add_argument("--timeout-ms", type=float, default=SERVING_DEFAULTS["timeout_s"] * 1e3,
+                   help="default per-request deadline (a request may lower it)")
     p.add_argument("--max-doc-len", type=int, default=SERVING_DEFAULTS["max_doc_len"],
                    help="longest admissible doc in tokens (the warmed shape cap)")
     p.add_argument("--precision", choices=PRECISION_CHOICES,
@@ -89,30 +112,118 @@ def _serve_parser() -> argparse.ArgumentParser:
                    help="a training run's checkpoint directory (its last-model/) that "
                         "/admin/swap may load generations from; repeatable. Without one "
                         "/admin/swap and /admin/rollback answer 403")
+    p.add_argument("--drain-timeout-s", type=float, default=30.0)
+    p.add_argument("--watch", type=Path, default=None, metavar="CKPT_DIR",
+                   help="follow this checkpoint directory (a training run's "
+                        "<output>/last-model): hot-swap each new digest-verified "
+                        "generation; torn ones are skipped (allowed for /admin/swap too)")
+    p.add_argument("--watch-interval-s", type=float, default=2.0,
+                   help="checkpoint-directory poll interval")
+    p.add_argument("--no-warmup", action="store_true",
+                   help="skip the bucket warmup sweep (first requests then build "
+                        "and capture; testing only)")
+    p.add_argument("--model-manifest", type=Path, default=None,
+                   help="multi-model serving: a JSON manifest of model name -> pipeline "
+                        "dir, SLO classes and tenant quotas; requests route by "
+                        "/v1/models/<name>/parse or X-SRT-Model, /v1/parse serves the "
+                        "manifest's default (model_path is then ignored)")
+    p.add_argument("--resident-models", type=int, default=2,
+                   help="multi-model only: warmed engines kept at once (LRU eviction "
+                        "past it; the default model is pinned)")
+    p.add_argument("--metrics-dir", type=Path, default=None,
+                   help="write serving_trace.json and the final metrics snapshot "
+                        "(serving_metrics.json, a row of metrics.jsonl) here at exit")
     return p
 
 
 def build_server(argv: List[str]):
-    """Parse ``serve`` arguments, load the model and build the (not yet
-    started) :class:`~.serving.server.Server`."""
+    """Parse ``serve`` arguments, load the model (with a manifest, its
+    default model) and build the (not yet started)
+    :class:`~.serving.server.Server`, with its registry, residency,
+    admission and watcher as the flags ask. ``server.args`` keeps the
+    parsed arguments."""
     from .pipeline.language import Pipeline
     from .serving.engine import InferenceEngine, ServingTelemetry
     from .serving.server import Server
 
     args = _serve_parser().parse_args(argv)
-    nlp = Pipeline.from_disk(args.model_path, device=args.device)
+    registry = admission = residency = None
+    if args.model_manifest is not None:
+        from .serving.multimodel import AdmissionController, ModelRegistry
+
+        registry = ModelRegistry.from_manifest(args.model_manifest)
+        admission = AdmissionController(registry)
+    class_weights = registry.class_weights() if registry is not None else None
+
+    def build_engine(path: Path, tel) -> InferenceEngine:
+        return InferenceEngine(
+            Pipeline.from_disk(path, device=args.device), max_batch_docs=args.max_batch,
+            max_wait_s=max(args.max_wait_ms, 0.0) / 1e3, max_queue_docs=args.queue_size,
+            timeout_s=max(args.timeout_ms, 1.0) / 1e3, max_doc_len=args.max_doc_len,
+            batching=args.batching, precision=args.precision, telemetry=tel,
+            class_weights=class_weights)
+
+    default_path = args.model_path
+    if registry is not None:
+        default_path = Path(registry.spec(registry.default_model).path)
     tel = None if args.no_telemetry else ServingTelemetry()
-    engine = InferenceEngine(nlp, max_batch_docs=args.max_batch, max_doc_len=args.max_doc_len,
-                             precision=args.precision, telemetry=tel)
-    return Server(engine, args.host, args.port, telemetry=tel,
-                  swap_dirs=[str(d) for d in args.swap_dir])
+    engine = build_engine(default_path, tel)
+    if registry is not None:
+        from .serving.multimodel import ResidencyManager
+
+        def engine_factory(spec) -> InferenceEngine:
+            # each resident model has its own telemetry and warmed buckets;
+            # a load runs on a request thread, never a dispatch thread
+            return build_engine(Path(spec.path),
+                                None if args.no_telemetry else ServingTelemetry()
+                                ).start(warmup=not args.no_warmup)
+
+        residency = ResidencyManager(
+            registry, engine_factory, capacity=max(args.resident_models, 1),
+            evict_drain_s=min(args.drain_timeout_s, 10.0), pinned={registry.default_model})
+        # the server's lifecycle warms and starts the default engine
+        residency.adopt(registry.default_model, engine)
+    watcher = None
+    if args.watch is not None:
+        from .serving.live import CheckpointWatcher
+
+        def swap(stamp: int, state: dict) -> None:
+            engine.swap_params(state["params"], stamp)
+
+        watcher = CheckpointWatcher(args.watch, swap, interval_s=args.watch_interval_s)
+    server = Server(engine, args.host, args.port, telemetry=tel,
+                    drain_timeout_s=args.drain_timeout_s,
+                    swap_dirs=[str(d) for d in args.swap_dir], watcher=watcher,
+                    registry=registry, residency=residency, admission=admission)
+    server.args = args
+    return server
 
 
 def serve_command(argv: List[str]) -> int:
     server = build_server(argv)
-    print(f"serving device={server.engine.nlp.device} "
-          f"precision={server.engine.overlay.label}", flush=True)
-    return server.run()
+    engine, registry, args = server.engine, server.registry, server.args
+    print(f"serving batching={engine.batching} precision={engine.overlay.label}"
+          + (f" models={','.join(registry.names())} default={registry.default_model}"
+             if registry is not None else ""), flush=True)
+    rc = server.run(warmup=not args.no_warmup)
+    tel = server.tel
+    if tel is not None and args.metrics_dir is not None:
+        import time
+
+        from .training.telemetry import sanitize_json
+
+        args.metrics_dir.mkdir(parents=True, exist_ok=True)
+        tel.trace.flush(args.metrics_dir / "serving_trace.json")
+        snap = tel.snapshot()
+        snap["generation"] = engine.serving_generation
+        snap["swap_count"] = engine.swap_count
+        (args.metrics_dir / "serving_metrics.json").write_text(
+            json.dumps(sanitize_json(snap), indent=2) + "\n", encoding="utf8")
+        with open(args.metrics_dir / "metrics.jsonl", "a", encoding="utf8") as f:
+            f.write(json.dumps(sanitize_json(
+                {"kind": "serving", "unix_time": time.time(), **snap})) + "\n")
+        print(f"serving telemetry written to {args.metrics_dir}", flush=True)
+    return rc
 
 
 def train_command(argv: List[str]) -> int:

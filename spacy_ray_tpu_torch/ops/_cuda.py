@@ -10,8 +10,9 @@ starts one ``nvcc`` per source, all at once.
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` raises on anything but 0. A wrapper
 adds one to its entry in :data:`LAUNCHES` right after it launches its
-kernel, and nowhere else, so a run can show which kernels its path went
-through.
+kernel (:func:`count_launch`, under a lock: the dispatch threads of several
+serving engines launch at once), and nowhere else, so a run can show which
+kernels its path went through.
 """
 
 from __future__ import annotations
@@ -62,15 +63,25 @@ BUILD_LOGS: Dict[str, str] = {}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    """One launch of kernel ``name`` (a read-modify-write of the dict is not
+    atomic across threads)."""
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def launch_counts() -> Dict[str, int]:
-    return dict(LAUNCHES)
+    with _COUNT_LOCK:
+        return dict(LAUNCHES)
 
 
 def _nvcc() -> str:

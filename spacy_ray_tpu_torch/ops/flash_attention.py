@@ -190,7 +190,7 @@ def flash_attention_fwd(
         float(scale), _DTYPE_CODE[q.dtype], q.device.index or 0, _cuda.stream_of(q),
     )
     _cuda.check(lib, rc, "flash_attention_fwd")
-    _cuda.LAUNCHES["flash_attention_fwd"] += 1
+    _cuda.count_launch("flash_attention_fwd")
     return o, lse
 
 
@@ -246,7 +246,7 @@ def flash_attention_bwd(
         float(scale), _DTYPE_CODE[q.dtype], q.device.index or 0, _cuda.stream_of(q),
     )
     _cuda.check(lib, rc, "flash_attention_bwd")
-    _cuda.LAUNCHES["flash_attention_bwd"] += 1
+    _cuda.count_launch("flash_attention_bwd")
     return dq, dk, dv
 
 

@@ -276,4 +276,4 @@ class FusedUpdate:
             dev.index or 0, _cuda.stream_of(params[0]),
         )
         _cuda.check(lib, rc, "fused_update")
-        _cuda.LAUNCHES["fused_update"] += 1
+        _cuda.count_launch("fused_update")

@@ -102,7 +102,7 @@ def int8_weight_matmul(x2: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor) 
         _X_DTYPE_CODE[x2.dtype], x2.device.index or 0, _cuda.stream_of(x2),
     )
     _cuda.check(lib, rc, "int8_weight_matmul")
-    _cuda.LAUNCHES["int8_weight_matmul"] += 1
+    _cuda.count_launch("int8_weight_matmul")
     return out
 
 

@@ -74,7 +74,7 @@ def hash_embed_gather_sum(table: torch.Tensor, ids: torch.Tensor) -> torch.Tenso
         table.device.index or 0, _cuda.stream_of(table),
     )
     _cuda.check(lib, rc, "hash_embed_gather_sum")
-    _cuda.LAUNCHES["hash_embed_gather_sum"] += 1
+    _cuda.count_launch("hash_embed_gather_sum")
     return out
 
 
@@ -134,7 +134,7 @@ def hash_embed_table_grad(ct: torch.Tensor, ids: torch.Tensor, rows: int) -> tor
         ct.device.index or 0, _cuda.stream_of(ct),
     )
     _cuda.check(lib, rc, "hash_embed_table_grad")
-    _cuda.LAUNCHES["hash_embed_table_grad"] += 1
+    _cuda.count_launch("hash_embed_table_grad")
     return out
 
 

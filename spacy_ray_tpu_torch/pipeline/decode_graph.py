@@ -14,14 +14,39 @@ A capture or replay that fails raises: nothing runs eagerly in a graph's
 place. Each graph has its own memory pool (replays come in any order).
 Graphs read the heads' parameters at their addresses, so in-place updates
 are seen; rebuilding the models drops the graphs (``Pipeline``).
+
+The capture itself (not the eager run before it) holds
+:data:`~..devices.DEVICE_GATE` exclusively, with the cyclic garbage
+collector paused, so no other thread of the process (another serving
+engine's dispatch, a model load) touches the card while it is open; it
+runs in CUDA's global capture mode, so a thread that did would fail loudly.
 """
 
 from __future__ import annotations
 
+import gc
+import threading
 import time
 from typing import Any, Dict, Tuple
 
 import torch
+
+from ..devices import DEVICE_GATE
+
+_SIDE_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
+_SIDE_LOCK = threading.Lock()
+
+
+def _side_stream(device: torch.device) -> torch.cuda.Stream:
+    """The one stream of ``device`` that every decode's eager run and capture
+    use: a stream that runs a cuBLAS call keeps a workspace for the rest of
+    the process, so a stream per capture would grow the allocated memory with
+    every model load."""
+    with _SIDE_LOCK:
+        stream = _SIDE_STREAMS.get(device)
+        if stream is None:
+            stream = _SIDE_STREAMS[device] = torch.cuda.Stream(device=device)
+        return stream
 
 
 class DecodeGraphs:
@@ -55,14 +80,29 @@ class DecodeGraphs:
     def _capture(self, comp, X: torch.Tensor, lengths: torch.Tensor):
         t0 = time.perf_counter()
         x_in, len_in = X.clone(), lengths.clone()
-        side = torch.cuda.Stream(device=X.device)
+        side = _side_stream(X.device)
         side.wait_stream(torch.cuda.current_stream(X.device))
         with torch.cuda.stream(side):
             comp.device_decode(x_in, len_in)
         torch.cuda.current_stream(X.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out = comp.device_decode(x_in, len_in)
-        torch.cuda.synchronize(X.device)
+        # the capture alone holds the gate; capture_begin/capture_end rather
+        # than torch.cuda.graph, whose entry empties the allocator's cache of
+        # every engine of the process
+        with DEVICE_GATE.exclusive():
+            enabled = gc.isenabled()
+            gc.disable()
+            try:
+                side.synchronize()
+                with torch.cuda.stream(side):
+                    graph.capture_begin()
+                    try:
+                        out = comp.device_decode(x_in, len_in)
+                    finally:
+                        graph.capture_end()
+            finally:
+                if enabled:
+                    gc.enable()
+        side.synchronize()
         self.capture_seconds += time.perf_counter() - t0
         return graph, x_in, len_in, out

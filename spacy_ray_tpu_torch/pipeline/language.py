@@ -39,7 +39,7 @@ from torch import nn
 
 from .. import __version__
 from ..config import Config
-from ..devices import DeviceLike, resolve_device
+from ..devices import DEVICE_GATE, DeviceLike, resolve_device
 from ..models.core import Context, fold_in, param_paths
 from ..registry import registry
 from .decode_graph import DecodeGraphs
@@ -624,7 +624,10 @@ class Pipeline:
 
     @classmethod
     def from_disk(cls, path, device: DeviceLike = None) -> "Pipeline":
-        """Load a model directory written by either package."""
+        """Load a model directory written by either package. The copy of the
+        parameters to the device holds the device gate shared (a capture
+        elsewhere in the process waits for it); the parse, the build on the
+        host and the disk read do not."""
         path = Path(path)
         config = Config.from_disk(path / "config.cfg").interpolate()
         nlp = cls.from_config(config, device=device)
@@ -644,6 +647,8 @@ class Pipeline:
         if (path / "vectors.npz").exists():
             nlp.vectors = Vectors.from_disk(path / "vectors.npz")
         nlp.model = nlp._build_models()
-        nlp.load_params(checkpoint.load_params(path / "params.npz"))
-        nlp.model = nlp.model.to(nlp.device).eval()
+        flat = checkpoint.load_params(path / "params.npz")
+        with DEVICE_GATE.shared():
+            nlp.load_params(flat)
+            nlp.model = nlp.model.to(nlp.device).eval()
         return nlp

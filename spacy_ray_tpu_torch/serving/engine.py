@@ -26,10 +26,19 @@ overlay built), then, at a batch boundary, every live parameter and its
 staged twin swap contents in place. The staged bank then holds the
 displaced generation, which stays resident for :meth:`rollback` (the same
 exchange, no load). Every graph, warmed program and overlay stays valid.
+The exchange runs on the engine's own stage stream and waits for that
+stream alone, so a swap of one engine does not wait for the batches of the
+other engines of the process.
+
+Several engines in one process (multi-model serving): every piece of the
+engine's device work holds :data:`~..devices.DEVICE_GATE` shared, so
+another engine's decode-graph capture never meets it. An engine evicted
+from the hot set gives its device memory back with :meth:`release`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import threading
 import time
@@ -40,6 +49,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..devices import DEVICE_GATE
 from ..models.core import param_paths
 from ..training.batcher import DEFAULT_LENGTH_BUCKETS, bucket_batch_size, bucket_length
 from ..training.checkpoint import flatten, unflatten
@@ -56,11 +66,15 @@ from .overlay import OverlayResult, build_params_overlay
 
 logger = logging.getLogger("spacy_ray_tpu_torch.serving")
 
+#: the serving knobs' defaults (the JAX package's): ``max_wait_s`` applies in
+#: ``window`` batching only
 SERVING_DEFAULTS: Dict[str, Any] = {
     "max_batch_docs": 16,
+    "max_wait_s": 0.005,
     "max_queue_docs": 128,
     "timeout_s": 10.0,
     "max_doc_len": 64,
+    "batching": "continuous",
     "precision": "auto",
     "slo_window_s": 30.0,
 }
@@ -293,19 +307,25 @@ def _spec(flat: Dict[str, Any]) -> Dict[str, Tuple[Tuple[int, ...], str]]:
 
 
 class InferenceEngine:
-    """Owns the pipeline, the served overlay and the dispatch thread."""
+    """Owns the pipeline, the served overlay and the dispatch thread.
+    ``batching`` is the batcher's admission discipline (``max_wait_s`` its
+    window); ``class_weights`` turns on weighted fair queuing over SLO
+    classes (None: one FIFO)."""
 
     def __init__(
         self,
         nlp,
         *,
         max_batch_docs: int = SERVING_DEFAULTS["max_batch_docs"],
+        max_wait_s: float = SERVING_DEFAULTS["max_wait_s"],
         max_queue_docs: int = SERVING_DEFAULTS["max_queue_docs"],
         timeout_s: float = SERVING_DEFAULTS["timeout_s"],
         max_doc_len: int = SERVING_DEFAULTS["max_doc_len"],
+        batching: str = SERVING_DEFAULTS["batching"],
         precision: str = SERVING_DEFAULTS["precision"],
         telemetry: Optional[ServingTelemetry] = None,
         clock: Callable[[], float] = time.monotonic,
+        class_weights: Optional[Dict[str, float]] = None,
     ) -> None:
         if nlp.model is None:
             raise ValueError(
@@ -313,16 +333,22 @@ class InferenceEngine:
                 "(load a model directory with Pipeline.from_disk)"
             )
         self.nlp = nlp
+        self._tokenizer = nlp.tokenizer  # outlives release(): a late request gets Draining
         self.max_batch_docs = int(max_batch_docs)
         self.max_doc_len = int(max_doc_len)
         self.timeout_s = float(timeout_s)
         self.tel = telemetry
         self.clock = clock
+        self.batching = batching
         self.batcher = DynamicBatcher(
-            max_queue_docs=max_queue_docs, max_batch_docs=max_batch_docs, clock=clock
+            max_queue_docs=max_queue_docs, max_batch_docs=max_batch_docs,
+            max_wait_s=max_wait_s, mode=batching, clock=clock, class_weights=class_weights,
         )
         self.precision = precision
-        self.overlay = build_params_overlay(nlp.params, precision, nlp.device)
+        with DEVICE_GATE.shared():
+            self.overlay = build_params_overlay(nlp.params, precision, nlp.device)
+            self._stage_stream = (torch.cuda.Stream(device=nlp.device)
+                                  if nlp.device.type == "cuda" else None)
         # the live parameters (the tensors the models and the decode graphs
         # read) and their fingerprint; the generation they hold (None: the
         # model as loaded) and ONE previous resident kept staged for rollback
@@ -334,28 +360,34 @@ class InferenceEngine:
                                        Dict[str, torch.Tensor]]] = None
         self._swap_lock = threading.Lock()      # one swap or rollback at a time
         self._resident_lock = threading.Lock()  # held by a batch and by a flip
-        self._stage_stream = (torch.cuda.Stream(device=nlp.device)
-                              if nlp.device.type == "cuda" else None)
         self._thread: Optional[threading.Thread] = None
         self._idle = threading.Condition(threading.Lock())
         self._active_batches = 0
         self._started = False
         self.ready = False
         self.warmed: List[Tuple[int, int]] = []
+        self.warmup_s: Optional[float] = None
+        #: device bytes :meth:`release` gave back, and what stayed allocated
+        self.released_bytes: Optional[int] = None
+        self.allocated_after_release: Optional[int] = None
 
     # -- lifecycle ------------------------------------------------------
     def warmup(self) -> List[Tuple[int, int]]:
         """Run the forward once at every admissible (B, T) bucket, on the
-        calling thread, before dispatch starts."""
+        calling thread, before dispatch starts (on the card this captures
+        the heads' decode graphs)."""
         from ..pipeline.doc import Doc
 
+        t0 = time.perf_counter()
         grid = warmup_buckets(self.max_batch_docs, self.max_doc_len,
                               self.nlp.length_buckets)
         for B, T in grid:
             docs = [Doc(words=["the"] * T) for _ in range(B)]
-            self.nlp.predict_docs(docs, batch_size=B, overlay=self.overlay.overlay,
-                                  pad_batch_to=B, pad_len_to=T)
+            with DEVICE_GATE.shared():
+                self.nlp.predict_docs(docs, batch_size=B, overlay=self.overlay.overlay,
+                                      pad_batch_to=B, pad_len_to=T)
         self.warmed = grid
+        self.warmup_s = time.perf_counter() - t0
         return grid
 
     def start(self, *, warmup: bool = True) -> "InferenceEngine":
@@ -372,12 +404,14 @@ class InferenceEngine:
 
     # -- submission (handler threads) -----------------------------------
     def submit_texts(self, texts: Sequence[str], timeout_s: Optional[float] = None,
-                     request_id: Optional[str] = None) -> ServeRequest:
-        docs = [self.nlp.tokenizer(t) for t in texts]
-        return self.submit_docs(docs, timeout_s=timeout_s, request_id=request_id)
+                     request_id: Optional[str] = None, klass: str = "default"
+                     ) -> ServeRequest:
+        docs = [self._tokenizer(t) for t in texts]
+        return self.submit_docs(docs, timeout_s=timeout_s, request_id=request_id, klass=klass)
 
     def submit_docs(self, docs: List[Any], timeout_s: Optional[float] = None,
-                    request_id: Optional[str] = None) -> ServeRequest:
+                    request_id: Optional[str] = None, klass: str = "default"
+                    ) -> ServeRequest:
         timeout = self.timeout_s if timeout_s is None else float(timeout_s)
         too_long = [i for i, d in enumerate(docs) if len(d) > self.max_doc_len]
         if too_long:
@@ -390,7 +424,7 @@ class InferenceEngine:
             raise err
         now = self.clock()
         req = ServeRequest(docs, deadline=now + timeout, enqueued_at=now,
-                           request_id=request_id)
+                           request_id=request_id, klass=klass)
         t0 = self.tel.now() if self.tel is not None else None
         try:
             self.batcher.submit(req)
@@ -458,13 +492,15 @@ class InferenceEngine:
             try:
                 if self.tel is not None:
                     with self.tel.batch_span(n, B, T, [r.request_id for r in requests],
-                                             real_tokens=sum(len(d) for d in docs)):
+                                             real_tokens=sum(len(d) for d in docs)), \
+                            DEVICE_GATE.shared():
                         self.nlp.predict_docs(docs, batch_size=n, overlay=overlay,
                                               pad_batch_to=B, pad_len_to=T)
                     self.tel.set_queue_depth(self.batcher.queue_depth())
                 else:
-                    self.nlp.predict_docs(docs, batch_size=n, overlay=overlay,
-                                          pad_batch_to=B, pad_len_to=T)
+                    with DEVICE_GATE.shared():
+                        self.nlp.predict_docs(docs, batch_size=n, overlay=overlay,
+                                              pad_batch_to=B, pad_len_to=T)
             except Exception as e:  # a poisoned batch must not kill the server
                 logger.exception("dispatch of %d docs (B=%d, T=%d) failed", n, B, T)
                 err = ServingError(f"inference failed: {type(e).__name__}: {e}")
@@ -482,10 +518,6 @@ class InferenceEngine:
             r.complete()
 
     # -- hot-swap ---------------------------------------------------------
-    def _sync(self) -> None:
-        if self.nlp.device.type == "cuda":
-            torch.cuda.synchronize(self.nlp.device)
-
     def _stage(self, params: Dict[str, Any]) -> Tuple[OverlayResult, Dict[str, torch.Tensor]]:
         """Check the candidate against the resident tree, copy it to the
         device (a side stream on the card, so the dispatch thread's work is
@@ -505,27 +537,33 @@ class InferenceEngine:
                 f"(missing: {missing}, unexpected: {extra}, reshaped/retyped: {changed}) "
                 f"— swap refused, still serving generation {self.serving_generation}")
         device = self.nlp.device
-        stream = (torch.cuda.stream(self._stage_stream) if self._stage_stream is not None
-                  else nullcontext())
-        with torch.no_grad(), stream:
+        with DEVICE_GATE.shared(), torch.no_grad(), self._on_stage_stream():
             bank = {k: (flat[k].to(device, copy=True) if isinstance(flat[k], torch.Tensor)
                         else torch.from_numpy(np.array(flat[k])).to(device))
                     for k in self._live}
             overlay = build_params_overlay(unflatten(bank), self.precision, device)
-        if self._stage_stream is not None:
-            self._stage_stream.synchronize()
+            if self._stage_stream is not None:
+                self._stage_stream.synchronize()
         return overlay, bank
+
+    def _on_stage_stream(self):
+        return (torch.cuda.stream(self._stage_stream) if self._stage_stream is not None
+                else nullcontext())
 
     def _exchange(self, bank: Dict[str, torch.Tensor]) -> None:
         """Swap the contents of every live parameter with its twin in
-        ``bank``, in place (the live tensors keep their addresses)."""
-        with torch.no_grad():
+        ``bank``, in place (the live tensors keep their addresses). Runs
+        under the resident lock, so no batch of this engine is in flight
+        (each ends with its results on the host), on the stage stream, which
+        it waits for before the next batch may read the parameters."""
+        with DEVICE_GATE.shared(), torch.no_grad(), self._on_stage_stream():
             for k, live in self._live.items():
                 other = bank[k]
                 held = live.clone()
                 live.copy_(other)
                 other.copy_(held)
-        self._sync()
+            if self._stage_stream is not None:
+                self._stage_stream.synchronize()
 
     def swap_params(self, params: Dict[str, Any], generation: int) -> Dict[str, Any]:
         """Hot-swap the served parameters to ``params`` (a flat
@@ -538,6 +576,7 @@ class InferenceEngine:
         t_wall = self.clock()
         t0 = self.tel.now() if self.tel is not None else None
         with self._swap_lock:
+            self._check_resident()
             overlay, bank = self._stage(params)
             stage_s = self.clock() - t_wall
             t_wait = self.clock()
@@ -568,6 +607,7 @@ class InferenceEngine:
         is its own inverse). Raises :class:`SwapFailed` without one."""
         t0 = self.tel.now() if self.tel is not None else None
         with self._swap_lock:
+            self._check_resident()
             if self._previous is None:
                 raise SwapFailed(
                     "no previous resident generation to roll back to "
@@ -618,3 +658,38 @@ class InferenceEngine:
             self._thread.join(timeout=10.0)
             self._thread = None
         self._started = False
+
+    def release(self) -> None:
+        """Stop, then drop every device tensor the engine holds: the
+        pipeline (its parameters and the decode graphs with their memory
+        pools), the overlay, the staged rollback bank and the stage stream.
+        It takes the swap and resident locks before the device gate, in the
+        order a swap takes them, so a swap in progress ends first and a later
+        one raises :class:`SwapFailed`. The drop and the garbage collection
+        that frees the pipeline's reference cycles hold the gate exclusively,
+        so that no capture is open while the tensors and graphs go and
+        ``released_bytes`` (the allocated bytes given back) and
+        ``allocated_after_release`` read the card quiescent. The allocator
+        keeps the freed blocks cached for the other engines. A late request
+        still tokenizes and gets ``Draining``."""
+        import gc
+
+        self.stop()
+        with self._swap_lock, self._resident_lock:
+            cuda = self.nlp is not None and self.nlp.device.type == "cuda"
+            with DEVICE_GATE.exclusive():
+                before = torch.cuda.memory_allocated() if cuda else 0
+                self.nlp = None
+                self._live = {}
+                self._previous = None
+                self.overlay = dataclasses.replace(self.overlay, overlay=None)
+                self._stage_stream = None
+                gc.collect()
+                if cuda:
+                    self.allocated_after_release = torch.cuda.memory_allocated()
+                    self.released_bytes = before - self.allocated_after_release
+
+    def _check_resident(self) -> None:
+        if self.nlp is None:
+            raise SwapFailed("the engine was evicted and released its parameters "
+                             "— swap refused")

@@ -90,3 +90,29 @@ def test_chip_smoke_refuses_to_run_without_a_card_or_the_package(tmp_path):
     out = subprocess.run([sys.executable, str(alone)], cwd=tmp_path, capture_output=True,
                          text=True, timeout=120, env=env)
     assert out.returncode != 0 and '"ok"' not in out.stdout
+
+
+def test_the_serving_modules_of_one_process_are_checked():
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    assert {f"spacy_ray_tpu_torch/{m}.py" for m in (
+        "serving/multimodel/__init__", "serving/multimodel/registry",
+        "serving/multimodel/admission", "serving/multimodel/residency",
+        "serving/live/__init__", "serving/live/watcher", "training/resilience")} <= names
+    # the fleet's modules are not part of the port yet
+    assert not {n for n in names if "placement" in n or "/fleet/" in n or "canary" in n}
+
+
+def test_serve_with_a_manifest_without_a_card_fails_instead_of_using_the_cpu(tmp_path):
+    nlp = P.Pipeline.from_config(P.Config.from_str('[nlp]\npipeline = []\n'), device="cpu")
+    nlp.initialize()
+    nlp.to_disk(tmp_path / "m")
+    (tmp_path / "manifest.json").write_text('{"models": {"m": {"path": "m"}}}')
+    out = subprocess.run(
+        [sys.executable, "-m", "spacy_ray_tpu_torch", "serve", "x", "--port", "0",
+         "--model-manifest", str(tmp_path / "manifest.json"), "--watch", str(tmp_path / "w")],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": str(REPO), "CUDA_VISIBLE_DEVICES": ""},
+    )
+    assert out.returncode != 0
+    assert "no CUDA device is available" in out.stderr
+    assert "serving on" not in out.stdout

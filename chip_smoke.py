@@ -241,6 +241,28 @@ Run from the root of a checkout. Phases, each printing one JSON line:
               a fresh engine of its generation; each flip's delay from its
               meta file, stage and flip s.
 
+23. train:fleet (after slice:cnn), train:fleet_async (beside the host's
+              own work before the training kernels' rows: trf.cfg's and its
+              MoE's leaf shapes, the head corpora, md:assets, the CNN
+              configs' setup) — the trainer fleet:
+              ``python -m spacy_ray_tpu_torch train configs/cnn.cfg
+              --fleet-workers 2`` on train:cnn's .spacy corpora as a
+              subprocess, two worker processes sharing the card, a free
+              ``--fleet-base-port``. train:fleet: ``--quorum 2
+              --max-staleness 0`` (lockstep), 40 steps evaluated every 20:
+              exit 0, version 40 on both workers, nothing discarded, failed
+              or timed out, applied + discarded = received, K1 fwd, K1 bwd
+              and K5 launched in each worker (its ledger), the lead's loss
+              falling, dev tag_acc >= 0.9, best-model/ served with tags
+              equal to the CPU's on the same directory; printed: wall s,
+              each worker's per-phase medians (data, pull, grad, push,
+              apply_wait), wire bytes a step, peak memory, words/s beside
+              train:cnn's. train:fleet_async: JAX's defaults (quorum auto =
+              1, S 1), 20 steps: exit 0, conservation, the loss falling,
+              discards and timeouts printed. The kernel rows of 9. hold K5
+              over each owner's slices of cnn.cfg (``OwnershipLayout`` at
+              N 2, contiguous copies, the clip link off) at ``MAXULP_K5``.
+
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 before the last line. Without a card, or without the package beside this
@@ -2288,6 +2310,9 @@ def cnn_setup(torch, configs, trunk="tok2vec"):
         nlp = Pipeline.from_config(cfg, device="cpu")
         nlp.initialize(registry.resolve(cfg["corpora"]["train"]), seed=0)
         info[name] = [tuple(p.shape) for p in nlp.model.parameters()]
+        if name == "cnn":  # by path, for the fleet's owner slices
+            info["cnn_paths"] = {k.replace(".", "/"): tuple(p.shape)
+                                 for k, p in nlp.model.named_parameters()}
         nlp.requires_grad_(True)
         info["zero_grad_leaves"][name] = [
             i for i, p in enumerate(nlp.model.parameters()) if not p.requires_grad]
@@ -2475,6 +2500,250 @@ def phase_cnn_kernels(torch, info, leaf_sets=CNN_LEAF_SETS):
         emit({"phase": "kernel:fused_update", **row})
         upd.append(row)
     return {"hash_embed_gather_sum": fwd, "hash_embed_table_grad": bwd, "fused_update": upd}
+
+
+FLEET_STEPS, FLEET_EVAL = 40, 20  # train:fleet: cnn.cfg as 2 workers, quorum 2, S 0
+FLEET_ASYNC_STEPS = 20             # train:fleet_async: JAX's defaults (quorum auto, S 1)
+FLEET_N = 2
+
+
+def phase_fleet_kernels(torch, info):
+    """K5 over the owner slices of ``train:fleet``: cnn.cfg's 26 leaves split
+    by ``OwnershipLayout(N=2)``, each owner's slices (contiguous copies, as
+    an owner holds them) through the fused update with the clip link off
+    (the worker clips) and through RAdam with decay, against
+    ``leaf_math_plain`` at ``MAXULP_K5``; timed beside the plain version,
+    ``torch.optim.Adam(fused=True)`` and the bytes bound."""
+    import numpy as np
+
+    from spacy_ray_tpu_torch.ops.fused_update import (
+        FusedHyper, FusedUpdate, global_norm, leaf_math_plain, step_scalars,
+    )
+    from spacy_ray_tpu_torch.training.fleet.ownership import OwnershipLayout, tree_from_flat
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    template = tree_from_flat({k: np.zeros(sh, np.float32)
+                               for k, sh in info["cnn_paths"].items()})
+    layout = OwnershipLayout(template, FLEET_N)
+    floor_ms = time_ms(torch, lambda: torch.cuda._sleep(1))
+    rows = []
+    for w in range(FLEET_N):
+        shapes = [v.shape for v in layout.flat_slices(template, w).values()]
+        n_params = sum(math.prod(sh) for sh in shapes)
+        P = [torch.randn(sh, device=dev, generator=g) for sh in shapes]
+        G = [torch.randn(sh, device=dev, generator=g) * 1e-3 for sh in shapes]
+        M = [torch.randn(sh, device=dev, generator=g) * 1e-4 for sh in shapes]
+        V = [torch.rand(sh, device=dev, generator=g) * 1e-6 for sh in shapes]
+        worst, worst_abs = 0, 0.0
+        owner = FusedHyper("adam", 0.9, 0.999, 1e-8, 0.0, 0.0, 0.0)  # cnn.cfg's, clip off
+        for hyper in (owner, FusedHyper("radam", 0.9, 0.999, 1e-8, 0.0, 0.0, 0.01)):
+            sc = step_scalars(hyper, 9, 9, lambda s: 0.001)
+            Pk, Mk, Vk = ([x.clone() for x in X] for X in (P, M, V))
+            FusedUpdate(hyper).step(Pk, G, Mk, Vk, None, sc)
+            for i in range(len(P)):
+                want = leaf_math_plain(P[i], G[i], M[i], V[i], None, *sc, hyper=hyper)
+                for a, b in zip((Pk[i], Mk[i], Vk[i]), want):
+                    worst = max(worst, ulp_diff(torch, a, b))
+                    worst_abs = max(worst_abs, (a - b).abs().max().item())
+        if worst > MAXULP_K5:
+            fail(f"K5 over owner {w}'s slices: {worst} ulp from leaf_math_plain "
+                 f"(> {MAXULP_K5})")
+        fused = FusedUpdate(owner)
+        sc = step_scalars(owner, 9, 9, lambda s: 0.001)
+
+        def plain_all():
+            for p, gg, m, v in zip(P, G, M, V):
+                leaf_math_plain(p, gg, m, v, None, *sc, hyper=owner)
+
+        lib_params = [p.clone().requires_grad_(True) for p in P]
+        for p, gg in zip(lib_params, G):
+            p.grad = gg
+        lib_opt = torch.optim.Adam(lib_params, lr=1e-3, fused=True)
+        bnd, by = bound_ms(28 * n_params, 20 * n_params, PEAK_F32_FLOPS)
+        row = {
+            "leaf_set": f"cnn.cfg owner {w} of {FLEET_N} (OwnershipLayout slices)",
+            "leaves": len(P), "params": n_params,
+            "sharded_leaves": sum(layout.axes[i] is not None for i in range(len(layout.paths))
+                                  if layout.owns(i, w)),
+            "odd_sized_leaves": sum(math.prod(sh) % 4 != 0 for sh in shapes),
+            "max_ulp": worst, "max_abs_err": worst_abs,
+            "ms": time_ms(torch, lambda: fused.step(P, G, M, V, None, sc)),
+            "host_us": host_us(torch, lambda: fused.step(P, G, M, V, None, sc)),
+            "plain_ms": time_ms(torch, plain_all, reps=10),
+            "library_ms": time_ms(torch, lib_opt.step),
+            "bound_ms": bnd, "bound_by": by, "timer_floor_ms": floor_ms,
+            "dispatch": "train:fleet owner apply", "calls_per_dispatch": 1,
+            "chunks": fused._table.shape[0],
+        }
+        emit({"phase": "kernel:fused_update", **row})
+        rows.append(row)
+    return rows
+
+
+def free_base_port(n: int) -> int:
+    """A port p with p .. p + n - 1 free on 127.0.0.1."""
+    import socket
+
+    for _ in range(100):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            base = s.getsockname()[1]
+        if base + n > 65535:
+            continue
+        try:
+            socks = []
+            for k in range(1, n):
+                sk = socket.socket()
+                socks.append(sk)
+                sk.bind(("127.0.0.1", base + k))
+            return base
+        except OSError:
+            continue
+        finally:
+            for sk in socks:
+                sk.close()
+    fail("no run of free ports for the fleet")
+
+
+def start_fleet(phase: str, corpus, steps: int, quorum: int, staleness: int) -> dict:
+    """Start ``python -m spacy_ray_tpu_torch train configs/cnn.cfg
+    --fleet-workers 2 --quorum Q --max-staleness S`` on ``corpus``, ``steps``
+    steps and an evaluation every ``FLEET_EVAL``, on a free base port."""
+    import os
+
+    work = WORK / phase.replace(":", "_")
+    shutil.rmtree(work, ignore_errors=True)
+    out = work / "out"
+    port = free_base_port(FLEET_N)
+    cmd = [sys.executable, "-m", "spacy_ray_tpu_torch", "train", "configs/cnn.cfg",
+           "--output", str(out), "--paths.train", str(corpus[0]), "--paths.dev", str(corpus[1]),
+           "--training.max_steps", str(steps), "--training.eval_frequency", str(FLEET_EVAL),
+           "--fleet-workers", str(FLEET_N), "--quorum", str(quorum),
+           "--max-staleness", str(staleness), "--fleet-base-port", str(port)]
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env={**os.environ, "PYTHONPATH": str(ROOT)})
+    return {"proc": proc, "t0": time.perf_counter(), "work": work, "out": out,
+            "steps": steps, "quorum": quorum, "staleness": staleness}
+
+
+def phase_train_fleet(torch, phase: str, corpus, steps: int, quorum: int, staleness: int,
+                      cnn_wps=None, model_check: bool = True, started=None) -> dict:
+    """``python -m spacy_ray_tpu_torch train configs/cnn.cfg --fleet-workers
+    2 --quorum Q --max-staleness S`` as a subprocess on the card (two worker
+    processes), ``steps`` steps, an evaluation every ``FLEET_EVAL``. Fails
+    unless it exits 0, every gradient received was applied or discarded,
+    K1 fwd, K1 bwd and K5 launched in each worker (its ledger) and the
+    lead's loss fell (the mean of its last 5 steps below the first 5's);
+    with ``model_check`` also unless both workers reach version ``steps``
+    with nothing discarded, failed or timed out, the lead's dev tag_acc is
+    >= 0.9, and best-model/ answers through the serving path with tags
+    equal to the CPU's on the same directory. Reports the wall seconds,
+    each worker's per-phase medians (ms), wire bytes a step, peak memory
+    and words/s beside ``train:cnn``'s. ``started``: the run as
+    :func:`start_fleet` started it, or None to start it here."""
+    from spacy_ray_tpu_torch.__main__ import build_server
+    from spacy_ray_tpu_torch.training.corpus import Corpus
+
+    from spacy_ray_tpu_torch.training.resilience import terminate_with_grace
+
+    run = started or start_fleet(phase, corpus, steps, quorum, staleness)
+    work, out = run["work"], run["out"]
+    try:
+        stdout, stderr = run["proc"].communicate(timeout=600)
+    finally:  # SIGTERM first: the coordinator stops its workers
+        terminate_with_grace(run["proc"], grace_s=150.0)
+    wall_s = time.perf_counter() - run["t0"]
+    if run["proc"].returncode != 0:
+        fail(f"{phase}: the fleet exited {run['proc'].returncode}:\n{stdout[-3000:]}\n"
+             f"{stderr[-6000:]}")
+    ledgers = [json.loads((out / f"fleet-worker-{k}.json").read_text(encoding="utf8"))
+               for k in range(FLEET_N)]
+    problems = []
+    need = ("hash_embed_gather_sum", "hash_embed_table_grad", "fused_update")
+    for k, led in enumerate(ledgers):
+        c = led["counters"]
+        if c["grad_applied"] + c["grad_discarded"] != c["grad_received"]:
+            problems.append(f"worker {k}: applied + discarded != received ({c})")
+        missing = [n for n in need if not led["launches"].get(n)]
+        if missing:
+            problems.append(f"worker {k} launched no {missing}")
+        if model_check:
+            if led["version"] != steps or led["steps"] != steps:
+                problems.append(f"worker {k}: version {led['version']}, steps {led['steps']}")
+            bad = {n: c[n] for n in ("grad_discarded", "push_failed", "apply_wait_timeouts",
+                                     "pull_failed", "pull_wait_timeouts") if c[n]}
+            if bad:
+                problems.append(f"worker {k}: {bad}")
+    losses = ledgers[0]["step_losses"]
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    if not last < first:
+        problems.append(f"the lead's loss did not fall ({first} -> {last})")
+    dev = ledgers[0]["history"][-1]["other_scores"] if ledgers[0]["history"] else {}
+    served = None
+    if model_check:
+        if not dev.get("tag_acc", 0) >= 0.9:
+            problems.append(f"dev tag_acc {dev.get('tag_acc')} < 0.9")
+        texts = [" ".join(eg.reference.words) for eg in Corpus(corpus[1])()
+                 if len(eg.reference.words) <= 100][:8]
+        server = build_server([str(out / "best-model"), "--port", "0", "--max-batch", "4",
+                               "--max-doc-len", "128"])
+        try:
+            _, sport = server.start()
+            server.engine.start()
+            answers = []
+            for i in range(0, len(texts), 2):
+                status, body = post(sport, texts[i:i + 2])
+                if status != 200:
+                    fail(f"{phase}: best-model did not serve: {status} {body}")
+                answers.append((None, texts[i:i + 2], body))
+            server.request_shutdown()
+            if server.wait() != 0:
+                problems.append("serving best-model did not drain cleanly")
+        finally:
+            if server.engine.ready:
+                server.engine.stop()
+            server.httpd.server_close()
+        served = card_vs_cpu(out / "best-model", answers)
+        if served.get("tags") != 1.0:
+            problems.append(f"best-model's served tags differ from the CPU's: {served}")
+    words = sum(led["words_seen"] for led in ledgers)
+    per_worker = []
+    for led in ledgers:
+        c = led["counters"]
+        per_worker.append({
+            "worker": led["worker"], "version": led["version"], "steps": led["steps"],
+            "counters": c, "phase_s": led["phases"],
+            "phase_ms_median": {p: statistics.median(v) * 1e3
+                                for p, v in led["phase_steps_s"].items()},
+            "phase_share": {p: v / max(sum(led["phases"].values()), 1e-12)
+                            for p, v in led["phases"].items()},
+            "wire_bytes_per_step": (c["wire_push_bytes"] + c["wire_pull_bytes"])
+            / max(led["steps"], 1),
+            "owner_apply_ms_per_apply": led["owner_apply_seconds"] * 1e3 / max(c["applies"], 1),
+            "peak_memory_gb": (led["peak_memory_bytes"] or 0) / 1e9,
+            "seconds": led["seconds"], "words_per_s": led["words_seen"] / led["seconds"],
+            "launches": {n: v for n, v in led["launches"].items() if v},
+        })
+    res_row = {
+        "phase": phase, "steps": steps, "quorum": quorum, "max_staleness": staleness,
+        "workers": FLEET_N, "wall_s": wall_s, "words": words,
+        "words_per_s": words / max(led["seconds"] for led in ledgers),
+        "train_cnn_words_per_s": cnn_wps,
+        "loss_first5": first, "loss_last5": last, "dev_scores": dev,
+        "discarded": [led["counters"]["grad_discarded"] for led in ledgers],
+        "apply_wait_timeouts": [led["counters"]["apply_wait_timeouts"] for led in ledgers],
+        "pull_wait_timeouts": [led["counters"]["pull_wait_timeouts"] for led in ledgers],
+        "card_vs_cpu": served, "per_worker": per_worker,
+        "launches": {n: sum(led["launches"].get(n, 0) for led in ledgers)
+                     for n in ledgers[0]["launches"]},
+        "problems": problems,
+    }
+    emit(res_row)
+    if problems:
+        fail(f"{phase}: " + "; ".join(problems))
+    shutil.rmtree(work, ignore_errors=True)
+    return res_row
 
 
 def head_losses_fell(result, heads, phase):
@@ -5187,35 +5456,50 @@ def main() -> int:
 
     kernels = phase_kernels(torch)
     udgen = write_udgen_corpus()
-    full_shapes = trf_param_shapes(torch, udgen[0])
-    moe_shapes = moe_param_shapes(torch, udgen)
-    kernels.update(phase_train_kernels(torch, full_shapes, moe_shapes))
     spacy_corpus = write_spacy_corpus(udgen)
-    corpora = {"cnn": spacy_corpus, "sm": spacy_corpus, "tokcls": spacy_corpus,
-               **write_head_corpora()}
-    from spacy_ray_tpu_torch.training.corpus import Corpus
+    # train:fleet_async runs beside the work on the host alone that follows
+    # (the leaf shapes of trf.cfg and its MoE, the head corpora, md:assets,
+    # the CNN configs' setup), before the next kernel timings
+    fleet_async = start_fleet("train:fleet_async", spacy_corpus, FLEET_ASYNC_STEPS, 0, 1)
+    try:
+        full_shapes = trf_param_shapes(torch, udgen[0])
+        moe_shapes = moe_param_shapes(torch, udgen)
+        corpora = {"cnn": spacy_corpus, "sm": spacy_corpus, "tokcls": spacy_corpus,
+                   **write_head_corpora()}
+        from spacy_ray_tpu_torch.training.corpus import Corpus
 
-    t = time.perf_counter()
-    with redirect_stdout(io.StringIO()) as said:
-        md_in = md_assets(spacy_corpus[0], WORK / "md")
-    emit({"phase": "md:assets", "seconds": time.perf_counter() - t, **md_in[3],
-          "dev_tokens": sum(len(eg) for eg in Corpus(spacy_corpus[1])()),
-          "attribute_rules": len(md_in[1]), "entity_patterns": md_in[2],
-          "init_vectors_said": said.getvalue().strip()})
+        t = time.perf_counter()
+        with redirect_stdout(io.StringIO()) as said:
+            md_in = md_assets(spacy_corpus[0], WORK / "md")
+        emit({"phase": "md:assets", "seconds": time.perf_counter() - t, **md_in[3],
+              "dev_tokens": sum(len(eg) for eg in Corpus(spacy_corpus[1])()),
+              "attribute_rules": len(md_in[1]), "entity_patterns": md_in[2],
+              "init_vectors_said": said.getvalue().strip()})
 
-    def md_cfg():
-        return md_config(spacy_corpus, *md_in[:3])
+        def md_cfg():
+            return md_config(spacy_corpus, *md_in[:3])
 
-    configs = {name: pipeline_config(name, corpora[name]) for name in corpora}
-    configs["md"] = md_cfg()
-    cnn = cnn_setup(torch, configs)
+        configs = {name: pipeline_config(name, corpora[name]) for name in corpora}
+        configs["md"] = md_cfg()
+        cnn = cnn_setup(torch, configs)
+    except BaseException:
+        from spacy_ray_tpu_torch.training.resilience import terminate_with_grace
+
+        terminate_with_grace(fleet_async["proc"], grace_s=150.0)
+        raise
+    fleet_async_run = phase_train_fleet(
+        torch, "train:fleet_async", spacy_corpus, FLEET_ASYNC_STEPS, 0, 1, model_check=False,
+        started=fleet_async)
+    kernels.update(phase_train_kernels(torch, full_shapes, moe_shapes))
     for name, rows in phase_cnn_kernels(torch, cnn).items():
         kernels[name].extend(rows)
+    kernels["fused_update"].extend(phase_fleet_kernels(torch, cnn))
 
     if WORK.exists():
         shutil.rmtree(WORK / "trf_tagger", ignore_errors=True)
     model_dir = build_model_dir(torch)
     runs = {p: phase_slice(torch, model_dir, p) for p in ("auto", "int8")}
+    runs["train:fleet_async"] = fleet_async_run
     phase_cli(model_dir)
     shutil.rmtree(model_dir, ignore_errors=True)
     runs["train"] = phase_train(torch)
@@ -5226,6 +5510,11 @@ def main() -> int:
     runs["train:cnn"], cnn_model = phase_train_cnn(
         torch, "cnn", pipeline_config("cnn", corpora["cnn"]), cnn["cnn"])
     runs["slice:cnn"] = phase_slice_cnn(torch, cnn_model, spacy_corpus[1])
+    # the trainer fleet: cnn.cfg as two worker processes on the card, in
+    # lockstep (quorum 2, S 0); its asynchronous run came beside md:assets
+    runs["train:fleet"] = phase_train_fleet(
+        torch, "train:fleet", spacy_corpus, FLEET_STEPS, FLEET_N, 0,
+        cnn_wps=runs["train:cnn"]["words_per_s"])
     runs["train:sm"], sm_model = phase_train_cnn(
         torch, "sm", pipeline_config("sm", corpora["sm"]), cnn["sm"])
     runs["slice:sm"] = phase_slice_full(torch, sm_model, spacy_corpus[1], runs["slice:cnn"],

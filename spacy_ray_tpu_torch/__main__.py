@@ -2,6 +2,7 @@
 
     python -m spacy_ray_tpu_torch train <config.cfg> --output <dir> [--device cuda|cpu]
         [--code F] [--resume] [--paths.train x.jsonl --training.max_steps 40 ...]
+        [--fleet-workers N [--quorum Q] [--max-staleness S] [--fleet-base-port P]]
     python -m spacy_ray_tpu_torch pretrain <config.cfg> <output-dir> [--device cuda|cpu]
         [--code F] [--section.key value ...]
     python -m spacy_ray_tpu_torch evaluate <model-dir> <data.jsonl> [--device cuda|cpu]
@@ -13,6 +14,10 @@
 ``eval_frequency`` steps, and writes ``best-model/`` and ``last-model/``
 (with its training generations, which ``--resume`` continues from).
 Dotted ``--section.key value`` arguments override the config.
+``--fleet-workers N`` trains as N worker processes (the asynchronous
+trainer fleet, ``training/fleet/``): each owns a slice of every parameter,
+pushes gradients to their owners and applies at ``--quorum``; worker 0
+evaluates and writes the models.
 ``--code`` imports a Python file first, so that the functions it registers
 (callbacks, architectures, readers, augmenters) resolve in the config.
 ``pretrain`` runs the config's ``[pretraining]`` block (the characters or
@@ -57,7 +62,8 @@ from .serving.overlay import PRECISION_CHOICES
 
 USAGE = (
     "usage: python -m spacy_ray_tpu_torch train <config.cfg> [--output DIR] [--device cuda|cpu]"
-    " [--code F] [--resume] [--section.key value ...]\n"
+    " [--code F] [--resume] [--fleet-workers N [--quorum Q] [--max-staleness S]"
+    " [--fleet-base-port P]] [--section.key value ...]\n"
     "       python -m spacy_ray_tpu_torch pretrain <config.cfg> <output-dir> [--device cuda|cpu]"
     " [--code F] [--section.key value ...]\n"
     "       python -m spacy_ray_tpu_torch evaluate <model-dir> <data.jsonl> [--device cuda|cpu]"
@@ -240,17 +246,67 @@ def train_command(argv: List[str]) -> int:
     parser.add_argument("--resume", action="store_true",
                         help="continue from the newest intact generation in <output>/last-model")
     parser.add_argument("--verbose", "-V", action="store_true")
+    parser.add_argument("--fleet-workers", type=int, default=0, dest="fleet_workers",
+                        help="asynchronous trainer fleet: spawn N worker processes that own "
+                        "parameter slices, push gradients to their owners over HTTP and "
+                        "apply at quorum (0 = one process)")
+    parser.add_argument("--quorum", type=int, default=0,
+                        help="fleet: gradients from this many distinct workers trigger an "
+                        "owner's apply (0 = auto: all but one, at least 1)")
+    parser.add_argument("--max-staleness", type=int, default=1, dest="max_staleness",
+                        help="fleet: accept gradients stamped up to S versions behind the "
+                        "owner's; staler ones are discarded and counted")
+    parser.add_argument("--fleet-base-port", type=int, default=None, dest="fleet_base_port",
+                        help="fleet: worker k's peer endpoint binds 127.0.0.1:base+k "
+                        "(default 47200)")
+    parser.add_argument("--fleet-worker-id", type=int, default=None, dest="fleet_worker_id",
+                        help="(set by the coordinator) run as fleet worker K")
     args, extra = parser.parse_known_args(argv)
     logging.basicConfig(level=logging.INFO if args.verbose else logging.WARNING,
                         format="%(levelname)s %(name)s: %(message)s")
+    if args.fleet_workers < 0:
+        parser.error("--fleet-workers must be >= 0")
+    if args.fleet_workers > 0 and args.resume:
+        parser.error("--resume: the trainer fleet's generations keep no optimizer state in "
+                     "this package, so a fleet run cannot be resumed")
+    if args.fleet_workers > 0 and args.fleet_worker_id is None:
+        # the coordinator: spawns the workers and waits; never touches the card
+        from .training.fleet.coordinator import run_fleet
+        from .training.fleet.worker import resolve_quorum
+
+        if not 1 <= resolve_quorum(args.quorum, args.fleet_workers) <= args.fleet_workers:
+            parser.error(f"--quorum {args.quorum} outside [1, {args.fleet_workers}]")
+        return run_fleet(argv, n_workers=args.fleet_workers)
 
     from .config import load_config, parse_cli_overrides
     from .registry import import_code
     from .training.loop import train
 
+    fleet = None
+    if args.fleet_worker_id is not None:
+        if args.fleet_workers <= 0:
+            parser.error("--fleet-worker-id requires --fleet-workers N")
+        from .training.fleet.worker import DEFAULT_FLEET_BASE_PORT
+
+        fleet = {"worker_id": args.fleet_worker_id, "n_workers": args.fleet_workers,
+                 "quorum": args.quorum, "max_staleness": args.max_staleness,
+                 "base_port": (args.fleet_base_port if args.fleet_base_port is not None
+                               else DEFAULT_FLEET_BASE_PORT)}
     import_code(str(args.code) if args.code else None)
     config = load_config(args.config_path, parse_cli_overrides(extra))
-    nlp, result = train(config, args.output, device=args.device, resume=args.resume)
+    nlp, result = train(config, args.output, device=args.device, resume=args.resume,
+                        fleet=fleet)
+    if result.interrupted:
+        from .training.resilience import RC_PREEMPTED
+
+        print(f"Interrupted at step {result.final_step} (exit {RC_PREEMPTED})", flush=True)
+        return RC_PREEMPTED
+    if fleet is not None and fleet["worker_id"] != 0:
+        # a worker other than the lead evaluates nothing
+        print(f"Done. fleet worker {fleet['worker_id']}: steps={result.final_step} "
+              f"shard version={result.fleet['version']} words/sec={result.wps:,.0f}",
+              flush=True)
+        return 0
     print(f"Done. steps={result.final_step} best_score={result.best_score:.4f} "
           f"(step {result.best_step}) words/sec={result.wps:,.0f}", flush=True)
     for comp_name in nlp.pipe_names:

@@ -5,6 +5,7 @@
 ``spacy.batch_by_padded.v1`` group a stream of examples into batches, with ``compounding.v1`` / ``constant.v1``
 size schedules. Padded batches then take a small set of (B, T) bucket
 shapes, shared by collation, training and the serving warmup sweep.
+:func:`shard_stream` deals a stream out to the workers of a trainer fleet.
 """
 
 from __future__ import annotations
@@ -162,3 +163,12 @@ def bucket_batch_size(n: int) -> int:
         if n <= b:
             return b
     return ((n + 255) // 256) * 256
+
+
+def shard_stream(examples: Iterable[Example], rank: int, world: int) -> Iterator[Example]:
+    """Deterministic round-robin shard of the example stream by rank: the
+    examples at positions ``rank, rank + world, ...`` (a fleet worker's
+    share of the corpus)."""
+    for i, eg in enumerate(examples):
+        if i % world == rank:
+            yield eg

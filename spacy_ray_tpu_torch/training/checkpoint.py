@@ -25,6 +25,7 @@ import hashlib
 import json
 import logging
 import os
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -140,15 +141,18 @@ class TrainCheckpoint:
              epoch: int, best_score: float, best_step: int,
              extra: Optional[Dict[str, Any]] = None, keep: int = 2) -> None:
         """Array files first, then the generation's meta, then the pointer:
-        a crash at any point leaves the earlier generations loadable."""
+        a crash at any point leaves the earlier generations loadable. The
+        two array files are written and hashed on two threads at once (the
+        writes and the hash release the interpreter lock)."""
         path = Path(path)
         path.mkdir(parents=True, exist_ok=True)
         stamp = int(step)
-        digests = {
-            f"params-{stamp}.npz": _write_npz(path, f"params-{stamp}.npz", params),
-            f"opt_state-{stamp}.npz": _write_npz(path, f"opt_state-{stamp}.npz",
-                                                 flatten_opt_state(opt_state)),
-        }
+        files = {f"params-{stamp}.npz": params,
+                 f"opt_state-{stamp}.npz": flatten_opt_state(opt_state)}
+        with ThreadPoolExecutor(max_workers=len(files)) as pool:
+            jobs = {name: pool.submit(_write_npz, path, name, flat)
+                    for name, flat in files.items()}
+            digests = {name: job.result() for name, job in jobs.items()}
         meta = {
             "step": int(step), "epoch": int(epoch), "rng": [],
             "best_score": float(best_score), "best_step": int(best_step),

@@ -1,0 +1,408 @@
+"""A fleet worker's peer plane: the owner of its parameter slices and the
+HTTP server around it (``spacy_ray_tpu/training/fleet/peer.py``).
+
+:class:`OwnerState` holds the one authoritative copy of this worker's
+slices and their optimizer state. It buffers arriving gradients by sender,
+discards (and counts) a gradient stamped more than ``max_staleness``
+versions behind the slices' version or ahead of it, and once ``quorum``
+distinct senders are buffered applies the optimizer to their mean and bumps
+the version. The apply runs on the thread that completed the quorum (an
+HTTP handler thread for a peer's push), under the owner's lock.
+
+:class:`PeerServer` serves ``POST /grad`` (wire frames, never pickle),
+``GET /params?known=V`` (the encoded slices, or 204 with ``X-SRT-Version``
+when ``V`` is current), ``GET /healthz`` (worker id, layout signature,
+version, the codecs it decodes), ``GET /metrics`` (counters, version and
+the worker's phase seconds, as JSON) and ``POST /finalize``. A body over
+:data:`MAX_BODY_BYTES` gets 413 and a counted discard. The JAX package's
+membership, checkpoint, trace and alert routes answer 404 here.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import socket
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Any, Callable, Dict, Optional, Tuple
+from urllib.parse import parse_qs, urlparse
+
+import numpy as np
+import torch
+
+from ..telemetry import sanitize_json
+from .wire import WIRE_CODECS, WireError, decode_grads, encode_arrays, frame_epoch
+
+#: request-body ceiling (bytes): a bigger frame is hostile or corrupt, and is
+#: refused before it is read into memory
+MAX_BODY_BYTES = 1 << 30
+
+logger = logging.getLogger("spacy_ray_tpu_torch.training")
+
+#: the JAX package's counter names (Prometheus ``srt_training_<name>_total``)
+COUNTER_NAMES = (
+    "grad_pushed",          # worker: payloads delivered to peer owners (not to itself)
+    "grad_received",        # owner: payloads that arrived
+    "grad_applied",         # owner: buffered contributions folded into applies
+    "grad_discarded",       # owner: payloads dropped (stale, future, malformed)
+    "push_failed",          # worker: pushes that exhausted their retries
+    "pull_failed",          # worker: parameter pulls that failed
+    "apply_wait_timeouts",  # worker: quorum waits that timed out
+    "pull_wait_timeouts",   # worker: staleness-gate waits that timed out
+    "applies",              # owner: optimizer applies (version bumps)
+    "wire_push_bytes",      # worker: bytes of delivered pushes
+    "wire_pull_bytes",      # worker: bytes of 200 pull bodies
+    "epoch_fenced",         # owner: frames stamped with a membership epoch not 0
+)
+
+
+class FleetCounters:
+    """The fleet's ledger: thread-safe ints."""
+
+    def __init__(self) -> None:
+        self._v: Dict[str, int] = {n: 0 for n in COUNTER_NAMES}
+        self._lock = threading.Lock()
+
+    def inc(self, name: str, n: int = 1) -> None:
+        with self._lock:
+            self._v[name] += int(n)
+
+    def snapshot(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self._v)
+
+
+def host_copy(leaf: Any) -> np.ndarray:
+    """A host numpy copy of a tensor (on any device) or an array."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().to("cpu", copy=True).numpy()
+    return np.array(np.asarray(leaf))
+
+
+class OwnerState:
+    """The authoritative owner of this worker's parameter slices.
+
+    A gradient stamped ``s`` against the current version ``v`` is buffered
+    when ``0 <= v - s <= max_staleness`` and discarded (and counted)
+    otherwise: too stale, or from the future (a peer pushing against a
+    version this owner never reached). The buffer is keyed by sender (a
+    re-push before the apply replaces the earlier one); at ``quorum``
+    senders their mean goes through ``apply_fn(params, opt_state, grads)
+    -> (params, opt_state)``, the version bumps and waiters wake.
+
+    ``params`` is a flat ``{path: leaf}`` dict (tensors on the card for a
+    worker, numpy arrays in tests); the host copies of the slices that
+    pulls are served from are taken after each apply.
+    """
+
+    def __init__(self, *, worker_id: int, n_workers: int, quorum: int, max_staleness: int,
+                 apply_fn: Callable, slice_params: Dict[str, Any], opt_state: Any,
+                 counters: FleetCounters) -> None:
+        if not (1 <= quorum <= n_workers):
+            raise ValueError(f"quorum must be in [1, {n_workers}], got {quorum}")
+        if max_staleness < 0:
+            raise ValueError(f"max_staleness must be >= 0, got {max_staleness}")
+        self.worker_id = int(worker_id)
+        self.n_workers = int(n_workers)
+        self.quorum = int(quorum)
+        self.max_staleness = int(max_staleness)
+        self.apply_fn = apply_fn
+        self.params = slice_params
+        self.opt_state = opt_state
+        self.counters = counters
+        self.version = 0
+        self.lock = threading.Lock()
+        self._cond = threading.Condition(self.lock)
+        self._buffer: Dict[int, Dict[str, np.ndarray]] = {}
+        self._host_flat: Dict[str, np.ndarray] = {k: host_copy(v)
+                                                  for k, v in slice_params.items()}
+        self._encoded: Optional[bytes] = None
+        self.apply_seconds = 0.0
+
+    def submit(self, worker: int, stamp: int,
+               grads: Dict[str, np.ndarray]) -> Tuple[bool, int]:
+        """One gradient payload from ``worker`` stamped against version
+        ``stamp``; returns (accepted, current version). Checked in order: the
+        sender's id, the stamp's lag, then the keys and shapes (a payload
+        that does not match the owned slices is a counted discard, never a
+        buffered entry that would make the next apply raise)."""
+        with self._cond:
+            self.counters.inc("grad_received")
+            if not (0 <= int(worker) < self.n_workers):
+                self.counters.inc("grad_discarded")
+                return False, self.version
+            lag = self.version - int(stamp)
+            if lag < 0 or lag > self.max_staleness:
+                self.counters.inc("grad_discarded")
+                return False, self.version
+            if set(grads) != set(self._host_flat) or any(
+                    grads[k].shape != self._host_flat[k].shape for k in grads):
+                self.counters.inc("grad_discarded")
+                logger.warning("fleet owner %d: structurally mismatched gradient payload "
+                               "from worker %s discarded (peer running a different "
+                               "parameter layout?)", self.worker_id, worker)
+                return False, self.version
+            self._buffer[int(worker)] = grads
+            if len(self._buffer) >= self.quorum:
+                try:
+                    self._apply_locked()
+                except Exception:
+                    # an apply that raises drops its round (counted) instead of
+                    # leaving a buffer that raises again at every quorum
+                    self.counters.inc("grad_discarded", len(self._buffer))
+                    self._buffer.clear()
+                    logger.exception("fleet owner %d: quorum apply failed; round dropped",
+                                     self.worker_id)
+            return True, self.version
+
+    def _apply_locked(self) -> None:
+        t0 = time.monotonic()
+        n = len(self._buffer)
+        mean_flat: Dict[str, np.ndarray] = {}
+        for flat in self._buffer.values():
+            for key, arr in flat.items():
+                acc = mean_flat.get(key)
+                mean_flat[key] = arr.astype(np.float32) if acc is None else acc + arr
+        for key in mean_flat:
+            mean_flat[key] = mean_flat[key] / np.float32(n)
+        self.params, self.opt_state = self.apply_fn(self.params, self.opt_state, mean_flat)
+        self._host_flat = {k: host_copy(v) for k, v in self.params.items()}
+        self._encoded = None
+        self.version += 1
+        self.counters.inc("grad_applied", n)
+        self.counters.inc("applies")
+        self._buffer.clear()
+        self.apply_seconds += time.monotonic() - t0
+        self._cond.notify_all()
+
+    def current_flat(self) -> Tuple[int, Dict[str, np.ndarray]]:
+        """(version, owned slices): host copies replaced wholesale at each
+        apply and never mutated, safe to merge without the lock."""
+        with self.lock:
+            return self.version, dict(self._host_flat)
+
+    def encoded(self, known: Optional[int]) -> Tuple[int, Optional[bytes]]:
+        """The wire frame of the current slices, or ``(version, None)`` when
+        ``known`` is current; one encode per version, however many pulls."""
+        with self.lock:
+            if known is not None and int(known) == self.version:
+                return self.version, None
+            if self._encoded is None:
+                self._encoded = encode_arrays(
+                    {"version": self.version, "worker": self.worker_id}, self._host_flat)
+            return self.version, self._encoded
+
+    def wait_version_above(self, stamp: int, timeout: float) -> bool:
+        """Block until the version exceeds ``stamp`` (the round this worker
+        pushed to was applied, or a later one); False on timeout."""
+        deadline = time.monotonic() + float(timeout)
+        with self._cond:
+            while self.version <= int(stamp):
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return False
+                self._cond.wait(remaining)
+            return True
+
+
+class _PeerHTTPD(ThreadingHTTPServer):
+    """Tracks its connections so that :meth:`PeerServer.stop` severs the
+    keep-alive ones too, as the death of the process would."""
+
+    daemon_threads = True
+
+    def __init__(self, *args: Any, **kwargs: Any) -> None:
+        super().__init__(*args, **kwargs)
+        self._conns: set = set()
+        self._conns_lock = threading.Lock()
+
+    def process_request(self, request: Any, client_address: Any) -> None:
+        with self._conns_lock:
+            self._conns.add(request)
+        super().process_request(request, client_address)
+
+    def shutdown_request(self, request: Any) -> None:
+        with self._conns_lock:
+            self._conns.discard(request)
+        super().shutdown_request(request)
+
+    def close_all_connections(self) -> None:
+        with self._conns_lock:
+            conns = list(self._conns)
+            self._conns.clear()
+        for sock in conns:
+            for close in (lambda: sock.shutdown(socket.SHUT_RDWR), sock.close):
+                try:
+                    close()
+                except OSError:
+                    pass
+
+    owner: OwnerState
+    worker_id: int
+    layout_signature: str
+    finalize_event: threading.Event
+    counters: FleetCounters
+    phases: Callable[[], Dict[str, float]]
+    max_body_bytes: int
+
+
+class _PeerHandler(BaseHTTPRequestHandler):
+    protocol_version = "HTTP/1.1"
+    server: _PeerHTTPD
+
+    def log_message(self, fmt: str, *args: Any) -> None:
+        logger.debug("%s " + fmt, self.address_string(), *args)
+
+    def _reply_bytes(self, status: int, body: bytes, content_type: str,
+                     headers: Optional[Dict[str, str]] = None) -> None:
+        self.send_response(status)
+        for k, v in (headers or {}).items():
+            self.send_header(k, v)
+        self.send_header("Content-Type", content_type)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _reply_json(self, status: int, payload: Dict[str, Any],
+                    headers: Optional[Dict[str, str]] = None) -> None:
+        body = json.dumps(sanitize_json(payload)).encode("utf8")
+        self._reply_bytes(status, body, "application/json", headers)
+
+    def do_GET(self) -> None:  # noqa: N802 (stdlib handler naming)
+        parsed = urlparse(self.path)
+        srv = self.server
+        if parsed.path == "/healthz":
+            self._reply_json(200, {
+                "status": "ok", "role": "fleet-worker", "worker": srv.worker_id,
+                "version": srv.owner.version, "layout": srv.layout_signature,
+                "codecs": list(WIRE_CODECS), "delta_window": 0, "epoch": 0})
+        elif parsed.path == "/params":
+            self._params(parsed)
+        elif parsed.path == "/metrics":
+            self._reply_json(200, {"counters": srv.counters.snapshot(),
+                                   "gauges": {"fleet_worker": srv.worker_id,
+                                              "param_version": srv.owner.version,
+                                              "membership_epoch": 0},
+                                   "phases": srv.phases()})
+        else:
+            self._reply_json(404, {"error": "not_found", "message": parsed.path})
+
+    def _params(self, parsed: Any) -> None:
+        srv = self.server
+        known_s = (parse_qs(parsed.query).get("known") or [None])[0]
+        epoch_s = self.headers.get("X-SRT-Epoch")
+        try:
+            known = int(known_s) if known_s is not None else None
+            epoch = int(epoch_s) if epoch_s is not None else 0
+        except ValueError:
+            self._reply_json(400, {"error": "bad_request",
+                                   "message": f"known={known_s!r} or X-SRT-Epoch "
+                                              f"{epoch_s!r} is not an int"})
+            return
+        if epoch != 0:
+            # the membership epoch is 0 until membership is ported: a puller at
+            # another epoch must not merge this layout's slices
+            srv.counters.inc("epoch_fenced")
+            self._reply_json(409, {"error": "epoch_fenced", "epoch": 0},
+                             headers={"X-SRT-Epoch": "0"})
+            return
+        version, body = srv.owner.encoded(known)
+        if body is None:
+            self._reply_bytes(204, b"", "application/octet-stream",
+                              headers={"X-SRT-Version": str(version)})
+        else:
+            self._reply_bytes(200, body, "application/octet-stream",
+                              headers={"X-SRT-Version": str(version), "X-SRT-Codec": "f32"})
+
+    def _body_or_413(self) -> Optional[bytes]:
+        """The request body, or None after a 400 (a Content-Length that is
+        not an int) or a 413 and a counted discard (one past the cap)."""
+        srv = self.server
+        try:
+            length = int(self.headers.get("Content-Length") or 0)
+        except ValueError:
+            self._reply_json(400, {"error": "bad_request",
+                                   "message": "Content-Length is not an int"})
+            return None
+        if length > srv.max_body_bytes:
+            srv.counters.inc("grad_discarded")
+            self._reply_json(413, {"error": "body_too_large",
+                                   "message": f"{length} bytes exceeds the "
+                                              f"{srv.max_body_bytes}-byte frame cap"})
+            return None
+        return self.rfile.read(length) if length > 0 else b""
+
+    def do_POST(self) -> None:  # noqa: N802
+        parsed = urlparse(self.path)
+        srv = self.server
+        if parsed.path == "/grad":
+            body = self._body_or_413()
+            if body is None:
+                return
+            try:
+                meta, arrays = decode_grads(body)
+                epoch = frame_epoch(meta)
+                worker = int(meta["worker"])
+                stamp = int(meta["stamp"])
+            except (WireError, KeyError, TypeError, ValueError) as e:
+                self._reply_json(400, {"error": "bad_payload", "message": str(e)})
+                return
+            if epoch != 0:
+                srv.counters.inc("epoch_fenced")
+                self._reply_json(200, {"accepted": False, "fenced": True, "epoch": 0})
+                return
+            accepted, version = srv.owner.submit(worker, stamp, arrays)
+            self._reply_json(200, {"accepted": accepted, "version": version})
+        elif parsed.path == "/finalize":
+            srv.finalize_event.set()
+            self._reply_json(200, {"status": "finalizing"})
+        else:
+            self._reply_json(404, {"error": "not_found", "message": parsed.path})
+
+
+class PeerServer:
+    """One worker's peer endpoint on a daemon thread. ``phases`` returns the
+    worker's per-phase seconds for ``/metrics``."""
+
+    def __init__(self, owner: OwnerState, *, worker_id: int, layout_signature: str,
+                 counters: FleetCounters, host: str = "127.0.0.1", port: int = 0,
+                 phases: Optional[Callable[[], Dict[str, float]]] = None) -> None:
+        try:
+            self.httpd = _PeerHTTPD((host, int(port)), _PeerHandler)
+        except OSError as e:
+            raise OSError(e.errno, f"fleet worker {worker_id}: cannot bind {host}:{port} "
+                                   f"({e.strerror}); pick a free --fleet-base-port") from e
+        self.httpd.owner = owner
+        self.httpd.worker_id = int(worker_id)
+        self.httpd.layout_signature = layout_signature
+        self.httpd.counters = counters
+        self.httpd.finalize_event = threading.Event()
+        self.httpd.phases = phases or dict
+        self.httpd.max_body_bytes = int(MAX_BODY_BYTES)
+        self._thread: Optional[threading.Thread] = None
+
+    @property
+    def address(self) -> Tuple[str, int]:
+        host, port = self.httpd.server_address[:2]
+        return str(host), int(port)
+
+    @property
+    def finalize_event(self) -> threading.Event:
+        return self.httpd.finalize_event
+
+    def start(self) -> Tuple[str, int]:
+        self._thread = threading.Thread(target=self.httpd.serve_forever,
+                                        kwargs={"poll_interval": 0.2},
+                                        name=f"fleet-peer-{self.httpd.worker_id}", daemon=True)
+        self._thread.start()
+        return self.address
+
+    def stop(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.httpd.close_all_connections()
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+            self._thread = None

@@ -1,0 +1,678 @@
+"""One trainer-fleet worker: the pull -> grad -> push -> apply-wait loop
+(``spacy_ray_tpu/training/fleet/worker.py``, its core).
+
+Each of the N workers
+
+* computes gradients on its own share of the corpus
+  (:func:`~..batcher.shard_stream` by worker id);
+* pushes each slice of its gradient to the slice's owner over HTTP (its own
+  slice to its local :class:`~.peer.OwnerState`), with one bounded retry; a
+  push that still fails is counted and dropped, never waited on;
+* waits (apply-wait) until its own slices' version passes the stamp it
+  pushed against, at most ``quorum_wait_s``; a lost quorum is a counted
+  timeout, not a wedge;
+* pulls the other owners' newer slices at the top of the next step, through
+  the staleness gate of :func:`train_fleet_worker`'s ``pull_peers``.
+
+The gradient clip: with a fused optimizer (``Adam.v1``, ``RAdam.v1``) the
+worker scales its whole gradient by ``min(1, clip / max(gnorm, 1e-16))``
+(the exact global norm of its gradient) and each owner runs the fused
+update on its slice with the clip link off. Other optimizers run whole on
+each slice, their clip norms taken over the slice.
+
+The owner keeps its slice's parameters, moments and mean gradient on the
+device in tensors that persist across applies (:class:`SliceApply`); the
+apply copies the mean into them and never touches the model's own
+parameters. The model takes the merged slices at pull time, in the training
+thread.
+
+Worker 0 (the lead) logs, evaluates every ``eval_frequency`` steps, writes
+``best-model/`` and ``last-model/`` from the slices it pulled (the flat
+``params.npz`` layout: either package loads them), and parameter
+generations in ``last-model/`` that ``serve --watch`` follows (the pulled
+slices with its own newest slice merged in). The fleet's generations keep
+no optimizer state: ``--resume`` refuses them. As in the JAX package, the
+models hold the slices as pulled at the top of the step they are written
+in: the last round's apply reaches the final ``last-model/`` only through
+the lead's own slice in its last generation. At a clean end the lead writes
+its models and posts ``/finalize``; the other workers keep serving its
+pulls and pushes until then (at most ``FINALIZE_WAIT_S``, or until the lead
+stops answering). Each worker writes
+``fleet-worker-{k}.json``: counters, versions, the seconds of each phase
+(data, pull, grad, push, apply_wait) in all and per step, its losses and
+its kernels' launch counts.
+
+Out of this piece (ROADMAP): membership and lease failover, compressed
+wires and delta pulls, optimizer parts with ``--resume`` and restarts, the
+dynamics histograms and alerts.
+"""
+
+from __future__ import annotations
+
+import http.client
+import io
+import json
+import random
+import signal
+import socket
+import sys
+import threading
+import time
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Tuple
+from urllib.parse import urlparse
+
+import numpy as np
+import torch
+
+from ...devices import DeviceLike, resolve_device
+from ...models.core import param_paths
+from ...ops import _cuda
+from ...ops.fused_update import global_norm
+from ...pipeline.language import Pipeline
+from ...registry import registry
+from .. import optimizers as _optimizers
+from ..batcher import bucket_batch_size, bucket_length, shard_stream
+from ..checkpoint import TrainCheckpoint, flatten
+from ..resilience import RetryPolicy, log_event, retry_io
+from .ownership import OwnershipLayout, tree_from_flat
+from .peer import FleetCounters, OwnerState, PeerServer
+from .wire import WireError, decode_arrays, encode_grads
+
+DEFAULT_FLEET_BASE_PORT = 47200
+PHASES = ("data", "pull", "grad", "push", "apply_wait")
+#: a failed push is retried this often (then counted and dropped)
+PUSH_RETRIES = 1
+#: how long a worker waits for every peer to answer ``/healthz`` at start
+PEER_WAIT_S = 120.0
+#: how long a worker other than the lead keeps serving for the lead's
+#: ``/finalize`` after its own last step
+FINALIZE_WAIT_S = 600.0
+#: the stamp a worker has pushed to an owner before its first push
+_NEVER = -(10 ** 9)
+
+
+def resolve_quorum(quorum: Optional[int], n_workers: int) -> int:
+    """0 or None = auto: all workers but one, at least 1 (one lost worker
+    cannot stall the fleet)."""
+    if not quorum:
+        return max(1, int(n_workers) - 1)
+    return int(quorum)
+
+
+class _PeerClient:
+    """A persistent HTTP connection to one peer (keep-alive, one reconnect
+    on a dead socket); every failure is an OSError."""
+
+    def __init__(self, url: str, timeout: float = 10.0) -> None:
+        parsed = urlparse(url)
+        if parsed.scheme != "http":
+            raise ValueError(f"fleet peers speak plain http, got {url!r}")
+        self.host = parsed.hostname or "127.0.0.1"
+        self.port = int(parsed.port or 80)
+        self.timeout = float(timeout)
+        self._conn: Optional[http.client.HTTPConnection] = None
+
+    def close(self) -> None:
+        if self._conn is not None:
+            try:
+                self._conn.close()
+            except OSError:
+                pass
+            self._conn = None
+
+    def request(self, method: str, path: str, body: Optional[bytes] = None,
+                content_type: str = "application/octet-stream",
+                headers: Optional[Dict[str, str]] = None) -> Tuple[int, Dict[str, str], bytes]:
+        last: Optional[Exception] = None
+        for _ in (0, 1):  # one transparent reconnect on a dead socket
+            if self._conn is None:
+                self._conn = http.client.HTTPConnection(self.host, self.port,
+                                                        timeout=self.timeout)
+            try:
+                hdrs = {"Content-Type": content_type} if body else {}
+                hdrs.update(headers or {})
+                self._conn.request(method, path, body=body, headers=hdrs)
+                resp = self._conn.getresponse()
+                payload = resp.read()
+                return resp.status, dict(resp.getheaders()), payload
+            except (http.client.HTTPException, OSError, socket.timeout) as e:
+                last = e
+                self.close()
+        raise OSError(f"peer {self.host}:{self.port} unreachable: {last}")
+
+
+def clip_scale(gnorm: torch.Tensor, clip: float) -> torch.Tensor:
+    """``min(1, clip / max(gnorm, 1e-16))`` in float32 on gnorm's device:
+    the worker-side global-norm clip of a fused optimizer (an IEEE quotient:
+    ``scalar / tensor`` would multiply by a reciprocal)."""
+    g = torch.clamp(gnorm.to(torch.float32), min=1e-16)
+    return torch.clamp(torch.full_like(g, clip).div(g), max=1.0)
+
+
+class SliceApply:
+    """An owner's optimizer over its slices, on one device: the slices'
+    parameters, moments and mean gradient in tensors that live as long as
+    the owner (the fused kernel's chunk table stays built), the mean copied
+    in at each apply. ``apply(params, opt_state, grads)`` is the
+    :class:`~.peer.OwnerState` apply function."""
+
+    def __init__(self, optimizer: "_optimizers.Optimizer", device: torch.device) -> None:
+        self.optimizer = optimizer
+        self.device = device
+        self._grads: Dict[str, torch.Tensor] = {}
+
+    def init(self, flat: Dict[str, np.ndarray]) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
+        params = {k: torch.tensor(np.ascontiguousarray(v, dtype=np.float32), device=self.device)
+                  for k, v in flat.items()}
+        self._grads = {k: torch.zeros_like(p) for k, p in params.items()}
+        return params, self.optimizer.init(params)
+
+    def __call__(self, params: Dict[str, torch.Tensor], opt_state: Dict[str, Any],
+                 grads: Dict[str, np.ndarray]) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
+        with torch.no_grad():
+            for k, g in grads.items():
+                self._grads[k].copy_(torch.from_numpy(np.ascontiguousarray(g)))
+            self.optimizer.update(params, self._grads, opt_state)
+        return params, opt_state
+
+
+def owner_optimizer(optimizer: "_optimizers.Optimizer") -> Tuple["_optimizers.Optimizer", float]:
+    """``(the owners' optimizer, the workers' clip)``: a fused optimizer's
+    chain with its clip link off and its clip moved to the worker; any other
+    optimizer whole, clipping each slice by the slice's norm."""
+    if isinstance(optimizer, _optimizers.FusedOptimizer):
+        hyper = optimizer.hyper
+        return _optimizers.FusedOptimizer(hyper._replace(grad_clip=0.0),
+                                          optimizer.lr_fn), hyper.grad_clip
+    log_event("fleet-per-shard-optimizer",
+              "optimizer is not fused: the whole chain (its global-norm clip too) runs on "
+              "each owner's slice, so clip norms are per slice, not global")
+    return optimizer, 0.0
+
+
+def _check_fleet_config(T: Dict[str, Any], nlp: Pipeline, optimizer: Any) -> None:
+    if int(T.get("accumulate_gradient") or 1) != 1:
+        raise ValueError("fleet mode: accumulate_gradient > 1 is not supported — the quorum "
+                         "is the accumulation")
+    for key in ("annotating_components", "frozen_components"):
+        if T.get(key):
+            raise ValueError(f"fleet mode does not support {key} yet")
+    if T.get("before_update"):
+        raise ValueError("fleet mode does not run [training.before_update]")
+    if optimizer.use_averages:
+        raise ValueError("fleet mode does not support use_averages (the running mean needs "
+                         "every applied parameter on one worker)")
+    frozen = [k for k in param_paths(nlp.model) if _optimizers.is_frozen(k)]
+    if frozen:
+        raise ValueError(f"fleet mode does not train pipelines with frozen tables yet "
+                         f"({frozen[0]}, ...)")
+
+
+def train_fleet_worker(
+    config: Any,
+    output_path: Optional[Path] = None,
+    *,
+    worker_id: int,
+    n_workers: int,
+    quorum: int = 0,
+    max_staleness: int = 1,
+    base_port: int = DEFAULT_FLEET_BASE_PORT,
+    port: Optional[int] = None,
+    peer_urls: Optional[List[str]] = None,
+    device: DeviceLike = None,
+    stdout_log: bool = True,
+    max_steps_override: Optional[int] = None,
+    quorum_wait_s: float = 30.0,
+) -> Tuple[Pipeline, Any]:
+    """Run one fleet worker; returns ``(nlp, TrainResult)`` as
+    :func:`~..loop.train` does (whose ``fleet=`` mode calls this), with
+    ``result.fleet`` holding the worker's ledger.
+
+    Worker ``k`` serves its peer endpoint on ``127.0.0.1:base_port + k``
+    (``port`` overrides it); its peers are ``peer_urls`` or
+    ``http://127.0.0.1:base_port + i``. ``[training] fleet_peer_timeout_s``
+    bounds each peer request. On the main thread, SIGTERM and SIGINT stop
+    the worker at its next step (``result.interrupted``). Runs on ``cuda``
+    unless ``device`` is ``"cpu"``."""
+    from ..loop import (
+        TrainResult, _named_params, _resolve_corpus, check_component_lists,
+        default_pipeline_score_weights, resolve_training, weighted_score,
+    )
+
+    worker_id, n_workers = int(worker_id), int(n_workers)
+    if not (0 <= worker_id < n_workers):
+        raise ValueError(f"fleet worker id {worker_id} outside [0, {n_workers})")
+    quorum = resolve_quorum(quorum, n_workers)
+    if not (1 <= quorum <= n_workers):
+        raise ValueError(f"quorum {quorum} outside [1, {n_workers}]")
+    max_staleness = int(max_staleness)
+    if max_staleness < 0:
+        raise ValueError(f"max_staleness must be >= 0, got {max_staleness}")
+
+    config = config.interpolate()
+    T = resolve_training(config)
+    dev = resolve_device(device)
+    peer_timeout = float(T.get("fleet_peer_timeout_s") or 10.0)
+    if peer_timeout <= 0:
+        raise ValueError("fleet_peer_timeout_s must be > 0")
+    seed = int(T.get("seed") or 0)
+    random.seed(seed)
+    np.random.seed(seed)
+
+    corpora = {name: registry.resolve(block)
+               for name, block in config.get("corpora", {}).items()}
+    train_corpus = _resolve_corpus(config, corpora, T["train_corpus"])
+    dev_corpus = _resolve_corpus(config, corpora, T["dev_corpus"])
+    nlp = Pipeline.from_config(config, device=dev)
+    nlp.initialize(train_corpus, seed=seed)
+    check_component_lists(nlp, T)
+    optimizer = registry.resolve(T.get("optimizer") or {"@optimizers": "Adam.v1"})
+    if not isinstance(optimizer, _optimizers.Optimizer):
+        raise TypeError("[training.optimizer] did not resolve to an optimizer")
+    _check_fleet_config(T, nlp, optimizer)
+    nlp.requires_grad_(True)
+    params = _named_params(nlp)
+    owner_opt, worker_clip = owner_optimizer(optimizer)
+    batcher = registry.resolve(T.get("batcher") or {
+        "@batchers": "spacy.batch_by_words.v1", "size": 1000, "tolerance": 0.2})
+    dropout = float(T["dropout"])
+    # one dropout seed a step, from a generator of this worker's own
+    seeds = torch.Generator().manual_seed(
+        int(np.random.SeedSequence([seed, worker_id]).generate_state(2, np.uint64)[0] >> 1))
+
+    # the host tree of the whole model: pulls merge into it, the model takes it
+    params_host = tree_from_flat({k: p.detach().to("cpu", copy=True).numpy()
+                                  for k, p in params.items()})
+    host_leaves = flatten(params_host)  # the same arrays, by path: merges write into them
+    layout = OwnershipLayout(params_host, n_workers)
+    counters = FleetCounters()
+    slice_apply = SliceApply(owner_opt, dev)
+    slice_params, slice_opt = slice_apply.init(layout.flat_slices(params_host, worker_id))
+    owner = OwnerState(worker_id=worker_id, n_workers=n_workers, quorum=quorum,
+                       max_staleness=max_staleness, apply_fn=slice_apply,
+                       slice_params=slice_params, opt_state=slice_opt, counters=counters)
+    owns_any = bool(layout.owned_keys(worker_id))
+    if not owns_any:
+        log_event("fleet-worker-owns-nothing",
+                  f"worker {worker_id} owns no parameter slices at n_workers={n_workers} (no "
+                  "axis divisible); it pushes gradients but applies nothing",
+                  worker=worker_id, n_workers=n_workers)
+
+    phases: Dict[str, float] = {p: 0.0 for p in PHASES}
+    phase_steps: Dict[str, List[float]] = {p: [] for p in PHASES}
+    server = PeerServer(owner, worker_id=worker_id, layout_signature=layout.signature(),
+                        counters=counters,
+                        port=int(port) if port is not None else int(base_port) + worker_id,
+                        phases=lambda: dict(phases))
+    server.start()
+    urls = list(peer_urls) if peer_urls is not None else [
+        f"http://127.0.0.1:{int(base_port) + i}" for i in range(n_workers)]
+    if len(urls) != n_workers:
+        server.stop()
+        raise ValueError(f"peer_urls names {len(urls)} workers, fleet has {n_workers}")
+    clients = {w: _PeerClient(urls[w], timeout=peer_timeout)
+               for w in range(n_workers) if w != worker_id}
+    push_policy = RetryPolicy(max_retries=PUSH_RETRIES, base_delay=0.05,
+                              max_delay=1.0)
+    known: Dict[int, int] = {w: -1 for w in clients}
+    last_stamp: Dict[int, int] = {w: _NEVER for w in clients}
+    stop_requested = threading.Event()
+
+    def wait_for_peers() -> None:
+        """Block until every peer answers ``/healthz`` with this layout's
+        signature; a peer on another layout, or none in ``PEER_WAIT_S``,
+        raises."""
+        deadline = time.monotonic() + PEER_WAIT_S
+        pending = set(clients)
+        while pending:
+            for w in sorted(pending):
+                try:
+                    status, _, body = clients[w].request("GET", "/healthz")
+                except OSError:
+                    continue
+                if status != 200:
+                    continue
+                sig = json.loads(body.decode("utf8")).get("layout")
+                if sig != layout.signature():
+                    raise RuntimeError(
+                        f"fleet worker {w} runs a different parameter layout ({sig} vs "
+                        f"{layout.signature()}) — all workers must resolve the same config")
+                pending.discard(w)
+            if pending:
+                if time.monotonic() > deadline or stop_requested.is_set():
+                    raise RuntimeError(f"fleet peers never became reachable: {sorted(pending)} "
+                                       f"(waited {PEER_WAIT_S:.0f}s)")
+                time.sleep(0.1)
+
+    def pull_peers() -> Dict[int, int]:
+        """Refresh non-owned shards; returns the version stamps the next
+        push will carry (per owner).
+
+        The staleness gate: a worker may run at most ``max_staleness``
+        rounds ahead of any owner — it blocks (bounded by
+        ``quorum_wait_s``) until owner ``w``'s version has passed
+        ``last_stamp[w] - S``, i.e. until the round it last contributed
+        to has closed, S rounds of slack allowed. At S=0 this is what
+        makes quorum=N synchronous-equivalent: without it a fast worker
+        re-pulls an owner mid-round, stamps the OLD version, and its
+        push is discarded — wedging the round it was needed for."""
+        self_version, self_flat = owner.current_flat()
+        layout.merge_flat(params_host, worker_id, self_flat)
+        stamps = {worker_id: self_version}
+        deadline = time.monotonic() + float(quorum_wait_s)
+        for w, client in clients.items():
+            timed_out = False
+            while True:
+                try:
+                    status, headers, body = client.request("GET", f"/params?known={known[w]}")
+                except OSError:
+                    counters.inc("pull_failed")
+                    break
+                if status == 204:
+                    v = int(headers.get("X-SRT-Version", known[w]))
+                elif status == 200:
+                    try:
+                        meta_w, arrays = decode_arrays(body)
+                        v = int(meta_w["version"])
+                        layout.merge_flat(params_host, w, arrays)
+                    except (WireError, KeyError, TypeError, ValueError):
+                        counters.inc("pull_failed")
+                        break
+                    counters.inc("wire_pull_bytes", len(body))
+                    known[w] = v
+                else:
+                    counters.inc("pull_failed")
+                    break
+                if v > last_stamp[w] - max_staleness or timed_out:
+                    stamps[w] = v
+                    break
+                if time.monotonic() > deadline or stop_requested.is_set():
+                    timed_out = True  # one last fetch, then go on
+                    counters.inc("pull_wait_timeouts")
+                    continue
+                time.sleep(0.01)
+            stamps.setdefault(w, known[w])
+        return stamps
+
+    def load_into_model() -> None:
+        with torch.no_grad():
+            for k, p in params.items():
+                p.copy_(torch.from_numpy(host_leaves[k]))
+
+    def push_grads(grads: Dict[str, Any], stamps: Dict[int, int]) -> None:
+        """Each owner's slice of ``grads`` to its owner."""
+        for w in range(n_workers):
+            flat = layout.flat_slices(grads, w)
+            if not flat:
+                continue
+            if w == worker_id:
+                # not counted as a push: grad_pushed is the traffic to peers
+                owner.submit(worker_id, stamps[worker_id], flat)
+                continue
+            body = encode_grads({"worker": worker_id, "stamp": int(stamps[w]), "epoch": 0}, flat)
+
+            def send(w=w, body=body) -> None:
+                status, _, _ = clients[w].request("POST", "/grad", body=body)
+                if status != 200:
+                    raise OSError(f"peer {w} rejected grad push: HTTP {status}")
+
+            try:
+                retry_io("grad-push", send, policy=push_policy)
+                counters.inc("grad_pushed")
+                counters.inc("wire_push_bytes", len(body))
+            except OSError:
+                counters.inc("push_failed")  # dropped: a dead owner never stalls the fleet
+            last_stamp[w] = int(stamps[w])
+
+    is_lead = worker_id == 0
+    if is_lead:
+        logger_cfg = T.get("logger") or {"@loggers": "spacy_ray_tpu.ConsoleLogger.v1"}
+        log_step, log_finalize = registry.resolve(logger_cfg)(
+            nlp, sys.stdout if stdout_log else io.StringIO(), sys.stderr)
+        dev_examples = list(dev_corpus())
+        score_weights = (dict(T.get("score_weights") or {})
+                         or default_pipeline_score_weights(nlp))
+    max_steps = int(max_steps_override or T["max_steps"] or 0)
+    max_epochs = int(T["max_epochs"] or 0)
+    eval_frequency = int(T["eval_frequency"] or 200)
+    patience = int(T["patience"] or 0)
+    keep = int(T.get("keep_checkpoints", 2) or 1)
+    out = Path(output_path) if output_path is not None else None
+
+    result = TrainResult()
+    step = epoch = 0
+    best_score, best_step = -1.0, -1
+    loss_accum: Dict[str, float] = {}
+    words_since_log = 0
+
+    def batches():
+        nonlocal epoch
+        while True:
+            got_any = False
+            stream = train_corpus()
+            if n_workers > 1:
+                stream = shard_stream(stream, worker_id, n_workers)
+            for b in batcher(stream):
+                got_any = True
+                yield b
+            if not got_any:
+                raise ValueError(f"Training corpus is empty on worker {worker_id}'s shard")
+            epoch += 1
+            if max_epochs and epoch >= max_epochs:
+                return
+
+    def note_phase(name: str, t0: float, t1: float) -> None:
+        phases[name] += t1 - t0
+        phase_steps[name].append(t1 - t0)
+
+    def save_generation() -> None:
+        """The lead's parameter generation in ``last-model/``: the pulled
+        slices with its own newest slice merged in; no optimizer state."""
+        if out is None:
+            return
+        merged = tree_from_flat({k: np.array(a) for k, a in host_leaves.items()})
+        layout.merge_flat(merged, worker_id, owner.current_flat()[1])
+        TrainCheckpoint.save(
+            out / "last-model", params=merged,
+            opt_state={"count": 0, "sched_count": 0, "mu": {}, "nu": {}}, step=step,
+            epoch=epoch, best_score=best_score, best_step=best_step, keep=keep,
+            extra={"fleet": {"n_workers": n_workers, "quorum": quorum,
+                             "max_staleness": max_staleness, "worker": worker_id,
+                             "version": owner.version, "opt_state": None}})
+
+    prev_handlers: Dict[int, Any] = {}
+    if threading.current_thread() is threading.main_thread():
+        def _on_signal(signum: int, frame: Any) -> None:
+            stop_requested.set()
+
+        for signum in (signal.SIGTERM, signal.SIGINT):
+            prev_handlers[signum] = signal.signal(signum, _on_signal)
+
+    clean_exit = False
+    start_time = last_log_time = time.perf_counter()
+    try:
+        wait_for_peers()
+        batch_iter = batches()
+        while not stop_requested.is_set():
+            t0 = time.perf_counter()
+            try:
+                b = next(batch_iter)
+            except StopIteration:
+                break
+            batch = nlp.collate(b, with_targets=True, pad_batch_to=bucket_batch_size(len(b)),
+                                pad_len_to=bucket_length(max(len(eg) for eg in b),
+                                                         nlp.length_buckets))
+            n_words = int(batch["n_words"])
+            t1 = time.perf_counter()
+            note_phase("data", t0, t1)
+
+            stamps = pull_peers()
+            load_into_model()
+            t2 = time.perf_counter()
+            note_phase("pull", t1, t2)
+
+            for p in params.values():
+                p.grad = None
+            mseed = int(torch.randint(0, 2 ** 62, (1,), generator=seeds))
+            loss, metrics = nlp.loss(batch["tokens"], batch["targets"], dropout=dropout,
+                                     seed=mseed)
+            loss.backward()
+            grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
+                     for k, p in params.items()}
+            with torch.no_grad():
+                gnorm = global_norm(list(grads.values()))
+                if worker_clip > 0:
+                    torch._foreach_mul_(list(grads.values()), clip_scale(gnorm, worker_clip))
+            grads_host = tree_from_flat({k: g.to("cpu", copy=True).numpy()
+                                         for k, g in grads.items()})
+            loss_val = float(loss.detach())
+            head_losses = {k[5:]: float(v) for k, v in metrics.items() if k.startswith("loss_")}
+            t3 = time.perf_counter()
+            note_phase("grad", t2, t3)
+
+            push_grads(grads_host, stamps)
+            t4 = time.perf_counter()
+            note_phase("push", t3, t4)
+
+            if owns_any:
+                deadline = time.monotonic() + float(quorum_wait_s)
+                reached = False
+                while not stop_requested.is_set():
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        break
+                    if owner.wait_version_above(stamps[worker_id], min(0.25, remaining)):
+                        reached = True
+                        break
+                if not reached and not stop_requested.is_set():
+                    counters.inc("apply_wait_timeouts")
+                    log_event("fleet-quorum-timeout",
+                              f"worker {worker_id}: own shard stuck at version {owner.version} "
+                              f"for {quorum_wait_s:.0f}s (quorum {quorum} not reached) — "
+                              "proceeding", worker=worker_id, version=owner.version)
+            note_phase("apply_wait", t4, time.perf_counter())
+
+            step += 1
+            result.words_seen += n_words
+            words_since_log += n_words
+            result.step_losses.append(loss_val)
+            result.step_head_losses.append(head_losses)
+            for key, value in head_losses.items():
+                loss_accum[key] = loss_accum.get(key, 0.0) + value
+
+            info: Optional[Dict[str, Any]] = None
+            if is_lead and step % eval_frequency == 0:
+                eval_t0 = time.perf_counter()
+                scores, eval_wps = nlp.evaluate_timed(dev_examples)
+                eval_seconds = time.perf_counter() - eval_t0
+                score = weighted_score(scores, score_weights)
+                now = time.perf_counter()
+                wps = words_since_log / max(now - last_log_time, 1e-9)
+                last_log_time, words_since_log = now, 0
+                info = {"epoch": epoch, "step": step, "words": result.words_seen,
+                        "losses": dict(loss_accum), "other_scores": scores, "score": score,
+                        "wps": wps, "eval_seconds": eval_seconds, "eval_wps": eval_wps,
+                        "fleet": {"worker": worker_id, "version": owner.version,
+                                  **counters.snapshot()}}
+                result.history.append(info)
+                loss_accum = {}
+                if score > best_score:
+                    best_score, best_step = score, step
+                    if out is not None:
+                        nlp.to_disk(out / "best-model")
+                save_generation()
+            if is_lead:
+                log_step(info)
+            if max_steps and step >= max_steps:
+                break
+            if is_lead and patience and best_step >= 0 and step - best_step >= patience:
+                break
+            if not is_lead and server.finalize_event.is_set():
+                # the lead finished: pushes to it from here on could never be
+                # written into a model
+                log_event("fleet-finalized", f"worker {worker_id}: the lead finalized the "
+                          f"fleet at our step {step} — stopping", worker=worker_id, step=step)
+                break
+        if stop_requested.is_set():
+            result.interrupted = True
+            log_event("preempted", f"fleet worker {worker_id}: shutdown signal at step {step}",
+                      step=step, worker=worker_id)
+        clean_exit = True
+    finally:
+        for signum, prev in prev_handlers.items():
+            signal.signal(signum, prev)
+        try:
+            if is_lead and clean_exit:
+                # the models from the slices as pulled at the last step's top
+                # (the JAX package's last-model/ too), then the peers may go
+                if out is not None:
+                    save_generation()
+                    nlp.requires_grad_(False)
+                    nlp.to_disk(out / "last-model")
+                for client in clients.values():
+                    try:
+                        client.request("POST", "/finalize", body=b"{}",
+                                       content_type="application/json")
+                    except OSError:
+                        pass
+            elif clean_exit:
+                _await_finalize(server, clients.get(0), FINALIZE_WAIT_S, worker_id)
+        finally:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            result.seconds = time.perf_counter() - start_time
+            result.best_score, result.best_step = best_score, best_step
+            result.final_step, result.epoch = step, epoch
+            result.fleet = {
+                "worker": worker_id, "n_workers": n_workers, "quorum": quorum,
+                "max_staleness": max_staleness, "version": owner.version,
+                "grad_compression": "f32", "param_delta_window": 0,
+                "counters": counters.snapshot(),
+                "phases": {p: round(v, 6) for p, v in phases.items()},
+                "phase_steps_s": phase_steps,
+                "owner_apply_seconds": round(owner.apply_seconds, 6),
+                "launches": _cuda.launch_counts(),
+                "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
+                                      if dev.type == "cuda" else None),
+            }
+            if out is not None:
+                out.mkdir(parents=True, exist_ok=True)
+                ledger = {"worker": worker_id, "steps": step, "words_seen": result.words_seen,
+                          "seconds": round(result.seconds, 6),
+                          "interrupted": result.interrupted, "step_losses": result.step_losses,
+                          "best_score": best_score, "best_step": best_step,
+                          "history": [{"step": h["step"], "score": h["score"],
+                                       "other_scores": h["other_scores"]}
+                                      for h in result.history],
+                          **result.fleet}
+                (out / f"fleet-worker-{worker_id}.json").write_text(
+                    json.dumps(ledger, indent=2), encoding="utf8")
+            for client in clients.values():
+                client.close()
+            server.stop()
+    nlp.requires_grad_(False)
+    if is_lead:
+        log_finalize()
+    return nlp, result
+
+
+def _await_finalize(server: PeerServer, lead: Optional[_PeerClient], wait_s: float,
+                    worker_id: int) -> None:
+    """Keep serving until the lead posts ``/finalize`` (its last pull needs
+    this worker's slices), at most ``wait_s``, or until the lead fails two
+    liveness probes in a row."""
+    deadline = time.monotonic() + float(wait_s)
+    misses = 0
+    while not server.finalize_event.wait(timeout=1.0):
+        if time.monotonic() > deadline or lead is None:
+            return
+        try:
+            lead.request("GET", "/healthz")
+            misses = 0
+        except OSError:
+            misses += 1
+            if misses >= 2:
+                log_event("fleet-lead-gone", f"worker {worker_id}: lead unreachable while "
+                          "awaiting finalize — exiting", worker=worker_id)
+                return

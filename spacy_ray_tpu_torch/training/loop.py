@@ -103,13 +103,14 @@ DEFAULT_TRAINING: Dict[str, Any] = {
 }
 _TRAINING_BLOCK_KEYS = {"optimizer", "batcher", "logger", "before_update"}
 #: knobs of the JAX loop that shape multiple devices, telemetry, resilience,
-#: the fleet or compiled programs: validated, then ignored on one device
+#: fleet membership or compiled programs: validated, then ignored
+#: (``fleet_peer_timeout_s`` bounds a fleet worker's peer requests)
 IGNORED_KNOBS = (
     "zero1", "update_sharding", "mesh", "prefetch_batches", "collate_workers",
     "collate_cache_mb", "watchdog_timeout_s", "io_retries", "io_retry_base_s",
     "profile_window", "metrics_dir", "trace_steps", "metrics_port", "metrics_host",
     "anomaly_detection", "alerting", "incident_dir", "fused_update", "bf16_shadow",
-    "fleet_peer_timeout_s", "fleet_probe_timeout_s",
+    "fleet_probe_timeout_s",
 )
 
 
@@ -306,6 +307,9 @@ class TrainResult:
         #: per step, the host seconds of the annotating pass (its
         #: predictions synchronise with the card), outside the step's span
         self.annotate_seconds: List[float] = []
+        #: a fleet worker: stopped by a shutdown signal, and its ledger
+        self.interrupted: bool = False
+        self.fleet: Optional[Dict[str, Any]] = None
 
     @property
     def wps(self) -> float:
@@ -343,9 +347,22 @@ def train(
     resume: bool = False,
     max_steps_override: Optional[int] = None,
     stdout_log: bool = True,
+    fleet: Optional[Dict[str, Any]] = None,
 ) -> Tuple[Pipeline, TrainResult]:
     """Train the config's pipeline on one device (``cuda`` unless the caller
-    asks for ``cpu``). Returns (pipeline, result)."""
+    asks for ``cpu``). Returns (pipeline, result). ``fleet`` (``worker_id``,
+    ``n_workers`` and the other keywords of
+    :func:`~.fleet.worker.train_fleet_worker`) runs this process as one
+    worker of a trainer fleet instead."""
+    if fleet is not None:
+        if resume:
+            raise ValueError("--resume: the trainer fleet's generations keep no optimizer "
+                             "state in this package, so a fleet run cannot be resumed")
+        from .fleet.worker import train_fleet_worker
+
+        return train_fleet_worker(config, output_path, device=device,
+                                  max_steps_override=max_steps_override,
+                                  stdout_log=stdout_log, **fleet)
     config = config.interpolate()
     T = resolve_training(config)
     dev = resolve_device(device)
@@ -392,6 +409,11 @@ def train(
             ckpt = None
         if ckpt is None:
             logger.warning("--resume: %s holds no checkpoint; starting from scratch", last_dir)
+        elif (ckpt["extra"] or {}).get("fleet") is not None:
+            raise ValueError(
+                f"--resume: {last_dir} holds a trainer-fleet generation (step "
+                f"{ckpt['step']}), which keeps parameters but no optimizer state; train "
+                "from scratch, or start a model from it with [initialize] / sourcing")
         else:
             nlp.load_params(ckpt["params"])
             optimizer.load_opt_state(opt_state, ckpt["opt_state"])

@@ -262,3 +262,46 @@ def _pipelines_one(pkg, init_weights):
         {"components.transformer.model.init_weights": str(init_weights)})
     kw = {"device": "cpu"} if pkg is P else {}
     pkg.Pipeline.from_config(cfg.interpolate(), **kw).initialize(lambda: _gold(), seed=0)
+
+
+@pytest.mark.parametrize("arch", ["bert", "roberta"])
+def test_a_transformers_checkpoint_remaps_as_jax_and_its_attention_matches_torch(arch, tmp_path):
+    # JAX tests/test_pretrained.py's check of a real save_pretrained
+    # checkpoint, for both layouts: the port's remap bit-equal to JAX's, and
+    # the remapped attention sublayer equal to transformers' within 1e-4
+    tfm = pytest.importorskip("transformers")
+    kw = dict(hidden_size=32, num_attention_heads=4, num_hidden_layers=2,
+              intermediate_size=64, vocab_size=100)
+    if arch == "bert":
+        cfg, cls, rows = tfm.BertConfig(max_position_embeddings=16, **kw), tfm.BertModel, 16
+    else:  # RoBERTa's two leading padding rows of its position table
+        cfg, cls, rows = tfm.RobertaConfig(max_position_embeddings=18, **kw), tfm.RobertaModel, 16
+    torch.manual_seed(0)
+    model = cls(cfg).eval()
+    model.save_pretrained(tmp_path / "hf", safe_serialization=True)
+    pflat, jflat = PPT.load_flat(tmp_path / "hf"), JPT.load_flat(tmp_path / "hf")
+    assert set(pflat) == set(jflat) and all(np.array_equal(pflat[k], jflat[k]) for k in jflat)
+    assert PPT.looks_like_hf_encoder(pflat) and JPT.looks_like_hf_encoder(jflat)
+    native = PPT.hf_encoder_to_native(pflat, native_pos_rows=rows)
+    jnative = JPT.hf_encoder_to_native(jflat, native_pos_rows=rows)
+    assert set(native) == set(jnative)
+    for k, v in jnative.items():
+        assert native[k].dtype == np.asarray(v).dtype and np.array_equal(native[k], v), k
+    assert native["layer_0/qkv_W"].shape == (32, 96) and native["pos"].shape == (rows, 32)
+    B, T, D, H = 1, 5, 32, 4
+    x = np.random.default_rng(0).standard_normal((B, T, D)).astype(np.float32)
+    layer = model.encoder.layer[0]
+    with torch.no_grad():
+        ctx = layer.attention.self(torch.from_numpy(x))[0]
+        want = layer.attention.output.dense(ctx).numpy()
+    q, k, v = np.split(x @ native["layer_0/qkv_W"] + native["layer_0/qkv_b"], 3, axis=-1)
+
+    def heads(a):  # [B, T, D] -> [B, H, T, Dh]
+        return a.reshape(B, T, H, D // H).transpose(0, 2, 1, 3)
+
+    scores = heads(q) @ heads(k).transpose(0, 1, 3, 2) / np.sqrt(D // H)
+    probs = np.exp(scores - scores.max(axis=-1, keepdims=True))
+    probs /= probs.sum(axis=-1, keepdims=True)
+    got = ((probs @ heads(v)).transpose(0, 2, 1, 3).reshape(B, T, D) @ native["layer_0/o_W"]
+           + native["layer_0/o_b"])
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)

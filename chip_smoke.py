@@ -36,7 +36,7 @@ Run from the root of a checkout. Phases, each printing one JSON line:
               and one forward at the top bucket (B=8, T=128) is timed both
               ways.
 5. cli      — ``python -m spacy_ray_tpu_torch serve`` as a subprocess
-              answers one request.
+              answers one request (beside train:fleet_elastic's start).
 6. train:trf — ``train()`` of the port on the card, on a config whose
               transformer and tagger blocks and ``[training]`` block are
               ``configs/trf.cfg``'s (``max_steps`` 40, ``eval_frequency``
@@ -261,7 +261,26 @@ Run from the root of a checkout. Phases, each printing one JSON line:
               1, S 1), 20 steps: exit 0, conservation, the loss falling,
               discards and timeouts printed. The kernel rows of 9. hold K5
               over each owner's slices of cnn.cfg (``OwnershipLayout`` at
-              N 2, contiguous copies, the clip link off) at ``MAXULP_K5``.
+              N 2 and N 3, contiguous copies, the clip link off) at
+              ``MAXULP_K5``.
+
+24. train:fleet_elastic (after slice:int8, with the serve CLI of 5.
+              coming up beside it) — the fleet losing a worker:
+              ``train configs/cnn.cfg --fleet-workers 3 --peer-lease-s 2``
+              (quorum auto = 2, S 1), 160 steps evaluated every 40; worker
+              2's process SIGKILLed once every worker's /metrics shows
+              version >= 10: exit 0 with fleet-degraded-success, the evict
+              row within 2 + 3 x 2 s + a step of the kill, both survivors
+              at epoch 1, active [0, 1], quorum 1, each one's epoch-1 owner
+              on the N 2 layout's slices (the K5 rows' shapes) launching K5
+              once per apply, applied + discarded <= received, the final
+              generation's extra.fleet at epoch 1 and active [0, 1], dev
+              tag_acc >= 0.95, the final model's tags on the card equal to
+              the CPU's for >= 0.99 of the dev tokens; printed per survivor:
+              epoch, active, quorum, evictions, shards_adopted,
+              epoch_fenced, pull_failed, push_failed, the phases' median ms
+              before the kill, between it and the re-shard and after, the
+              seconds from the kill to the evict and apply rows.
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -271,7 +290,9 @@ file, it exits 2 and prints no result.
 
 from __future__ import annotations
 
+import bisect
 import io
+import itertools
 import json
 import math
 import random
@@ -2505,14 +2526,27 @@ def phase_cnn_kernels(torch, info, leaf_sets=CNN_LEAF_SETS):
 FLEET_STEPS, FLEET_EVAL = 40, 20  # train:fleet: cnn.cfg as 2 workers, quorum 2, S 0
 FLEET_ASYNC_STEPS = 20             # train:fleet_async: JAX's defaults (quorum auto, S 1)
 FLEET_N = 2
+# train:fleet_elastic: cnn.cfg as 3 workers at JAX's defaults (quorum auto = 2,
+# S 1), --peer-lease-s 2; worker 2 SIGKILLed once every worker's version is
+# >= 10. Eviction needs 3 missed probes 2 s apart (the worker's default
+# lease_poll_s and miss threshold): 4-6 s, which 40 steps at tens of ms do
+# not last, so the run takes 160 steps, evaluated every 40
+FLEET_ELASTIC_N, FLEET_ELASTIC_VICTIM = 3, 2
+FLEET_ELASTIC_STEPS, FLEET_ELASTIC_EVAL = 160, 40
+FLEET_ELASTIC_LEASE_S, FLEET_LEASE_POLL_S, FLEET_LEASE_MISSES = 2.0, 2.0, 3
+FLEET_ELASTIC_KILL_VERSION = 10
+FLEET_ELASTIC_TAG_FLOOR = 0.95     # dev tag_acc at the last evaluation
+FLEET_ELASTIC_AGREEMENT = 0.99     # the final model's tags, card vs CPU
 
 
 def phase_fleet_kernels(torch, info):
-    """K5 over the owner slices of ``train:fleet``: cnn.cfg's 26 leaves split
-    by ``OwnershipLayout(N=2)``, each owner's slices (contiguous copies, as
-    an owner holds them) through the fused update with the clip link off
-    (the worker clips) and through RAdam with decay, against
-    ``leaf_math_plain`` at ``MAXULP_K5``; timed beside the plain version,
+    """K5 over the owner slices of the fleets: cnn.cfg's 26 leaves split by
+    ``OwnershipLayout`` at N 2 (``train:fleet``, and the survivors of
+    ``train:fleet_elastic`` after the re-shard) and at N 3 (its three
+    owners before the kill), each owner's slices (contiguous copies, as an
+    owner holds them) through the fused update with the clip link off (the
+    worker clips) and through RAdam with decay, against ``leaf_math_plain``
+    at ``MAXULP_K5``; timed beside the plain version,
     ``torch.optim.Adam(fused=True)`` and the bytes bound."""
     import numpy as np
 
@@ -2525,11 +2559,12 @@ def phase_fleet_kernels(torch, info):
     g = torch.Generator(device=dev).manual_seed(5)
     template = tree_from_flat({k: np.zeros(sh, np.float32)
                                for k, sh in info["cnn_paths"].items()})
-    layout = OwnershipLayout(template, FLEET_N)
     floor_ms = time_ms(torch, lambda: torch.cuda._sleep(1))
     rows = []
-    for w in range(FLEET_N):
-        shapes = [v.shape for v in layout.flat_slices(template, w).values()]
+    for n, w in [(n, w) for n in (FLEET_N, FLEET_ELASTIC_N) for w in range(n)]:
+        layout = OwnershipLayout(template, n)
+        slices = layout.flat_slices(template, w)
+        shapes = [v.shape for v in slices.values()]
         n_params = sum(math.prod(sh) for sh in shapes)
         P = [torch.randn(sh, device=dev, generator=g) for sh in shapes]
         G = [torch.randn(sh, device=dev, generator=g) * 1e-3 for sh in shapes]
@@ -2547,7 +2582,7 @@ def phase_fleet_kernels(torch, info):
                     worst = max(worst, ulp_diff(torch, a, b))
                     worst_abs = max(worst_abs, (a - b).abs().max().item())
         if worst > MAXULP_K5:
-            fail(f"K5 over owner {w}'s slices: {worst} ulp from leaf_math_plain "
+            fail(f"K5 over owner {w} of {n}'s slices: {worst} ulp from leaf_math_plain "
                  f"(> {MAXULP_K5})")
         fused = FusedUpdate(owner)
         sc = step_scalars(owner, 9, 9, lambda s: 0.001)
@@ -2562,7 +2597,8 @@ def phase_fleet_kernels(torch, info):
         lib_opt = torch.optim.Adam(lib_params, lr=1e-3, fused=True)
         bnd, by = bound_ms(28 * n_params, 20 * n_params, PEAK_F32_FLOPS)
         row = {
-            "leaf_set": f"cnn.cfg owner {w} of {FLEET_N} (OwnershipLayout slices)",
+            "leaf_set": f"cnn.cfg owner {w} of {n} (OwnershipLayout slices)",
+            "n_workers": n, "owner": w,
             "leaves": len(P), "params": n_params,
             "sharded_leaves": sum(layout.axes[i] is not None for i in range(len(layout.paths))
                                   if layout.owns(i, w)),
@@ -2573,8 +2609,9 @@ def phase_fleet_kernels(torch, info):
             "plain_ms": time_ms(torch, plain_all, reps=10),
             "library_ms": time_ms(torch, lib_opt.step),
             "bound_ms": bnd, "bound_by": by, "timer_floor_ms": floor_ms,
-            "dispatch": "train:fleet owner apply", "calls_per_dispatch": 1,
-            "chunks": fused._table.shape[0],
+            "dispatch": ("train:fleet owner apply" if n == FLEET_N
+                         else "train:fleet_elastic owner apply before the kill"),
+            "calls_per_dispatch": 1, "chunks": fused._table.shape[0],
         }
         emit({"phase": "kernel:fused_update", **row})
         rows.append(row)
@@ -2606,25 +2643,26 @@ def free_base_port(n: int) -> int:
     fail("no run of free ports for the fleet")
 
 
-def start_fleet(phase: str, corpus, steps: int, quorum: int, staleness: int) -> dict:
+def start_fleet(phase: str, corpus, steps: int, quorum: int, staleness: int, *,
+                n: int = FLEET_N, eval_every: int = FLEET_EVAL, extra=()) -> dict:
     """Start ``python -m spacy_ray_tpu_torch train configs/cnn.cfg
-    --fleet-workers 2 --quorum Q --max-staleness S`` on ``corpus``, ``steps``
-    steps and an evaluation every ``FLEET_EVAL``, on a free base port."""
+    --fleet-workers N --quorum Q --max-staleness S`` on ``corpus``, ``steps``
+    steps and an evaluation every ``eval_every``, on a free base port."""
     import os
 
     work = WORK / phase.replace(":", "_")
     shutil.rmtree(work, ignore_errors=True)
     out = work / "out"
-    port = free_base_port(FLEET_N)
+    port = free_base_port(n)
     cmd = [sys.executable, "-m", "spacy_ray_tpu_torch", "train", "configs/cnn.cfg",
            "--output", str(out), "--paths.train", str(corpus[0]), "--paths.dev", str(corpus[1]),
-           "--training.max_steps", str(steps), "--training.eval_frequency", str(FLEET_EVAL),
-           "--fleet-workers", str(FLEET_N), "--quorum", str(quorum),
-           "--max-staleness", str(staleness), "--fleet-base-port", str(port)]
+           "--training.max_steps", str(steps), "--training.eval_frequency", str(eval_every),
+           "--fleet-workers", str(n), "--quorum", str(quorum),
+           "--max-staleness", str(staleness), "--fleet-base-port", str(port), *extra]
     proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True, env={**os.environ, "PYTHONPATH": str(ROOT)})
     return {"proc": proc, "t0": time.perf_counter(), "work": work, "out": out,
-            "steps": steps, "quorum": quorum, "staleness": staleness}
+            "steps": steps, "quorum": quorum, "staleness": staleness, "port": port}
 
 
 def phase_train_fleet(torch, phase: str, corpus, steps: int, quorum: int, staleness: int,
@@ -2743,6 +2781,223 @@ def phase_train_fleet(torch, phase: str, corpus, steps: int, quorum: int, stalen
     if problems:
         fail(f"{phase}: " + "; ".join(problems))
     shutil.rmtree(work, ignore_errors=True)
+    return res_row
+
+
+def fleet_worker_pid(coordinator_pid: int, worker_id: int) -> int:
+    """The pid of the coordinator's child running ``--fleet-worker-id K``."""
+    for stat in Path("/proc").glob("[0-9]*/stat"):
+        try:
+            ppid = int(stat.read_text().rsplit(")", 1)[1].split()[1])
+            argv = (stat.parent / "cmdline").read_bytes().split(b"\0")
+        except (OSError, ValueError, IndexError):
+            continue
+        if ppid == coordinator_pid and b"--fleet-worker-id" in argv and \
+                argv[argv.index(b"--fleet-worker-id") + 1] == str(worker_id).encode():
+            return int(stat.parent.name)
+    fail(f"no process of fleet worker {worker_id} under pid {coordinator_pid}")
+
+
+def phase_train_fleet_elastic(torch, corpus, info, k5_rows, beside=None) -> dict:
+    """``python -m spacy_ray_tpu_torch train configs/cnn.cfg --fleet-workers
+    3 --peer-lease-s 2`` (quorum auto = 2, S 1) as a subprocess on the card,
+    ``FLEET_ELASTIC_STEPS`` steps evaluated every ``FLEET_ELASTIC_EVAL``;
+    worker 2's process SIGKILLed once every worker's ``/metrics`` shows
+    version >= ``FLEET_ELASTIC_KILL_VERSION``. ``beside`` (a callable) runs
+    in this thread while the fleet starts. Fails unless the coordinator
+    exits 0 with ``fleet-degraded-success``; both survivors end at epoch 1,
+    active [0, 1], quorum 1, with ``shards_adopted`` > 0; the acting lead
+    counted the eviction and its ``evict`` row came within
+    ``FLEET_ELASTIC_LEASE_S`` + 3 x ``FLEET_LEASE_POLL_S`` + one step of the
+    kill; each survivor's owner of epoch 1 holds the N 2 layout's slices
+    (the shapes of the K5 rows at N 2) and launched K5 once per apply, at
+    least once; applied + discarded <= received (a re-push before the
+    quorum replaces the buffered one); the final generation's
+    ``extra.fleet`` says epoch 1 and active [0, 1]; the last evaluation's
+    ``tag_acc`` >= ``FLEET_ELASTIC_TAG_FLOOR``; and the final model tags the
+    dev set on the card as on the CPU for >= ``FLEET_ELASTIC_AGREEMENT`` of
+    the tokens. Prints per survivor the epoch, active set, quorum, counters,
+    each phase's median ms before and after its re-shard, and the seconds
+    from the kill to the ``evict`` row and to each ``apply`` row."""
+    import os
+    import signal
+
+    import numpy as np
+
+    from spacy_ray_tpu_torch import Pipeline
+    from spacy_ray_tpu_torch.training.checkpoint import TrainCheckpoint
+    from spacy_ray_tpu_torch.training.corpus import Corpus
+    from spacy_ray_tpu_torch.training.fleet.membership import read_membership_ledger
+    from spacy_ray_tpu_torch.training.fleet.ownership import OwnershipLayout, tree_from_flat
+    from spacy_ray_tpu_torch.training.resilience import terminate_with_grace
+
+    phase, n, victim = "train:fleet_elastic", FLEET_ELASTIC_N, FLEET_ELASTIC_VICTIM
+    run = start_fleet(phase, corpus, FLEET_ELASTIC_STEPS, 0, 1, n=n,
+                      eval_every=FLEET_ELASTIC_EVAL,
+                      extra=("--peer-lease-s", str(FLEET_ELASTIC_LEASE_S)))
+    proc, out, port = run["proc"], run["out"], run["port"]
+    streams = {"stdout": [], "stderr": []}
+    readers = [threading.Thread(target=lambda f=getattr(proc, k), acc=acc: acc.extend(f),
+                                daemon=True) for k, acc in streams.items()]
+    for th in readers:
+        th.start()
+    killed = {}
+
+    def kill_when_ready():
+        deadline = time.monotonic() + 300
+        while proc.poll() is None and time.monotonic() < deadline:
+            try:
+                snaps = [get(port + k, "/metrics")[1] for k in range(n)]
+                versions = [snap["gauges"]["param_version"] for snap in snaps]
+            except (OSError, ValueError, KeyError):
+                versions = []
+            if len(versions) == n and min(versions) >= FLEET_ELASTIC_KILL_VERSION:
+                pid = fleet_worker_pid(proc.pid, victim)
+                killed.update(wall=time.time(), at_s=time.perf_counter() - run["t0"],
+                              versions=versions,
+                              phase_s={k: sum(snap["phases"].values())
+                                       for k, snap in enumerate(snaps)})
+                os.kill(pid, signal.SIGKILL)
+                return
+            time.sleep(0.05)
+
+    killer = threading.Thread(target=kill_when_ready, daemon=True)
+    killer.start()
+    try:
+        beside_s = None
+        if beside is not None:
+            t = time.perf_counter()
+            beside()
+            beside_s = time.perf_counter() - t
+        killer.join(timeout=330)
+        proc.wait(timeout=600)
+    finally:  # SIGTERM first: the coordinator stops its workers
+        terminate_with_grace(proc, grace_s=150.0)
+        for th in readers:
+            th.join(timeout=10)
+    wall_s = time.perf_counter() - run["t0"]
+    stdout, stderr = "".join(streams["stdout"]), "".join(streams["stderr"])
+    if not killed:
+        fail(f"{phase}: worker {victim} was never killed (exit {proc.returncode}):\n"
+             f"{stdout[-3000:]}\n{stderr[-6000:]}")
+    if proc.returncode != 0 or "fleet-degraded-success" not in stderr:
+        fail(f"{phase}: the fleet exited {proc.returncode} after the kill:\n{stdout[-3000:]}\n"
+             f"{stderr[-6000:]}")
+    survivors = [k for k in range(n) if k != victim]
+    ledgers = {k: json.loads((out / f"fleet-worker-{k}.json").read_text(encoding="utf8"))
+               for k in survivors}
+    rows = read_membership_ledger(out / "fleet-membership.jsonl")
+    evicts = [r for r in rows if r["event"] == "evict"]
+    applies = {r["worker"]: r for r in rows if r["event"] == "apply"}
+    problems = []
+    if (out / f"fleet-worker-{victim}.json").exists():
+        problems.append(f"the killed worker {victim} wrote a ledger")
+    if len(evicts) != 1 or evicts[0]["evicted"] != [victim] or evicts[0]["active"] != survivors:
+        problems.append(f"evict rows {evicts}")
+    template = tree_from_flat({k: np.zeros(sh, np.float32)
+                               for k, sh in info["cnn_paths"].items()})
+    n2 = OwnershipLayout(template, len(survivors))
+    step_s = max(statistics.median(sum(v[i] for v in led["phase_steps_s"].values())
+                                   for i in range(led["steps"])) for led in ledgers.values())
+    evict_s = evicts[0]["ts"] - killed["wall"] if evicts else None
+    evict_bound_s = FLEET_ELASTIC_LEASE_S + FLEET_LEASE_MISSES * FLEET_LEASE_POLL_S + step_s
+    if evict_s is None or not 0 < evict_s <= evict_bound_s:
+        problems.append(f"evict row {evict_s} s after the kill (bound {evict_bound_s:.2f} s)")
+    per_worker = []
+    for rank, k in enumerate(survivors):
+        led, c = ledgers[k], ledgers[k]["counters"]
+        apply_row = applies.get(k)
+        e1 = [e for e in led["owner_epochs"] if e["epoch"] == 1]
+        want = {key: list(v.shape) for key, v in n2.flat_slices(template, rank).items()}
+        n2_row = next(r for r in k5_rows if r.get("n_workers") == len(survivors)
+                      and r.get("owner") == rank)
+        if (led["membership_epoch"], led["active"], led["quorum"]) != (1, survivors, 1):
+            problems.append(f"worker {k}: epoch {led['membership_epoch']}, active "
+                            f"{led['active']}, quorum {led['quorum']}")
+        if apply_row is None or not c["shards_adopted"] > 0:
+            problems.append(f"worker {k}: apply row {apply_row}, {c['shards_adopted']} adopted")
+        if len(e1) != 1 or e1[0]["owned_shapes"] != want or len(want) != n2_row["leaves"] \
+                or sum(math.prod(s) for s in want.values()) != n2_row["params"]:
+            problems.append(f"worker {k}: its epoch-1 slices are not the N 2 layout's {e1}")
+        elif not (e1[0]["applies"] > 0 and e1[0]["k5_launches"] == e1[0]["applies"]):
+            problems.append(f"worker {k}: {e1[0]['applies']} applies after the re-shard, "
+                            f"{e1[0]['k5_launches']} K5 launches")
+        # at quorum 2 of 3 with S 1 a sender's re-push before the quorum
+        # replaces its buffered one (JAX's owner too), counted nowhere
+        if c["grad_applied"] + c["grad_discarded"] > c["grad_received"]:
+            problems.append(f"worker {k}: applied + discarded > received ({c})")
+        at = apply_row["step"] if apply_row else led["steps"]
+        # the steps done before the kill: their phase seconds sum to at most
+        # what the worker's /metrics said at the kill
+        step_totals = [sum(v[i] for v in led["phase_steps_s"].values())
+                       for i in range(led["steps"])]
+        done = list(itertools.accumulate(step_totals))
+        before_kill = bisect.bisect_right(done, killed["phase_s"][k])
+        windows = {"before_kill": (0, before_kill), "kill_to_reshard": (before_kill, at),
+                   "after_reshard": (at, led["steps"])}
+        per_worker.append({
+            "worker": k, "epoch": led["membership_epoch"], "active": led["active"],
+            "quorum": led["quorum"], "steps": led["steps"], "version": led["version"],
+            "applied_at_step": at,
+            **{name: c[name] for name in ("evictions", "shards_adopted", "epoch_fenced",
+                                           "pull_failed", "push_failed", "grad_discarded",
+                                           "apply_wait_timeouts", "pull_wait_timeouts")},
+            "received_replaced_or_buffered": (c["grad_received"] - c["grad_applied"]
+                                              - c["grad_discarded"]),
+            "kill_to_apply_s": apply_row["ts"] - killed["wall"] if apply_row else None,
+            "steps_before_kill": before_kill,
+            "loss_mean_5_before_reshard": statistics.mean(led["step_losses"][max(at - 5, 0):at]),
+            "loss_mean_5_after_reshard": statistics.mean(led["step_losses"][at:at + 5]),
+            "phase_ms_median": {name: {p: statistics.median(v[a:b]) * 1e3
+                                       for p, v in led["phase_steps_s"].items()}
+                                for name, (a, b) in windows.items() if b > a},
+            "step_ms_median": {name: statistics.median(step_totals[a:b]) * 1e3
+                               for name, (a, b) in windows.items() if b > a},
+            "owner_epochs": [{x: e[x] for x in ("epoch", "quorum", "opt_source", "applies",
+                                                "k5_launches", "version_start")}
+                             for e in led["owner_epochs"]],
+            "owner_apply_ms_per_apply": led["owner_apply_seconds"] * 1e3 / max(c["applies"], 1),
+            "launches": {name: v for name, v in led["launches"].items() if v},
+        })
+    if not ledgers[survivors[0]]["counters"]["evictions"] >= 1:
+        problems.append("the acting lead counted no eviction")
+    gen = TrainCheckpoint.load(out / "last-model")
+    gen_fleet = (gen or {}).get("extra", {}).get("fleet") or {}
+    if (gen_fleet.get("epoch"), gen_fleet.get("active")) != (1, survivors):
+        problems.append(f"the final generation's extra.fleet {gen_fleet}")
+    history = ledgers[survivors[0]]["history"]
+    dev = history[-1]["other_scores"] if history else {}
+    if not dev.get("tag_acc", 0) >= FLEET_ELASTIC_TAG_FLOOR:
+        problems.append(f"dev tag_acc {dev.get('tag_acc')} < {FLEET_ELASTIC_TAG_FLOOR}")
+    texts = [" ".join(eg.reference.words) for eg in Corpus(corpus[1])()][:64]
+    tags = {}
+    for device in ("cuda", "cpu"):
+        nlp = Pipeline.from_disk(out / "last-model", device=device)
+        docs = [nlp.tokenizer(t) for t in texts]
+        nlp.predict_docs(docs)
+        tags[device] = [t for d in docs for t in d.tags]
+        del nlp
+    agree = sum(a == b for a, b in zip(tags["cuda"], tags["cpu"])) / max(len(tags["cpu"]), 1)
+    if not agree >= FLEET_ELASTIC_AGREEMENT:
+        problems.append(f"the final model's tags agree with the CPU's for {agree}")
+    res_row = {
+        "phase": phase, "workers": n, "steps": FLEET_ELASTIC_STEPS, "quorum": 0,
+        "max_staleness": 1, "peer_lease_s": FLEET_ELASTIC_LEASE_S, "victim": victim,
+        "wall_s": wall_s, "beside_s": beside_s, "killed_at_s": killed["at_s"],
+        "versions_at_kill": killed["versions"], "kill_to_evict_s": evict_s,
+        "evict_bound_s": evict_bound_s, "step_s_median": step_s,
+        "kill_to_apply_s": {k: w["kill_to_apply_s"] for k, w in zip(survivors, per_worker)},
+        "evict_rows": evicts, "final_generation_fleet": gen_fleet,
+        "dev_scores": dev, "final_model_tags_card_vs_cpu": agree, "dev_tokens": len(tags["cpu"]),
+        "per_worker": per_worker,
+        "launches": {name: sum(led["launches"].get(name, 0) for led in ledgers.values())
+                     for name in ledgers[survivors[0]]["launches"]},
+        "problems": problems,
+    }
+    emit(res_row)
+    if problems:
+        fail(f"{phase}: " + "; ".join(problems))
+    shutil.rmtree(run["work"], ignore_errors=True)
     return res_row
 
 
@@ -5493,14 +5748,18 @@ def main() -> int:
     kernels.update(phase_train_kernels(torch, full_shapes, moe_shapes))
     for name, rows in phase_cnn_kernels(torch, cnn).items():
         kernels[name].extend(rows)
-    kernels["fused_update"].extend(phase_fleet_kernels(torch, cnn))
+    fleet_k5 = phase_fleet_kernels(torch, cnn)
+    kernels["fused_update"].extend(fleet_k5)
 
     if WORK.exists():
         shutil.rmtree(WORK / "trf_tagger", ignore_errors=True)
     model_dir = build_model_dir(torch)
     runs = {p: phase_slice(torch, model_dir, p) for p in ("auto", "int8")}
     runs["train:fleet_async"] = fleet_async_run
-    phase_cli(model_dir)
+    # the elastic fleet: 3 workers, one SIGKILLed, the survivors re-shard; the
+    # serve CLI's subprocess comes up beside the fleet's three
+    runs["train:fleet_elastic"] = phase_train_fleet_elastic(
+        torch, spacy_corpus, cnn, fleet_k5, beside=lambda: phase_cli(model_dir))
     shutil.rmtree(model_dir, ignore_errors=True)
     runs["train"] = phase_train(torch)
     shutil.rmtree(WORK / "train", ignore_errors=True)

@@ -2,7 +2,8 @@
 
     python -m spacy_ray_tpu_torch train <config.cfg> --output <dir> [--device cuda|cpu]
         [--code F] [--resume] [--paths.train x.jsonl --training.max_steps 40 ...]
-        [--fleet-workers N [--quorum Q] [--max-staleness S] [--fleet-base-port P]]
+        [--fleet-workers N [--quorum Q] [--max-staleness S] [--fleet-base-port P]
+        [--peer-lease-s S]]
     python -m spacy_ray_tpu_torch pretrain <config.cfg> <output-dir> [--device cuda|cpu]
         [--code F] [--section.key value ...]
     python -m spacy_ray_tpu_torch evaluate <model-dir> <data.jsonl> [--device cuda|cpu]
@@ -17,7 +18,11 @@ Dotted ``--section.key value`` arguments override the config.
 ``--fleet-workers N`` trains as N worker processes (the asynchronous
 trainer fleet, ``training/fleet/``): each owns a slice of every parameter,
 pushes gradients to their owners and applies at ``--quorum``; worker 0
-evaluates and writes the models.
+evaluates and writes the models. With ``--peer-lease-s`` > 0 (60 by
+default) a dead worker is evicted once its lease expired and its slices
+re-shard over the survivors; the coordinator exits 0 when the survivors
+finish (``fleet-degraded-success``), 75 when it was stopped by a signal,
+else the first bad worker's code.
 ``--code`` imports a Python file first, so that the functions it registers
 (callbacks, architectures, readers, augmenters) resolve in the config.
 ``pretrain`` runs the config's ``[pretraining]`` block (the characters or
@@ -63,7 +68,7 @@ from .serving.overlay import PRECISION_CHOICES
 USAGE = (
     "usage: python -m spacy_ray_tpu_torch train <config.cfg> [--output DIR] [--device cuda|cpu]"
     " [--code F] [--resume] [--fleet-workers N [--quorum Q] [--max-staleness S]"
-    " [--fleet-base-port P]] [--section.key value ...]\n"
+    " [--fleet-base-port P] [--peer-lease-s S]] [--section.key value ...]\n"
     "       python -m spacy_ray_tpu_torch pretrain <config.cfg> <output-dir> [--device cuda|cpu]"
     " [--code F] [--section.key value ...]\n"
     "       python -m spacy_ray_tpu_torch evaluate <model-dir> <data.jsonl> [--device cuda|cpu]"
@@ -259,6 +264,10 @@ def train_command(argv: List[str]) -> int:
     parser.add_argument("--fleet-base-port", type=int, default=None, dest="fleet_base_port",
                         help="fleet: worker k's peer endpoint binds 127.0.0.1:base+k "
                         "(default 47200)")
+    parser.add_argument("--peer-lease-s", type=float, default=60.0, dest="peer_lease_s",
+                        help="fleet: evict a peer that answered no liveness probe for this "
+                        "many seconds and missed 3 in a row; its slices re-shard over the "
+                        "survivors (0 = never evict)")
     parser.add_argument("--fleet-worker-id", type=int, default=None, dest="fleet_worker_id",
                         help="(set by the coordinator) run as fleet worker K")
     args, extra = parser.parse_known_args(argv)
@@ -266,6 +275,8 @@ def train_command(argv: List[str]) -> int:
                         format="%(levelname)s %(name)s: %(message)s")
     if args.fleet_workers < 0:
         parser.error("--fleet-workers must be >= 0")
+    if args.peer_lease_s < 0:
+        parser.error("--peer-lease-s must be >= 0")
     if args.fleet_workers > 0 and args.resume:
         parser.error("--resume: the trainer fleet's generations keep no optimizer state in "
                      "this package, so a fleet run cannot be resumed")
@@ -290,6 +301,7 @@ def train_command(argv: List[str]) -> int:
 
         fleet = {"worker_id": args.fleet_worker_id, "n_workers": args.fleet_workers,
                  "quorum": args.quorum, "max_staleness": args.max_staleness,
+                 "peer_lease_s": args.peer_lease_s,
                  "base_port": (args.fleet_base_port if args.fleet_base_port is not None
                                else DEFAULT_FLEET_BASE_PORT)}
     import_code(str(args.code) if args.code else None)

@@ -133,6 +133,24 @@ def flatten_opt_state(state: Dict[str, Any]) -> Dict[str, np.ndarray]:
     return flat
 
 
+def fleet_membership_extra(extra: Dict[str, Any]) -> Dict[str, Any]:
+    """``extra`` with its ``fleet`` block's membership normalised before it
+    reaches disk, as the JAX package's ``commit_fleet_generation`` does: the
+    epoch an int >= 0, ``active`` the sorted unique non-negative ids; a bad
+    block raises (it would undo a failover for whoever reads it)."""
+    fleet = extra.get("fleet")
+    if not isinstance(fleet, dict) or not ("epoch" in fleet or "active" in fleet):
+        return extra
+    m_epoch = int(fleet.get("epoch", 0))
+    active = sorted(int(w) for w in fleet.get("active") or [])
+    if m_epoch < 0:
+        raise ValueError(f"fleet membership epoch {m_epoch} is negative")
+    if not active or len(set(active)) != len(active) or active[0] < 0:
+        raise ValueError(f"fleet membership active set {active!r} must be non-empty, unique, "
+                         "non-negative worker ids")
+    return {**extra, "fleet": {**fleet, "epoch": m_epoch, "active": active}}
+
+
 class TrainCheckpoint:
     """Training generations with history (layout in the module docstring)."""
 
@@ -156,7 +174,7 @@ class TrainCheckpoint:
         meta = {
             "step": int(step), "epoch": int(epoch), "rng": [],
             "best_score": float(best_score), "best_step": int(best_step),
-            "extra": extra or {}, "stamp": stamp, "digests": digests,
+            "extra": fleet_membership_extra(extra or {}), "stamp": stamp, "digests": digests,
         }
         text = json.dumps(meta, indent=2)
         for name in (f"train_meta-{stamp}.json", "train_meta.json"):

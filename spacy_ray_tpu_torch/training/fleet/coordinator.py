@@ -4,14 +4,17 @@ restarts).
 
 ``train --fleet-workers N`` without ``--fleet-worker-id`` runs here. This
 process never initialises CUDA: it starts ``python -m spacy_ray_tpu_torch
-train <argv> --fleet-worker-id k`` for each ``k`` and waits. It returns 0
-when every worker exits 0. When a worker exits non-zero it stops the others
-(SIGTERM, then SIGKILL after :data:`FLEET_SHUTDOWN_GRACE_S`) and returns that worker's code (a
-worker killed by signal ``s`` gives ``128 + s``). SIGTERM or SIGINT to the
-coordinator is relayed the same way and the coordinator returns
-:data:`~..resilience.RC_PREEMPTED`. No worker outlives it on any of these
-paths. Restarting a crashed worker needs membership and optimizer parts,
-which are not ported yet: a dead worker ends the fleet.
+train <argv> --fleet-worker-id k`` for each ``k`` and waits for every one of
+them. A worker that dies is left dead: with ``--peer-lease-s`` > 0 the
+survivors evict it and re-shard its slices among themselves. The exit code:
+0 when every worker exits 0, and also (with a ``fleet-degraded-success``
+event) when some exit 0 and the rest died; otherwise
+:data:`~..resilience.RC_PREEMPTED` if a worker returned it, else the first
+non-zero code (a worker killed by signal ``s`` gives ``128 + s``). SIGTERM
+or SIGINT to the coordinator is relayed to every worker (SIGTERM, then
+SIGKILL after :data:`FLEET_SHUTDOWN_GRACE_S`) and the coordinator returns
+``RC_PREEMPTED``. No worker outlives it on any of these paths. Restarting a
+dead worker needs optimizer parts and ``--resume``, which are not ported yet.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import subprocess
 import sys
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List
 
 from ..resilience import RC_PREEMPTED, log_event, terminate_with_grace
 
@@ -39,6 +42,26 @@ def _exit_code(rc: int) -> int:
     return 128 - rc if rc < 0 else rc
 
 
+def fleet_exit_code(codes: List[int]) -> int:
+    """The fleet's code from its workers' (JAX's order): 0 when all are 0;
+    ``RC_PREEMPTED`` when one was preempted; 0 when the survivors finished
+    and the rest died (the degraded success); else the first bad code."""
+    if all(rc == 0 for rc in codes):
+        return 0
+    if any(rc == RC_PREEMPTED for rc in codes):
+        return RC_PREEMPTED
+    if any(rc == 0 for rc in codes):
+        lost = [w for w, rc in enumerate(codes) if rc != 0]
+        log_event("fleet-degraded-success",
+                  f"workers {lost} died (exit codes {codes}) and were left out; the "
+                  "survivors finished cleanly — reporting rc=0", codes=codes, lost=lost)
+        return 0
+    first_bad = next(rc for rc in codes if rc != 0)
+    log_event("fleet-failed", f"fleet worker exit codes {codes}; reporting rc={first_bad}",
+              codes=codes)
+    return first_bad
+
+
 def run_fleet(child_argv: List[str], *, n_workers: int) -> int:
     """Run the fleet to its end; returns the exit code described above.
     ``child_argv`` is the workers' ``train`` argv without
@@ -49,15 +72,10 @@ def run_fleet(child_argv: List[str], *, n_workers: int) -> int:
         for signum in (signal.SIGTERM, signal.SIGINT):
             prev[signum] = signal.signal(signum, lambda s, f: relayed.set())
     procs: List[subprocess.Popen] = []
-    failed: Optional[tuple] = None
     try:
         for w in range(int(n_workers)):
             procs.append(subprocess.Popen(worker_cmd(child_argv, w)))
-        while not relayed.is_set():
-            codes = [p.poll() for p in procs]
-            failed = next(((w, c) for w, c in enumerate(codes) if c not in (None, 0)), None)
-            if failed is not None or all(c == 0 for c in codes):
-                break
+        while not relayed.is_set() and any(p.poll() is None for p in procs):
             time.sleep(0.2)
     finally:
         stoppers = [threading.Thread(target=terminate_with_grace,
@@ -71,10 +89,4 @@ def run_fleet(child_argv: List[str], *, n_workers: int) -> int:
             signal.signal(signum, handler)
     if relayed.is_set():
         return RC_PREEMPTED
-    if failed is None:
-        return 0
-    w, rc = failed
-    codes = [p.returncode for p in procs]
-    log_event("fleet-failed", f"fleet worker {w} exited {rc}; the other workers were stopped "
-              f"(exit codes {codes})", worker=w, codes=codes)
-    return _exit_code(rc)
+    return fleet_exit_code([_exit_code(p.returncode) for p in procs])

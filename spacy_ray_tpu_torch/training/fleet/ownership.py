@@ -126,6 +126,10 @@ class OwnershipLayout:
                     self.slice_with(np.asarray(leaf), self.index(ordinal, worker)))
         return out
 
+    def slice_tree(self, tree: Any, worker: int) -> Dict[str, Any]:
+        """:meth:`flat_slices` nested: the owned paths only."""
+        return tree_from_flat(self.flat_slices(tree, worker))
+
     def merge_flat(self, full: Any, worker: int, flat: Dict[str, np.ndarray]) -> None:
         """Write ``worker``'s slices into the full tree of numpy arrays in
         place (a pull). An unknown key or a piece of the wrong shape raises:

@@ -13,9 +13,13 @@ HTTP handler thread for a peer's push), under the owner's lock.
 ``GET /params?known=V`` (the encoded slices, or 204 with ``X-SRT-Version``
 when ``V`` is current), ``GET /healthz`` (worker id, layout signature,
 version, the codecs it decodes), ``GET /metrics`` (counters, version and
-the worker's phase seconds, as JSON) and ``POST /finalize``. A body over
-:data:`MAX_BODY_BYTES` gets 413 and a counted discard. The JAX package's
-membership, checkpoint, trace and alert routes answer 404 here.
+the worker's phase seconds, as JSON), ``GET /membership`` and ``POST
+/membership`` (a lead's broadcast, adopted only at a strictly newer epoch
+and queued for the worker's next step boundary), ``POST /membership/join``
+and ``POST /finalize``. ``/grad`` and ``/params`` fence a frame stamped with
+another membership epoch than the live one (counted, ``epoch_fenced``). A
+body over :data:`MAX_BODY_BYTES` gets 413 and a counted discard. The JAX
+package's checkpoint, trace and alert routes answer 404 here.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import numpy as np
 import torch
 
 from ..telemetry import sanitize_json
+from .membership import Membership
 from .wire import WIRE_CODECS, WireError, decode_grads, encode_arrays, frame_epoch
 
 #: request-body ceiling (bytes): a bigger frame is hostile or corrupt, and is
@@ -54,7 +59,9 @@ COUNTER_NAMES = (
     "applies",              # owner: optimizer applies (version bumps)
     "wire_push_bytes",      # worker: bytes of delivered pushes
     "wire_pull_bytes",      # worker: bytes of 200 pull bodies
-    "epoch_fenced",         # owner: frames stamped with a membership epoch not 0
+    "epoch_fenced",         # owner: frames and broadcasts stamped with a stale or foreign epoch
+    "evictions",            # acting lead: workers it evicted
+    "shards_adopted",       # worker: owned leaves whose slice a re-shard changed
 )
 
 
@@ -94,12 +101,13 @@ class OwnerState:
 
     ``params`` is a flat ``{path: leaf}`` dict (tensors on the card for a
     worker, numpy arrays in tests); the host copies of the slices that
-    pulls are served from are taken after each apply.
+    pulls are served from are taken after each apply. ``version`` is where
+    the count starts: a re-sharded owner keeps its predecessor's.
     """
 
     def __init__(self, *, worker_id: int, n_workers: int, quorum: int, max_staleness: int,
                  apply_fn: Callable, slice_params: Dict[str, Any], opt_state: Any,
-                 counters: FleetCounters) -> None:
+                 counters: FleetCounters, version: int = 0) -> None:
         if not (1 <= quorum <= n_workers):
             raise ValueError(f"quorum must be in [1, {n_workers}], got {quorum}")
         if max_staleness < 0:
@@ -112,7 +120,7 @@ class OwnerState:
         self.params = slice_params
         self.opt_state = opt_state
         self.counters = counters
-        self.version = 0
+        self.version = int(version)
         self.lock = threading.Lock()
         self._cond = threading.Condition(self.lock)
         self._buffer: Dict[int, Dict[str, np.ndarray]] = {}
@@ -120,6 +128,7 @@ class OwnerState:
                                                   for k, v in slice_params.items()}
         self._encoded: Optional[bytes] = None
         self.apply_seconds = 0.0
+        self.retired = False
 
     def submit(self, worker: int, stamp: int,
                grads: Dict[str, np.ndarray]) -> Tuple[bool, int]:
@@ -129,6 +138,10 @@ class OwnerState:
         that does not match the owned slices is a counted discard, never a
         buffered entry that would make the next apply raise)."""
         with self._cond:
+            if self.retired:
+                # a re-shard replaced this owner between the fence and here
+                self.counters.inc("epoch_fenced")
+                return False, self.version
             self.counters.inc("grad_received")
             if not (0 <= int(worker) < self.n_workers):
                 self.counters.inc("grad_discarded")
@@ -176,6 +189,16 @@ class OwnerState:
         self._buffer.clear()
         self.apply_seconds += time.monotonic() - t0
         self._cond.notify_all()
+
+    def retire(self) -> None:
+        """Apply no more: a re-shard replaces this owner. Waits for an apply
+        in flight (it holds the lock); the buffered contributions of the old
+        layout are counted as discarded, and a later submit is fenced."""
+        with self._cond:
+            self.retired = True
+            self.counters.inc("grad_discarded", len(self._buffer))
+            self._buffer.clear()
+            self._cond.notify_all()
 
     def current_flat(self) -> Tuple[int, Dict[str, np.ndarray]]:
         """(version, owned slices): host copies replaced wholesale at each
@@ -246,6 +269,13 @@ class _PeerHTTPD(ThreadingHTTPServer):
     counters: FleetCounters
     phases: Callable[[], Dict[str, float]]
     max_body_bytes: int
+    # the epoch every frame is fenced against, the advertised membership, a
+    # broadcast waiting for the worker's next step boundary, queued joiners
+    epoch: int
+    membership: Optional[Dict[str, Any]]
+    membership_lock: threading.Lock
+    pending_membership: Optional[Membership]
+    join_requests: list
 
 
 class _PeerHandler(BaseHTTPRequestHandler):
@@ -277,14 +307,19 @@ class _PeerHandler(BaseHTTPRequestHandler):
             self._reply_json(200, {
                 "status": "ok", "role": "fleet-worker", "worker": srv.worker_id,
                 "version": srv.owner.version, "layout": srv.layout_signature,
-                "codecs": list(WIRE_CODECS), "delta_window": 0, "epoch": 0})
+                "codecs": list(WIRE_CODECS), "delta_window": 0, "epoch": srv.epoch})
+        elif parsed.path == "/membership":
+            with srv.membership_lock:
+                payload = dict(srv.membership or {})
+            payload.setdefault("epoch", srv.epoch)
+            self._reply_json(200, payload)
         elif parsed.path == "/params":
             self._params(parsed)
         elif parsed.path == "/metrics":
             self._reply_json(200, {"counters": srv.counters.snapshot(),
                                    "gauges": {"fleet_worker": srv.worker_id,
                                               "param_version": srv.owner.version,
-                                              "membership_epoch": 0},
+                                              "membership_epoch": srv.epoch},
                                    "phases": srv.phases()})
         else:
             self._reply_json(404, {"error": "not_found", "message": parsed.path})
@@ -301,12 +336,12 @@ class _PeerHandler(BaseHTTPRequestHandler):
                                    "message": f"known={known_s!r} or X-SRT-Epoch "
                                               f"{epoch_s!r} is not an int"})
             return
-        if epoch != 0:
-            # the membership epoch is 0 until membership is ported: a puller at
-            # another epoch must not merge this layout's slices
+        if epoch != srv.epoch:
+            # a puller at another epoch (absent header: 0) must not merge
+            # this layout's slices: its offsets would be wrong
             srv.counters.inc("epoch_fenced")
-            self._reply_json(409, {"error": "epoch_fenced", "epoch": 0},
-                             headers={"X-SRT-Epoch": "0"})
+            self._reply_json(409, {"error": "epoch_fenced", "epoch": srv.epoch},
+                             headers={"X-SRT-Epoch": str(srv.epoch)})
             return
         version, body = srv.owner.encoded(known)
         if body is None:
@@ -334,6 +369,47 @@ class _PeerHandler(BaseHTTPRequestHandler):
             return None
         return self.rfile.read(length) if length > 0 else b""
 
+    def _membership_broadcast(self) -> None:
+        """A lead's broadcast: queued for the worker's next step boundary
+        (the swap never runs on a handler thread) when its epoch is newer
+        than the live one and than any queued one; 409 otherwise."""
+        srv = self.server
+        body = self._body_or_413()
+        if body is None:
+            return
+        try:
+            m = Membership.from_wire(json.loads(body.decode("utf8") or "{}"))
+        except (ValueError, UnicodeDecodeError) as e:
+            self._reply_json(400, {"error": "bad_request", "message": str(e)})
+            return
+        with srv.membership_lock:
+            pending = srv.pending_membership
+            if m.epoch <= srv.epoch and not (pending is not None and m.epoch > pending.epoch):
+                # a lead re-broadcasting a dead membership is fenced like its pushes
+                srv.counters.inc("epoch_fenced")
+                self._reply_json(409, {"error": "epoch_fenced", "epoch": srv.epoch})
+                return
+            if pending is None or m.epoch > pending.epoch:
+                srv.pending_membership = m  # racing broadcasts: the highest epoch wins
+        self._reply_json(200, {"adopted": True, "epoch": m.epoch})
+
+    def _join_request(self) -> None:
+        srv = self.server
+        body = self._body_or_413()
+        if body is None:
+            return
+        try:
+            joiner = json.loads(body.decode("utf8") or "{}")["worker"]
+            if isinstance(joiner, bool) or not isinstance(joiner, int) or joiner < 0:
+                raise ValueError(f"worker {joiner!r} is not an id")
+        except (ValueError, KeyError, TypeError, UnicodeDecodeError) as e:
+            self._reply_json(400, {"error": "bad_request", "message": str(e)})
+            return
+        with srv.membership_lock:
+            if joiner not in srv.join_requests:
+                srv.join_requests.append(joiner)
+        self._reply_json(200, {"queued": True, "epoch": srv.epoch})
+
     def do_POST(self) -> None:  # noqa: N802
         parsed = urlparse(self.path)
         srv = self.server
@@ -349,12 +425,19 @@ class _PeerHandler(BaseHTTPRequestHandler):
             except (WireError, KeyError, TypeError, ValueError) as e:
                 self._reply_json(400, {"error": "bad_payload", "message": str(e)})
                 return
-            if epoch != 0:
+            if epoch != srv.epoch:
+                # a push stamped with a dead membership's epoch describes a
+                # layout that no longer exists: discarded before the buffer
                 srv.counters.inc("epoch_fenced")
-                self._reply_json(200, {"accepted": False, "fenced": True, "epoch": 0})
+                self._reply_json(200, {"accepted": False, "fenced": True,
+                                       "epoch": srv.epoch})
                 return
             accepted, version = srv.owner.submit(worker, stamp, arrays)
             self._reply_json(200, {"accepted": accepted, "version": version})
+        elif parsed.path == "/membership":
+            self._membership_broadcast()
+        elif parsed.path == "/membership/join":
+            self._join_request()
         elif parsed.path == "/finalize":
             srv.finalize_event.set()
             self._reply_json(200, {"status": "finalizing"})
@@ -381,6 +464,11 @@ class PeerServer:
         self.httpd.finalize_event = threading.Event()
         self.httpd.phases = phases or dict
         self.httpd.max_body_bytes = int(MAX_BODY_BYTES)
+        self.httpd.epoch = 0
+        self.httpd.membership = None
+        self.httpd.membership_lock = threading.Lock()
+        self.httpd.pending_membership = None
+        self.httpd.join_requests = []
         self._thread: Optional[threading.Thread] = None
 
     @property
@@ -391,6 +479,52 @@ class PeerServer:
     @property
     def finalize_event(self) -> threading.Event:
         return self.httpd.finalize_event
+
+    @property
+    def epoch(self) -> int:
+        return self.httpd.epoch
+
+    def set_membership(self, membership: Membership, layout_signature: str) -> None:
+        """Make ``membership`` the fence's truth: called by the worker at the
+        step boundary where it applies the re-shard, after :meth:`set_owner`."""
+        with self.httpd.membership_lock:
+            self.httpd.epoch = int(membership.epoch)
+            self.httpd.membership = membership.to_wire()
+            self.httpd.layout_signature = str(layout_signature)
+
+    def set_owner(self, owner: OwnerState) -> None:
+        """Swap in the re-sharded owner. Handler threads read ``owner`` per
+        request, and an apply in flight keeps the old one (and its device
+        buffers) alive until it returns."""
+        self.httpd.owner = owner
+
+    def queue_membership(self, membership: Membership) -> None:
+        """Queue a membership this worker decided on or synced, for its next
+        step boundary: the slot a broadcast lands in, the highest epoch wins."""
+        with self.httpd.membership_lock:
+            pending = self.httpd.pending_membership
+            if pending is None or membership.epoch > pending.epoch:
+                self.httpd.pending_membership = membership
+
+    def take_pending_membership(self) -> Optional[Membership]:
+        with self.httpd.membership_lock:
+            m = self.httpd.pending_membership
+            self.httpd.pending_membership = None
+            return m
+
+    def pending_membership_epoch(self) -> Optional[int]:
+        """The queued epoch, not taken: when it is newer than the live one
+        the survivors already stamp the new epoch, so the old quorum cannot
+        complete and the apply-wait yields."""
+        with self.httpd.membership_lock:
+            m = self.httpd.pending_membership
+            return None if m is None else m.epoch
+
+    def drain_join_requests(self) -> list:
+        with self.httpd.membership_lock:
+            reqs = list(self.httpd.join_requests)
+            self.httpd.join_requests.clear()
+            return reqs
 
     def start(self) -> Tuple[str, int]:
         self._thread = threading.Thread(target=self.httpd.serve_forever,

@@ -26,25 +26,41 @@ apply copies the mean into them and never touches the model's own
 parameters. The model takes the merged slices at pull time, in the training
 thread.
 
-Worker 0 (the lead) logs, evaluates every ``eval_frequency`` steps, writes
-``best-model/`` and ``last-model/`` from the slices it pulled (the flat
-``params.npz`` layout: either package loads them), and parameter
-generations in ``last-model/`` that ``serve --watch`` follows (the pulled
-slices with its own newest slice merged in). The fleet's generations keep
-no optimizer state: ``--resume`` refuses them. As in the JAX package, the
-models hold the slices as pulled at the top of the step they are written
-in: the last round's apply reaches the final ``last-model/`` only through
-the lead's own slice in its last generation. At a clean end the lead writes
-its models and posts ``/finalize``; the other workers keep serving its
-pulls and pushes until then (at most ``FINALIZE_WAIT_S``, or until the lead
-stops answering). Each worker writes
-``fleet-worker-{k}.json``: counters, versions, the seconds of each phase
-(data, pull, grad, push, apply_wait) in all and per step, its losses and
-its kernels' launch counts.
+Membership (``peer_lease_s > 0``): every worker leases its peers off
+``/healthz`` on a thread of its own; the acting lead (the lowest active id
+it still believes live) evicts a peer whose lease expired and that missed
+``lease_miss_threshold`` probes in a row, admits queued joiners, bumps the
+epoch and broadcasts the new membership. Each worker applies a membership
+at a step boundary only (``apply_membership``): the slices re-shard over the
+survivors (:class:`~.membership.RankedLayout`), the quorum re-resolves over
+them, the owner is rebuilt over its new slices (its moments kept when its
+slices did not change, fresh otherwise: the generations hold no optimizer
+state to carve them from), and every frame from then on carries the new
+epoch. Pulls from an unreachable owner back off (:class:`~.membership.
+PeerBackoff`). ``peer_lease_s=0`` keeps the membership the fleet started
+with.
 
-Out of this piece (ROADMAP): membership and lease failover, compressed
-wires and delta pulls, optimizer parts with ``--resume`` and restarts, the
-dynamics histograms and alerts.
+Worker 0 logs and evaluates every ``eval_frequency`` steps and writes
+``best-model/``. The lead (the lowest active id: worker 0 until it is
+evicted) writes ``last-model/`` from the slices it pulled (the flat
+``params.npz`` layout: either package loads them) and parameter generations
+in ``last-model/`` that ``serve --watch`` follows (the pulled slices with
+its own newest slice merged in) every ``eval_frequency`` steps; an acting
+lead other than worker 0 writes them without scores. The fleet's
+generations keep no optimizer state: ``--resume`` refuses them. As in the
+JAX package, the models hold the slices as pulled at the top of the step
+they are written in: the last round's apply reaches the final
+``last-model/`` only through the lead's own slice in its last generation.
+At a clean end the lead writes its models and posts ``/finalize``; the
+other workers keep serving its pulls and pushes until then (at most
+``FINALIZE_WAIT_S``, or until the lead stops answering). Each worker writes
+``fleet-worker-{k}.json``: counters, versions, its membership, the seconds
+of each phase (data, pull, grad, push, apply_wait) in all and per step, its
+losses and its kernels' launch counts; the run directory gets
+``fleet-membership.jsonl``.
+
+Out of this piece (ROADMAP): compressed wires and delta pulls, optimizer
+parts with ``--resume`` and restarts, the dynamics histograms and alerts.
 """
 
 from __future__ import annotations
@@ -75,7 +91,8 @@ from .. import optimizers as _optimizers
 from ..batcher import bucket_batch_size, bucket_length, shard_stream
 from ..checkpoint import TrainCheckpoint, flatten
 from ..resilience import RetryPolicy, log_event, retry_io
-from .ownership import OwnershipLayout, tree_from_flat
+from .membership import LeaseTracker, Membership, MembershipLedger, PeerBackoff
+from .ownership import tree_from_flat
 from .peer import FleetCounters, OwnerState, PeerServer
 from .wire import WireError, decode_arrays, encode_grads
 
@@ -224,6 +241,10 @@ def train_fleet_worker(
     stdout_log: bool = True,
     max_steps_override: Optional[int] = None,
     quorum_wait_s: float = 30.0,
+    peer_lease_s: float = 60.0,
+    lease_miss_threshold: int = 3,
+    lease_poll_s: float = 2.0,
+    probe_timeout_s: Optional[float] = None,
 ) -> Tuple[Pipeline, Any]:
     """Run one fleet worker; returns ``(nlp, TrainResult)`` as
     :func:`~..loop.train` does (whose ``fleet=`` mode calls this), with
@@ -232,9 +253,14 @@ def train_fleet_worker(
     Worker ``k`` serves its peer endpoint on ``127.0.0.1:base_port + k``
     (``port`` overrides it); its peers are ``peer_urls`` or
     ``http://127.0.0.1:base_port + i``. ``[training] fleet_peer_timeout_s``
-    bounds each peer request. On the main thread, SIGTERM and SIGINT stop
-    the worker at its next step (``result.interrupted``). Runs on ``cuda``
-    unless ``device`` is ``"cpu"``."""
+    bounds each peer request. ``peer_lease_s`` > 0 arms membership (the
+    module docstring): a peer is evicted once its lease expired and it
+    missed ``lease_miss_threshold`` probes in a row, probed every
+    ``lease_poll_s`` (at least 0.2) seconds, each probe bounded by
+    ``probe_timeout_s`` (default ``[training] fleet_probe_timeout_s``); 0
+    keeps the starting membership. On the main thread, SIGTERM and SIGINT
+    stop the worker at its next step (``result.interrupted``). Runs on
+    ``cuda`` unless ``device`` is ``"cpu"``."""
     from ..loop import (
         TrainResult, _named_params, _resolve_corpus, check_component_lists,
         default_pipeline_score_weights, resolve_training, weighted_score,
@@ -243,19 +269,34 @@ def train_fleet_worker(
     worker_id, n_workers = int(worker_id), int(n_workers)
     if not (0 <= worker_id < n_workers):
         raise ValueError(f"fleet worker id {worker_id} outside [0, {n_workers})")
+    quorum_requested = int(quorum or 0)
     quorum = resolve_quorum(quorum, n_workers)
     if not (1 <= quorum <= n_workers):
         raise ValueError(f"quorum {quorum} outside [1, {n_workers}]")
     max_staleness = int(max_staleness)
     if max_staleness < 0:
         raise ValueError(f"max_staleness must be >= 0, got {max_staleness}")
+    peer_lease_s = float(peer_lease_s)
+    if peer_lease_s < 0:
+        raise ValueError(f"peer_lease_s must be >= 0, got {peer_lease_s}")
+    lease_miss_threshold = max(1, int(lease_miss_threshold))
+    lease_poll_s = max(0.2, float(lease_poll_s))
+
+    def quorum_for(n_active: int) -> int:
+        """The quorum after a membership change: auto re-resolves over the
+        survivors; an explicit quorum is clamped so that they can reach it."""
+        if quorum_requested <= 0:
+            return resolve_quorum(0, n_active)
+        return max(1, min(quorum_requested, n_active))
 
     config = config.interpolate()
     T = resolve_training(config)
     dev = resolve_device(device)
     peer_timeout = float(T.get("fleet_peer_timeout_s") or 10.0)
-    if peer_timeout <= 0:
-        raise ValueError("fleet_peer_timeout_s must be > 0")
+    probe_timeout = float(probe_timeout_s if probe_timeout_s is not None
+                          else T.get("fleet_probe_timeout_s") or 5.0)
+    if peer_timeout <= 0 or probe_timeout <= 0:
+        raise ValueError("fleet_peer_timeout_s and fleet_probe_timeout_s must be > 0")
     seed = int(T.get("seed") or 0)
     random.seed(seed)
     np.random.seed(seed)
@@ -285,7 +326,8 @@ def train_fleet_worker(
     params_host = tree_from_flat({k: p.detach().to("cpu", copy=True).numpy()
                                   for k, p in params.items()})
     host_leaves = flatten(params_host)  # the same arrays, by path: merges write into them
-    layout = OwnershipLayout(params_host, n_workers)
+    membership = Membership(range(n_workers))
+    layout = membership.layout(params_host)
     counters = FleetCounters()
     slice_apply = SliceApply(owner_opt, dev)
     slice_params, slice_opt = slice_apply.init(layout.flat_slices(params_host, worker_id))
@@ -299,12 +341,25 @@ def train_fleet_worker(
                   "axis divisible); it pushes gradients but applies nothing",
                   worker=worker_id, n_workers=n_workers)
 
+    def owner_record(opt_source: str) -> Dict[str, Any]:
+        """What the owner of this epoch holds, with the version and K5 count
+        it starts from (the ledger's ``owner_epochs``)."""
+        return {"epoch": membership.epoch, "active": list(membership.active),
+                "quorum": quorum, "opt_source": opt_source,
+                "owned_shapes": {k: list(np.shape(v)) for k, v in owner.params.items()},
+                "version_start": owner.version,
+                "k5_start": _cuda.launch_counts().get("fused_update", 0)}
+
+    owner_log = [owner_record("init")]
+    retired_apply_s = 0.0  # the apply seconds of the owners re-shards replaced
+
     phases: Dict[str, float] = {p: 0.0 for p in PHASES}
     phase_steps: Dict[str, List[float]] = {p: [] for p in PHASES}
     server = PeerServer(owner, worker_id=worker_id, layout_signature=layout.signature(),
                         counters=counters,
                         port=int(port) if port is not None else int(base_port) + worker_id,
                         phases=lambda: dict(phases))
+    server.set_membership(membership, layout.signature())
     server.start()
     urls = list(peer_urls) if peer_urls is not None else [
         f"http://127.0.0.1:{int(base_port) + i}" for i in range(n_workers)]
@@ -312,12 +367,15 @@ def train_fleet_worker(
         server.stop()
         raise ValueError(f"peer_urls names {len(urls)} workers, fleet has {n_workers}")
     clients = {w: _PeerClient(urls[w], timeout=peer_timeout)
-               for w in range(n_workers) if w != worker_id}
+               for w in membership.active if w != worker_id}
     push_policy = RetryPolicy(max_retries=PUSH_RETRIES, base_delay=0.05,
                               max_delay=1.0)
     known: Dict[int, int] = {w: -1 for w in clients}
     last_stamp: Dict[int, int] = {w: _NEVER for w in clients}
     stop_requested = threading.Event()
+    out = Path(output_path) if output_path is not None else None
+    member_ledger = MembershipLedger(out / "fleet-membership.jsonl" if out is not None else None)
+    backoff = PeerBackoff(base_s=1.0, cap_s=max(1.0, min(30.0, float(quorum_wait_s))))
 
     def wait_for_peers() -> None:
         """Block until every peer answers ``/healthz`` with this layout's
@@ -345,6 +403,120 @@ def train_fleet_worker(
                                        f"(waited {PEER_WAIT_S:.0f}s)")
                 time.sleep(0.1)
 
+    join_sent = [-float("inf")]
+
+    def request_join(m: Membership) -> None:
+        """Ask ``m``'s lead to admit this worker at its next verdict; at most
+        one request every 5 s (a fenced worker hits a fence every step)."""
+        now = time.monotonic()
+        if now - join_sent[0] < 5.0 or m.lead == worker_id:
+            return
+        join_sent[0] = now
+        client = clients.get(m.lead)
+        if client is None:
+            client = clients[m.lead] = _PeerClient(urls[m.lead], timeout=peer_timeout)
+        try:
+            client.request("POST", "/membership/join",
+                           body=json.dumps({"worker": worker_id}).encode("utf8"),
+                           content_type="application/json")
+        except OSError:
+            return
+        member_ledger.append("join-requested", worker=worker_id, epoch=m.epoch)
+        log_event("fleet-join-requested", f"worker {worker_id} asked lead {m.lead} to rejoin "
+                  f"the fleet (their membership epoch {m.epoch})", worker=worker_id,
+                  lead=m.lead, epoch=m.epoch)
+
+    def refresh_membership(w: int) -> None:
+        """After a fence: take peer ``w``'s membership when it is newer (queued
+        for the next step boundary), or ask to rejoin when it no longer names
+        this worker. The training thread's (it shares the clients)."""
+        client = clients.get(w)
+        if client is None:
+            return
+        try:
+            status, _, body = client.request("GET", "/membership")
+            if status != 200:
+                return
+            m = Membership.from_wire(json.loads(body.decode("utf8")))
+        except (OSError, ValueError):
+            return
+        if m.epoch <= membership.epoch:
+            return
+        if worker_id in m:
+            server.queue_membership(m)
+        else:
+            request_join(m)
+
+    def apply_membership(new_m: Membership) -> None:
+        """The re-shard, at a step boundary only: retire the owner (after its
+        apply in flight), fold its newest slices into ``params_host``, lay
+        the slices out over ``new_m``'s active ids, rebuild the owner over
+        its new slices (its moments kept when they did not change, fresh
+        otherwise) and stamp the new epoch on what follows."""
+        nonlocal membership, layout, owner, owns_any, quorum, slice_apply, retired_apply_s
+        old_m, old_layout, old_owner = membership, layout, owner
+        was_active = worker_id in old_m
+        old_owner.retire()
+        retired_apply_s += old_owner.apply_seconds
+        if was_active:
+            old_layout.merge_flat(params_host, worker_id, old_owner.current_flat()[1])
+        old_index = {k: old_layout.key_index(k, worker_id)
+                     for k in (old_layout.owned_keys(worker_id) if was_active else ())}
+        membership = new_m
+        layout = membership.layout(params_host)
+        quorum = quorum_for(len(membership.active))
+        now_active = worker_id in membership
+        owned = layout.owned_keys(worker_id)
+        changed = [k for k in owned
+                   if k not in old_index or old_index[k] != layout.key_index(k, worker_id)]
+        if now_active and not changed and set(owned) == set(old_index):
+            # the same slices (a peer this worker took nothing from left):
+            # the live tensors and moments go on; the old owner applies no more
+            slice_params, slice_opt, opt_source = old_owner.params, old_owner.opt_state, "live"
+        else:
+            slice_apply = SliceApply(owner_opt, dev)
+            slice_params, slice_opt = slice_apply.init(layout.flat_slices(params_host, worker_id))
+            opt_source = "fresh-init"
+            if changed:
+                log_event("fleet-opt-reinit", f"worker {worker_id}: the fleet's generations "
+                          f"keep no optimizer state — fresh moments for {len(changed)} "
+                          "re-sharded slices", worker=worker_id, epoch=membership.epoch,
+                          resharded=len(changed))
+        owner = OwnerState(worker_id=worker_id, n_workers=n_workers, quorum=quorum,
+                           max_staleness=max_staleness, apply_fn=slice_apply,
+                           slice_params=slice_params, opt_state=slice_opt, counters=counters,
+                           version=old_owner.version)
+        server.set_owner(owner)
+        server.set_membership(membership, layout.signature())
+        owns_any = bool(owned)
+        for w in [w for w in clients if w not in membership]:
+            clients.pop(w).close()
+            known.pop(w, None)
+            last_stamp.pop(w, None)
+        for w in membership.active:
+            if w != worker_id and w not in clients:
+                clients[w] = _PeerClient(urls[w], timeout=peer_timeout)
+        # the old epoch's versions describe another slice geometry: pull whole
+        for w in clients:
+            known[w], last_stamp[w] = -1, _NEVER
+        if changed:
+            counters.inc("shards_adopted", len(changed))
+        owner_log.append(owner_record(opt_source))
+        member_ledger.append("apply", worker=worker_id, epoch=membership.epoch,
+                             active=list(membership.active), resharded=len(changed),
+                             opt_source=opt_source, quorum=quorum, version=owner.version,
+                             step=step)
+        log_event("fleet-membership-applied", f"worker {worker_id}: membership epoch "
+                  f"{membership.epoch} applied (active {list(membership.active)}, "
+                  f"{len(changed)} slices re-sharded, optimizer {opt_source})",
+                  worker=worker_id, epoch=membership.epoch, active=list(membership.active),
+                  resharded=len(changed))
+        if was_active and not now_active:
+            log_event("fleet-self-evicted", f"worker {worker_id}: membership epoch "
+                      f"{membership.epoch} no longer names this worker — requesting rejoin",
+                      worker=worker_id, epoch=membership.epoch)
+            request_join(membership)
+
     def pull_peers() -> Dict[int, int]:
         """Refresh non-owned shards; returns the version stamps the next
         push will carry (per owner).
@@ -356,21 +528,37 @@ def train_fleet_worker(
         to has closed, S rounds of slack allowed. At S=0 this is what
         makes quorum=N synchronous-equivalent: without it a fast worker
         re-pulls an owner mid-round, stamps the OLD version, and its
-        push is discarded — wedging the round it was needed for."""
+        push is discarded — wedging the round it was needed for.
+
+        Every pull carries this worker's epoch; a 409 (the owner re-sharded
+        past it) syncs the membership instead of merging. An owner that is
+        unreachable, or misses the gate's deadline, costs one event and a
+        backoff during which it is not asked."""
         self_version, self_flat = owner.current_flat()
-        layout.merge_flat(params_host, worker_id, self_flat)
+        if worker_id in membership:
+            layout.merge_flat(params_host, worker_id, self_flat)
         stamps = {worker_id: self_version}
         deadline = time.monotonic() + float(quorum_wait_s)
-        for w, client in clients.items():
-            timed_out = False
+        headers = {"X-SRT-Epoch": str(membership.epoch)}
+        fenced_by: Optional[int] = None
+        for w, client in list(clients.items()):
+            if backoff.skip(w):
+                stamps[w] = known.get(w, -1)
+                continue
+            timed_out = unreachable = False
             while True:
                 try:
-                    status, headers, body = client.request("GET", f"/params?known={known[w]}")
+                    status, resp_headers, body = client.request(
+                        "GET", f"/params?known={known[w]}", headers=headers)
                 except OSError:
                     counters.inc("pull_failed")
+                    unreachable = True
                     break
                 if status == 204:
-                    v = int(headers.get("X-SRT-Version", known[w]))
+                    v = int(resp_headers.get("X-SRT-Version", known[w]))
+                elif status == 409:
+                    fenced_by = w
+                    break
                 elif status == 200:
                     try:
                         meta_w, arrays = decode_arrays(body)
@@ -392,7 +580,20 @@ def train_fleet_worker(
                     counters.inc("pull_wait_timeouts")
                     continue
                 time.sleep(0.01)
-            stamps.setdefault(w, known[w])
+            if unreachable or timed_out:
+                if backoff.record_failure(w):
+                    reason = "unreachable" if unreachable else "deadline"
+                    log_event("fleet-peer-unreachable",
+                              f"worker {worker_id}: owner {w} "
+                              f"{'unreachable' if unreachable else 'missed its staleness deadline'}"
+                              f" — pulls back off (cap {backoff.cap_s:.0f}s) until it answers",
+                              worker=worker_id, owner=w, reason=reason)
+            elif fenced_by != w and backoff.record_success(w):
+                log_event("fleet-peer-recovered", f"worker {worker_id}: owner {w} answers "
+                          "again — backoff cleared", worker=worker_id, owner=w)
+            stamps.setdefault(w, known.get(w, -1))
+        if fenced_by is not None:
+            refresh_membership(fenced_by)
         return stamps
 
     def load_into_model() -> None:
@@ -401,8 +602,10 @@ def train_fleet_worker(
                 p.copy_(torch.from_numpy(host_leaves[k]))
 
     def push_grads(grads: Dict[str, Any], stamps: Dict[int, int]) -> None:
-        """Each owner's slice of ``grads`` to its owner."""
-        for w in range(n_workers):
+        """Each owner's slice of ``grads`` to its owner, stamped with the
+        epoch; a fenced reply syncs the membership."""
+        fenced_peer: List[int] = []
+        for w in list(membership.active):
             flat = layout.flat_slices(grads, w)
             if not flat:
                 continue
@@ -410,12 +613,21 @@ def train_fleet_worker(
                 # not counted as a push: grad_pushed is the traffic to peers
                 owner.submit(worker_id, stamps[worker_id], flat)
                 continue
-            body = encode_grads({"worker": worker_id, "stamp": int(stamps[w]), "epoch": 0}, flat)
+            if w not in clients:
+                continue
+            stamp = int(stamps.get(w, -1))
+            body = encode_grads({"worker": worker_id, "stamp": stamp,
+                                 "epoch": int(membership.epoch)}, flat)
 
             def send(w=w, body=body) -> None:
-                status, _, _ = clients[w].request("POST", "/grad", body=body)
+                status, _, reply = clients[w].request("POST", "/grad", body=body)
                 if status != 200:
                     raise OSError(f"peer {w} rejected grad push: HTTP {status}")
+                try:
+                    if json.loads(reply.decode("utf8")).get("fenced"):
+                        fenced_peer.append(w)
+                except (ValueError, AttributeError):
+                    pass
 
             try:
                 retry_io("grad-push", send, policy=push_policy)
@@ -423,10 +635,111 @@ def train_fleet_worker(
                 counters.inc("wire_push_bytes", len(body))
             except OSError:
                 counters.inc("push_failed")  # dropped: a dead owner never stalls the fleet
-            last_stamp[w] = int(stamps[w])
+            last_stamp[w] = stamp
+        if fenced_peer:
+            refresh_membership(fenced_peer[0])
 
-    is_lead = worker_id == 0
-    if is_lead:
+    # lease-based liveness and the eviction verdict: every worker leases its
+    # peers on its own clients (the training thread's are not thread-safe);
+    # only the acting lead, the lowest active id it believes live, decides.
+    # Verdicts are broadcast and queued here and applied at step boundaries
+    member_stop = threading.Event()
+    member_thread: Optional[threading.Thread] = None
+    if n_workers > 1 and peer_lease_s > 0:
+        def sync_from(probe: _PeerClient, m: Membership) -> None:
+            """A peer is ahead of ``m``: this worker missed a broadcast."""
+            try:
+                status, _, body = probe.request("GET", "/membership")
+                if status == 200:
+                    newer = Membership.from_wire(json.loads(body.decode("utf8")))
+                    if newer.epoch > m.epoch and worker_id in newer:
+                        server.queue_membership(newer)
+            except (OSError, ValueError):
+                pass
+
+        def membership_loop() -> None:
+            probes = {w: _PeerClient(urls[w], timeout=probe_timeout)
+                      for w in range(n_workers) if w != worker_id}
+            tracker = LeaseTracker([w for w in membership.active if w != worker_id],
+                                   lease_s=peer_lease_s, miss_threshold=lease_miss_threshold)
+            # the epoch of this worker's last queued verdict: until the step
+            # boundary applies it, the same peer must not be evicted again
+            verdict_epoch = 0
+            try:
+                while not member_stop.wait(lease_poll_s):
+                    m = membership  # one snapshot a round
+                    if worker_id not in m or m.epoch < verdict_epoch:
+                        continue
+                    for w in tracker.peers():
+                        if w not in m:
+                            tracker.remove(w)
+                    drift_from: Optional[int] = None
+                    for w in m.active:
+                        if w == worker_id:
+                            continue
+                        tracker.add(w)
+                        ok = False
+                        try:
+                            status, _, body = probes[w].request("GET", "/healthz")
+                            if status == 200:
+                                ok = True
+                                pe = json.loads(body.decode("utf8")).get("epoch")
+                                if isinstance(pe, int) and not isinstance(pe, bool) \
+                                        and pe > m.epoch:
+                                    drift_from = w
+                        except (OSError, ValueError):
+                            ok = False
+                        tracker.observe(w, ok)
+                    if drift_from is not None:
+                        sync_from(probes[drift_from], m)
+                        continue  # probe again under the newer membership
+                    live = [w for w in m.active if w == worker_id or not tracker.dead(w)]
+                    if min(live) != worker_id:
+                        continue  # not the acting lead this round
+                    dead = [w for w in m.active if w not in live]
+                    new_m = m
+                    for w in dead:
+                        new_m = new_m.evict(w)
+                    joiners = sorted(j for j in server.drain_join_requests()
+                                     if 0 <= j < n_workers and j not in new_m)
+                    for j in joiners:
+                        new_m = new_m.admit(j)
+                    if new_m.epoch == m.epoch:
+                        continue
+                    if dead:
+                        counters.inc("evictions", len(dead))
+                        member_ledger.append("evict", lead=worker_id, evicted=dead,
+                                             epoch=new_m.epoch, active=list(new_m.active))
+                        log_event("fleet-owner-evicted",
+                                  f"acting lead {worker_id}: evicting {dead} (lease "
+                                  f"{peer_lease_s:g}s and {lease_miss_threshold} consecutive "
+                                  f"misses both expired) — membership epoch {new_m.epoch}, "
+                                  f"survivors {list(new_m.active)}", lead=worker_id,
+                                  evicted=dead, epoch=new_m.epoch, active=list(new_m.active))
+                    if joiners:
+                        member_ledger.append("admit", lead=worker_id, admitted=joiners,
+                                             epoch=new_m.epoch, active=list(new_m.active))
+                        log_event("fleet-worker-admitted", f"acting lead {worker_id}: "
+                                  f"admitting {joiners} at membership epoch {new_m.epoch}",
+                                  lead=worker_id, admitted=joiners, epoch=new_m.epoch)
+                    verdict_epoch = new_m.epoch
+                    wire = json.dumps(new_m.to_wire()).encode("utf8")
+                    for w in new_m.active:
+                        if w != worker_id:
+                            try:
+                                probes[w].request("POST", "/membership", body=wire,
+                                                  content_type="application/json")
+                            except OSError:
+                                pass  # it syncs off a peer's /healthz instead
+                    server.queue_membership(new_m)
+            finally:
+                for probe in probes.values():
+                    probe.close()
+
+        member_thread = threading.Thread(target=membership_loop,
+                                         name=f"fleet-membership-{worker_id}", daemon=True)
+
+    if worker_id == 0:
         logger_cfg = T.get("logger") or {"@loggers": "spacy_ray_tpu.ConsoleLogger.v1"}
         log_step, log_finalize = registry.resolve(logger_cfg)(
             nlp, sys.stdout if stdout_log else io.StringIO(), sys.stderr)
@@ -438,7 +751,6 @@ def train_fleet_worker(
     eval_frequency = int(T["eval_frequency"] or 200)
     patience = int(T["patience"] or 0)
     keep = int(T.get("keep_checkpoints", 2) or 1)
-    out = Path(output_path) if output_path is not None else None
 
     result = TrainResult()
     step = epoch = 0
@@ -469,7 +781,7 @@ def train_fleet_worker(
     def save_generation() -> None:
         """The lead's parameter generation in ``last-model/``: the pulled
         slices with its own newest slice merged in; no optimizer state."""
-        if out is None:
+        if out is None or worker_id != membership.lead:
             return
         merged = tree_from_flat({k: np.array(a) for k, a in host_leaves.items()})
         layout.merge_flat(merged, worker_id, owner.current_flat()[1])
@@ -479,7 +791,8 @@ def train_fleet_worker(
             epoch=epoch, best_score=best_score, best_step=best_step, keep=keep,
             extra={"fleet": {"n_workers": n_workers, "quorum": quorum,
                              "max_staleness": max_staleness, "worker": worker_id,
-                             "version": owner.version, "opt_state": None}})
+                             "version": owner.version, "epoch": membership.epoch,
+                             "active": list(membership.active), "opt_state": None}})
 
     prev_handlers: Dict[int, Any] = {}
     if threading.current_thread() is threading.main_thread():
@@ -493,8 +806,15 @@ def train_fleet_worker(
     start_time = last_log_time = time.perf_counter()
     try:
         wait_for_peers()
+        if member_thread is not None:
+            member_thread.start()
         batch_iter = batches()
         while not stop_requested.is_set():
+            # the step boundary: a queued membership (a broadcast, this
+            # worker's own verdict, a sync) applies before this step stamps
+            pending = server.take_pending_membership()
+            if pending is not None and pending.epoch > membership.epoch:
+                apply_membership(pending)
             t0 = time.perf_counter()
             try:
                 b = next(batch_iter)
@@ -537,7 +857,7 @@ def train_fleet_worker(
 
             if owns_any:
                 deadline = time.monotonic() + float(quorum_wait_s)
-                reached = False
+                reached = fenced = False
                 while not stop_requested.is_set():
                     remaining = deadline - time.monotonic()
                     if remaining <= 0:
@@ -545,7 +865,13 @@ def train_fleet_worker(
                     if owner.wait_version_above(stamps[worker_id], min(0.25, remaining)):
                         reached = True
                         break
-                if not reached and not stop_requested.is_set():
+                    pending_epoch = server.pending_membership_epoch()
+                    if pending_epoch is not None and pending_epoch > membership.epoch:
+                        # the survivors already stamp the new epoch: this
+                        # epoch's quorum cannot complete; the apply comes next
+                        fenced = True
+                        break
+                if not (reached or fenced or stop_requested.is_set()):
                     counters.inc("apply_wait_timeouts")
                     log_event("fleet-quorum-timeout",
                               f"worker {worker_id}: own shard stuck at version {owner.version} "
@@ -562,7 +888,7 @@ def train_fleet_worker(
                 loss_accum[key] = loss_accum.get(key, 0.0) + value
 
             info: Optional[Dict[str, Any]] = None
-            if is_lead and step % eval_frequency == 0:
+            if worker_id == 0 and step % eval_frequency == 0:
                 eval_t0 = time.perf_counter()
                 scores, eval_wps = nlp.evaluate_timed(dev_examples)
                 eval_seconds = time.perf_counter() - eval_t0
@@ -574,6 +900,7 @@ def train_fleet_worker(
                         "losses": dict(loss_accum), "other_scores": scores, "score": score,
                         "wps": wps, "eval_seconds": eval_seconds, "eval_wps": eval_wps,
                         "fleet": {"worker": worker_id, "version": owner.version,
+                                  "membership_epoch": membership.epoch,
                                   **counters.snapshot()}}
                 result.history.append(info)
                 loss_accum = {}
@@ -582,13 +909,17 @@ def train_fleet_worker(
                     if out is not None:
                         nlp.to_disk(out / "best-model")
                 save_generation()
-            if is_lead:
+            elif worker_id == membership.lead and step % eval_frequency == 0:
+                # an acting lead other than worker 0 keeps the generations
+                # going, without scores (the dev corpus stays with worker 0)
+                save_generation()
+            if worker_id == 0:
                 log_step(info)
             if max_steps and step >= max_steps:
                 break
-            if is_lead and patience and best_step >= 0 and step - best_step >= patience:
+            if worker_id == 0 and patience and best_step >= 0 and step - best_step >= patience:
                 break
-            if not is_lead and server.finalize_event.is_set():
+            if worker_id != membership.lead and server.finalize_event.is_set():
                 # the lead finished: pushes to it from here on could never be
                 # written into a model
                 log_event("fleet-finalized", f"worker {worker_id}: the lead finalized the "
@@ -600,10 +931,13 @@ def train_fleet_worker(
                       step=step, worker=worker_id)
         clean_exit = True
     finally:
+        member_stop.set()
+        if member_thread is not None and member_thread.is_alive():
+            member_thread.join(timeout=probe_timeout + lease_poll_s)
         for signum, prev in prev_handlers.items():
             signal.signal(signum, prev)
         try:
-            if is_lead and clean_exit:
+            if worker_id == membership.lead and clean_exit:
                 # the models from the slices as pulled at the last step's top
                 # (the JAX package's last-model/ too), then the peers may go
                 if out is not None:
@@ -617,21 +951,29 @@ def train_fleet_worker(
                     except OSError:
                         pass
             elif clean_exit:
-                _await_finalize(server, clients.get(0), FINALIZE_WAIT_S, worker_id)
+                _await_finalize(server, clients.get(membership.lead), FINALIZE_WAIT_S,
+                                worker_id)
         finally:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             result.seconds = time.perf_counter() - start_time
             result.best_score, result.best_step = best_score, best_step
             result.final_step, result.epoch = step, epoch
+            ends = owner_log[1:] + [{"version_start": owner.version,
+                                     "k5_start": _cuda.launch_counts().get("fused_update", 0)}]
+            owner_epochs = [{**rec, "applies": end["version_start"] - rec["version_start"],
+                             "k5_launches": end["k5_start"] - rec["k5_start"]}
+                            for rec, end in zip(owner_log, ends)]
             result.fleet = {
                 "worker": worker_id, "n_workers": n_workers, "quorum": quorum,
                 "max_staleness": max_staleness, "version": owner.version,
+                "membership_epoch": membership.epoch, "active": list(membership.active),
                 "grad_compression": "f32", "param_delta_window": 0,
                 "counters": counters.snapshot(),
                 "phases": {p: round(v, 6) for p, v in phases.items()},
                 "phase_steps_s": phase_steps,
-                "owner_apply_seconds": round(owner.apply_seconds, 6),
+                "owner_apply_seconds": round(retired_apply_s + owner.apply_seconds, 6),
+                "owner_epochs": owner_epochs,
                 "launches": _cuda.launch_counts(),
                 "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
                                       if dev.type == "cuda" else None),
@@ -652,7 +994,7 @@ def train_fleet_worker(
                 client.close()
             server.stop()
     nlp.requires_grad_(False)
-    if is_lead:
+    if worker_id == 0:
         log_finalize()
     return nlp, result
 

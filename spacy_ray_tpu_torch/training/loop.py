@@ -102,15 +102,15 @@ DEFAULT_TRAINING: Dict[str, Any] = {
     "fleet_probe_timeout_s": 5.0,
 }
 _TRAINING_BLOCK_KEYS = {"optimizer", "batcher", "logger", "before_update"}
-#: knobs of the JAX loop that shape multiple devices, telemetry, resilience,
-#: fleet membership or compiled programs: validated, then ignored
-#: (``fleet_peer_timeout_s`` bounds a fleet worker's peer requests)
+#: knobs of the JAX loop that shape multiple devices, telemetry, resilience
+#: or compiled programs: validated, then ignored (``fleet_peer_timeout_s``
+#: and ``fleet_probe_timeout_s`` bound a fleet worker's peer requests and
+#: liveness probes)
 IGNORED_KNOBS = (
     "zero1", "update_sharding", "mesh", "prefetch_batches", "collate_workers",
     "collate_cache_mb", "watchdog_timeout_s", "io_retries", "io_retry_base_s",
     "profile_window", "metrics_dir", "trace_steps", "metrics_port", "metrics_host",
     "anomaly_detection", "alerting", "incident_dir", "fused_update", "bf16_shadow",
-    "fleet_probe_timeout_s",
 )
 
 

@@ -395,7 +395,8 @@ def _http(port, method, path, body=None, headers=None):
 
 def test_peer_server_routes_and_a_jax_client():
     """The routes a peer calls, the 413 cap, 404 for the unported routes,
-    and JAX's own peer client pulling from and pushing to the port."""
+    the membership of a server no worker has set one on, and JAX's own peer
+    client pulling from and pushing to the port."""
     from spacy_ray_tpu.training.fleet.worker import _PeerClient as JClient
 
     owner, _ = _owner(ppeer, 2, 0, n=2)
@@ -427,7 +428,9 @@ def test_peer_server_routes_and_a_jax_client():
         assert json.loads(_http(port, "POST", "/grad", fenced)[2])["fenced"] is True
         server.httpd.max_body_bytes = 10
         assert _http(port, "POST", "/grad", b"x" * 11)[0] == 413
-        for path in ("/membership", "/checkpoint", "/trace", "/admin/alerts"):
+        status, _, body = _http(port, "GET", "/membership")
+        assert status == 200 and json.loads(body) == {"epoch": 0}
+        for path in ("/checkpoint", "/trace", "/admin/alerts"):
             assert _http(port, "GET", path)[0] == 404
         assert _http(port, "POST", "/checkpoint", b"{}")[0] == 404
         status, _, body = _http(port, "GET", "/metrics")

@@ -98,13 +98,14 @@ def test_the_serving_modules_of_one_process_are_checked():
         "serving/multimodel/__init__", "serving/multimodel/registry",
         "serving/multimodel/admission", "serving/multimodel/residency",
         "serving/live/__init__", "serving/live/watcher", "training/resilience")} <= names
-    # the trainer fleet's core is ported (its files import neither jax nor the
-    # JAX package: test_no_jax_or_jax_package_import covers every file here);
-    # the serving fleet's modules are not part of the port yet
+    # the trainer fleet's core and its membership are ported (its files import
+    # neither jax nor the JAX package: test_no_jax_or_jax_package_import
+    # covers every file here); the serving fleet's modules are not part of
+    # the port yet
     assert {f"spacy_ray_tpu_torch/training/fleet/{m}.py" for m in (
-        "__init__", "ownership", "wire", "peer", "worker", "coordinator")} <= names
-    assert not {n for n in names if "placement" in n or "serving/fleet/" in n or "canary" in n
-                or n.endswith("fleet/membership.py")}
+        "__init__", "ownership", "wire", "peer", "worker", "coordinator",
+        "membership")} <= names
+    assert not {n for n in names if "placement" in n or "serving/fleet/" in n or "canary" in n}
 
 
 def test_serve_with_a_manifest_without_a_card_fails_instead_of_using_the_cpu(tmp_path):

@@ -259,7 +259,17 @@ Run from the root of a checkout. Phases, each printing one JSON line:
               apply_wait), wire bytes a step, peak memory, words/s beside
               train:cnn's. train:fleet_async: JAX's defaults (quorum auto =
               1, S 1), 20 steps: exit 0, conservation, the loss falling,
-              discards and timeouts printed. The kernel rows of 9. hold K5
+              discards and timeouts printed. The wire: train:fleet passes
+              ``--grad-compression f32 --param-delta-window 0`` (the f32
+              anchor), train:fleet_async ``--grad-compression int8
+              --param-delta-window 4``; each fails unless every worker
+              resolved that codec and window, its pushes weigh 1.0 of their
+              f32 frames (f32, exactly) or at most 0.30 (int8), and its pulls
+              1.0 (f32) or below 1.0 (some delta frames served); printed: the
+              codec and its reason from each worker's ``fleet-wire-codec``
+              event, push and pull bytes a step, each ratio to its
+              ``_uncompressed`` counter, the push and pull phase medians.
+              The kernel rows of 9. hold K5
               over each owner's slices of cnn.cfg (``OwnershipLayout`` at
               N 2 and N 3, contiguous copies, the clip link off) at
               ``MAXULP_K5``.
@@ -280,7 +290,10 @@ Run from the root of a checkout. Phases, each printing one JSON line:
               epoch, active, quorum, evictions, shards_adopted,
               epoch_fenced, pull_failed, push_failed, the phases' median ms
               before the kill, between it and the re-shard and after, the
-              seconds from the kill to the evict and apply rows.
+              seconds from the kill to the evict and apply rows. It runs the
+              wire's defaults, which resolve to bf16 pushes and a delta
+              window of 4 on the card: pushes at most 0.55 of their f32
+              frames, pulls below 1.0, printed as for 23.
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -296,6 +309,7 @@ import itertools
 import json
 import math
 import random
+import re
 import shutil
 import statistics
 import subprocess
@@ -2537,6 +2551,16 @@ FLEET_ELASTIC_LEASE_S, FLEET_LEASE_POLL_S, FLEET_LEASE_MISSES = 2.0, 2.0, 3
 FLEET_ELASTIC_KILL_VERSION = 10
 FLEET_ELASTIC_TAG_FLOOR = 0.95     # dev tag_acc at the last evaluation
 FLEET_ELASTIC_AGREEMENT = 0.99     # the final model's tags, card vs CPU
+# the fleets' wire: each run's flags, and the codec and delta window its
+# workers must resolve (train:fleet_elastic runs the defaults: bf16 and 4 on
+# the card); a push may weigh at most PUSH_RATIO_MAX of its f32 frame
+FLEET_WIRE = {
+    "train:fleet": (("--grad-compression", "f32", "--param-delta-window", "0"), "f32", 0),
+    "train:fleet_async": (("--grad-compression", "int8", "--param-delta-window", "4"),
+                          "int8", 4),
+    "train:fleet_elastic": ((), "bf16", 4),
+}
+PUSH_RATIO_MAX = {"int8": 0.30, "bf16": 0.55}
 
 
 def phase_fleet_kernels(torch, info):
@@ -2665,6 +2689,62 @@ def start_fleet(phase: str, corpus, steps: int, quorum: int, staleness: int, *,
             "steps": steps, "quorum": quorum, "staleness": staleness, "port": port}
 
 
+def fleet_wire(phase: str, ledgers, stderr: str):
+    """``(row, problems)`` of a fleet run's wire (``FLEET_WIRE[phase]``):
+    each worker's resolved codec and window, the reason its
+    ``fleet-wire-codec`` event gave, push and pull bytes a step and their
+    ratios to the ``_uncompressed`` counters, the push and pull phase
+    medians and the codec's within them. A problem unless every worker resolved the expected codec and
+    window and the ratios hold: f32 pushes and pulls at exactly 1.0; a
+    compressed codec's pushes at most ``PUSH_RATIO_MAX`` in each worker and
+    the run's pulls below 1.0."""
+    _, codec, window = FLEET_WIRE[phase]
+    said = dict(re.findall(r"\[fleet-wire-codec\] worker (\d+): ([^\n]*)", stderr))
+    problems, workers = [], []
+    total = {n: 0 for n in ("wire_push_bytes", "wire_push_bytes_uncompressed",
+                            "wire_pull_bytes", "wire_pull_bytes_uncompressed")}
+    for led in ledgers:
+        c, k = led["counters"], led["worker"]
+        for n in total:
+            total[n] += c[n]
+        push = c["wire_push_bytes"] / max(c["wire_push_bytes_uncompressed"], 1)
+        pull = c["wire_pull_bytes"] / max(c["wire_pull_bytes_uncompressed"], 1)
+        if (led["grad_compression"], led["param_delta_window"]) != (codec, window):
+            problems.append(f"worker {k} resolved {led['grad_compression']}, window "
+                            f"{led['param_delta_window']}, not {codec}, {window}")
+        if codec == "f32":
+            if not c["wire_push_bytes"] == c["wire_push_bytes_uncompressed"] > 0:
+                problems.append(f"worker {k}: f32 pushes at {push} of their f32 frames")
+        elif not 0 < push <= PUSH_RATIO_MAX[codec]:
+            problems.append(f"worker {k}: {codec} pushes at {push} of their f32 frames "
+                            f"(bound {PUSH_RATIO_MAX[codec]})")
+        steps = max(led["steps"], 1)
+        workers.append({
+            "worker": k, "codec": led["grad_compression"], "delta_window": led["param_delta_window"],
+            "said": said.get(str(k)),
+            "push_bytes_per_step": c["wire_push_bytes"] / steps,
+            "pull_bytes_per_step": c["wire_pull_bytes"] / steps,
+            "push_ratio": push, "pull_ratio": pull,
+            "push_ms_median": statistics.median(led["phase_steps_s"]["push"]) * 1e3,
+            "pull_ms_median": statistics.median(led["phase_steps_s"]["pull"]) * 1e3,
+            # of them the codec's: encoding the pushes, decoding and merging the pulls
+            "push_encode_ms_median": statistics.median(led["codec_steps_s"]["push_encode"]) * 1e3,
+            "pull_decode_ms_median": statistics.median(led["codec_steps_s"]["pull_decode"]) * 1e3,
+        })
+    pull = total["wire_pull_bytes"] / max(total["wire_pull_bytes_uncompressed"], 1)
+    push = total["wire_push_bytes"] / max(total["wire_push_bytes_uncompressed"], 1)
+    if codec == "f32":
+        if not total["wire_pull_bytes"] == total["wire_pull_bytes_uncompressed"] > 0:
+            problems.append(f"f32 pulls at {pull} of their full frames")
+    elif not 0 < pull < 1.0:
+        problems.append(f"pulls at {pull} of their full frames: no delta frame served")
+    missing = [led["worker"] for led in ledgers if str(led["worker"]) not in said]
+    if missing:
+        problems.append(f"workers {missing} logged no fleet-wire-codec event")
+    return {"codec": codec, "delta_window": window, "push_ratio": push, "pull_ratio": pull,
+            "per_worker": workers, **total}, problems
+
+
 def phase_train_fleet(torch, phase: str, corpus, steps: int, quorum: int, staleness: int,
                       cnn_wps=None, model_check: bool = True, started=None) -> dict:
     """``python -m spacy_ray_tpu_torch train configs/cnn.cfg --fleet-workers
@@ -2678,14 +2758,17 @@ def phase_train_fleet(torch, phase: str, corpus, steps: int, quorum: int, stalen
     >= 0.9, and best-model/ answers through the serving path with tags
     equal to the CPU's on the same directory. Reports the wall seconds,
     each worker's per-phase medians (ms), wire bytes a step, peak memory
-    and words/s beside ``train:cnn``'s. ``started``: the run as
-    :func:`start_fleet` started it, or None to start it here."""
+    and words/s beside ``train:cnn``'s, and the wire (:func:`fleet_wire`,
+    whose problems fail it too). ``started``: the run as :func:`start_fleet`
+    started it (with ``FLEET_WIRE[phase]``'s flags), or None to start it
+    here."""
     from spacy_ray_tpu_torch.__main__ import build_server
     from spacy_ray_tpu_torch.training.corpus import Corpus
 
     from spacy_ray_tpu_torch.training.resilience import terminate_with_grace
 
-    run = started or start_fleet(phase, corpus, steps, quorum, staleness)
+    run = started or start_fleet(phase, corpus, steps, quorum, staleness,
+                                 extra=FLEET_WIRE[phase][0])
     work, out = run["work"], run["out"]
     try:
         stdout, stderr = run["proc"].communicate(timeout=600)
@@ -2717,6 +2800,8 @@ def phase_train_fleet(torch, phase: str, corpus, steps: int, quorum: int, stalen
     first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
     if not last < first:
         problems.append(f"the lead's loss did not fall ({first} -> {last})")
+    wire, wire_problems = fleet_wire(phase, ledgers, stderr)
+    problems += wire_problems
     dev = ledgers[0]["history"][-1]["other_scores"] if ledgers[0]["history"] else {}
     served = None
     if model_check:
@@ -2772,7 +2857,7 @@ def phase_train_fleet(torch, phase: str, corpus, steps: int, quorum: int, stalen
         "discarded": [led["counters"]["grad_discarded"] for led in ledgers],
         "apply_wait_timeouts": [led["counters"]["apply_wait_timeouts"] for led in ledgers],
         "pull_wait_timeouts": [led["counters"]["pull_wait_timeouts"] for led in ledgers],
-        "card_vs_cpu": served, "per_worker": per_worker,
+        "card_vs_cpu": served, "wire": wire, "per_worker": per_worker,
         "launches": {n: sum(led["launches"].get(n, 0) for led in ledgers)
                      for n in ledgers[0]["launches"]},
         "problems": problems,
@@ -2816,9 +2901,11 @@ def phase_train_fleet_elastic(torch, corpus, info, k5_rows, beside=None) -> dict
     ``extra.fleet`` says epoch 1 and active [0, 1]; the last evaluation's
     ``tag_acc`` >= ``FLEET_ELASTIC_TAG_FLOOR``; and the final model tags the
     dev set on the card as on the CPU for >= ``FLEET_ELASTIC_AGREEMENT`` of
-    the tokens. Prints per survivor the epoch, active set, quorum, counters,
-    each phase's median ms before and after its re-shard, and the seconds
-    from the kill to the ``evict`` row and to each ``apply`` row."""
+    the tokens; nor unless the wire (:func:`fleet_wire`: the defaults, bf16
+    and a delta window of 4) holds its ratios. Prints per survivor the epoch,
+    active set, quorum, counters, each phase's median ms before and after its
+    re-shard, and the seconds from the kill to the ``evict`` row and to each
+    ``apply`` row."""
     import os
     import signal
 
@@ -2834,7 +2921,8 @@ def phase_train_fleet_elastic(torch, corpus, info, k5_rows, beside=None) -> dict
     phase, n, victim = "train:fleet_elastic", FLEET_ELASTIC_N, FLEET_ELASTIC_VICTIM
     run = start_fleet(phase, corpus, FLEET_ELASTIC_STEPS, 0, 1, n=n,
                       eval_every=FLEET_ELASTIC_EVAL,
-                      extra=("--peer-lease-s", str(FLEET_ELASTIC_LEASE_S)))
+                      extra=("--peer-lease-s", str(FLEET_ELASTIC_LEASE_S),
+                             *FLEET_WIRE[phase][0]))
     proc, out, port = run["proc"], run["out"], run["port"]
     streams = {"stdout": [], "stderr": []}
     readers = [threading.Thread(target=lambda f=getattr(proc, k), acc=acc: acc.extend(f),
@@ -2961,6 +3049,8 @@ def phase_train_fleet_elastic(torch, corpus, info, k5_rows, beside=None) -> dict
         })
     if not ledgers[survivors[0]]["counters"]["evictions"] >= 1:
         problems.append("the acting lead counted no eviction")
+    wire, wire_problems = fleet_wire(phase, list(ledgers.values()), stderr)
+    problems += wire_problems
     gen = TrainCheckpoint.load(out / "last-model")
     gen_fleet = (gen or {}).get("extra", {}).get("fleet") or {}
     if (gen_fleet.get("epoch"), gen_fleet.get("active")) != (1, survivors):
@@ -2989,7 +3079,7 @@ def phase_train_fleet_elastic(torch, corpus, info, k5_rows, beside=None) -> dict
         "kill_to_apply_s": {k: w["kill_to_apply_s"] for k, w in zip(survivors, per_worker)},
         "evict_rows": evicts, "final_generation_fleet": gen_fleet,
         "dev_scores": dev, "final_model_tags_card_vs_cpu": agree, "dev_tokens": len(tags["cpu"]),
-        "per_worker": per_worker,
+        "wire": wire, "per_worker": per_worker,
         "launches": {name: sum(led["launches"].get(name, 0) for led in ledgers.values())
                      for name in ledgers[survivors[0]]["launches"]},
         "problems": problems,
@@ -5715,7 +5805,8 @@ def main() -> int:
     # train:fleet_async runs beside the work on the host alone that follows
     # (the leaf shapes of trf.cfg and its MoE, the head corpora, md:assets,
     # the CNN configs' setup), before the next kernel timings
-    fleet_async = start_fleet("train:fleet_async", spacy_corpus, FLEET_ASYNC_STEPS, 0, 1)
+    fleet_async = start_fleet("train:fleet_async", spacy_corpus, FLEET_ASYNC_STEPS, 0, 1,
+                              extra=FLEET_WIRE["train:fleet_async"][0])
     try:
         full_shapes = trf_param_shapes(torch, udgen[0])
         moe_shapes = moe_param_shapes(torch, udgen)

@@ -3,7 +3,7 @@
     python -m spacy_ray_tpu_torch train <config.cfg> --output <dir> [--device cuda|cpu]
         [--code F] [--resume] [--paths.train x.jsonl --training.max_steps 40 ...]
         [--fleet-workers N [--quorum Q] [--max-staleness S] [--fleet-base-port P]
-        [--peer-lease-s S]]
+        [--peer-lease-s S] [--grad-compression C] [--param-delta-window K]]
     python -m spacy_ray_tpu_torch pretrain <config.cfg> <output-dir> [--device cuda|cpu]
         [--code F] [--section.key value ...]
     python -m spacy_ray_tpu_torch evaluate <model-dir> <data.jsonl> [--device cuda|cpu]
@@ -22,7 +22,10 @@ evaluates and writes the models. With ``--peer-lease-s`` > 0 (60 by
 default) a dead worker is evicted once its lease expired and its slices
 re-shard over the survivors; the coordinator exits 0 when the survivors
 finish (``fleet-degraded-success``), 75 when it was stopped by a signal,
-else the first bad worker's code.
+else the first bad worker's code. ``--grad-compression`` (``auto``: bf16 on
+the card, int8 on the CPU) and ``--param-delta-window`` (4) set the fleet's
+wire: the codec of gradient pushes, with error feedback, and how many
+versions of compressed parameter deltas an owner keeps for pulls.
 ``--code`` imports a Python file first, so that the functions it registers
 (callbacks, architectures, readers, augmenters) resolve in the config.
 ``pretrain`` runs the config's ``[pretraining]`` block (the characters or
@@ -68,7 +71,8 @@ from .serving.overlay import PRECISION_CHOICES
 USAGE = (
     "usage: python -m spacy_ray_tpu_torch train <config.cfg> [--output DIR] [--device cuda|cpu]"
     " [--code F] [--resume] [--fleet-workers N [--quorum Q] [--max-staleness S]"
-    " [--fleet-base-port P] [--peer-lease-s S]] [--section.key value ...]\n"
+    " [--fleet-base-port P] [--peer-lease-s S] [--grad-compression C]"
+    " [--param-delta-window K]] [--section.key value ...]\n"
     "       python -m spacy_ray_tpu_torch pretrain <config.cfg> <output-dir> [--device cuda|cpu]"
     " [--code F] [--section.key value ...]\n"
     "       python -m spacy_ray_tpu_torch evaluate <model-dir> <data.jsonl> [--device cuda|cpu]"
@@ -268,6 +272,18 @@ def train_command(argv: List[str]) -> int:
                         help="fleet: evict a peer that answered no liveness probe for this "
                         "many seconds and missed 3 in a row; its slices re-shard over the "
                         "survivors (0 = never evict)")
+    parser.add_argument("--grad-compression", type=str, default="auto",
+                        dest="grad_compression", choices=("auto", "f32", "bf16", "int8"),
+                        help="fleet: wire codec for gradient pushes. auto = int8 with error "
+                        "feedback where the convergence suite has run, bf16 elsewhere; "
+                        "per-peer negotiated, so mixed fleets degrade to f32 instead of "
+                        "erroring")
+    parser.add_argument("--param-delta-window", type=int, default=4,
+                        dest="param_delta_window",
+                        help="fleet: owners retain K versions of compressed param deltas so "
+                        "a puller at most K versions behind ships a delta frame instead of "
+                        "its full slice; 0 = full pulls only. Window misses degrade to full "
+                        "pulls")
     parser.add_argument("--fleet-worker-id", type=int, default=None, dest="fleet_worker_id",
                         help="(set by the coordinator) run as fleet worker K")
     args, extra = parser.parse_known_args(argv)
@@ -277,6 +293,8 @@ def train_command(argv: List[str]) -> int:
         parser.error("--fleet-workers must be >= 0")
     if args.peer_lease_s < 0:
         parser.error("--peer-lease-s must be >= 0")
+    if args.param_delta_window < 0:
+        parser.error("--param-delta-window must be >= 0")
     if args.fleet_workers > 0 and args.resume:
         parser.error("--resume: the trainer fleet's generations keep no optimizer state in "
                      "this package, so a fleet run cannot be resumed")
@@ -302,6 +320,8 @@ def train_command(argv: List[str]) -> int:
         fleet = {"worker_id": args.fleet_worker_id, "n_workers": args.fleet_workers,
                  "quorum": args.quorum, "max_staleness": args.max_staleness,
                  "peer_lease_s": args.peer_lease_s,
+                 "grad_compression": args.grad_compression,
+                 "param_delta_window": args.param_delta_window,
                  "base_port": (args.fleet_base_port if args.fleet_base_port is not None
                                else DEFAULT_FLEET_BASE_PORT)}
     import_code(str(args.code) if args.code else None)

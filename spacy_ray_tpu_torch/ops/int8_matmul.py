@@ -10,6 +10,11 @@ On CUDA tensors :func:`int8_matmul` launches the hand-written kernel
 ``csrc/int8_matmul.cu`` (:func:`int8_weight_matmul`) on the bf16 tensor
 cores; on CPU tensors it runs :func:`int8_matmul_plain`. The activations
 reach the kernel in their own type: bf16 (the serving path's) or f32.
+
+:func:`quantize_int8_np` and :func:`dequantize_int8_np` are the same recipe
+on host numpy arrays, for the trainer fleet's int8 wire (the gradients it
+pushes are host copies already): bit-equal to the JAX package's functions of
+those names.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import ctypes
 from dataclasses import dataclass
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from . import _cuda
@@ -51,6 +57,31 @@ def quantize_int8(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     scale = torch.clamp_min(absmax / 127.0, 1e-12)
     q = torch.clamp(torch.round(w / scale), -127.0, 127.0).to(torch.int8)
     return q, scale
+
+
+def quantize_int8_np(arr) -> Tuple[np.ndarray, np.ndarray]:
+    """``(q8 int8, scale f32)`` of a host array: rank >= 2 takes one scale
+    per channel of the last axis (shape ``(N,)``), rank <= 1 one scale for
+    the tensor (shape ``()``); an empty array takes zero absmax. ``scale =
+    max(absmax / 127, 1e-12)`` and ``q8 = clip(rint(a / scale), -127,
+    127)``, all in float32, so each element is within ``scale / 2`` of its
+    reconstruction."""
+    a = np.ascontiguousarray(np.asarray(arr, dtype=np.float32))
+    if a.ndim >= 2:
+        absmax = (np.max(np.abs(a), axis=tuple(range(a.ndim - 1))) if a.size
+                  else np.zeros(a.shape[-1], np.float32))
+    else:
+        absmax = np.max(np.abs(a)) if a.size else np.float32(0.0)
+    scale = np.maximum(np.asarray(absmax, np.float32) / np.float32(127.0),
+                       np.float32(1e-12)).astype(np.float32)
+    q = np.clip(np.rint(a / scale), -127.0, 127.0).astype(np.int8)
+    return q, scale
+
+
+def dequantize_int8_np(q8, scale) -> np.ndarray:
+    """``f32(q8) * scale``: the scale broadcasts over the last axis (rank >= 2)
+    or over the tensor (rank <= 1)."""
+    return q8.astype(np.float32) * np.asarray(scale, np.float32)
 
 
 def int8_matmul_plain(x2: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

@@ -20,9 +20,8 @@ re-shard (``spacy_ray_tpu/training/fleet/membership.py``).
 * :class:`MembershipLedger` — the append-only ``fleet-membership.jsonl``
   of evictions, admissions and applies in the run directory.
 
-Numpy and :mod:`.ownership` only. Left out with the pieces that use them:
-the by-shape index of optimizer-state leaves and the additive merge of delta
-pulls.
+Numpy and :mod:`.ownership` only. Left out with the pieces that use it: the
+by-shape index of optimizer-state leaves.
 """
 
 from __future__ import annotations
@@ -165,8 +164,9 @@ class RankedLayout:
         r = self.rank_of(worker)
         return {} if r is None else self.base.slice_tree(tree, r)
 
-    def merge_flat(self, full: Any, worker: int, flat: Dict[str, np.ndarray]) -> None:
-        self.base.merge_flat(full, self._rank_or_raise(worker), flat)
+    def merge_flat(self, full: Any, worker: int, flat: Dict[str, np.ndarray], *,
+                   add: bool = False) -> None:
+        self.base.merge_flat(full, self._rank_or_raise(worker), flat, add=add)
 
     def signature(self) -> str:
         """The digest peers must agree on. It includes the active ids: two

@@ -130,10 +130,14 @@ class OwnershipLayout:
         """:meth:`flat_slices` nested: the owned paths only."""
         return tree_from_flat(self.flat_slices(tree, worker))
 
-    def merge_flat(self, full: Any, worker: int, flat: Dict[str, np.ndarray]) -> None:
+    def merge_flat(self, full: Any, worker: int, flat: Dict[str, np.ndarray], *,
+                   add: bool = False) -> None:
         """Write ``worker``'s slices into the full tree of numpy arrays in
-        place (a pull). An unknown key or a piece of the wrong shape raises:
-        a peer sending another model is a config error, not data."""
+        place (a pull); with ``add`` add them to what is there instead (a
+        delta pull, which may leave out the leaves that did not change). An
+        unknown key or a piece of the wrong shape raises before anything is
+        written: a peer sending another model is a config error, not data."""
+        targets = []  # every piece is checked before any is written
         for key, piece in flat.items():
             ordinal = self._by_key.get(key)
             if ordinal is None:
@@ -148,7 +152,12 @@ class OwnershipLayout:
             if np.shape(piece) != np.shape(arr[where]):
                 raise ValueError(f"shape mismatch for {key!r}: {np.shape(piece)} vs "
                                  f"{np.shape(arr[where])}")
-            arr[where] = piece
+            targets.append((arr, where, piece))
+        for arr, where, piece in targets:
+            if add:
+                arr[where] += piece
+            else:
+                arr[where] = piece
 
     def signature(self) -> str:
         """A digest of the paths, shapes and worker count that every peer

@@ -11,15 +11,18 @@ HTTP handler thread for a peer's push), under the owner's lock.
 
 :class:`PeerServer` serves ``POST /grad`` (wire frames, never pickle),
 ``GET /params?known=V`` (the encoded slices, or 204 with ``X-SRT-Version``
-when ``V`` is current), ``GET /healthz`` (worker id, layout signature,
-version, the codecs it decodes), ``GET /metrics`` (counters, version and
-the worker's phase seconds, as JSON), ``GET /membership`` and ``POST
-/membership`` (a lead's broadcast, adopted only at a strictly newer epoch
-and queued for the worker's next step boundary), ``POST /membership/join``
-and ``POST /finalize``. ``/grad`` and ``/params`` fence a frame stamped with
-another membership epoch than the live one (counted, ``epoch_fenced``). A
-body over :data:`MAX_BODY_BYTES` gets 413 and a counted discard. The JAX
-package's checkpoint, trace and alert routes answer 404 here.
+when ``V`` is current; with ``X-SRT-Accept: delta`` the owner's compressed
+pieces since ``V`` when it still holds them all and they are smaller, named
+by ``X-SRT-Codec``), ``GET /healthz`` (worker id, layout signature,
+version, the codecs it decodes, its delta window), ``GET /metrics``
+(counters, version and the worker's phase seconds, as JSON), ``GET
+/membership`` and ``POST /membership`` (a lead's broadcast, adopted only
+at a strictly newer epoch and queued for the worker's next step boundary),
+``POST /membership/join`` and ``POST /finalize``. ``/grad`` and ``/params``
+fence a frame stamped with another membership epoch than the live one
+(counted, ``epoch_fenced``). A body over :data:`MAX_BODY_BYTES` gets 413 and
+a counted discard. The JAX package's checkpoint, trace and alert routes
+answer 404 here.
 """
 
 from __future__ import annotations
@@ -38,7 +41,10 @@ import torch
 
 from ..telemetry import sanitize_json
 from .membership import Membership
-from .wire import WIRE_CODECS, WireError, decode_grads, encode_arrays, frame_epoch
+from .wire import (
+    WIRE_CODECS, WireError, _compress_leaf, decode_grads, encode_arrays, encode_delta_frame,
+    frame_epoch,
+)
 
 #: request-body ceiling (bytes): a bigger frame is hostile or corrupt, and is
 #: refused before it is read into memory
@@ -58,7 +64,9 @@ COUNTER_NAMES = (
     "pull_wait_timeouts",   # worker: staleness-gate waits that timed out
     "applies",              # owner: optimizer applies (version bumps)
     "wire_push_bytes",      # worker: bytes of delivered pushes
+    "wire_push_bytes_uncompressed",  # worker: what they would cost as f32 frames
     "wire_pull_bytes",      # worker: bytes of 200 pull bodies
+    "wire_pull_bytes_uncompressed",  # worker: what they would cost as full f32 frames
     "epoch_fenced",         # owner: frames and broadcasts stamped with a stale or foreign epoch
     "evictions",            # acting lead: workers it evicted
     "shards_adopted",       # worker: owned leaves whose slice a re-shard changed
@@ -103,11 +111,21 @@ class OwnerState:
     worker, numpy arrays in tests); the host copies of the slices that
     pulls are served from are taken after each apply. ``version`` is where
     the count starts: a re-sharded owner keeps its predecessor's.
+
+    Delta pulls (``delta_window`` > 0): the owner keeps a deterministic f32
+    wire chain, ``wire_v = wire_{v-1} + deq(Q(p_v - wire_{v-1}))`` with
+    ``Q`` the ``delta_codec``, started at the slices it was built with. Each
+    apply stores that version's compressed piece (the leaves that changed),
+    the last ``delta_window`` of them within ``delta_budget_bytes``. A
+    puller that follows the pieces lands exactly on ``wire_v`` however many
+    versions it skipped, within one quantization step of the parameters; a
+    pull the pieces cannot serve gets the full f32 frame.
     """
 
     def __init__(self, *, worker_id: int, n_workers: int, quorum: int, max_staleness: int,
                  apply_fn: Callable, slice_params: Dict[str, Any], opt_state: Any,
-                 counters: FleetCounters, version: int = 0) -> None:
+                 counters: FleetCounters, version: int = 0, delta_window: int = 0,
+                 delta_codec: str = "int8", delta_budget_bytes: int = 8 << 20) -> None:
         if not (1 <= quorum <= n_workers):
             raise ValueError(f"quorum must be in [1, {n_workers}], got {quorum}")
         if max_staleness < 0:
@@ -127,6 +145,16 @@ class OwnerState:
         self._host_flat: Dict[str, np.ndarray] = {k: host_copy(v)
                                                   for k, v in slice_params.items()}
         self._encoded: Optional[bytes] = None
+        self.delta_window = max(0, int(delta_window))
+        self.delta_codec = str(delta_codec)
+        self.delta_budget_bytes = int(delta_budget_bytes)
+        self._wire_flat: Optional[Dict[str, np.ndarray]] = (
+            {k: np.asarray(v, dtype=np.float32).copy() for k, v in self._host_flat.items()}
+            if self.delta_window > 0 else None)
+        # version -> (piece codec, compressed arrays, their bytes)
+        self._delta_pieces: Dict[int, Tuple[str, Dict[str, np.ndarray], int]] = {}
+        self._delta_bytes = 0
+        self._delta_cache: Dict[int, bytes] = {}  # known -> its assembled frame
         self.apply_seconds = 0.0
         self.retired = False
 
@@ -184,20 +212,54 @@ class OwnerState:
         self._host_flat = {k: host_copy(v) for k, v in self.params.items()}
         self._encoded = None
         self.version += 1
+        if self._wire_flat is not None:
+            self._record_delta_locked()
         self.counters.inc("grad_applied", n)
         self.counters.inc("applies")
         self._buffer.clear()
         self.apply_seconds += time.monotonic() - t0
         self._cond.notify_all()
 
+    def _record_delta_locked(self) -> None:
+        """Advance the wire chain past the apply that just bumped the version
+        and store its compressed piece (a leaf the apply left unchanged
+        costs nothing: a missing key is a zero delta); then drop pieces
+        older than the window, and the oldest over the byte budget (never
+        the newest)."""
+        assert self._wire_flat is not None
+        piece: Dict[str, np.ndarray] = {}
+        nbytes = 0
+        for key, new in self._host_flat.items():
+            delta = np.asarray(new, dtype=np.float32) - self._wire_flat[key]
+            if not np.any(delta):
+                continue
+            entries, deq = _compress_leaf(self.delta_codec, key, delta)
+            piece.update(entries)
+            self._wire_flat[key] = self._wire_flat[key] + deq
+            nbytes += sum(int(a.nbytes) for a in entries.values())
+        self._delta_pieces[self.version] = (self.delta_codec, piece, nbytes)
+        self._delta_bytes += nbytes
+        self._delta_cache.clear()
+        floor = self.version - self.delta_window
+        for v in sorted(self._delta_pieces):
+            over_budget = self._delta_bytes > self.delta_budget_bytes
+            if v > floor and not (over_budget and v < self.version):
+                break
+            self._delta_bytes -= self._delta_pieces.pop(v)[2]
+
     def retire(self) -> None:
         """Apply no more: a re-shard replaces this owner. Waits for an apply
         in flight (it holds the lock); the buffered contributions of the old
-        layout are counted as discarded, and a later submit is fenced."""
+        layout are counted as discarded, a later submit is fenced, and the
+        wire chain and its frames go (the new owner starts its own)."""
         with self._cond:
             self.retired = True
             self.counters.inc("grad_discarded", len(self._buffer))
             self._buffer.clear()
+            self._wire_flat = None
+            self._delta_pieces.clear()
+            self._delta_bytes = 0
+            self._delta_cache.clear()
             self._cond.notify_all()
 
     def current_flat(self) -> Tuple[int, Dict[str, np.ndarray]]:
@@ -207,15 +269,43 @@ class OwnerState:
             return self.version, dict(self._host_flat)
 
     def encoded(self, known: Optional[int]) -> Tuple[int, Optional[bytes]]:
-        """The wire frame of the current slices, or ``(version, None)`` when
-        ``known`` is current; one encode per version, however many pulls."""
+        """The full f32 frame of the current slices, or ``(version, None)``
+        when ``known`` is current; one encode per version, however many
+        pulls."""
+        version, body, _ = self.encoded_for(known, accept_delta=False)
+        return version, body
+
+    def _full_encoded_locked(self) -> bytes:
+        if self._encoded is None:
+            self._encoded = encode_arrays({"version": self.version, "worker": self.worker_id},
+                                          self._host_flat)
+        return self._encoded
+
+    def encoded_for(self, known: Optional[int],
+                    accept_delta: bool = False) -> Tuple[int, Optional[bytes], str]:
+        """``(version, body, codec)`` of one pull; ``body`` None (codec
+        ``current``) when ``known`` is current. A delta frame (codec
+        ``delta``) only when the puller accepts one, every piece from
+        ``known + 1`` to the version is still held, and the frame is smaller
+        than the full one; else the full f32 frame (``f32``). Delta frames
+        are cached per ``known`` until the next apply."""
         with self.lock:
             if known is not None and int(known) == self.version:
-                return self.version, None
-            if self._encoded is None:
-                self._encoded = encode_arrays(
-                    {"version": self.version, "worker": self.worker_id}, self._host_flat)
-            return self.version, self._encoded
+                return self.version, None, "current"
+            if (accept_delta and self._wire_flat is not None and known is not None
+                    and 0 <= self.version - int(known) <= self.delta_window):
+                k = int(known)
+                needed = range(k + 1, self.version + 1)
+                if all(v in self._delta_pieces for v in needed):
+                    body = self._delta_cache.get(k)
+                    if body is None:
+                        body = encode_delta_frame(
+                            {"version": self.version, "worker": self.worker_id, "base": k},
+                            [(v,) + self._delta_pieces[v][:2] for v in needed])
+                        self._delta_cache[k] = body
+                    if len(body) < len(self._full_encoded_locked()):
+                        return self.version, body, "delta"
+            return self.version, self._full_encoded_locked(), "f32"
 
     def wait_version_above(self, stamp: int, timeout: float) -> bool:
         """Block until the version exceeds ``stamp`` (the round this worker
@@ -307,7 +397,8 @@ class _PeerHandler(BaseHTTPRequestHandler):
             self._reply_json(200, {
                 "status": "ok", "role": "fleet-worker", "worker": srv.worker_id,
                 "version": srv.owner.version, "layout": srv.layout_signature,
-                "codecs": list(WIRE_CODECS), "delta_window": 0, "epoch": srv.epoch})
+                "codecs": list(WIRE_CODECS), "delta_window": srv.owner.delta_window,
+                "epoch": srv.epoch})
         elif parsed.path == "/membership":
             with srv.membership_lock:
                 payload = dict(srv.membership or {})
@@ -343,13 +434,16 @@ class _PeerHandler(BaseHTTPRequestHandler):
             self._reply_json(409, {"error": "epoch_fenced", "epoch": srv.epoch},
                              headers={"X-SRT-Epoch": str(srv.epoch)})
             return
-        version, body = srv.owner.encoded(known)
+        # a puller that sends no X-SRT-Accept gets the full frame; the reply
+        # names what was served
+        accept = str(self.headers.get("X-SRT-Accept") or "")
+        version, body, codec = srv.owner.encoded_for(known, accept_delta="delta" in accept)
         if body is None:
             self._reply_bytes(204, b"", "application/octet-stream",
                               headers={"X-SRT-Version": str(version)})
         else:
             self._reply_bytes(200, body, "application/octet-stream",
-                              headers={"X-SRT-Version": str(version), "X-SRT-Codec": "f32"})
+                              headers={"X-SRT-Version": str(version), "X-SRT-Codec": codec})
 
     def _body_or_413(self) -> Optional[bytes]:
         """The request body, or None after a 400 (a Content-Length that is
@@ -418,6 +512,8 @@ class _PeerHandler(BaseHTTPRequestHandler):
             if body is None:
                 return
             try:
+                # bf16 and int8 frames decode to f32 here, before the fence and
+                # the owner's structural check; an unknown codec passes through
                 meta, arrays = decode_grads(body)
                 epoch = frame_epoch(meta)
                 worker = int(meta["worker"])

@@ -7,12 +7,19 @@ Each of the N workers
   (:func:`~..batcher.shard_stream` by worker id);
 * pushes each slice of its gradient to the slice's owner over HTTP (its own
   slice to its local :class:`~.peer.OwnerState`), with one bounded retry; a
-  push that still fails is counted and dropped, never waited on;
+  push that still fails is counted and dropped, never waited on. A push to a
+  peer goes out in the codec both sides agree on (``grad_compression``,
+  :func:`~.wire.negotiate_push_codec` against the peer's ``/healthz``) with
+  error feedback per (peer, leaf) (:class:`~.wire.GradCompressor`); the
+  worker's own slice goes to its owner uncompressed;
 * waits (apply-wait) until its own slices' version passes the stamp it
   pushed against, at most ``quorum_wait_s``; a lost quorum is a counted
   timeout, not a wedge;
 * pulls the other owners' newer slices at the top of the next step, through
-  the staleness gate of :func:`train_fleet_worker`'s ``pull_peers``.
+  the staleness gate of :func:`train_fleet_worker`'s ``pull_peers``; with
+  ``param_delta_window`` > 0 it asks for delta frames (the owners' wire
+  chains, added onto the slices it holds) and takes a full frame when an
+  owner cannot serve one.
 
 The gradient clip: with a fused optimizer (``Adam.v1``, ``RAdam.v1``) the
 worker scales its whole gradient by ``min(1, clip / max(gnorm, 1e-16))``
@@ -55,12 +62,14 @@ At a clean end the lead writes its models and posts ``/finalize``; the
 other workers keep serving its pulls and pushes until then (at most
 ``FINALIZE_WAIT_S``, or until the lead stops answering). Each worker writes
 ``fleet-worker-{k}.json``: counters, versions, its membership, the seconds
-of each phase (data, pull, grad, push, apply_wait) in all and per step, its
-losses and its kernels' launch counts; the run directory gets
+of each phase (data, pull, grad, push, apply_wait) in all and per step, the
+wire codec's seconds a step within the push and pull phases (encoding the
+pushes, decoding and merging the pulls), its losses and its kernels' launch
+counts; the run directory gets
 ``fleet-membership.jsonl``.
 
-Out of this piece (ROADMAP): compressed wires and delta pulls, optimizer
-parts with ``--resume`` and restarts, the dynamics histograms and alerts.
+Out of this piece (ROADMAP): optimizer parts with ``--resume`` and
+restarts, the dynamics histograms and alerts.
 """
 
 from __future__ import annotations
@@ -94,10 +103,15 @@ from ..resilience import RetryPolicy, log_event, retry_io
 from .membership import LeaseTracker, Membership, MembershipLedger, PeerBackoff
 from .ownership import tree_from_flat
 from .peer import FleetCounters, OwnerState, PeerServer
-from .wire import WireError, decode_arrays, encode_grads
+from .wire import (
+    GradCompressor, WireError, decode_arrays, decode_delta_frame, encode_arrays,
+    negotiate_push_codec, resolve_grad_compression,
+)
 
 DEFAULT_FLEET_BASE_PORT = 47200
 PHASES = ("data", "pull", "grad", "push", "apply_wait")
+#: the wire codec's share of the push and pull phases, timed on its own
+CODEC_PARTS = ("push_encode", "pull_decode")
 #: a failed push is retried this often (then counted and dropped)
 PUSH_RETRIES = 1
 #: how long a worker waits for every peer to answer ``/healthz`` at start
@@ -157,6 +171,26 @@ class _PeerClient:
                 last = e
                 self.close()
         raise OSError(f"peer {self.host}:{self.port} unreachable: {last}")
+
+
+def merge_pulled(layout: Any, params_host: Any, owner: int, known: int,
+                 body: bytes) -> Tuple[int, bool]:
+    """Merge one ``/params`` reply body from ``owner`` into ``params_host``:
+    a full frame over ``owner``'s slices, a delta frame (whose ``base`` must
+    be ``known``) added onto them. Returns ``(version, is_delta)``. A
+    malformed frame raises ``WireError``, ``KeyError``, ``TypeError`` or
+    ``ValueError`` and changes nothing (the puller counts it as
+    ``pull_failed``)."""
+    meta, arrays = decode_arrays(body)
+    version = int(meta["version"])
+    if str(meta.get("codec") or "") != "delta":
+        layout.merge_flat(params_host, owner, arrays)
+        return version, False
+    base = int(meta.get("base", -1))
+    if base != known:
+        raise WireError(f"delta frame base {base} does not match known version {known}")
+    layout.merge_flat(params_host, owner, decode_delta_frame(meta, arrays), add=True)
+    return version, True
 
 
 def clip_scale(gnorm: torch.Tensor, clip: float) -> torch.Tensor:
@@ -245,6 +279,9 @@ def train_fleet_worker(
     lease_miss_threshold: int = 3,
     lease_poll_s: float = 2.0,
     probe_timeout_s: Optional[float] = None,
+    grad_compression: str = "auto",
+    param_delta_window: int = 4,
+    grad_error_feedback: bool = True,
 ) -> Tuple[Pipeline, Any]:
     """Run one fleet worker; returns ``(nlp, TrainResult)`` as
     :func:`~..loop.train` does (whose ``fleet=`` mode calls this), with
@@ -258,9 +295,16 @@ def train_fleet_worker(
     missed ``lease_miss_threshold`` probes in a row, probed every
     ``lease_poll_s`` (at least 0.2) seconds, each probe bounded by
     ``probe_timeout_s`` (default ``[training] fleet_probe_timeout_s``); 0
-    keeps the starting membership. On the main thread, SIGTERM and SIGINT
-    stop the worker at its next step (``result.interrupted``). Runs on
-    ``cuda`` unless ``device`` is ``"cpu"``."""
+    keeps the starting membership. ``grad_compression`` (``auto``, ``f32``,
+    ``bf16``, ``int8``) is the push codec, resolved once against the device
+    (:func:`~.wire.resolve_grad_compression`: ``auto`` is int8 on ``cpu``,
+    bf16 on ``cuda``); ``param_delta_window`` is how many versions of
+    compressed deltas an owner keeps for pulls (0: full pulls only); both
+    fall back to f32 against a peer that does not advertise them.
+    ``grad_error_feedback=False`` is the ablation of the error feedback,
+    never for real runs. On the main thread, SIGTERM and SIGINT stop the
+    worker at its next step (``result.interrupted``). Runs on ``cuda``
+    unless ``device`` is ``"cpu"``."""
     from ..loop import (
         TrainResult, _named_params, _resolve_corpus, check_component_lists,
         default_pipeline_score_weights, resolve_training, weighted_score,
@@ -328,12 +372,22 @@ def train_fleet_worker(
     host_leaves = flatten(params_host)  # the same arrays, by path: merges write into them
     membership = Membership(range(n_workers))
     layout = membership.layout(params_host)
+    # one codec a process; the codec of each push is negotiated against what
+    # its peer's /healthz advertises, so an f32-only peer gets f32 frames
+    wire_codec, wire_reason = resolve_grad_compression(grad_compression, dev.type)
+    param_delta_window = max(0, int(param_delta_window))
+    compressor = GradCompressor(wire_codec, error_feedback=bool(grad_error_feedback))
+    peer_codecs: Dict[int, Any] = {}
+    log_event("fleet-wire-codec", f"worker {worker_id}: grad compression {grad_compression} "
+              f"-> {wire_codec} ({wire_reason}); param delta window {param_delta_window}",
+              worker=worker_id, codec=wire_codec, delta_window=param_delta_window)
     counters = FleetCounters()
     slice_apply = SliceApply(owner_opt, dev)
     slice_params, slice_opt = slice_apply.init(layout.flat_slices(params_host, worker_id))
     owner = OwnerState(worker_id=worker_id, n_workers=n_workers, quorum=quorum,
                        max_staleness=max_staleness, apply_fn=slice_apply,
-                       slice_params=slice_params, opt_state=slice_opt, counters=counters)
+                       slice_params=slice_params, opt_state=slice_opt, counters=counters,
+                       delta_window=param_delta_window, delta_codec=wire_codec)
     owns_any = bool(layout.owned_keys(worker_id))
     if not owns_any:
         log_event("fleet-worker-owns-nothing",
@@ -355,6 +409,8 @@ def train_fleet_worker(
 
     phases: Dict[str, float] = {p: 0.0 for p in PHASES}
     phase_steps: Dict[str, List[float]] = {p: [] for p in PHASES}
+    codec_steps: Dict[str, List[float]] = {p: [] for p in CODEC_PARTS}
+    codec_now: Dict[str, float] = {p: 0.0 for p in CODEC_PARTS}
     server = PeerServer(owner, worker_id=worker_id, layout_signature=layout.signature(),
                         counters=counters,
                         port=int(port) if port is not None else int(base_port) + worker_id,
@@ -368,6 +424,21 @@ def train_fleet_worker(
         raise ValueError(f"peer_urls names {len(urls)} workers, fleet has {n_workers}")
     clients = {w: _PeerClient(urls[w], timeout=peer_timeout)
                for w in membership.active if w != worker_id}
+    # what an exchange with each peer would cost as an f32 frame: the
+    # _uncompressed counters' measure (the slices' shapes are fixed within
+    # a membership)
+    wire_full_bytes: Dict[int, int] = {}
+
+    def measure_full_bytes() -> None:
+        wire_full_bytes.clear()
+        for w in clients:
+            flat_w = layout.flat_slices(params_host, w)
+            if flat_w:
+                wire_full_bytes[w] = len(encode_arrays(
+                    {"worker": worker_id, "stamp": 0},
+                    {k: np.asarray(v, np.float32) for k, v in flat_w.items()}))
+
+    measure_full_bytes()
     push_policy = RetryPolicy(max_retries=PUSH_RETRIES, base_delay=0.05,
                               max_delay=1.0)
     known: Dict[int, int] = {w: -1 for w in clients}
@@ -391,11 +462,13 @@ def train_fleet_worker(
                     continue
                 if status != 200:
                     continue
-                sig = json.loads(body.decode("utf8")).get("layout")
+                health = json.loads(body.decode("utf8"))
+                sig = health.get("layout")
                 if sig != layout.signature():
                     raise RuntimeError(
                         f"fleet worker {w} runs a different parameter layout ({sig} vs "
                         f"{layout.signature()}) — all workers must resolve the same config")
+                peer_codecs[w] = health.get("codecs")  # none: it gets f32 pushes
                 pending.discard(w)
             if pending:
                 if time.monotonic() > deadline or stop_requested.is_set():
@@ -485,7 +558,8 @@ def train_fleet_worker(
         owner = OwnerState(worker_id=worker_id, n_workers=n_workers, quorum=quorum,
                            max_staleness=max_staleness, apply_fn=slice_apply,
                            slice_params=slice_params, opt_state=slice_opt, counters=counters,
-                           version=old_owner.version)
+                           version=old_owner.version, delta_window=param_delta_window,
+                           delta_codec=wire_codec)
         server.set_owner(owner)
         server.set_membership(membership, layout.signature())
         owns_any = bool(owned)
@@ -493,12 +567,22 @@ def train_fleet_worker(
             clients.pop(w).close()
             known.pop(w, None)
             last_stamp.pop(w, None)
+            peer_codecs.pop(w, None)
         for w in membership.active:
             if w != worker_id and w not in clients:
                 clients[w] = _PeerClient(urls[w], timeout=peer_timeout)
-        # the old epoch's versions describe another slice geometry: pull whole
+                try:
+                    status, _, body = clients[w].request("GET", "/healthz")
+                    if status == 200:
+                        peer_codecs[w] = json.loads(body.decode("utf8")).get("codecs")
+                except (OSError, ValueError):
+                    pass
+        # the old epoch's versions and delta chains describe another slice
+        # geometry: pull whole; and the push residuals belong to its slices
         for w in clients:
             known[w], last_stamp[w] = -1, _NEVER
+        measure_full_bytes()
+        compressor.reset()
         if changed:
             counters.inc("shards_adopted", len(changed))
         owner_log.append(owner_record(opt_source))
@@ -540,6 +624,9 @@ def train_fleet_worker(
         stamps = {worker_id: self_version}
         deadline = time.monotonic() + float(quorum_wait_s)
         headers = {"X-SRT-Epoch": str(membership.epoch)}
+        if param_delta_window > 0:
+            # an owner that cannot serve a delta answers with the full frame
+            headers["X-SRT-Accept"] = "delta"
         fenced_by: Optional[int] = None
         for w, client in list(clients.items()):
             if backoff.skip(w):
@@ -560,14 +647,17 @@ def train_fleet_worker(
                     fenced_by = w
                     break
                 elif status == 200:
+                    t_dec = time.perf_counter()
                     try:
-                        meta_w, arrays = decode_arrays(body)
-                        v = int(meta_w["version"])
-                        layout.merge_flat(params_host, w, arrays)
+                        v, is_delta = merge_pulled(layout, params_host, w, known[w], body)
                     except (WireError, KeyError, TypeError, ValueError):
                         counters.inc("pull_failed")
                         break
+                    finally:
+                        codec_now["pull_decode"] += time.perf_counter() - t_dec
                     counters.inc("wire_pull_bytes", len(body))
+                    counters.inc("wire_pull_bytes_uncompressed",
+                                 wire_full_bytes.get(w, len(body)) if is_delta else len(body))
                     known[w] = v
                 else:
                     counters.inc("pull_failed")
@@ -603,7 +693,8 @@ def train_fleet_worker(
 
     def push_grads(grads: Dict[str, Any], stamps: Dict[int, int]) -> None:
         """Each owner's slice of ``grads`` to its owner, stamped with the
-        epoch; a fenced reply syncs the membership."""
+        epoch, in the codec negotiated with it (error feedback per peer); a
+        fenced reply syncs the membership."""
         fenced_peer: List[int] = []
         for w in list(membership.active):
             flat = layout.flat_slices(grads, w)
@@ -616,8 +707,11 @@ def train_fleet_worker(
             if w not in clients:
                 continue
             stamp = int(stamps.get(w, -1))
-            body = encode_grads({"worker": worker_id, "stamp": stamp,
-                                 "epoch": int(membership.epoch)}, flat)
+            codec_w = negotiate_push_codec(wire_codec, peer_codecs.get(w))
+            t_enc = time.perf_counter()
+            body = compressor.encode(w, {"worker": worker_id, "stamp": stamp,
+                                         "epoch": int(membership.epoch)}, flat, codec_w)
+            codec_now["push_encode"] += time.perf_counter() - t_enc
 
             def send(w=w, body=body) -> None:
                 status, _, reply = clients[w].request("POST", "/grad", body=body)
@@ -633,6 +727,9 @@ def train_fleet_worker(
                 retry_io("grad-push", send, policy=push_policy)
                 counters.inc("grad_pushed")
                 counters.inc("wire_push_bytes", len(body))
+                # an f32 frame is its own uncompressed size (ROADMAP C51)
+                counters.inc("wire_push_bytes_uncompressed",
+                             len(body) if codec_w == "f32" else wire_full_bytes.get(w, len(body)))
             except OSError:
                 counters.inc("push_failed")  # dropped: a dead owner never stalls the fleet
             last_stamp[w] = stamp
@@ -792,7 +889,9 @@ def train_fleet_worker(
             extra={"fleet": {"n_workers": n_workers, "quorum": quorum,
                              "max_staleness": max_staleness, "worker": worker_id,
                              "version": owner.version, "epoch": membership.epoch,
-                             "active": list(membership.active), "opt_state": None}})
+                             "active": list(membership.active), "opt_state": None,
+                             "grad_compression": wire_codec,
+                             "param_delta_window": param_delta_window}})
 
     prev_handlers: Dict[int, Any] = {}
     if threading.current_thread() is threading.main_thread():
@@ -854,6 +953,9 @@ def train_fleet_worker(
             push_grads(grads_host, stamps)
             t4 = time.perf_counter()
             note_phase("push", t3, t4)
+            for part in CODEC_PARTS:
+                codec_steps[part].append(codec_now[part])
+                codec_now[part] = 0.0
 
             if owns_any:
                 deadline = time.monotonic() + float(quorum_wait_s)
@@ -968,10 +1070,11 @@ def train_fleet_worker(
                 "worker": worker_id, "n_workers": n_workers, "quorum": quorum,
                 "max_staleness": max_staleness, "version": owner.version,
                 "membership_epoch": membership.epoch, "active": list(membership.active),
-                "grad_compression": "f32", "param_delta_window": 0,
+                "grad_compression": wire_codec, "param_delta_window": param_delta_window,
                 "counters": counters.snapshot(),
                 "phases": {p: round(v, 6) for p, v in phases.items()},
                 "phase_steps_s": phase_steps,
+                "codec_steps_s": codec_steps,
                 "owner_apply_seconds": round(retired_apply_s + owner.apply_seconds, 6),
                 "owner_epochs": owner_epochs,
                 "launches": _cuda.launch_counts(),

@@ -116,6 +116,18 @@ def test_slices_equal_jax_and_merge_round_trips(cnn_template, n):
     k0 = pl.owned_keys(1)[0]
     with pytest.raises(ValueError, match="shape mismatch"):
         pl.merge_flat(zeros, 1, {k0: np.zeros((1,), np.float32)})
+    # a delta merge adds in place, as JAX's; a bad piece leaves every leaf as
+    # it was (every piece is checked before one is written)
+    piece, before = pl.flat_slices(ptree, 1)[k0], pl.flat_slices(zeros, 1)
+    with pytest.raises(ValueError, match="unknown param leaf"):
+        pl.merge_flat(zeros, 1, {k0: piece, "nope": piece}, add=True)
+    assert all(np.array_equal(v, pl.flat_slices(zeros, 1)[k]) for k, v in before.items())
+    jzeros = jax.tree_util.tree_map(np.array, zeros)
+    pl.merge_flat(zeros, 1, {k0: piece}, add=True)
+    jl.merge_flat(jzeros, 1, {k0: piece}, add=True)
+    assert np.array_equal(pl.flat_slices(zeros, 1)[k0], before[k0] + piece)
+    assert all(np.array_equal(a, b) for a, b in zip(_flatten(zeros).values(),
+                                                    _flatten(jzeros).values()))
 
 
 def test_shard_stream_equals_jax():
@@ -196,13 +208,29 @@ def test_every_malformed_frame_is_refused_like_jax(name):
 
 
 def test_compressed_frames_are_refused_and_epochs_read_as_jax():
-    g = {"w": np.linspace(-1, 1, 64, dtype=np.float32).reshape(8, 8)}
+    """Compressed grad frames decode as JAX's do, and epochs read as JAX's.
+    (The name is the one this test had while the port refused these
+    frames.) A bf16 or int8 frame of either package decodes in the other to
+    the same f32 arrays bit for bit, the frames are byte-equal, a codec
+    neither package knows passes its arrays through, and an int8 leaf
+    without its scale is a WireError in both."""
+    g = {"w": np.linspace(-1, 1, 64, dtype=np.float32).reshape(8, 8),
+         "b": np.linspace(-3, 2, 5, dtype=np.float32)}
     for codec in ("bf16", "int8"):
         body = jwire.encode_grads({"worker": 0, "stamp": 0}, g, codec)
-        with pytest.raises(pwire.WireError, match=f"codec '{codec}'"):
-            pwire.decode_grads(body)
+        assert pwire.encode_grads({"worker": 0, "stamp": 0}, g, codec) == body
+        (pm, pout), (jm, jout) = pwire.decode_grads(body), jwire.decode_grads(body)
+        assert pm == jm == {"worker": 0, "stamp": 0, "codec": codec}
+        assert sorted(pout) == sorted(jout) == ["b", "w"]
+        for k in g:
+            assert pout[k].dtype == np.float32 and pout[k].tobytes() == jout[k].tobytes()
     odd = jwire.encode_arrays({"codec": "zstd9"}, g)  # a codec neither package knows
     assert np.array_equal(pwire.decode_grads(odd)[1]["w"], jwire.decode_grads(odd)[1]["w"])
+    q = jwire.compress_arrays({"w": g["w"]}, "int8")["w"]
+    no_scale = jwire.encode_arrays({"codec": "int8"}, {"w": q})
+    for wire in (jwire, pwire):
+        with pytest.raises(wire.WireError, match="missing"):
+            wire.decode_grads(no_scale)
     for meta in ({}, {"epoch": 0}, {"epoch": 3}, {"epoch": -1}, {"epoch": True},
                  {"epoch": "1"}, {"epoch": 1.0}):
         try:
@@ -407,7 +435,9 @@ def test_peer_server_routes_and_a_jax_client():
     try:
         status, _, body = _http(port, "GET", "/healthz")
         health = json.loads(body)
-        assert status == 200 and health["layout"] == "sig" and health["codecs"] == ["f32"]
+        assert status == 200 and health["layout"] == "sig"
+        assert health["codecs"] == ["f32", "bf16", "int8", "delta"] == list(jwire.WIRE_CODECS)
+        assert health["delta_window"] == 0
         assert health["version"] == 0 and health["role"] == "fleet-worker"
         jc = JClient(f"http://127.0.0.1:{port}")
         status, headers, body = jc.request("GET", "/params?known=-1")

@@ -1,7 +1,9 @@
 """The port's trainer fleet end to end on the CPU: two workers as threads of
 this process with real loopback HTTP, against the JAX package's
 ``train_fleet_worker`` at its parity point (f32 wire, full pulls, no
-membership), and the ``train --fleet-workers`` coordinator as processes.
+membership) and on its int8 wire with delta pulls (the tolerance in that
+test's docstring), three int8 workers losing one, the wire's flags, and the
+``train --fleet-workers`` coordinator as processes.
 
 Tolerances. Three applied rounds at S 0, quorum 2, dropout 0, from the same
 parameters (one model directory both configs source): each leaf's change
@@ -33,12 +35,15 @@ import torch
 import spacy_ray_tpu as J
 from spacy_ray_tpu.training import corpus as jcorpus
 from spacy_ray_tpu.training.checkpoint import _flatten
+from spacy_ray_tpu.training.fleet import wire as jwire
 from spacy_ray_tpu.training.fleet.worker import train_fleet_worker as j_worker
 from spacy_ray_tpu.util import write_synth_jsonl
 
 import spacy_ray_tpu_torch as P
 from spacy_ray_tpu_torch.models.core import param_paths
+from spacy_ray_tpu_torch.pipeline.language import Pipeline as PPipeline
 from spacy_ray_tpu_torch.training import corpus as pcorpus
+from spacy_ray_tpu_torch.training.fleet import wire as pwire
 from spacy_ray_tpu_torch.training.fleet import worker as pworker
 from spacy_ray_tpu_torch.training.fleet.membership import read_membership_ledger
 from spacy_ray_tpu_torch.training.loop import train as p_train
@@ -131,15 +136,24 @@ def _sourced(pkg, text, data, src, steps):
     return cfg
 
 
-def test_three_rounds_match_the_jax_thread_fleet(data, tagger_config_text, source):
-    # 4 steps: a worker's model holds the slices pulled at its last step's
-    # top, so after 3 applied rounds in both packages
-    src, start = source
+@pytest.fixture(scope="module")
+def f32_fleets(data, tagger_config_text, source):
+    """The port's and JAX's 2-worker thread fleets at the parity point, 4 steps."""
+    src, _ = source
     port = run_thread_fleet(pworker.train_fleet_worker,
                             _sourced(P, tagger_config_text, data, src, 4), None, 2,
-                            quorum=2, staleness=0, device="cpu", peer_lease_s=0)
+                            quorum=2, staleness=0, device="cpu", peer_lease_s=0,
+                            grad_compression="f32", param_delta_window=0)
     jax_ = run_thread_fleet(j_worker, _sourced(J, tagger_config_text, data, src, 4), None, 2,
                             quorum=2, staleness=0, **JAX_PARITY)
+    return port, jax_
+
+
+def test_three_rounds_match_the_jax_thread_fleet(source, f32_fleets):
+    # 4 steps: a worker's model holds the slices pulled at its last step's
+    # top, so after 3 applied rounds in both packages
+    _, start = source
+    port, jax_ = f32_fleets
     for k in (0, 1):
         pflat = {key: v.numpy() for key, v in param_paths(port[k][0].model).items()}
         jflat = {key: np.asarray(v) for key, v in _flatten(jax_[k][0].params).items()}
@@ -153,11 +167,102 @@ def test_three_rounds_match_the_jax_thread_fleet(data, tagger_config_text, sourc
         assert pf["version"] == jf["version"] == 4
         assert pf["quorum"] == jf["quorum"] == 2
         shared = set(pf["counters"]) & set(jf["counters"])
-        assert {c: pf["counters"][c] for c in shared} == {c: jf["counters"][c] for c in shared}
-        assert all(jf["counters"][c] == 0 or c.endswith("_uncompressed")
-                   for c in set(jf["counters"]) - shared)
+        assert shared == set(jf["counters"])
+        # an f32 push is its own uncompressed size in the port; JAX counts a
+        # startup template's, whose meta lacks the stamp's digits, the epoch
+        # and the codec (ROADMAP C51)
+        own = "wire_push_bytes_uncompressed"
+        assert {c: pf["counters"][c] for c in shared - {own}} == \
+            {c: jf["counters"][c] for c in shared - {own}}
+        assert pf["counters"][own] == pf["counters"]["wire_push_bytes"]
+        assert 0 < pf["counters"][own] - jf["counters"][own] <= 64 * pf["counters"]["grad_pushed"]
         assert pf["counters"]["grad_applied"] == 8 and pf["counters"]["grad_pushed"] == 4
+        assert (pf["grad_compression"], pf["param_delta_window"]) == ("f32", 0)
         assert port[k][1].final_step == jax_[k][1].final_step == 4
+
+
+def test_three_int8_rounds_with_delta_pulls_match_the_jax_thread_fleet(
+        data, tagger_config_text, source, f32_fleets, monkeypatch):
+    """The parity run with the wire on in both packages: int8 pushes with
+    error feedback and delta pulls at a window of 4. Versions, every counter
+    (both _uncompressed ones too), the codecs and the served frames are
+    equal. The first round's pushes differ only where the two packages'
+    float32 gradients straddle an int8 rounding tie: such an element moves
+    by one step of its leaf (error feedback carries the difference into the
+    next round), in at most 1e-3 of the elements; scales and f32 leaves
+    within 1e-5 relative. From there the rounds drift apart: a one-step
+    difference in a pulled parameter can move a maxout near-tie, whose
+    gradient then differs by several steps. So after three rounds each
+    leaf's change is held in norm: within 5e-3 of JAX's (measured <= 1.8e-3)
+    and within half of what the codec itself moves it, the port's int8 run
+    against its f32 run (measured 0.003-0.019)."""
+    from spacy_ray_tpu.training.fleet import worker as jworker_mod
+
+    src, start = source
+    wire = {"grad_compression": "int8", "param_delta_window": 4}
+    served = {"port": [], "jax": []}
+    pushes = {"port": [], "jax": []}
+
+    def recorder(cls, name):
+        real = cls.request
+
+        def request(self, method, path, *a, **kw):
+            out = real(self, method, path, *a, **kw)
+            if path.startswith("/params") and out[0] == 200:
+                served[name].append((path, out[1].get("X-SRT-Codec")))
+            elif path == "/grad":
+                pushes[name].append(kw["body"])
+            return out
+        return request
+
+    monkeypatch.setattr(pworker._PeerClient, "request", recorder(pworker._PeerClient, "port"))
+    monkeypatch.setattr(jworker_mod._PeerClient, "request",
+                        recorder(jworker_mod._PeerClient, "jax"))
+    port = run_thread_fleet(pworker.train_fleet_worker,
+                            _sourced(P, tagger_config_text, data, src, 4), None, 2,
+                            quorum=2, staleness=0, device="cpu", peer_lease_s=0, **wire)
+    jax_ = run_thread_fleet(j_worker, _sourced(J, tagger_config_text, data, src, 4), None, 2,
+                            quorum=2, staleness=0, **{**JAX_PARITY, **wire})
+    # one full pull each (nothing known), then one delta a step
+    assert sorted(served["port"]) == sorted(served["jax"])
+    assert sorted(c for _, c in served["port"]) == ["delta"] * 6 + ["f32"] * 2
+    frames = {}
+    for name, bodies in pushes.items():
+        for body in bodies:
+            meta, arrays = jwire.decode_arrays(body)
+            frames.setdefault((meta["worker"], meta["stamp"]), {})[name] = (len(body), arrays)
+    assert sorted(frames) == [(w, s) for w in (0, 1) for s in range(4)]
+    assert all(f["port"][0] == f["jax"][0] for f in frames.values())
+    for w in (0, 1):
+        (_, pa), (_, ja) = frames[(w, 0)]["port"], frames[(w, 0)]["jax"]
+        assert sorted(pa) == sorted(ja)
+        moved = total = 0
+        for key in pa:
+            if pa[key].dtype == np.int8:
+                step = np.abs(pa[key].astype(np.int64) - ja[key].astype(np.int64))
+                assert step.max() <= 1, key
+                moved, total = moved + int(step.sum()), total + step.size
+            else:
+                np.testing.assert_allclose(pa[key], ja[key], rtol=1e-5, atol=0)
+        assert total > 0 and moved <= 1e-3 * total, (moved, total)
+    f32_port = f32_fleets[0]
+    for k in (0, 1):
+        pflat = {key: v.numpy() for key, v in param_paths(port[k][0].model).items()}
+        jflat = {key: np.asarray(v) for key, v in _flatten(jax_[k][0].params).items()}
+        fflat = {key: v.numpy() for key, v in param_paths(f32_port[k][0].model).items()}
+        for key, s0 in start.items():
+            dj, dp, df = jflat[key] - s0, pflat[key] - s0, fflat[key] - s0
+            apart = np.linalg.norm(dp - dj) / np.linalg.norm(dj)
+            codec = np.linalg.norm(dp - df) / np.linalg.norm(df)
+            assert apart <= 5e-3 and apart <= 0.5 * codec, (k, key, apart, codec)
+        pf, jf = port[k][1].fleet, jax_[k][1].fleet
+        assert pf["version"] == jf["version"] == 4
+        assert pf["counters"] == jf["counters"]
+        assert (pf["grad_compression"], pf["param_delta_window"]) == \
+            (jf["grad_compression"], jf["param_delta_window"]) == ("int8", 4)
+        c = pf["counters"]
+        assert c["wire_push_bytes"] <= 0.30 * c["wire_push_bytes_uncompressed"]
+        assert c["wire_pull_bytes"] < c["wire_pull_bytes_uncompressed"]
 
 
 @pytest.fixture(scope="module")
@@ -187,6 +292,14 @@ def test_fleet_trains_and_learns(fleet_run):
         assert c["grad_applied"] + c["grad_discarded"] == c["grad_received"] == 24
         assert fl["phases"]["grad"] > 0 and fl["phases"]["push"] >= 0
         assert all(len(v) == 12 for v in fl["phase_steps_s"].values())
+        # the default wire on the CPU: int8 pushes, delta pulls; the codec's
+        # seconds a step lie within their phases'
+        assert (fl["grad_compression"], fl["param_delta_window"]) == ("int8", 4)
+        assert all(len(v) == 12 for v in fl["codec_steps_s"].values())
+        for part, phase in (("push_encode", "push"), ("pull_decode", "pull")):
+            assert all(0 <= a <= b for a, b in zip(fl["codec_steps_s"][part],
+                                                   fl["phase_steps_s"][phase])), part
+        assert sum(fl["codec_steps_s"]["push_encode"]) > 0
         ledger = json.loads((out / f"fleet-worker-{k}.json").read_text("utf8"))
         assert ledger["counters"] == c and ledger["steps"] == 12
         assert len(ledger["step_losses"]) == 12 and "launches" in ledger
@@ -262,6 +375,162 @@ def test_a_config_the_fleet_cannot_train_is_refused(data, tagger_config_text):
     with pytest.raises(ValueError, match="quorum"):
         pworker.train_fleet_worker(_config(P, tagger_config_text, data), None, worker_id=0,
                                    n_workers=2, quorum=3, device="cpu")
+
+
+class Killed(RuntimeError):
+    pass
+
+
+def test_an_int8_fleet_that_loses_a_worker_resets_its_residuals_and_pulls_whole(
+        data, tagger_config_text, tmp_path, monkeypatch):
+    """Three workers as threads on the int8 wire with delta pulls (width 32,
+    24 steps, lease 1 s, 2 misses, probes every 0.2 s); worker 2 raises at its
+    2nd step. The survivors re-shard at epoch 1: each resets its push
+    residuals (none left after), its first pull from each peer at the new
+    epoch is a full frame from nothing known, deltas follow, and each owner
+    applied + discarded <= received. From their 8th step the survivors wait
+    (at most 60 s) for the eviction's ledger row."""
+    out = tmp_path / "out"
+    cfg = _config(P, tagger_config_text, data, **{"components.tok2vec.model.width": 32,
+                                                  "training.max_steps": 24,
+                                                  "training.eval_frequency": 8})
+    real_loss, calls = PPipeline.loss, {}
+
+    def loss(self, *a, **kw):
+        me = int(threading.current_thread().name.rsplit("-", 1)[1])
+        calls[me] = calls.get(me, 0) + 1
+        if me == 2 and calls[me] == 2:
+            raise Killed("worker 2 killed at its step 2")
+        if calls[me] >= 8:
+            deadline = time.monotonic() + 60.0
+            while time.monotonic() < deadline and not any(
+                    r.get("event") == "evict"
+                    for r in read_membership_ledger(out / "fleet-membership.jsonl")):
+                time.sleep(0.05)
+        return real_loss(self, *a, **kw)
+
+    pulls, resets = [], []
+    real_request, real_reset = pworker._PeerClient.request, pwire.GradCompressor.reset
+
+    def request(self, method, path, *a, **kw):
+        reply = real_request(self, method, path, *a, **kw)
+        if path.startswith("/params") and reply[0] == 200:
+            pulls.append((threading.current_thread().name, self.port, path,
+                          (kw.get("headers") or {}).get("X-SRT-Epoch"),
+                          reply[1].get("X-SRT-Codec")))
+        return reply
+
+    def reset(self):
+        held = len(self._residual)
+        real_reset(self)
+        resets.append((threading.current_thread().name, held, len(self._residual)))
+
+    monkeypatch.setattr(PPipeline, "loss", loss)
+    monkeypatch.setattr(pworker._PeerClient, "request", request)
+    monkeypatch.setattr(pwire.GradCompressor, "reset", reset)
+    ports = _free_ports(3)
+    urls = [f"http://127.0.0.1:{p}" for p in ports]
+    results, errors = {}, {}
+
+    def run(k):
+        try:
+            results[k] = pworker.train_fleet_worker(
+                cfg, out, worker_id=k, n_workers=3, quorum=0, max_staleness=1, port=ports[k],
+                peer_urls=urls, device="cpu", stdout_log=False, quorum_wait_s=60.0,
+                peer_lease_s=1.0, lease_miss_threshold=2, lease_poll_s=0.2,
+                grad_compression="int8", param_delta_window=4)
+        except Exception as e:  # the victim's, checked below
+            errors[k] = e
+
+    threads = [threading.Thread(target=run, args=(k,), name=f"fleet-int8-{k}") for k in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=JOIN_S)
+    assert not [t.name for t in threads if t.is_alive()], "fleet workers wedged"
+    assert set(errors) == {2} and isinstance(errors[2], Killed), errors
+    for k in (0, 1):
+        fleet = results[k][1].fleet
+        assert fleet["membership_epoch"] == 1 and fleet["active"] == [0, 1], fleet
+        assert (fleet["grad_compression"], fleet["param_delta_window"]) == ("int8", 4)
+        c = fleet["counters"]
+        assert c["grad_applied"] + c["grad_discarded"] <= c["grad_received"], c
+        assert c["wire_push_bytes"] <= 0.30 * c["wire_push_bytes_uncompressed"], c
+        name = f"fleet-int8-{k}"
+        mine = [r for r in resets if r[0] == name]
+        assert len(mine) == 1 and mine[0][1] > 0 and mine[0][2] == 0, resets
+        peer_port = ports[1 - k]
+        after = [(path, codec) for t, port, path, epoch, codec in pulls
+                 if t == name and port == peer_port and epoch == "1"]
+        assert after and after[0] == ("/params?known=-1", "f32"), after[:3]
+        assert "delta" in [codec for _, codec in after[1:]], after
+        before = [codec for t, port, _, epoch, codec in pulls
+                  if t == name and port == peer_port and epoch == "0"]
+        assert "delta" in before, before
+
+
+def test_the_error_feedback_ablation_keeps_no_residual(data, tagger_config_text, monkeypatch):
+    # grad_error_feedback=False (JAX's ablation control) reaches each worker's
+    # compressor: its int8 pushes carry no residual from round to round
+    made = []
+    real_init = pwire.GradCompressor.__init__
+
+    def init(self, *a, **kw):
+        real_init(self, *a, **kw)
+        made.append(self)
+
+    monkeypatch.setattr(pwire.GradCompressor, "__init__", init)
+    cfg = _config(P, tagger_config_text, data, **{"components.tok2vec.model.width": 32,
+                                                  "training.max_steps": 3,
+                                                  "training.eval_frequency": 100})
+    results = run_thread_fleet(pworker.train_fleet_worker, cfg, None, 2, quorum=2, staleness=0,
+                               device="cpu", peer_lease_s=0, grad_compression="int8",
+                               grad_error_feedback=False)
+    assert len(made) == 2 and all(not c.error_feedback and not c._residual for c in made)
+    for _, r in results.values():
+        c = r.fleet["counters"]
+        assert c["grad_pushed"] == 3 and c["wire_push_bytes"] <= 0.30 * c[
+            "wire_push_bytes_uncompressed"]
+
+
+def test_grad_compression_and_delta_window_flags_reach_the_worker(monkeypatch, tmp_path):
+    import inspect
+
+    from spacy_ray_tpu_torch.__main__ import train_command
+    from spacy_ray_tpu_torch.training.fleet import coordinator as pcoord
+
+    pk = inspect.signature(pworker.train_fleet_worker).parameters
+    jk = inspect.signature(j_worker).parameters
+    for name in ("grad_compression", "param_delta_window", "grad_error_feedback"):
+        assert pk[name].default == jk[name].default, name
+    seen = {}
+
+    def fake_train(config, output, *, device, resume, fleet):
+        seen.clear()
+        seen.update(fleet)
+        raise SystemExit(0)
+
+    monkeypatch.setattr("spacy_ray_tpu_torch.training.loop.train", fake_train)
+    cfg = tmp_path / "c.cfg"
+    cfg.write_text("[nlp]\npipeline = []\n", encoding="utf8")
+    argv = [str(cfg), "--device", "cpu", "--fleet-workers", "2", "--fleet-worker-id", "1"]
+    with pytest.raises(SystemExit):
+        train_command(argv)
+    assert (seen["grad_compression"], seen["param_delta_window"]) == ("auto", 4)
+    for codec in ("auto", "f32", "bf16", "int8"):
+        with pytest.raises(SystemExit):
+            train_command(argv + ["--grad-compression", codec, "--param-delta-window", "0"])
+        assert (seen["grad_compression"], seen["param_delta_window"]) == (codec, 0)
+    for bad in (["--grad-compression", "zstd"], ["--param-delta-window", "-1"],
+                ["--param-delta-window", "x"]):
+        with pytest.raises(SystemExit) as e:
+            train_command(argv + bad)
+        assert e.value.code == 2, bad
+    # the coordinator hands each worker its own argv, the flags with it
+    child = pcoord.worker_cmd([str(cfg), "--grad-compression", "bf16",
+                               "--param-delta-window", "2"], 1)
+    assert child[-6:] == ["--grad-compression", "bf16", "--param-delta-window", "2",
+                          "--fleet-worker-id", "1"]
 
 
 # ---------------------------------------------------------------- the coordinator

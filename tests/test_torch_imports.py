@@ -98,14 +98,33 @@ def test_the_serving_modules_of_one_process_are_checked():
         "serving/multimodel/__init__", "serving/multimodel/registry",
         "serving/multimodel/admission", "serving/multimodel/residency",
         "serving/live/__init__", "serving/live/watcher", "training/resilience")} <= names
-    # the trainer fleet's core and its membership are ported (its files import
-    # neither jax nor the JAX package: test_no_jax_or_jax_package_import
-    # covers every file here); the serving fleet's modules are not part of
-    # the port yet
+    # the trainer fleet's core, its membership and its compressed wire are
+    # ported (its files import neither jax nor the JAX package:
+    # test_no_jax_or_jax_package_import covers every file here); the serving
+    # fleet's modules are not part of the port yet
     assert {f"spacy_ray_tpu_torch/training/fleet/{m}.py" for m in (
         "__init__", "ownership", "wire", "peer", "worker", "coordinator",
         "membership")} <= names
     assert not {n for n in names if "placement" in n or "serving/fleet/" in n or "canary" in n}
+
+
+def test_the_fleet_wire_quantizes_with_the_ports_own_int8_functions():
+    # the compressed wire's int8 codec is the port's copy of the JAX package's
+    # host quantizer (ops/int8_matmul.py), imported relatively; importing the
+    # wire alone loads it and nothing of JAX
+    wire = REPO / "spacy_ray_tpu_torch" / "training" / "fleet" / "wire.py"
+    names = {(node.level, node.module, a.name)
+             for node in ast.walk(ast.parse(wire.read_text(encoding="utf8")))
+             if isinstance(node, ast.ImportFrom) for a in node.names}
+    assert {(3, "ops.int8_matmul", "quantize_int8_np"),
+            (3, "ops.int8_matmul", "dequantize_int8_np")} <= names
+    code = ("import sys, spacy_ray_tpu_torch.training.fleet.wire as w\n"
+            "print('spacy_ray_tpu_torch.ops.int8_matmul' in sys.modules, w.WIRE_CODECS, "
+            f"sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120, env={**os.environ, "PYTHONPATH": str(REPO)})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "True ('f32', 'bf16', 'int8', 'delta') []"
 
 
 def test_serve_with_a_manifest_without_a_card_fails_instead_of_using_the_cpu(tmp_path):

@@ -257,9 +257,25 @@ Run from the root of a checkout. Phases, each printing one JSON line:
               equal to the CPU's on the same directory; printed: wall s,
               each worker's per-phase medians (data, pull, grad, push,
               apply_wait), wire bytes a step, peak memory, words/s beside
-              train:cnn's. train:fleet_async: JAX's defaults (quorum auto =
-              1, S 1), 20 steps: exit 0, conservation, the loss falling,
-              discards and timeouts printed. The wire: train:fleet passes
+              train:cnn's. Its final generation (step 40) holds
+              opt_state-40.part0of2.npz and part1of2, each digest-verified,
+              assembling with no hole; ``train(resume=True)`` continues it
+              in this process on the card for 5 steps (train:fleet:resume):
+              it starts at step 40 with the parts' count, launches K1 fwd,
+              K1 bwd and K5 (once a step) and ends with a generation at 45
+              whose count is 5 more. train:fleet_async, the restart drill:
+              JAX's defaults (quorum auto = 1, S 1), ``--max-restarts 1``,
+              300 steps with a generation every 10 (evaluated on the first
+              16 dev docs); worker 1's process is SIGKILLed once a
+              generation is committed and its version is >= 10; its
+              supervisor starts it again with ``--resume``: exit 0, one
+              supervisor-restart, the victim's fleet-resume at a committed
+              step and its version, its new owner row ``opt_source``
+              "checkpoint" at that version launching K5 once per apply,
+              applied + discarded <= received on both workers, the victim's
+              loss falling after the rejoin, int8 pushes <= 0.30; printed:
+              the seconds from the kill to the victim's first accepted push,
+              its resumed step and version. The wire: train:fleet passes
               ``--grad-compression f32 --param-delta-window 0`` (the f32
               anchor), train:fleet_async ``--grad-compression int8
               --param-delta-window 4``; each fails unless every worker
@@ -279,18 +295,22 @@ Run from the root of a checkout. Phases, each printing one JSON line:
               ``train configs/cnn.cfg --fleet-workers 3 --peer-lease-s 2``
               (quorum auto = 2, S 1), 160 steps evaluated every 40; worker
               2's process SIGKILLed once every worker's /metrics shows
-              version >= 10: exit 0 with fleet-degraded-success, the evict
+              version >= 10 and the generation of step 40 is committed: exit
+              0 with fleet-degraded-success, the evict
               row within 2 + 3 x 2 s + a step of the kill, both survivors
               at epoch 1, active [0, 1], quorum 1, each one's epoch-1 owner
               on the N 2 layout's slices (the K5 rows' shapes) launching K5
-              once per apply, applied + discarded <= received, the final
+              once per apply, its moments carved from the generation of step
+              40 (``opt_source`` "checkpoint"), applied + discarded <=
+              received, the final
               generation's extra.fleet at epoch 1 and active [0, 1], dev
               tag_acc >= 0.95, the final model's tags on the card equal to
               the CPU's for >= 0.99 of the dev tokens; printed per survivor:
               epoch, active, quorum, evictions, shards_adopted,
               epoch_fenced, pull_failed, push_failed, the phases' median ms
               before the kill, between it and the re-shard and after, the
-              seconds from the kill to the evict and apply rows. It runs the
+              seconds from the kill to the evict and apply rows, the losses
+              of the 5 steps after the re-shard. It runs the
               wire's defaults, which resolve to bf16 pushes and a delta
               window of 4 on the card: pushes at most 0.55 of their f32
               frames, pulls below 1.0, printed as for 23.
@@ -397,6 +417,11 @@ def emit(obj) -> None:
 
 def fail(msg: str) -> None:
     raise RuntimeError(msg)
+
+
+def mean_or_none(xs):
+    """The mean of ``xs``; None for an empty window (a problem of its own)."""
+    return statistics.mean(xs) if xs else None
 
 
 def grad_rel_errs(got, want, real) -> dict:
@@ -2538,7 +2563,14 @@ def phase_cnn_kernels(torch, info, leaf_sets=CNN_LEAF_SETS):
 
 
 FLEET_STEPS, FLEET_EVAL = 40, 20  # train:fleet: cnn.cfg as 2 workers, quorum 2, S 0
-FLEET_ASYNC_STEPS = 20             # train:fleet_async: JAX's defaults (quorum auto, S 1)
+FLEET_RESUME_STEPS = 5             # train:fleet:resume: its generation continued in this process
+# train:fleet_async, the restart drill: JAX's defaults (quorum auto = 1, S 1)
+# with --max-restarts 1 and a generation every 10 steps (evaluated on the
+# first 16 dev docs); worker 1 SIGKILLed once a generation is committed and
+# its version is >= 10. The lead steps on alone while the victim restarts
+# (~10 s from the kill to its first accepted push on an H100), so it takes 300
+FLEET_ASYNC_STEPS, FLEET_ASYNC_EVAL, FLEET_ASYNC_DEV_DOCS = 300, 10, 16
+FLEET_ASYNC_VICTIM, FLEET_ASYNC_KILL_VERSION = 1, 10
 FLEET_N = 2
 # train:fleet_elastic: cnn.cfg as 3 workers at JAX's defaults (quorum auto = 2,
 # S 1), --peer-lease-s 2; worker 2 SIGKILLed once every worker's version is
@@ -2549,6 +2581,15 @@ FLEET_ELASTIC_N, FLEET_ELASTIC_VICTIM = 3, 2
 FLEET_ELASTIC_STEPS, FLEET_ELASTIC_EVAL = 160, 40
 FLEET_ELASTIC_LEASE_S, FLEET_LEASE_POLL_S, FLEET_LEASE_MISSES = 2.0, 2.0, 3
 FLEET_ELASTIC_KILL_VERSION = 10
+FLEET_ELASTIC_KILL_GENERATION = 40  # ... and once this step's generation is committed
+# a SIGKILLed worker's listening socket outlives it while its CUDA context is
+# torn down, and connections to it hang: a survivor's push blocks
+# for the peer timeout, twice with the client's reconnect and twice again with
+# the push's retry, and each liveness probe for the probe timeout. At the
+# defaults (10 s, 5 s) a push could outlast the lead's remaining steps, so
+# this run bounds them at 2 s and 1 s, and the eviction's bound counts each
+# missed probe's timeout (ROADMAP C60)
+FLEET_ELASTIC_PEER_TIMEOUT_S, FLEET_ELASTIC_PROBE_TIMEOUT_S = 2.0, 1.0
 FLEET_ELASTIC_TAG_FLOOR = 0.95     # dev tag_acc at the last evaluation
 FLEET_ELASTIC_AGREEMENT = 0.99     # the final model's tags, card vs CPU
 # the fleets' wire: each run's flags, and the codec and delta window its
@@ -2689,6 +2730,17 @@ def start_fleet(phase: str, corpus, steps: int, quorum: int, staleness: int, *,
             "steps": steps, "quorum": quorum, "staleness": staleness, "port": port}
 
 
+def read_streams(proc):
+    """Threads that drain a fleet's stdout and stderr into lists while it
+    runs (a full pipe would stall its workers): ``(streams, threads)``."""
+    streams = {"stdout": [], "stderr": []}
+    readers = [threading.Thread(target=lambda f=getattr(proc, k), acc=acc: acc.extend(f),
+                                daemon=True) for k, acc in streams.items()]
+    for th in readers:
+        th.start()
+    return streams, readers
+
+
 def fleet_wire(phase: str, ledgers, stderr: str):
     """``(row, problems)`` of a fleet run's wire (``FLEET_WIRE[phase]``):
     each worker's resolved codec and window, the reason its
@@ -2746,29 +2798,26 @@ def fleet_wire(phase: str, ledgers, stderr: str):
 
 
 def phase_train_fleet(torch, phase: str, corpus, steps: int, quorum: int, staleness: int,
-                      cnn_wps=None, model_check: bool = True, started=None) -> dict:
+                      cnn_wps=None, cleanup: bool = True) -> dict:
     """``python -m spacy_ray_tpu_torch train configs/cnn.cfg --fleet-workers
     2 --quorum Q --max-staleness S`` as a subprocess on the card (two worker
     processes), ``steps`` steps, an evaluation every ``FLEET_EVAL``. Fails
     unless it exits 0, every gradient received was applied or discarded,
-    K1 fwd, K1 bwd and K5 launched in each worker (its ledger) and the
-    lead's loss fell (the mean of its last 5 steps below the first 5's);
-    with ``model_check`` also unless both workers reach version ``steps``
-    with nothing discarded, failed or timed out, the lead's dev tag_acc is
-    >= 0.9, and best-model/ answers through the serving path with tags
-    equal to the CPU's on the same directory. Reports the wall seconds,
+    K1 fwd, K1 bwd and K5 launched in each worker (its ledger), the lead's
+    loss fell (the mean of its last 5 steps below the first 5's), both
+    workers reach version ``steps`` with nothing discarded, failed or timed
+    out, the lead's dev tag_acc is >= 0.9, and best-model/ answers through
+    the serving path with tags equal to the CPU's on the same directory. Reports the wall seconds,
     each worker's per-phase medians (ms), wire bytes a step, peak memory
     and words/s beside ``train:cnn``'s, and the wire (:func:`fleet_wire`,
-    whose problems fail it too). ``started``: the run as :func:`start_fleet`
-    started it (with ``FLEET_WIRE[phase]``'s flags), or None to start it
-    here."""
+    whose problems fail it too). ``cleanup=False`` keeps its directory for
+    the caller."""
     from spacy_ray_tpu_torch.__main__ import build_server
     from spacy_ray_tpu_torch.training.corpus import Corpus
 
     from spacy_ray_tpu_torch.training.resilience import terminate_with_grace
 
-    run = started or start_fleet(phase, corpus, steps, quorum, staleness,
-                                 extra=FLEET_WIRE[phase][0])
+    run = start_fleet(phase, corpus, steps, quorum, staleness, extra=FLEET_WIRE[phase][0])
     work, out = run["work"], run["out"]
     try:
         stdout, stderr = run["proc"].communicate(timeout=600)
@@ -2789,13 +2838,12 @@ def phase_train_fleet(torch, phase: str, corpus, steps: int, quorum: int, stalen
         missing = [n for n in need if not led["launches"].get(n)]
         if missing:
             problems.append(f"worker {k} launched no {missing}")
-        if model_check:
-            if led["version"] != steps or led["steps"] != steps:
-                problems.append(f"worker {k}: version {led['version']}, steps {led['steps']}")
-            bad = {n: c[n] for n in ("grad_discarded", "push_failed", "apply_wait_timeouts",
-                                     "pull_failed", "pull_wait_timeouts") if c[n]}
-            if bad:
-                problems.append(f"worker {k}: {bad}")
+        if led["version"] != steps or led["steps"] != steps:
+            problems.append(f"worker {k}: version {led['version']}, steps {led['steps']}")
+        bad = {n: c[n] for n in ("grad_discarded", "push_failed", "apply_wait_timeouts",
+                                 "pull_failed", "pull_wait_timeouts") if c[n]}
+        if bad:
+            problems.append(f"worker {k}: {bad}")
     losses = ledgers[0]["step_losses"]
     first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
     if not last < first:
@@ -2803,33 +2851,31 @@ def phase_train_fleet(torch, phase: str, corpus, steps: int, quorum: int, stalen
     wire, wire_problems = fleet_wire(phase, ledgers, stderr)
     problems += wire_problems
     dev = ledgers[0]["history"][-1]["other_scores"] if ledgers[0]["history"] else {}
-    served = None
-    if model_check:
-        if not dev.get("tag_acc", 0) >= 0.9:
-            problems.append(f"dev tag_acc {dev.get('tag_acc')} < 0.9")
-        texts = [" ".join(eg.reference.words) for eg in Corpus(corpus[1])()
-                 if len(eg.reference.words) <= 100][:8]
-        server = build_server([str(out / "best-model"), "--port", "0", "--max-batch", "4",
-                               "--max-doc-len", "128"])
-        try:
-            _, sport = server.start()
-            server.engine.start()
-            answers = []
-            for i in range(0, len(texts), 2):
-                status, body = post(sport, texts[i:i + 2])
-                if status != 200:
-                    fail(f"{phase}: best-model did not serve: {status} {body}")
-                answers.append((None, texts[i:i + 2], body))
-            server.request_shutdown()
-            if server.wait() != 0:
-                problems.append("serving best-model did not drain cleanly")
-        finally:
-            if server.engine.ready:
-                server.engine.stop()
-            server.httpd.server_close()
-        served = card_vs_cpu(out / "best-model", answers)
-        if served.get("tags") != 1.0:
-            problems.append(f"best-model's served tags differ from the CPU's: {served}")
+    if not dev.get("tag_acc", 0) >= 0.9:
+        problems.append(f"dev tag_acc {dev.get('tag_acc')} < 0.9")
+    texts = [" ".join(eg.reference.words) for eg in Corpus(corpus[1])()
+             if len(eg.reference.words) <= 100][:8]
+    server = build_server([str(out / "best-model"), "--port", "0", "--max-batch", "4",
+                           "--max-doc-len", "128"])
+    try:
+        _, sport = server.start()
+        server.engine.start()
+        answers = []
+        for i in range(0, len(texts), 2):
+            status, body = post(sport, texts[i:i + 2])
+            if status != 200:
+                fail(f"{phase}: best-model did not serve: {status} {body}")
+            answers.append((None, texts[i:i + 2], body))
+        server.request_shutdown()
+        if server.wait() != 0:
+            problems.append("serving best-model did not drain cleanly")
+    finally:
+        if server.engine.ready:
+            server.engine.stop()
+        server.httpd.server_close()
+    served = card_vs_cpu(out / "best-model", answers)
+    if served.get("tags") != 1.0:
+        problems.append(f"best-model's served tags differ from the CPU's: {served}")
     words = sum(led["words_seen"] for led in ledgers)
     per_worker = []
     for led in ledgers:
@@ -2865,8 +2911,224 @@ def phase_train_fleet(torch, phase: str, corpus, steps: int, quorum: int, stalen
     emit(res_row)
     if problems:
         fail(f"{phase}: " + "; ".join(problems))
-    shutil.rmtree(work, ignore_errors=True)
+    if cleanup:
+        shutil.rmtree(work, ignore_errors=True)
     return res_row
+
+
+def phase_fleet_resume(torch, out: Path, corpus) -> dict:
+    """train:fleet:resume — ``train:fleet``'s final generation (step
+    ``FLEET_STEPS``) continued by one process on the card: fails unless it
+    is format 2 with ``opt_state-40.part0of2.npz`` and ``part1of2`` that
+    digest-verify and assemble with no hole (``TrainCheckpoint.load`` of that
+    step, no fallback), and ``train(resume=True)`` for ``FLEET_RESUME_STEPS``
+    more steps starts at its step with the parts' count, launches K1 fwd, K1
+    bwd and K5 (once a step), and commits a generation at step 45 whose count
+    is 5 more. Prints the parts' bytes, the load and run seconds and the
+    losses."""
+    from spacy_ray_tpu_torch.ops import _cuda
+    from spacy_ray_tpu_torch.serving.live.watcher import scan_intact_generations
+    from spacy_ray_tpu_torch.training.checkpoint import TrainCheckpoint, opt_file_names
+    from spacy_ray_tpu_torch.training.loop import train
+
+    phase, last = "train:fleet:resume", out / "last-model"
+    meta = json.loads((last / "train_meta.json").read_text(encoding="utf8"))
+    parts = opt_file_names(meta, FLEET_STEPS)
+    want = [f"opt_state-{FLEET_STEPS}.part{k}of{FLEET_N}.npz" for k in range(FLEET_N)]
+    if (meta.get("step"), meta.get("format"), meta.get("opt_shards"), parts) != (
+            FLEET_STEPS, 2, FLEET_N, want):
+        fail(f"{phase}: the final generation is {meta.get('step')}, format "
+             f"{meta.get('format')}, parts {parts}")
+    t = time.perf_counter()
+    gen = TrainCheckpoint.load(last)
+    load_s = time.perf_counter() - t
+    if gen["step"] != FLEET_STEPS:  # a fallback: the newest generation did not verify
+        fail(f"{phase}: loaded generation {gen['step']}, not {FLEET_STEPS}")
+    count = int(gen["opt_state"]["count"])
+    cfg = cnn_config("cnn", corpus)
+    cfg["training"]["max_steps"] = FLEET_STEPS + FLEET_RESUME_STEPS
+    cfg["training"]["eval_frequency"] = FLEET_RESUME_STEPS
+    _cuda.reset_launch_counts()
+    t = time.perf_counter()
+    _, result = train(cfg, out, device="cuda", resume=True, stdout_log=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    launches = _cuda.launch_counts()
+    after = TrainCheckpoint.load(last)
+    problems = []
+    if (result.final_step, len(result.step_losses)) != (FLEET_STEPS + FLEET_RESUME_STEPS,
+                                                        FLEET_RESUME_STEPS):
+        problems.append(f"ended at step {result.final_step} after "
+                        f"{len(result.step_losses)} steps")
+    if (after["step"], after["format"], int(after["opt_state"]["count"])) != (
+            FLEET_STEPS + FLEET_RESUME_STEPS, 1, count + FLEET_RESUME_STEPS):
+        problems.append(f"its generation: step {after['step']}, format {after['format']}, "
+                        f"count {int(after['opt_state']['count'])} (from {count})")
+    if launches.get("fused_update") != FLEET_RESUME_STEPS or not (
+            launches.get("hash_embed_gather_sum") and launches.get("hash_embed_table_grad")):
+        problems.append(f"launches {launches}")
+    if not all(math.isfinite(x) for x in result.step_losses):
+        problems.append(f"losses {result.step_losses}")
+    row = {"phase": phase, "generation": FLEET_STEPS, "parts": parts,
+           "part_bytes": [(last / n).stat().st_size for n in parts],
+           "intact_generations": scan_intact_generations(last), "load_s": load_s,
+           "count": count, "steps": FLEET_RESUME_STEPS, "final_step": result.final_step,
+           "losses": result.step_losses, "seconds": seconds,
+           "launches": {n: v for n, v in launches.items()}, "problems": problems}
+    emit(row)
+    if problems:
+        fail(f"{phase}: " + "; ".join(problems))
+    return row
+
+
+def start_fleet_restart(corpus) -> dict:
+    """train:fleet_async, the restart drill, started: :func:`start_fleet`
+    with ``FLEET_WIRE``'s flags, ``--max-restarts 1``, ``FLEET_ASYNC_STEPS``
+    steps and a generation every ``FLEET_ASYNC_EVAL`` (evaluated on the
+    first ``FLEET_ASYNC_DEV_DOCS`` dev docs), its output drained, and a
+    thread that SIGKILLs worker ``FLEET_ASYNC_VICTIM``'s process once a
+    generation is committed and its /metrics version is >=
+    ``FLEET_ASYNC_KILL_VERSION``."""
+    import os
+    import signal
+
+    from spacy_ray_tpu_torch.training.checkpoint import TrainCheckpoint
+    from spacy_ray_tpu_torch.training.corpus import Corpus
+    from spacy_ray_tpu_torch.training.spacy_docbin import write_docbin
+
+    phase, victim = "train:fleet_async", FLEET_ASYNC_VICTIM
+    dev = WORK / "fleet_async_dev.spacy"
+    write_docbin(dev, [eg.reference for eg in Corpus(corpus[1])()][:FLEET_ASYNC_DEV_DOCS])
+    run = start_fleet(phase, (corpus[0], dev), FLEET_ASYNC_STEPS, 0, 1,
+                      eval_every=FLEET_ASYNC_EVAL,
+                      extra=("--max-restarts", "1", *FLEET_WIRE[phase][0]))
+    proc, port, last = run["proc"], run["port"], run["out"] / "last-model"
+    run["streams"], run["readers"] = read_streams(proc)
+    killed = run["killed"] = {}
+
+    def kill_when_ready():
+        deadline = time.monotonic() + 300
+        while proc.poll() is None and time.monotonic() < deadline:
+            try:
+                version = get(port + victim, "/metrics")[1]["gauges"]["param_version"]
+            except (OSError, ValueError, KeyError):
+                version = -1
+            committed = TrainCheckpoint.generation_stamps(last)
+            if committed and version >= FLEET_ASYNC_KILL_VERSION:
+                pid = fleet_worker_pid(proc.pid, victim)
+                killed.update(wall=time.time(), at_s=time.perf_counter() - run["t0"],
+                              version=version, committed=committed)
+                os.kill(pid, signal.SIGKILL)
+                return
+            time.sleep(0.05)
+
+    run["killer"] = threading.Thread(target=kill_when_ready, daemon=True)
+    run["killer"].start()
+    return run
+
+
+def phase_train_fleet_restart(torch, run) -> dict:
+    """train:fleet_async, the restart drill (:func:`start_fleet_restart`),
+    seen to its end: fails unless the fleet exits 0 with one
+    ``supervisor-restart``, the victim's one ``fleet-resume`` names a
+    committed step and its version, its ledger (the restarted process's)
+    says it resumed from that step, its first owner row reads ``opt_source``
+    "checkpoint" at that version and launched K5 once per apply, applied +
+    discarded <= received on both workers, each launched K1 fwd, K1 bwd and
+    K5, the victim's loss fell after the rejoin (the mean of its last 5
+    steps below its first 5's), a push of the victim's was accepted, and the
+    wire (:func:`fleet_wire`: int8, pushes <= 0.30) holds. Prints the seconds
+    from the kill to the victim's first accepted push, the kill's step, the
+    resumed step and version, and each worker's counters and phase
+    medians."""
+    from spacy_ray_tpu_torch.training.resilience import terminate_with_grace
+
+    phase, victim = "train:fleet_async", FLEET_ASYNC_VICTIM
+    proc, out = run["proc"], run["out"]
+    try:
+        run["killer"].join(timeout=330)
+        proc.wait(timeout=600)
+    finally:  # SIGTERM first: the coordinator stops its supervisors' workers
+        terminate_with_grace(proc, grace_s=150.0)
+        for th in run["readers"]:
+            th.join(timeout=10)
+    wall_s = time.perf_counter() - run["t0"]
+    stdout, stderr = "".join(run["streams"]["stdout"]), "".join(run["streams"]["stderr"])
+    killed = run["killed"]
+    if not killed:
+        fail(f"{phase}: worker {victim} was never killed (exit {proc.returncode}):\n"
+             f"{stdout[-3000:]}\n{stderr[-6000:]}")
+    if proc.returncode != 0:
+        fail(f"{phase}: the fleet exited {proc.returncode} after the kill:\n{stdout[-3000:]}\n"
+             f"{stderr[-6000:]}")
+    ledgers = [json.loads((out / f"fleet-worker-{k}.json").read_text(encoding="utf8"))
+               for k in range(FLEET_N)]
+    problems = []
+    restarts = stderr.count("[supervisor-restart]")
+    if restarts != 1:
+        problems.append(f"{restarts} supervisor restarts")
+    resumed = re.findall(rf"\[fleet-resume\] worker {victim} resumed from checkpoint step "
+                         r"(\d+) \(shard version (\d+)\)", stderr)
+    step_v, version_v = map(int, resumed[0]) if len(resumed) == 1 else (None, None)
+    vled = ledgers[victim]
+    first_row = vled["owner_epochs"][0]
+    if step_v is None or step_v % FLEET_ASYNC_EVAL or step_v < killed["committed"][-1]:
+        problems.append(f"the victim's fleet-resume events {resumed} (committed before the "
+                        f"kill: {killed['committed']})")
+    if (vled.get("resume"), vled.get("resumed_from")) != (True, step_v):
+        problems.append(f"the victim's ledger: resume {vled.get('resume')}, resumed_from "
+                        f"{vled.get('resumed_from')}")
+    if (first_row["opt_source"], first_row["version_start"]) != ("checkpoint", version_v) or \
+            not 0 < first_row["applies"] == first_row["k5_launches"]:
+        problems.append(f"the victim's owner row {first_row}")
+    need = ("hash_embed_gather_sum", "hash_embed_table_grad", "fused_update")
+    for k, led in enumerate(ledgers):
+        c = led["counters"]
+        if c["grad_applied"] + c["grad_discarded"] > c["grad_received"]:
+            problems.append(f"worker {k}: applied + discarded > received ({c})")
+        missing = [n for n in need if not led["launches"].get(n)]
+        if missing:
+            problems.append(f"worker {k} launched no {missing}")
+    losses = vled["step_losses"]
+    rejoin = (statistics.mean(losses[:5]), statistics.mean(losses[-5:])) \
+        if len(losses) >= 10 else None
+    if rejoin is None or not rejoin[1] < rejoin[0]:
+        problems.append(f"the victim's loss after the rejoin: {rejoin} over {len(losses)} steps")
+    first_push = vled.get("first_accepted_push_at")
+    if first_push is None:
+        problems.append("no push of the victim's was accepted after its restart")
+    wire, wire_problems = fleet_wire(phase, ledgers, stderr)
+    problems += wire_problems
+    row = {
+        "phase": phase, "steps": FLEET_ASYNC_STEPS, "quorum": 0, "max_staleness": 1,
+        "max_restarts": 1, "eval_every": FLEET_ASYNC_EVAL, "victim": victim, "wall_s": wall_s,
+        "killed_at_s": killed["at_s"], "version_at_kill": killed["version"],
+        "generations_at_kill": killed["committed"], "supervisor_restarts": restarts,
+        "resumed_step": step_v, "resumed_version": version_v,
+        "kill_to_first_accepted_push_s": (first_push - killed["wall"]
+                                          if first_push is not None else None),
+        "victim_loss_first5_last5_after_rejoin": rejoin, "victim_steps_after_rejoin": len(losses),
+        "wire": wire,
+        "per_worker": [{
+            "worker": led["worker"], "steps": led["steps"], "version": led["version"],
+            "resumed_from": led.get("resumed_from"), "counters": led["counters"],
+            "owner_epochs": [{x: e[x] for x in ("epoch", "opt_source", "opt_step", "applies",
+                                                "k5_launches", "version_start")}
+                             for e in led["owner_epochs"]],
+            "generations": led.get("generations"), "opt_parts": len(led.get("opt_parts", [])),
+            "phase_ms_median": {n: statistics.median(v) * 1e3
+                                for n, v in led["phase_steps_s"].items() if v},
+            "launches": {n: v for n, v in led["launches"].items() if v},
+        } for led in ledgers],
+        "launches": {n: sum(led["launches"].get(n, 0) for led in ledgers)
+                     for n in ledgers[0]["launches"]},
+        "problems": problems,
+    }
+    emit(row)
+    if problems:
+        fail(f"{phase}: " + "; ".join(problems))
+    shutil.rmtree(run["work"], ignore_errors=True)
+    return row
 
 
 def fleet_worker_pid(coordinator_pid: int, worker_id: int) -> int:
@@ -2885,16 +3147,20 @@ def fleet_worker_pid(coordinator_pid: int, worker_id: int) -> int:
 
 def phase_train_fleet_elastic(torch, corpus, info, k5_rows, beside=None) -> dict:
     """``python -m spacy_ray_tpu_torch train configs/cnn.cfg --fleet-workers
-    3 --peer-lease-s 2`` (quorum auto = 2, S 1) as a subprocess on the card,
+    3 --peer-lease-s 2`` (quorum auto = 2, S 1; peer requests and probes
+    bounded at ``FLEET_ELASTIC_PEER_TIMEOUT_S`` and
+    ``FLEET_ELASTIC_PROBE_TIMEOUT_S``) as a subprocess on the card,
     ``FLEET_ELASTIC_STEPS`` steps evaluated every ``FLEET_ELASTIC_EVAL``;
     worker 2's process SIGKILLed once every worker's ``/metrics`` shows
-    version >= ``FLEET_ELASTIC_KILL_VERSION``. ``beside`` (a callable) runs
+    version >= ``FLEET_ELASTIC_KILL_VERSION`` and the generation of step
+    ``FLEET_ELASTIC_KILL_GENERATION`` is committed. ``beside`` (a callable) runs
     in this thread while the fleet starts. Fails unless the coordinator
     exits 0 with ``fleet-degraded-success``; both survivors end at epoch 1,
     active [0, 1], quorum 1, with ``shards_adopted`` > 0; the acting lead
     counted the eviction and its ``evict`` row came within
-    ``FLEET_ELASTIC_LEASE_S`` + 3 x ``FLEET_LEASE_POLL_S`` + one step of the
-    kill; each survivor's owner of epoch 1 holds the N 2 layout's slices
+    ``FLEET_ELASTIC_LEASE_S`` + 3 x (``FLEET_LEASE_POLL_S`` + the probe
+    timeout) + one step of the kill; each survivor takes a step after its
+    re-shard; each survivor's owner of epoch 1 holds the N 2 layout's slices
     (the shapes of the K5 rows at N 2) and launched K5 once per apply, at
     least once; applied + discarded <= received (a re-push before the
     quorum replaces the buffered one); the final generation's
@@ -2922,14 +3188,13 @@ def phase_train_fleet_elastic(torch, corpus, info, k5_rows, beside=None) -> dict
     run = start_fleet(phase, corpus, FLEET_ELASTIC_STEPS, 0, 1, n=n,
                       eval_every=FLEET_ELASTIC_EVAL,
                       extra=("--peer-lease-s", str(FLEET_ELASTIC_LEASE_S),
-                             *FLEET_WIRE[phase][0]))
+                             "--training.fleet_peer_timeout_s", str(FLEET_ELASTIC_PEER_TIMEOUT_S),
+                             "--training.fleet_probe_timeout_s",
+                             str(FLEET_ELASTIC_PROBE_TIMEOUT_S), *FLEET_WIRE[phase][0]))
     proc, out, port = run["proc"], run["out"], run["port"]
-    streams = {"stdout": [], "stderr": []}
-    readers = [threading.Thread(target=lambda f=getattr(proc, k), acc=acc: acc.extend(f),
-                                daemon=True) for k, acc in streams.items()]
-    for th in readers:
-        th.start()
+    streams, readers = read_streams(proc)
     killed = {}
+    gen_meta = out / "last-model" / f"train_meta-{FLEET_ELASTIC_KILL_GENERATION}.json"
 
     def kill_when_ready():
         deadline = time.monotonic() + 300
@@ -2939,7 +3204,8 @@ def phase_train_fleet_elastic(torch, corpus, info, k5_rows, beside=None) -> dict
                 versions = [snap["gauges"]["param_version"] for snap in snaps]
             except (OSError, ValueError, KeyError):
                 versions = []
-            if len(versions) == n and min(versions) >= FLEET_ELASTIC_KILL_VERSION:
+            if len(versions) == n and min(versions) >= FLEET_ELASTIC_KILL_VERSION \
+                    and gen_meta.exists():
                 pid = fleet_worker_pid(proc.pid, victim)
                 killed.update(wall=time.time(), at_s=time.perf_counter() - run["t0"],
                               versions=versions,
@@ -2988,7 +3254,8 @@ def phase_train_fleet_elastic(torch, corpus, info, k5_rows, beside=None) -> dict
     step_s = max(statistics.median(sum(v[i] for v in led["phase_steps_s"].values())
                                    for i in range(led["steps"])) for led in ledgers.values())
     evict_s = evicts[0]["ts"] - killed["wall"] if evicts else None
-    evict_bound_s = FLEET_ELASTIC_LEASE_S + FLEET_LEASE_MISSES * FLEET_LEASE_POLL_S + step_s
+    evict_bound_s = (FLEET_ELASTIC_LEASE_S + step_s + FLEET_LEASE_MISSES
+                     * (FLEET_LEASE_POLL_S + FLEET_ELASTIC_PROBE_TIMEOUT_S))
     if evict_s is None or not 0 < evict_s <= evict_bound_s:
         problems.append(f"evict row {evict_s} s after the kill (bound {evict_bound_s:.2f} s)")
     per_worker = []
@@ -3010,11 +3277,19 @@ def phase_train_fleet_elastic(torch, corpus, info, k5_rows, beside=None) -> dict
         elif not (e1[0]["applies"] > 0 and e1[0]["k5_launches"] == e1[0]["applies"]):
             problems.append(f"worker {k}: {e1[0]['applies']} applies after the re-shard, "
                             f"{e1[0]['k5_launches']} K5 launches")
+        elif (e1[0]["opt_source"], e1[0]["opt_step"]) != ("checkpoint",
+                                                           FLEET_ELASTIC_KILL_GENERATION):
+            problems.append(f"worker {k}: its adopted moments came from {e1[0]['opt_source']} "
+                            f"at {e1[0]['opt_step']}, not the generation of step "
+                            f"{FLEET_ELASTIC_KILL_GENERATION}")
         # at quorum 2 of 3 with S 1 a sender's re-push before the quorum
         # replaces its buffered one (JAX's owner too), counted nowhere
         if c["grad_applied"] + c["grad_discarded"] > c["grad_received"]:
             problems.append(f"worker {k}: applied + discarded > received ({c})")
         at = apply_row["step"] if apply_row else led["steps"]
+        if at >= led["steps"]:
+            problems.append(f"worker {k}: no step after its re-shard (at step {at} of "
+                            f"{led['steps']}; the kill at {killed['versions']})")
         # the steps done before the kill: their phase seconds sum to at most
         # what the worker's /metrics said at the kill
         step_totals = [sum(v[i] for v in led["phase_steps_s"].values())
@@ -3034,15 +3309,16 @@ def phase_train_fleet_elastic(torch, corpus, info, k5_rows, beside=None) -> dict
                                               - c["grad_discarded"]),
             "kill_to_apply_s": apply_row["ts"] - killed["wall"] if apply_row else None,
             "steps_before_kill": before_kill,
-            "loss_mean_5_before_reshard": statistics.mean(led["step_losses"][max(at - 5, 0):at]),
-            "loss_mean_5_after_reshard": statistics.mean(led["step_losses"][at:at + 5]),
+            "loss_mean_5_before_reshard": mean_or_none(led["step_losses"][max(at - 5, 0):at]),
+            "loss_mean_5_after_reshard": mean_or_none(led["step_losses"][at:at + 5]),
+            "losses_5_after_reshard": led["step_losses"][at:at + 5],
             "phase_ms_median": {name: {p: statistics.median(v[a:b]) * 1e3
                                        for p, v in led["phase_steps_s"].items()}
                                 for name, (a, b) in windows.items() if b > a},
             "step_ms_median": {name: statistics.median(step_totals[a:b]) * 1e3
                                for name, (a, b) in windows.items() if b > a},
-            "owner_epochs": [{x: e[x] for x in ("epoch", "quorum", "opt_source", "applies",
-                                                "k5_launches", "version_start")}
+            "owner_epochs": [{x: e[x] for x in ("epoch", "quorum", "opt_source", "opt_step",
+                                                "applies", "k5_launches", "version_start")}
                              for e in led["owner_epochs"]],
             "owner_apply_ms_per_apply": led["owner_apply_seconds"] * 1e3 / max(c["applies"], 1),
             "launches": {name: v for name, v in led["launches"].items() if v},
@@ -3086,7 +3362,7 @@ def phase_train_fleet_elastic(torch, corpus, info, k5_rows, beside=None) -> dict
     }
     emit(res_row)
     if problems:
-        fail(f"{phase}: " + "; ".join(problems))
+        fail(f"{phase}: " + "; ".join(problems) + f"\nthe fleet's stderr:\n{stderr[-12000:]}")
     shutil.rmtree(run["work"], ignore_errors=True)
     return res_row
 
@@ -5802,11 +6078,10 @@ def main() -> int:
     kernels = phase_kernels(torch)
     udgen = write_udgen_corpus()
     spacy_corpus = write_spacy_corpus(udgen)
-    # train:fleet_async runs beside the work on the host alone that follows
-    # (the leaf shapes of trf.cfg and its MoE, the head corpora, md:assets,
-    # the CNN configs' setup), before the next kernel timings
-    fleet_async = start_fleet("train:fleet_async", spacy_corpus, FLEET_ASYNC_STEPS, 0, 1,
-                              extra=FLEET_WIRE["train:fleet_async"][0])
+    # train:fleet_async, the restart drill, runs beside the work on the host
+    # alone that follows (the leaf shapes of trf.cfg and its MoE, the head
+    # corpora, md:assets, the CNN configs' setup), before the next kernel timings
+    fleet_async = start_fleet_restart(spacy_corpus)
     try:
         full_shapes = trf_param_shapes(torch, udgen[0])
         moe_shapes = moe_param_shapes(torch, udgen)
@@ -5833,9 +6108,7 @@ def main() -> int:
 
         terminate_with_grace(fleet_async["proc"], grace_s=150.0)
         raise
-    fleet_async_run = phase_train_fleet(
-        torch, "train:fleet_async", spacy_corpus, FLEET_ASYNC_STEPS, 0, 1, model_check=False,
-        started=fleet_async)
+    fleet_async_run = phase_train_fleet_restart(torch, fleet_async)
     kernels.update(phase_train_kernels(torch, full_shapes, moe_shapes))
     for name, rows in phase_cnn_kernels(torch, cnn).items():
         kernels[name].extend(rows)
@@ -5864,7 +6137,11 @@ def main() -> int:
     # lockstep (quorum 2, S 0); its asynchronous run came beside md:assets
     runs["train:fleet"] = phase_train_fleet(
         torch, "train:fleet", spacy_corpus, FLEET_STEPS, FLEET_N, 0,
-        cnn_wps=runs["train:cnn"]["words_per_s"])
+        cnn_wps=runs["train:cnn"]["words_per_s"], cleanup=False)
+    # its final generation, the owners' parts, continued by one process
+    runs["train:fleet:resume"] = phase_fleet_resume(torch, WORK / "train_fleet" / "out",
+                                                    spacy_corpus)
+    shutil.rmtree(WORK / "train_fleet", ignore_errors=True)
     runs["train:sm"], sm_model = phase_train_cnn(
         torch, "sm", pipeline_config("sm", corpora["sm"]), cnn["sm"])
     runs["slice:sm"] = phase_slice_full(torch, sm_model, spacy_corpus[1], runs["slice:cnn"],

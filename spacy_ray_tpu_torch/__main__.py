@@ -1,7 +1,8 @@
 """Command line of the port::
 
     python -m spacy_ray_tpu_torch train <config.cfg> --output <dir> [--device cuda|cpu]
-        [--code F] [--resume] [--paths.train x.jsonl --training.max_steps 40 ...]
+        [--code F] [--resume] [--max-restarts N]
+        [--paths.train x.jsonl --training.max_steps 40 ...]
         [--fleet-workers N [--quorum Q] [--max-staleness S] [--fleet-base-port P]
         [--peer-lease-s S] [--grad-compression C] [--param-delta-window K]]
     python -m spacy_ray_tpu_torch pretrain <config.cfg> <output-dir> [--device cuda|cpu]
@@ -13,16 +14,23 @@
 
 ``train`` trains the config's pipeline on one device, evaluating every
 ``eval_frequency`` steps, and writes ``best-model/`` and ``last-model/``
-(with its training generations, which ``--resume`` continues from).
+(with its training generations, which ``--resume`` continues from, a
+fleet's generations too). SIGTERM or SIGINT stops it at a step boundary
+with a generation written, and it exits 75. ``--max-restarts N`` runs the
+training as a child process and starts it again with ``--resume`` after a
+nonzero exit, at most N times (a relayed signal is not restarted).
 Dotted ``--section.key value`` arguments override the config.
 ``--fleet-workers N`` trains as N worker processes (the asynchronous
 trainer fleet, ``training/fleet/``): each owns a slice of every parameter,
 pushes gradients to their owners and applies at ``--quorum``; worker 0
 evaluates and writes the models. With ``--peer-lease-s`` > 0 (60 by
 default) a dead worker is evicted once its lease expired and its slices
-re-shard over the survivors; the coordinator exits 0 when the survivors
-finish (``fleet-degraded-success``), 75 when it was stopped by a signal,
-else the first bad worker's code. ``--grad-compression`` (``auto``: bf16 on
+re-shard over the survivors. With ``--max-restarts N`` each worker runs
+under a supervisor that relaunches it with ``--resume`` (at most N times):
+it reloads the last generation, whose optimizer parts each owner wrote, and
+rejoins. The coordinator exits 0 when the survivors finish
+(``fleet-degraded-success``), 75 when it was stopped by a signal, else the
+first bad worker's code. ``--grad-compression`` (``auto``: bf16 on
 the card, int8 on the CPU) and ``--param-delta-window`` (4) set the fleet's
 wire: the codec of gradient pushes, with error feedback, and how many
 versions of compressed parameter deltas an owner keeps for pulls.
@@ -70,7 +78,8 @@ from .serving.overlay import PRECISION_CHOICES
 
 USAGE = (
     "usage: python -m spacy_ray_tpu_torch train <config.cfg> [--output DIR] [--device cuda|cpu]"
-    " [--code F] [--resume] [--fleet-workers N [--quorum Q] [--max-staleness S]"
+    " [--code F] [--resume] [--max-restarts N] [--fleet-workers N [--quorum Q]"
+    " [--max-staleness S]"
     " [--fleet-base-port P] [--peer-lease-s S] [--grad-compression C]"
     " [--param-delta-window K]] [--section.key value ...]\n"
     "       python -m spacy_ray_tpu_torch pretrain <config.cfg> <output-dir> [--device cuda|cpu]"
@@ -241,6 +250,37 @@ def serve_command(argv: List[str]) -> int:
     return rc
 
 
+#: a supervised one-process run's SIGTERM -> SIGKILL window
+SHUTDOWN_GRACE_S = 10.0
+
+
+def _strip_flags(argv: List[str], flags: List[str]) -> List[str]:
+    """``argv`` without the ``--flag value`` and ``--flag=value`` pairs of
+    ``flags``."""
+    out: List[str] = []
+    skip_next = False
+    for a in argv:
+        if skip_next:
+            skip_next = False
+        elif a in flags:
+            skip_next = True
+        elif not any(a.startswith(f + "=") for f in flags):
+            out.append(a)
+    return out
+
+
+def _supervise_train(argv: List[str], max_restarts: int) -> int:
+    """``train --max-restarts N`` without a fleet: training runs as a child
+    process, started again with ``--resume`` after a nonzero exit; signals
+    reach it through the supervisor (SIGTERM, SIGKILL after the grace)."""
+    from .training.resilience import Supervisor, relaunch_argv
+
+    cmd = [sys.executable, "-m", "spacy_ray_tpu_torch", "train",
+           *_strip_flags(argv, ["--max-restarts"])]
+    return Supervisor(lambda attempt: relaunch_argv(cmd, attempt), max_restarts,
+                      grace_s=SHUTDOWN_GRACE_S).run()
+
+
 def train_command(argv: List[str]) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m spacy_ray_tpu_torch train",
@@ -254,6 +294,10 @@ def train_command(argv: List[str]) -> int:
                         help="a Python file to import first (its registered functions)")
     parser.add_argument("--resume", action="store_true",
                         help="continue from the newest intact generation in <output>/last-model")
+    parser.add_argument("--max-restarts", type=int, default=0, dest="max_restarts",
+                        help="supervisor mode: relaunch the training child up to N times on "
+                        "nonzero exit, resuming from the last intact checkpoint (0 = train "
+                        "in-process)")
     parser.add_argument("--verbose", "-V", action="store_true")
     parser.add_argument("--fleet-workers", type=int, default=0, dest="fleet_workers",
                         help="asynchronous trainer fleet: spawn N worker processes that own "
@@ -295,17 +339,22 @@ def train_command(argv: List[str]) -> int:
         parser.error("--peer-lease-s must be >= 0")
     if args.param_delta_window < 0:
         parser.error("--param-delta-window must be >= 0")
-    if args.fleet_workers > 0 and args.resume:
-        parser.error("--resume: the trainer fleet's generations keep no optimizer state in "
-                     "this package, so a fleet run cannot be resumed")
+    if args.max_restarts < 0:
+        parser.error("--max-restarts must be >= 0")
     if args.fleet_workers > 0 and args.fleet_worker_id is None:
-        # the coordinator: spawns the workers and waits; never touches the card
+        # the coordinator: supervises the workers and waits; never touches the
+        # card. --max-restarts is each worker's cap and reaches no child
         from .training.fleet.coordinator import run_fleet
         from .training.fleet.worker import resolve_quorum
 
         if not 1 <= resolve_quorum(args.quorum, args.fleet_workers) <= args.fleet_workers:
             parser.error(f"--quorum {args.quorum} outside [1, {args.fleet_workers}]")
-        return run_fleet(argv, n_workers=args.fleet_workers)
+        return run_fleet(_strip_flags(argv, ["--max-restarts"]), n_workers=args.fleet_workers,
+                         max_restarts=args.max_restarts)
+    if args.max_restarts > 0:
+        # the supervisor: runs and relaunches the training child; never
+        # touches the card
+        return _supervise_train(argv, args.max_restarts)
 
     from .config import load_config, parse_cli_overrides
     from .registry import import_code

@@ -24,6 +24,7 @@ import threading
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Set
 
+from ...training.checkpoint import opt_file_names as _opt_file_names
 from ...training.resilience import log_event
 
 logger = logging.getLogger("spacy_ray_tpu_torch.serving")
@@ -35,18 +36,6 @@ def _sha256(path: Path) -> str:
         for chunk in iter(lambda: f.read(1 << 20), b""):
             h.update(chunk)
     return h.hexdigest()
-
-
-def _opt_file_names(meta: Dict[str, Any], stamp: int) -> List[str]:
-    """The optimizer-state files of a generation: the JAX package's owner
-    shards (format >= 2) or pickle, or the port's ``opt_state-N.npz`` when
-    its meta names that file."""
-    if int(meta.get("format", 1) or 1) >= 2:
-        parts = int(meta.get("opt_shards", 1) or 1)
-        return [f"opt_state-{stamp}.part{k}of{parts}.pkl" for k in range(parts)]
-    if f"opt_state-{stamp}.npz" in (meta.get("digests") or {}):
-        return [f"opt_state-{stamp}.npz"]
-    return [f"opt_state-{stamp}.pkl"]
 
 
 def scan_intact_generations(path, *, newer_than: Optional[int] = None, skip: Any = (),

@@ -15,6 +15,18 @@
   format (flat ``mu/<path>``, ``nu/<path>``, ``count``, ``sched_count``):
   the JAX package pickles optax's state instead, and neither reads the
   other's; the params files load in both.
+* A trainer fleet's generation is format 2 (``meta["format"] == 2``,
+  ``opt_shards`` N): each active owner writes its part of the optimizer
+  state, ``opt_state-{stamp}.part{k}of{N}.npz`` (:func:`write_fleet_opt_part`;
+  ``k`` its rank among the active ids), and the lead writes the params, the
+  meta naming every part's digest, and the pointer
+  (:func:`commit_fleet_generation`). A part holds its pieces under their
+  flat names and a header (``part``, ``parts``, ``n_leaves``, ``stamp`` and a
+  record of ``(name, index, global shape, dtype)`` per piece); ``load``
+  assembles the parts into the one-process state, and a missing or torn
+  part, a digest mismatch or a hole is a :class:`CheckpointCorrupt`. The JAX
+  package's parts are pickles of optax's state, which this package does not
+  read either.
 * :class:`Checkpoints`: a reader of those generations beside a running
   trainer (the serving hot-swap), parameters only, digest-verified.
 """
@@ -31,6 +43,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from .resilience import retry_io
 
 logger = logging.getLogger("spacy_ray_tpu_torch.training")
 
@@ -93,6 +107,153 @@ def _write_npz(path: Path, name: str, flat: Dict[str, Any]) -> str:
     return _sha256_file(path / name)
 
 
+#: the layout version of a trainer fleet's generations (absent or 1: one file)
+CHECKPOINT_FORMAT = 2
+#: the entry of a part file that holds its header, as JSON
+_PART_HEADER = "__part__"
+
+
+def opt_part_name(stamp: int, part: int, parts: int) -> str:
+    return f"opt_state-{int(stamp)}.part{int(part)}of{int(parts)}.npz"
+
+
+def opt_file_names(meta: Dict[str, Any], stamp: int) -> List[str]:
+    """The optimizer-state files a generation's meta commits to: a format-2
+    generation's parts (this package's ``.npz`` when its digests name them,
+    else the JAX package's pickles), or one file: this package's
+    ``opt_state-N.npz`` when the digests name it, else the JAX package's
+    pickle."""
+    digests = meta.get("digests") or {}
+    if int(meta.get("format", 1) or 1) >= 2:
+        parts = int(meta.get("opt_shards", 1) or 1)
+        names = [opt_part_name(stamp, k, parts) for k in range(parts)]
+        if any(n in digests for n in names):
+            return names
+        return [f"opt_state-{int(stamp)}.part{k}of{parts}.pkl" for k in range(parts)]
+    if f"opt_state-{int(stamp)}.npz" in digests:
+        return [f"opt_state-{int(stamp)}.npz"]
+    return [f"opt_state-{int(stamp)}.pkl"]
+
+
+def _commit_meta(path: Path, stamp: int, meta: Dict[str, Any]) -> None:
+    """The generation's meta first (it makes the generation loadable), the
+    pointer last, each through a tmp file and os.replace."""
+    text = json.dumps(meta, indent=2)
+    for name in (f"train_meta-{int(stamp)}.json", "train_meta.json"):
+        tmp = path / (name + ".tmp")
+        tmp.write_text(text, encoding="utf8")
+        os.replace(tmp, path / name)
+
+
+def write_fleet_opt_part(path, *, stamp: int, part: int, parts: int, n_leaves: int,
+                         records) -> str:
+    """One fleet owner's part of generation ``stamp``:
+    ``opt_state-{stamp}.part{part}of{parts}.npz``, through a tmp file and
+    os.replace. ``records`` are ``(name, index, global shape, dtype, piece)``
+    (:func:`~.fleet.ownership.opt_part_records`; ``index`` None for a whole
+    leaf). Returns the file's SHA-256 for the meta the lead commits."""
+    path = Path(path)
+    table, arrays = [], {}
+    for name, index, gshape, dtype, piece in records:
+        table.append([str(name), None if index is None else [[int(a), int(b)] for a, b in index],
+                      [int(d) for d in gshape], str(dtype)])
+        arrays[str(name)] = np.asarray(piece)
+    header = {"part": int(part), "parts": int(parts), "n_leaves": int(n_leaves),
+              "stamp": int(stamp), "records": table}
+    arrays[_PART_HEADER] = np.array(json.dumps(header))
+
+    def write() -> str:
+        path.mkdir(parents=True, exist_ok=True)
+        return _write_npz(path, opt_part_name(stamp, part, parts), arrays)
+
+    return retry_io("checkpoint-write", write)
+
+
+def assemble_opt_parts(files: List[Path], stamp: int) -> Dict[str, np.ndarray]:
+    """The one-process optimizer state (by flat name) from a format-2
+    generation's digest-verified parts, in rank order. A header that names
+    another part, count or stamp, a piece of the wrong shape, two pieces over
+    one element, and any element no part covers raise
+    :class:`CheckpointCorrupt`."""
+    slots: Dict[str, np.ndarray] = {}
+    covered: Dict[str, Optional[np.ndarray]] = {}  # None: a whole leaf
+    n_leaves: Optional[int] = None
+    for k, f in enumerate(files):
+        try:
+            with np.load(str(f), allow_pickle=False) as data:
+                header = json.loads(str(data[_PART_HEADER][()]))
+                said = (int(header["part"]), int(header["parts"]), int(header["stamp"]))
+                if said != (k, len(files), int(stamp)):
+                    raise CheckpointCorrupt(f"{f}: its header names part {said[0]} of "
+                                            f"{said[1]} at stamp {said[2]}")
+                if n_leaves is not None and int(header["n_leaves"]) != n_leaves:
+                    raise CheckpointCorrupt(f"{f}: {header['n_leaves']} leaves, part 0 "
+                                            f"says {n_leaves}")
+                n_leaves = int(header["n_leaves"])
+                for name, index, gshape, dtype in header["records"]:
+                    piece, gshape = data[name], tuple(int(d) for d in gshape)
+                    if index is None:
+                        if name in slots or piece.shape != gshape:
+                            raise CheckpointCorrupt(f"{f}: whole leaf {name!r} of shape "
+                                                    f"{piece.shape} repeated or not {gshape}")
+                        slots[name], covered[name] = np.array(piece), None
+                        continue
+                    where = tuple(slice(int(a), int(b)) for a, b in index)
+                    if name not in slots:
+                        slots[name] = np.empty(gshape, np.dtype(dtype))
+                        covered[name] = np.zeros(gshape, dtype=bool)
+                    mask = covered[name]
+                    if mask is None or slots[name].shape != gshape or mask[where].any():
+                        raise CheckpointCorrupt(f"{f}: piece {index} of {name!r} overlaps "
+                                                "another part's")
+                    slots[name][where] = piece
+                    mask[where] = True
+        except CheckpointCorrupt:
+            raise
+        except Exception as e:  # a torn zip raises many types
+            raise CheckpointCorrupt(f"corrupt opt-state part {f}: {type(e).__name__}: {e}") from e
+    holes = sorted(name for name, mask in covered.items() if mask is not None and not mask.all())
+    if n_leaves is None or len(slots) != n_leaves or holes:
+        raise CheckpointCorrupt(f"opt-state parts incomplete: {len(slots)} of "
+                                f"{n_leaves if n_leaves is not None else '?'} leaves, holes in "
+                                f"{holes[:5]}")
+    return dict(sorted(slots.items()))
+
+
+def commit_fleet_generation(path, *, params: Dict[str, Any], step: int, epoch: int,
+                            rng: str, best_score: float, best_step: int, opt_shards: int,
+                            opt_digests: Dict[int, str], extra: Optional[Dict[str, Any]] = None,
+                            keep: int = 2) -> None:
+    """The lead's half of a fleet generation, its owners' parts already on
+    disk (their digests in ``opt_digests`` by rank): the assembled params,
+    the format-2 meta naming every part's digest (``extra``'s fleet
+    membership normalised by :func:`fleet_membership_extra`), the pointer,
+    then the retention sweep. ``rng`` is the lead's seed generator state
+    (:func:`generator_state_hex`), which a one-process resume takes."""
+    path = Path(path)
+    stamp, opt_shards = int(step), int(opt_shards)
+    if sorted(int(k) for k in opt_digests) != list(range(opt_shards)):
+        raise ValueError(f"fleet generation {stamp}: digests for parts {sorted(opt_digests)}, "
+                         f"want 0..{opt_shards - 1}")
+    meta: Dict[str, Any] = {
+        "step": stamp, "epoch": int(epoch), "rng": rng or "",
+        "best_score": float(best_score), "best_step": int(best_step),
+        "extra": fleet_membership_extra(extra or {}), "stamp": stamp,
+        "format": CHECKPOINT_FORMAT, "opt_shards": opt_shards,
+    }
+
+    def write_files() -> None:
+        path.mkdir(parents=True, exist_ok=True)
+        digests = {f"params-{stamp}.npz": _write_npz(path, f"params-{stamp}.npz", params)}
+        for k, digest in sorted(opt_digests.items()):
+            digests[opt_part_name(stamp, int(k), opt_shards)] = str(digest)
+        meta["digests"] = digests
+        _commit_meta(path, stamp, meta)
+
+    retry_io("checkpoint-write", write_files)
+    _retention_sweep(path, stamp, max(int(keep), 1))
+
+
 def _gen_stamp(meta_path: Path) -> Optional[int]:
     name = meta_path.name
     if not (name.startswith("train_meta-") and name.endswith(".json")):
@@ -115,8 +276,8 @@ def _retention_sweep(path: Path, stamp: int, keep: int) -> None:
     for prefix, suffix in (("params-", ".npz"), ("opt_state-", ".npz"),
                            ("train_meta-", ".json")):
         for old in path.glob(f"{prefix}*{suffix}"):
-            try:
-                old_stamp = int(old.name[len(prefix):-len(suffix)])
+            try:  # "12", or "12.part0of2" (a fleet owner's part)
+                old_stamp = int(old.name[len(prefix):-len(suffix)].split(".", 1)[0])
             except ValueError:
                 continue
             if old_stamp not in retained:
@@ -126,8 +287,28 @@ def _retention_sweep(path: Path, stamp: int, keep: int) -> None:
             stray.unlink(missing_ok=True)
 
 
+def generator_state_hex(gen: torch.Generator) -> str:
+    """A ``torch.Generator``'s state as hex: how a fleet generation's JSON
+    keeps each worker's dropout-seed generator (ROADMAP C53)."""
+    return bytes(gen.get_state().numpy()).hex()
+
+
+def set_generator_state(gen: torch.Generator, value: Any) -> bool:
+    """Restore ``gen`` from a saved state, hex (a fleet's) or a list of byte
+    values (the one-process loop's); False when there is none."""
+    if not value:
+        return False
+    data = bytes.fromhex(value) if isinstance(value, str) else bytes(int(b) for b in value)
+    gen.set_state(torch.frombuffer(bytearray(data), dtype=torch.uint8))
+    return True
+
+
 def flatten_opt_state(state: Dict[str, Any]) -> Dict[str, np.ndarray]:
-    flat = {f"{m}/{k}": state[m][k] for m in ("mu", "nu") for k in state[m]}
+    """An optimizer state by flat name (``mu/<path>``, ``nu/<path>``,
+    ``count``, ``sched_count``), its moments copied to the host."""
+    flat = {f"{m}/{k}": (v.detach().to("cpu", copy=True).numpy()
+                         if isinstance(v, torch.Tensor) else np.array(v))
+            for m in ("mu", "nu") for k, v in state[m].items()}
     flat["count"] = np.asarray(state["count"], dtype=np.int64)
     flat["sched_count"] = np.asarray(state["sched_count"], dtype=np.int64)
     return flat
@@ -176,19 +357,23 @@ class TrainCheckpoint:
             "best_score": float(best_score), "best_step": int(best_step),
             "extra": fleet_membership_extra(extra or {}), "stamp": stamp, "digests": digests,
         }
-        text = json.dumps(meta, indent=2)
-        for name in (f"train_meta-{stamp}.json", "train_meta.json"):
-            tmp = path / (name + ".tmp")
-            tmp.write_text(text, encoding="utf8")
-            os.replace(tmp, path / name)
+        _commit_meta(path, stamp, meta)
         _retention_sweep(path, stamp, max(int(keep), 1))
 
     @staticmethod
     def _load_generation(path: Path, meta: Dict[str, Any]) -> Dict[str, Any]:
+        """One generation, every file digest-verified; a format-2 fleet
+        generation's parts assembled into the one-process optimizer state."""
         stamp = meta.get("stamp")
         if stamp is None:
             raise CheckpointCorrupt(f"{path}: a generation meta without a stamp")
-        files = [path / f"params-{int(stamp)}.npz", path / f"opt_state-{int(stamp)}.npz"]
+        fmt = int(meta.get("format", 1) or 1)
+        opt_names = opt_file_names(meta, int(stamp))
+        if any(n.endswith(".pkl") for n in opt_names):
+            raise CheckpointCorrupt(f"generation {stamp} in {path} holds the JAX package's "
+                                    f"optimizer state ({opt_names[0]}), which this package "
+                                    "does not read")
+        files = [path / f"params-{int(stamp)}.npz"] + [path / n for n in opt_names]
         digests = meta.get("digests") or {}
         for f in files:
             if not f.exists():
@@ -198,13 +383,18 @@ class TrainCheckpoint:
         try:
             return {
                 "params": load_params(files[0]),
-                "opt_state": load_params(files[1]),
+                "opt_state": (assemble_opt_parts(files[1:], int(stamp)) if fmt >= 2
+                              else load_params(files[1])),
                 "step": int(meta["step"]),
                 "epoch": int(meta["epoch"]),
                 "best_score": float(meta["best_score"]),
                 "best_step": int(meta["best_step"]),
+                "rng": meta.get("rng") or [],
+                "format": fmt,
                 "extra": meta.get("extra", {}),
             }
+        except CheckpointCorrupt:
+            raise
         except (OSError, ValueError, KeyError) as e:
             raise CheckpointCorrupt(f"corrupt checkpoint generation {stamp} in {path}: "
                                     f"{type(e).__name__}: {e}") from e

@@ -150,6 +150,9 @@ class RankedLayout:
     def key_index(self, key: str, worker: int) -> Optional[IndexT]:
         return self.base.key_index(key, self._rank_or_raise(worker))
 
+    def index_for_shape(self, shape: Sequence[int], worker: int) -> Optional[IndexT]:
+        return self.base.index_for_shape(shape, self._rank_or_raise(worker))
+
     slice_with = staticmethod(OwnershipLayout.slice_with)
 
     def owned_keys(self, worker: int) -> List[str]:

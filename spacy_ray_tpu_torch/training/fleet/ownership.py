@@ -11,6 +11,13 @@ parameter template name the same leaves, slices and layout.
 Templates are nested dicts of numpy arrays whose '/'-joined paths are the
 keys of the flat ``params.npz`` (:func:`tree_from_flat` nests such a flat
 dict). Numpy only: the fleet moves its slices through host memory.
+
+The optimizer half (:func:`opt_part_records`, :func:`local_opt_from_canonical`)
+maps an owner's optimizer state over its slices to and from the one-process
+state over the whole template, ``{"count", "sched_count", "mu/<path>",
+"nu/<path>"}`` by flat name (``training/optimizers.py``): an owner's
+checkpoint part holds its pieces of that state, and a resume or a re-shard
+carves them back out.
 """
 
 from __future__ import annotations
@@ -104,6 +111,17 @@ class OwnershipLayout:
             raise ValueError(f"unknown param leaf {key!r}")
         return self.index(ordinal, worker)
 
+    def index_for_shape(self, shape: Sequence[int], worker: int) -> Optional[IndexT]:
+        """``worker``'s slice of any leaf of ``shape`` (an optimizer moment, a
+        count) by the same rule as the parameters': None when no axis
+        shards it."""
+        axis = shard_axis(shape, self.n_workers)
+        if axis is None:
+            return None
+        span = int(shape[axis]) // self.n_workers
+        return tuple((worker * span, (worker + 1) * span) if a == axis else (0, int(d))
+                     for a, d in enumerate(shape))
+
     @staticmethod
     def slice_with(arr: np.ndarray, index: Optional[IndexT]) -> np.ndarray:
         if index is None:
@@ -165,3 +183,82 @@ class OwnershipLayout:
         text = f"n={self.n_workers}|" + "|".join(
             f"{path_key(p)}:{'x'.join(map(str, s))}" for p, s in zip(self.paths, self.shapes))
         return hashlib.sha256(text.encode("utf8")).hexdigest()[:16]
+
+
+#: one record of an owner's checkpoint part: ``(flat name, slice index or
+#: None for a whole leaf, the leaf's global shape, dtype, piece)``
+OptRecord = Tuple[str, Optional[IndexT], Tuple[int, ...], str, np.ndarray]
+_COUNTS = ("count", "sched_count")
+
+
+def canonical_opt_leaves(optimizer: Any, template: Any) -> Dict[str, Tuple[Tuple[int, ...], str]]:
+    """``{flat name: (shape, dtype)}`` of ``optimizer``'s state over
+    ``template`` (a nested or flat tree of parameters): the two counts, and
+    ``mu/<path>`` and ``nu/<path>`` when the optimizer keeps moments."""
+    leaves: Dict[str, Tuple[Tuple[int, ...], str]] = {c: ((), "int64") for c in _COUNTS}
+    if getattr(optimizer, "has_moments", True):
+        for path, leaf in iter_leaves(template):
+            shape = tuple(int(d) for d in np.shape(leaf))
+            for m in ("mu", "nu"):
+                leaves[f"{m}/{path_key(path)}"] = (shape, "float32")
+    return dict(sorted(leaves.items()))
+
+
+def opt_part_records(optimizer: Any, param_template: Any, layout: Any,
+                     local_opt: Dict[str, np.ndarray], worker: int) -> Tuple[int, List[OptRecord]]:
+    """``(n_leaves, records)`` of ``worker``'s checkpoint part: its local
+    optimizer state (over its slices, by flat name, host arrays) mapped onto
+    the state over the whole ``param_template`` (``n_leaves`` names). A sliced leaf gives
+    its owner's piece; a leaf no axis shards (the counts, a small bias's
+    moments) is written whole by the rank-0 owner only: ``worker`` itself
+    under an :class:`OwnershipLayout`, the lowest active id under a
+    :class:`~.membership.RankedLayout`."""
+    rank = worker
+    rank_of = getattr(layout, "rank_of", None)
+    if rank_of is not None:
+        rank = rank_of(worker)
+        if rank is None:
+            raise ValueError(f"worker {worker} is not in the layout's active set")
+    canonical = canonical_opt_leaves(optimizer, param_template)
+    records: List[OptRecord] = []
+    for name, piece in local_opt.items():
+        piece = np.asarray(piece)
+        if name not in canonical:
+            raise ValueError(f"local optimizer leaf {name!r} has no canonical counterpart — "
+                             "owned slice tree diverged from the param template")
+        gshape = canonical[name][0]
+        index = layout.index_for_shape(gshape, worker)
+        if index is None:
+            if rank != 0:
+                continue  # the rank-0 owner writes the whole-leaf copies
+            if piece.shape != gshape:
+                raise ValueError(f"unshardable optimizer leaf {name!r} has local shape "
+                                 f"{piece.shape}, canonical {gshape}")
+        else:
+            want = tuple(b - a for a, b in index)
+            if piece.shape != want:
+                raise ValueError(f"optimizer leaf {name!r}: local slice shape {piece.shape} "
+                                 f"!= owner-shard shape {want}")
+        records.append((name, index, gshape, str(piece.dtype), piece))
+    return len(canonical), records
+
+
+def local_opt_from_canonical(optimizer: Any, layout: Any, canonical_opt: Dict[str, Any],
+                             worker: int, slice_params: Any) -> Dict[str, np.ndarray]:
+    """The resume direction: ``worker``'s optimizer state over its slices
+    (``slice_params``, flat or nested), carved out of the state over the
+    whole model (``canonical_opt``, by flat name), as the flat numpy dict
+    :meth:`~..optimizers.Optimizer.load_opt_state` reads. Bit-identical to
+    what :func:`opt_part_records` wrote."""
+    out: Dict[str, np.ndarray] = {}
+    for name, (shape, _) in canonical_opt_leaves(optimizer, slice_params).items():
+        if name not in canonical_opt:
+            raise ValueError(f"checkpointed optimizer state has no leaf {name!r} — "
+                             "optimizer config changed since the checkpoint was written?")
+        full = np.asarray(canonical_opt[name])
+        piece = OwnershipLayout.slice_with(full, layout.index_for_shape(full.shape, worker))
+        if tuple(piece.shape) != shape:
+            raise ValueError(f"optimizer leaf {name!r}: checkpoint slice shape {piece.shape} "
+                             f"!= local shape {shape}")
+        out[name] = np.array(piece)
+    return out

@@ -18,11 +18,15 @@ version, the codecs it decodes, its delta window), ``GET /metrics``
 (counters, version and the worker's phase seconds, as JSON), ``GET
 /membership`` and ``POST /membership`` (a lead's broadcast, adopted only
 at a strictly newer epoch and queued for the worker's next step boundary),
-``POST /membership/join`` and ``POST /finalize``. ``/grad`` and ``/params``
-fence a frame stamped with another membership epoch than the live one
-(counted, ``epoch_fenced``). A body over :data:`MAX_BODY_BYTES` gets 413 and
-a counted discard. The JAX package's checkpoint, trace and alert routes
-answer 404 here.
+``POST /membership/join``, ``POST /finalize`` and ``POST /checkpoint`` (the
+lead's ``{"dir", "stamp", "epoch"}``: this owner writes its part of that
+generation through the worker's ``checkpoint_cb`` and answers with an f32
+frame of its slices whose meta holds the part's ``digest``, the ``version``
+and ``part`` it was cut at, the worker's ``step`` and ``rng``).
+``/grad``, ``/params`` and ``/checkpoint`` fence a frame stamped with
+another membership epoch than the live one (counted, ``epoch_fenced``). A
+body over :data:`MAX_BODY_BYTES` gets 413 and a counted discard. The JAX
+package's trace and alert routes answer 404 here.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 import torch
 
+from ..checkpoint import flatten_opt_state
 from ..telemetry import sanitize_json
 from .membership import Membership
 from .wire import (
@@ -307,6 +312,20 @@ class OwnerState:
                         return self.version, body, "delta"
             return self.version, self._full_encoded_locked(), "f32"
 
+    def checkpoint_parts(self, writer: Callable[[int, Any, Dict[str, np.ndarray]], Any]) -> Any:
+        """``writer(version, opt_flat, host_flat)`` under the owner's lock: no
+        apply moves the version, the moments or the slices while the part is
+        written, so the part and the slices it ships with are one cut. The
+        moments live on the device and are updated in place, so the writer
+        gets host copies taken inside the lock, by flat name
+        (:func:`~..checkpoint.flatten_opt_state`). A retired owner refuses."""
+        with self.lock:
+            if self.retired:
+                raise RuntimeError(f"fleet owner {self.worker_id} was retired by a re-shard; "
+                                   "it writes no checkpoint part")
+            return writer(self.version, flatten_opt_state(self.opt_state),
+                          dict(self._host_flat))
+
     def wait_version_above(self, stamp: int, timeout: float) -> bool:
         """Block until the version exceeds ``stamp`` (the round this worker
         pushed to was applied, or a later one); False on timeout."""
@@ -366,6 +385,7 @@ class _PeerHTTPD(ThreadingHTTPServer):
     membership_lock: threading.Lock
     pending_membership: Optional[Membership]
     join_requests: list
+    checkpoint_cb: Optional[Callable[[str, int], Dict[str, Any]]]
 
 
 class _PeerHandler(BaseHTTPRequestHandler):
@@ -504,6 +524,41 @@ class _PeerHandler(BaseHTTPRequestHandler):
                 srv.join_requests.append(joiner)
         self._reply_json(200, {"queued": True, "epoch": srv.epoch})
 
+    def _checkpoint(self) -> None:
+        """The lead asks this owner for its part of generation ``stamp`` in
+        ``dir``: 503 without a callback, 400 on a bad body, 409 at another
+        epoch (a generation is one membership's cut), 500 when the write
+        raises, else the frame of the part's meta and the owner's slices."""
+        srv = self.server
+        if srv.checkpoint_cb is None:
+            self._reply_json(503, {"error": "not_ready"})
+            return
+        body = self._body_or_413()
+        if body is None:
+            return
+        try:
+            req = json.loads(body.decode("utf8") or "{}")
+            ckpt_dir = str(req["dir"])
+            stamp = int(req["stamp"])
+            epoch = frame_epoch(req if isinstance(req, dict) else {})
+        except (WireError, ValueError, KeyError, TypeError, UnicodeDecodeError) as e:
+            self._reply_json(400, {"error": "bad_request", "message": str(e)})
+            return
+        if epoch != srv.epoch:
+            # parts written under different epochs slice differently and would
+            # assemble into garbage: the lead keeps its previous generation
+            srv.counters.inc("epoch_fenced")
+            self._reply_json(409, {"error": "epoch_fenced", "epoch": srv.epoch})
+            return
+        try:
+            result = srv.checkpoint_cb(ckpt_dir, stamp)
+        except Exception as e:  # the lead aborts the generation on it
+            logger.exception("fleet checkpoint part write failed")
+            self._reply_json(500, {"error": "checkpoint_failed", "message": str(e)})
+            return
+        self._reply_bytes(200, encode_arrays(result["meta"], result["params"]),
+                          "application/octet-stream")
+
     def do_POST(self) -> None:  # noqa: N802
         parsed = urlparse(self.path)
         srv = self.server
@@ -530,6 +585,8 @@ class _PeerHandler(BaseHTTPRequestHandler):
                 return
             accepted, version = srv.owner.submit(worker, stamp, arrays)
             self._reply_json(200, {"accepted": accepted, "version": version})
+        elif parsed.path == "/checkpoint":
+            self._checkpoint()
         elif parsed.path == "/membership":
             self._membership_broadcast()
         elif parsed.path == "/membership/join":
@@ -543,11 +600,14 @@ class _PeerHandler(BaseHTTPRequestHandler):
 
 class PeerServer:
     """One worker's peer endpoint on a daemon thread. ``phases`` returns the
-    worker's per-phase seconds for ``/metrics``."""
+    worker's per-phase seconds for ``/metrics``; ``checkpoint_cb(dir,
+    stamp)`` writes this owner's part for ``POST /checkpoint`` and returns
+    ``{"meta": ..., "params": owned slices}``."""
 
     def __init__(self, owner: OwnerState, *, worker_id: int, layout_signature: str,
                  counters: FleetCounters, host: str = "127.0.0.1", port: int = 0,
-                 phases: Optional[Callable[[], Dict[str, float]]] = None) -> None:
+                 phases: Optional[Callable[[], Dict[str, float]]] = None,
+                 checkpoint_cb: Optional[Callable[[str, int], Dict[str, Any]]] = None) -> None:
         try:
             self.httpd = _PeerHTTPD((host, int(port)), _PeerHandler)
         except OSError as e:
@@ -565,6 +625,7 @@ class PeerServer:
         self.httpd.membership_lock = threading.Lock()
         self.httpd.pending_membership = None
         self.httpd.join_requests = []
+        self.httpd.checkpoint_cb = checkpoint_cb
         self._thread: Optional[threading.Thread] = None
 
     @property

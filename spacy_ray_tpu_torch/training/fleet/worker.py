@@ -40,36 +40,42 @@ it still believes live) evicts a peer whose lease expired and that missed
 epoch and broadcasts the new membership. Each worker applies a membership
 at a step boundary only (``apply_membership``): the slices re-shard over the
 survivors (:class:`~.membership.RankedLayout`), the quorum re-resolves over
-them, the owner is rebuilt over its new slices (its moments kept when its
-slices did not change, fresh otherwise: the generations hold no optimizer
-state to carve them from), and every frame from then on carries the new
-epoch. Pulls from an unreachable owner back off (:class:`~.membership.
-PeerBackoff`). ``peer_lease_s=0`` keeps the membership the fleet started
-with.
+them, the owner is rebuilt over its new slices (its live moments kept when
+its slices did not change; otherwise its moments and counts carved from the
+last intact generation, fresh when there is none), and every frame from then
+on carries the new epoch. Pulls from an unreachable owner back off
+(:class:`~.membership.PeerBackoff`). ``peer_lease_s=0`` keeps the membership
+the fleet started with.
 
 Worker 0 logs and evaluates every ``eval_frequency`` steps and writes
 ``best-model/``. The lead (the lowest active id: worker 0 until it is
 evicted) writes ``last-model/`` from the slices it pulled (the flat
-``params.npz`` layout: either package loads them) and parameter generations
-in ``last-model/`` that ``serve --watch`` follows (the pulled slices with
-its own newest slice merged in) every ``eval_frequency`` steps; an acting
-lead other than worker 0 writes them without scores. The fleet's
-generations keep no optimizer state: ``--resume`` refuses them. As in the
-JAX package, the models hold the slices as pulled at the top of the step
-they are written in: the last round's apply reaches the final
-``last-model/`` only through the lead's own slice in its last generation.
+``params.npz`` layout: either package loads them) and, every
+``eval_frequency`` steps and at its end, commits a format-2 generation in
+``last-model/`` (``fleet_checkpoint``): it writes its own optimizer part,
+asks each peer for its part over ``POST /checkpoint`` (the owner writes it
+and answers with its slices at that cut), merges the owners' slices into
+the generation's params and commits the meta; a failed exchange aborts the
+generation (``fleet-checkpoint-aborted``) and the previous one stays. An
+acting lead other than worker 0 commits them without scores. With
+``resume`` a worker continues the newest intact generation: its params,
+step, epoch and best score, the membership it was committed under, this
+owner's version, moments and counts, and this worker's seed generator; a
+worker the generation no longer names asks to rejoin. A one-process ``train
+--resume`` continues it too. As in the JAX package, the models hold the
+slices as pulled at the top of the step they are written in.
 At a clean end the lead writes its models and posts ``/finalize``; the
 other workers keep serving its pulls and pushes until then (at most
 ``FINALIZE_WAIT_S``, or until the lead stops answering). Each worker writes
 ``fleet-worker-{k}.json``: counters, versions, its membership, the seconds
 of each phase (data, pull, grad, push, apply_wait) in all and per step, the
 wire codec's seconds a step within the push and pull phases (encoding the
-pushes, decoding and merging the pulls), its losses and its kernels' launch
-counts; the run directory gets
-``fleet-membership.jsonl``.
+pushes, decoding and merging the pulls), its losses, its kernels' launch
+counts, whether and from which step it resumed, the parts it wrote, the
+generations it committed and the wall time of its first push a peer
+accepted; the run directory gets ``fleet-membership.jsonl``.
 
-Out of this piece (ROADMAP): optimizer parts with ``--resume`` and
-restarts, the dynamics histograms and alerts.
+Out of this piece (ROADMAP): the dynamics histograms and alerts.
 """
 
 from __future__ import annotations
@@ -98,10 +104,13 @@ from ...pipeline.language import Pipeline
 from ...registry import registry
 from .. import optimizers as _optimizers
 from ..batcher import bucket_batch_size, bucket_length, shard_stream
-from ..checkpoint import TrainCheckpoint, flatten
+from ..checkpoint import (
+    CheckpointCorrupt, TrainCheckpoint, commit_fleet_generation, flatten, generator_state_hex,
+    opt_part_name, set_generator_state, write_fleet_opt_part,
+)
 from ..resilience import RetryPolicy, log_event, retry_io
 from .membership import LeaseTracker, Membership, MembershipLedger, PeerBackoff
-from .ownership import tree_from_flat
+from .ownership import local_opt_from_canonical, opt_part_records, tree_from_flat
 from .peer import FleetCounters, OwnerState, PeerServer
 from .wire import (
     GradCompressor, WireError, decode_arrays, decode_delta_frame, encode_arrays,
@@ -116,9 +125,15 @@ CODEC_PARTS = ("push_encode", "pull_decode")
 PUSH_RETRIES = 1
 #: how long a worker waits for every peer to answer ``/healthz`` at start
 PEER_WAIT_S = 120.0
+#: ... and a resumed one, which goes on without them after it: they may have
+#: finished while it was down
+REJOIN_WAIT_S = 15.0
 #: how long a worker other than the lead keeps serving for the lead's
 #: ``/finalize`` after its own last step
 FINALIZE_WAIT_S = 600.0
+#: how long the lead waits for a peer's answer to ``POST /checkpoint``: the
+#: peer writes its optimizer part before it answers
+CHECKPOINT_TIMEOUT_S = 600.0
 #: the stamp a worker has pushed to an owner before its first push
 _NEVER = -(10 ** 9)
 
@@ -193,6 +208,15 @@ def merge_pulled(layout: Any, params_host: Any, owner: int, known: int,
     return version, True
 
 
+def check_checkpoint_dir(out: Optional[Path], ckpt_dir: str) -> None:
+    """Raise unless ``ckpt_dir`` is this worker's own ``<out>/last-model``:
+    ``POST /checkpoint`` names the directory, and a request on the peer port
+    must not make a worker write anywhere else (ROADMAP C55)."""
+    if out is None or Path(ckpt_dir).resolve() != (Path(out) / "last-model").resolve():
+        raise ValueError(f"this worker writes checkpoint parts only into its own output's "
+                         f"last-model/, not {ckpt_dir!r}")
+
+
 def clip_scale(gnorm: torch.Tensor, clip: float) -> torch.Tensor:
     """``min(1, clip / max(gnorm, 1e-16))`` in float32 on gnorm's device:
     the worker-side global-norm clip of a fused optimizer (an IEEE quotient:
@@ -213,11 +237,17 @@ class SliceApply:
         self.device = device
         self._grads: Dict[str, torch.Tensor] = {}
 
-    def init(self, flat: Dict[str, np.ndarray]) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
+    def init(self, flat: Dict[str, np.ndarray], opt_flat: Optional[Dict[str, np.ndarray]] = None
+             ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
+        """The slices' tensors and their optimizer state: fresh, or from
+        ``opt_flat`` (:func:`~.ownership.local_opt_from_canonical`)."""
         params = {k: torch.tensor(np.ascontiguousarray(v, dtype=np.float32), device=self.device)
                   for k, v in flat.items()}
         self._grads = {k: torch.zeros_like(p) for k, p in params.items()}
-        return params, self.optimizer.init(params)
+        state = self.optimizer.init(params)
+        if opt_flat is not None:
+            self.optimizer.load_opt_state(state, opt_flat)
+        return params, state
 
     def __call__(self, params: Dict[str, torch.Tensor], opt_state: Dict[str, Any],
                  grads: Dict[str, np.ndarray]) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
@@ -282,6 +312,7 @@ def train_fleet_worker(
     grad_compression: str = "auto",
     param_delta_window: int = 4,
     grad_error_feedback: bool = True,
+    resume: bool = False,
 ) -> Tuple[Pipeline, Any]:
     """Run one fleet worker; returns ``(nlp, TrainResult)`` as
     :func:`~..loop.train` does (whose ``fleet=`` mode calls this), with
@@ -302,9 +333,12 @@ def train_fleet_worker(
     compressed deltas an owner keeps for pulls (0: full pulls only); both
     fall back to f32 against a peer that does not advertise them.
     ``grad_error_feedback=False`` is the ablation of the error feedback,
-    never for real runs. On the main thread, SIGTERM and SIGINT stop the
-    worker at its next step (``result.interrupted``). Runs on ``cuda``
-    unless ``device`` is ``"cpu"``."""
+    never for real runs. ``resume`` continues the newest intact generation in
+    ``<output_path>/last-model`` (the module docstring), from scratch when
+    there is none (``resume-failed``); :data:`CHECKPOINT_TIMEOUT_S` bounds
+    the lead's ``POST /checkpoint`` to each peer. On the main thread, SIGTERM and
+    SIGINT stop the worker at its next step (``result.interrupted``). Runs on
+    ``cuda`` unless ``device`` is ``"cpu"``."""
     from ..loop import (
         TrainResult, _named_params, _resolve_corpus, check_component_lists,
         default_pipeline_score_weights, resolve_training, weighted_score,
@@ -366,12 +400,51 @@ def train_fleet_worker(
     seeds = torch.Generator().manual_seed(
         int(np.random.SeedSequence([seed, worker_id]).generate_state(2, np.uint64)[0] >> 1))
 
+    out = Path(output_path) if output_path is not None else None
+    step = epoch = 0
+    best_score, best_step = -1.0, -1
+    version = 0
+    resumed_from: Optional[int] = None
+    membership = Membership(range(n_workers))
+    ckpt: Optional[Dict[str, Any]] = None
+    if resume and out is not None:
+        try:
+            ckpt = TrainCheckpoint.load(out / "last-model")
+        except CheckpointCorrupt as e:
+            log_event("resume-failed", f"--resume found no intact checkpoint generation ({e}); "
+                      "starting from scratch", worker=worker_id)
+    if ckpt is not None:
+        nlp.load_params(ckpt["params"])
+        step, epoch = int(ckpt["step"]), int(ckpt["epoch"])
+        best_score, best_step = float(ckpt["best_score"]), int(ckpt["best_step"])
+        resumed_from = step
+        fleet_extra = (ckpt.get("extra") or {}).get("fleet") or {}
+        if fleet_extra.get("active"):
+            # resume into the membership the generation was committed under
+            try:
+                ck_active = [int(a) for a in fleet_extra["active"]]
+                if not all(0 <= a < n_workers for a in ck_active):
+                    raise ValueError(f"ids {ck_active} outside [0, {n_workers})")
+                membership = Membership(ck_active, int(fleet_extra.get("epoch") or 0))
+            except (TypeError, ValueError) as e:
+                log_event("fleet-resume-membership-invalid",
+                          f"checkpoint extra.fleet.active is malformed ({e}); assuming the full "
+                          "nominal fleet at epoch 0", worker=worker_id)
+        versions = fleet_extra.get("versions") or []
+        if worker_id < len(versions) and versions[worker_id] is not None:
+            version = int(versions[worker_id])
+        rngs = fleet_extra.get("rngs") or []
+        if worker_id < len(rngs):
+            # each worker's torch.Generator state, as hex (ROADMAP C53)
+            set_generator_state(seeds, rngs[worker_id])
+        log_event("fleet-resume", f"worker {worker_id} resumed from checkpoint step {step} "
+                  f"(shard version {version})", worker=worker_id, step=step, version=version)
     # the host tree of the whole model: pulls merge into it, the model takes it
     params_host = tree_from_flat({k: p.detach().to("cpu", copy=True).numpy()
                                   for k, p in params.items()})
     host_leaves = flatten(params_host)  # the same arrays, by path: merges write into them
-    membership = Membership(range(n_workers))
     layout = membership.layout(params_host)
+    quorum = quorum_for(len(membership.active))
     # one codec a process; the codec of each push is negotiated against what
     # its peer's /healthz advertises, so an f32-only peer gets f32 frames
     wire_codec, wire_reason = resolve_grad_compression(grad_compression, dev.type)
@@ -383,38 +456,93 @@ def train_fleet_worker(
               worker=worker_id, codec=wire_codec, delta_window=param_delta_window)
     counters = FleetCounters()
     slice_apply = SliceApply(owner_opt, dev)
-    slice_params, slice_opt = slice_apply.init(layout.flat_slices(params_host, worker_id))
+    slice_flat = layout.flat_slices(params_host, worker_id)
+    opt_source, opt_step = "init", None
+    local_opt = None
+    if ckpt is not None and worker_id in membership:
+        local_opt = local_opt_from_canonical(owner_opt, layout, ckpt["opt_state"], worker_id,
+                                             slice_flat)
+        opt_source, opt_step = "checkpoint", resumed_from
+    ckpt = None  # drop the loaded full trees
+    slice_params, slice_opt = slice_apply.init(slice_flat, local_opt)
     owner = OwnerState(worker_id=worker_id, n_workers=n_workers, quorum=quorum,
                        max_staleness=max_staleness, apply_fn=slice_apply,
                        slice_params=slice_params, opt_state=slice_opt, counters=counters,
-                       delta_window=param_delta_window, delta_codec=wire_codec)
+                       version=version, delta_window=param_delta_window,
+                       delta_codec=wire_codec)
     owns_any = bool(layout.owned_keys(worker_id))
-    if not owns_any:
+    if worker_id not in membership:
+        # the generation was committed after this worker's eviction: it asks
+        # the acting lead to admit it once its peers answer; until then every
+        # frame it sends is fenced
+        log_event("fleet-resume-evicted", f"worker {worker_id} resumed into membership epoch "
+                  f"{membership.epoch} which no longer names it (active "
+                  f"{list(membership.active)}) — requesting rejoin", worker=worker_id,
+                  epoch=membership.epoch, active=list(membership.active))
+    elif not owns_any:
         log_event("fleet-worker-owns-nothing",
                   f"worker {worker_id} owns no parameter slices at n_workers={n_workers} (no "
                   "axis divisible); it pushes gradients but applies nothing",
                   worker=worker_id, n_workers=n_workers)
 
-    def owner_record(opt_source: str) -> Dict[str, Any]:
+    def owner_record(opt_source: str, opt_step: Optional[int] = None) -> Dict[str, Any]:
         """What the owner of this epoch holds, with the version and K5 count
-        it starts from (the ledger's ``owner_epochs``)."""
+        it starts from (the ledger's ``owner_epochs``); ``opt_source`` says
+        where its moments came from (``init``, ``live``, ``checkpoint`` at
+        generation ``opt_step``, ``fresh-init``)."""
         return {"epoch": membership.epoch, "active": list(membership.active),
-                "quorum": quorum, "opt_source": opt_source,
+                "quorum": quorum, "opt_source": opt_source, "opt_step": opt_step,
                 "owned_shapes": {k: list(np.shape(v)) for k, v in owner.params.items()},
                 "version_start": owner.version,
                 "k5_start": _cuda.launch_counts().get("fused_update", 0)}
 
-    owner_log = [owner_record("init")]
+    owner_log = [owner_record(opt_source, opt_step)]
     retired_apply_s = 0.0  # the apply seconds of the owners re-shards replaced
 
     phases: Dict[str, float] = {p: 0.0 for p in PHASES}
     phase_steps: Dict[str, List[float]] = {p: [] for p in PHASES}
     codec_steps: Dict[str, List[float]] = {p: [] for p in CODEC_PARTS}
     codec_now: Dict[str, float] = {p: 0.0 for p in CODEC_PARTS}
+    # the (step, seed-generator state) a checkpoint part records: the training
+    # thread's as of its last step boundary, replaced whole so that a handler
+    # thread reads one pair
+    step_cut: List[Tuple[int, str]] = [(step, generator_state_hex(seeds))]
+    swap_lock = threading.Lock()  # a re-shard's swap of membership, layout and owner
+    written_parts: List[str] = []
+
+    def checkpoint_cb(ckpt_dir: str, stamp: int) -> Dict[str, Any]:
+        """This owner's part of generation ``stamp`` (``POST /checkpoint``, or
+        the lead's own): written under the owner's lock, returned with the
+        slices of the same cut. Only into this worker's own
+        ``<output>/last-model``."""
+        check_checkpoint_dir(out, ckpt_dir)
+        with swap_lock:  # one membership's layout and owner
+            lay, member, own = layout, membership, owner
+        rank = lay.rank_of(worker_id)
+        if rank is None:
+            raise ValueError(f"worker {worker_id} is not in membership epoch {member.epoch} "
+                             "— cannot contribute a checkpoint part")
+
+        def writer(cur_version: int, opt_state: Any,
+                   host_flat: Dict[str, np.ndarray]) -> Tuple[int, str, Dict[str, np.ndarray]]:
+            n_leaves, records = opt_part_records(owner_opt, params_host, lay, opt_state,
+                                                 worker_id)
+            digest = write_fleet_opt_part(ckpt_dir, stamp=stamp, part=rank,
+                                          parts=len(member.active), n_leaves=n_leaves,
+                                          records=records)
+            return cur_version, digest, host_flat
+
+        cur_version, digest, host_flat = own.checkpoint_parts(writer)
+        written_parts.append(opt_part_name(stamp, rank, len(member.active)))
+        cut_step, cut_rng = step_cut[0]
+        return {"meta": {"digest": digest, "version": cur_version, "part": rank,
+                         "step": int(cut_step), "rng": cut_rng},
+                "params": host_flat}
+
     server = PeerServer(owner, worker_id=worker_id, layout_signature=layout.signature(),
                         counters=counters,
                         port=int(port) if port is not None else int(base_port) + worker_id,
-                        phases=lambda: dict(phases))
+                        phases=lambda: dict(phases), checkpoint_cb=checkpoint_cb)
     server.set_membership(membership, layout.signature())
     server.start()
     urls = list(peer_urls) if peer_urls is not None else [
@@ -424,6 +552,9 @@ def train_fleet_worker(
         raise ValueError(f"peer_urls names {len(urls)} workers, fleet has {n_workers}")
     clients = {w: _PeerClient(urls[w], timeout=peer_timeout)
                for w in membership.active if w != worker_id}
+    # the lead's /checkpoint exchanges: an owner answers only after its part
+    # is written, so they get clients with a deadline of their own
+    ckpt_clients: Dict[int, _PeerClient] = {}
     # what an exchange with each peer would cost as an f32 frame: the
     # _uncompressed counters' measure (the slices' shapes are fixed within
     # a membership)
@@ -444,15 +575,22 @@ def train_fleet_worker(
     known: Dict[int, int] = {w: -1 for w in clients}
     last_stamp: Dict[int, int] = {w: _NEVER for w in clients}
     stop_requested = threading.Event()
-    out = Path(output_path) if output_path is not None else None
     member_ledger = MembershipLedger(out / "fleet-membership.jsonl" if out is not None else None)
     backoff = PeerBackoff(base_s=1.0, cap_s=max(1.0, min(30.0, float(quorum_wait_s))))
 
+    drifted: set = set()  # peers seen at another membership epoch
+
     def wait_for_peers() -> None:
         """Block until every peer answers ``/healthz`` with this layout's
-        signature; a peer on another layout, or none in ``PEER_WAIT_S``,
-        raises."""
-        deadline = time.monotonic() + PEER_WAIT_S
+        signature. A peer at another membership epoch (the fleet re-sharded
+        while this worker was down) is synced after, not a failure. A cold
+        start raises when a peer runs another layout or none answers in
+        ``PEER_WAIT_S``; a resumed worker goes on after ``REJOIN_WAIT_S``
+        (its peers may have finished; what it then fails to reach is
+        counted)."""
+        rejoining = resumed_from is not None
+        wait_s = min(PEER_WAIT_S, REJOIN_WAIT_S) if rejoining else PEER_WAIT_S
+        deadline = time.monotonic() + wait_s
         pending = set(clients)
         while pending:
             for w in sorted(pending):
@@ -463,17 +601,35 @@ def train_fleet_worker(
                 if status != 200:
                     continue
                 health = json.loads(body.decode("utf8"))
+                peer_codecs[w] = health.get("codecs")  # none: it gets f32 pushes
                 sig = health.get("layout")
                 if sig != layout.signature():
+                    peer_epoch = health.get("epoch")
+                    if isinstance(peer_epoch, int) and not isinstance(peer_epoch, bool) \
+                            and peer_epoch != membership.epoch:
+                        log_event("fleet-membership-drift",
+                                  f"worker {w} is at membership epoch {peer_epoch}, we are at "
+                                  f"{membership.epoch} — syncing membership instead of failing "
+                                  "the layout check", worker=worker_id, peer=w,
+                                  peer_epoch=peer_epoch, epoch=membership.epoch)
+                        drifted.add(w)
+                        pending.discard(w)
+                        continue
                     raise RuntimeError(
                         f"fleet worker {w} runs a different parameter layout ({sig} vs "
                         f"{layout.signature()}) — all workers must resolve the same config")
-                peer_codecs[w] = health.get("codecs")  # none: it gets f32 pushes
                 pending.discard(w)
             if pending:
-                if time.monotonic() > deadline or stop_requested.is_set():
+                if stop_requested.is_set() or (time.monotonic() > deadline and not rejoining):
                     raise RuntimeError(f"fleet peers never became reachable: {sorted(pending)} "
-                                       f"(waited {PEER_WAIT_S:.0f}s)")
+                                       f"(waited {wait_s:.0f}s)")
+                if time.monotonic() > deadline:
+                    log_event("fleet-peers-unreachable",
+                              f"rejoined worker {worker_id}: peers {sorted(pending)} "
+                              f"unreachable after {wait_s:.0f}s — proceeding (they may have "
+                              "finished; lost RPCs are counted)", worker=worker_id,
+                              peers=sorted(pending))
+                    return
                 time.sleep(0.1)
 
     join_sent = [-float("inf")]
@@ -524,8 +680,10 @@ def train_fleet_worker(
         """The re-shard, at a step boundary only: retire the owner (after its
         apply in flight), fold its newest slices into ``params_host``, lay
         the slices out over ``new_m``'s active ids, rebuild the owner over
-        its new slices (its moments kept when they did not change, fresh
-        otherwise) and stamp the new epoch on what follows."""
+        its new slices (its live moments kept when they did not change;
+        otherwise moments and counts carved from the last intact generation
+        in ``last-model/``, fresh when there is none) and stamp the new
+        epoch on what follows."""
         nonlocal membership, layout, owner, owns_any, quorum, slice_apply, retired_apply_s
         old_m, old_layout, old_owner = membership, layout, owner
         was_active = worker_id in old_m
@@ -535,36 +693,53 @@ def train_fleet_worker(
             old_layout.merge_flat(params_host, worker_id, old_owner.current_flat()[1])
         old_index = {k: old_layout.key_index(k, worker_id)
                      for k in (old_layout.owned_keys(worker_id) if was_active else ())}
-        membership = new_m
-        layout = membership.layout(params_host)
-        quorum = quorum_for(len(membership.active))
-        now_active = worker_id in membership
-        owned = layout.owned_keys(worker_id)
+        new_layout = new_m.layout(params_host)
+        quorum = quorum_for(len(new_m.active))
+        now_active = worker_id in new_m
+        owned = new_layout.owned_keys(worker_id)
         changed = [k for k in owned
-                   if k not in old_index or old_index[k] != layout.key_index(k, worker_id)]
+                   if k not in old_index or old_index[k] != new_layout.key_index(k, worker_id)]
+        opt_source, opt_step, opt_error = "fresh-init", None, None
         if now_active and not changed and set(owned) == set(old_index):
             # the same slices (a peer this worker took nothing from left):
             # the live tensors and moments go on; the old owner applies no more
             slice_params, slice_opt, opt_source = old_owner.params, old_owner.opt_state, "live"
         else:
             slice_apply = SliceApply(owner_opt, dev)
-            slice_params, slice_opt = slice_apply.init(layout.flat_slices(params_host, worker_id))
-            opt_source = "fresh-init"
-            if changed:
-                log_event("fleet-opt-reinit", f"worker {worker_id}: the fleet's generations "
-                          f"keep no optimizer state — fresh moments for {len(changed)} "
-                          "re-sharded slices", worker=worker_id, epoch=membership.epoch,
-                          resharded=len(changed))
-        owner = OwnerState(worker_id=worker_id, n_workers=n_workers, quorum=quorum,
-                           max_staleness=max_staleness, apply_fn=slice_apply,
-                           slice_params=slice_params, opt_state=slice_opt, counters=counters,
-                           version=old_owner.version, delta_window=param_delta_window,
-                           delta_codec=wire_codec)
+            slice_flat = new_layout.flat_slices(params_host, worker_id)
+            local_opt, opt_error = None, "no output directory"
+            if now_active and out is not None:
+                try:
+                    ck2 = TrainCheckpoint.load(out / "last-model")
+                    local_opt = local_opt_from_canonical(owner_opt, new_layout,
+                                                         ck2["opt_state"], worker_id, slice_flat)
+                    opt_source, opt_step, opt_error = "checkpoint", int(ck2["step"]), None
+                except (CheckpointCorrupt, OSError, KeyError, ValueError, TypeError) as e:
+                    # a missing generation and a drifted optimizer or config
+                    # both end here: the cause goes into the event and the row
+                    opt_error = f"{type(e).__name__}: {e}"
+            slice_params, slice_opt = slice_apply.init(slice_flat, local_opt)
+            if local_opt is None and owned:
+                log_event("fleet-opt-reinit", f"worker {worker_id}: no intact fleet checkpoint "
+                          f"to carve adopted optimizer state from ({opt_error}) — fresh "
+                          f"moments for {len(owned)} slices, {len(changed)} of them re-sharded",
+                          worker=worker_id, epoch=new_m.epoch, resharded=len(changed),
+                          cause=opt_error)
+        new_owner = OwnerState(worker_id=worker_id, n_workers=n_workers, quorum=quorum,
+                               max_staleness=max_staleness, apply_fn=slice_apply,
+                               slice_params=slice_params, opt_state=slice_opt,
+                               counters=counters, version=old_owner.version,
+                               delta_window=param_delta_window, delta_codec=wire_codec)
+        with swap_lock:
+            membership, layout, owner = new_m, new_layout, new_owner
         server.set_owner(owner)
         server.set_membership(membership, layout.signature())
         owns_any = bool(owned)
         for w in [w for w in clients if w not in membership]:
             clients.pop(w).close()
+            gone = ckpt_clients.pop(w, None)
+            if gone is not None:
+                gone.close()
             known.pop(w, None)
             last_stamp.pop(w, None)
             peer_codecs.pop(w, None)
@@ -585,11 +760,12 @@ def train_fleet_worker(
         compressor.reset()
         if changed:
             counters.inc("shards_adopted", len(changed))
-        owner_log.append(owner_record(opt_source))
+        owner_log.append(owner_record(opt_source, opt_step))
         member_ledger.append("apply", worker=worker_id, epoch=membership.epoch,
                              active=list(membership.active), resharded=len(changed),
-                             opt_source=opt_source, quorum=quorum, version=owner.version,
-                             step=step)
+                             opt_source=opt_source, opt_step=opt_step, opt_error=opt_error,
+                             quorum=quorum,
+                             version=owner.version, step=step)
         log_event("fleet-membership-applied", f"worker {worker_id}: membership epoch "
                   f"{membership.epoch} applied (active {list(membership.active)}, "
                   f"{len(changed)} slices re-sharded, optimizer {opt_source})",
@@ -658,6 +834,15 @@ def train_fleet_worker(
                     counters.inc("wire_pull_bytes", len(body))
                     counters.inc("wire_pull_bytes_uncompressed",
                                  wire_full_bytes.get(w, len(body)) if is_delta else len(body))
+                    if v < known[w]:
+                        # a restarted owner is back at its checkpointed version:
+                        # the rounds counted against its old lineage are void,
+                        # or the staleness gate would wait for versions that
+                        # will not come
+                        last_stamp[w] = _NEVER
+                        log_event("fleet-owner-regressed", f"owner {w} regressed to version "
+                                  f"{v} (knew {known[w]}) — it restarted from its checkpoint; "
+                                  "resyncing", owner=w, version=v, known=known[w])
                     known[w] = v
                 else:
                     counters.inc("pull_failed")
@@ -691,6 +876,8 @@ def train_fleet_worker(
             for k, p in params.items():
                 p.copy_(torch.from_numpy(host_leaves[k]))
 
+    first_accepted: List[Optional[float]] = [None]  # wall time of the first push a peer took
+
     def push_grads(grads: Dict[str, Any], stamps: Dict[int, int]) -> None:
         """Each owner's slice of ``grads`` to its owner, stamped with the
         epoch, in the codec negotiated with it (error feedback per peer); a
@@ -718,8 +905,11 @@ def train_fleet_worker(
                 if status != 200:
                     raise OSError(f"peer {w} rejected grad push: HTTP {status}")
                 try:
-                    if json.loads(reply.decode("utf8")).get("fenced"):
+                    answer = json.loads(reply.decode("utf8"))
+                    if answer.get("fenced"):
                         fenced_peer.append(w)
+                    elif answer.get("accepted") and first_accepted[0] is None:
+                        first_accepted[0] = time.time()
                 except (ValueError, AttributeError):
                     pass
 
@@ -850,8 +1040,6 @@ def train_fleet_worker(
     keep = int(T.get("keep_checkpoints", 2) or 1)
 
     result = TrainResult()
-    step = epoch = 0
-    best_score, best_step = -1.0, -1
     loss_accum: Dict[str, float] = {}
     words_since_log = 0
 
@@ -875,23 +1063,66 @@ def train_fleet_worker(
         phases[name] += t1 - t0
         phase_steps[name].append(t1 - t0)
 
-    def save_generation() -> None:
-        """The lead's parameter generation in ``last-model/``: the pulled
-        slices with its own newest slice merged in; no optimizer state."""
-        if out is None or worker_id != membership.lead:
+    last_saved = [resumed_from if resumed_from is not None else -1]
+    committed: List[int] = []
+
+    def fleet_checkpoint() -> None:
+        """The lead's generation at this step: its own part, then each peer's
+        over ``POST /checkpoint`` (whose reply carries the owner's slices of
+        the same cut, merged into the generation's params), then the commit.
+        Any failed exchange aborts the generation, since a meta naming a
+        missing part would poison every later load, and the previous one
+        stays. A worker outside the membership commits nothing."""
+        if out is None or step == last_saved[0] or worker_id not in membership:
             return
-        merged = tree_from_flat({k: np.array(a) for k, a in host_leaves.items()})
-        layout.merge_flat(merged, worker_id, owner.current_flat()[1])
-        TrainCheckpoint.save(
-            out / "last-model", params=merged,
-            opt_state={"count": 0, "sched_count": 0, "mu": {}, "nu": {}}, step=step,
-            epoch=epoch, best_score=best_score, best_step=best_step, keep=keep,
+        stamp = int(step)
+        ckpt_dir = out / "last-model"
+        step_cut[0] = (step, generator_state_hex(seeds))
+        mine = checkpoint_cb(str(ckpt_dir), stamp)
+        digests = {int(mine["meta"]["part"]): str(mine["meta"]["digest"])}
+        versions: List[Optional[int]] = [None] * n_workers
+        rngs: List[Optional[str]] = [None] * n_workers
+        versions[worker_id], rngs[worker_id] = int(mine["meta"]["version"]), mine["meta"]["rng"]
+        assembled = tree_from_flat({k: np.array(a) for k, a in host_leaves.items()})
+        layout.merge_flat(assembled, worker_id, mine["params"])
+        req = json.dumps({"dir": str(ckpt_dir), "stamp": stamp,
+                          "epoch": int(membership.epoch)}).encode("utf8")
+        for w in sorted(clients):
+            try:
+                client = ckpt_clients.get(w)
+                if client is None:
+                    client = ckpt_clients[w] = _PeerClient(urls[w],
+                                                           timeout=CHECKPOINT_TIMEOUT_S)
+                status, _, body = client.request("POST", "/checkpoint", body=req,
+                                                 content_type="application/json")
+                if status != 200:
+                    raise OSError(f"peer {w} checkpoint: HTTP {status}")
+                meta_w, arrays = decode_arrays(body)
+                digests[int(meta_w["part"])] = str(meta_w["digest"])
+                versions[w], rngs[w] = int(meta_w["version"]), str(meta_w["rng"])
+                layout.merge_flat(assembled, w, arrays)
+            except (OSError, WireError, KeyError, ValueError, TypeError) as e:
+                log_event("fleet-checkpoint-aborted", f"worker {w} failed the checkpoint "
+                          f"exchange at step {stamp} ({type(e).__name__}: {e}); keeping the "
+                          "previous generation", worker=w, step=stamp)
+                return
+        if sorted(digests) != list(range(len(membership.active))):
+            log_event("fleet-checkpoint-aborted", f"the parts of step {stamp} came from ranks "
+                      f"{sorted(digests)} of {len(membership.active)}; keeping the previous "
+                      "generation", step=stamp)
+            return
+        commit_fleet_generation(
+            ckpt_dir, params=assembled, step=stamp, epoch=epoch, rng=rngs[worker_id],
+            best_score=best_score, best_step=best_step, opt_shards=len(membership.active),
+            opt_digests=digests, keep=keep,
             extra={"fleet": {"n_workers": n_workers, "quorum": quorum,
                              "max_staleness": max_staleness, "worker": worker_id,
-                             "version": owner.version, "epoch": membership.epoch,
-                             "active": list(membership.active), "opt_state": None,
+                             "epoch": membership.epoch, "active": list(membership.active),
+                             "versions": versions, "rngs": rngs,
                              "grad_compression": wire_codec,
                              "param_delta_window": param_delta_window}})
+        last_saved[0] = stamp
+        committed.append(stamp)
 
     prev_handlers: Dict[int, Any] = {}
     if threading.current_thread() is threading.main_thread():
@@ -905,6 +1136,10 @@ def train_fleet_worker(
     start_time = last_log_time = time.perf_counter()
     try:
         wait_for_peers()
+        for w in sorted(drifted):
+            refresh_membership(w)
+        if n_workers > 1 and worker_id not in membership:
+            request_join(membership)
         if member_thread is not None:
             member_thread.start()
         batch_iter = batches()
@@ -1010,11 +1245,12 @@ def train_fleet_worker(
                     best_score, best_step = score, step
                     if out is not None:
                         nlp.to_disk(out / "best-model")
-                save_generation()
+                fleet_checkpoint()
             elif worker_id == membership.lead and step % eval_frequency == 0:
                 # an acting lead other than worker 0 keeps the generations
                 # going, without scores (the dev corpus stays with worker 0)
-                save_generation()
+                fleet_checkpoint()
+            step_cut[0] = (step, generator_state_hex(seeds))
             if worker_id == 0:
                 log_step(info)
             if max_steps and step >= max_steps:
@@ -1040,10 +1276,11 @@ def train_fleet_worker(
             signal.signal(signum, prev)
         try:
             if worker_id == membership.lead and clean_exit:
-                # the models from the slices as pulled at the last step's top
-                # (the JAX package's last-model/ too), then the peers may go
+                # the last generation (the owners' slices and parts), the
+                # models from the slices as pulled at the last step's top (the
+                # JAX package's last-model/ too), then the peers may go
                 if out is not None:
-                    save_generation()
+                    fleet_checkpoint()
                     nlp.requires_grad_(False)
                     nlp.to_disk(out / "last-model")
                 for client in clients.values():
@@ -1071,6 +1308,9 @@ def train_fleet_worker(
                 "max_staleness": max_staleness, "version": owner.version,
                 "membership_epoch": membership.epoch, "active": list(membership.active),
                 "grad_compression": wire_codec, "param_delta_window": param_delta_window,
+                "resume": bool(resume), "resumed_from": resumed_from,
+                "opt_parts": list(written_parts), "generations": list(committed),
+                "first_accepted_push_at": first_accepted[0],
                 "counters": counters.snapshot(),
                 "phases": {p: round(v, 6) for p, v in phases.items()},
                 "phase_steps_s": phase_steps,
@@ -1093,7 +1333,7 @@ def train_fleet_worker(
                           **result.fleet}
                 (out / f"fleet-worker-{worker_id}.json").write_text(
                     json.dumps(ledger, indent=2), encoding="utf8")
-            for client in clients.values():
+            for client in [*clients.values(), *ckpt_clients.values()]:
                 client.close()
             server.stop()
     nlp.requires_grad_(False)

@@ -29,7 +29,13 @@ matter on one device:
   package proves identical);
 * ``best-model/`` and ``last-model/`` written with ``Pipeline.to_disk``, and
   ``last-model/`` also holding the training generations ``--resume``
-  continues from (``training/checkpoint.py``).
+  continues from (``training/checkpoint.py``), a trainer fleet's too (its
+  parts assembled into the one-process optimizer state; as in JAX it has no
+  data position, so the resumed run starts its epoch over, and it draws its
+  dropout seeds on from the fleet lead's generator);
+* SIGTERM or SIGINT (:class:`~.resilience.ShutdownCoordinator`) stops the
+  run at the next step boundary: it writes a generation there, sets
+  ``result.interrupted`` and logs ``preempted`` (the CLI exits 75).
 
 Dropout seeds come from a ``torch.Generator`` seeded with ``[training]
 seed``: one 63-bit seed per microbatch, saved with each generation, so a
@@ -60,7 +66,8 @@ from . import corpus as _corpus  # noqa: F401  (registers readers)
 from . import loggers as _loggers  # noqa: F401  (registers loggers)
 from . import optimizers as _optimizers
 from .batcher import bucket_batch_size, bucket_length
-from .checkpoint import CheckpointCorrupt, TrainCheckpoint
+from .checkpoint import CheckpointCorrupt, TrainCheckpoint, set_generator_state
+from .resilience import ShutdownCoordinator, log_event
 
 logger = logging.getLogger("spacy_ray_tpu_torch.training")
 
@@ -307,8 +314,9 @@ class TrainResult:
         #: per step, the host seconds of the annotating pass (its
         #: predictions synchronise with the card), outside the step's span
         self.annotate_seconds: List[float] = []
-        #: a fleet worker: stopped by a shutdown signal, and its ledger
+        #: stopped by a shutdown signal (at a step boundary)
         self.interrupted: bool = False
+        #: a fleet worker's ledger
         self.fleet: Optional[Dict[str, Any]] = None
 
     @property
@@ -350,17 +358,15 @@ def train(
     fleet: Optional[Dict[str, Any]] = None,
 ) -> Tuple[Pipeline, TrainResult]:
     """Train the config's pipeline on one device (``cuda`` unless the caller
-    asks for ``cpu``). Returns (pipeline, result). ``fleet`` (``worker_id``,
-    ``n_workers`` and the other keywords of
-    :func:`~.fleet.worker.train_fleet_worker`) runs this process as one
-    worker of a trainer fleet instead."""
+    asks for ``cpu``). Returns (pipeline, result). ``resume`` continues the
+    newest intact generation in ``<output_path>/last-model``: one this loop
+    wrote, or a trainer fleet's. ``fleet`` (``worker_id``, ``n_workers`` and
+    the other keywords of :func:`~.fleet.worker.train_fleet_worker`) runs
+    this process as one worker of a trainer fleet instead."""
     if fleet is not None:
-        if resume:
-            raise ValueError("--resume: the trainer fleet's generations keep no optimizer "
-                             "state in this package, so a fleet run cannot be resumed")
         from .fleet.worker import train_fleet_worker
 
-        return train_fleet_worker(config, output_path, device=device,
+        return train_fleet_worker(config, output_path, device=device, resume=resume,
                                   max_steps_override=max_steps_override,
                                   stdout_log=stdout_log, **fleet)
     config = config.interpolate()
@@ -404,28 +410,28 @@ def train(
         try:
             ckpt = TrainCheckpoint.load(last_dir)
         except CheckpointCorrupt as e:
-            logger.warning("--resume found no intact checkpoint generation (%s); "
-                           "starting from scratch", e)
+            log_event("resume-failed", f"--resume found no intact checkpoint generation ({e}); "
+                      "starting from scratch")
             ckpt = None
         if ckpt is None:
             logger.warning("--resume: %s holds no checkpoint; starting from scratch", last_dir)
-        elif (ckpt["extra"] or {}).get("fleet") is not None:
-            raise ValueError(
-                f"--resume: {last_dir} holds a trainer-fleet generation (step "
-                f"{ckpt['step']}), which keeps parameters but no optimizer state; train "
-                "from scratch, or start a model from it with [initialize] / sourcing")
         else:
             nlp.load_params(ckpt["params"])
             optimizer.load_opt_state(opt_state, ckpt["opt_state"])
             step, epoch = ckpt["step"], ckpt["epoch"]
             best_score, best_step = ckpt["best_score"], ckpt["best_step"]
-            extra = ckpt["extra"]
-            seeds.set_state(torch.tensor(extra["seed_generator"], dtype=torch.uint8))
+            extra = ckpt["extra"] or {}
+            # a fleet generation keeps no seed_generator and no data position:
+            # the lead's generator (the meta's rng) goes on, and the epoch
+            # starts over, as JAX's loop does with its rng and a missing
+            # batches_in_epoch (ROADMAP C54)
+            set_generator_state(seeds, extra.get("seed_generator") or ckpt.get("rng"))
             resume_skip = int(extra.get("batches_in_epoch", 0))
             if extra.get("corpus_epoch") is not None and hasattr(train_corpus, "_epoch"):
                 train_corpus._epoch = int(extra["corpus_epoch"])
-            logger.info("resumed from checkpoint step %d (epoch %d, best %.4f @ step %d)",
-                        step, epoch, best_score, best_step)
+            log_event("resume", f"resumed from checkpoint step {step} (epoch {epoch}, best "
+                      f"{best_score:.4f} @ step {best_step})", level=logging.INFO,
+                      step=step, epoch=epoch, fleet=extra.get("fleet") is not None)
 
     use_averages = bool(optimizer.use_averages)
     avg_params = ({k: p.detach().clone() for k, p in params.items()}
@@ -499,7 +505,14 @@ def train(
                 p.copy_(tree[k])
         return old
 
+    last_saved = [step]
+
     def save_last(group: Dict[str, Any]) -> None:
+        """The generation of the step just taken (once a step: an evaluation
+        and a preemption at one step write it once)."""
+        if step == last_saved[0]:
+            return
+        last_saved[0] = step
         TrainCheckpoint.save(
             last_dir, params=param_paths(nlp.model),  # the frozen tables too
             opt_state=opt_state, step=step, epoch=group["epoch"], best_score=best_score,
@@ -521,100 +534,112 @@ def train(
     use_events = dev.type == "cuda"
     group: Optional[Dict[str, Any]] = None
     stop = False
-    for group in groups():
-        if annotating:
-            t_ann = time.perf_counter()
+    shutdown = ShutdownCoordinator().install()
+    try:
+        for group in groups():
+            if annotating:
+                t_ann = time.perf_counter()
+                for b in group["raw"]:
+                    shells = [eg.reference.copy_shell() for eg in b]
+                    nlp.predict_docs(shells, annotate=annotating)
+                    for eg, shell in zip(b, shells):
+                        eg.predicted = shell
+                result.annotate_seconds.append(time.perf_counter() - t_ann)
+            if before_update is not None:
+                before_update(nlp, {"step": step, "epoch": group["epoch"]})
+            t_host = time.perf_counter()
+            if use_events:
+                ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+            for p in params.values():
+                if p.grad is not None:
+                    p.grad.zero_()
+            micro_losses = []
+            micro_metrics: List[Dict[str, torch.Tensor]] = []
+            n_words = 0
             for b in group["raw"]:
-                shells = [eg.reference.copy_shell() for eg in b]
-                nlp.predict_docs(shells, annotate=annotating)
-                for eg, shell in zip(b, shells):
-                    eg.predicted = shell
-            result.annotate_seconds.append(time.perf_counter() - t_ann)
-        if before_update is not None:
-            before_update(nlp, {"step": step, "epoch": group["epoch"]})
-        t_host = time.perf_counter()
-        if use_events:
-            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-            ev[0].record()
-        for p in params.values():
-            if p.grad is not None:
-                p.grad.zero_()
-        micro_losses = []
-        micro_metrics: List[Dict[str, torch.Tensor]] = []
-        n_words = 0
-        for b in group["raw"]:
-            batch = nlp.collate(b, with_targets=True, pad_batch_to=group["B_pad"],
-                                pad_len_to=group["T_pad"])
-            n_words += batch["n_words"]
-            mseed = int(torch.randint(0, 2 ** 62, (1,), generator=seeds))
-            loss, metrics = nlp.loss(batch["tokens"], batch["targets"], dropout=dropout,
-                                     seed=mseed)
-            loss.backward()
-            micro_losses.append(loss.detach())
-            micro_metrics.append(metrics)
-        grads = {}
-        for k, p in params.items():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-            grads[k] = p.grad
-        if accum > 1:
-            torch._foreach_div_(list(grads.values()), float(accum))
-        with torch.no_grad():
-            grad_norm = optimizer.update(params, grads, opt_state)
-        loss = torch.stack(micro_losses).mean()
-        metrics = {k: torch.stack([m[k] for m in micro_metrics]).mean()
-                   for k in micro_metrics[0]}
-        metrics["grad_norm"] = grad_norm
-        if use_events:
-            ev[1].record()
-            result.step_events.append(ev)
-        result.step_host_seconds.append(time.perf_counter() - t_host)
-        result.step_shapes.append((group["B_pad"], group["T_pad"]))
-        pending.append((loss, metrics))
-        step += 1
-        if use_averages:
-            avg_count += 1
-            _optimizers.average_step(list(avg_params.values()),
-                                     [p.detach() for p in params.values()], avg_count)
-        result.words_seen += n_words
-        words_since_log += n_words
+                batch = nlp.collate(b, with_targets=True, pad_batch_to=group["B_pad"],
+                                    pad_len_to=group["T_pad"])
+                n_words += batch["n_words"]
+                mseed = int(torch.randint(0, 2 ** 62, (1,), generator=seeds))
+                loss, metrics = nlp.loss(batch["tokens"], batch["targets"], dropout=dropout,
+                                         seed=mseed)
+                loss.backward()
+                micro_losses.append(loss.detach())
+                micro_metrics.append(metrics)
+            grads = {}
+            for k, p in params.items():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+                grads[k] = p.grad
+            if accum > 1:
+                torch._foreach_div_(list(grads.values()), float(accum))
+            with torch.no_grad():
+                grad_norm = optimizer.update(params, grads, opt_state)
+            loss = torch.stack(micro_losses).mean()
+            metrics = {k: torch.stack([m[k] for m in micro_metrics]).mean()
+                       for k in micro_metrics[0]}
+            metrics["grad_norm"] = grad_norm
+            if use_events:
+                ev[1].record()
+                result.step_events.append(ev)
+            result.step_host_seconds.append(time.perf_counter() - t_host)
+            result.step_shapes.append((group["B_pad"], group["T_pad"]))
+            pending.append((loss, metrics))
+            step += 1
+            if use_averages:
+                avg_count += 1
+                _optimizers.average_step(list(avg_params.values()),
+                                         [p.detach() for p in params.values()], avg_count)
+            result.words_seen += n_words
+            words_since_log += n_words
 
-        info: Optional[Dict[str, Any]] = None
-        if step % eval_frequency == 0:
-            for loss_t, m in pending:
-                record_losses(loss_t, m)
-                for key, value in result.step_head_losses[-1].items():
-                    loss_accum[key] = loss_accum.get(key, 0.0) + value
-            pending.clear()
-            backup = swap_in(avg_params) if use_averages else None
-            eval_t0 = time.perf_counter()
-            scores, eval_wps = nlp.evaluate_timed(dev_examples)
-            eval_seconds = time.perf_counter() - eval_t0
-            score = weighted_score(scores, score_weights)
-            now = time.perf_counter()
-            wps = words_since_log / max(now - last_log_time, 1e-9)
-            last_log_time, words_since_log = now, 0
-            info = {"epoch": group["epoch"], "step": step, "words": result.words_seen,
-                    "losses": dict(loss_accum), "other_scores": scores, "score": score,
-                    "wps": wps, "eval_seconds": eval_seconds, "eval_wps": eval_wps,
-                    "grad_norm": float(metrics["grad_norm"])}
-            result.history.append(info)
-            loss_accum = {}
-            if score > best_score:
-                best_score, best_step = score, step
-                if output_path is not None:
-                    nlp.to_disk(Path(output_path) / "best-model")
-            if backup is not None:
-                swap_in(backup)
-            if last_dir is not None:
-                save_last(group)
-        log_step(info)
-        if max_steps and step >= max_steps:
-            stop = True
-        if patience and best_step >= 0 and (step - best_step) >= patience:
-            stop = True
-        if stop:
-            break
+            info: Optional[Dict[str, Any]] = None
+            if step % eval_frequency == 0:
+                for loss_t, m in pending:
+                    record_losses(loss_t, m)
+                    for key, value in result.step_head_losses[-1].items():
+                        loss_accum[key] = loss_accum.get(key, 0.0) + value
+                pending.clear()
+                backup = swap_in(avg_params) if use_averages else None
+                eval_t0 = time.perf_counter()
+                scores, eval_wps = nlp.evaluate_timed(dev_examples)
+                eval_seconds = time.perf_counter() - eval_t0
+                score = weighted_score(scores, score_weights)
+                now = time.perf_counter()
+                wps = words_since_log / max(now - last_log_time, 1e-9)
+                last_log_time, words_since_log = now, 0
+                info = {"epoch": group["epoch"], "step": step, "words": result.words_seen,
+                        "losses": dict(loss_accum), "other_scores": scores, "score": score,
+                        "wps": wps, "eval_seconds": eval_seconds, "eval_wps": eval_wps,
+                        "grad_norm": float(metrics["grad_norm"])}
+                result.history.append(info)
+                loss_accum = {}
+                if score > best_score:
+                    best_score, best_step = score, step
+                    if output_path is not None:
+                        nlp.to_disk(Path(output_path) / "best-model")
+                if backup is not None:
+                    swap_in(backup)
+                if last_dir is not None:
+                    save_last(group)
+            log_step(info)
+            if max_steps and step >= max_steps:
+                stop = True
+            if patience and best_step >= 0 and (step - best_step) >= patience:
+                stop = True
+            # the preemption poll, after the step: its generation is this step's
+            if not stop and shutdown.requested:
+                if last_dir is not None:
+                    save_last(group)
+                result.interrupted = True
+                log_event("preempted", f"shutdown signal at step {step} — checkpoint written at "
+                          "the step boundary; resume with --resume", step=step)
+                stop = True
+            if stop:
+                break
+    finally:
+        shutdown.restore()
 
     for loss_t, m in pending:
         record_losses(loss_t, m)

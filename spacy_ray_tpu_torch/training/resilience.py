@@ -8,16 +8,21 @@
   gradient push);
 * :func:`terminate_with_grace`: SIGTERM, a grace period, then SIGKILL (the
   fleet coordinator's shutdown of its workers);
-* :data:`RC_PREEMPTED`: the exit code of a clean preemption.
+* :data:`RC_PREEMPTED`: the exit code of a clean preemption;
+* :class:`ShutdownCoordinator`: SIGTERM/SIGINT as a flag the training loop
+  polls at step boundaries (one process: no multi-host agreement);
+* :class:`Supervisor`: ``train --max-restarts N``, a child relaunched with
+  ``--resume`` after a nonzero exit.
 
-The rest of the JAX module (watchdog, supervisor, shutdown coordinator,
-fault plans) is not part of the port yet.
+The rest of the JAX module (the hung-step watchdog, fault plans) is not
+part of the port yet.
 """
 
 from __future__ import annotations
 
 import logging
 import random
+import signal
 import subprocess
 import threading
 import time
@@ -123,3 +128,156 @@ def terminate_with_grace(proc: "subprocess.Popen", grace_s: float = 10.0,
         return proc.wait(timeout=kill_grace_s)
     except subprocess.TimeoutExpired:  # an unkillable (D-state) child
         return None
+
+
+class ShutdownCoordinator:
+    """SIGTERM/SIGINT -> a flag the training loop polls at step boundaries,
+    so the generation a preemption writes is a consistent (params, optimizer
+    state, data position) triple. The handler only sets the flag; a second
+    SIGINT falls through to the previous handler (normally
+    KeyboardInterrupt). One process only: the JAX package's all-gather of the
+    flag across hosts is not ported."""
+
+    SIGNALS = (signal.SIGTERM, signal.SIGINT)
+
+    def __init__(self) -> None:
+        self._flag = threading.Event()
+        self._prev: Dict[int, Any] = {}
+        self._installed = False
+
+    def request(self) -> None:
+        self._flag.set()
+
+    @property
+    def requested(self) -> bool:
+        return self._flag.is_set()
+
+    def _handle(self, signum: int, frame: Any) -> None:
+        if self._flag.is_set() and signum == signal.SIGINT:
+            prev = self._prev.get(signum)
+            if callable(prev):
+                prev(signum, frame)
+                return
+            raise KeyboardInterrupt
+        self.request()
+
+    def install(self) -> "ShutdownCoordinator":
+        """Install the handlers (main thread only: elsewhere a caller can
+        still poll a flag set through :meth:`request`)."""
+        if threading.current_thread() is not threading.main_thread():
+            return self
+        for signum in self.SIGNALS:
+            try:
+                self._prev[signum] = signal.signal(signum, self._handle)
+            except (ValueError, OSError):
+                pass
+        self._installed = True
+        return self
+
+    def restore(self) -> None:
+        if not self._installed:
+            return
+        for signum, prev in self._prev.items():
+            try:
+                signal.signal(signum, prev)
+            except (ValueError, OSError):
+                pass
+        self._prev.clear()
+        self._installed = False
+
+
+def relaunch_argv(cmd: List[str], attempt: int) -> List[str]:
+    """``cmd`` for launch ``attempt`` (0 first) of a supervised child: every
+    relaunch resumes from the last intact generation."""
+    if attempt > 0 and "--resume" not in cmd:
+        return [*cmd, "--resume"]
+    return list(cmd)
+
+
+class Supervisor:
+    """``--max-restarts N``: relaunch the child after a nonzero exit.
+
+    ``build_cmd(attempt)`` gives the child's argv for launch ``attempt`` (0
+    first; :func:`relaunch_argv` appends ``--resume`` from attempt 1). A signal to the
+    supervisor (or :meth:`request_shutdown`) is relayed to the child,
+    SIGTERM then SIGKILL after ``grace_s``, and is a clean preemption
+    (:data:`RC_PREEMPTED`), never a restart. A child that exits 0 ends
+    supervision; one that keeps failing past ``max_restarts`` gives its
+    last code."""
+
+    def __init__(self, build_cmd: Callable[[int], List[str]], max_restarts: int, *,
+                 grace_s: float = 10.0, popen: Callable[..., Any] = subprocess.Popen,
+                 restart_delay_s: float = 1.0,
+                 sleep: Callable[[float], None] = time.sleep) -> None:
+        self.build_cmd = build_cmd
+        self.max_restarts = max(int(max_restarts), 0)
+        self.grace_s = float(grace_s)
+        self.popen = popen
+        self.restart_delay_s = float(restart_delay_s)
+        self.sleep = sleep
+        self.restarts_used = 0
+        self._shutdown = threading.Event()
+        self._child: Optional[Any] = None
+
+    def _escalate(self, child: Any) -> None:
+        # on a helper thread: a signal handler must not block for the grace
+        threading.Thread(target=terminate_with_grace, args=(child, self.grace_s),
+                         daemon=True, name="supervisor-escalate").start()
+
+    def _relay(self, signum: int, frame: Any) -> None:
+        self._shutdown.set()
+        child = self._child
+        if child is not None and child.poll() is None:
+            self._escalate(child)
+
+    def request_shutdown(self) -> None:
+        """What a relayed signal does, for a parent that runs several
+        supervisors on threads (the fleet coordinator): only its main thread
+        owns the signal handlers."""
+        self._relay(signal.SIGTERM, None)
+
+    def run(self) -> int:
+        prev_handlers: Dict[int, Any] = {}
+        in_main = threading.current_thread() is threading.main_thread()
+        if in_main:
+            for signum in (signal.SIGTERM, signal.SIGINT):
+                try:
+                    prev_handlers[signum] = signal.signal(signum, self._relay)
+                except (ValueError, OSError):
+                    pass
+        try:
+            attempt = 0
+            while True:
+                if self._shutdown.is_set():
+                    # a signal between children launches no fresh one
+                    return RC_PREEMPTED
+                self._child = self.popen(self.build_cmd(attempt))
+                if self._shutdown.is_set():
+                    # the signal landed during popen: the relay saw no child
+                    self._escalate(self._child)
+                rc = self._child.wait()
+                if rc == 0:
+                    return 0
+                if self._shutdown.is_set():
+                    # the child may have died on the escalated SIGKILL: the
+                    # tree's outcome is a clean preemption
+                    return RC_PREEMPTED
+                if self.restarts_used >= self.max_restarts:
+                    log_event("supervisor-giving-up", f"child exited rc={rc}; "
+                              f"{self.restarts_used} restart(s) used — giving up", rc=rc)
+                    return rc
+                self.restarts_used += 1
+                attempt += 1
+                log_event("supervisor-restart", f"child exited rc={rc} — restart "
+                          f"{self.restarts_used}/{self.max_restarts} (resuming from the last "
+                          "intact checkpoint)", rc=rc, restart=self.restarts_used)
+                if self.restart_delay_s > 0:
+                    self.sleep(self.restart_delay_s)
+        finally:
+            self._child = None
+            if in_main:
+                for signum, prev in prev_handlers.items():
+                    try:
+                        signal.signal(signum, prev)
+                    except (ValueError, OSError):
+                        pass

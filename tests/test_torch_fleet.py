@@ -423,8 +423,9 @@ def _http(port, method, path, body=None, headers=None):
 
 def test_peer_server_routes_and_a_jax_client():
     """The routes a peer calls, the 413 cap, 404 for the unported routes,
-    the membership of a server no worker has set one on, and JAX's own peer
-    client pulling from and pushing to the port."""
+    JAX's 503 for ``POST /checkpoint`` on a server without a checkpoint
+    callback, the membership of a server no worker has set one on, and
+    JAX's own peer client pulling from and pushing to the port."""
     from spacy_ray_tpu.training.fleet.worker import _PeerClient as JClient
 
     owner, _ = _owner(ppeer, 2, 0, n=2)
@@ -462,7 +463,8 @@ def test_peer_server_routes_and_a_jax_client():
         assert status == 200 and json.loads(body) == {"epoch": 0}
         for path in ("/checkpoint", "/trace", "/admin/alerts"):
             assert _http(port, "GET", path)[0] == 404
-        assert _http(port, "POST", "/checkpoint", b"{}")[0] == 404
+        status, _, body = _http(port, "POST", "/checkpoint", b"{}")
+        assert status == 503 and json.loads(body) == {"error": "not_ready"}
         status, _, body = _http(port, "GET", "/metrics")
         snap = json.loads(body)
         assert snap["phases"] == {"grad": 1.5} and snap["gauges"]["param_version"] == 1

@@ -651,7 +651,8 @@ def test_thread_fleet_evicts_a_dead_worker_and_finishes(victim, data, tagger_con
     # generation reader (the one its serving watcher uses) reads it
     meta = PCheckpoint.load(out / "last-model")
     fleet_extra = meta["extra"]["fleet"]
-    assert fleet_extra["worker"] == lead and fleet_extra["opt_state"] is None
+    assert fleet_extra["worker"] == lead and meta["format"] == 2
+    assert meta["opt_state"] and fleet_extra["versions"][victim] is None
     assert fleet_extra["epoch"] >= 1 and fleet_extra["active"] == survivors
     jgen = JCheckpoints(out / "last-model")
     stamp = jgen.latest_intact_generation(params_only=True)

@@ -1,9 +1,12 @@
 """The port's trainer fleet end to end on the CPU: two workers as threads of
 this process with real loopback HTTP, against the JAX package's
 ``train_fleet_worker`` at its parity point (f32 wire, full pulls, no
-membership) and on its int8 wire with delta pulls (the tolerance in that
-test's docstring), three int8 workers losing one, the wire's flags, and the
-``train --fleet-workers`` coordinator as processes.
+membership), on its int8 wire with delta pulls (the tolerance in that
+test's docstring) and resumed from a generation; three int8 workers losing
+one; a re-shard carving its moments from a generation; a fleet generation
+resumed by a fleet and by one process; the wire's flags; the ``train
+--fleet-workers`` coordinator as processes, with a worker SIGKILLed and
+restarted under ``--max-restarts``; and SIGTERM to a one-process run.
 
 Tolerances. Three applied rounds at S 0, quorum 2, dropout 0, from the same
 parameters (one model directory both configs source): each leaf's change
@@ -26,16 +29,30 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.request
 from pathlib import Path
+
+import re
+import shutil
 
 import numpy as np
 import pytest
 import torch
 
+import jax
+import jax.numpy as jnp
 import spacy_ray_tpu as J
+from spacy_ray_tpu.ops.fused_update import make_fused_transformation
+from spacy_ray_tpu.parallel.step import make_shard_apply
 from spacy_ray_tpu.training import corpus as jcorpus
+from spacy_ray_tpu.training import optimizers as jopt
+from spacy_ray_tpu.training.checkpoint import TrainCheckpoint as JCheckpoint
 from spacy_ray_tpu.training.checkpoint import _flatten
+from spacy_ray_tpu.training.fleet import membership as jmem
+from spacy_ray_tpu.training.fleet import ownership as jown
+from spacy_ray_tpu.training.fleet import peer as jpeer
 from spacy_ray_tpu.training.fleet import wire as jwire
+from spacy_ray_tpu.training.fleet import worker as jworker_mod
 from spacy_ray_tpu.training.fleet.worker import train_fleet_worker as j_worker
 from spacy_ray_tpu.util import write_synth_jsonl
 
@@ -43,6 +60,11 @@ import spacy_ray_tpu_torch as P
 from spacy_ray_tpu_torch.models.core import param_paths
 from spacy_ray_tpu_torch.pipeline.language import Pipeline as PPipeline
 from spacy_ray_tpu_torch.training import corpus as pcorpus
+from spacy_ray_tpu_torch.training import optimizers as popt
+from spacy_ray_tpu_torch.training.checkpoint import TrainCheckpoint as PCheckpoint
+from spacy_ray_tpu_torch.training.fleet import membership as pmem
+from spacy_ray_tpu_torch.training.fleet import ownership as pown
+from spacy_ray_tpu_torch.training.fleet import peer as ppeer
 from spacy_ray_tpu_torch.training.fleet import wire as pwire
 from spacy_ray_tpu_torch.training.fleet import worker as pworker
 from spacy_ray_tpu_torch.training.fleet.membership import read_membership_ledger
@@ -196,8 +218,6 @@ def test_three_int8_rounds_with_delta_pulls_match_the_jax_thread_fleet(
     leaf's change is held in norm: within 5e-3 of JAX's (measured <= 1.8e-3)
     and within half of what the codec itself moves it, the port's int8 run
     against its f32 run (measured 0.003-0.019)."""
-    from spacy_ray_tpu.training.fleet import worker as jworker_mod
-
     src, start = source
     wire = {"grad_compression": "int8", "param_delta_window": 4}
     served = {"port": [], "jax": []}
@@ -265,6 +285,144 @@ def test_three_int8_rounds_with_delta_pulls_match_the_jax_thread_fleet(
         assert c["wire_pull_bytes"] < c["wire_pull_bytes_uncompressed"]
 
 
+def jax_opt_flat(tree):
+    """A JAX Adam.v1 state (or an owner's) by the port's flat names:
+    ``[1].mu['a']['W']`` is ``mu/a/W``, ``[1].count`` and ``[2].count`` are
+    ``count`` and ``sched_count``."""
+    out = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        key = jax.tree_util.keystr(path)
+        m = re.fullmatch(r"\[(\d)\]\.count", key)
+        if m:
+            out[{"1": "count", "2": "sched_count"}[m.group(1)]] = np.asarray(leaf)
+            continue
+        m = re.fullmatch(r"\[1\]\.(mu|nu)((?:\['[^']*'\])+)", key)
+        assert m, key
+        out[m.group(1) + "/" + "/".join(re.findall(r"\['([^']*)'\]", m.group(2)))] = \
+            np.asarray(leaf)
+    return out
+
+
+def jax_opt_tree(tx, template, flat):
+    """``flat`` (the port's names) as ``tx``'s optax state over ``template``."""
+    struct = jax.eval_shape(tx.init, template)
+    leaves, treedef = jax.tree_util.tree_flatten_with_path(struct)
+    names = list(jax_opt_flat(jax.tree_util.tree_unflatten(
+        treedef, [np.zeros(s.shape, s.dtype) for _, s in leaves])))
+    return jax.tree_util.tree_unflatten(
+        treedef, [jnp.asarray(flat[n], dtype=s.dtype) for n, (_, s) in zip(names, leaves)])
+
+
+def settled_checkpoints(monkeypatch, want):
+    """Both packages' leads ask a peer for its part only once the peer's
+    owner has reached version ``want``: a lead cuts its generation as soon
+    as its own owner has applied the round, when the peer's may still be one
+    round behind, so without this the two packages' generations can be cut
+    at different versions."""
+    for module in (pworker, jworker_mod):
+        real = module._PeerClient.request
+
+        def request(self, method, path, *a, real=real, **kw):
+            if path == "/checkpoint":
+                deadline = time.monotonic() + JOIN_S
+                while time.monotonic() < deadline and json.loads(
+                        real(self, "GET", "/healthz")[2])["version"] < want:
+                    time.sleep(0.01)
+            return real(self, method, path, *a, **kw)
+
+        monkeypatch.setattr(module._PeerClient, "request", request)
+
+
+@pytest.fixture(scope="module")
+def resumed_fleets(data, tagger_config_text, source, tmp_path_factory):
+    """Both packages' 2-worker thread fleets at the parity point with an
+    output directory: 3 steps (the lead commits a generation at its end,
+    every owner at version 3), then 2 more resumed from a generation: the
+    port's from its own, JAX's from the port's written in JAX's format (the
+    same bits; see the test)."""
+    src, _ = source
+    with pytest.MonkeyPatch.context() as mp:
+        settled_checkpoints(mp, 3)
+        return _resumed_fleets(data, tagger_config_text, src, tmp_path_factory)
+
+
+def _resumed_fleets(data, tagger_config_text, src, tmp_path_factory):
+    port_kw = {"device": "cpu", "peer_lease_s": 0, "grad_compression": "f32",
+               "param_delta_window": 0}
+    out = tmp_path_factory.mktemp("resume_port")
+    run_thread_fleet(pworker.train_fleet_worker, _sourced(P, tagger_config_text, data, src, 3),
+                     out, 2, quorum=2, staleness=0, **port_kw)
+    pgen = PCheckpoint.load(out / "last-model")
+    port = run_thread_fleet(pworker.train_fleet_worker,
+                            _sourced(P, tagger_config_text, data, src, 5), out, 2, quorum=2,
+                            staleness=0, resume=True, **port_kw)
+    jout = tmp_path_factory.mktemp("resume_jax")
+    jcfg = _sourced(J, tagger_config_text, data, src, 3)
+    run_thread_fleet(j_worker, jcfg, jout, 2, quorum=2, staleness=0, **JAX_PARITY)
+    jgen = JCheckpoint.load(jout / "last-model")
+    # the port's generation as a JAX one: its params, and its moments as
+    # optax's Adam.v1 state under the config's optimizer
+    from_port = tmp_path_factory.mktemp("resume_jax_from_port") / "last-model"
+    template = pown.tree_from_flat(pgen["params"])
+    JCheckpoint.save(from_port, params=template,
+                     opt_state=jax_opt_tree(J.registry.resolve(
+                         jcfg.interpolate()["training"]["optimizer"]), template,
+                         pgen["opt_state"]),
+                     step=3, epoch=pgen["epoch"], rng=jgen["rng"],
+                     best_score=pgen["best_score"], best_step=pgen["best_step"],
+                     extra=jgen["extra"])
+    jax_ = run_thread_fleet(j_worker, _sourced(J, tagger_config_text, data, src, 5),
+                            from_port.parent, 2, quorum=2, staleness=0, resume=True,
+                            **JAX_PARITY)
+    return (pgen, port), (jgen, jax_)
+
+
+def test_a_resumed_thread_fleet_matches_jax_s(source, resumed_fleets):
+    """The generation each package's fleet commits after 3 rounds, and 2 more
+    rounds resumed from a generation. The assembled moments equal JAX's
+    optax moments by path within 1e-4 x each leaf's max |moment| in JAX
+    (measured <= 1.4e-6), the parameters within 1e-4 x each leaf's max
+    |change| (the tolerance of ``test_three_rounds_match_the_jax_thread_fleet``;
+    measured <= 5.2e-6), counts and versions exactly. After the resumed
+    rounds each leaf's change from the start is within that tolerance of
+    JAX's, every owner having started from its generation's version and
+    moments. JAX resumes the port's generation there, not its own: from its
+    own, the first resumed batch (the shard's first again) meets a maxout
+    near-tie that turns the two packages' float32 differences of ~2e-6 into
+    2.5e-4 of one maxout ``W``'s change (31 of its 36,864 elements,
+    measured), the C17/C48 effect, not the resume's."""
+    _, start = source
+    (pgen, port), (jgen, jax_) = resumed_fleets
+    assert pgen["step"] == jgen["step"] == 3 and pgen["format"] == 2
+    assert pgen["extra"]["fleet"]["versions"] == jgen["extra"]["fleet"]["versions"] == [3, 3]
+    assert pgen["extra"]["fleet"]["active"] == jgen["extra"]["fleet"]["active"] == [0, 1]
+    jmoments = jax_opt_flat(jgen["opt_state"])
+    assert sorted(pgen["opt_state"]) == sorted(jmoments)
+    for key, want in jmoments.items():
+        got = pgen["opt_state"][key]
+        if key in ("count", "sched_count"):
+            assert int(got) == int(want) == 3
+            continue
+        scale = np.abs(want).max()
+        assert scale > 0 and np.abs(got - want).max() <= 1e-4 * scale, key
+    jparams = {key: np.asarray(v) for key, v in _flatten(jgen["params"]).items()}
+    for key, s0 in start.items():
+        dj = jparams[key] - s0
+        assert np.abs(pgen["params"][key] - s0 - dj).max() <= 1e-4 * np.abs(dj).max(), key
+    for k in (0, 1):
+        pf, jf = port[k][1].fleet, jax_[k][1].fleet
+        assert pf["version"] == jf["version"] == 5 and port[k][1].final_step == 5
+        assert pf["resume"] and pf["resumed_from"] == 3
+        first = pf["owner_epochs"][0]
+        assert (first["opt_source"], first["opt_step"], first["version_start"]) == \
+            ("checkpoint", 3, 3)
+        pflat = {key: v.numpy() for key, v in param_paths(port[k][0].model).items()}
+        jflat = {key: np.asarray(v) for key, v in _flatten(jax_[k][0].params).items()}
+        for key, s0 in start.items():
+            dj, dp = jflat[key] - s0, pflat[key] - s0
+            assert np.abs(dp - dj).max() <= 1e-4 * np.abs(dj).max(), (k, key)
+
+
 @pytest.fixture(scope="module")
 def fleet_run(data, tagger_config_text, tmp_path_factory):
     """One 2-worker port fleet of 12 steps at S 0, quorum 2 (JAX's
@@ -315,17 +473,48 @@ def test_fleet_models_load_in_jax_and_tag_the_same(fleet_run, data):
             text = " ".join(eg.reference.words)
             assert pnlp(text).tags == jnlp(text).tags
     meta = json.loads((out / "last-model" / "train_meta.json").read_text("utf8"))
-    assert meta["step"] == 12 and meta["extra"]["fleet"]["opt_state"] is None
+    assert meta["step"] == 12 and meta["format"] == 2 and meta["opt_shards"] == 2
 
 
-def test_resume_refuses_a_fleet_generation(fleet_run, data, tagger_config_text):
-    out, _ = fleet_run
-    cfg = _config(P, tagger_config_text, data, **{"training.max_steps": 14})
-    with pytest.raises(ValueError, match="trainer-fleet generation"):
-        p_train(cfg, out, device="cpu", resume=True, stdout_log=False)
-    with pytest.raises(ValueError, match="cannot be resumed"):
-        p_train(cfg, out, device="cpu", resume=True, stdout_log=False,
-                fleet={"worker_id": 0, "n_workers": 2})
+def test_resume_continues_a_fleet_generation(fleet_run, data, tagger_config_text, tmp_path):
+    """The fleet run's last generation (step 12) holds one optimizer part per
+    owner, each written by its owner; a one-process ``train(resume=True)``
+    continues it to step 14 with the parts' moments and count, and a fleet
+    ``resume=True`` starts each owner at its version and moments."""
+    out, results = fleet_run
+    meta = json.loads((out / "last-model" / "train_meta.json").read_text("utf8"))
+    parts = [f"opt_state-12.part{k}of2.npz" for k in (0, 1)]
+    assert set(meta["digests"]) == {"params-12.npz", *parts}
+    assert [results[k][1].fleet["opt_parts"][-1] for k in (0, 1)] == parts
+    assert results[0][1].fleet["generations"] == [6, 12]
+    # the lead cuts the generation as soon as its own owner has applied the
+    # round; the peer's owner may still be one round behind (JAX's too)
+    versions = meta["extra"]["fleet"]["versions"]
+    assert versions[0] == 12 and versions[1] in (11, 12), versions
+    # each worker's seed generator as hex; the meta's own rng is the lead's,
+    # which a one-process resume takes (ROADMAP C53, C54)
+    rngs = meta["extra"]["fleet"]["rngs"]
+    assert meta["rng"] == rngs[0] != rngs[1]
+    assert all(len(bytes.fromhex(r)) == torch.Generator().get_state().numel() for r in rngs)
+    assert int(PCheckpoint.load(out / "last-model")["opt_state"]["count"]) == 12
+    one, fleet = tmp_path / "one", tmp_path / "fleet"
+    for d in (one, fleet):
+        shutil.copytree(out, d)
+    cfg = _config(P, tagger_config_text, data, **{"training.max_steps": 14,
+                                                  "training.eval_frequency": 2})
+    _, r = p_train(cfg, one, device="cpu", resume=True, stdout_log=False)
+    assert r.final_step == 14 and len(r.step_losses) == 2
+    after = PCheckpoint.load(one / "last-model")
+    assert (after["step"], after["format"], int(after["opt_state"]["count"])) == (14, 1, 14)
+    resumed = run_thread_fleet(pworker.train_fleet_worker, cfg, fleet, 2, quorum=2, staleness=0,
+                               device="cpu", resume=True)
+    for k, (_, r) in resumed.items():
+        fl = r.fleet
+        assert (fl["resumed_from"], fl["version"], r.final_step) == (12, versions[k] + 2, 14)
+        assert (fl["owner_epochs"][0]["opt_source"], fl["owner_epochs"][0]["version_start"]) \
+            == ("checkpoint", versions[k])
+    gen = PCheckpoint.load(fleet / "last-model")
+    assert (gen["step"], gen["format"], int(gen["opt_state"]["count"])) == (14, 2, 14)
 
 
 def test_peers_follow_the_lead_and_the_peer_timeout_reaches_the_clients(
@@ -352,7 +541,9 @@ def test_peers_follow_the_lead_and_the_peer_timeout_reaches_the_clients(
                                overrides={0: {"max_steps_override": 6}})
     assert results[0][1].final_step == 6
     assert results[1][1].final_step < 100, results[1][1].final_step
-    assert sorted(timeouts) == [2.5, 2.5, 37.5, 37.5]
+    # ... and the lead's /checkpoint client the CHECKPOINT_TIMEOUT_S of its own
+    assert sorted(timeouts) == [2.5, 2.5, 37.5, 37.5, pworker.CHECKPOINT_TIMEOUT_S]
+    assert pworker.CHECKPOINT_TIMEOUT_S == 600.0
 
 
 def test_fleet_worker_without_a_card_raises(data, tagger_config_text, monkeypatch):
@@ -467,6 +658,119 @@ def test_an_int8_fleet_that_loses_a_worker_resets_its_residuals_and_pulls_whole(
         before = [codec for t, port, _, epoch, codec in pulls
                   if t == name and port == peer_port and epoch == "0"]
         assert "delta" in before, before
+
+
+def test_a_reshard_carves_the_adopted_moments_from_the_generation(data, tagger_config_text,
+                                                                 tmp_path, monkeypatch):
+    """Three workers as threads (width 32, 24 steps evaluated every 8, lease
+    1 s, 2 misses, probes every 0.2 s); worker 2 raises at its 10th step,
+    once the generation of step 8 is committed. Each survivor's re-shard
+    carves its moments from that generation (``opt_source`` "checkpoint" at
+    step 8, on its owner row and its ``apply`` row) instead of starting
+    them fresh. Then, from that generation, each survivor's first apply after
+    the re-shard matches JAX's owner carved by JAX's
+    ``local_opt_from_canonical`` from the same moments, within 1e-6 x each
+    leaf's max |value| (``test_first_apply_after_a_reshard_matches_jax``'s
+    measure)."""
+    out = tmp_path / "out"
+    cfg = _config(P, tagger_config_text, data, **{"components.tok2vec.model.width": 32,
+                                                  "training.max_steps": 24,
+                                                  "training.eval_frequency": 8,
+                                                  "training.keep_checkpoints": 5})
+    real_loss, calls = PPipeline.loss, {}
+
+    def loss(self, *a, **kw):
+        me = int(threading.current_thread().name.rsplit("-", 1)[1])
+        calls[me] = calls.get(me, 0) + 1
+        if me == 2 and calls[me] == 10:
+            deadline = time.monotonic() + 60.0
+            while time.monotonic() < deadline and not (
+                    out / "last-model" / "train_meta-8.json").exists():
+                time.sleep(0.05)
+            raise Killed("worker 2 killed at its step 10")
+        if me != 2 and calls[me] >= 12:
+            deadline = time.monotonic() + 60.0
+            while time.monotonic() < deadline and not any(
+                    r.get("event") == "evict"
+                    for r in read_membership_ledger(out / "fleet-membership.jsonl")):
+                time.sleep(0.05)
+        return real_loss(self, *a, **kw)
+
+    monkeypatch.setattr(PPipeline, "loss", loss)
+    ports = _free_ports(3)
+    urls = [f"http://127.0.0.1:{p}" for p in ports]
+    results, errors = {}, {}
+
+    def run(k):
+        try:
+            results[k] = pworker.train_fleet_worker(
+                cfg, out, worker_id=k, n_workers=3, quorum=0, max_staleness=1, port=ports[k],
+                peer_urls=urls, device="cpu", stdout_log=False, quorum_wait_s=60.0,
+                peer_lease_s=1.0, lease_miss_threshold=2, lease_poll_s=0.2)
+        except Exception as e:  # the victim's, checked below
+            errors[k] = e
+
+    threads = [threading.Thread(target=run, args=(k,), name=f"fleet-carve-{k}")
+               for k in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=JOIN_S)
+    assert not [t.name for t in threads if t.is_alive()], "fleet workers wedged"
+    assert set(errors) == {2} and isinstance(errors[2], Killed), errors
+    applies = {r["worker"]: r for r in read_membership_ledger(out / "fleet-membership.jsonl")
+               if r["event"] == "apply"}
+    for k in (0, 1):
+        fleet = results[k][1].fleet
+        assert fleet["membership_epoch"] == 1 and fleet["active"] == [0, 1], fleet
+        epochs = fleet["owner_epochs"]
+        assert [(e["epoch"], e["opt_source"], e["opt_step"]) for e in epochs] == \
+            [(0, "init", None), (1, "checkpoint", 8)]
+        assert (applies[k]["opt_source"], applies[k]["opt_step"]) == ("checkpoint", 8)
+        c = fleet["counters"]
+        assert c["grad_applied"] + c["grad_discarded"] <= c["grad_received"], c
+        assert epochs[1]["applies"] > 0
+    # the first apply after the re-shard from generation 8, against JAX's
+    gen = PCheckpoint._load_generation(out / "last-model", json.loads(
+        (out / "last-model" / "train_meta-8.json").read_text("utf8")))
+    assert gen["format"] == 2 and gen["extra"]["fleet"]["active"] == [0, 1, 2]
+    template = pown.tree_from_flat(gen["params"])
+    hyper = {"learn_rate": 0.001, "beta1": 0.9, "beta2": 0.999, "grad_clip": 1.0}
+    jtx = jopt.Adam(**hyper)
+    owner_tx = jopt.OptimizerWrapper(
+        make_fused_transformation(reference_tx=jtx.tx, **{**jtx.fusable, "grad_clip": 0.0}))
+    owner_tx.applies_updates = True
+    p_owner_opt, _ = pworker.owner_optimizer(popt.Adam(**hyper))
+    after, jafter = pmem.Membership([0, 1]).layout(template), jmem.Membership([0, 1]).layout(
+        template)
+    jcanon = jax_opt_tree(owner_tx, template, gen["opt_state"])
+    rng = np.random.default_rng(11)
+    for w in (0, 1):
+        slices = after.flat_slices(template, w)
+        sa = pworker.SliceApply(p_owner_opt, torch.device("cpu"))
+        pparams, pstate = sa.init(slices, pown.local_opt_from_canonical(
+            p_owner_opt, after, gen["opt_state"], w, slices))
+        assert pstate["count"] == int(gen["opt_state"]["count"]) > 0
+        powner = ppeer.OwnerState(worker_id=w, n_workers=3, quorum=1, max_staleness=1,
+                                  apply_fn=sa, slice_params=pparams, opt_state=pstate,
+                                  counters=ppeer.FleetCounters(), version=17)
+        jslice = jafter.slice_tree(template, w)
+        jowner = jpeer.OwnerState(
+            worker_id=w, n_workers=3, quorum=1, max_staleness=1,
+            apply_fn=make_shard_apply(owner_tx, donate=False),
+            slice_params=jax.tree_util.tree_map(jnp.asarray, jslice),
+            opt_state=jown.local_opt_from_canonical(owner_tx, jafter, jcanon, w, jslice),
+            counters=jpeer.FleetCounters(), version=17)
+        for sender, stamp in ((0, 17), (1, 18), (0, 17)):
+            g = {k: rng.normal(size=v.shape).astype(np.float32) * 1e-2
+                 for k, v in pparams.items()}
+            assert powner.submit(sender, stamp, g) == jowner.submit(sender, stamp, g)
+        assert powner.version == jowner.version == 19
+        pflat, jflat = powner.current_flat()[1], jowner.current_flat()[1]
+        assert sorted(pflat) == sorted(jflat) == sorted(slices)
+        for k in jflat:
+            scale = max(np.abs(jflat[k]).max(), 1e-30)
+            assert np.abs(pflat[k] - jflat[k]).max() <= 1e-6 * scale, (w, k)
 
 
 def test_the_error_feedback_ablation_keeps_no_residual(data, tagger_config_text, monkeypatch):
@@ -666,3 +970,101 @@ def test_a_taken_base_port_fails_with_its_number(data, tagger_config_text):
         with pytest.raises(OSError, match=f"127.0.0.1:{base} .*--fleet-base-port"):
             pworker.train_fleet_worker(cfg, None, worker_id=0, n_workers=2, device="cpu",
                                        base_port=base)
+
+
+def test_cli_restarts_a_killed_worker_which_resumes_and_rejoins(cfg_path, data, tmp_path):
+    """``train --fleet-workers 2 --max-restarts 1`` at quorum 1, S 1, a
+    generation every 5 steps: worker 1 is SIGKILLed once a generation is
+    committed and its version is >= 3. Its supervisor starts it again with
+    ``--resume``; it resumes the newest generation (one committed before the
+    kill: the lead's later ones abort while it is down) and rejoins while
+    the lead steps on alone; the fleet exits 0 with one ``supervisor-restart``
+    and applied + discarded <= received on every worker."""
+    out = tmp_path / "out"
+    base = _two_free_consecutive_ports()
+    proc = subprocess.Popen(_cli(cfg_path, data, out, base, "--max-restarts", "1", "--quorum",
+                                 "1", "--max-staleness", "1", "--training.eval_frequency", "5",
+                                 steps=300), cwd=REPO, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True, env=_env())
+
+    def version_of_1():
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{base + 1}/healthz", timeout=2) as r:
+                return json.loads(r.read()).get("version")
+        except (OSError, ValueError):
+            return None
+
+    try:
+        deadline = time.monotonic() + JOIN_S
+        while time.monotonic() < deadline and not (
+                (out / "last-model" / "train_meta.json").exists()
+                and (version_of_1() or 0) >= 3):
+            time.sleep(0.1)
+        committed = PCheckpoint.generation_stamps(out / "last-model")
+        assert committed, "no generation before the kill"
+        worker_1 = next(k for k in _children(proc.pid)
+                        if Path(f"/proc/{k}/cmdline").read_bytes().split(b"\0")[-2:-1] == [b"1"])
+        os.kill(worker_1, signal.SIGKILL)
+        rc = proc.wait(timeout=150)
+        err = proc.stderr.read()
+        assert rc == 0, err[-3000:]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    assert err.count("[supervisor-restart]") == 1, err[-3000:]
+    resumed = re.findall(r"\[fleet-resume\] worker 1 resumed from checkpoint step (\d+) "
+                         r"\(shard version (\d+)\)", err)
+    assert len(resumed) == 1, err[-3000:]
+    step, version = map(int, resumed[0])
+    assert step >= committed[-1] and step % 5 == 0 and version > 0
+    ledgers = {k: json.loads((out / f"fleet-worker-{k}.json").read_text("utf8")) for k in (0, 1)}
+    assert ledgers[1]["resume"] and ledgers[1]["resumed_from"] == step
+    first = ledgers[1]["owner_epochs"][0]
+    assert (first["opt_source"], first["version_start"]) == ("checkpoint", version)
+    assert ledgers[0]["steps"] == 300 and ledgers[1]["version"] > version
+    for led in ledgers.values():
+        c = led["counters"]
+        assert c["grad_applied"] + c["grad_discarded"] <= c["grad_received"], c
+    assert ledgers[0]["counters"]["push_failed"] > 0  # the lead stepped on while it was down
+
+
+def test_sigterm_to_a_one_process_run_writes_a_generation_and_resumes_bit_exactly(
+        cfg_path, data, tmp_path, tagger_config_text):
+    """SIGTERM to a one-process ``train`` (no fleet) stops it at the next step
+    boundary with that step's generation written and exit 75 (JAX's
+    ``tests/test_checkpoint_fallback.py`` preemption drill); ``--resume``
+    continues it, and its final parameters equal, bit for bit, those of one
+    run to the same step without the stop."""
+    out = tmp_path / "out"
+    cmd = [sys.executable, "-m", "spacy_ray_tpu_torch", "train", str(cfg_path), "--device",
+           "cpu", "--output", str(out), "--paths.train", str(data / "train.jsonl"),
+           "--paths.dev", str(data / "dev.jsonl"), "--training.eval_frequency", "5"]
+    proc = subprocess.Popen(cmd + ["--training.max_steps", "100000"], cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            env=_env())
+    try:
+        deadline = time.monotonic() + JOIN_S
+        while time.monotonic() < deadline and not (out / "last-model" / "train_meta.json").exists():
+            time.sleep(0.05)
+        proc.send_signal(signal.SIGTERM)
+        stdout, stderr = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    assert proc.returncode == 75, stderr[-3000:]
+    stopped = int(re.search(r"Interrupted at step (\d+)", stdout).group(1))
+    assert "[preempted] shutdown signal at step" in stderr
+    gen = PCheckpoint.load(out / "last-model")
+    assert gen["step"] == stopped and gen["format"] == 1
+    steps = stopped + 7
+    res = subprocess.run(cmd + ["--resume", "--training.max_steps", str(steps)], cwd=REPO,
+                         capture_output=True, text=True, timeout=JOIN_S, env=_env())
+    assert res.returncode == 0 and f"Done. steps={steps}" in res.stdout, res.stderr[-3000:]
+    cfg = _config(P, tagger_config_text, data, **{"training.max_steps": steps,
+                                                  "training.eval_frequency": 5})
+    p_train(cfg, tmp_path / "straight", device="cpu", stdout_log=False)
+    with np.load(out / "last-model" / "params.npz") as a, \
+            np.load(tmp_path / "straight" / "last-model" / "params.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            assert a[k].tobytes() == b[k].tobytes(), k

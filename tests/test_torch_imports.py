@@ -98,10 +98,10 @@ def test_the_serving_modules_of_one_process_are_checked():
         "serving/multimodel/__init__", "serving/multimodel/registry",
         "serving/multimodel/admission", "serving/multimodel/residency",
         "serving/live/__init__", "serving/live/watcher", "training/resilience")} <= names
-    # the trainer fleet's core, its membership and its compressed wire are
-    # ported (its files import neither jax nor the JAX package:
-    # test_no_jax_or_jax_package_import covers every file here); the serving
-    # fleet's modules are not part of the port yet
+    # the trainer fleet's core, its membership, its compressed wire and its
+    # optimizer parts are ported (its files import neither jax nor the JAX
+    # package: test_no_jax_or_jax_package_import covers every file here); the
+    # serving fleet's modules are not part of the port yet
     assert {f"spacy_ray_tpu_torch/training/fleet/{m}.py" for m in (
         "__init__", "ownership", "wire", "peer", "worker", "coordinator",
         "membership")} <= names
@@ -125,6 +125,34 @@ def test_the_fleet_wire_quantizes_with_the_ports_own_int8_functions():
                          text=True, timeout=120, env={**os.environ, "PYTHONPATH": str(REPO)})
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "True ('f32', 'bf16', 'int8', 'delta') []"
+
+
+def test_the_fleet_resume_path_uses_the_ports_own_modules():
+    # the optimizer parts, their route, the supervisor and the shutdown
+    # coordinator come from the port's own modules, imported relatively; the
+    # coordinator and the supervisor load neither torch's card nor JAX
+    def relative(path):
+        tree = ast.parse((REPO / "spacy_ray_tpu_torch" / path).read_text(encoding="utf8"))
+        return {(node.module, a.name) for node in ast.walk(tree)
+                if isinstance(node, ast.ImportFrom) and node.level > 0 for a in node.names}
+
+    assert {("checkpoint", "commit_fleet_generation"), ("checkpoint", "write_fleet_opt_part"),
+            ("ownership", "local_opt_from_canonical"), ("ownership", "opt_part_records")} <= \
+        {((m or "").rsplit(".", 1)[-1], n) for m, n in relative("training/fleet/worker.py")}
+    assert ("resilience", "retry_io") in relative("training/checkpoint.py")
+    assert ("training.checkpoint", "opt_file_names") in relative("serving/live/watcher.py")
+    assert ("resilience", "ShutdownCoordinator") in relative("training/loop.py")
+    assert ("resilience", "Supervisor") in relative("training/fleet/coordinator.py")
+    code = ("import sys\n"
+            "import spacy_ray_tpu_torch.training.fleet.coordinator as c\n"
+            "from spacy_ray_tpu_torch.training.resilience import Supervisor\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}), 'torch.cuda' in sys.modules and "
+            "sys.modules['torch.cuda'].is_initialized())\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120, env={**os.environ, "PYTHONPATH": str(REPO)})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[] False"
 
 
 def test_serve_with_a_manifest_without_a_card_fails_instead_of_using_the_cpu(tmp_path):

@@ -102,7 +102,10 @@ Run from the root of a checkout. Phases, each printing one JSON line:
 13. cli:cnn — ``python -m spacy_ray_tpu_torch train configs/cnn.cfg`` on
               the .spacy corpus and ``evaluate`` on its best-model, as
               subprocesses on the card: the trainer of serve:watch (22.),
-              40 steps, its line emitted there.
+              40 steps, its line emitted there. Its seconds are the train
+              command's and the evaluate command's, each from its start to
+              its end, both beside serve:watch's server and serve:fleet's
+              booting replicas.
 14. train:spancat, slice:spancat — configs/spancat.cfg as written
               (tok2vec, spancat with ngram sizes 1-3 and hidden 128,
               textcat_multilabel) the same way, on 1000 span docs and 1000
@@ -239,7 +242,10 @@ Run from the root of a checkout. Phases, each printing one JSON line:
               flips, no client's generation going back, the torn stamp never
               served and logged once, every batch bit-equal to its replay on
               a fresh engine of its generation; each flip's delay from its
-              meta file, stage and flip s.
+              meta file, stage and flip s. The trainer starts beside the
+              server's warmup, and serve:fleet's three processes boot
+              beside both (two replicas warm and capture on the same card),
+              so its flips and step times are read under that load.
 
 23. train:fleet (after slice:cnn), train:fleet_async (beside the host's
               own work before the training kernels' rows: trf.cfg's and its
@@ -314,6 +320,31 @@ Run from the root of a checkout. Phases, each printing one JSON line:
               wire's defaults, which resolve to bf16 pushes and a delta
               window of 4 on the card: pushes at most 0.55 of their f32
               frames, pulls below 1.0, printed as for 23.
+
+25. serve:fleet (after serve:watch) — the serving fleet: ``python -m
+              spacy_ray_tpu_torch serve-fleet <train:cnn's best-model>
+              --replicas 2 --port 0`` as a subprocess, two replica processes
+              on the card behind the router, started beside serve:watch's
+              server and trainer (it takes 20-30 s to come up, most of it
+              importing torch in three processes); this process draws the
+              bodies and annotates their texts with the same model on the
+              CPU. 4 clients send 300 requests of 1-8 dev texts through the
+              router, 30 % repeating an answered body; replica 0 (its pid from
+              the router's roster) is SIGKILLed at the half. Then 100 fresh
+              bodies one at a time through the router and straight to replica
+              1 in turns, while replica 0 restarts. Fails unless no request
+              failed, replica 0 is back in rotation
+              within 60 s (the supervisor's restart), every cache hit (no
+              ``route`` span in the router's trace) is byte-equal to its
+              body's first answer and their count is the router's, the tags
+              agree with the CPU's on >= 0.99 of tokens, each replica's
+              ``/healthz`` counts K1 fwd launches, the router's ``/metrics``
+              counts the retries and every request sent through it, and
+              SIGTERM ends the fleet with exit 0 and no replica left; printed
+              beside the card's name and power limit: p50/p99 of the load,
+              via the router and direct, the hit rate, retries, the seconds
+              from the kill to ready, each replica's peak memory and K1
+              launches.
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -1315,6 +1346,289 @@ def phase_slice(torch, model_dir: Path, precision: str):
         server.httpd.server_close()
         del server, engine, nlp
         torch.cuda.empty_cache()
+
+
+FLEET_SERVE_CLIENTS = 4      # serve:fleet: closed-loop clients through the router
+FLEET_SERVE_REQUESTS = 300   # requests of 1-8 dev texts; replica 0 SIGKILLed at the half
+FLEET_SERVE_REPEAT = 0.3     # share of requests that repeat an answered body (cache hits)
+FLEET_SERVE_CALM = 100       # fresh bodies sent one at a time, via the router and direct in turns
+FLEET_SERVE_BACK_S = 60.0    # the killed replica must be back in rotation within this
+
+
+def fleet_request(port: int, texts, request_id: str):
+    """POST one body: (status, raw bytes, seconds); a 5xx is a status too."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/parse", data=json.dumps({"texts": texts}).encode(),
+        headers={"Content-Type": "application/json", "X-SRT-Request-Id": request_id})
+    t = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            raw, status = r.read(), r.status
+    except urllib.error.HTTPError as e:
+        raw, status = e.read(), e.code
+    return status, raw, time.perf_counter() - t
+
+
+def proc_gone(pid: int) -> bool:
+    """True when ``pid`` runs no more (absent, or a zombie)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] == "Z"
+    except FileNotFoundError:
+        return True
+
+
+def start_serve_fleet(cnn_dir: Path, device: str = "cuda") -> dict:
+    """Start ``python -m spacy_ray_tpu_torch serve-fleet <cnn_dir>
+    --replicas 2 --port 0`` (the router and two replica processes take
+    ~25 s to come up, most of it importing torch); its output is read on a
+    thread. :func:`phase_serve_fleet` drives it."""
+    import os
+
+    run = {"cnn_dir": cnn_dir, "t0": time.perf_counter(), "lines": []}
+    run["proc"] = subprocess.Popen(
+        [sys.executable, "-m", "spacy_ray_tpu_torch", "serve-fleet", str(cnn_dir),
+         "--replicas", "2", "--device", device, "--port", "0", "--max-batch", "8",
+         "--max-doc-len", "128", "--probe-interval-s", "0.2"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env={**os.environ, "PYTHONPATH": str(ROOT)}, start_new_session=True)
+
+    def read():
+        for line in run["proc"].stdout:
+            run["lines"].append(line.rstrip())
+            if line.startswith("fleet ready:"):
+                run["ready_at"] = time.perf_counter()
+
+    run["reader"] = threading.Thread(target=read, daemon=True)
+    run["reader"].start()
+    return run
+
+
+def stop_serve_fleet(run: dict) -> None:
+    """Kill the fleet's process group if it still runs (a phase failed)."""
+    import os
+    import signal
+
+    if run["proc"].poll() is None:
+        os.killpg(run["proc"].pid, signal.SIGKILL)
+        run["proc"].wait(timeout=30)
+
+
+def phase_serve_fleet(torch, run: dict, dev_path: Path, smi: str) -> dict:
+    """The serving fleet :func:`start_serve_fleet` started on train:cnn's
+    model: two replica processes on the card behind the router. The bodies
+    are drawn and the same model annotates their texts on the CPU in this
+    process while it comes up. Then ``FLEET_SERVE_CLIENTS`` clients send
+    ``FLEET_SERVE_REQUESTS`` bodies of 1-8 dev texts through the router,
+    ``FLEET_SERVE_REPEAT`` of them repeats of an answered body, and replica
+    0 (its pid from the router's roster) is SIGKILLed at the half. Then
+    ``FLEET_SERVE_CALM`` fresh bodies go one at a time through the router and
+    straight to replica 1, in turns (the router's own cost: the median of the
+    pairs' differences), while replica 0 restarts. Fails unless no request failed (no 5xx), replica 0 is
+    back in rotation, restarted by the supervisor, within
+    ``FLEET_SERVE_BACK_S``, every cache hit (a request the router's trace
+    shows no ``route`` span for) is byte-equal to its body's first answer and
+    their count is the router's ``cache_hits``, the served tags equal the
+    CPU's for >= 0.99 of tokens, every replica's ``/healthz`` counts K1 fwd
+    launches, the router's ``/metrics`` counts the retries and as many
+    requests as were sent through it, and SIGTERM ends the fleet with exit 0
+    and no replica left."""
+    import os
+    import signal
+
+    from spacy_ray_tpu_torch import Pipeline
+    from spacy_ray_tpu_torch.training.corpus import Corpus
+
+    phase = "serve:fleet"
+    t_phase = time.perf_counter()
+    cnn_dir, t0, proc, lines = run["cnn_dir"], run["t0"], run["proc"], run["lines"]
+    pids = set()
+    try:
+        # the host's work while the fleet comes up: the bodies, and the CPU's tags
+        texts = [" ".join(eg.reference.words) for eg in Corpus(dev_path)()
+                 if len(eg.reference.words) <= 100]
+        rng = random.Random(0)
+        seen, fresh = set(), []
+        while len(fresh) < FLEET_SERVE_REQUESTS + FLEET_SERVE_CALM:
+            body = tuple(rng.choice(texts) for _ in range(rng.randint(1, 8)))
+            if body not in seen:
+                seen.add(body)
+                fresh.append(list(body))
+        calm, fresh = fresh[FLEET_SERVE_REQUESTS:], fresh[:FLEET_SERVE_REQUESTS]
+        repeat = [i > 0 and rng.random() < FLEET_SERVE_REPEAT
+                  for i in range(FLEET_SERVE_REQUESTS)]
+        cpu = Pipeline.from_disk(cnn_dir, device="cpu")
+        t = time.perf_counter()
+        distinct = sorted({x for body in fresh + calm for x in body})
+        cpu_docs = [cpu.tokenizer(x) for x in distinct]
+        cpu.predict_docs(cpu_docs)
+        cpu_by_text = dict(zip(distinct, cpu_docs))
+        cpu_s = time.perf_counter() - t
+
+        def banner():
+            return [l for l in lines if l.startswith("fleet serving on http://")]
+
+        t_wait = time.perf_counter()
+        end = t_wait + 300
+        while time.perf_counter() < end and proc.poll() is None and "ready_at" not in run:
+            time.sleep(0.05)
+        if not banner() or not any(l.startswith("fleet ready: 2") for l in lines):
+            fail(f"{phase}: the fleet did not come up:\n" + "\n".join(lines[-40:]))
+        up_s, waited_s = run["ready_at"] - t0, time.perf_counter() - t_wait
+        port = int(banner()[0].split("http://", 1)[1].split()[0].rsplit(":", 1)[1])
+        roster = {r["id"]: r for r in get(port, "/metrics")[1]["replicas"]}
+        if sorted(roster) != [0, 1] or not all(r["ready"] for r in roster.values()):
+            fail(f"{phase}: roster {roster}")
+        pids = {r["pid"] for r in roster.values()}
+        victim = roster[0]["pid"]
+
+        # the load, replica 0 SIGKILLed at the half
+        bodies, answered, first = [], [], {}
+        rows, lock, slots = [], threading.Lock(), iter(range(FLEET_SERVE_REQUESTS))
+        pick = random.Random(1)
+        t_kill = []
+
+        def client():
+            while True:
+                with lock:
+                    slot = next(slots, None)
+                    if slot is None:
+                        return
+                    if repeat[slot] and answered:
+                        b = answered[pick.randrange(len(answered))]
+                    else:
+                        b = len(bodies)
+                        bodies.append(fresh[slot])
+                    if slot == FLEET_SERVE_REQUESTS // 2:
+                        os.kill(victim, signal.SIGKILL)
+                        t_kill.append(time.perf_counter())
+                status, raw, s = fleet_request(port, bodies[b], f"fleet-{slot}")
+                with lock:
+                    rows.append((slot, b, status, raw, s))
+                    if status == 200 and b not in first:
+                        first[b] = raw
+                        answered.append(b)
+
+        t_load = time.perf_counter()
+        threads = [threading.Thread(target=client) for _ in range(FLEET_SERVE_CLIENTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        load_s = time.perf_counter() - t_load
+        failed = [(slot, status, raw[:200]) for slot, _, status, raw, _ in rows if status != 200]
+        if failed:
+            fail(f"{phase}: {len(failed)} requests failed through the router: {failed[:5]}")
+
+        # the router's own cost while replica 0 restarts: each fresh body once
+        # via the router and once straight to replica 1, in turns (the order
+        # alternating), one request at a time
+        via, direct = [], []
+        for i, body in enumerate(calm):
+            for to in ((port, roster[1]["port"]) if i % 2 == 0 else (roster[1]["port"], port)):
+                status, raw, s = fleet_request(to, body, f"calm-{i}-{to}")
+                if status != 200:
+                    fail(f"{phase}: calm request {i} to port {to} answered {status}: "
+                         f"{raw[:200]}")
+                if to == port:
+                    via.append(s)
+                    rows.append((None, None, status, raw, s))
+                else:
+                    direct.append(s)
+
+        back = None
+        while back is None and time.perf_counter() - t_kill[0] < FLEET_SERVE_BACK_S:
+            r0 = {r["id"]: r for r in get(port, "/metrics")[1]["replicas"]}.get(0)
+            if r0 and r0["ready"] and r0["pid"] not in (None, victim):
+                back = (time.perf_counter() - t_kill[0], r0)
+            else:
+                time.sleep(0.1)
+        if back is None:
+            fail(f"{phase}: replica 0 not back in rotation {FLEET_SERVE_BACK_S:.0f} s after "
+                 "its SIGKILL")
+        back_s, restarted = back
+        pids.add(restarted["pid"])
+
+        _, trace = get(port, "/trace")
+        forwarded = {e["args"].get("request_id") for e in trace["traceEvents"]
+                     if e.get("name") == "route"}
+        hits = [(slot, b, raw) for slot, b, status, raw, _ in rows
+                if slot is not None and f"fleet-{slot}" not in forwarded]
+        wrong = [slot for slot, b, raw in hits if raw != first[b]]
+        _, metrics = get(port, "/metrics")
+        router, cache = metrics["router"]["counters"], metrics["cache"]
+        sent = FLEET_SERVE_REQUESTS + FLEET_SERVE_CALM
+        if wrong or len(hits) != cache["cache_hits"] or not hits:
+            fail(f"{phase}: {len(hits)} cache hits by the trace, {cache['cache_hits']} by "
+                 f"/metrics; not byte-equal to the first answer: {wrong[:5]}")
+        if router["requests"] != sent or router.get("retries", 0) < 1:
+            fail(f"{phase}: the router counted {router} for {sent} requests sent and one "
+                 "replica killed under load")
+        got, want = [], []
+        for _, _, _, raw, _ in rows:
+            docs = json.loads(raw)["docs"]
+            got.extend(docs)
+        for slot, b, *_ in rows[:len(rows) - len(calm)]:
+            want.extend(cpu_by_text[x] for x in bodies[b])
+        for body in calm:
+            want.extend(cpu_by_text[x] for x in body)
+        agree = agreement(cpu, got, want)
+        if min(agree.values()) < 0.99:
+            fail(f"{phase}: the fleet's tags agree with the CPU's only {agree}")
+        health = {}
+        for rid, r in sorted({r["id"]: r for r in metrics["replicas"]}.items()):
+            _, h = get(r["port"], "/healthz")
+            health[rid] = h
+            if not h["kernel_launches"].get("hash_embed_gather_sum"):
+                fail(f"{phase}: replica {rid} launched no K1 fwd: {h['kernel_launches']}")
+
+        t_stop = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=180)
+        stop_s = time.perf_counter() - t_stop
+        run["reader"].join(timeout=10)
+        left = [p for p in pids if not proc_gone(p)]
+        if rc != 0 or left or "fleet drained; exiting 0" not in lines:
+            fail(f"{phase}: SIGTERM gave exit {rc}, replicas left {left}:\n"
+                 + "\n".join(lines[-20:]))
+    finally:
+        stop_serve_fleet(run)
+        for p in pids:
+            try:
+                os.kill(p, signal.SIGKILL)
+            except (ProcessLookupError, PermissionError):
+                pass
+    load = sorted(s for slot, _, _, _, s in rows if slot is not None)
+    result = {
+        "phase": phase, "card": smi, "seconds": time.perf_counter() - t_phase,
+        "since_start_s": time.perf_counter() - t0, "fleet_up_s": up_s,
+        "waited_for_it_s": waited_s, "cpu_reference_s": cpu_s, "load_s": load_s, "stop_s": stop_s,
+        "requests_through_router": sent, "router_requests": router["requests"],
+        "retries": router.get("retries", 0), "routed": router.get("routed"),
+        "no_5xx": True, "cache_hits": cache["cache_hits"],
+        "cache_hit_rate": cache["cache_hits"] / (cache["cache_hits"] + cache["cache_misses"]),
+        "cache_hits_byte_equal": True,
+        "load_p50_ms": percentile(load, 0.50) * 1e3, "load_p99_ms": percentile(load, 0.99) * 1e3,
+        "via_router_p50_ms": percentile(via, 0.50) * 1e3,
+        "via_router_p99_ms": percentile(via, 0.99) * 1e3,
+        "direct_p50_ms": percentile(direct, 0.50) * 1e3,
+        "direct_p99_ms": percentile(direct, 0.99) * 1e3,
+        "router_cost_median_ms": statistics.median(a - b for a, b in zip(via, direct)) * 1e3,
+        "kill_to_ready_s": back_s, "restarts": restarted["restarts"],
+        "card_vs_cpu_agreement": agree,
+        "replicas": {str(rid): {"pid": next(r["pid"] for r in metrics["replicas"]
+                                            if r["id"] == rid),
+                                "peak_memory_bytes": h.get("peak_memory_bytes"),
+                                "k1_fwd_launches": h["kernel_launches"]["hash_embed_gather_sum"]}
+                     for rid, h in health.items()},
+        "exit": rc,
+        # the two replicas alive at the end (the restarted one's count from
+        # its restart), warmup included
+        "launches": {k: sum(h["kernel_launches"][k] for h in health.values())
+                     for k in health[0]["kernel_launches"]},
+    }
+    emit(result)
+    return result
 
 
 def phase_cli(model_dir: Path):
@@ -5842,7 +6156,7 @@ def phase_window_batching(torch, cnn_dir: Path, texts) -> dict:
     return out
 
 
-def phase_serve_watch(torch, cnn_dir: Path, corpus, cnn_step_ms) -> dict:
+def phase_serve_watch(torch, cnn_dir: Path, corpus, cnn_step_ms, beside=None) -> dict:
     """``python -m spacy_ray_tpu_torch serve <train:cnn's model> --watch
     <out>/last-model --watch-interval-s 0.5`` beside ``python -m
     spacy_ray_tpu_torch train configs/cnn.cfg`` (``WATCH_STEPS`` steps, a
@@ -5852,7 +6166,9 @@ def phase_serve_watch(torch, cnn_dir: Path, corpus, cnn_step_ms) -> dict:
     unless the trainer exits 0, the watcher flips at least twice, no client
     sees its generation go back, the torn stamp is never served and logged
     once, every request succeeds, and every batch replays bit-equal on a
-    fresh engine of its stamped generation (``replay_batches``)."""
+    fresh engine of its stamped generation (``replay_batches``). ``beside``
+    runs once the server and the trainer are started: the whole phase runs
+    beside it."""
     import os
     import signal
 
@@ -5882,8 +6198,21 @@ def phase_serve_watch(torch, cnn_dir: Path, corpus, cnn_step_ms) -> dict:
                threading.Thread(target=read, args=(serve.stderr, errors), daemon=True)]
     for th in readers:
         th.start()
-    trainer = None
+    trainer = evaluator = None
     try:
+        # the trainer comes up beside the server (each process spends its
+        # first seconds importing); its first generation lands after the
+        # server is warm, and one already there is adopted at the watcher's start
+        trainer = subprocess.Popen(
+            cli + ["train", "configs/cnn.cfg", "--output", str(out), "--paths.train",
+                   str(corpus[0]), "--paths.dev", str(corpus[1]),
+                   "--training.max_steps", str(WATCH_STEPS),
+                   "--training.eval_frequency", str(WATCH_EVERY),
+                   "--training.keep_checkpoints", str(WATCH_STEPS // WATCH_EVERY + 1)],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+        t_train = time.perf_counter()
+        if beside is not None:
+            beside()
         ready.wait(timeout=300)
         ports = [int(l.rsplit(":", 1)[1]) for l in lines if l.startswith("serving on http://")]
         if not ports or serve.poll() is not None:
@@ -5893,14 +6222,6 @@ def phase_serve_watch(torch, cnn_dir: Path, corpus, cnn_step_ms) -> dict:
 
         texts = [" ".join(eg.reference.words) for eg in Corpus(corpus[1])()
                  if len(eg.reference.words) <= 100][:24]
-        trainer = subprocess.Popen(
-            cli + ["train", "configs/cnn.cfg", "--output", str(out), "--paths.train",
-                   str(corpus[0]), "--paths.dev", str(corpus[1]),
-                   "--training.max_steps", str(WATCH_STEPS),
-                   "--training.eval_frequency", str(WATCH_EVERY),
-                   "--training.keep_checkpoints", str(WATCH_STEPS // WATCH_EVERY + 1)],
-            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
-        t_train = time.perf_counter()
         stream, seqs, lock, stop = {}, [[] for _ in range(WATCH_CLIENTS)], threading.Lock(), \
             threading.Event()
 
@@ -5922,6 +6243,21 @@ def phase_serve_watch(torch, cnn_dir: Path, corpus, cnn_step_ms) -> dict:
             th.start()
         train_out, _ = trainer.communicate(timeout=600)
         train_s, train_rc = time.perf_counter() - t_train, trainer.returncode
+        # the trained model through the evaluate command (the trainer was the
+        # train command a user runs: cli:cnn's checks), beside what follows;
+        # a thread collects it, so its seconds end where the command does
+        t_eval = time.perf_counter()
+        evaluator = subprocess.Popen(
+            cli + ["evaluate", str(out / "best-model"), str(corpus[1])], cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        evaluated = {}
+
+        def collect_evaluate():
+            evaluated["out"], evaluated["err"] = evaluator.communicate()
+            evaluated["s"] = time.perf_counter() - t_eval
+
+        eval_thread = threading.Thread(target=collect_evaluate, daemon=True)
+        eval_thread.start()
         gens = Checkpoints(ckpt).generations()
         last = max(gens) if gens else None
         end = time.perf_counter() + 10
@@ -5950,66 +6286,79 @@ def phase_serve_watch(torch, cnn_dir: Path, corpus, cnn_step_ms) -> dict:
         serve_rc = serve.wait(timeout=120)
         for th in readers:
             th.join(timeout=10)
+    except BaseException:
+        if evaluator is not None and evaluator.poll() is None:
+            evaluator.kill()
+            evaluator.wait()
+        raise
     finally:
         for proc in (serve, trainer):
             if proc is not None and proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    if train_rc != 0 or serve_rc != 0:
-        fail(f"serve:watch: trainer exited {train_rc}, server {serve_rc}:\n{train_out}")
-    failed = [rid for rid, (_, s, _) in stream.items() if s != 200]
-    served = {g for seq in seqs for g in seq}
-    backwards = [c for c, seq in enumerate(seqs)
-                 if any((b if b is not None else -1) < (a if a is not None else -1)
-                        for a, b in zip(seq, seq[1:]))]
-    skipped = [l for l in errors if "[live-generation-skipped]" in l
-               and f"generation {torn} " in l]
-    flips = snap["swap_count"]
-    if failed or backwards or torn in served or len(skipped) != 1 or flips < 2 or \
-            health["generation"] != last:
-        fail(f"serve:watch: failed {failed[:5]}, clients going back {backwards}, served "
-             f"{sorted(served, key=lambda g: g or -1)}, torn {torn} logged {len(skipped)}x, "
-             f"{flips} flips, last served {health['generation']} of {gens}")
-    batches = [tuple(e["args"]["request_ids"]) for e in trace["traceEvents"]
-               if e.get("name") == "serve_batch"
-               and e.get("args", {}).get("request_ids", [""])[0] in stream]
-    per_gen, _, fresh_s, replays = replay_batches(
-        torch, "serve:watch", stream, batches, cnn_dir, ckpt, max_batch_docs=8,
-        max_doc_len=128)
-    # each flip's wall time from its trace span and the anchor, against the
-    # generation's meta file
-    anchor = trace["anchor"]
+    try:
+        if train_rc != 0 or serve_rc != 0:
+            fail(f"serve:watch: trainer exited {train_rc}, server {serve_rc}:\n{train_out}")
+        failed = [rid for rid, (_, s, _) in stream.items() if s != 200]
+        served = {g for seq in seqs for g in seq}
+        backwards = [c for c, seq in enumerate(seqs)
+                     if any((b if b is not None else -1) < (a if a is not None else -1)
+                            for a, b in zip(seq, seq[1:]))]
+        skipped = [l for l in errors if "[live-generation-skipped]" in l
+                   and f"generation {torn} " in l]
+        flips = snap["swap_count"]
+        if failed or backwards or torn in served or len(skipped) != 1 or flips < 2 or \
+                health["generation"] != last:
+            fail(f"serve:watch: failed {failed[:5]}, clients going back {backwards}, served "
+                 f"{sorted(served, key=lambda g: g or -1)}, torn {torn} logged {len(skipped)}x, "
+                 f"{flips} flips, last served {health['generation']} of {gens}")
+        batches = [tuple(e["args"]["request_ids"]) for e in trace["traceEvents"]
+                   if e.get("name") == "serve_batch"
+                   and e.get("args", {}).get("request_ids", [""])[0] in stream]
+        per_gen, _, fresh_s, replays = replay_batches(
+            torch, "serve:watch", stream, batches, cnn_dir, ckpt, max_batch_docs=8,
+            max_doc_len=128)
+        # each flip's wall time from its trace span and the anchor, against the
+        # generation's meta file
+        anchor = trace["anchor"]
 
-    def wall(ts_us):
-        return anchor["unix_now"] - (anchor["clock_now"] - anchor["origin"] - ts_us / 1e6)
+        def wall(ts_us):
+            return anchor["unix_now"] - (anchor["clock_now"] - anchor["origin"] - ts_us / 1e6)
 
-    flips_out = []
-    for e in trace["traceEvents"]:
-        if e.get("name") == "swap_flip":
-            gen = e["args"]["generation"]
-            stage = [s for s in trace["traceEvents"] if s.get("name") == "swap_stage"
-                     and s["args"]["generation"] == gen]
-            meta_t = (ckpt / f"train_meta-{gen}.json").stat().st_mtime
-            flips_out.append({"generation": gen,
-                              "meta_to_flip_s": wall(e["ts"] + e["dur"]) - meta_t,
-                              "stage_s": stage[0]["dur"] / 1e6 if stage else None,
-                              "flip_s": e["dur"] / 1e6})
-    done = [l for l in train_out.splitlines() if l.startswith("Done.")]
-    if f"Done. steps={WATCH_STEPS}" not in train_out:
-        fail(f"cli:cnn: train printed no 'Done. steps={WATCH_STEPS}':\n{train_out}")
-    # the trained model through the evaluate command (the trainer was the
-    # train command a user runs: cli:cnn's checks)
-    t_eval = time.perf_counter()
-    evaluated = subprocess.run(cli + ["evaluate", str(out / "best-model"), str(corpus[1])],
-                               cwd=ROOT, capture_output=True, text=True, timeout=300, env=env)
-    if evaluated.returncode != 0:
-        fail(f"cli:cnn: evaluate exited {evaluated.returncode}:\n{evaluated.stderr}")
-    scores = json.loads(evaluated.stdout.strip().splitlines()[-1])
+        flips_out = []
+        for e in trace["traceEvents"]:
+            if e.get("name") == "swap_flip":
+                gen = e["args"]["generation"]
+                stage = [s for s in trace["traceEvents"] if s.get("name") == "swap_stage"
+                         and s["args"]["generation"] == gen]
+                meta_t = (ckpt / f"train_meta-{gen}.json").stat().st_mtime
+                flips_out.append({"generation": gen,
+                                  "meta_to_flip_s": wall(e["ts"] + e["dur"]) - meta_t,
+                                  "stage_s": stage[0]["dur"] / 1e6 if stage else None,
+                                  "flip_s": e["dur"] / 1e6})
+        done = [l for l in train_out.splitlines() if l.startswith("Done.")]
+        if f"Done. steps={WATCH_STEPS}" not in train_out:
+            fail(f"cli:cnn: train printed no 'Done. steps={WATCH_STEPS}':\n{train_out}")
+        eval_thread.join(timeout=300)
+        if "s" not in evaluated:
+            fail("cli:cnn: evaluate did not end within 300 s")
+        eval_out, eval_err = evaluated["out"], evaluated["err"]
+    except BaseException:
+        if evaluator is not None and evaluator.poll() is None:
+            evaluator.kill()
+            evaluator.wait()
+        raise
+    if evaluator.returncode != 0:
+        fail(f"cli:cnn: evaluate exited {evaluator.returncode}:\n{eval_err}")
+    scores = json.loads(eval_out.strip().splitlines()[-1])
     if not scores.get("tag_acc", 0) > 0.5:
         fail(f"cli:cnn: evaluate scored {scores}")
-    emit({"phase": "cli:cnn", "seconds": train_s + time.perf_counter() - t_eval,
+    # each command from its own start to its own end; both run beside
+    # serve:watch's server and serve:fleet's booting replicas on the card
+    emit({"phase": "cli:cnn", "seconds": train_s + evaluated["s"],
+          "train_s": train_s, "evaluate_s": evaluated["s"],
           "train_output": train_out.strip().splitlines()[-4:],
-          "evaluate_output": evaluated.stdout.strip().splitlines()[-3:-1],
+          "evaluate_output": eval_out.strip().splitlines()[-3:-1],
           "evaluate_tag_acc": scores["tag_acc"]})
     mtimes = [(ckpt / f"train_meta-{g}.json").stat().st_mtime for g in gens]
     result = {
@@ -6164,8 +6513,18 @@ def main() -> int:
     # then cnn served live from a training run's checkpoints
     runs["serve:multimodel"] = phase_serve_multimodel(
         torch, full_model, md_model, md_model.parent / "last-model", cnn_model, spacy_corpus[1])
-    runs["serve:watch"] = phase_serve_watch(
-        torch, cnn_model, spacy_corpus, runs["train:cnn"]["step_ms_median_events"])
+    # the serving fleet of train:cnn's model (two replica processes behind the
+    # router, one SIGKILLed under load and restarted) comes up beside serve:watch
+    fleet_serve = []
+    try:
+        runs["serve:watch"] = phase_serve_watch(
+            torch, cnn_model, spacy_corpus, runs["train:cnn"]["step_ms_median_events"],
+            beside=lambda: fleet_serve.append(start_serve_fleet(cnn_model)))
+    except BaseException:
+        for run in fleet_serve:
+            stop_serve_fleet(run)
+        raise
+    runs["serve:fleet"] = phase_serve_fleet(torch, fleet_serve[0], spacy_corpus[1], smi)
     shutil.rmtree(WORK / "train_full", ignore_errors=True)
     shutil.rmtree(WORK / "train_cnn", ignore_errors=True)
     # an entity linker added to the trained md pipeline, every md component

@@ -10,6 +10,7 @@
     python -m spacy_ray_tpu_torch evaluate <model-dir> <data.jsonl> [--device cuda|cpu]
         [--code F]
     python -m spacy_ray_tpu_torch serve <model-dir> [options]
+    python -m spacy_ray_tpu_torch serve-fleet <model-dir> [--replicas N] [options]
     python -m spacy_ray_tpu_torch init-vectors <input> <output.npz> [--truncate N]
 
 ``train`` trains the config's pipeline on one device, evaluating every
@@ -57,8 +58,16 @@ run's ``last-model/`` and hot-swaps each new intact generation;
 ``--model-manifest M`` serves the manifest's models (``/v1/models/<name>/
 parse``), its tenants' quotas and SLO classes, with ``--resident-models``
 engines warm at once (the default model pinned); ``--metrics-dir`` writes
-the trace and the last metrics snapshot at exit. Every command runs on the
-card unless ``--device cpu`` is given, and fails without one.
+the trace and the last metrics snapshot at exit.
+``serve-fleet`` runs ``--replicas`` ``serve`` processes behind one router
+(``serving/fleet/``): least-outstanding picks over the replicas whose
+``/healthz`` answers 200, retries elsewhere when one fails or drains, the
+generation-stamped response cache (``--cache-mb``), ``--length-routing``,
+crash restarts with backoff and, with ``--autoscale``, scaling between
+``--min-replicas`` and ``--max-replicas`` on the replicas' p99; SIGTERM
+drains the router and then every replica, and it exits 0 only if all were
+clean. Every command runs on the card unless ``--device cpu`` is given, and
+fails without one (``serve-fleet`` before it spawns a replica).
 ``init-vectors`` converts word2vec or GloVe text (``.gz`` too) or an
 ``.npz`` of words and vectors into the ``vectors.npz`` that ``[initialize]
 vectors`` reads (the JAX package's command: the same file, the same errors).
@@ -69,6 +78,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import sys
 from pathlib import Path
 from typing import List, Optional
@@ -92,6 +102,9 @@ USAGE = (
     " [--drain-timeout-s S] [--no-telemetry] [--swap-dir CKPT_DIR ...] [--watch CKPT_DIR]"
     " [--watch-interval-s S] [--no-warmup] [--model-manifest M] [--resident-models N]"
     " [--metrics-dir DIR]\n"
+    "       python -m spacy_ray_tpu_torch serve-fleet <model-dir> [--replicas N] [--port N]"
+    " [--device cuda|cpu] [--min-replicas N] [--max-replicas N] [--cache-mb MB]"
+    " [--length-routing] [--autoscale [--p99-target-ms MS]] [serve's replica options]\n"
     "       python -m spacy_ray_tpu_torch init-vectors <input> <output.npz> [--truncate N]"
 )
 
@@ -247,6 +260,138 @@ def serve_command(argv: List[str]) -> int:
             f.write(json.dumps(sanitize_json(
                 {"kind": "serving", "unix_time": time.time(), **snap})) + "\n")
         print(f"serving telemetry written to {args.metrics_dir}", flush=True)
+    return rc
+
+
+def serve_fleet_command(argv: List[str]) -> int:
+    """``serve-fleet``: a router over ``--replicas`` ``serve`` processes
+    (JAX ``cli.py`` ``serve_fleet_command``, less the live rollout, the
+    placement of models and the incident recorder). This process proxies,
+    probes and spawns; the replicas run the model on the card."""
+    parser = argparse.ArgumentParser(
+        prog="python -m spacy_ray_tpu_torch serve-fleet", allow_abbrev=False,
+        description="Serve a saved pipeline from N replica processes behind one "
+                    "load-balancing router (/v1/parse, /healthz, /metrics).")
+    parser.add_argument("model_path", type=Path)
+    parser.add_argument("--host", default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=8090,
+                        help="router port (0 = ephemeral; printed in the 'fleet serving on "
+                        "http://...' banner)")
+    parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                        help="cuda (default; fails without a card before spawning a "
+                        "replica) or cpu, for every replica")
+    parser.add_argument("--replicas", type=int, default=2, help="initial replica count")
+    parser.add_argument("--min-replicas", type=int, default=1)
+    parser.add_argument("--max-replicas", type=int, default=4)
+    parser.add_argument("--base-port", type=int, default=0,
+                        help="replica ports: 0 = ephemeral (read from each replica's "
+                        "banner), N = N + the replica's slot")
+    parser.add_argument("--visible-devices", type=str, default=None,
+                        help="comma-separated visible-device masks cycled per replica slot "
+                        "(set in --visible-devices-env); on one card a no-op")
+    parser.add_argument("--visible-devices-env", type=str, default="CUDA_VISIBLE_DEVICES")
+    parser.add_argument("--cpu-cores", type=str, default=None,
+                        help="--device cpu only: 'auto' (one core per replica, round-robin "
+                        "over this process's affinity) or comma-separated taskset -c masks "
+                        "cycled per replica slot")
+    parser.add_argument("--max-batch", type=int, default=None)
+    parser.add_argument("--max-wait-ms", type=float, dest="max_wait_ms", default=None)
+    parser.add_argument("--queue-size", type=int, default=None)
+    parser.add_argument("--timeout-ms", type=float, default=None)
+    parser.add_argument("--max-doc-len", type=int, default=None)
+    parser.add_argument("--batching", choices=["continuous", "window"], default=None,
+                        help="the replicas' admission (default: serve's, continuous)")
+    parser.add_argument("--precision", choices=PRECISION_CHOICES, default=None,
+                        help="the replicas' precision overlay (default: serve's, auto)")
+    parser.add_argument("--model-manifest", type=Path, default=None,
+                        help="every replica serves the manifest's models; the router "
+                        "resolves /v1/models/<name>/parse and X-SRT-Model and routes within "
+                        "the replicas hosting the model")
+    parser.add_argument("--resident-models", type=int, default=None,
+                        help="multi-model only: each replica's warmed engines")
+    parser.add_argument("--cache-mb", type=float, default=32.0,
+                        help="the router's response cache in MB, keyed by the texts and "
+                        "stamped with the serving generation (0 = off)")
+    parser.add_argument("--probe-interval-s", type=float, default=0.5,
+                        help="how often the router probes each replica's /healthz")
+    parser.add_argument("--length-routing", action="store_true",
+                        help="steer requests of one length bucket to one replica (within the "
+                        "least-outstanding candidates) so batches pad less")
+    parser.add_argument("--autoscale", action="store_true",
+                        help="scale between --min/--max-replicas on the replicas' p99 against "
+                        "--p99-target-ms and their queues")
+    parser.add_argument("--p99-target-ms", type=float, default=500.0)
+    parser.add_argument("--autoscale-interval-s", type=float, default=2.0)
+    parser.add_argument("--up-consecutive", type=int, default=3,
+                        help="breaching observations required to scale up")
+    parser.add_argument("--down-consecutive", type=int, default=10,
+                        help="idle observations required to scale down")
+    parser.add_argument("--cooldown-s", type=float, default=30.0,
+                        help="minimum seconds between scaling decisions")
+    parser.add_argument("--drain-timeout-s", type=float, default=60.0,
+                        help="the router's wait for its in-flight requests at shutdown")
+    parser.add_argument("--ready-timeout-s", type=float, default=300.0)
+    parser.add_argument("--no-telemetry", action="store_true",
+                        help="no router or replica telemetry")
+    parser.add_argument("--verbose", "-V", action="store_true")
+    args = parser.parse_args(argv)
+
+    logging.basicConfig(level=logging.DEBUG if args.verbose else logging.ERROR)
+    for name in ("spacy_ray_tpu_torch.training", "spacy_ray_tpu_torch.serving"):
+        logging.getLogger(name).setLevel(logging.INFO if args.verbose else logging.WARNING)
+    if args.min_replicas < 1 or args.replicas < 1:
+        print("--replicas/--min-replicas must be >= 1", file=sys.stderr)
+        return 2
+    if not (args.min_replicas <= args.replicas <= args.max_replicas):
+        print(f"--replicas {args.replicas} must lie within --min-replicas "
+              f"{args.min_replicas} .. --max-replicas {args.max_replicas}", file=sys.stderr)
+        return 2
+    if args.autoscale and args.model_manifest is not None:
+        # JAX's fleet also moves models between replicas as it scales; the
+        # port has no placement yet
+        print("--autoscale with --model-manifest needs the placement of models across "
+              "replicas, which this port does not have yet", file=sys.stderr)
+        return 2
+    if args.cpu_cores and args.device != "cpu":
+        print("--cpu-cores pins CPU replicas and needs --device cpu", file=sys.stderr)
+        return 2
+
+    from .serving.fleet import Fleet, FleetConfig
+
+    cpu_cores: Optional[List[str]] = None
+    if args.cpu_cores:
+        if args.cpu_cores.strip().lower() == "auto":
+            cpu_cores = [str(c) for c in sorted(os.sched_getaffinity(0))]
+        else:
+            cpu_cores = [m.strip() for m in args.cpu_cores.split(",") if m.strip()]
+    config = FleetConfig(
+        model_path=str(args.model_path), host=args.host, port=args.port, device=args.device,
+        replicas=args.replicas, min_replicas=args.min_replicas, max_replicas=args.max_replicas,
+        max_batch=args.max_batch, max_wait_ms=args.max_wait_ms, queue_size=args.queue_size,
+        timeout_ms=args.timeout_ms, max_doc_len=args.max_doc_len, batching=args.batching,
+        precision=args.precision,
+        model_manifest=str(args.model_manifest) if args.model_manifest is not None else None,
+        resident_models=args.resident_models, base_port=args.base_port,
+        visible_devices=([m.strip() for m in args.visible_devices.split(",") if m.strip()]
+                         if args.visible_devices else None),
+        visible_devices_env=args.visible_devices_env, cpu_cores=cpu_cores,
+        cache_mb=args.cache_mb, probe_interval_s=args.probe_interval_s,
+        length_routing=args.length_routing, autoscale=args.autoscale,
+        p99_target_ms=args.p99_target_ms, autoscale_interval_s=args.autoscale_interval_s,
+        up_consecutive=args.up_consecutive, down_consecutive=args.down_consecutive,
+        cooldown_s=args.cooldown_s, drain_timeout_s=args.drain_timeout_s,
+        ready_timeout_s=args.ready_timeout_s, telemetry=not args.no_telemetry)
+    try:
+        fleet = Fleet(config)
+    except RuntimeError as e:  # no card: nothing was spawned
+        print(f"serve-fleet: {e}", file=sys.stderr)
+        return 1
+    rc = fleet.run()
+    if rc == 0:
+        print("fleet drained; exiting 0", flush=True)
+    else:
+        print("fleet drain incomplete (router timeout or nonzero replica exit) — "
+              f"exiting {rc}", flush=True)
     return rc
 
 
@@ -524,7 +669,7 @@ def init_vectors_command(argv: List[str]) -> int:
 
 COMMANDS = {"train": train_command, "pretrain": pretrain_command,
             "evaluate": evaluate_command, "serve": serve_command,
-            "init-vectors": init_vectors_command}
+            "serve-fleet": serve_fleet_command, "init-vectors": init_vectors_command}
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -16,10 +16,10 @@ a stdlib ``ThreadingHTTPServer`` and graceful drain.
   /admin/models/load`` ``{"model": <name>}`` loads a manifest model. Without
   a manifest none of this is built and the single model is served as
   before.
-* ``GET /healthz`` — 200 with the engine's labels, the served generation
-  and the kernel launch counts while serving (with a manifest also the
-  resident models, the residency's counts and the default model); 503
-  while warming or draining.
+* ``GET /healthz`` — 200 with the engine's labels, the served generation,
+  the kernel launch counts and the peak device memory while serving (with
+  a manifest also the resident models, the residency's counts and the
+  default model); 503 while warming or draining.
 * ``GET /metrics`` — the :class:`~.engine.ServingTelemetry` snapshot with
   ``generation`` and ``swap_count``, with a manifest a ``models`` block of
   each resident engine's snapshot and the residency's counts
@@ -53,6 +53,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 from urllib.parse import parse_qs, urlparse
+
+import torch
 
 from ..ops import _cuda
 from ..pipeline.doc import doc_to_json
@@ -174,6 +176,8 @@ class _Handler(BaseHTTPRequestHandler):
                 "swap_count": engine.swap_count,
                 "device": str(engine.nlp.device),
                 "kernel_launches": _cuda.launch_counts(),
+                "peak_memory_bytes": (torch.cuda.max_memory_allocated(engine.nlp.device)
+                                      if engine.nlp.device.type == "cuda" else None),
             }
             if self.server.residency is not None:
                 payload["resident_models"] = self.server.residency.resident_info()

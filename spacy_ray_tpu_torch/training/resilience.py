@@ -10,7 +10,8 @@
   fleet coordinator's shutdown of its workers);
 * :data:`RC_PREEMPTED`: the exit code of a clean preemption;
 * :class:`ShutdownCoordinator`: SIGTERM/SIGINT as a flag the training loop
-  polls at step boundaries (one process: no multi-host agreement);
+  polls at step boundaries, and hooks run the moment the signal lands (the
+  serving fleet's drain gate); one process: no multi-host agreement;
 * :class:`Supervisor`: ``train --max-restarts N``, a child relaunched with
   ``--resume`` after a nonzero exit.
 
@@ -133,10 +134,10 @@ def terminate_with_grace(proc: "subprocess.Popen", grace_s: float = 10.0,
 class ShutdownCoordinator:
     """SIGTERM/SIGINT -> a flag the training loop polls at step boundaries,
     so the generation a preemption writes is a consistent (params, optimizer
-    state, data position) triple. The handler only sets the flag; a second
-    SIGINT falls through to the previous handler (normally
-    KeyboardInterrupt). One process only: the JAX package's all-gather of the
-    flag across hosts is not ported."""
+    state, data position) triple. The handler sets the flag and runs the
+    hooks of :meth:`add_callback`; a second SIGINT falls through to the
+    previous handler (normally KeyboardInterrupt). One process only: the JAX
+    package's all-gather of the flag across hosts is not ported."""
 
     SIGNALS = (signal.SIGTERM, signal.SIGINT)
 
@@ -144,9 +145,21 @@ class ShutdownCoordinator:
         self._flag = threading.Event()
         self._prev: Dict[int, Any] = {}
         self._installed = False
+        self._callbacks: List[Callable[[Optional[int]], Any]] = []
 
-    def request(self) -> None:
+    def add_callback(self, fn: Callable[[Optional[int]], Any]) -> None:
+        """Register ``fn(signum)``, run from :meth:`request` (so from the
+        signal handler): it must only flip flags or set events. The serving
+        fleet closes its admission gate with it the moment SIGTERM lands."""
+        self._callbacks.append(fn)
+
+    def request(self, signum: Optional[int] = None) -> None:
         self._flag.set()
+        for cb in self._callbacks:
+            try:
+                cb(signum)
+            except Exception:  # a broken hook must not break the handler
+                pass
 
     @property
     def requested(self) -> bool:
@@ -159,7 +172,7 @@ class ShutdownCoordinator:
                 prev(signum, frame)
                 return
             raise KeyboardInterrupt
-        self.request()
+        self.request(signum)
 
     def install(self) -> "ShutdownCoordinator":
         """Install the handlers (main thread only: elsewhere a caller can

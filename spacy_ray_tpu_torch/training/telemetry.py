@@ -4,9 +4,11 @@ Prometheus bucket tables) and a bounded Chrome trace-event buffer.
 
 The part of ``spacy_ray_tpu/training/telemetry.py`` that serving uses
 (``LATENCY_BUCKETS``, ``OCCUPANCY_BUCKETS``, ``sanitize_json``,
-``MetricsRegistry``, ``TraceBuffer``), copied unchanged so a snapshot and a
-trace of the port read as the JAX package's. The training-loop telemetry,
-device sampling and anomaly detection of that module are not ported yet.
+``MetricsRegistry``, ``TraceBuffer``; ``merge_serving_snapshots``, with
+which the serving fleet's router merges its replicas' snapshots), copied
+unchanged so a snapshot, a trace and a fleet view of the port read as the
+JAX package's. The training-loop telemetry, device sampling and anomaly
+detection of that module are not ported yet.
 Stdlib-only.
 """
 
@@ -27,6 +29,7 @@ __all__ = [
     "LATENCY_BUCKETS",
     "OCCUPANCY_BUCKETS",
     "sanitize_json",
+    "merge_serving_snapshots",
 ]
 
 # Shared Prometheus-style bucket tables (upper bounds, seconds unless
@@ -69,6 +72,220 @@ def sanitize_json(obj: Any) -> Any:
     if isinstance(obj, (list, tuple)):
         return [sanitize_json(v) for v in obj]
     return obj
+
+
+def _merge_weighted(
+    out: Dict[str, Any], key: str, pairs: List[Tuple[float, float]]
+) -> None:
+    """The one fleet-percentile merge rule (``merge_serving_snapshots``
+    uses it for histogram percentiles, the ``slo`` block, and the
+    ``slo_window`` block): a fleet p99 is not derivable from per-replica
+    p99s, so report the weight-weighted mean under ``key`` AND the worst
+    replica under ``key_worst`` — the honest bound an SLO check should
+    use. Zero total weight (all-idle replicas) falls back to the
+    unweighted mean; no values at all writes None for both."""
+    if not pairs:
+        out[key] = out[f"{key}_worst"] = None
+        return
+    total_w = sum(w for _, w in pairs)
+    out[key] = (
+        sum(v * w for v, w in pairs) / total_w
+        if total_w > 0
+        else sum(v for v, _ in pairs) / len(pairs)
+    )
+    out[f"{key}_worst"] = max(v for v, _ in pairs)
+
+
+def merge_serving_snapshots(
+    snaps: List[Dict[str, Any]], *, _tag_generations: bool = True
+) -> Dict[str, Any]:
+    """Merge per-replica ``ServingTelemetry.snapshot()`` payloads into
+    one fleet view (the router's ``/metrics``) — one scrape instead of N.
+
+    Merge rules, stated honestly:
+
+    * **counters** — summed: counts of events are exactly additive.
+    * **gauges** — reported as ``{sum, max, mean}`` per key: which
+      aggregate is meaningful depends on the gauge (total queue depth is
+      the ``sum``; a worst-replica occupancy is the ``max``) — the fleet
+      view carries all three rather than guessing.
+    * **histograms** — ``count``/``sum``/``min``/``max`` merge exactly.
+      Percentiles do NOT: a fleet p99 cannot be derived from per-replica
+      p99s (the underlying samples are gone). The merged view reports
+      the count-weighted mean (``p50``/``p95``/``p99`` — a reasonable
+      center) and the worst replica (``p99_worst`` etc.) — the honest
+      bound an SLO check should use.
+    * the ``slo`` block follows the histogram rule (weighted by the
+      replica's latency sample count, worst alongside).
+    * the ``slo_window`` block (sliding-window percentiles — recent
+      load, not run lifetime) merges the same way, weighted by each
+      replica's IN-WINDOW sample count, so the fleet view reacts to a
+      spike as fast as the freshest replica does.
+    * **generations** — when any snapshot carries a ``generation`` stamp
+      (live serving: the checkpoint generation that replica's dispatch
+      thread is running), the merged view adds ``by_generation``: the
+      SAME merge re-run per generation group, so the slo_window
+      percentiles (and error/request counters) are splittable by
+      generation — the canary guard's entire signal. Replicas serving
+      the model as loaded from disk (generation null) group under
+      ``"none"``.
+    * **models** — when any snapshot carries a ``models`` block
+      (multi-model serving: model name → that engine's own snapshot,
+      stamped per model by the replica), the merged view adds
+      ``by_model``: the SAME merge re-run over each model's per-engine
+      snapshots gathered across replicas — the per-model window p99 the
+      placement policy and the per-class SLO story read.
+    """
+    merged: Dict[str, Any] = {
+        "replicas": len(snaps),
+        "counters": {},
+        "gauges": {},
+        "histograms": {},
+        "slo": {},
+    }
+    if not snaps:
+        return merged
+    counters: Dict[str, float] = {}
+    for snap in snaps:
+        for k, v in (snap.get("counters") or {}).items():
+            if isinstance(v, (int, float)):
+                counters[k] = counters.get(k, 0) + v
+    merged["counters"] = counters
+    gauges: Dict[str, List[float]] = {}
+    for snap in snaps:
+        for k, v in (snap.get("gauges") or {}).items():
+            if isinstance(v, (int, float)):
+                gauges.setdefault(k, []).append(float(v))
+    merged["gauges"] = {
+        k: {
+            "sum": sum(vs),
+            "max": max(vs),
+            "mean": sum(vs) / len(vs),
+        }
+        for k, vs in gauges.items()
+    }
+
+    def _weight(snap: Dict[str, Any], hist_key: str) -> float:
+        h = (snap.get("histograms") or {}).get(hist_key) or {}
+        c = h.get("count")
+        return float(c) if isinstance(c, (int, float)) and c > 0 else 0.0
+
+    hist_keys = {
+        k for snap in snaps for k in (snap.get("histograms") or {})
+    }
+    for key in sorted(hist_keys):
+        entries = [
+            (snap.get("histograms") or {}).get(key) or {} for snap in snaps
+        ]
+        counts = [
+            e.get("count") for e in entries
+            if isinstance(e.get("count"), (int, float))
+        ]
+        sums = [
+            e.get("sum") for e in entries
+            if isinstance(e.get("sum"), (int, float))
+        ]
+        mins = [
+            e.get("min") for e in entries
+            if isinstance(e.get("min"), (int, float))
+        ]
+        maxs = [
+            e.get("max") for e in entries
+            if isinstance(e.get("max"), (int, float))
+        ]
+        out: Dict[str, Any] = {
+            "count": sum(counts) if counts else 0,
+            "sum": sum(sums) if sums else 0.0,
+            "min": min(mins) if mins else None,
+            "max": max(maxs) if maxs else None,
+        }
+        for q in ("p50", "p95", "p99"):
+            _merge_weighted(out, q, [
+                (float(e[q]), float(e.get("count") or 0))
+                for e in entries
+                if isinstance(e.get(q), (int, float))
+            ])
+        # cumulative buckets merge EXACTLY (counts are additive) — the
+        # one fleet histogram aggregate with no approximation caveat —
+        # but only when every replica counted against the same bounds;
+        # mismatched tables are dropped rather than summed dishonestly
+        bucketed = [e.get("buckets") for e in entries if e.get("buckets")]
+        if bucketed and len(bucketed) == len(
+            [e for e in entries if e.get("count") is not None]
+        ):
+            bounds = [tuple(float(b[0]) for b in bs) for bs in bucketed]
+            if all(b == bounds[0] for b in bounds):
+                out["buckets"] = [
+                    [le, sum(float(bs[i][1]) for bs in bucketed)]
+                    for i, le in enumerate(bounds[0])
+                ]
+        merged["histograms"][key] = out
+
+    slo_keys = {k for snap in snaps for k in (snap.get("slo") or {})}
+    for key in sorted(slo_keys):
+        hist_key = (
+            "batch_occupancy" if "occupancy" in key
+            else "request_latency_seconds"
+        )
+        _merge_weighted(merged["slo"], key, [
+            (float((snap.get("slo") or {})[key]), _weight(snap, hist_key))
+            for snap in snaps
+            if isinstance((snap.get("slo") or {}).get(key), (int, float))
+        ])
+
+    window_snaps = [
+        snap.get("slo_window") for snap in snaps
+        if isinstance(snap.get("slo_window"), dict)
+    ]
+    if window_snaps:
+        win: Dict[str, Any] = {
+            "window_s": max(
+                float(w.get("window_s") or 0.0) for w in window_snaps
+            ),
+            "samples": sum(int(w.get("samples") or 0) for w in window_snaps),
+        }
+        win_keys = {
+            k for w in window_snaps for k in w
+            if k not in ("window_s", "samples")
+        }
+        for key in sorted(win_keys):
+            _merge_weighted(win, key, [
+                (float(w[key]), float(w.get("samples") or 0))
+                for w in window_snaps
+                if isinstance(w.get(key), (int, float))
+            ])
+        merged["slo_window"] = win
+
+    if _tag_generations:
+        gens = {snap.get("generation") for snap in snaps}
+        if any(g is not None for g in gens):
+            by_gen: Dict[str, Any] = {}
+            for g in sorted(gens, key=lambda x: (x is None, x)):
+                subset = [s for s in snaps if s.get("generation") == g]
+                sub = merge_serving_snapshots(
+                    subset, _tag_generations=False
+                )
+                sub["generation"] = g
+                by_gen["none" if g is None else str(g)] = sub
+            merged["by_generation"] = by_gen
+        model_groups: Dict[str, List[Dict[str, Any]]] = {}
+        for snap in snaps:
+            models = snap.get("models")
+            if not isinstance(models, dict):
+                continue
+            for name, msnap in models.items():
+                if isinstance(msnap, dict):
+                    model_groups.setdefault(str(name), []).append(msnap)
+        if model_groups:
+            by_model: Dict[str, Any] = {}
+            for name in sorted(model_groups):
+                sub = merge_serving_snapshots(
+                    model_groups[name], _tag_generations=False
+                )
+                sub["model"] = name
+                by_model[name] = sub
+            merged["by_model"] = by_model
+    return merged
 
 
 class _Counter:

@@ -99,13 +99,15 @@ def test_the_serving_modules_of_one_process_are_checked():
         "serving/multimodel/admission", "serving/multimodel/residency",
         "serving/live/__init__", "serving/live/watcher", "training/resilience")} <= names
     # the trainer fleet's core, its membership, its compressed wire and its
-    # optimizer parts are ported (its files import neither jax nor the JAX
-    # package: test_no_jax_or_jax_package_import covers every file here); the
-    # serving fleet's modules are not part of the port yet
+    # optimizer parts are ported, and so is the serving fleet (their files
+    # import neither jax nor the JAX package: test_no_jax_or_jax_package_import
+    # covers every file here); placement and the live rollout are not yet
     assert {f"spacy_ray_tpu_torch/training/fleet/{m}.py" for m in (
         "__init__", "ownership", "wire", "peer", "worker", "coordinator",
         "membership")} <= names
-    assert not {n for n in names if "placement" in n or "serving/fleet/" in n or "canary" in n}
+    assert {f"spacy_ray_tpu_torch/serving/fleet/{m}.py" for m in (
+        "__init__", "replica", "router", "autoscaler", "fleet")} <= names
+    assert not {n for n in names if "placement" in n or "canary" in n or "controller" in n}
 
 
 def test_the_fleet_wire_quantizes_with_the_ports_own_int8_functions():
@@ -169,3 +171,29 @@ def test_serve_with_a_manifest_without_a_card_fails_instead_of_using_the_cpu(tmp
     assert out.returncode != 0
     assert "no CUDA device is available" in out.stderr
     assert "serving on" not in out.stdout
+
+
+def test_serve_fleet_without_a_card_fails_before_spawning_a_replica(tmp_path):
+    # the router process imports the fleet's modules alone (no JAX), and with
+    # --device cuda (the default) on a machine without a card it exits before
+    # it binds its port or spawns a replica, instead of crash-looping them
+    code = ("import sys, spacy_ray_tpu_torch.serving.fleet as f\n"
+            "from spacy_ray_tpu_torch.training.telemetry import merge_serving_snapshots\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120, env={**os.environ, "PYTHONPATH": str(REPO)})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    nlp = P.Pipeline.from_config(P.Config.from_str('[nlp]\npipeline = []\n'), device="cpu")
+    nlp.initialize()
+    nlp.to_disk(tmp_path)
+    out = subprocess.run(
+        [sys.executable, "-m", "spacy_ray_tpu_torch", "serve-fleet", str(tmp_path), "--port", "0",
+         "--replicas", "2", "--verbose"],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": str(REPO), "CUDA_VISIBLE_DEVICES": ""},
+    )
+    assert out.returncode != 0
+    assert "no CUDA device is available" in out.stderr
+    assert "replica-spawn" not in out.stderr and "fleet serving on" not in out.stdout

@@ -141,7 +141,9 @@ Run from the root of a checkout. Phases, each printing one JSON line:
               with the rule components' host ms and card vs CPU >= 0.99 on
               tags, POS, lemmas, heads, deps and entities; then the JAX-
               written ``tests/data/jax_md/`` served as slice:cnn serves.
-18. nel:assets, train:nel, slice:nel, slice:nel_jax — an entity linker
+18. nel:assets, train:nel, slice:nel, slice:nel_jax — (nel:assets,
+              the linker's kernel rows and train:nel inside serve:fleet,
+              while its replicas idle before the rollout) an entity linker
               added to train:md's best-model as spaCy's ``nel_emerson``
               tutorial adds one to a shipped pipeline (``nel_config``: every
               md component sourced and frozen, the NER annotating, the
@@ -344,7 +346,53 @@ Run from the root of a checkout. Phases, each printing one JSON line:
               beside the card's name and power limit: p50/p99 of the load,
               via the router and direct, the hit rate, retries, the seconds
               from the kill to ready, each replica's peak memory and K1
-              launches.
+              launches. The fleet runs with ``--model-manifest`` (cnn, the
+              default, and "hot", the same directory under a second name, a
+              class target of 1 ms that every window breaches), ``--watch``
+              over a directory of its own (empty at the start: nothing is
+              split), ``--canary-fraction 0.5 --guard-min-samples 400`` (the
+              guard's bounds at their defaults) and ``--autoscale
+              --min-replicas 2 --max-replicas 2``. After those checks, once
+              both replicas' 30-s latency windows are empty (replica 1
+              served the kill's half and the paired requests alone; the
+              guard compares the windows), while 4 clients send fresh
+              bodies, serve:watch's last generation is published into
+              the watched directory (copied under a temporary name, then
+              renamed): the controller canaries it on replica 1, the router
+              splits, the guard promotes, both replicas' ``/healthz`` show
+              the stamp, the cache is flushed, no request fails, and the
+              answers stamped with it agree with the generation's params
+              on the CPU on >= 0.99 of tokens (the seconds from the
+              publication to each replica's flip from their traces, and
+              both windows' p99 as last read before the promotion). Then,
+              at once: a generation of train:md's model (another tree)
+              published above it, which each replica's ``/admin/swap``
+              answers 409 and the controller rejects once while the fleet
+              stays on the first stamp; "hot" (loaded on replica 1 while
+              replica 0 restarted) gets its traffic (``X-SRT-Model``) there
+              until the placement
+              tick loads it onto replica 0 (``placement_decisions`` on the
+              router's ``/metrics``, "hot" resident on both, its answers
+              the CPU's); ``telemetry collect-trace`` on the router's URL
+              merging the router's and both replicas' traces into one file.
+              No request fails. Between the checks above and the rollout, with
+              the replicas idle, nel:assets, the linker's kernel rows and
+              train:nel run (18), so their seconds cover the windows' wait.
+
+26. cli:train_and_serve (beside train:fleet_async and the host's own work
+              before the training kernels' rows) — ``python -m
+              spacy_ray_tpu_torch train-and-serve configs/cnn.cfg --output
+              <dir> --replicas 1 --port 0`` on train:cnn's .spacy corpora
+              (16 dev docs), a generation every 10 steps, patience 0 (no
+              early stop before the SIGTERM): it bootstraps
+              from the run's first best-model, one client's requests through
+              its router until their answers carry two generations (a flip
+              between two requests: the controller's direct rollout), then
+              one SIGTERM. Fails unless
+              no request failed, the tree exits 0 with the trainer's 75
+              (interrupted at a step boundary, its generation written) and
+              no process of it is left; printed: the seconds to the
+              bootstrap, to ready, to the flip and of the drain.
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -1353,13 +1401,32 @@ FLEET_SERVE_REQUESTS = 300   # requests of 1-8 dev texts; replica 0 SIGKILLed at
 FLEET_SERVE_REPEAT = 0.3     # share of requests that repeat an answered body (cache hits)
 FLEET_SERVE_CALM = 100       # fresh bodies sent one at a time, via the router and direct in turns
 FLEET_SERVE_BACK_S = 60.0    # the killed replica must be back in rotation within this
+# the rollout, the mismatched generation and placement on the same fleet
+FLEET_CANARY_FRACTION = 0.5  # one of the two replicas canaries
+FLEET_WATCH_INTERVAL_S = 0.5  # the controller's scans of the watched directory
+# canary requests and window samples before a verdict: a swap stalls the
+# requests in flight on its replica by tens of ms, and the canary's window
+# holds its own swap while the baseline's does not; at 10 samples the p99 is
+# the window's maximum and the default 1.5 x bound rolled a good generation
+# back on the H100 (PERF.md; bin/fleet_rollout_check.py), at 400 it is the
+# 4th-highest sample
+FLEET_GUARD_MIN_SAMPLES = 400
+FLEET_ROLLOUT_S = 90.0       # publication to both replicas on the stamp
+FLEET_HOLD_S = 2.0           # the fleet stays on the first stamp this long after the refusal
+FLEET_PLACE_TARGET_MS = 1.0  # the manifest's class target: every window breaches it
+FLEET_PLACE_S = 60.0         # the placement move must come within this
+FLEET_MISMATCH_OFFSET = 1000  # the mismatched generation's stamp above the first
 
 
-def fleet_request(port: int, texts, request_id: str):
-    """POST one body: (status, raw bytes, seconds); a 5xx is a status too."""
+def fleet_request(port: int, texts, request_id: str, model=None):
+    """POST one body (``model``: as ``X-SRT-Model``): (status, raw bytes,
+    seconds); a 5xx is a status too."""
+    headers = {"Content-Type": "application/json", "X-SRT-Request-Id": request_id}
+    if model is not None:
+        headers["X-SRT-Model"] = model
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}/v1/parse", data=json.dumps({"texts": texts}).encode(),
-        headers={"Content-Type": "application/json", "X-SRT-Request-Id": request_id})
+        headers=headers)
     t = time.perf_counter()
     try:
         with urllib.request.urlopen(req, timeout=120) as r:
@@ -1367,6 +1434,26 @@ def fleet_request(port: int, texts, request_id: str):
     except urllib.error.HTTPError as e:
         raw, status = e.read(), e.code
     return status, raw, time.perf_counter() - t
+
+
+def replica_state(row: dict) -> str:
+    """What a replica of the router's roster ``row`` says of itself: its
+    process's state and kernel wait channel, and its own ``/healthz``."""
+    said = []
+    pid, port = row.get("pid"), row.get("port")
+    try:
+        with open(f"/proc/{pid}/status") as f:
+            said += [l.strip() for l in f if l.startswith(("State:", "Threads:", "VmRSS:"))]
+        with open(f"/proc/{pid}/wchan") as f:
+            said.append(f"wchan: {f.read().strip()}")
+    except (OSError, TypeError):
+        said.append(f"pid {pid}: no process")
+    if port:
+        try:
+            said.append(f"healthz: {get(int(port), '/healthz')}")
+        except (OSError, ValueError) as e:
+            said.append(f"healthz: {e!r}")
+    return f"replica {row.get('id')}: " + ", ".join(said)
 
 
 def proc_gone(pid: int) -> bool:
@@ -1380,16 +1467,35 @@ def proc_gone(pid: int) -> bool:
 
 def start_serve_fleet(cnn_dir: Path, device: str = "cuda") -> dict:
     """Start ``python -m spacy_ray_tpu_torch serve-fleet <cnn_dir>
-    --replicas 2 --port 0`` (the router and two replica processes take
-    ~25 s to come up, most of it importing torch); its output is read on a
-    thread. :func:`phase_serve_fleet` drives it."""
+    --replicas 2 --port 0`` with a manifest (cnn, the default, and "hot",
+    the same directory), an empty watched directory and the autoscaler
+    held at two replicas (the router and two replica processes take ~25 s
+    to come up, most of it importing torch); its output (``--verbose``: the
+    controller's and the placement's events) is read on a thread.
+    :func:`phase_serve_fleet` drives it."""
     import os
 
-    run = {"cnn_dir": cnn_dir, "t0": time.perf_counter(), "lines": []}
+    work = WORK / "fleet_serve"
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "watch").mkdir(parents=True)
+    manifest = work / "manifest.json"
+    manifest.write_text(json.dumps({
+        "default_model": "cnn",
+        "models": {"cnn": {"path": str(cnn_dir)}, "hot": {"path": str(cnn_dir)}},
+        "classes": {"tight": {"weight": 1, "p99_target_ms": FLEET_PLACE_TARGET_MS}},
+    }), encoding="utf-8")
+    run = {"cnn_dir": cnn_dir, "t0": time.perf_counter(), "lines": [], "work": work,
+           "watch": work / "watch"}
     run["proc"] = subprocess.Popen(
         [sys.executable, "-m", "spacy_ray_tpu_torch", "serve-fleet", str(cnn_dir),
          "--replicas", "2", "--device", device, "--port", "0", "--max-batch", "8",
-         "--max-doc-len", "128", "--probe-interval-s", "0.2"],
+         "--max-doc-len", "128", "--probe-interval-s", "0.2",
+         "--model-manifest", str(manifest), "--watch", str(work / "watch"),
+         "--watch-interval-s", str(FLEET_WATCH_INTERVAL_S),
+         "--canary-fraction", str(FLEET_CANARY_FRACTION),
+         "--guard-min-samples", str(FLEET_GUARD_MIN_SAMPLES),
+         "--autoscale", "--min-replicas", "2", "--max-replicas", "2",
+         "--autoscale-interval-s", "1", "--up-consecutive", "2", "--verbose"],
         cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         env={**os.environ, "PYTHONPATH": str(ROOT)}, start_new_session=True)
 
@@ -1404,6 +1510,87 @@ def start_serve_fleet(cnn_dir: Path, device: str = "cuda") -> dict:
     return run
 
 
+def publish_generation(src: Path, stamp: int, dst: Path, as_stamp: int) -> float:
+    """Generation ``stamp`` of the checkpoint directory ``src`` (its params
+    file and meta) into ``dst`` as ``as_stamp``: each file copied under a
+    temporary name and renamed, the meta last, so a scan sees all of it or
+    nothing. Returns the unix time of the meta's rename."""
+    import os
+
+    meta = json.loads((src / f"train_meta-{stamp}.json").read_text(encoding="utf8"))
+    meta.update(stamp=as_stamp, step=as_stamp,
+                digests={f"params-{as_stamp}.npz": meta["digests"][f"params-{stamp}.npz"]})
+    tmp = dst / f".tmp-params-{as_stamp}.npz"
+    shutil.copyfile(src / f"params-{stamp}.npz", tmp)
+    os.replace(tmp, dst / f"params-{as_stamp}.npz")
+    tmp = dst / f".tmp-train_meta-{as_stamp}.json"
+    tmp.write_text(json.dumps(meta), encoding="utf8")
+    os.replace(tmp, dst / f"train_meta-{as_stamp}.json")
+    return time.time()
+
+
+def flip_unix(port: int, stamp: int):
+    """The unix time a replica's swap to ``stamp`` flipped, from its trace's
+    ``swap_flip`` span and the trace's clock anchor (None without one)."""
+    _, trace = get(port, "/trace")
+    anchor = trace["anchor"]
+    for e in trace["traceEvents"]:
+        if e.get("name") == "swap_flip" and e.get("args", {}).get("generation") == stamp:
+            end = anchor["origin"] + (e["ts"] + e["dur"]) / 1e6
+            return anchor["unix_now"] - (anchor["clock_now"] - end)
+    return None
+
+
+class FleetLoad:
+    """``FLEET_SERVE_CLIENTS`` closed-loop clients through the router, each
+    request a body of 1-4 of ``texts`` for a model of ``models`` in turn
+    (None: the default); ``rows`` holds (model, texts, status, raw, sent at
+    perf_counter, seconds)."""
+
+    def __init__(self, port: int, texts, models=(None,), seed: int = 2, tag: str = "load"):
+        self.port, self.texts, self.models, self.tag = port, texts, models, tag
+        self.rng = random.Random(seed)
+        self.rows, self.lock, self.stop_ev = [], threading.Lock(), threading.Event()
+        self.n = itertools.count()
+        self.threads = [threading.Thread(target=self.client, daemon=True)
+                        for _ in range(FLEET_SERVE_CLIENTS)]
+
+    def client(self):
+        while not self.stop_ev.is_set():
+            with self.lock:
+                i = next(self.n)
+                body = [self.rng.choice(self.texts) for _ in range(self.rng.randint(1, 4))]
+            model = self.models[i % len(self.models)]
+            t = time.perf_counter()
+            status, raw, sec = fleet_request(self.port, body, f"{self.tag}-{i}", model)
+            with self.lock:
+                self.rows.append((model, body, status, raw, t, sec))
+
+    def __enter__(self):
+        for th in self.threads:
+            th.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop_ev.set()
+        for th in self.threads:
+            th.join(timeout=180)
+
+    def failed(self):
+        return [(m, status, raw[:200]) for m, _, status, raw, _, _ in self.rows if status != 200]
+
+    def answered(self, model, generation):
+        """(served docs, texts) of the 200s for ``model`` stamped ``generation``."""
+        got, texts = [], []
+        for m, body, status, raw, _, _ in self.rows:
+            if m == model and status == 200:
+                payload = json.loads(raw)
+                if payload["batch"].get("generation") == generation:
+                    got.extend(payload["docs"])
+                    texts.extend(body)
+        return got, texts
+
+
 def stop_serve_fleet(run: dict) -> None:
     """Kill the fleet's process group if it still runs (a phase failed)."""
     import os
@@ -1414,7 +1601,8 @@ def stop_serve_fleet(run: dict) -> None:
         run["proc"].wait(timeout=30)
 
 
-def phase_serve_fleet(torch, run: dict, dev_path: Path, smi: str) -> dict:
+def phase_serve_fleet(torch, run: dict, dev_path: Path, smi: str, gens: dict,
+                      beside=None) -> dict:
     """The serving fleet :func:`start_serve_fleet` started on train:cnn's
     model: two replica processes on the card behind the router. The bodies
     are drawn and the same model annotates their texts on the CPU in this
@@ -1432,11 +1620,16 @@ def phase_serve_fleet(torch, run: dict, dev_path: Path, smi: str) -> dict:
     CPU's for >= 0.99 of tokens, every replica's ``/healthz`` counts K1 fwd
     launches, the router's ``/metrics`` counts the retries and as many
     requests as were sent through it, and SIGTERM ends the fleet with exit 0
-    and no replica left."""
+    and no replica left. Before the SIGTERM, :func:`fleet_rollout` and
+    :func:`fleet_refusal_and_placement` (``gens``: the generation to roll
+    out, ``{"dir", "stamp"}``, and ``"mismatch"``, a checkpoint directory of
+    another pipeline). ``beside``, if given, runs between the two while the
+    replicas idle and their latency windows empty."""
     import os
     import signal
 
     from spacy_ray_tpu_torch import Pipeline
+    from spacy_ray_tpu_torch.training.checkpoint import Checkpoints
     from spacy_ray_tpu_torch.training.corpus import Corpus
 
     phase = "serve:fleet"
@@ -1536,6 +1729,26 @@ def phase_serve_fleet(torch, run: dict, dev_path: Path, smi: str) -> dict:
                 else:
                     direct.append(s)
 
+        # the host's work while replica 0 restarts: the rolled-out generation's
+        # tags of every dev text on the CPU, and the base model's of the rest
+        t = time.perf_counter()
+        cpu_gen = Pipeline.from_disk(cnn_dir, device="cpu")
+        cpu_gen.load_params(Checkpoints(gens["dir"]).load_generation_params(
+            gens["stamp"])["params"])
+        every = sorted(set(texts))
+        gen_docs = [cpu_gen.tokenizer(x) for x in every]
+        cpu_gen.predict_docs(gen_docs)
+        rest = [x for x in every if x not in cpu_by_text]
+        rest_docs = [cpu.tokenizer(x) for x in rest]
+        cpu.predict_docs(rest_docs)
+        cpu_by_text.update(zip(rest, rest_docs))
+        cpu_gen_by_text = dict(zip(every, gen_docs))
+        cpu_gen_s = time.perf_counter() - t
+        # and replica 1's copy of "hot", the placement drill's start
+        t = time.perf_counter()
+        admin(roster[1]["port"], "/admin/models/load", {"model": "hot"})
+        hot_load_s = time.perf_counter() - t
+
         back = None
         while back is None and time.perf_counter() - t_kill[0] < FLEET_SERVE_BACK_S:
             r0 = {r["id"]: r for r in get(port, "/metrics")[1]["replicas"]}.get(0)
@@ -1558,6 +1771,8 @@ def phase_serve_fleet(torch, run: dict, dev_path: Path, smi: str) -> dict:
         _, metrics = get(port, "/metrics")
         router, cache = metrics["router"]["counters"], metrics["cache"]
         sent = FLEET_SERVE_REQUESTS + FLEET_SERVE_CALM
+        if router.get("routed_canary", 0) or router.get("routed_baseline", 0):
+            fail(f"{phase}: the router split traffic with no generation published: {router}")
         if wrong or len(hits) != cache["cache_hits"] or not hits:
             fail(f"{phase}: {len(hits)} cache hits by the trace, {cache['cache_hits']} by "
                  f"/metrics; not byte-equal to the first answer: {wrong[:5]}")
@@ -1582,6 +1797,18 @@ def phase_serve_fleet(torch, run: dict, dev_path: Path, smi: str) -> dict:
             if not h["kernel_launches"].get("hash_embed_gather_sum"):
                 fail(f"{phase}: replica {rid} launched no K1 fwd: {h['kernel_launches']}")
 
+        ports = {r["id"]: r["port"] for r in metrics["replicas"]}
+        t = time.perf_counter()
+        if beside is not None:
+            beside()
+        beside_s = time.perf_counter() - t
+        live = {"rollout": fleet_rollout(phase, run, port, ports, texts, gens, cache,
+                                         cpu_gen, cpu_gen_by_text)}
+        live.update(fleet_refusal_and_placement(phase, run, port, ports, texts, gens, cpu,
+                                                cpu_by_text, cpu_gen, cpu_gen_by_text))
+        # the replicas' launches at the end, warmup, rollout and the second model included
+        health = {rid: get(p, "/healthz")[1] for rid, p in sorted(ports.items())}
+
         t_stop = time.perf_counter()
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=180)
@@ -1602,7 +1829,9 @@ def phase_serve_fleet(torch, run: dict, dev_path: Path, smi: str) -> dict:
     result = {
         "phase": phase, "card": smi, "seconds": time.perf_counter() - t_phase,
         "since_start_s": time.perf_counter() - t0, "fleet_up_s": up_s,
-        "waited_for_it_s": waited_s, "cpu_reference_s": cpu_s, "load_s": load_s, "stop_s": stop_s,
+        "waited_for_it_s": waited_s, "cpu_reference_s": cpu_s,
+        "cpu_reference_generation_s": cpu_gen_s, "hot_load_s": hot_load_s, "load_s": load_s,
+        "beside_s": beside_s, "stop_s": stop_s,
         "requests_through_router": sent, "router_requests": router["requests"],
         "retries": router.get("retries", 0), "routed": router.get("routed"),
         "no_5xx": True, "cache_hits": cache["cache_hits"],
@@ -1621,14 +1850,359 @@ def phase_serve_fleet(torch, run: dict, dev_path: Path, smi: str) -> dict:
                                 "peak_memory_bytes": h.get("peak_memory_bytes"),
                                 "k1_fwd_launches": h["kernel_launches"]["hash_embed_gather_sum"]}
                      for rid, h in health.items()},
-        "exit": rc,
+        "exit": rc, **live,
         # the two replicas alive at the end (the restarted one's count from
-        # its restart), warmup included
+        # its restart), warmup, the rollout and the second model included
         "launches": {k: sum(h["kernel_launches"][k] for h in health.values())
                      for k in health[0]["kernel_launches"]},
     }
     emit(result)
+    shutil.rmtree(run["work"], ignore_errors=True)
     return result
+
+
+TNS_EVERY = 10          # cli:train_and_serve: a generation (an evaluation) every 10 steps
+TNS_MAX_STEPS = 20000   # a cap the SIGTERM comes far before
+TNS_KEEP = 20           # generations kept: the newest outlives its rollout
+TNS_DEV_DOCS = 16       # the evaluations' dev docs
+
+
+def start_train_and_serve(corpus) -> dict:
+    """cli:train_and_serve started: ``python -m spacy_ray_tpu_torch
+    train-and-serve configs/cnn.cfg --output <dir> --replicas 1 --port 0``
+    (its ``--train-arg``s: the corpora, a generation every ``TNS_EVERY``
+    steps) as a subprocess in its own session, and a thread that waits for
+    its fleet, sends one client's requests until their answers carry two
+    generations (the controller's direct rollout of a newer one between
+    two requests), and then sends the one SIGTERM. :func:`phase_train_and_serve`
+    reads it."""
+    import os
+    import signal
+
+    from spacy_ray_tpu_torch.training.corpus import Corpus
+    from spacy_ray_tpu_torch.training.spacy_docbin import write_docbin
+
+    work = WORK / "train_and_serve"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    dev = work / "dev.spacy"
+    egs = list(Corpus(corpus[1])())
+    write_docbin(dev, [eg.reference for eg in egs][:TNS_DEV_DOCS])
+    texts = [" ".join(eg.reference.words) for eg in egs if len(eg.reference.words) <= 100]
+    # patience 0: no early stop, so the trainer is still running at the SIGTERM
+    train_args = ["--paths.train", str(corpus[0]), "--paths.dev", str(dev),
+                  "--training.max_steps", str(TNS_MAX_STEPS), "--training.patience", "0",
+                  "--training.eval_frequency", str(TNS_EVERY),
+                  "--training.keep_checkpoints", str(TNS_KEEP)]
+    run = {"work": work, "out": work / "out", "lines": [], "marks": {}, "rows": [],
+           "t0": time.perf_counter()}
+    run["proc"] = subprocess.Popen(
+        [sys.executable, "-m", "spacy_ray_tpu_torch", "train-and-serve", "configs/cnn.cfg",
+         "--output", str(run["out"]), "--replicas", "1", "--port", "0", "--max-batch", "8",
+         "--max-doc-len", "128", "--watch-interval-s", "0.5",
+         *(f"--train-arg={a}" for a in train_args)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env={**os.environ, "PYTHONPATH": str(ROOT)}, start_new_session=True)
+    proc, lines, marks = run["proc"], run["lines"], run["marks"]
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            for key in ("bootstrapped serving model", "fleet ready: 1", "[train] Interrupted",
+                        "train-and-serve drained"):
+                if line.startswith(key):
+                    marks.setdefault(key, time.perf_counter() - run["t0"])
+
+    def drive():
+        rng = random.Random(4)
+        try:
+            while "fleet ready: 1" not in marks:
+                if proc.poll() is not None or time.perf_counter() - run["t0"] > 300:
+                    banner = [l for l in lines if l.startswith("train-and-serve fleet on ")]
+                    if banner:  # what the router saw of its replica, and the replica itself
+                        port = banner[0].split("http://", 1)[1].split()[0].rsplit(":", 1)[1]
+                        rows = get(int(port), "/metrics")[1]["replicas"]
+                        run["error"] = f"not ready: {rows}; " + "; ".join(
+                            replica_state(r) for r in rows)
+                    return
+                time.sleep(0.05)
+            banner = [l for l in lines if l.startswith("train-and-serve fleet on http://")]
+            port = int(banner[0].split("http://", 1)[1].split()[0].rsplit(":", 1)[1])
+            run["port"] = port
+            roster = get(port, "/metrics")[1]["replicas"]
+            run["pids"] = [r["pid"] for r in roster]
+            while time.perf_counter() - run["t0"] < 420:
+                body = [rng.choice(texts) for _ in range(2)]
+                t = time.perf_counter()
+                status, raw, sec = fleet_request(port, body, f"tns-{len(run['rows'])}")
+                gen = json.loads(raw)["batch"].get("generation") if status == 200 else None
+                run["rows"].append((status, gen, t - run["t0"], sec))
+                seen = {g for _, g, _, _ in run["rows"] if g is not None}
+                if len(seen) >= 2:  # a flip between two of the client's requests
+                    marks["flip"] = t - run["t0"]
+                if status != 200 or len(seen) >= 2:
+                    break
+            run["health"] = get(roster[0]["port"], "/healthz")[1]
+        except (OSError, ValueError, KeyError, IndexError) as e:
+            run["error"] = repr(e)
+        finally:
+            marks["sigterm"] = time.perf_counter() - run["t0"]
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+            try:  # the exit's own time: the phase reads it after train:fleet_async
+                proc.wait(timeout=300)
+                marks["exit"] = time.perf_counter() - run["t0"]
+            except subprocess.TimeoutExpired:
+                pass
+
+    run["reader"] = threading.Thread(target=read, daemon=True)
+    run["driver"] = threading.Thread(target=drive, daemon=True)
+    run["reader"].start()
+    run["driver"].start()
+    return run
+
+
+def phase_train_and_serve(run) -> dict:
+    """cli:train_and_serve (:func:`start_train_and_serve`) read: fails
+    unless the client saw a generation swapped into the replica with no
+    failed request, and the one SIGTERM ended the tree with exit 0, the
+    fleet's drain clean and the trainer's exit 75 after a step-boundary
+    generation, with none of its processes left."""
+    import os
+    import signal
+
+    from spacy_ray_tpu_torch.training.checkpoint import Checkpoints
+
+    phase, proc, lines, marks = "cli:train_and_serve", run["proc"], run["lines"], run["marks"]
+    try:
+        run["driver"].join(timeout=600)
+        rc = proc.wait(timeout=300)
+        run["reader"].join(timeout=10)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(timeout=30)
+    trainer = [int(l.split("training pid ", 1)[1].split()[0]) for l in lines
+               if "train-and-serve: training pid " in l]
+    left = [p for p in trainer + run.get("pids", []) if not proc_gone(p)]
+    interrupted = [l for l in lines if l.startswith("[train] Interrupted at step ")]
+    step = int(interrupted[-1].split("step ", 1)[1].split()[0]) if interrupted else None
+    gens = Checkpoints(run["out"] / "last-model").generations()
+    failed = [r for r in run["rows"] if r[0] != 200]
+    drained = "train-and-serve drained (fleet rc 0, trainer rc 75 = preempted-clean)"
+    if rc != 0 or failed or "flip" not in marks or "exit" not in marks or left or \
+            drained not in lines or step is None or step not in gens or "error" in run:
+        fail(f"{phase}: exit {rc}, failed requests {failed[:5]}, marks {marks}, left {left}, "
+             f"interrupted at {step}, generations {gens[-3:]}, {run.get('error')}:\n"
+             + "\n".join([l for l in lines if not l.startswith("[train] ")][-40:]
+                          + lines[-5:]))
+    health = run["health"]
+    result = {
+        "phase": phase, "seconds": marks["exit"],
+        "to_bootstrap_s": marks["bootstrapped serving model"],
+        "to_ready_s": marks["fleet ready: 1"], "ready_to_flip_s": marks["flip"] - marks[
+            "fleet ready: 1"], "drain_s": marks["exit"] - marks["sigterm"],
+        "sigterm_to_trainer_exit_line_s": marks["[train] Interrupted"] - marks["sigterm"],
+        "sigterm_to_drained_line_s": marks["train-and-serve drained"] - marks["sigterm"],
+        "requests": len(run["rows"]), "no_failed_request": True,
+        "served_generations": sorted({g for _, g, _, _ in run["rows"] if g is not None}),
+        "trainer_interrupted_at": step,
+        "generations_kept": len(gens), "exit": rc, "trainer_exit": 75,
+        "replica_peak_memory_bytes": health.get("peak_memory_bytes"),
+        # the replica's; the trainer's launches (K1 fwd, K1 bwd, K5) stay in its process
+        "launches": health["kernel_launches"],
+    }
+    emit(result)
+    shutil.rmtree(run["work"], ignore_errors=True)
+    return result
+
+
+def slo_window(port: int):
+    """A replica's latency window, the one the canary guard reads: (samples,
+    p99 seconds or None)."""
+    win = get(port, "/metrics")[1].get("slo_window") or {}
+    return win.get("samples", 0), win.get("request_latency_p99")
+
+
+def fleet_rollout(phase, run, port, ports, texts, gens, cache0, cpu_gen, cpu_gen_by_text):
+    """serve:fleet's rollout: once neither replica's latency window holds a
+    request from before it, under :class:`FleetLoad`'s clients, generation
+    ``gens["stamp"]`` published into the watched directory; fails unless the
+    controller canaries it on replica 1 (the youngest), the router splits,
+    the guard (its p99 bound at the default) promotes and both replicas flip
+    to it within ``FLEET_ROLLOUT_S``, the cache is flushed at the promotion,
+    no request fails, and the answers stamped with it agree with its params
+    on the CPU on >= 0.99 of tokens."""
+    from spacy_ray_tpu_torch.serving.engine import SERVING_DEFAULTS
+    from spacy_ray_tpu_torch.serving.fleet import FleetConfig
+
+    lines, stamp = run["lines"], gens["stamp"]
+    # the guard compares the canary's window p99 with the baseline's; replica
+    # 1 served the kill's half and the paired requests alone, so both windows
+    # are let empty first and then hold the rollout's traffic only
+    t_quiet = time.perf_counter()
+    while any(slo_window(p)[0] for p in ports.values()):
+        if time.perf_counter() - t_quiet > SERVING_DEFAULTS["slo_window_s"] + 30:
+            fail(f"{phase}: the replicas' latency windows never emptied: "
+                 f"{ {rid: slo_window(p) for rid, p in ports.items()} }")
+        time.sleep(0.25)
+    quiet_s = time.perf_counter() - t_quiet
+    windows, t_windows = None, 0.0
+    with FleetLoad(port, texts, tag="rollout") as load:
+        time.sleep(0.5)  # traffic on the first generation
+        t_pub = publish_generation(gens["dir"], stamp, run["watch"], stamp)
+        t0 = time.perf_counter()
+        while True:
+            on = {rid: get(p, "/healthz")[1].get("generation") for rid, p in ports.items()}
+            if all(g == stamp for g in on.values()):
+                break
+            # the canary's verdict pending: the windows it reads, once a
+            # guard tick (a snapshot costs the replica more than /healthz)
+            if on[1] == stamp and time.perf_counter() - t_windows >= FLEET_WATCH_INTERVAL_S:
+                windows = {rid: slo_window(p) for rid, p in sorted(ports.items())}
+                t_windows = time.perf_counter()
+            if any("[canary-rollback]" in l or "[live-rollback]" in l for l in lines) or \
+                    time.perf_counter() - t0 > FLEET_ROLLOUT_S:
+                fail(f"{phase}: generation {stamp} not promoted on both replicas (the "
+                     f"windows last read {windows}):\n" + "\n".join(lines[-30:]))
+            time.sleep(0.05)
+        rollout_s = time.perf_counter() - t0
+        time.sleep(0.5)  # answers after the promotion
+    failed = load.failed()
+    if failed:
+        fail(f"{phase}: {len(failed)} requests failed across the rollout: {failed[:5]}")
+    flips = {rid: flip_unix(p, stamp) for rid, p in ports.items()}
+    if None in flips.values() or not flips[1] < flips[0]:
+        fail(f"{phase}: the flips of generation {stamp} by replica: {flips}")
+    said = [l for l in lines if f"generation {stamp} canarying on replica(s) [1]" in l
+            or f"generation {stamp} promoted fleet-wide" in l]
+    _, metrics = get(port, "/metrics")
+    router, cache = metrics["router"]["counters"], metrics["cache"]
+    if len(said) != 2 or not router.get("routed_canary") or \
+            not cache["cache_flushes"] > cache0["cache_flushes"]:
+        fail(f"{phase}: the controller said {said}, the router {router}, the cache {cache}")
+    got, want = load.answered(None, stamp)
+    agree = agreement(cpu_gen, got, [cpu_gen_by_text[t] for t in want])
+    if not got or min(agree.values()) < 0.99:
+        fail(f"{phase}: generation {stamp}'s answers agree with its params on the CPU only "
+             f"{agree} ({len(got)} docs)")
+    sent = sorted(sec for *_, sec in load.rows)
+    p99 = {rid: w[1] for rid, w in (windows or {}).items()}
+    return {"windows_empty_after_s": quiet_s, "guard_p99_frac": FleetConfig.guard_p99_frac,
+            "guard_min_samples": FLEET_GUARD_MIN_SAMPLES,
+            "windows_before_promotion": {
+                str(rid): {"samples": n, "p99_ms": None if q is None else q * 1e3}
+                for rid, (n, q) in (windows or {}).items()},
+            "canary_over_baseline_p99": p99[1] / p99[0] if p99.get(0) and p99.get(1) else None,
+            "generation": stamp, "publish_to_canary_flip_s": flips[1] - t_pub,
+            "publish_to_promotion_flip_s": flips[0] - t_pub,
+            "publish_to_both_healthz_s": rollout_s, "requests": len(load.rows),
+            "no_failed_request": True, "routed_canary": router["routed_canary"],
+            "routed_baseline": router.get("routed_baseline", 0),
+            "cache_flushes": cache["cache_flushes"] - cache0["cache_flushes"],
+            "docs_stamped": len(got), "card_vs_cpu_at_generation": agree,
+            "p50_ms": percentile(sent, 0.5) * 1e3, "p99_ms": percentile(sent, 0.99) * 1e3}
+
+
+def fleet_refusal_and_placement(phase, run, port, ports, texts, gens, cpu, cpu_by_text, cpu_gen,
+                                cpu_gen_by_text):
+    """serve:fleet after the rollout, under one :class:`FleetLoad` whose
+    requests alternate the default model and "hot": (1) a generation of
+    another pipeline published above the first stamp; each replica's
+    ``/admin/swap`` to it answers 409, the controller refuses it once, and
+    both replicas stay on the first stamp for ``FLEET_HOLD_S`` more; (2)
+    "hot", loaded on replica 1 while replica 0 restarted, its traffic routed
+    there until the placement tick loads it onto replica 0 within
+    ``FLEET_PLACE_S``
+    (``placement_decisions`` counted, "hot" resident on both, its answers
+    the base model's on the CPU); (3) ``telemetry collect-trace`` on the
+    router's URL merging three processes' traces. No request fails."""
+    import os
+
+    from spacy_ray_tpu_torch.training.checkpoint import Checkpoints
+
+    lines, stamp, watch = run["lines"], gens["stamp"], run["watch"]
+    mis = stamp + FLEET_MISMATCH_OFFSET
+    t0 = time.perf_counter()
+    while get(port, "/metrics")[1].get("placement") != {"0": ["cnn"], "1": ["cnn", "hot"]}:
+        if time.perf_counter() - t0 > 30:
+            fail(f"{phase}: the router never saw 'hot' on replica 1 alone: "
+                 f"{get(port, '/metrics')[1].get('placement')}")
+        time.sleep(0.05)
+    decisions0 = get(port, "/metrics")[1]["router"]["counters"].get("placement_decisions", 0)
+    merged = run["work"] / "fleet_trace.json"
+    collector = subprocess.Popen(
+        [sys.executable, "-m", "spacy_ray_tpu_torch", "telemetry", "collect-trace",
+         f"http://127.0.0.1:{port}", "--out", str(merged)], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "PYTHONPATH": str(ROOT)})
+    try:
+        with FleetLoad(port, texts, models=(None, "hot"), seed=3, tag="place") as load:
+            t_load = time.perf_counter()
+            src = gens["mismatch"]
+            publish_generation(src, max(Checkpoints(src).generations()), watch, mis)
+            direct = {rid: post_status(p, "/admin/swap", {"dir": str(watch), "generation": mis})
+                      for rid, p in sorted(ports.items())}
+            refused = f"replica 1 refused swap to generation {mis}: HTTP 409"
+            placed, t_placed = None, None
+            while time.perf_counter() - t_load < FLEET_PLACE_S:
+                if placed is None and "hot" in get(ports[0], "/healthz")[1].get(
+                        "resident_models", {}):
+                    placed, t_placed = True, time.perf_counter() - t_load
+                if placed and any(refused in l for l in lines):
+                    break
+                time.sleep(0.05)
+            time.sleep(FLEET_HOLD_S)
+        out, err = collector.communicate(timeout=120)
+    finally:
+        if collector.poll() is None:
+            collector.kill()
+            collector.wait()
+    failed = load.failed()
+    gens_now = {rid: get(p, "/healthz")[1] for rid, p in sorted(ports.items())}
+    refusals = [l for l in lines if refused in l]
+    problems = []
+    if failed:
+        problems.append(f"{len(failed)} requests failed: {failed[:5]}")
+    if set(direct.values()) != {409} or len(refusals) != 1 or \
+            any(h["generation"] != stamp for h in gens_now.values()):
+        problems.append(f"the mismatched generation {mis}: direct swaps {direct}, the "
+                        f"controller's refusals {refusals}, replicas on "
+                        f"{[h['generation'] for h in gens_now.values()]}")
+    decisions = get(port, "/metrics")[1]["router"]["counters"].get("placement_decisions", 0)
+    moved = [l for l in lines if "[placement-move] model 'hot' -> replica 0 (status 200)" in l]
+    if not placed or decisions <= decisions0 or not moved or \
+            not all("hot" in h.get("resident_models", {}) for h in gens_now.values()):
+        problems.append(f"placement: hot on replica 0 {placed}, decisions {decisions0} -> "
+                        f"{decisions}, said {moved}")
+    agree = {}
+    for model, ref, by_text, gen in ((None, cpu_gen, cpu_gen_by_text, stamp),
+                                     ("hot", cpu, cpu_by_text, None)):
+        got, want = load.answered(model, gen)
+        agree[model or "cnn"] = a = agreement(ref, got, [by_text[t] for t in want])
+        if not got or min(a.values()) < 0.99:
+            problems.append(f"{model or 'cnn'} answers vs the CPU {a} ({len(got)} docs)")
+    match = re.search(r"merged (\d+) event\(s\) from (\d+) process\(es\)", out)
+    tracks = []
+    if collector.returncode == 0 and merged.exists():
+        tracks = sorted((e["pid"], e["args"]["name"].split()[0])
+                        for e in json.loads(merged.read_text())["traceEvents"]
+                        if e.get("name") == "process_name")
+    if not match or match.group(2) != "3" or \
+            tracks != [(0, "router"), (1, "replica-0"), (2, "replica-1")]:
+        problems.append(f"collect-trace exited {collector.returncode}: {out!r} {err[-500:]!r}, "
+                        f"tracks {tracks}")
+    if problems:
+        fail(f"{phase}: " + "; ".join(problems) + "\n" + "\n".join(lines[-20:]))
+    return {"mismatch": {"generation": mis, "direct_swaps": direct, "controller_refusals": 1,
+                         "fleet_stayed_on": stamp},
+            "placement": {"decisions": decisions - decisions0, "seconds_to_move": t_placed,
+                          "hot_requests": sum(1 for r in load.rows if r[0] == "hot"),
+                          "resident": {rid: sorted(h["resident_models"])
+                                       for rid, h in gens_now.items()}},
+            "collect_trace": {"events": int(match.group(1)), "processes": 3,
+                              "tracks": [name for _, name in tracks]},
+            "drills_requests": len(load.rows), "drills_card_vs_cpu": agree}
 
 
 def phase_cli(model_dir: Path):
@@ -6156,7 +6730,8 @@ def phase_window_batching(torch, cnn_dir: Path, texts) -> dict:
     return out
 
 
-def phase_serve_watch(torch, cnn_dir: Path, corpus, cnn_step_ms, beside=None) -> dict:
+def phase_serve_watch(torch, cnn_dir: Path, corpus, cnn_step_ms, beside=None,
+                      keep: Path = None) -> dict:
     """``python -m spacy_ray_tpu_torch serve <train:cnn's model> --watch
     <out>/last-model --watch-interval-s 0.5`` beside ``python -m
     spacy_ray_tpu_torch train configs/cnn.cfg`` (``WATCH_STEPS`` steps, a
@@ -6168,7 +6743,8 @@ def phase_serve_watch(torch, cnn_dir: Path, corpus, cnn_step_ms, beside=None) ->
     once, every request succeeds, and every batch replays bit-equal on a
     fresh engine of its stamped generation (``replay_batches``). ``beside``
     runs once the server and the trainer are started: the whole phase runs
-    beside it."""
+    beside it. ``keep``: a directory that receives the last generation's
+    params file and meta (serve:fleet rolls it out)."""
     import os
     import signal
 
@@ -6377,6 +6953,10 @@ def phase_serve_watch(torch, cnn_dir: Path, corpus, cnn_step_ms, beside=None) ->
         "launches": health["kernel_launches"],  # the server process's, warmup included
     }
     emit(result)
+    if keep is not None:
+        keep.mkdir(parents=True, exist_ok=True)
+        for name in (f"params-{last}.npz", f"train_meta-{last}.json"):
+            shutil.copyfile(ckpt / name, keep / name)
     shutil.rmtree(work, ignore_errors=True)
     return result
 
@@ -6431,6 +7011,8 @@ def main() -> int:
     # alone that follows (the leaf shapes of trf.cfg and its MoE, the head
     # corpora, md:assets, the CNN configs' setup), before the next kernel timings
     fleet_async = start_fleet_restart(spacy_corpus)
+    # cli:train_and_serve too: a trainer and a one-replica fleet on the card
+    tns = start_train_and_serve(spacy_corpus)
     try:
         full_shapes = trf_param_shapes(torch, udgen[0])
         moe_shapes = moe_param_shapes(torch, udgen)
@@ -6456,8 +7038,10 @@ def main() -> int:
         from spacy_ray_tpu_torch.training.resilience import terminate_with_grace
 
         terminate_with_grace(fleet_async["proc"], grace_s=150.0)
+        terminate_with_grace(tns["proc"], grace_s=150.0)
         raise
     fleet_async_run = phase_train_fleet_restart(torch, fleet_async)
+    tns_run = phase_train_and_serve(tns)
     kernels.update(phase_train_kernels(torch, full_shapes, moe_shapes))
     for name, rows in phase_cnn_kernels(torch, cnn).items():
         kernels[name].extend(rows)
@@ -6469,6 +7053,7 @@ def main() -> int:
     model_dir = build_model_dir(torch)
     runs = {p: phase_slice(torch, model_dir, p) for p in ("auto", "int8")}
     runs["train:fleet_async"] = fleet_async_run
+    runs["cli:train_and_serve"] = tns_run
     # the elastic fleet: 3 workers, one SIGKILLed, the survivors re-shard; the
     # serve CLI's subprocess comes up beside the fleet's three
     runs["train:fleet_elastic"] = phase_train_fleet_elastic(
@@ -6519,33 +7104,45 @@ def main() -> int:
     try:
         runs["serve:watch"] = phase_serve_watch(
             torch, cnn_model, spacy_corpus, runs["train:cnn"]["step_ms_median_events"],
-            beside=lambda: fleet_serve.append(start_serve_fleet(cnn_model)))
+            beside=lambda: fleet_serve.append(start_serve_fleet(cnn_model)),
+            keep=WORK / "fleet_gens")
     except BaseException:
         for run in fleet_serve:
             stop_serve_fleet(run)
         raise
-    runs["serve:fleet"] = phase_serve_fleet(torch, fleet_serve[0], spacy_corpus[1], smi)
+    # an entity linker added to the trained md pipeline, every md component
+    # sourced from its best-model and frozen, the NER annotating: its assets,
+    # kernels and training run inside serve:fleet, while the fleet's replicas
+    # idle and their latency windows empty before its rollout
+    nel = {}
+
+    def nel_train():
+        t = time.perf_counter()
+        nel["kb"], nel["corpus"], nel["counts"] = nel_assets(spacy_corpus, WORK / "nel")
+        emit({"phase": "nel:assets", "seconds": time.perf_counter() - t, **nel["counts"],
+              "dev_floor": nel["counts"]["prior_only_dev_nel_micro_f"] + NEL_OVER_PRIOR,
+              "dev_floor_reported": DEV_FLOORS["nel"]["nel_micro_f"]})
+        cfg = nel_config(nel["corpus"], md_model, nel["kb"])
+        setup = cnn_setup(torch, {"nel": cfg}, trunk="entity_linker")
+        leaves = "train:nel's: md's 60 (frozen: zero gradients) and the linker's"
+        for name, rows in phase_cnn_kernels(torch, setup, leaf_sets=(("nel", leaves),)).items():
+            kernels[name].extend(rows)
+        STEP_CALLS.clear()
+        # nel_assets' independent vectors: the 0.85 floor reported, not held
+        runs["train:nel"], nel["model"] = phase_train_cnn(
+            torch, "nel", nel_config(nel["corpus"], md_model, nel["kb"]), setup["nel"],
+            grad_probe=nel_grad_probe, floors={})
+
+    # the fleet rolls serve:watch's last generation out, and refuses one of
+    # train:md's (another tree)
+    runs["serve:fleet"] = phase_serve_fleet(
+        torch, fleet_serve[0], spacy_corpus[1], smi,
+        {"dir": WORK / "fleet_gens", "stamp": runs["serve:watch"]["generations"][-1],
+         "mismatch": md_model.parent / "last-model"}, beside=nel_train)
+    shutil.rmtree(WORK / "fleet_gens", ignore_errors=True)
     shutil.rmtree(WORK / "train_full", ignore_errors=True)
     shutil.rmtree(WORK / "train_cnn", ignore_errors=True)
-    # an entity linker added to the trained md pipeline, every md component
-    # sourced from its best-model and frozen, the NER annotating
-    t = time.perf_counter()
-    kb_path, nel_corpus, nel_counts = nel_assets(spacy_corpus, WORK / "nel")
-    emit({"phase": "nel:assets", "seconds": time.perf_counter() - t, **nel_counts,
-          "dev_floor": nel_counts["prior_only_dev_nel_micro_f"] + NEL_OVER_PRIOR,
-          "dev_floor_reported": DEV_FLOORS["nel"]["nel_micro_f"]})
-
-    def nel_cfg():
-        return nel_config(nel_corpus, md_model, kb_path)
-
-    nel = cnn_setup(torch, {"nel": nel_cfg()}, trunk="entity_linker")
-    nel_leaves = "train:nel's: md's 60 (frozen: zero gradients) and the linker's"
-    for name, rows in phase_cnn_kernels(torch, nel, leaf_sets=(("nel", nel_leaves),)).items():
-        kernels[name].extend(rows)
-    STEP_CALLS.clear()
-    # nel_assets' independent vectors: the 0.85 floor reported, not held
-    runs["train:nel"], nel_model = phase_train_cnn(torch, "nel", nel_cfg(), nel["nel"],
-                                                   grad_probe=nel_grad_probe, floors={})
+    nel_corpus, nel_counts, nel_model = nel["corpus"], nel["counts"], nel["model"]
     runs["slice:nel"] = phase_slice_full(torch, nel_model, nel_corpus[1], runs["slice:md"],
                                          phase="slice:nel", need=("hash_embed_gather_sum",),
                                          cpu_compare=True, ents_floor=0.99)

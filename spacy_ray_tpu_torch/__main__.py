@@ -11,6 +11,9 @@
         [--code F]
     python -m spacy_ray_tpu_torch serve <model-dir> [options]
     python -m spacy_ray_tpu_torch serve-fleet <model-dir> [--replicas N] [options]
+        [--watch CKPT_DIR [--canary-fraction F] [--guard-* ...]]
+    python -m spacy_ray_tpu_torch train-and-serve <config.cfg> --output <dir> [options]
+    python -m spacy_ray_tpu_torch telemetry collect-trace [<url>...] --out FILE
     python -m spacy_ray_tpu_torch init-vectors <input> <output.npz> [--truncate N]
 
 ``train`` trains the config's pipeline on one device, evaluating every
@@ -66,8 +69,23 @@ generation-stamped response cache (``--cache-mb``), ``--length-routing``,
 crash restarts with backoff and, with ``--autoscale``, scaling between
 ``--min-replicas`` and ``--max-replicas`` on the replicas' p99; SIGTERM
 drains the router and then every replica, and it exits 0 only if all were
-clean. Every command runs on the card unless ``--device cpu`` is given, and
-fails without one (``serve-fleet`` before it spawns a replica).
+clean. ``--watch CKPT_DIR`` rolls each new intact generation of a training
+run's ``last-model/`` across the replicas: swapped onto
+``--canary-fraction`` of them first while the router splits traffic by
+generation, then promoted fleet-wide or rolled back by the guard
+(``--guard-*``: error rate, window p99, samples, a verdict timeout). With
+``--autoscale --model-manifest`` each scaling tick also loads a model whose
+window p99 breaches its class target onto another replica (placement).
+``train-and-serve`` runs ``train`` as a child process writing
+``<output>/last-model`` and a fleet watching it (bootstrapped from the
+run's first ``best-model`` unless ``--model`` is given); one SIGTERM drains
+both, and it exits 0 when the fleet drained clean and the trainer exited 0
+or 75. ``telemetry collect-trace`` merges the ``/trace`` buffers of the
+given endpoints (a fleet router's URL brings its replicas) into one
+Chrome-trace file by their clock anchors. Every command runs on the card
+unless ``--device cpu`` is given (``--serve-device cpu`` for
+``train-and-serve``'s replicas), and fails without one (``serve-fleet`` and
+``train-and-serve`` before they spawn anything).
 ``init-vectors`` converts word2vec or GloVe text (``.gz`` too) or an
 ``.npz`` of words and vectors into the ``vectors.npz`` that ``[initialize]
 vectors`` reads (the JAX package's command: the same file, the same errors).
@@ -104,7 +122,14 @@ USAGE = (
     " [--metrics-dir DIR]\n"
     "       python -m spacy_ray_tpu_torch serve-fleet <model-dir> [--replicas N] [--port N]"
     " [--device cuda|cpu] [--min-replicas N] [--max-replicas N] [--cache-mb MB]"
-    " [--length-routing] [--autoscale [--p99-target-ms MS]] [serve's replica options]\n"
+    " [--length-routing] [--autoscale [--p99-target-ms MS]] [--watch CKPT_DIR"
+    " [--canary-fraction F] [--guard-p99-frac X] [--guard-error-rate R]"
+    " [--guard-min-samples N] [--guard-verdict-timeout-s S]] [serve's replica options]\n"
+    "       python -m spacy_ray_tpu_torch train-and-serve <config.cfg> --output DIR"
+    " [--model DIR] [--device cuda|cpu] [--serve-device cuda|cpu] [--replicas N]"
+    " [--port N] [--train-arg ARG ...] [serve-fleet's rollout options]\n"
+    "       python -m spacy_ray_tpu_torch telemetry collect-trace [<url>...]"
+    " [--fleet-base-port N --workers K] --out FILE\n"
     "       python -m spacy_ray_tpu_torch init-vectors <input> <output.npz> [--truncate N]"
 )
 
@@ -263,11 +288,59 @@ def serve_command(argv: List[str]) -> int:
     return rc
 
 
+def _add_rollout_args(parser: argparse.ArgumentParser) -> None:
+    """The live rollout's flags, JAX's names and defaults (``serve-fleet``
+    adds ``--watch``; ``train-and-serve`` watches its own output)."""
+    parser.add_argument("--watch-interval-s", type=float, default=2.0,
+                        help="how often the controller scans the watched directory")
+    parser.add_argument("--canary-fraction", type=float, default=0.25,
+                        help="fraction of the replicas (and of the traffic) a new generation "
+                        "canaries on before promotion or rollback, within 0..1; 0 or 1 swaps "
+                        "every replica at once")
+    parser.add_argument("--guard-p99-frac", type=float, default=1.5,
+                        help="roll back when the canary's window p99 exceeds this multiple "
+                        "of the baseline's")
+    parser.add_argument("--guard-error-rate", type=float, default=0.02,
+                        help="roll back when the canary's error rate exceeds this (and the "
+                        "baseline's)")
+    parser.add_argument("--guard-min-samples", type=int, default=20,
+                        help="canary requests and window samples needed before any verdict")
+    parser.add_argument("--guard-verdict-timeout-s", type=float, default=120.0,
+                        help="a canary without a verdict after this long is rolled back")
+
+
+def _rollout_refusal(args) -> Optional[str]:
+    """Why the rollout flags cannot run, or None: the guard's own bounds
+    (JAX's messages) and a canary fraction outside 0..1."""
+    from .serving.live import CanaryGuard
+
+    if not 0.0 <= args.canary_fraction <= 1.0:
+        return (f"--canary-fraction {args.canary_fraction} must lie within 0..1 (0 or 1: "
+                "every replica swapped at once, no canary)")
+    try:
+        CanaryGuard(p99_frac=args.guard_p99_frac, error_rate_high=args.guard_error_rate,
+                    min_window_samples=args.guard_min_samples,
+                    min_canary_requests=args.guard_min_samples)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def _cpu_core_masks(spec: Optional[str]) -> Optional[List[str]]:
+    """``--cpu-cores``: 'auto' (one core per replica, round-robin over this
+    process's affinity) or comma-separated ``taskset -c`` masks."""
+    if not spec:
+        return None
+    if spec.strip().lower() == "auto":
+        return [str(c) for c in sorted(os.sched_getaffinity(0))]
+    return [m.strip() for m in spec.split(",") if m.strip()]
+
+
 def serve_fleet_command(argv: List[str]) -> int:
     """``serve-fleet``: a router over ``--replicas`` ``serve`` processes
-    (JAX ``cli.py`` ``serve_fleet_command``, less the live rollout, the
-    placement of models and the incident recorder). This process proxies,
-    probes and spawns; the replicas run the model on the card."""
+    (JAX ``cli.py`` ``serve_fleet_command``, less the incident recorder).
+    This process proxies, probes, spawns and rolls generations out; the
+    replicas run the model on the card."""
     parser = argparse.ArgumentParser(
         prog="python -m spacy_ray_tpu_torch serve-fleet", allow_abbrev=False,
         description="Serve a saved pipeline from N replica processes behind one "
@@ -317,9 +390,17 @@ def serve_fleet_command(argv: List[str]) -> int:
     parser.add_argument("--length-routing", action="store_true",
                         help="steer requests of one length bucket to one replica (within the "
                         "least-outstanding candidates) so batches pad less")
+    parser.add_argument("--watch", type=Path, default=None, metavar="CKPT_DIR",
+                        help="a training run's <output>/last-model: each new digest-verified "
+                        "generation canaries on --canary-fraction of the replicas (the router "
+                        "splits traffic by generation), then is promoted fleet-wide or rolled "
+                        "back by the guard")
+    _add_rollout_args(parser)
     parser.add_argument("--autoscale", action="store_true",
                         help="scale between --min/--max-replicas on the replicas' p99 against "
-                        "--p99-target-ms and their queues")
+                        "--p99-target-ms and their queues; with --model-manifest also load a "
+                        "model whose window p99 breaches its class target onto another "
+                        "replica")
     parser.add_argument("--p99-target-ms", type=float, default=500.0)
     parser.add_argument("--autoscale-interval-s", type=float, default=2.0)
     parser.add_argument("--up-consecutive", type=int, default=3,
@@ -346,24 +427,16 @@ def serve_fleet_command(argv: List[str]) -> int:
         print(f"--replicas {args.replicas} must lie within --min-replicas "
               f"{args.min_replicas} .. --max-replicas {args.max_replicas}", file=sys.stderr)
         return 2
-    if args.autoscale and args.model_manifest is not None:
-        # JAX's fleet also moves models between replicas as it scales; the
-        # port has no placement yet
-        print("--autoscale with --model-manifest needs the placement of models across "
-              "replicas, which this port does not have yet", file=sys.stderr)
-        return 2
     if args.cpu_cores and args.device != "cpu":
         print("--cpu-cores pins CPU replicas and needs --device cpu", file=sys.stderr)
+        return 2
+    refusal = _rollout_refusal(args)
+    if refusal is not None:
+        print(f"serve-fleet: {refusal}", file=sys.stderr)
         return 2
 
     from .serving.fleet import Fleet, FleetConfig
 
-    cpu_cores: Optional[List[str]] = None
-    if args.cpu_cores:
-        if args.cpu_cores.strip().lower() == "auto":
-            cpu_cores = [str(c) for c in sorted(os.sched_getaffinity(0))]
-        else:
-            cpu_cores = [m.strip() for m in args.cpu_cores.split(",") if m.strip()]
     config = FleetConfig(
         model_path=str(args.model_path), host=args.host, port=args.port, device=args.device,
         replicas=args.replicas, min_replicas=args.min_replicas, max_replicas=args.max_replicas,
@@ -374,9 +447,14 @@ def serve_fleet_command(argv: List[str]) -> int:
         resident_models=args.resident_models, base_port=args.base_port,
         visible_devices=([m.strip() for m in args.visible_devices.split(",") if m.strip()]
                          if args.visible_devices else None),
-        visible_devices_env=args.visible_devices_env, cpu_cores=cpu_cores,
+        visible_devices_env=args.visible_devices_env, cpu_cores=_cpu_core_masks(args.cpu_cores),
         cache_mb=args.cache_mb, probe_interval_s=args.probe_interval_s,
-        length_routing=args.length_routing, autoscale=args.autoscale,
+        length_routing=args.length_routing,
+        watch_dir=str(args.watch) if args.watch is not None else None,
+        watch_interval_s=args.watch_interval_s, canary_fraction=args.canary_fraction,
+        guard_p99_frac=args.guard_p99_frac, guard_error_rate=args.guard_error_rate,
+        guard_min_samples=args.guard_min_samples,
+        guard_verdict_timeout_s=args.guard_verdict_timeout_s, autoscale=args.autoscale,
         p99_target_ms=args.p99_target_ms, autoscale_interval_s=args.autoscale_interval_s,
         up_consecutive=args.up_consecutive, down_consecutive=args.down_consecutive,
         cooldown_s=args.cooldown_s, drain_timeout_s=args.drain_timeout_s,
@@ -393,6 +471,163 @@ def serve_fleet_command(argv: List[str]) -> int:
         print("fleet drain incomplete (router timeout or nonzero replica exit) — "
               f"exiting {rc}", flush=True)
     return rc
+
+
+def train_and_serve_command(argv: List[str]) -> int:
+    """``train-and-serve``: a ``train`` child process writing generations
+    into ``<output>/last-model`` and a fleet watching that directory, which
+    swaps each new intact generation in without dropping a request (canary
+    and guard with more than one replica). One SIGTERM drains both: the
+    trainer stops with a generation written (exit 75), the fleet finishes
+    its work; exit 0 only if both were clean (JAX ``cli.py``
+    ``train_and_serve_command``)."""
+    parser = argparse.ArgumentParser(
+        prog="python -m spacy_ray_tpu_torch train-and-serve", allow_abbrev=False,
+        description="Run training and a hot-swapping serving fleet against one checkpoint "
+                    "directory, under one lifecycle.")
+    parser.add_argument("config_path", type=Path)
+    parser.add_argument("--output", "-o", type=Path, required=True,
+                        help="training output dir; the fleet watches <output>/last-model")
+    parser.add_argument("--model", type=Path, default=None,
+                        help="serve this model dir from the start (e.g. the previous run's "
+                        "best-model); default: a copy of this run's first best-model")
+    parser.add_argument("--bootstrap-timeout-s", type=float, default=600.0,
+                        help="without --model: how long to wait for the first best-model")
+    parser.add_argument("--host", default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=8090)
+    parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                        help="the trainer's and (without --serve-device) every replica's "
+                        "device: cuda (default; fails without a card) or cpu")
+    parser.add_argument("--serve-device", choices=["cuda", "cpu"], default=None,
+                        help="the replicas' device (default: --device)")
+    parser.add_argument("--replicas", type=int, default=1)
+    parser.add_argument("--base-port", type=int, default=0)
+    parser.add_argument("--cpu-cores", type=str, default=None,
+                        help="serve-fleet's --cpu-cores for CPU replicas")
+    parser.add_argument("--max-batch", type=int, default=None)
+    parser.add_argument("--max-doc-len", type=int, default=None)
+    parser.add_argument("--batching", choices=["continuous", "window"], default=None)
+    parser.add_argument("--precision", choices=PRECISION_CHOICES, default=None)
+    _add_rollout_args(parser)
+    parser.add_argument("--drain-timeout-s", type=float, default=60.0)
+    parser.add_argument("--no-telemetry", action="store_true")
+    parser.add_argument("--train-arg", action="append", default=[], dest="train_args",
+                        metavar="ARG",
+                        help="an argument appended to the train command (repeatable), e.g. "
+                        "--train-arg=--training.max_steps --train-arg=200")
+    parser.add_argument("--verbose", "-V", action="store_true")
+    args = parser.parse_args(argv)
+
+    logging.basicConfig(level=logging.DEBUG if args.verbose else logging.ERROR)
+    for name in ("spacy_ray_tpu_torch.training", "spacy_ray_tpu_torch.serving"):
+        logging.getLogger(name).setLevel(logging.INFO if args.verbose else logging.WARNING)
+    serve_device = args.serve_device or args.device
+    if args.replicas < 1:
+        print("--replicas must be >= 1", file=sys.stderr)
+        return 2
+    if args.cpu_cores and serve_device != "cpu":
+        print("--cpu-cores pins CPU replicas and needs the replicas on the CPU",
+              file=sys.stderr)
+        return 2
+    refusal = _rollout_refusal(args)
+    if refusal is not None:
+        print(f"train-and-serve: {refusal}", file=sys.stderr)
+        return 2
+    if "cuda" in (args.device, serve_device):
+        from .devices import resolve_device
+
+        try:  # no card: nothing is spawned
+            resolve_device("cuda")
+        except RuntimeError as e:
+            print(f"train-and-serve: {e}", file=sys.stderr)
+            return 1
+
+    from .serving.fleet import FleetConfig
+    from .serving.live import TrainAndServe
+
+    output = args.output
+    train_cmd = [sys.executable, "-m", "spacy_ray_tpu_torch", "train", str(args.config_path),
+                 "--output", str(output), "--device", args.device, *args.train_args]
+    config = FleetConfig(
+        model_path=str(args.model) if args.model is not None else "", host=args.host,
+        port=args.port, device=serve_device, replicas=args.replicas, min_replicas=1,
+        max_replicas=args.replicas, max_batch=args.max_batch, max_doc_len=args.max_doc_len,
+        batching=args.batching, precision=args.precision, base_port=args.base_port,
+        cpu_cores=_cpu_core_masks(args.cpu_cores), watch_dir=str(output / "last-model"),
+        watch_interval_s=args.watch_interval_s, canary_fraction=args.canary_fraction,
+        guard_p99_frac=args.guard_p99_frac, guard_error_rate=args.guard_error_rate,
+        guard_min_samples=args.guard_min_samples,
+        guard_verdict_timeout_s=args.guard_verdict_timeout_s,
+        drain_timeout_s=args.drain_timeout_s, telemetry=not args.no_telemetry)
+    rc = TrainAndServe(train_cmd, config, output_dir=output,
+                       bootstrap_timeout_s=args.bootstrap_timeout_s).run()
+    if rc == 0:
+        print("train-and-serve: exiting 0", flush=True)
+    else:
+        print(f"train-and-serve: incomplete drain or trainer failure — exiting {rc}",
+              flush=True)
+    return rc
+
+
+#: ``telemetry`` subcommands of the JAX package that wait for the port's
+#: observability (its alerting, incidents, run ledger and reports)
+TELEMETRY_WAITING = ("summarize", "top", "postmortem", "report", "ledger")
+
+
+def telemetry_command(argv: List[str]) -> int:
+    """``telemetry collect-trace``: merge the ``/trace`` buffers of a serving
+    fleet's router and replicas (discovered from the router's ``/healthz``),
+    or of any endpoints, into one Chrome-trace file aligned by their clock
+    anchors (JAX ``cli.py`` ``telemetry_command``). The JAX package's other
+    subcommands exit 2."""
+    usage = ("Usage: python -m spacy_ray_tpu_torch telemetry collect-trace [<url>...] "
+             "[--fleet-base-port N --workers K] --out FILE")
+    if not argv or argv[0] not in ("collect-trace", *TELEMETRY_WAITING):
+        print(usage, file=sys.stderr)
+        return 1
+    sub, rest = argv[0], argv[1:]
+    if sub != "collect-trace":
+        print(f"telemetry {sub} is not part of the port yet (ROADMAP.md Queue A item 4.4, "
+              "observability)", file=sys.stderr)
+        return 2
+    parser = argparse.ArgumentParser(prog="python -m spacy_ray_tpu_torch telemetry collect-trace")
+    parser.add_argument("urls", nargs="*", metavar="URL",
+                        help="endpoint base URLs; a fleet router's URL brings its replicas")
+    parser.add_argument("--out", type=Path, required=True,
+                        help="the merged Chrome-trace JSON (open in ui.perfetto.dev)")
+    parser.add_argument("--no-discover", action="store_true",
+                        help="do not expand a router's URL into its replicas")
+    parser.add_argument("--fleet-base-port", type=int, default=None, dest="fleet_base_port",
+                        help="a trainer fleet: worker k at <fleet-host>:base+k for k in "
+                        "0..workers-1 (as train --fleet-base-port)")
+    parser.add_argument("--workers", type=int, default=None,
+                        help="the trainer fleet's worker count (with --fleet-base-port)")
+    parser.add_argument("--fleet-host", default="127.0.0.1", dest="fleet_host")
+    args = parser.parse_args(rest)
+
+    from .serving.tracecollect import collect_fleet_traces, fleet_worker_urls, write_merged_trace
+
+    urls = list(args.urls)
+    if (args.fleet_base_port is None) != (args.workers is None):
+        parser.error("--fleet-base-port and --workers go together")
+    if args.workers is not None and args.workers <= 0:
+        parser.error(f"--workers must be positive, got {args.workers}")
+    if args.fleet_base_port is not None:
+        urls.extend(fleet_worker_urls(args.fleet_base_port, args.workers, host=args.fleet_host))
+    if not urls:
+        parser.error("give endpoint URLs, or --fleet-base-port N --workers K for a trainer "
+                     "fleet")
+    merged = collect_fleet_traces(urls, discover=not args.no_discover)
+    info = merged.get("otherData") or {}
+    if not info.get("merged_from"):
+        print(f"no traces collected (skipped: {info.get('skipped')}) — are the endpoints up "
+              "with telemetry enabled?", file=sys.stderr)
+        return 1
+    path = write_merged_trace(merged, args.out)
+    n = sum(1 for e in merged["traceEvents"] if e.get("ph") != "M")
+    print(f"merged {n} event(s) from {len(info['merged_from'])} process(es) into {path}"
+          + (f" (skipped: {info['skipped']})" if info.get("skipped") else ""))
+    return 0
 
 
 #: a supervised one-process run's SIGTERM -> SIGKILL window
@@ -669,7 +904,8 @@ def init_vectors_command(argv: List[str]) -> int:
 
 COMMANDS = {"train": train_command, "pretrain": pretrain_command,
             "evaluate": evaluate_command, "serve": serve_command,
-            "serve-fleet": serve_fleet_command, "init-vectors": init_vectors_command}
+            "serve-fleet": serve_fleet_command, "train-and-serve": train_and_serve_command,
+            "telemetry": telemetry_command, "init-vectors": init_vectors_command}
 
 
 def main(argv: Optional[List[str]] = None) -> int:

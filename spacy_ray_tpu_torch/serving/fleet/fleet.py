@@ -1,16 +1,18 @@
-"""One serving fleet: the supervisor, the router and the autoscaler under
-one lifecycle (``spacy_ray_tpu/serving/fleet/fleet.py``)::
+"""One serving fleet: the supervisor, the router, the autoscaler and the
+rollout controller under one lifecycle (``spacy_ray_tpu/serving/fleet/fleet.py``)::
 
             clients
                |
         RouterHTTPServer (:port)           this process, no CUDA
          /v1/parse /healthz /metrics[?format=prometheus] /trace /admin/exemplars
                |
-        Router (least outstanding, probed, retries, response cache)
+        Router (least outstanding, probed, retries, canary split, response cache)
           |          |           |
        serve #0   serve #1 ... serve #N-1  replica processes, on the card
           ^---- ReplicaSupervisor (spawn, restart with backoff, scale)
-                      ^---- AutoscalerPolicy (the replicas' SLO telemetry -> scale_to)
+          |           ^---- AutoscalerPolicy (the replicas' SLO telemetry -> scale_to)
+          |                 + PlacementPolicy (a manifest: /admin/models/load)
+          ^---- LiveFleetController (--watch: /admin/swap, /admin/rollback)
 
 SIGTERM or SIGINT (through :meth:`~...training.resilience.ShutdownCoordinator.add_callback`)
 closes the router's admission at once; then the router waits for its
@@ -18,18 +20,26 @@ forwarded requests, every replica gets SIGTERM and drains its own work, in
 parallel, and the fleet exits 0 only if the router went quiet and every
 replica exited 0.
 
-Not here yet: the live rollout controller (``--watch``), placement of
-models across replicas, the alert engine and the incident recorder.
+With ``watch_dir`` a :class:`~..live.LiveFleetController` rolls each new
+checkpoint generation of that directory across the replicas (canary, the
+router's split, the guard's verdict, promotion or rollback); it starts with
+the fleet and stops first in the drain, so no swap reaches a draining fleet.
+With a manifest and ``autoscale`` a :class:`~..multimodel.PlacementPolicy`
+also decides which replicas host which models (:meth:`Fleet.placement_tick`),
+and ``incidents_dir`` keeps its ledger. Not here yet: the alert engine and
+the incident recorder that ``incidents_dir`` also arms in the JAX package.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import shutil
 import threading
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Tuple
 
 from ...training.resilience import ShutdownCoordinator, log_event
 from .autoscaler import AutoscalerPolicy, observation_from_snapshots
@@ -39,6 +49,11 @@ from .router import Router, RouterHTTPServer, RouterTelemetry
 __all__ = ["FleetConfig", "Fleet"]
 
 logger = logging.getLogger("spacy_ray_tpu_torch.serving")
+
+#: the canary guard's streaks: bad windows in a row that roll a generation
+#: back, good windows in a row that promote it (JAX's defaults)
+GUARD_BAD_CONSECUTIVE = 2
+GUARD_GOOD_CONSECUTIVE = 3
 
 
 @dataclass
@@ -75,12 +90,26 @@ class FleetConfig:
     cache_mb: float = 32.0  # the router's response cache (0 = off)
     probe_interval_s: float = 0.5
     length_routing: bool = False
+    # the live rollout: a training run's checkpoint directory; each new
+    # intact generation canaries on canary_fraction of the replicas (the
+    # router splits traffic by generation), then the guard promotes it
+    # fleet-wide or rolls it back on error rate or window p99
+    watch_dir: Optional[str] = None
+    watch_interval_s: float = 2.0
+    canary_fraction: float = 0.25
+    guard_p99_frac: float = 1.5
+    guard_error_rate: float = 0.02
+    guard_min_samples: int = 20
+    guard_verdict_timeout_s: float = 120.0
     autoscale: bool = False
     p99_target_ms: float = 500.0
     autoscale_interval_s: float = 2.0
     up_consecutive: int = 3
     down_consecutive: int = 10
     cooldown_s: float = 30.0
+    # the placement ledger's directory (placement.jsonl); JAX's flight
+    # recorder, which it also arms there, is not ported
+    incidents_dir: Optional[str] = None
     drain_timeout_s: float = 60.0
     ready_timeout_s: float = 300.0
     telemetry: bool = True
@@ -102,7 +131,7 @@ class FleetConfig:
             max_batch=self.max_batch, max_wait_ms=self.max_wait_ms, queue_size=self.queue_size,
             timeout_ms=self.timeout_ms, max_doc_len=self.max_doc_len,
             drain_timeout_s=REPLICA_DRAIN_TIMEOUT_S, batching=self.batching,
-            precision=self.precision, no_telemetry=not self.telemetry,
+            precision=self.precision, swap_dir=self.watch_dir, no_telemetry=not self.telemetry,
             model_manifest=self.model_manifest, resident_models=self.resident_models)
 
     def build_env(self, slot: int) -> Dict[str, str]:
@@ -133,18 +162,49 @@ class Fleet:
             from ..multimodel import ModelRegistry
 
             self.registry = ModelRegistry.from_manifest(config.model_manifest)
-        # no rollout controller declares a canary here: the split stays off
+        # the split is armed only with a watched directory, and acts only
+        # while the controller declares a rollout
         self.router = Router(self.supervisor.handles, telemetry=self.tel,
                              cache_bytes=int(config.cache_mb * 1024 * 1024),
                              probe_interval_s=config.probe_interval_s,
-                             length_routing=config.length_routing, canary_fraction=0.0,
+                             length_routing=config.length_routing,
+                             canary_fraction=config.canary_fraction if config.watch_dir else 0.0,
                              registry=self.registry)
+        self.controller = None
+        if config.watch_dir:
+            from ..live import CanaryGuard, LiveFleetController
+
+            self.controller = LiveFleetController(
+                config.watch_dir, self.router, canary_fraction=config.canary_fraction,
+                interval_s=config.watch_interval_s,
+                guard=CanaryGuard(p99_frac=config.guard_p99_frac,
+                                  error_rate_high=config.guard_error_rate,
+                                  min_window_samples=config.guard_min_samples,
+                                  min_canary_requests=config.guard_min_samples,
+                                  bad_consecutive=GUARD_BAD_CONSECUTIVE,
+                                  good_consecutive=GUARD_GOOD_CONSECUTIVE),
+                verdict_timeout_s=config.guard_verdict_timeout_s)
         self.policy: Optional[AutoscalerPolicy] = None
         if config.autoscale:
             self.policy = AutoscalerPolicy(
                 min_replicas=config.min_replicas, max_replicas=config.max_replicas,
                 p99_target_s=config.p99_target_ms / 1e3, up_consecutive=config.up_consecutive,
                 down_consecutive=config.down_consecutive, cooldown_s=config.cooldown_s)
+        # with a manifest, each autoscale tick also decides which models need
+        # another host (per-model window p99 against the tightest class
+        # target), applied through /admin/models/load and kept in the ledger
+        self.placement_policy = None
+        self._placement_ledger: Optional[Path] = None
+        if self.registry is not None and config.autoscale:
+            from ..multimodel import PlacementPolicy
+
+            self.placement_policy = PlacementPolicy(
+                self.registry, default_p99_target_ms=config.p99_target_ms,
+                breach_consecutive=config.up_consecutive, cooldown_s=config.cooldown_s)
+            if config.incidents_dir:
+                inc = Path(config.incidents_dir)
+                inc.mkdir(parents=True, exist_ok=True)
+                self._placement_ledger = inc / "placement.jsonl"
         self.httpd = RouterHTTPServer((config.host, config.port), self.router)
         self._stop = threading.Event()
         self._serve_thread: Optional[threading.Thread] = None
@@ -166,6 +226,8 @@ class Fleet:
             self._autoscale_thread = threading.Thread(target=self._autoscale_loop,
                                                       name="fleet-autoscaler", daemon=True)
             self._autoscale_thread.start()
+        if self.controller is not None:
+            self.controller.start()
         return self.address
 
     def wait_ready(self, n: Optional[int] = None, timeout_s: Optional[float] = None) -> bool:
@@ -204,7 +266,51 @@ class Fleet:
                                            args={"from": obs.ready, "to": desired})
                 self.tel.registry.counter("autoscale_decisions").inc()
             self.supervisor.scale_to(desired)
+        if self.placement_policy is not None:
+            self.placement_tick(snaps)
         return desired
+
+    def placement_tick(self, snaps: Optional[List[Dict[str, Any]]] = None):
+        """The placement half of the scaling loop: the per-model window p99
+        of the merged ``by_model`` view -> the models that need another
+        host -> ``/admin/models/load`` and the ledger. Returns the decisions
+        applied."""
+        from ...training.telemetry import merge_serving_snapshots
+
+        if snaps is None:
+            snaps = self.router.scrape_replica_metrics()
+        by_model: Dict[str, Dict[str, Any]] = {}
+        for name, sub in (merge_serving_snapshots(snaps).get("by_model") or {}).items():
+            win = (sub or {}).get("slo_window") or {}
+            by_model[name] = {"p99": win.get("request_latency_p99"),
+                              "samples": win.get("samples")}
+        decisions = self.placement_policy.observe(
+            by_model, self.router.placement(),
+            [h.replica_id for h in self.router.ready_handles()])
+        for d in decisions:
+            try:
+                status, _ = self.router.load_model(d.replica_id, d.model)
+            except Exception as exc:  # a failed load is logged and ledgered
+                status = None
+                logger.warning("placement: load %r onto replica %d failed: %r",
+                               d.model, d.replica_id, exc)
+            log_event("placement-move",
+                      f"model {d.model!r} -> replica {d.replica_id} (status {status}): "
+                      f"{d.reason}", level=logging.INFO, model=d.model, replica=d.replica_id,
+                      status=status)
+            if self.tel is not None:
+                self.tel.trace.add_instant("placement", cat="fleet",
+                                           args={"model": d.model, "replica": d.replica_id})
+                self.tel.registry.counter("placement_decisions").inc()
+            if self._placement_ledger is not None:
+                try:
+                    with open(self._placement_ledger, "a", encoding="utf8") as fh:
+                        fh.write(json.dumps({"unix_time": round(time.time(), 3),
+                                             "model": d.model, "replica_id": d.replica_id,
+                                             "status": status, "reason": d.reason}) + "\n")
+                except OSError:
+                    logger.exception("placement ledger append failed")
+        return decisions
 
     def request_shutdown(self, signum: Optional[int] = None) -> None:
         """Signal-safe (a flag and an event): admission closes at once; the
@@ -216,6 +322,8 @@ class Fleet:
         self._stop.wait()
         self.router.begin_drain()
         self.supervisor.begin_drain()  # a crash during the drain stays down
+        if self.controller is not None:
+            self.controller.stop()  # no swap into a draining fleet
         log_event("fleet-drain", "shutdown requested — draining router, then "
                   f"{self.supervisor.replica_count} replica(s)", level=logging.INFO)
         router_quiet = self.router.wait_inflight(self.config.drain_timeout_s)

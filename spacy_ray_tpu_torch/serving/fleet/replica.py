@@ -411,13 +411,15 @@ def build_serve_cmd(
     drain_timeout_s: Optional[float] = None,
     batching: Optional[str] = None,
     precision: Optional[str] = None,
+    swap_dir: Optional[str] = None,
     no_telemetry: bool = False,
     model_manifest: Optional[str] = None,
     resident_models: Optional[int] = None,
 ) -> List[str]:
     """A replica's ``python -m spacy_ray_tpu_torch serve`` argv (``None``
     leaves a flag at the server's default). ``device`` is ``cuda`` unless the
-    fleet was asked for the CPU."""
+    fleet was asked for the CPU. ``swap_dir`` is the one directory the
+    replica's ``/admin/swap`` may load from (the rollout controller's)."""
     cmd = [sys.executable, "-m", "spacy_ray_tpu_torch", "serve", str(model_path),
            "--host", host, "--port", str(int(port)), "--device", device]
     if max_batch is not None:
@@ -436,6 +438,8 @@ def build_serve_cmd(
         cmd += ["--batching", str(batching)]
     if precision is not None:
         cmd += ["--precision", str(precision)]
+    if swap_dir is not None:
+        cmd += ["--swap-dir", str(swap_dir)]
     if model_manifest is not None:
         cmd += ["--model-manifest", str(model_manifest)]
     if resident_models is not None:

@@ -1,15 +1,16 @@
 """Multi-model, multi-tenant serving in one process
 (``spacy_ray_tpu/serving/multimodel``): the model registry and request
 resolution, per-tenant token-bucket quotas in front of the SLO-class fair
-queue, and the LRU hot set of warmed engines.
+queue, the LRU hot set of warmed engines, and the serving fleet's
+placement policy (which replicas host which models).
 
-All of it is turned on by a manifest (``serve --model-manifest``); without
-one none of these objects is built and the single-model path is unchanged.
-The placement policy of the JAX package belongs to its serving fleet and is
-not part of the port yet.
+All of it is turned on by a manifest (``serve --model-manifest``, and
+``serve-fleet --autoscale --model-manifest`` for placement); without one
+none of these objects is built and the single-model path is unchanged.
 """
 
 from .admission import AdmissionController, TokenBucket
+from .placement import PlacementDecision, PlacementPolicy
 from .registry import (
     MODEL_HEADER,
     MODEL_PATH_RE,
@@ -32,4 +33,6 @@ __all__ = [
     "AdmissionController",
     "TokenBucket",
     "ResidencyManager",
+    "PlacementDecision",
+    "PlacementPolicy",
 ]

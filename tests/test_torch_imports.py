@@ -99,15 +99,18 @@ def test_the_serving_modules_of_one_process_are_checked():
         "serving/multimodel/admission", "serving/multimodel/residency",
         "serving/live/__init__", "serving/live/watcher", "training/resilience")} <= names
     # the trainer fleet's core, its membership, its compressed wire and its
-    # optimizer parts are ported, and so is the serving fleet (their files
-    # import neither jax nor the JAX package: test_no_jax_or_jax_package_import
-    # covers every file here); placement and the live rollout are not yet
+    # optimizer parts are ported, and so are the serving fleet, its placement,
+    # the live rollout and the trace collector (their files import neither
+    # jax nor the JAX package: test_no_jax_or_jax_package_import covers every
+    # file here)
     assert {f"spacy_ray_tpu_torch/training/fleet/{m}.py" for m in (
         "__init__", "ownership", "wire", "peer", "worker", "coordinator",
         "membership")} <= names
     assert {f"spacy_ray_tpu_torch/serving/fleet/{m}.py" for m in (
         "__init__", "replica", "router", "autoscaler", "fleet")} <= names
-    assert not {n for n in names if "placement" in n or "canary" in n or "controller" in n}
+    assert {f"spacy_ray_tpu_torch/serving/{m}.py" for m in (
+        "multimodel/placement", "live/canary", "live/controller", "live/orchestrator",
+        "tracecollect")} <= names
 
 
 def test_the_fleet_wire_quantizes_with_the_ports_own_int8_functions():
@@ -178,6 +181,8 @@ def test_serve_fleet_without_a_card_fails_before_spawning_a_replica(tmp_path):
     # --device cuda (the default) on a machine without a card it exits before
     # it binds its port or spawns a replica, instead of crash-looping them
     code = ("import sys, spacy_ray_tpu_torch.serving.fleet as f\n"
+            "import spacy_ray_tpu_torch.serving.live, spacy_ray_tpu_torch.serving.tracecollect\n"
+            "import spacy_ray_tpu_torch.serving.multimodel.placement\n"
             "from spacy_ray_tpu_torch.training.telemetry import merge_serving_snapshots\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}))\n")
@@ -197,3 +202,18 @@ def test_serve_fleet_without_a_card_fails_before_spawning_a_replica(tmp_path):
     assert out.returncode != 0
     assert "no CUDA device is available" in out.stderr
     assert "replica-spawn" not in out.stderr and "fleet serving on" not in out.stdout
+
+
+def test_train_and_serve_without_a_card_fails_before_spawning_anything(tmp_path):
+    # the trainer's device and the replicas' are both checked before the
+    # training process starts; --serve-device cpu alone does not help a
+    # trainer on the card
+    env = {**os.environ, "PYTHONPATH": str(REPO), "CUDA_VISIBLE_DEVICES": ""}
+    for extra in ([], ["--serve-device", "cpu"], ["--device", "cpu", "--serve-device", "cuda"]):
+        out = subprocess.run(
+            [sys.executable, "-m", "spacy_ray_tpu_torch", "train-and-serve", "configs/cnn.cfg",
+             "--output", str(tmp_path / "out"), "--port", "0", *extra],
+            cwd=REPO, capture_output=True, text=True, timeout=120, env=env)
+        assert out.returncode == 1, (extra, out.stderr)
+        assert "train-and-serve: no CUDA device is available" in out.stderr
+        assert "training pid" not in out.stdout and not (tmp_path / "out").exists()

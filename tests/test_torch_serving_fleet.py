@@ -1266,7 +1266,7 @@ def test_supervisor_restarts_nothing_while_draining(monkeypatch):
 def test_build_serve_cmd_matches_jax_but_for_the_package():
     kw = dict(device="cpu", port=7, max_batch=4, max_wait_ms=5, queue_size=64, timeout_ms=900,
               max_doc_len=32, drain_timeout_s=3, batching="window", precision="f32",
-              no_telemetry=True, model_manifest="m.json", resident_models=2)
+              swap_dir="ckpt", no_telemetry=True, model_manifest="m.json", resident_models=2)
     port, ref = p_fleet.build_serve_cmd("model", **kw), j_fleet.build_serve_cmd("model", **kw)
     assert port[:3] == [sys.executable, "-m", "spacy_ray_tpu_torch"]
     assert port[3:] == ref[3:] and ref[2] == "spacy_ray_tpu"
@@ -1275,7 +1275,8 @@ def test_build_serve_cmd_matches_jax_but_for_the_package():
 
 def test_fleet_config_builds_the_replicas_argv_and_env_by_slot():
     cfg = dict(model_path="m", device="cpu", base_port=9000, max_batch=8,
-               visible_devices=["0", "1"], visible_devices_env="CUDA_VISIBLE_DEVICES")
+               visible_devices=["0", "1"], visible_devices_env="CUDA_VISIBLE_DEVICES",
+               watch_dir="ckpt")
     port, ref = p_fleet.FleetConfig(**cfg), j_fleet.FleetConfig(**cfg)
     for slot in range(3):
         assert port.build_cmd(slot)[3:] == ref.build_cmd(slot)[3:]

@@ -147,12 +147,15 @@ def test_serve_fleet_answers_restarts_a_killed_replica_and_drains(tmp_path):
 
 
 @pytest.mark.parametrize("argv, says", [
-    (["--watch", "d"], "unrecognized arguments: --watch"),
-    (["--canary-fraction", "0.5"], "unrecognized arguments: --canary-fraction"),
+    # the rollout's bounds: the guard's own (JAX's messages) and a canary
+    # fraction outside 0..1
+    (["--canary-fraction", "1.5"], "--canary-fraction 1.5 must lie within 0..1"),
+    (["--guard-error-rate", "2"], "error_rate_high must be within 0..1"),
+    (["--guard-p99-frac", "0"], "p99_frac must be > 0"),
     (["--incidents-dir", "d"], "unrecognized arguments: --incidents-dir"),
+    (["--observe-interval-s", "1"], "unrecognized arguments: --observe-interval-s"),
     (["--continuous"], "unrecognized arguments: --continuous"),
     (["--window-ms", "5"], "unrecognized arguments: --window-ms"),
-    (["--autoscale", "--model-manifest", "m.json"], "placement"),
     (["--replicas", "5"], "must lie within --min-replicas 1 .. --max-replicas 4"),
     (["--replicas", "0"], "--replicas/--min-replicas must be >= 1"),
     # the later --device wins: core masks without the CPU are refused

@@ -61,7 +61,19 @@ Run from the root of a checkout. Phases, each printing one JSON line:
               and kernel time and device operations under the
               profiler), and its gradients of
               every leaf, the heads' included, are held against the plain
-              versions (dropout off).
+              versions (dropout off). With telemetry on
+              (``metrics_dir``, a ``metrics_port`` scraped every second
+              for ``/metrics`` as JSON and Prometheus text and ``/healthz``,
+              ``trace_steps`` [5, 15]): one ``step`` row a step and one
+              ``eval`` row an evaluation, step spans for steps 6-15 only,
+              each eval row's ``hbm_peak_bytes`` in (0, the run's peak], ``mfu``
+              in (0, 1), no anomaly, and ``telemetry collect-trace``'s merge
+              of the trainer's endpoint holding its spans on the trainer's
+              track; ``flops_per_step`` beside the trunk's and tagger's
+              analytic count, telemetry's ``step_seconds_p50`` beside the
+              events' median. The same run again with telemetry off must
+              end with every parameter and step loss bit-equal; its events'
+              median beside the first run's is telemetry's cost a step.
 8. slice:full — ``train:full``'s ``last-model/`` served at ``--precision
               auto`` with slice:auto's traffic over the dev texts: every doc
               answered with tags, heads and deps, the heads' decodes
@@ -222,8 +234,9 @@ Run from the root of a checkout. Phases, each printing one JSON line:
               ``--resident-models 2``, SLO classes gold (weight 4) and batch
               (1), tenants acme, bulk and metered (5 docs/s, burst 10),
               ``--max-batch 8 --max-doc-len 64``. 16 closed-loop clients per
-              trf tenant keep both classes queued while md and cnn bursts
-              alternate (5 loads, 4 evictions under trf's load), the metered tenant sends 4 x its quota, an
+              trf tenant keep both classes queued while cnn and md bursts
+              alternate (5 loads, 2 of them md's, 4 evictions under trf's
+              load), the metered tenant sends 4 x its quota, an
               unknown model, ETag repeats and an ``/admin/swap`` of md
               alone: no failed request, answers vs the CPU (trf >= 0.95
               bf16, md and cnn >= 0.99), a reload's captures while a trf
@@ -393,6 +406,23 @@ Run from the root of a checkout. Phases, each printing one JSON line:
               (interrupted at a step boundary, its generation written) and
               no process of it is left; printed: the seconds to the
               bootstrap, to ready, to the flip and of the drain.
+
+27. train:faults (beside train:fleet_async, cli:train_and_serve and
+              the host's own work) — ``train configs/cnn.cfg --max-restarts
+              1 --metrics-dir ... --training.watchdog_timeout_s 15`` (40
+              steps, an evaluation every 10, on the udgen .jsonl corpus) with
+              ``SPACY_RAY_TPU_FAULT_PLAN="corpus-read:1:oserror,
+              checkpoint-write:1:oserror,step:7:nan"`` and a ``--code``
+              callback that hangs for 30 s once, before step 16 (after the
+              step-10 generation): each attempt retries its first corpus
+              open and its first generation's write, reports step 7's loss
+              as NaN (the first evaluation after it a non-finite
+              ``loss_total``, a ``nan-loss`` anomaly in ``metrics.jsonl`` and
+              in the ``JsonlLogger.v1`` rows); the first exits 79 with a
+              thread dump naming the callback, the supervisor restarts it
+              with ``--resume`` (a ``resume`` event at step 10) and the run
+              ends 0 with ``last-model/``. K1 fwd, K1 bwd and K5 launch in
+              each attempt (the callback writes its process's counts).
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -1861,6 +1891,173 @@ def phase_serve_fleet(torch, run: dict, dev_path: Path, smi: str, gens: dict,
     return result
 
 
+FAULTS_PLAN = "corpus-read:1:oserror,checkpoint-write:1:oserror,step:7:nan"
+FAULTS_WATCHDOG_S = 15  # train:faults: [training] watchdog_timeout_s
+FAULTS_STEPS, FAULTS_EVAL = 40, 10
+FAULTS_HANG_AT = 15     # the callback hangs before the 16th step, after the step-10 generation
+FAULTS_RETRY_BASE_S = 0.05  # the retries' backoff base (the default 0.5 s only waits)
+FAULTS_DRILL = """
+import atexit
+import json
+import os
+import time
+from pathlib import Path
+
+from spacy_ray_tpu_torch.ops import _cuda
+from spacy_ray_tpu_torch.registry import registry
+
+
+@registry.callbacks("chip_smoke.hang_once.v1")
+def hang_once(marker: str, at_step: int, seconds: float, launches: str):
+    # this process's launch counts, at every step and at exit
+    out = Path(launches) / f"{os.getpid()}.json"
+
+    def write():
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps(_cuda.launch_counts()))
+
+    atexit.register(write)
+
+    def hang_in_before_update(nlp, info):
+        write()
+        if info["step"] == at_step and not Path(marker).exists():
+            Path(marker).write_text(str(time.time()))
+            time.sleep(seconds)
+
+    return hang_in_before_update
+"""
+
+
+def start_train_faults(corpus) -> dict:
+    """train:faults started: ``train configs/cnn.cfg --max-restarts 1
+    --metrics-dir`` with the fault plan :data:`FAULTS_PLAN`, the watchdog at
+    :data:`FAULTS_WATCHDOG_S` and a ``--code`` callback that hangs twice that
+    once, as a subprocess; reader threads stamp its lines.
+    :func:`phase_train_faults` reads it."""
+    import os
+
+    work = WORK / "train_faults"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    code = work / "drill.py"
+    code.write_text(FAULTS_DRILL, encoding="utf8")
+    hang = {"@callbacks": "chip_smoke.hang_once.v1", "marker": str(work / "hung"),
+            "at_step": FAULTS_HANG_AT, "seconds": 2 * FAULTS_WATCHDOG_S,
+            "launches": str(work / "launches")}
+    log = {"@loggers": "spacy_ray_tpu.JsonlLogger.v1", "path": str(work / "train_log.jsonl")}
+    run = {"work": work, "out": work / "out", "metrics": work / "metrics", "lines": [],
+           "t0": time.perf_counter()}
+    run["proc"] = subprocess.Popen(
+        [sys.executable, "-m", "spacy_ray_tpu_torch", "train", "configs/cnn.cfg",
+         "--device", "cuda", "--max-restarts", "1", "--output", str(run["out"]),
+         "--metrics-dir", str(run["metrics"]), "--code", str(code),
+         "--paths.train", str(corpus[0]), "--paths.dev", str(corpus[1]),
+         "--training.watchdog_timeout_s", str(FAULTS_WATCHDOG_S),
+         "--training.io_retry_base_s", str(FAULTS_RETRY_BASE_S),
+         "--training.eval_frequency", str(FAULTS_EVAL),
+         "--training.max_steps", str(FAULTS_STEPS),
+         "--training.before_update", json.dumps(hang), "--training.logger", json.dumps(log)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "PYTHONPATH": str(ROOT), "SPACY_RAY_TPU_FAULT_PLAN": FAULTS_PLAN},
+        start_new_session=True)
+
+    def read(stream, name):
+        for line in stream:
+            run["lines"].append((time.perf_counter() - run["t0"], name, line.rstrip()))
+
+    run["readers"] = [threading.Thread(target=read, args=(run["proc"].stdout, "out"),
+                                       daemon=True),
+                      threading.Thread(target=read, args=(run["proc"].stderr, "err"),
+                                       daemon=True)]
+    for t in run["readers"]:
+        t.start()
+    return run
+
+
+def phase_train_faults(run) -> dict:
+    """train:faults (:func:`start_train_faults`) read: fails unless the run
+    ended 0 with a ``last-model/`` after exactly one restart of a child that
+    exited 79 with a thread dump naming the hanging callback; each attempt
+    retried its corpus open and its first generation's write; the
+    evaluations after each attempt's poisoned step report a non-finite
+    ``loss_total`` and a ``nan-loss`` anomaly (``metrics.jsonl``, the
+    ``JsonlLogger.v1`` rows); the resumed attempt logged its resume from
+    step 10; and K1 fwd, K1 bwd and K5 launched in both attempts."""
+    import os
+    import signal
+
+    phase, proc = "train:faults", run["proc"]
+    try:
+        rc = proc.wait(timeout=600)
+        for t in run["readers"]:
+            t.join(timeout=10)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(timeout=30)
+    lines = run["lines"]
+    err = "\n".join(text for _, name, text in lines if name == "err")
+
+    def first(pred):
+        return next((t for t, _, text in lines if pred(text)), None)
+
+    fired = first(lambda x: x.startswith("[watchdog] no step heartbeat"))
+    restarted = first(lambda x: "[supervisor-restart] child exited rc=79" in x)
+    done = first(lambda x: x.startswith("Done. steps="))
+    # each attempt's first corpus open (its imports and device done) and its
+    # evaluation of the poisoned step
+    opened = [t for t, _, x in lines if "[fault-injected] corpus-read call 1" in x]
+    nan_evals = [t for t, _, x in lines if "[nan-loss]" in x]
+    rows = [json.loads(x) for x in open(run["metrics"] / "metrics.jsonl", encoding="utf8")]
+    evals = [(r["step"], r["loss_total"]) for r in rows if r["kind"] == "eval"]
+    anomalies = [(r["anomaly"], r["step"]) for r in rows if r["kind"] == "anomaly"]
+    log = [json.loads(x) for x in open(run["work"] / "train_log.jsonl", encoding="utf8")]
+    logged = [(e["event"], e.get("step")) for r in log for e in r.get("events", [])]
+    attempts = [json.loads(f.read_text()) for f in sorted((run["work"] / "launches")
+                                                           .glob("*.json"))]
+    need = ("hash_embed_gather_sum", "hash_embed_table_grad", "fused_update")
+    retries = {site: err.count(f"[io-retry] {site}:") for site in ("corpus-read",
+                                                                    "checkpoint-write")}
+    want_evals = [(10, "nan"), (20, "nan"), (30, None), (40, None)]
+    bad = []
+    if rc != 0 or done is None or not (run["out"] / "last-model" / "params.npz").exists():
+        bad.append(f"exit {rc}, done {done}")
+    if err.count("[supervisor-restart] child exited rc=79") != 1 or fired is None:
+        bad.append("no single watchdog exit 79 and restart")
+    if "hang_in_before_update" not in err:
+        bad.append("the thread dump does not name the callback")
+    if retries != {"corpus-read": 2, "checkpoint-write": 2}:
+        bad.append(f"retries {retries}")
+    if [s for s, _ in evals] != [w for w, _ in want_evals] or \
+            [v == "nan" for _, v in evals] != [w == "nan" for _, w in want_evals]:
+        bad.append(f"eval rows (step, loss_total) {evals}")
+    # (a step-time regression may fire too: the drill shares the card and the
+    # host with the phases beside it)
+    if [a for a in anomalies if a[0] == "nan-loss"] != [("nan-loss", 10), ("nan-loss", 20)]:
+        bad.append(f"anomalies {anomalies}")
+    if [e for e in logged if e[0] in ("nan-loss", "resume")] != [
+            ("nan-loss", 10), ("resume", 10), ("nan-loss", 20)]:
+        bad.append(f"JsonlLogger events {logged}")
+    if len(attempts) != 2 or not all(a[k] > 0 for a in attempts for k in need):
+        bad.append(f"launches by attempt {attempts}")
+    if bad:
+        fail(f"{phase}: " + "; ".join(bad) + "\n" + "\n".join(
+            text for _, _, text in lines if not text.startswith(("  File", "    ")))[-6000:])
+    launches = {k: sum(a[k] for a in attempts) for k in attempts[0]}
+    result = {
+        "phase": phase, "exit": rc, "seconds": done, "corpus_opened_s": opened,
+        "nan_eval_s": nan_evals,
+        "watchdog_fired_s": fired, "restart_s": restarted, "resumed_run_end_s": done,
+        "restart_to_end_s": done - restarted, "evals_step_loss_total": evals,
+        "anomalies": anomalies, "retries": retries, "jsonl_events": logged,
+        "launches_by_attempt": attempts, "launches": launches,
+        "steps_rows": sum(1 for r in rows if r["kind"] == "step"),
+    }
+    emit(result)
+    shutil.rmtree(run["work"], ignore_errors=True)
+    return result
+
+
 TNS_EVERY = 10          # cli:train_and_serve: a generation (an evaluation) every 10 steps
 TNS_MAX_STEPS = 20000   # a cap the SIGTERM comes far before
 TNS_KEEP = 20           # generations kept: the newest outlives its rollout
@@ -2485,11 +2682,194 @@ def set_f(a, b) -> float:
     return 1.0 if not a and not b else 2 * len(a & b) / (len(a) + len(b))
 
 
+def trf_step_flops(B: int, T: int, n_tags: int, n_micro: int, *, width: int = 768,
+                   depth: int = 12, ffn: int = 3072) -> float:
+    """The analytic FLOPs of a trf.cfg training step's trunk and tagger (the
+    parser's and NER's products left out): per microbatch of B x T padded
+    tokens, the embeddings' Maxout mix (4 tables' concat -> 3 pieces) and the
+    tagger's output layer at forward + backward (3 x), each layer's four
+    weight products at 4 x (forward, remat's second forward, backward) and
+    its attention, scores and p @ v over every key, at 2 x 2 forward + 5
+    products backward."""
+    N = B * T
+    mix = 2 * N * (4 * width) * (3 * width)
+    layer = 2 * N * (width * 3 * width + width * width + 2 * width * ffn)
+    attention = 2 * B * T * T * width
+    return float(n_micro * (3 * mix + depth * (4 * layer + 2 * 2 * attention + 5 * attention)
+                            + 3 * 2 * N * width * n_tags))
+
+
+class TelemetryScraper:
+    """A thread that scrapes a trainer's telemetry endpoint while it trains:
+    ``/healthz``, ``/metrics`` (JSON and Prometheus text), and, from the
+    ``collect_from``-th step on, ``telemetry collect-trace``'s merge of its
+    ``/trace`` (the last merge kept: the endpoint goes with the run)."""
+
+    def __init__(self, port: int, collect_from: int):
+        self.port, self.collect_from = port, collect_from
+        self.got = {"healthz": 0, "metrics": 0, "prometheus": 0, "errors": 0}
+        self.health = self.prometheus = self.merged = None
+        self.max_steps_seen = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True, name="smoke-scraper")
+
+    def _run(self) -> None:
+        from spacy_ray_tpu_torch.serving.tracecollect import collect_fleet_traces
+
+        url = f"http://127.0.0.1:{self.port}"
+        while not self._stop.wait(SCRAPE_EVERY_S):
+            try:
+                self.health = get(self.port, "/healthz")[1]
+                self.got["healthz"] += 1
+                snap = get(self.port, "/metrics")[1]
+                self.got["metrics"] += 1
+                with urllib.request.urlopen(url + "/metrics?format=prometheus", timeout=30) as r:
+                    self.prometheus = r.read().decode()
+                self.got["prometheus"] += 1
+                steps = int(snap["counters"]["steps"])
+                self.max_steps_seen = max(self.max_steps_seen, steps)
+                if steps >= self.collect_from:
+                    merged = collect_fleet_traces([url])
+                    if merged["otherData"].get("merged_from"):
+                        self.merged = merged
+            except (OSError, ValueError, KeyError):
+                self.got["errors"] += 1
+
+    def __enter__(self) -> "TelemetryScraper":
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join(timeout=60)
+
+
+FULL_TRACE_STEPS = [5, 15]  # train:full: the steps whose spans the trace keeps
+SCRAPE_EVERY_S = 1.0        # train:full: the endpoint's scrapes (each takes the trainer's GIL)
+
+
+def step_boundary_host_us(work: Path, calls: int = 2000) -> dict:
+    """The host's cost of ``Telemetry.step_boundary``, the one call telemetry
+    adds to a step: ``calls`` calls on a facade of its own (a step's stamp, the
+    histogram, the buffered row, the detector, a span inside the trace
+    window for the first half), median and p99 of single calls, in us. Its
+    clock moves 0.5 s a call, so every step reads alike to the detector."""
+    from spacy_ray_tpu_torch.training.telemetry import Telemetry
+
+    ticks = itertools.count()
+    tel = Telemetry(work / "step_boundary_cost", trace_steps=(0, calls // 2),
+                    clock=lambda: 0.5 * next(ticks))
+    tel.loop_start()
+    us = []
+    for i in range(1, calls + 1):
+        t = time.perf_counter()
+        tel.step_boundary(step=i, epoch=0, n_words=1000, steps_run=i)
+        us.append((time.perf_counter() - t) * 1e6)
+    tel.finalize()
+    shutil.rmtree(work / "step_boundary_cost", ignore_errors=True)
+    return {"calls": calls, "median_us": statistics.median(us),
+            "p99_us": percentile(us, 0.99)}
+
+
+def telemetry_checks(torch, phase: str, tel_dir: Path, result, scraper, port: int,
+                     n_steps: int, n_evals: int) -> dict:
+    """``train:full``'s telemetry read after the run: fails unless
+    ``metrics.jsonl`` holds one step row a step and one eval row an
+    evaluation, the trace's step spans are exactly the ``FULL_TRACE_STEPS``
+    window's, each eval row's ``hbm_peak_bytes`` is in (0, the run's
+    ``max_memory_allocated``], ``mfu`` is in (0, 1), no anomaly fired, the
+    endpoint answered all three scrapes, and the merged trace holds the
+    trainer's step spans on its own track."""
+    rows = [json.loads(line) for line in open(tel_dir / "metrics.jsonl", encoding="utf8")]
+    steps = [r for r in rows if r["kind"] == "step"]
+    evals = [r for r in rows if r["kind"] == "eval"]
+    anomalies = [r for r in rows if r["kind"] == "anomaly"]
+    trace = json.loads((tel_dir / "trace.json").read_text())["traceEvents"]
+    spans = [e["args"]["step"] for e in trace if e.get("ph") == "X" and e["name"] == "step"]
+    want_spans = list(range(FULL_TRACE_STEPS[0] + 1, FULL_TRACE_STEPS[1] + 1))
+    peak = torch.cuda.max_memory_allocated()
+    bad = []
+    if [r["step"] for r in steps] != list(range(1, n_steps + 1)):
+        bad.append(f"step rows {[r['step'] for r in steps]}")
+    if len(evals) != n_evals:
+        bad.append(f"{len(evals)} eval rows, want {n_evals}")
+    if spans != want_spans:
+        bad.append(f"step spans {spans}, want {want_spans}")
+    if not all(0 < (r["hbm_peak_bytes"] or 0) <= peak for r in evals):
+        bad.append(f"hbm_peak_bytes {[r['hbm_peak_bytes'] for r in evals]} vs peak {peak}")
+    if not all(isinstance(r["mfu"], float) and 0 < r["mfu"] < 1 for r in evals):
+        bad.append(f"mfu {[r['mfu'] for r in evals]}")
+    if anomalies:
+        bad.append(f"anomalies on a healthy run: {anomalies}")
+    if not all(scraper.got[k] for k in ("healthz", "metrics", "prometheus")) or \
+            "# TYPE srt_training_steps_total counter" not in (scraper.prometheus or ""):
+        bad.append(f"scrapes {scraper.got}")
+    merged = scraper.merged or {"traceEvents": [], "otherData": {}}
+    tracks = {e["pid"]: e["args"]["name"] for e in merged["traceEvents"]
+              if e["name"] == "process_name"}
+    merged_steps = {e["pid"] for e in merged["traceEvents"] if e["name"] == "step"}
+    if list(tracks.values()) != [f"trainer http://127.0.0.1:{port}"] or \
+            merged_steps != set(tracks):
+        bad.append(f"collect-trace: tracks {tracks}, step spans on {merged_steps}")
+    if bad:
+        fail(f"{phase}: telemetry: " + "; ".join(bad))
+    return {
+        "rows": {"step": len(steps), "eval": len(evals), "anomaly": 0},
+        "trace_step_spans": [spans[0], spans[-1]], "trace_events": len(trace),
+        "hbm_peak_bytes": [r["hbm_peak_bytes"] for r in evals], "max_memory_allocated": peak,
+        "hbm_bytes_limit": evals[-1]["hbm_bytes_limit"],
+        "live_buffers": [r["live_buffers"] for r in evals],
+        "compile_count": [r["compile_count"] for r in evals],
+        "mfu": [r["mfu"] for r in evals], "flops_per_step": evals[-1]["flops_per_step"],
+        "step_seconds_p50": evals[-1]["step_seconds_p50"],
+        "step_seconds_p95": evals[-1]["step_seconds_p95"],
+        "scrapes": dict(scraper.got), "scraped_steps_max": scraper.max_steps_seen,
+        "collect_trace_events": sum(1 for e in merged["traceEvents"] if e.get("ph") != "M"),
+        "collect_trace_step_spans": sum(1 for e in merged["traceEvents"]
+                                        if e["name"] == "step"),
+    }
+
+
+def telemetry_off_twin(torch, cfg, work: Path, nlp, result) -> dict:
+    """``train:full``'s run again with telemetry off (no ``metrics_dir``, so
+    no endpoint and no FLOP probe), its launches counted on their own: fails
+    unless every parameter and every step's loss is bit-equal to the run with
+    telemetry on. The two runs' CUDA-event medians are telemetry's cost a
+    step end to end, in one process on one card."""
+    from spacy_ray_tpu_torch.models.core import param_paths
+    from spacy_ray_tpu_torch.ops import _cuda
+    from spacy_ray_tpu_torch.training.loop import train
+
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    nlp_off, off = train(cfg, work / "out_off", device="cuda", stdout_log=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _cuda.launch_counts()
+    on, other = param_paths(nlp.model), param_paths(nlp_off.model)
+    differ = sorted(k for k in on if k not in other or not torch.equal(on[k], other[k]))
+    if differ or len(on) != len(other):
+        fail(f"train:full: telemetry changed {len(differ)} of {len(on)} parameters on the "
+             f"card (first {differ[:3]})")
+    if off.step_losses != result.step_losses:
+        fail("train:full: telemetry changed the step losses on the card")
+    on_ms = statistics.median(a.elapsed_time(b) for a, b in result.step_events)
+    off_ms = statistics.median(a.elapsed_time(b) for a, b in off.step_events)
+    del nlp_off, other
+    torch.cuda.empty_cache()
+    return {"seconds": seconds, "params_bit_equal": True, "step_losses_equal": True,
+            "step_ms_median_events": off_ms, "on_over_off_events_median": on_ms / off_ms,
+            "step_ms_median_host": statistics.median(x * 1e3 for x in off.step_host_seconds),
+            "launches": launches}
+
+
 def phase_train_full(torch, udgen, full_shapes):
     """``train()`` on configs/trf.cfg as written (tagger, parser and NER over
     the full-width trunk) on the pseudo-UD corpus ``udgen`` (train, dev),
-    launch counters zeroed just before and read just after. Fails unless
-    the leaves it trained are ``full_shapes``, those K5 was held at."""
+    launch counters zeroed just before and read just after, with telemetry on
+    and its endpoint scraped (:func:`telemetry_checks`). Fails unless the
+    leaves it trained are ``full_shapes``, those K5 was held at."""
     from spacy_ray_tpu_torch.ops import _cuda
     from spacy_ray_tpu_torch.training.batcher import bucket_batch_size, bucket_length
     from spacy_ray_tpu_torch.training.loop import train
@@ -2501,17 +2881,31 @@ def phase_train_full(torch, udgen, full_shapes):
     cfg["paths"] = {"train": str(udgen[0]), "dev": str(udgen[1])}
     cfg["training"]["max_steps"] = TRAIN_STEPS
     cfg["training"]["eval_frequency"] = TRAIN_EVAL
-    out = work / "out"
+    cfg["training"]["trace_steps"] = FULL_TRACE_STEPS
+    out, tel_dir, port = work / "out", work / "telemetry", free_base_port(1)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launch_counts()
     t0 = time.perf_counter()
-    nlp, result = train(cfg, out, device="cuda", stdout_log=False)
+    with TelemetryScraper(port, collect_from=TRAIN_STEPS - 10) as scraper:
+        nlp, result = train(cfg, out, device="cuda", stdout_log=False, metrics_dir=tel_dir,
+                            metrics_port=port)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = _cuda.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    telemetry = telemetry_checks(torch, "train:full", tel_dir, result, scraper, port,
+                                 TRAIN_STEPS, TRAIN_STEPS // TRAIN_EVAL)
+    probed_B, probed_T = result.step_shapes[TRAIN_EVAL - 1]
+    n_tags = nlp.components["tagger"].model.dims["nO"]
+    telemetry["flops_analytic_trunk_tagger"] = trf_step_flops(
+        probed_B, probed_T, n_tags, int(cfg["training"]["accumulate_gradient"]))
+    telemetry["flops_per_step_over_trunk_tagger"] = (
+        telemetry["flops_per_step"] / telemetry["flops_analytic_trunk_tagger"])
+    telemetry["probed_microbatch_B_T"] = [probed_B, probed_T]
+    telemetry["step_boundary_host"] = step_boundary_host_us(work)
+    telemetry_off = telemetry_off_twin(torch, cfg, work, nlp, result)
 
     need = ["hash_embed_gather_sum", "hash_embed_table_grad", "flash_attention_fwd",
             "flash_attention_bwd", "fused_update"]
@@ -2577,6 +2971,16 @@ def phase_train_full(torch, udgen, full_shapes):
                         "host_ms": statistics.median(host_ms),
                         "kernel_ms": sum(v[1] for v in ops.values()),
                         "device_ops": sum(v[0] for v in ops.values())}
+    # the FLOP probe the first evaluation ran, timed alone on the same microbatch
+    from spacy_ray_tpu_torch.training.telemetry import program_flops
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    telemetry["flops_probe_microbatch"] = program_flops(
+        lambda: nlp.loss(c["tokens"], c["targets"], dropout=0.1, seed=1)[0], params)
+    torch.cuda.synchronize()
+    telemetry["flops_probe_s"] = time.perf_counter() - t
+    telemetry["flops_probe_microbatch_B_T"] = [B_pad, T_pad]
     rel = grad_errs_vs_plain(torch, nlp, params, c)
     worst_leaf = max(rel, key=rel.get)
     if not rel[worst_leaf] <= TOL_GRAD:
@@ -2599,7 +3003,10 @@ def phase_train_full(torch, udgen, full_shapes):
         "step_ms_median_events": statistics.median(event_ms),
         "step_ms_median_host": statistics.median(x * 1e3 for x in result.step_host_seconds),
         "words_per_s": result.wps, "words": result.words_seen, "oracle": oracle,
-        "peak_memory_gb": peak_gb, "launches": launches,
+        "peak_memory_gb": peak_gb, "launches": launches, "telemetry_off": telemetry_off,
+        "telemetry": {**telemetry,
+                      "step_seconds_p50_over_events_median":
+                      telemetry["step_seconds_p50"] * 1e3 / statistics.median(event_ms)},
         "microbatch_B_T": [B_pad, T_pad], "fwd_bwd_split_ms": split,
         "heads_cost_ms_kernels": split["all_heads"]["kernel_ms"]
         - split["tagger_only"]["kernel_ms"],
@@ -3670,6 +4077,9 @@ def fleet_wire(phase: str, ledgers, stderr: str):
             # of them the codec's: encoding the pushes, decoding and merging the pulls
             "push_encode_ms_median": statistics.median(led["codec_steps_s"]["push_encode"]) * 1e3,
             "pull_decode_ms_median": statistics.median(led["codec_steps_s"]["pull_decode"]) * 1e3,
+            # and the frames' CRC-32, pushed and pulled, timed apart from the codec
+            "crc_ms_median": statistics.median(led["codec_steps_s"]["crc"]) * 1e3,
+            "frames_crc_refused": led["frames_crc_refused"],
         })
     pull = total["wire_pull_bytes"] / max(total["wire_pull_bytes_uncompressed"], 1)
     push = total["wire_push_bytes"] / max(total["wire_push_bytes_uncompressed"], 1)
@@ -3730,6 +4140,8 @@ def phase_train_fleet(torch, phase: str, corpus, steps: int, quorum: int, stalen
             problems.append(f"worker {k}: version {led['version']}, steps {led['steps']}")
         bad = {n: c[n] for n in ("grad_discarded", "push_failed", "apply_wait_timeouts",
                                  "pull_failed", "pull_wait_timeouts") if c[n]}
+        if led["frames_crc_refused"]:
+            bad["frames_crc_refused"] = led["frames_crc_refused"]
         if bad:
             problems.append(f"worker {k}: {bad}")
     losses = ledgers[0]["step_losses"]
@@ -6298,7 +6710,7 @@ def phase_slice_moe_jax(torch):
 # ------------------------------------------- several models on one card, live
 
 MM_SERVE = ["--max-batch", "8", "--max-doc-len", "64", "--precision", "auto"]
-MM_SEGMENTS = 5            # serve:multimodel: bursts md, cnn, md, cnn, md: 5 loads, 4 evictions
+MM_SEGMENTS = 5            # serve:multimodel: bursts cnn, md, cnn, md, cnn: 5 loads (2 of md), 4 evictions
 MM_SEGMENT_S = 1.5         # each burst's seconds once its model answers
 MM_TRF_CLIENTS = 16        # closed-loop clients per trf tenant: both classes stay queued
 MM_TEXTS = 32              # dev texts of <= 60 words the phase sends (max-doc-len 64)
@@ -6528,7 +6940,7 @@ def phase_serve_multimodel(torch, trf_dir: Path, md_dir: Path, md_last: Path, cn
         swap, md_tags = None, {}
         md_gen = Checkpoints(md_last).generations()[0]
         for k in range(MM_SEGMENTS):
-            model = "md" if k % 2 == 0 else "cnn"
+            model = "cnn" if k % 2 == 0 else "md"
             seg_stop = threading.Event()
 
             def burst(c, model=model, seg_stop=seg_stop):
@@ -6546,7 +6958,7 @@ def phase_serve_multimodel(torch, trf_dir: Path, md_dir: Path, md_last: Path, cn
                     fail(f"serve:multimodel: {model} never answered")
                 time.sleep(0.01)
             repeat("trf", texts[:2], "trf")
-            if k == MM_SEGMENTS - 1:  # md's last burst: a swap of md alone
+            if k == MM_SEGMENTS - 2:  # md's last burst: a swap of md alone
                 md_tags["before"] = repeat("md", texts[2:3], "md before swap")
                 swap = admin(port, "/admin/swap", {"model": "md", "dir": str(md_last),
                                                    "generation": md_gen})
@@ -7006,6 +7418,9 @@ def main() -> int:
 
     kernels = phase_kernels(torch)
     udgen = write_udgen_corpus()
+    # train:faults, a supervised trainer through its drill, the longest of the
+    # subprocesses, starts first, on the udgen corpus as written (.jsonl)
+    faults = start_train_faults(udgen)
     spacy_corpus = write_spacy_corpus(udgen)
     # train:fleet_async, the restart drill, runs beside the work on the host
     # alone that follows (the leaf shapes of trf.cfg and its MoE, the head
@@ -7039,9 +7454,11 @@ def main() -> int:
 
         terminate_with_grace(fleet_async["proc"], grace_s=150.0)
         terminate_with_grace(tns["proc"], grace_s=150.0)
+        terminate_with_grace(faults["proc"], grace_s=30.0)
         raise
     fleet_async_run = phase_train_fleet_restart(torch, fleet_async)
     tns_run = phase_train_and_serve(tns)
+    faults_run = phase_train_faults(faults)
     kernels.update(phase_train_kernels(torch, full_shapes, moe_shapes))
     for name, rows in phase_cnn_kernels(torch, cnn).items():
         kernels[name].extend(rows)
@@ -7054,6 +7471,7 @@ def main() -> int:
     runs = {p: phase_slice(torch, model_dir, p) for p in ("auto", "int8")}
     runs["train:fleet_async"] = fleet_async_run
     runs["cli:train_and_serve"] = tns_run
+    runs["train:faults"] = faults_run
     # the elastic fleet: 3 workers, one SIGKILLed, the survivors re-shard; the
     # serve CLI's subprocess comes up beside the fleet's three
     runs["train:fleet_elastic"] = phase_train_fleet_elastic(

@@ -1,7 +1,7 @@
 """Command line of the port::
 
     python -m spacy_ray_tpu_torch train <config.cfg> --output <dir> [--device cuda|cpu]
-        [--code F] [--resume] [--max-restarts N]
+        [--code F] [--resume] [--max-restarts N] [--metrics-dir DIR [--metrics-port P]]
         [--paths.train x.jsonl --training.max_steps 40 ...]
         [--fleet-workers N [--quorum Q] [--max-staleness S] [--fleet-base-port P]
         [--peer-lease-s S] [--grad-compression C] [--param-delta-window K]]
@@ -14,6 +14,7 @@
         [--watch CKPT_DIR [--canary-fraction F] [--guard-* ...]]
     python -m spacy_ray_tpu_torch train-and-serve <config.cfg> --output <dir> [options]
     python -m spacy_ray_tpu_torch telemetry collect-trace [<url>...] --out FILE
+    python -m spacy_ray_tpu_torch telemetry summarize <metrics.jsonl | run-dir>
     python -m spacy_ray_tpu_torch init-vectors <input> <output.npz> [--truncate N]
 
 ``train`` trains the config's pipeline on one device, evaluating every
@@ -22,7 +23,12 @@
 fleet's generations too). SIGTERM or SIGINT stops it at a step boundary
 with a generation written, and it exits 75. ``--max-restarts N`` runs the
 training as a child process and starts it again with ``--resume`` after a
-nonzero exit, at most N times (a relayed signal is not restarted).
+nonzero exit, at most N times (a relayed signal is not restarted), a hung
+step's watchdog exit (79, ``[training] watchdog_timeout_s``) included.
+``--metrics-dir DIR`` turns telemetry on (``DIR/metrics.jsonl``,
+``DIR/trace.json``, the anomaly detectors) and ``--metrics-port P`` serves
+it over HTTP (``/metrics``, ``/healthz``, ``/trace``); both override their
+``[training]`` knobs and reach a supervised child.
 Dotted ``--section.key value`` arguments override the config.
 ``--fleet-workers N`` trains as N worker processes (the asynchronous
 trainer fleet, ``training/fleet/``): each owns a slice of every parameter,
@@ -82,7 +88,9 @@ run's first ``best-model`` unless ``--model`` is given); one SIGTERM drains
 both, and it exits 0 when the fleet drained clean and the trainer exited 0
 or 75. ``telemetry collect-trace`` merges the ``/trace`` buffers of the
 given endpoints (a fleet router's URL brings its replicas) into one
-Chrome-trace file by their clock anchors. Every command runs on the card
+Chrome-trace file by their clock anchors; ``telemetry summarize`` prints
+the digest of a ``metrics.jsonl`` (a trainer's or a server's) or of a run
+directory. Every command runs on the card
 unless ``--device cpu`` is given (``--serve-device cpu`` for
 ``train-and-serve``'s replicas), and fails without one (``serve-fleet`` and
 ``train-and-serve`` before they spawn anything).
@@ -106,7 +114,8 @@ from .serving.overlay import PRECISION_CHOICES
 
 USAGE = (
     "usage: python -m spacy_ray_tpu_torch train <config.cfg> [--output DIR] [--device cuda|cpu]"
-    " [--code F] [--resume] [--max-restarts N] [--fleet-workers N [--quorum Q]"
+    " [--code F] [--resume] [--max-restarts N] [--metrics-dir DIR [--metrics-port P]]"
+    " [--fleet-workers N [--quorum Q]"
     " [--max-staleness S]"
     " [--fleet-base-port P] [--peer-lease-s S] [--grad-compression C]"
     " [--param-delta-window K]] [--section.key value ...]\n"
@@ -130,6 +139,7 @@ USAGE = (
     " [--port N] [--train-arg ARG ...] [serve-fleet's rollout options]\n"
     "       python -m spacy_ray_tpu_torch telemetry collect-trace [<url>...]"
     " [--fleet-base-port N --workers K] --out FILE\n"
+    "       python -m spacy_ray_tpu_torch telemetry summarize <metrics.jsonl | run-dir>\n"
     "       python -m spacy_ray_tpu_torch init-vectors <input> <output.npz> [--truncate N]"
 )
 
@@ -571,25 +581,48 @@ def train_and_serve_command(argv: List[str]) -> int:
 
 #: ``telemetry`` subcommands of the JAX package that wait for the port's
 #: observability (its alerting, incidents, run ledger and reports)
-TELEMETRY_WAITING = ("summarize", "top", "postmortem", "report", "ledger")
+TELEMETRY_WAITING = ("top", "postmortem", "report", "ledger")
 
 
 def telemetry_command(argv: List[str]) -> int:
-    """``telemetry collect-trace``: merge the ``/trace`` buffers of a serving
-    fleet's router and replicas (discovered from the router's ``/healthz``),
-    or of any endpoints, into one Chrome-trace file aligned by their clock
-    anchors (JAX ``cli.py`` ``telemetry_command``). The JAX package's other
-    subcommands exit 2."""
-    usage = ("Usage: python -m spacy_ray_tpu_torch telemetry collect-trace [<url>...] "
-             "[--fleet-base-port N --workers K] --out FILE")
-    if not argv or argv[0] not in ("collect-trace", *TELEMETRY_WAITING):
+    """``telemetry summarize``: the digest of a ``metrics.jsonl`` (a
+    trainer's or a server's) or of a run directory; ``telemetry
+    collect-trace``: merge the ``/trace`` buffers of a serving fleet's router
+    and replicas (discovered from the router's ``/healthz``), or of any
+    endpoints (a trainer's ``--metrics-port`` among them), into one
+    Chrome-trace file aligned by their clock anchors (JAX ``cli.py``
+    ``telemetry_command``). The JAX package's other subcommands exit 2."""
+    usage = ("Usage: python -m spacy_ray_tpu_torch telemetry {summarize "
+             "<metrics.jsonl-or-run-dir> | collect-trace [<url>...] "
+             "[--fleet-base-port N --workers K] --out FILE}")
+    if not argv or argv[0] not in ("summarize", "collect-trace", *TELEMETRY_WAITING):
         print(usage, file=sys.stderr)
         return 1
     sub, rest = argv[0], argv[1:]
-    if sub != "collect-trace":
+    if sub in TELEMETRY_WAITING:
         print(f"telemetry {sub} is not part of the port yet (ROADMAP.md Queue A item 4.4, "
               "observability)", file=sys.stderr)
         return 2
+    if sub == "summarize":
+        parser = argparse.ArgumentParser(prog="python -m spacy_ray_tpu_torch telemetry summarize")
+        parser.add_argument("metrics_path", type=Path,
+                            help="metrics.jsonl written by a [training] metrics_dir / train "
+                            "--metrics-dir run or a serve --metrics-dir run — or a "
+                            "trainer-fleet RUN DIRECTORY (fleet-worker-*.json ledgers + "
+                            "metrics/fleet-worker-*/metrics.jsonl)")
+        args = parser.parse_args(rest)
+
+        from .training.telemetry import summarize_metrics
+
+        try:
+            print(summarize_metrics(args.metrics_path))
+        except OSError as e:
+            print(f"Cannot read {args.metrics_path}: {e}", file=sys.stderr)
+            return 1
+        except ValueError as e:
+            print(str(e), file=sys.stderr)
+            return 1
+        return 0
     parser = argparse.ArgumentParser(prog="python -m spacy_ray_tpu_torch telemetry collect-trace")
     parser.add_argument("urls", nargs="*", metavar="URL",
                         help="endpoint base URLs; a fleet router's URL brings its replicas")
@@ -678,6 +711,15 @@ def train_command(argv: List[str]) -> int:
                         help="supervisor mode: relaunch the training child up to N times on "
                         "nonzero exit, resuming from the last intact checkpoint (0 = train "
                         "in-process)")
+    parser.add_argument("--metrics-dir", type=Path, default=None, dest="metrics_dir",
+                        help="enable telemetry: metrics.jsonl + Chrome trace + anomaly "
+                        "detectors land here (overrides [training] metrics_dir)")
+    parser.add_argument("--metrics-port", type=int, default=None, dest="metrics_port",
+                        help="serve the trainer's telemetry over HTTP on this port (/metrics "
+                        "JSON or ?format=prometheus, /healthz clock anchor, /trace) — "
+                        "requires telemetry on via --metrics-dir/[training] metrics_dir; "
+                        "overrides [training] metrics_port. Binds 127.0.0.1 unless "
+                        "[training] metrics_host (or --training.metrics_host) says otherwise")
     parser.add_argument("--verbose", "-V", action="store_true")
     parser.add_argument("--fleet-workers", type=int, default=0, dest="fleet_workers",
                         help="asynchronous trainer fleet: spawn N worker processes that own "
@@ -721,6 +763,16 @@ def train_command(argv: List[str]) -> int:
         parser.error("--param-delta-window must be >= 0")
     if args.max_restarts < 0:
         parser.error("--max-restarts must be >= 0")
+    if args.metrics_port is not None and not 0 <= args.metrics_port <= 65535:
+        parser.error(f"--metrics-port {args.metrics_port} outside [0, 65535]")
+    if args.fleet_workers > 0 and (args.metrics_dir is not None or args.metrics_port):
+        # before any worker starts (each would refuse it on its own)
+        from .training.fleet.worker import refuse_fleet_telemetry
+
+        try:
+            refuse_fleet_telemetry(args.metrics_dir, args.metrics_port)
+        except ValueError as e:
+            parser.error(str(e))
     if args.fleet_workers > 0 and args.fleet_worker_id is None:
         # the coordinator: supervises the workers and waits; never touches the
         # card. --max-restarts is each worker's cap and reaches no child
@@ -755,8 +807,11 @@ def train_command(argv: List[str]) -> int:
                                else DEFAULT_FLEET_BASE_PORT)}
     import_code(str(args.code) if args.code else None)
     config = load_config(args.config_path, parse_cli_overrides(extra))
+    # the telemetry flags a user gave (a fleet worker refused them above)
+    telemetry = {k: v for k, v in (("metrics_dir", args.metrics_dir),
+                                   ("metrics_port", args.metrics_port)) if v is not None}
     nlp, result = train(config, args.output, device=args.device, resume=args.resume,
-                        fleet=fleet)
+                        fleet=fleet, **telemetry)
     if result.interrupted:
         from .training.resilience import RC_PREEMPTED
 

@@ -12,7 +12,10 @@ Each C entry point launches on the stream it is given and returns
 adds one to its entry in :data:`LAUNCHES` right after it launches its
 kernel (:func:`count_launch`, under a lock: the dispatch threads of several
 serving engines launch at once), and nowhere else, so a run can show which
-kernels its path went through.
+kernels its path went through. The attention and int8 wrappers also add
+their kernel's analytic FLOPs to an open :func:`kernel_flop_tally` (the
+trainer telemetry's FLOP count), and every library load and decode-graph
+capture counts as one of :func:`compile_count`.
 """
 
 from __future__ import annotations
@@ -24,8 +27,9 @@ import shutil
 import subprocess
 import threading
 import time
+from contextlib import contextmanager
 from pathlib import Path
-from typing import Dict, Iterable, Sequence, Tuple
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -64,6 +68,13 @@ BUILD_LOGS: Dict[str, str] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()
+#: kernel-library loads (each built first when its library is missing) and
+#: CUDA-graph captures of this process: what the port builds at run time,
+#: where the JAX package compiles programs (telemetry's ``compile_count``)
+_COMPILES = 0
+#: the analytic FLOPs of the kernels launched inside :func:`kernel_flop_tally`
+#: (a FLOP counter sees no work behind a ctypes call); None outside it
+_FLOP_TALLY: Optional[List[float]] = None
 
 
 def count_launch(name: str) -> None:
@@ -82,6 +93,40 @@ def reset_launch_counts() -> None:
 def launch_counts() -> Dict[str, int]:
     with _COUNT_LOCK:
         return dict(LAUNCHES)
+
+
+def count_compile() -> None:
+    """One kernel-library load or CUDA-graph capture."""
+    global _COMPILES
+    with _COUNT_LOCK:
+        _COMPILES += 1
+
+
+def compile_count() -> int:
+    with _COUNT_LOCK:
+        return _COMPILES
+
+
+def tally_flops(n: float) -> None:
+    """Add a launched kernel's analytic FLOPs to the open tally, if any (the
+    backward pass may launch on another thread than the one that opened it)."""
+    with _COUNT_LOCK:
+        if _FLOP_TALLY is not None:
+            _FLOP_TALLY[0] += float(n)
+
+
+@contextmanager
+def kernel_flop_tally() -> Iterator[List[float]]:
+    """``[flops]`` of the hand kernels launched inside the block."""
+    global _FLOP_TALLY
+    tally = [0.0]
+    with _COUNT_LOCK:
+        _FLOP_TALLY = tally
+    try:
+        yield tally
+    finally:
+        with _COUNT_LOCK:
+            _FLOP_TALLY = None
 
 
 def _nvcc() -> str:
@@ -157,6 +202,7 @@ def library(source: str, signatures: Dict[str, Iterable]) -> ctypes.CDLL:
                 getattr(lib, fn).restype = ctypes.c_int
                 getattr(lib, fn).argtypes = list(argtypes)
             _LIBS[source] = lib
+            count_compile()
         return lib
 
 

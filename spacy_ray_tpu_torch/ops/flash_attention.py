@@ -135,6 +135,13 @@ def flash_attention_bwd_plain(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def attention_flops(B: int, T: int, H: int, Dh: int, *, backward: bool) -> float:
+    """The multiply-adds of the attention's products, counted over every key
+    as the plain versions compute them: the forward's two (scores, then p
+    with v), the backward's five (scores again, do with v, dq, dk, dv)."""
+    return (10.0 if backward else 4.0) * B * H * T * T * Dh
+
+
 def _check_extent(extent, B: int, device, what: str) -> None:
     _cuda.require(extent is None or (extent.dtype == torch.int32 and extent.shape == (B,)
                                      and extent.is_contiguous() and extent.device == device),
@@ -191,6 +198,7 @@ def flash_attention_fwd(
     )
     _cuda.check(lib, rc, "flash_attention_fwd")
     _cuda.count_launch("flash_attention_fwd")
+    _cuda.tally_flops(attention_flops(B, T, H, Dh, backward=False))
     return o, lse
 
 
@@ -247,6 +255,7 @@ def flash_attention_bwd(
     )
     _cuda.check(lib, rc, "flash_attention_bwd")
     _cuda.count_launch("flash_attention_bwd")
+    _cuda.tally_flops(attention_flops(B, T, H, Dh, backward=True))
     return dq, dk, dv
 
 

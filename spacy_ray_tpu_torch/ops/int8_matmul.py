@@ -134,6 +134,7 @@ def int8_weight_matmul(x2: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor) 
     )
     _cuda.check(lib, rc, "int8_weight_matmul")
     _cuda.count_launch("int8_weight_matmul")
+    _cuda.tally_flops(2.0 * M * K * N)
     return out
 
 

@@ -32,6 +32,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from ..devices import DEVICE_GATE
+from ..ops import _cuda
 
 _SIDE_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
 _SIDE_LOCK = threading.Lock()
@@ -104,5 +105,6 @@ class DecodeGraphs:
                 if enabled:
                     gc.enable()
         side.synchronize()
+        _cuda.count_compile()
         self.capture_seconds += time.perf_counter() - t0
         return graph, x_in, len_in, out

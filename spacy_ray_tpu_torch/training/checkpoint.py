@@ -44,7 +44,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .resilience import retry_io
+from .resilience import maybe_fail, retry_io
 
 logger = logging.getLogger("spacy_ray_tpu_torch.training")
 
@@ -163,6 +163,7 @@ def write_fleet_opt_part(path, *, stamp: int, part: int, parts: int, n_leaves: i
     arrays[_PART_HEADER] = np.array(json.dumps(header))
 
     def write() -> str:
+        maybe_fail("checkpoint-write")
         path.mkdir(parents=True, exist_ok=True)
         return _write_npz(path, opt_part_name(stamp, part, parts), arrays)
 
@@ -243,6 +244,7 @@ def commit_fleet_generation(path, *, params: Dict[str, Any], step: int, epoch: i
     }
 
     def write_files() -> None:
+        maybe_fail("checkpoint-write")
         path.mkdir(parents=True, exist_ok=True)
         digests = {f"params-{stamp}.npz": _write_npz(path, f"params-{stamp}.npz", params)}
         for k, digest in sorted(opt_digests.items()):
@@ -342,22 +344,29 @@ class TrainCheckpoint:
         """Array files first, then the generation's meta, then the pointer:
         a crash at any point leaves the earlier generations loadable. The
         two array files are written and hashed on two threads at once (the
-        writes and the hash release the interpreter lock)."""
+        writes and the hash release the interpreter lock). The writes are
+        the ``checkpoint-write`` fault site, retried as transient I/O."""
         path = Path(path)
-        path.mkdir(parents=True, exist_ok=True)
         stamp = int(step)
         files = {f"params-{stamp}.npz": params,
                  f"opt_state-{stamp}.npz": flatten_opt_state(opt_state)}
-        with ThreadPoolExecutor(max_workers=len(files)) as pool:
-            jobs = {name: pool.submit(_write_npz, path, name, flat)
-                    for name, flat in files.items()}
-            digests = {name: job.result() for name, job in jobs.items()}
-        meta = {
-            "step": int(step), "epoch": int(epoch), "rng": [],
-            "best_score": float(best_score), "best_step": int(best_step),
-            "extra": fleet_membership_extra(extra or {}), "stamp": stamp, "digests": digests,
-        }
-        _commit_meta(path, stamp, meta)
+
+        def write_files() -> None:
+            maybe_fail("checkpoint-write")
+            path.mkdir(parents=True, exist_ok=True)
+            with ThreadPoolExecutor(max_workers=len(files)) as pool:
+                jobs = {name: pool.submit(_write_npz, path, name, flat)
+                        for name, flat in files.items()}
+                digests = {name: job.result() for name, job in jobs.items()}
+            meta = {
+                "step": int(step), "epoch": int(epoch), "rng": [],
+                "best_score": float(best_score), "best_step": int(best_step),
+                "extra": fleet_membership_extra(extra or {}), "stamp": stamp,
+                "digests": digests,
+            }
+            _commit_meta(path, stamp, meta)
+
+        retry_io("checkpoint-write", write_files)
         _retention_sweep(path, stamp, max(int(keep), 1))
 
     @staticmethod

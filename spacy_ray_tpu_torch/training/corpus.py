@@ -38,6 +38,7 @@ from typing import Callable, Iterable, Iterator, List, Optional, Union
 from ..pipeline.doc import Doc, Example, Span, doc_to_json
 from ..registry import registry
 from . import augment  # noqa: F401  (registers the augmenters)
+from .resilience import maybe_fail, retry_io
 from .spacy_docbin import read_docbin
 
 CorpusReader = Callable[[], Iterator[Example]]
@@ -100,8 +101,20 @@ def _doc_from_json(obj: dict) -> Doc:
 _doc_to_json = doc_to_json
 
 
+def _open_corpus_file(opener: Callable, path, *args, **kwargs):
+    """Open a corpus file through the ``corpus-read`` fault site and
+    :func:`~.resilience.retry_io` (a failed open is the retry a streaming
+    reader can always repeat)."""
+
+    def attempt():
+        maybe_fail("corpus-read")
+        return opener(path, *args, **kwargs)
+
+    return retry_io("corpus-read", attempt)
+
+
 def read_jsonl_docs(path: Union[str, Path]) -> Iterator[Doc]:
-    with open(path, "r", encoding="utf8") as f:
+    with _open_corpus_file(open, path, "r", encoding="utf8") as f:
         for line in f:
             line = line.strip()
             if line:
@@ -127,7 +140,7 @@ def read_conllu_docs(path: Union[str, Path]) -> Iterator[Doc]:
         rows.clear()
         return doc
 
-    with open(path, "r", encoding="utf8") as f:
+    with _open_corpus_file(open, path, "r", encoding="utf8") as f:
         for line in f:
             line = line.rstrip("\n")
             if not line:
@@ -162,7 +175,7 @@ class DocBin:
 
     @classmethod
     def from_disk(cls, path: Union[str, Path]) -> "DocBin":
-        with gzip.open(path, "rt", encoding="utf8") as f:
+        with _open_corpus_file(gzip.open, path, "rt", encoding="utf8") as f:
             return cls(_doc_from_json(json.loads(line)) for line in f if line.strip())
 
 
@@ -180,7 +193,7 @@ def _iter_path(path: Path) -> Iterator[Doc]:
     elif suffix == ".msgdoc":
         yield from DocBin.from_disk(path).docs
     elif suffix == ".spacy":
-        with open(path, "rb") as f:
+        with _open_corpus_file(open, path, "rb") as f:
             gzipped = f.read(2) == b"\x1f\x8b"
         yield from DocBin.from_disk(path).docs if gzipped else read_docbin(path)
     else:

@@ -47,8 +47,8 @@ from ..checkpoint import flatten_opt_state
 from ..telemetry import sanitize_json
 from .membership import Membership
 from .wire import (
-    WIRE_CODECS, WireError, _compress_leaf, decode_grads, encode_arrays, encode_delta_frame,
-    frame_epoch,
+    CRC_HEADER, WIRE_CODECS, WireError, _compress_leaf, check_frame_crc, decode_grads,
+    encode_arrays, encode_delta_frame, frame_crc, frame_epoch,
 )
 
 #: request-body ceiling (bytes): a bigger frame is hostile or corrupt, and is
@@ -84,10 +84,18 @@ class FleetCounters:
     def __init__(self) -> None:
         self._v: Dict[str, int] = {n: 0 for n in COUNTER_NAMES}
         self._lock = threading.Lock()
+        #: frames refused by their CRC-32: pushes at the owner, pull and
+        #: checkpoint replies at the worker. The port's own (JAX sends no
+        #: CRC, ROADMAP C80), so kept out of the JAX package's names
+        self.crc_refused = 0
 
     def inc(self, name: str, n: int = 1) -> None:
         with self._lock:
             self._v[name] += int(n)
+
+    def refuse_crc(self) -> None:
+        with self._lock:
+            self.crc_refused += 1
 
     def snapshot(self) -> Dict[str, int]:
         with self._lock:
@@ -463,7 +471,8 @@ class _PeerHandler(BaseHTTPRequestHandler):
                               headers={"X-SRT-Version": str(version)})
         else:
             self._reply_bytes(200, body, "application/octet-stream",
-                              headers={"X-SRT-Version": str(version), "X-SRT-Codec": codec})
+                              headers={"X-SRT-Version": str(version), "X-SRT-Codec": codec,
+                                       CRC_HEADER: frame_crc(body)})
 
     def _body_or_413(self) -> Optional[bytes]:
         """The request body, or None after a 400 (a Content-Length that is
@@ -556,8 +565,9 @@ class _PeerHandler(BaseHTTPRequestHandler):
             logger.exception("fleet checkpoint part write failed")
             self._reply_json(500, {"error": "checkpoint_failed", "message": str(e)})
             return
-        self._reply_bytes(200, encode_arrays(result["meta"], result["params"]),
-                          "application/octet-stream")
+        frame = encode_arrays(result["meta"], result["params"])
+        self._reply_bytes(200, frame, "application/octet-stream",
+                          headers={CRC_HEADER: frame_crc(frame)})
 
     def do_POST(self) -> None:  # noqa: N802
         parsed = urlparse(self.path)
@@ -565,6 +575,13 @@ class _PeerHandler(BaseHTTPRequestHandler):
         if parsed.path == "/grad":
             body = self._body_or_413()
             if body is None:
+                return
+            try:
+                check_frame_crc(body, self.headers)
+            except WireError as e:
+                # a frame corrupted in flight: refused and counted, never applied
+                srv.counters.refuse_crc()
+                self._reply_json(400, {"error": "bad_payload", "message": str(e)})
                 return
             try:
                 # bf16 and int8 frames decode to f32 here, before the fence and

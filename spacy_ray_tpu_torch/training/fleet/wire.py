@@ -34,12 +34,20 @@ The sender negotiates (:func:`negotiate_push_codec`: f32 unless the peer's
 ``/healthz`` advertised the codec); a receiver passes a codec it does not
 know through as declared, so a mixed fleet falls back to f32 frames, and
 the owner's structural check counts a mismatch as a discard.
+
+Integrity: a frame carries no checksum of its own (the bytes stay the JAX
+package's), so the port sends each frame's CRC-32 beside it in the
+:data:`CRC_HEADER` HTTP header, and a port receiver refuses a frame whose
+bytes do not match it (:func:`check_frame_crc`): a flipped byte inside the
+arrays would otherwise decode into a wrong number. A frame without the
+header (a JAX peer's) is taken as it is.
 """
 
 from __future__ import annotations
 
 import json
-from typing import Any, Dict, Iterable, List, Optional, Tuple
+import zlib
+from typing import Any, Dict, Iterable, List, Mapping, Optional, Tuple
 
 import numpy as np
 
@@ -60,7 +68,24 @@ INT8_MIN_LEAF = 8
 
 class WireError(ValueError):
     """Malformed fleet wire payload (truncated, wrong magic, bad header,
-    byte-count mismatch)."""
+    byte-count mismatch, CRC-32 mismatch)."""
+
+
+#: the HTTP header with a frame's CRC-32 (8 lower-case hex digits)
+CRC_HEADER = "X-SRT-CRC32"
+
+
+def frame_crc(body: bytes) -> str:
+    return f"{zlib.crc32(body) & 0xFFFFFFFF:08x}"
+
+
+def check_frame_crc(body: bytes, headers: Mapping[str, Any]) -> None:
+    """Raise :class:`WireError` when ``headers`` carry a CRC-32 that ``body``
+    does not match (no header: nothing to check)."""
+    want = headers.get(CRC_HEADER)
+    if want is not None and str(want).lower() != frame_crc(body):
+        raise WireError(f"frame CRC-32 mismatch ({frame_crc(body)} != {want}): "
+                        "corrupted in flight")
 
 
 def frame_epoch(meta: Dict[str, Any]) -> int:

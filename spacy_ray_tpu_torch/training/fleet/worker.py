@@ -75,7 +75,19 @@ counts, whether and from which step it resumed, the parts it wrote, the
 generations it committed and the wall time of its first push a peer
 accepted; the run directory gets ``fleet-membership.jsonl``.
 
-Out of this piece (ROADMAP): the dynamics histograms and alerts.
+Resilience as in the one-process loop: the environment's fault plan and
+the knobs' retry policy before the first read, the ``collate`` and ``step``
+fault sites (a poisoned step reports a NaN loss), the wire sites
+``param-pull``, ``grad-push`` and ``checkpoint-wire`` with the plan's wire
+faults (corrupt, delay, dup, partition, heal), and the watchdog of
+``[training] watchdog_timeout_s``, fed after each step. A pulled or pushed
+frame and a checkpoint reply carry their CRC-32 in ``X-SRT-CRC32``; a
+receiver refuses a frame whose bytes do not match it (a push: HTTP 400, a
+counted discard at the owner and a failed push at the sender; a pull: a failed
+pull; a checkpoint reply: the generation aborted).
+
+Out of this piece (ROADMAP): the telemetry of a worker (``metrics_dir`` and
+``metrics_port`` are refused), the dynamics histograms and alerts.
 """
 
 from __future__ import annotations
@@ -103,24 +115,26 @@ from ...ops.fused_update import global_norm
 from ...pipeline.language import Pipeline
 from ...registry import registry
 from .. import optimizers as _optimizers
+from .. import resilience
 from ..batcher import bucket_batch_size, bucket_length, shard_stream
 from ..checkpoint import (
     CheckpointCorrupt, TrainCheckpoint, commit_fleet_generation, flatten, generator_state_hex,
     opt_part_name, set_generator_state, write_fleet_opt_part,
 )
-from ..resilience import RetryPolicy, log_event, retry_io
+from ..resilience import RetryPolicy, Watchdog, log_event, maybe_fail, retry_io
 from .membership import LeaseTracker, Membership, MembershipLedger, PeerBackoff
 from .ownership import local_opt_from_canonical, opt_part_records, tree_from_flat
 from .peer import FleetCounters, OwnerState, PeerServer
 from .wire import (
-    GradCompressor, WireError, decode_arrays, decode_delta_frame, encode_arrays,
-    negotiate_push_codec, resolve_grad_compression,
+    CRC_HEADER, GradCompressor, WireError, check_frame_crc, decode_arrays, decode_delta_frame,
+    encode_arrays, frame_crc, negotiate_push_codec, resolve_grad_compression,
 )
 
 DEFAULT_FLEET_BASE_PORT = 47200
 PHASES = ("data", "pull", "grad", "push", "apply_wait")
-#: the wire codec's share of the push and pull phases, timed on its own
-CODEC_PARTS = ("push_encode", "pull_decode")
+#: the wire codec's share of the push and pull phases, timed on its own;
+#: ``crc`` is the frames' CRC-32, sent with a push and checked on a pull reply
+CODEC_PARTS = ("push_encode", "pull_decode", "crc")
 #: a failed push is retried this often (then counted and dropped)
 PUSH_RETRIES = 1
 #: how long a worker waits for every peer to answer ``/healthz`` at start
@@ -272,6 +286,17 @@ def owner_optimizer(optimizer: "_optimizers.Optimizer") -> Tuple["_optimizers.Op
     return optimizer, 0.0
 
 
+def refuse_fleet_telemetry(metrics_dir: Any, metrics_port: Any) -> None:
+    """A fleet worker's telemetry (its metrics rows, endpoint, divergence
+    detector and dynamics histograms) waits for ROADMAP Queue A item 4.3:
+    asking for it raises instead of training without it."""
+    if metrics_dir or metrics_port:
+        raise ValueError(
+            "fleet mode: a fleet worker's telemetry (metrics_dir / metrics_port) is not "
+            "part of the port yet (ROADMAP.md Queue A item 4.3, fleet telemetry) — drop "
+            "--metrics-dir/--metrics-port or train in one process")
+
+
 def _check_fleet_config(T: Dict[str, Any], nlp: Pipeline, optimizer: Any) -> None:
     if int(T.get("accumulate_gradient") or 1) != 1:
         raise ValueError("fleet mode: accumulate_gradient > 1 is not supported — the quorum "
@@ -313,6 +338,8 @@ def train_fleet_worker(
     param_delta_window: int = 4,
     grad_error_feedback: bool = True,
     resume: bool = False,
+    metrics_dir: Optional[Path] = None,
+    metrics_port: Optional[int] = None,
 ) -> Tuple[Pipeline, Any]:
     """Run one fleet worker; returns ``(nlp, TrainResult)`` as
     :func:`~..loop.train` does (whose ``fleet=`` mode calls this), with
@@ -338,7 +365,9 @@ def train_fleet_worker(
     there is none (``resume-failed``); :data:`CHECKPOINT_TIMEOUT_S` bounds
     the lead's ``POST /checkpoint`` to each peer. On the main thread, SIGTERM and
     SIGINT stop the worker at its next step (``result.interrupted``). Runs on
-    ``cuda`` unless ``device`` is ``"cpu"``."""
+    ``cuda`` unless ``device`` is ``"cpu"``. A worker's telemetry is not part
+    of the port yet: ``metrics_dir`` or ``metrics_port`` (here or in
+    ``[training]``) raises."""
     from ..loop import (
         TrainResult, _named_params, _resolve_corpus, check_component_lists,
         default_pipeline_score_weights, resolve_training, weighted_score,
@@ -369,6 +398,8 @@ def train_fleet_worker(
 
     config = config.interpolate()
     T = resolve_training(config)
+    refuse_fleet_telemetry(metrics_dir or T["metrics_dir"],
+                           metrics_port if metrics_port is not None else T["metrics_port"])
     dev = resolve_device(device)
     peer_timeout = float(T.get("fleet_peer_timeout_s") or 10.0)
     probe_timeout = float(probe_timeout_s if probe_timeout_s is not None
@@ -378,6 +409,10 @@ def train_fleet_worker(
     seed = int(T.get("seed") or 0)
     random.seed(seed)
     np.random.seed(seed)
+    resilience.activate_env_fault_plan()
+    resilience.drain_events()
+    resilience.set_default_retry_policy(RetryPolicy(
+        max_retries=int(T["io_retries"]), base_delay=float(T["io_retry_base_s"])))
 
     corpora = {name: registry.resolve(block)
                for name, block in config.get("corpora", {}).items()}
@@ -811,9 +846,21 @@ def train_fleet_worker(
             timed_out = unreachable = False
             while True:
                 try:
+                    if resilience.partitioned(w):
+                        raise OSError(f"peer {w} partitioned (fault plan)")
+                    maybe_fail("param-pull")
+                    act = resilience.consume_wire_fault("param-pull")
+                    if act is not None and act[0] == "delay":
+                        time.sleep(float(act[1] or 1.0))
                     status, resp_headers, body = client.request(
                         "GET", f"/params?known={known[w]}", headers=headers)
-                except OSError:
+                    if act is not None and act[0] == "dup":
+                        # an idempotent GET: the second reply wins
+                        status, resp_headers, body = client.request(
+                            "GET", f"/params?known={known[w]}", headers=headers)
+                    if act is not None and act[0] == "corrupt":
+                        body = resilience.corrupt_bytes(body)
+                except (OSError, resilience.FaultInjected):
                     counters.inc("pull_failed")
                     unreachable = True
                     break
@@ -823,6 +870,15 @@ def train_fleet_worker(
                     fenced_by = w
                     break
                 elif status == 200:
+                    t_crc = time.perf_counter()
+                    try:
+                        check_frame_crc(body, resp_headers)
+                    except WireError:
+                        counters.refuse_crc()
+                        counters.inc("pull_failed")
+                        break
+                    finally:
+                        codec_now["crc"] += time.perf_counter() - t_crc
                     t_dec = time.perf_counter()
                     try:
                         v, is_delta = merge_pulled(layout, params_host, w, known[w], body)
@@ -898,12 +954,30 @@ def train_fleet_worker(
             t_enc = time.perf_counter()
             body = compressor.encode(w, {"worker": worker_id, "stamp": stamp,
                                          "epoch": int(membership.epoch)}, flat, codec_w)
-            codec_now["push_encode"] += time.perf_counter() - t_enc
+            t_crc = time.perf_counter()
+            codec_now["push_encode"] += t_crc - t_enc
+            crc = {CRC_HEADER: frame_crc(body)}
+            codec_now["crc"] += time.perf_counter() - t_crc
+            # a wire fault covers one frame: a corrupted body stays corrupted
+            # through the retries (the owner refuses it each time)
+            act = resilience.consume_wire_fault("grad-push")
+            if act is not None and act[0] == "corrupt":
+                body = resilience.corrupt_bytes(body)
+            elif act is not None and act[0] == "delay":
+                time.sleep(float(act[1] or 1.0))
+            dup = act is not None and act[0] == "dup"
 
-            def send(w=w, body=body) -> None:
-                status, _, reply = clients[w].request("POST", "/grad", body=body)
+            def send(w=w, body=body, dup=dup) -> None:
+                maybe_fail("grad-push")
+                if resilience.partitioned(w):
+                    raise OSError(f"peer {w} partitioned (fault plan)")
+                status, _, reply = clients[w].request("POST", "/grad", body=body, headers=crc)
                 if status != 200:
                     raise OSError(f"peer {w} rejected grad push: HTTP {status}")
+                if dup:
+                    # the owner takes one contribution per (worker, stamp): the
+                    # twin is a counted discard, never a second apply
+                    clients[w].request("POST", "/grad", body=body, headers=crc)
                 try:
                     answer = json.loads(reply.decode("utf8"))
                     if answer.get("fenced"):
@@ -920,7 +994,7 @@ def train_fleet_worker(
                 # an f32 frame is its own uncompressed size (ROADMAP C51)
                 counters.inc("wire_push_bytes_uncompressed",
                              len(body) if codec_w == "f32" else wire_full_bytes.get(w, len(body)))
-            except OSError:
+            except (OSError, resilience.FaultInjected):
                 counters.inc("push_failed")  # dropped: a dead owner never stalls the fleet
             last_stamp[w] = stamp
         if fenced_peer:
@@ -1089,19 +1163,35 @@ def train_fleet_worker(
                           "epoch": int(membership.epoch)}).encode("utf8")
         for w in sorted(clients):
             try:
+                maybe_fail("checkpoint-wire")
+                if resilience.partitioned(w):
+                    raise OSError(f"peer {w} partitioned (fault plan)")
+                act = resilience.consume_wire_fault("checkpoint-wire")
+                if act is not None and act[0] == "delay":
+                    time.sleep(float(act[1] or 1.0))
                 client = ckpt_clients.get(w)
                 if client is None:
                     client = ckpt_clients[w] = _PeerClient(urls[w],
                                                            timeout=CHECKPOINT_TIMEOUT_S)
-                status, _, body = client.request("POST", "/checkpoint", body=req,
-                                                 content_type="application/json")
-                if status != 200:
-                    raise OSError(f"peer {w} checkpoint: HTTP {status}")
+                for _ in range(2 if act is not None and act[0] == "dup" else 1):
+                    # a repeated request names the same stamp and part file
+                    status, resp_headers, body = client.request(
+                        "POST", "/checkpoint", body=req, content_type="application/json")
+                    if status != 200:
+                        raise OSError(f"peer {w} checkpoint: HTTP {status}")
+                if act is not None and act[0] == "corrupt":
+                    body = resilience.corrupt_bytes(body)
+                try:
+                    check_frame_crc(body, resp_headers)
+                except WireError:
+                    counters.refuse_crc()
+                    raise
                 meta_w, arrays = decode_arrays(body)
                 digests[int(meta_w["part"])] = str(meta_w["digest"])
                 versions[w], rngs[w] = int(meta_w["version"]), str(meta_w["rng"])
                 layout.merge_flat(assembled, w, arrays)
-            except (OSError, WireError, KeyError, ValueError, TypeError) as e:
+            except (OSError, WireError, KeyError, ValueError, TypeError,
+                    resilience.FaultInjected) as e:
                 log_event("fleet-checkpoint-aborted", f"worker {w} failed the checkpoint "
                           f"exchange at step {stamp} ({type(e).__name__}: {e}); keeping the "
                           "previous generation", worker=w, step=stamp)
@@ -1132,6 +1222,11 @@ def train_fleet_worker(
         for signum in (signal.SIGTERM, signal.SIGINT):
             prev_handlers[signum] = signal.signal(signum, _on_signal)
 
+    watchdog: Optional[Watchdog] = None
+    if float(T["watchdog_timeout_s"]) > 0:
+        watchdog = Watchdog(float(T["watchdog_timeout_s"]), stats_fn=lambda: {
+            "fleet_worker": worker_id, "version": owner.version, **counters.snapshot()})
+        watchdog.start()
     clean_exit = False
     start_time = last_log_time = time.perf_counter()
     try:
@@ -1154,6 +1249,7 @@ def train_fleet_worker(
                 b = next(batch_iter)
             except StopIteration:
                 break
+            maybe_fail("collate")
             batch = nlp.collate(b, with_targets=True, pad_batch_to=bucket_batch_size(len(b)),
                                 pad_len_to=bucket_length(max(len(eg) for eg in b),
                                                          nlp.length_buckets))
@@ -1166,6 +1262,9 @@ def train_fleet_worker(
             t2 = time.perf_counter()
             note_phase("pull", t1, t2)
 
+            # the step site (a nan rule reports this step's loss as NaN)
+            maybe_fail("step")
+            poisoned = resilience.consume_poison("step")
             for p in params.values():
                 p.grad = None
             mseed = int(torch.randint(0, 2 ** 62, (1,), generator=seeds))
@@ -1180,8 +1279,9 @@ def train_fleet_worker(
                     torch._foreach_mul_(list(grads.values()), clip_scale(gnorm, worker_clip))
             grads_host = tree_from_flat({k: g.to("cpu", copy=True).numpy()
                                          for k, g in grads.items()})
-            loss_val = float(loss.detach())
-            head_losses = {k[5:]: float(v) for k, v in metrics.items() if k.startswith("loss_")}
+            loss_val = float("nan") if poisoned else float(loss.detach())
+            head_losses = {k[5:]: float("nan") if poisoned else float(v)
+                           for k, v in metrics.items() if k.startswith("loss_")}
             t3 = time.perf_counter()
             note_phase("grad", t2, t3)
 
@@ -1253,6 +1353,8 @@ def train_fleet_worker(
             step_cut[0] = (step, generator_state_hex(seeds))
             if worker_id == 0:
                 log_step(info)
+            if watchdog is not None:
+                watchdog.beat()
             if max_steps and step >= max_steps:
                 break
             if worker_id == 0 and patience and best_step >= 0 and step - best_step >= patience:
@@ -1269,6 +1371,8 @@ def train_fleet_worker(
                       step=step, worker=worker_id)
         clean_exit = True
     finally:
+        if watchdog is not None:
+            watchdog.stop()
         member_stop.set()
         if member_thread is not None and member_thread.is_alive():
             member_thread.join(timeout=probe_timeout + lease_poll_s)
@@ -1312,6 +1416,7 @@ def train_fleet_worker(
                 "opt_parts": list(written_parts), "generations": list(committed),
                 "first_accepted_push_at": first_accepted[0],
                 "counters": counters.snapshot(),
+                "frames_crc_refused": counters.crc_refused,
                 "phases": {p: round(v, 6) for p, v in phases.items()},
                 "phase_steps_s": phase_steps,
                 "codec_steps_s": codec_steps,

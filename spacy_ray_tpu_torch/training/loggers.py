@@ -1,12 +1,14 @@
-"""Training loggers: the ``[training.logger]`` block (counterpart of the
-console logger of ``spacy_ray_tpu/training/loggers.py``, with one column
-more: ``EvalWPS``, the dev prediction's words/s, which the scores do not
-carry). The factory returns a setup function taking the pipeline and
-returning ``(log_step, finalize)``; ``log_step(info_or_None)`` is called
-every step, with an info dict at each evaluation (None = no new row)."""
+"""Training loggers: the ``[training.logger]`` block (counterpart of
+``spacy_ray_tpu/training/loggers.py``): the console table, with one column
+more than the JAX package's (``EvalWPS``, the dev prediction's words/s,
+which the scores do not carry), and ``JsonlLogger.v1``. The factory
+returns a setup function taking the pipeline and returning ``(log_step,
+finalize)``; ``log_step(info_or_None)`` is called every step, with an info
+dict at each evaluation (None = no new row)."""
 
 from __future__ import annotations
 
+import json
 import sys
 import time
 from typing import Any, Dict, IO, List, Optional
@@ -90,6 +92,53 @@ def console_logger(progress_bar: bool = False):
             if progress_bar and stderr is not None and pending:
                 stderr.write("\r" + " " * 40 + "\r")
                 stderr.flush()
+
+        return log_step, finalize
+
+    return setup
+
+
+@registry.loggers("spacy_ray_tpu.JsonlLogger.v1")
+def jsonl_logger(path: Optional[str] = None):
+    """A JSON line per evaluation (into ``path``, else stdout), for dashboards
+    and benchmarks: the info dict's keys, the telemetry snapshot when
+    ``[training] metrics_dir`` is on, and the resilience events logged since
+    the last row (retries, resumes, injected faults, anomalies); events
+    logged after the last row come as a closing events-only line."""
+
+    def setup(nlp, stdout: IO = sys.stdout, stderr: IO = sys.stderr):
+        from .resilience import drain_events
+        from .telemetry import sanitize_json
+
+        handle = open(path, "a", encoding="utf8") if path else None
+
+        def write(line: str) -> None:
+            if handle:
+                handle.write(line + "\n")
+                handle.flush()
+            else:
+                stdout.write(line + "\n")
+
+        def log_step(info: Optional[Dict[str, Any]]) -> None:
+            if info is None:
+                return
+            rec = {k: info.get(k) for k in (
+                "epoch", "step", "words", "wps", "eval_seconds", "score", "losses",
+                "other_scores", "telemetry")}
+            if rec.get("telemetry") is None:
+                rec.pop("telemetry", None)
+            events = drain_events()
+            if events:
+                rec["events"] = events
+            # a NaN loss or score must not become a bare NaN token
+            write(json.dumps(sanitize_json(rec), default=float))
+
+        def finalize() -> None:
+            events = drain_events()
+            if events:
+                write(json.dumps({"events": events}, default=float))
+            if handle:
+                handle.close()
 
         return log_step, finalize
 

@@ -4,9 +4,9 @@ Counterpart of ``spacy_ray_tpu/training/loop.py`` with the semantics that
 matter on one device:
 
 * ``[training]`` is validated against the JAX package's key surface
-  (:data:`DEFAULT_TRAINING`); knobs that only shape multiple devices,
-  telemetry, resilience or compiled programs are accepted and ignored, and
-  a run says once which of them its config set;
+  (:data:`DEFAULT_TRAINING`); knobs that only shape multiple devices, the
+  profiler, alerting or compiled programs are accepted and ignored
+  (:data:`IGNORED_KNOBS`), and a run says once which of them its config set;
 * labels are collected from the train corpus at initialize;
 * an update takes ``accumulate_gradient`` raw batches, each padded to the
   group's common ``(B_pad, T_pad)`` bucket; the gradient is the mean of the
@@ -35,7 +35,22 @@ matter on one device:
   dropout seeds on from the fleet lead's generator);
 * SIGTERM or SIGINT (:class:`~.resilience.ShutdownCoordinator`) stops the
   run at the next step boundary: it writes a generation there, sets
-  ``result.interrupted`` and logs ``preempted`` (the CLI exits 75).
+  ``result.interrupted`` and logs ``preempted`` (the CLI exits 75);
+* resilience: the environment's fault plan (``SPACY_RAY_TPU_FAULT_PLAN``)
+  is activated and the retry policy of ``io_retries`` / ``io_retry_base_s``
+  installed before the first read; the ``collate``, ``step`` (its ``nan``
+  poison reports the step's loss as NaN when the losses are drained) and,
+  through the corpus readers and checkpoints, ``corpus-read`` and
+  ``checkpoint-write`` fault sites; ``watchdog_timeout_s`` > 0 arms a
+  :class:`~.resilience.Watchdog` fed after each step and evaluation (it
+  exits 79 on a hung step, after flushing telemetry);
+* telemetry (``metrics_dir``, or ``train(metrics_dir=...)``): a
+  :class:`~.telemetry.Telemetry` with one clock stamp a step, its
+  ``metrics.jsonl``, ``trace.json`` (``trace_steps``), anomaly detectors
+  (``anomaly_detection``) and, with ``metrics_port`` > 0, the endpoint of
+  :mod:`.telemetry_http` on ``metrics_host``; ``info["telemetry"]`` carries
+  its snapshot at each evaluation. Off, nothing of it is constructed or
+  called, and on it changes no result.
 
 Dropout seeds come from a ``torch.Generator`` seeded with ``[training]
 seed``: one 63-bit seed per microbatch, saved with each generation, so a
@@ -50,6 +65,7 @@ import logging
 import random
 import sys
 import time
+from contextlib import nullcontext
 from pathlib import Path
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
@@ -65,9 +81,10 @@ from ..registry import registry
 from . import corpus as _corpus  # noqa: F401  (registers readers)
 from . import loggers as _loggers  # noqa: F401  (registers loggers)
 from . import optimizers as _optimizers
+from . import resilience
 from .batcher import bucket_batch_size, bucket_length
 from .checkpoint import CheckpointCorrupt, TrainCheckpoint, set_generator_state
-from .resilience import ShutdownCoordinator, log_event
+from .resilience import ShutdownCoordinator, Watchdog, log_event, maybe_fail
 
 logger = logging.getLogger("spacy_ray_tpu_torch.training")
 
@@ -109,15 +126,14 @@ DEFAULT_TRAINING: Dict[str, Any] = {
     "fleet_probe_timeout_s": 5.0,
 }
 _TRAINING_BLOCK_KEYS = {"optimizer", "batcher", "logger", "before_update"}
-#: knobs of the JAX loop that shape multiple devices, telemetry, resilience
-#: or compiled programs: validated, then ignored (``fleet_peer_timeout_s``
-#: and ``fleet_probe_timeout_s`` bound a fleet worker's peer requests and
-#: liveness probes)
+#: knobs of the JAX loop that shape multiple devices, the profiler, alerting
+#: and incidents, or compiled programs: validated, then ignored
+#: (``fleet_peer_timeout_s`` and ``fleet_probe_timeout_s`` bound a fleet
+#: worker's peer requests and liveness probes)
 IGNORED_KNOBS = (
     "zero1", "update_sharding", "mesh", "prefetch_batches", "collate_workers",
-    "collate_cache_mb", "watchdog_timeout_s", "io_retries", "io_retry_base_s",
-    "profile_window", "metrics_dir", "trace_steps", "metrics_port", "metrics_host",
-    "anomaly_detection", "alerting", "incident_dir", "fused_update", "bf16_shadow",
+    "collate_cache_mb", "profile_window", "alerting", "incident_dir", "fused_update",
+    "bf16_shadow",
 )
 
 
@@ -356,19 +372,24 @@ def train(
     max_steps_override: Optional[int] = None,
     stdout_log: bool = True,
     fleet: Optional[Dict[str, Any]] = None,
+    metrics_dir: Optional[Path] = None,
+    metrics_port: Optional[int] = None,
 ) -> Tuple[Pipeline, TrainResult]:
     """Train the config's pipeline on one device (``cuda`` unless the caller
     asks for ``cpu``). Returns (pipeline, result). ``resume`` continues the
     newest intact generation in ``<output_path>/last-model``: one this loop
-    wrote, or a trainer fleet's. ``fleet`` (``worker_id``, ``n_workers`` and
-    the other keywords of :func:`~.fleet.worker.train_fleet_worker`) runs
-    this process as one worker of a trainer fleet instead."""
+    wrote, or a trainer fleet's. ``metrics_dir`` and ``metrics_port``
+    override ``[training] metrics_dir`` and ``metrics_port``. ``fleet``
+    (``worker_id``, ``n_workers`` and the other keywords of
+    :func:`~.fleet.worker.train_fleet_worker`) runs this process as one
+    worker of a trainer fleet instead."""
     if fleet is not None:
         from .fleet.worker import train_fleet_worker
 
         return train_fleet_worker(config, output_path, device=device, resume=resume,
                                   max_steps_override=max_steps_override,
-                                  stdout_log=stdout_log, **fleet)
+                                  stdout_log=stdout_log, metrics_dir=metrics_dir,
+                                  metrics_port=metrics_port, **fleet)
     config = config.interpolate()
     T = resolve_training(config)
     dev = resolve_device(device)
@@ -377,9 +398,60 @@ def train(
     np.random.seed(seed)
     ignored = sorted(k for k in config.get("training", {}) if k in IGNORED_KNOBS)
     if ignored:
-        logger.warning("[training] %s: multi-device, telemetry and resilience knobs, "
-                       "accepted and ignored on one device", ", ".join(ignored))
+        logger.warning("[training] %s: multi-device, profiler, alerting and compiled-program "
+                       "knobs, accepted and ignored on one device", ", ".join(ignored))
 
+    # the fault plan of the environment (a relaunched child reads its own),
+    # the retry policy of the knobs, and no event left over from an earlier
+    # run in this process, before the first read
+    resilience.activate_env_fault_plan()
+    resilience.drain_events()
+    resilience.set_default_retry_policy(resilience.RetryPolicy(
+        max_retries=int(T["io_retries"]), base_delay=float(T["io_retry_base_s"])))
+    tel = tel_http = None
+    tel_dir = str(metrics_dir) if metrics_dir is not None else str(T["metrics_dir"] or "")
+    tel_port = int(metrics_port if metrics_port is not None else T["metrics_port"] or 0)
+    if not tel_dir and tel_port:
+        log_event("telemetry-endpoint-skipped",
+                  "--metrics-port/[training] metrics_port is set but telemetry is disabled "
+                  "(no metrics_dir) — no endpoint started; set --metrics-dir/[training] "
+                  "metrics_dir to enable it")
+    if tel_dir:
+        from .telemetry import Telemetry, warm_flop_counter
+
+        tel = Telemetry(Path(tel_dir), trace_steps=tuple(T["trace_steps"]),
+                        anomaly_detection=bool(T["anomaly_detection"]), device=dev)
+        warm_flop_counter()  # before the watchdog's first window
+        if tel_port > 0:
+            from .telemetry_http import TelemetryHTTPServer
+
+            tel_http = TelemetryHTTPServer(tel, host=str(T["metrics_host"]), port=tel_port)
+            host, bound = tel_http.start()
+            log_event("telemetry-endpoint", f"trainer telemetry on http://{host}:{bound} "
+                      "(/metrics, /healthz, /trace)", level=logging.INFO, port=bound)
+    try:
+        return _train(config, T, dev, seed, output_path, resume, max_steps_override,
+                      stdout_log, tel)
+    finally:
+        if tel_http is not None:
+            tel_http.stop()
+        if tel is not None:
+            # a crashed run's rows and trace are the ones worth reading
+            tel.finalize()
+
+
+def _tspan(tel: Any, name: str, **args: Any):
+    """A trace span when telemetry is on, else a free null context."""
+    return nullcontext() if tel is None else tel.trace.span(name, cat="loop", **args)
+
+
+def _ms(seconds: Optional[float]) -> Optional[float]:
+    return None if seconds is None else seconds * 1e3
+
+
+def _train(config: Config, T: Dict[str, Any], dev: torch.device, seed: int,
+           output_path: Optional[Path], resume: bool, max_steps_override: Optional[int],
+           stdout_log: bool, tel: Any) -> Tuple[Pipeline, TrainResult]:
     corpora = {name: registry.resolve(block)
                for name, block in config.get("corpora", {}).items()}
     train_corpus = _resolve_corpus(config, corpora, T["train_corpus"])
@@ -408,7 +480,8 @@ def train(
     last_dir = Path(output_path) / "last-model" if output_path is not None else None
     if resume and last_dir is not None:
         try:
-            ckpt = TrainCheckpoint.load(last_dir)
+            with _tspan(tel, "checkpoint_load"):
+                ckpt = TrainCheckpoint.load(last_dir)
         except CheckpointCorrupt as e:
             log_event("resume-failed", f"--resume found no intact checkpoint generation ({e}); "
                       "starting from scratch")
@@ -522,19 +595,56 @@ def train(
                    "seed_generator": seeds.get_state().tolist()},
         )
 
-    def record_losses(loss_t: torch.Tensor, m: Dict[str, torch.Tensor]) -> None:
-        result.step_losses.append(float(loss_t))
+    def record_losses(loss_t: torch.Tensor, m: Dict[str, torch.Tensor],
+                      poisoned: bool) -> None:
+        """One step's losses to the host; a step a ``nan`` fault rule
+        poisoned reports NaN, as the JAX loop's drain does (its training is
+        untouched)."""
+        nan = float("nan")
+        result.step_losses.append(nan if poisoned else float(loss_t))
         result.step_head_losses.append(
-            {k[5:]: float(v) for k, v in m.items() if k.startswith("loss_")})
+            {k[5:]: nan if poisoned else float(v) for k, v in m.items()
+             if k.startswith("loss_")})
 
     loss_accum: Dict[str, float] = {}
-    pending: List[Tuple[torch.Tensor, Dict[str, torch.Tensor]]] = []
+    pending: List[Tuple[torch.Tensor, Dict[str, torch.Tensor], bool]] = []
     words_since_log = 0
     start_time = last_log_time = time.perf_counter()
     use_events = dev.type == "cuda"
     group: Optional[Dict[str, Any]] = None
+    last_batch: Dict[str, Any] = {}
+    steps_run = 0
     stop = False
+
+    def flops_fn() -> Optional[float]:
+        """One step's FLOPs, probed on the step's last microbatch; a failed
+        probe leaves ``flops_per_step`` and ``mfu`` null and says why."""
+        from .telemetry import program_flops
+
+        try:
+            return program_flops(lambda: nlp.loss(last_batch["tokens"], last_batch["targets"],
+                                                  dropout=dropout, seed=0)[0],
+                                 params, n_micro=accum)
+        except Exception as e:
+            log_event("flops-probe-failed", f"the FLOP probe failed, so no mfu: "
+                      f"{type(e).__name__}: {e}", step=step)
+            return None
+
+    watchdog: Optional[Watchdog] = None
+    if float(T["watchdog_timeout_s"]) > 0:
+        def watchdog_stats() -> Dict[str, Any]:
+            if tel is not None:
+                # the watchdog exits with os._exit right after its dump: the
+                # rows and the trace are written now or never
+                tel.emergency_flush()
+            return {"step": step, **position}
+
+        watchdog = Watchdog(float(T["watchdog_timeout_s"]), stats_fn=watchdog_stats)
     shutdown = ShutdownCoordinator().install()
+    if watchdog is not None:
+        watchdog.start()
+    if tel is not None:
+        tel.loop_start()
     try:
         for group in groups():
             if annotating:
@@ -547,6 +657,10 @@ def train(
                 result.annotate_seconds.append(time.perf_counter() - t_ann)
             if before_update is not None:
                 before_update(nlp, {"step": step, "epoch": group["epoch"]})
+            # the step site: an error rule crashes here, sigterm preempts at
+            # this step, nan poisons its reported loss
+            maybe_fail("step")
+            poisoned = resilience.consume_poison("step")
             t_host = time.perf_counter()
             if use_events:
                 ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
@@ -558,6 +672,7 @@ def train(
             micro_metrics: List[Dict[str, torch.Tensor]] = []
             n_words = 0
             for b in group["raw"]:
+                maybe_fail("collate")
                 batch = nlp.collate(b, with_targets=True, pad_batch_to=group["B_pad"],
                                     pad_len_to=group["T_pad"])
                 n_words += batch["n_words"]
@@ -567,6 +682,7 @@ def train(
                 loss.backward()
                 micro_losses.append(loss.detach())
                 micro_metrics.append(metrics)
+            last_batch = batch
             grads = {}
             for k, p in params.items():
                 if p.grad is None:
@@ -585,19 +701,23 @@ def train(
                 result.step_events.append(ev)
             result.step_host_seconds.append(time.perf_counter() - t_host)
             result.step_shapes.append((group["B_pad"], group["T_pad"]))
-            pending.append((loss, metrics))
+            pending.append((loss, metrics, poisoned))
             step += 1
+            steps_run += 1
             if use_averages:
                 avg_count += 1
                 _optimizers.average_step(list(avg_params.values()),
                                          [p.detach() for p in params.values()], avg_count)
             result.words_seen += n_words
             words_since_log += n_words
+            if tel is not None:
+                tel.step_boundary(step=step, epoch=group["epoch"], n_words=n_words,
+                                  steps_run=steps_run)
 
             info: Optional[Dict[str, Any]] = None
             if step % eval_frequency == 0:
-                for loss_t, m in pending:
-                    record_losses(loss_t, m)
+                for loss_t, m, poison in pending:
+                    record_losses(loss_t, m, poison)
                     for key, value in result.step_head_losses[-1].items():
                         loss_accum[key] = loss_accum.get(key, 0.0) + value
                 pending.clear()
@@ -613,17 +733,33 @@ def train(
                         "losses": dict(loss_accum), "other_scores": scores, "score": score,
                         "wps": wps, "eval_seconds": eval_seconds, "eval_wps": eval_wps,
                         "grad_norm": float(metrics["grad_norm"])}
+                if tel is not None:
+                    tel.trace.add_span("eval", eval_t0, eval_seconds, cat="loop",
+                                       args={"step": step}, force=True)
+                    info["telemetry"] = tel.eval_boundary(
+                        step=step, epoch=group["epoch"], steps_run=steps_run,
+                        losses=dict(loss_accum), score=score, eval_seconds=eval_seconds,
+                        flops_fn=flops_fn, wps=wps)
+                    info["step_ms_p50"] = _ms(info["telemetry"]["step_seconds_p50"])
+                    info["step_ms_p95"] = _ms(info["telemetry"]["step_seconds_p95"])
                 result.history.append(info)
                 loss_accum = {}
                 if score > best_score:
                     best_score, best_step = score, step
                     if output_path is not None:
-                        nlp.to_disk(Path(output_path) / "best-model")
+                        with _tspan(tel, "checkpoint_save", kind="best", step=step):
+                            nlp.to_disk(Path(output_path) / "best-model")
                 if backup is not None:
                     swap_in(backup)
                 if last_dir is not None:
-                    save_last(group)
+                    with _tspan(tel, "checkpoint_save", kind="last", step=step):
+                        save_last(group)
+                if tel is not None:
+                    # evaluation and checkpoints are not the next step's time
+                    tel.rearm_step_clock()
             log_step(info)
+            if watchdog is not None:
+                watchdog.beat()
             if max_steps and step >= max_steps:
                 stop = True
             if patience and best_step >= 0 and (step - best_step) >= patience:
@@ -631,7 +767,8 @@ def train(
             # the preemption poll, after the step: its generation is this step's
             if not stop and shutdown.requested:
                 if last_dir is not None:
-                    save_last(group)
+                    with _tspan(tel, "preemption_drain", step=step):
+                        save_last(group)
                 result.interrupted = True
                 log_event("preempted", f"shutdown signal at step {step} — checkpoint written at "
                           "the step boundary; resume with --resume", step=step)
@@ -639,10 +776,12 @@ def train(
             if stop:
                 break
     finally:
+        if watchdog is not None:
+            watchdog.stop()
         shutdown.restore()
 
-    for loss_t, m in pending:
-        record_losses(loss_t, m)
+    for loss_t, m, poison in pending:
+        record_losses(loss_t, m, poison)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     result.seconds = time.perf_counter() - start_time

@@ -1,11 +1,22 @@
-"""Structured resilience events, bounded retries and graceful termination
-(``spacy_ray_tpu/training/resilience.py``).
+"""Structured resilience events, bounded retries, the hung-step watchdog,
+fault plans and graceful termination (``spacy_ray_tpu/training/resilience.py``).
 
 * :func:`log_event`: a line on the training logger for people, and a
-  record kept for machines until :func:`drain_events` takes it;
+  record kept for machines until :func:`drain_events` takes it (the
+  ``JsonlLogger.v1`` rows carry them);
 * :class:`RetryPolicy` and :func:`retry_io`: exponential backoff with
-  jitter around a call that may fail transiently (the trainer fleet's
-  gradient push);
+  jitter around a call that may fail transiently (corpus opens, checkpoint
+  writes, the trainer fleet's gradient push); :func:`set_default_retry_policy`
+  installs the policy of ``[training] io_retries`` / ``io_retry_base_s``;
+* :class:`Watchdog`: a daemon thread fed a heartbeat after each step and
+  evaluation; when none comes within its timeout it dumps every thread's
+  stack (and the stats its caller gives it) and hard-exits
+  :data:`RC_WATCHDOG`, for the supervisor to restart with ``--resume``;
+* :class:`FaultPlan` (``SPACY_RAY_TPU_FAULT_PLAN``, the JAX package's name,
+  so one drill spec drives either package): "fail site X on call N with
+  kind K" at the sites of :data:`FAULT_SITES`, the ``nan`` poison the loop
+  turns into a NaN loss, and the fleet's wire faults (corrupt, delay, dup,
+  partition, heal); a rule no site would act on is refused when parsed;
 * :func:`terminate_with_grace`: SIGTERM, a grace period, then SIGKILL (the
   fleet coordinator's shutdown of its workers);
 * :data:`RC_PREEMPTED`: the exit code of a clean preemption;
@@ -13,27 +24,30 @@
   polls at step boundaries, and hooks run the moment the signal lands (the
   serving fleet's drain gate); one process: no multi-host agreement;
 * :class:`Supervisor`: ``train --max-restarts N``, a child relaunched with
-  ``--resume`` after a nonzero exit.
-
-The rest of the JAX module (the hung-step watchdog, fault plans) is not
-part of the port yet.
+  ``--resume`` after a nonzero exit (a watchdog's 79 included).
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import random
 import signal
 import subprocess
+import sys
 import threading
 import time
+import traceback
 from collections import deque
-from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
+from typing import Any, Callable, Deque, Dict, List, Optional, Sequence, Tuple
 
 logger = logging.getLogger("spacy_ray_tpu_torch.training")
 
 #: a clean preemption shutdown (EX_TEMPFAIL): safe to restart and resume
 RC_PREEMPTED = 75
+#: a hung step: the watchdog hard-exited the process; the last generation is
+#: intact
+RC_WATCHDOG = 79
 
 # bounded: a retry storm must not grow without bound before it is drained
 _EVENTS: Deque[Dict[str, Any]] = deque(maxlen=256)
@@ -79,13 +93,27 @@ class RetryPolicy:
         return base * (1.0 + self.jitter * self.rng.random())
 
 
+_DEFAULT_RETRY = RetryPolicy()
+
+
+def set_default_retry_policy(policy: RetryPolicy) -> RetryPolicy:
+    """Install the policy :func:`retry_io` uses when given none (the training
+    loops set it from ``[training] io_retries`` / ``io_retry_base_s``).
+    Returns the previous one."""
+    global _DEFAULT_RETRY
+    prev = _DEFAULT_RETRY
+    _DEFAULT_RETRY = policy
+    return prev
+
+
 def retry_io(site: str, fn: Callable[[], Any], policy: Optional[RetryPolicy] = None,
              retry_on: Tuple[type, ...] = (OSError,)) -> Any:
-    """Run ``fn``, retrying ``retry_on`` errors up to the policy's count with
-    its backoff; each retry is a logged ``io-retry`` event. Errors that wear
-    an OSError but cannot heal (a missing path, a permission) raise at once,
-    as does everything outside ``retry_on``."""
-    pol = policy or RetryPolicy()
+    """Run ``fn``, retrying ``retry_on`` errors up to the policy's count
+    (the default policy's without one) with its backoff; each retry is a
+    logged ``io-retry`` event. Errors that wear an OSError but cannot heal
+    (a missing path, a permission) raise at once, as does everything outside
+    ``retry_on``."""
+    pol = policy or _DEFAULT_RETRY
     attempt = 0
     while True:
         try:
@@ -101,6 +129,320 @@ def retry_io(site: str, fn: Callable[[], Any], policy: Optional[RetryPolicy] = N
             log_event("io-retry", f"{site}: {type(e).__name__}: {e} — retry "
                       f"{attempt}/{pol.max_retries} in {d:.2f}s", site=site, attempt=attempt)
             pol.sleep(d)
+
+
+class Watchdog:
+    """A daemon thread that hard-exits the process when no heartbeat came
+    within ``timeout_s``: a step wedged in a kernel or a collective raises
+    nothing to catch. On firing it writes every Python thread's stack (the
+    training thread's shows where it hangs) and ``stats_fn()``'s answer to
+    ``stream`` (stderr), then calls ``exit_fn(RC_WATCHDOG)``
+    (``os._exit``: no unwinding). ``clock``, ``sleep``, ``exit_fn`` and
+    ``stream`` are injectable for tests."""
+
+    def __init__(self, timeout_s: float, *, stats_fn: Optional[Callable[[], Any]] = None,
+                 clock: Callable[[], float] = time.monotonic,
+                 sleep: Callable[[float], None] = time.sleep,
+                 exit_fn: Optional[Callable[[int], None]] = None, stream: Any = None) -> None:
+        if timeout_s <= 0:
+            raise ValueError("watchdog timeout_s must be > 0 (0 disables it)")
+        self.timeout_s = float(timeout_s)
+        self._stats_fn = stats_fn
+        self._clock = clock
+        self._sleep = sleep
+        self._exit_fn = exit_fn or (lambda rc: os._exit(rc))
+        self._stream = stream
+        self._last_beat = clock()
+        self._stop = threading.Event()
+        self._fired = False
+        self._thread: Optional[threading.Thread] = None
+
+    def beat(self) -> None:
+        """Feed the watchdog: after each completed step and evaluation."""
+        self._last_beat = self._clock()
+
+    def check(self) -> bool:
+        """One poll: fire when the heartbeat is older than the timeout.
+        True once it fired."""
+        if self._fired:
+            return True
+        if self._clock() - self._last_beat <= self.timeout_s:
+            return False
+        self._fired = True
+        self._dump()
+        self._exit_fn(RC_WATCHDOG)
+        return True
+
+    def _dump(self) -> None:
+        stream = self._stream if self._stream is not None else sys.stderr
+        stalled = self._clock() - self._last_beat
+        lines = [f"[watchdog] no step heartbeat for {stalled:.1f}s (timeout "
+                 f"{self.timeout_s:.1f}s) — dumping threads and exiting {RC_WATCHDOG}"]
+        names = {t.ident: t.name for t in threading.enumerate()}
+        for ident, frame in sys._current_frames().items():
+            lines.append(f"--- thread {names.get(ident, '?')} (ident {ident}) ---")
+            lines.append("".join(traceback.format_stack(frame)).rstrip())
+        if self._stats_fn is not None:
+            try:
+                lines.append(f"[watchdog] input pipeline: {self._stats_fn()}")
+            except Exception as e:  # diagnostics must never mask the exit
+                lines.append(f"[watchdog] stats unavailable: {e!r}")
+        try:
+            stream.write("\n".join(lines) + "\n")
+            stream.flush()
+        except Exception:
+            pass
+
+    def _run(self) -> None:
+        poll = min(self.timeout_s / 4.0, 1.0)
+        while not self._stop.is_set():
+            if self.check():
+                return
+            self._sleep(poll)
+
+    def start(self) -> "Watchdog":
+        self._last_beat = self._clock()
+        self._thread = threading.Thread(target=self._run, daemon=True, name="train-watchdog")
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+            self._thread = None
+
+
+#: the sites a fault rule may name; each is a :func:`maybe_fail` call in the
+#: port (``collate`` where a step collates its microbatches)
+FAULT_SITES = ("corpus-read", "collate", "checkpoint-write", "step", "grad-push",
+               "param-pull", "checkpoint-wire")
+FAULT_PLAN_ENV = "SPACY_RAY_TPU_FAULT_PLAN"
+
+_FAULT_KINDS = ("oserror", "runtime", "sigterm", "nan")
+
+#: wire faults: they raise nothing; they queue an action the fleet's wire
+#: sites take with :func:`consume_wire_fault`, or (partition, heal) change
+#: the peers :func:`partitioned` names
+_WIRE_FAULT_KINDS = ("corrupt", "delay", "dup", "partition", "heal")
+
+#: the sites that move bytes between fleet peers: the only ones a wire
+#: fault may name (elsewhere it would act on nothing)
+_WIRE_FAULT_SITES = ("grad-push", "param-pull", "checkpoint-wire")
+
+
+class FaultInjected(RuntimeError):
+    """An injected RuntimeError (tests catch exactly this)."""
+
+
+class FaultPlan:
+    """A deterministic "fail site X on call N with kind K" schedule:
+
+        spec := rule ("," rule)*
+        rule := site ":" call ":" kind [":" arg]
+
+    ``site`` one of :data:`FAULT_SITES`, ``call`` the 1-based call number at
+    that site. ``oserror`` raises OSError (the retried family), ``runtime``
+    :class:`FaultInjected` (a crash), ``sigterm`` sends this process
+    SIGTERM (a preemption at an exact step), ``nan`` poisons the site: the
+    loop polls :func:`consume_poison` after ``maybe_fail("step")`` and
+    reports that step's loss as NaN (the NaN-loss detector's drill; the
+    training itself is untouched). The wire kinds, at the fleet's wire
+    sites only: ``corrupt`` (the next frame gets a byte flipped,
+    :func:`corrupt_bytes`), ``delay[:seconds]`` (the next call sleeps,
+    default 1.0), ``dup`` (the next frame is sent twice),
+    ``partition[:peer]`` (all traffic with ``peer``, or with every peer,
+    fails as OSError until a ``heal``), ``heal[:peer]``. A rule that no site
+    would act on (``nan`` off the step site, a wire kind off the wire sites)
+    is refused. Counters are per site and per plan."""
+
+    def __init__(self, rules: Sequence[Tuple[Any, ...]]) -> None:
+        normalized: List[Tuple[str, int, str, Optional[str]]] = []
+        for rule in rules:
+            site, call, kind = rule[0], rule[1], rule[2]
+            arg = rule[3] if len(rule) > 3 else None
+            if site not in FAULT_SITES:
+                raise ValueError(f"unknown fault site {site!r} (known: {', '.join(FAULT_SITES)})")
+            if kind not in _FAULT_KINDS and kind not in _WIRE_FAULT_KINDS:
+                known = ", ".join(_FAULT_KINDS + _WIRE_FAULT_KINDS)
+                raise ValueError(f"unknown fault kind {kind!r} (known: {known})")
+            if call < 1:
+                raise ValueError(f"fault call number must be >= 1, got {call}")
+            if kind == "nan" and site != "step":
+                raise ValueError(f"fault kind 'nan' is only wired at the 'step' site "
+                                 f"(got {site!r}): the loop polls consume_poison there")
+            if kind in _WIRE_FAULT_KINDS and site not in _WIRE_FAULT_SITES:
+                raise ValueError(f"fault kind {kind!r} is only wired at the fleet wire "
+                                 f"sites {', '.join(_WIRE_FAULT_SITES)} (got {site!r})")
+            if arg is not None:
+                if kind == "delay":
+                    try:
+                        float(arg)
+                    except ValueError:
+                        raise ValueError(f"delay arg {arg!r} is not a number of seconds")
+                elif kind in ("partition", "heal"):
+                    try:
+                        int(arg)
+                    except ValueError:
+                        raise ValueError(f"{kind} arg {arg!r} is not a peer id")
+                else:
+                    raise ValueError(f"fault kind {kind!r} takes no arg (got {arg!r})")
+            normalized.append((site, call, kind, arg))
+        self.rules = normalized
+        self._counts: Dict[str, int] = {}
+        self._poisoned: set = set()
+        self._wire_actions: Dict[str, List[Tuple[str, Optional[str]]]] = {}
+        self._partitioned: set = set()
+        self._partition_all = False
+        self._lock = threading.Lock()
+
+    @classmethod
+    def parse(cls, spec: str) -> "FaultPlan":
+        rules: List[Tuple[str, int, str, Optional[str]]] = []
+        for chunk in spec.split(","):
+            chunk = chunk.strip()
+            if not chunk:
+                continue
+            parts = chunk.split(":")
+            if len(parts) not in (3, 4):
+                raise ValueError(f"bad fault rule {chunk!r} (want site:call:kind[:arg])")
+            site, call_s, kind = parts[0], parts[1], parts[2]
+            arg = parts[3].strip() if len(parts) == 4 else None
+            try:
+                call = int(call_s)
+            except ValueError:
+                raise ValueError(f"bad fault rule {chunk!r}: call {call_s!r} is not an int")
+            rules.append((site.strip(), call, kind.strip().lower(), arg))
+        return cls(rules)
+
+    def check(self, site: str) -> None:
+        """Count one call at ``site``; trigger the rules scheduled for it."""
+        with self._lock:
+            n = self._counts.get(site, 0) + 1
+            self._counts[site] = n
+        for r_site, r_call, r_kind, r_arg in self.rules:
+            if r_site == site and r_call == n:
+                self._trigger(site, n, r_kind, r_arg)
+
+    def _trigger(self, site: str, call: int, kind: str, arg: Optional[str] = None) -> None:
+        log_event("fault-injected", f"{site} call {call}: {kind}", site=site, call=call,
+                  kind=kind, **({"arg": arg} if arg is not None else {}))
+        if kind == "oserror":
+            raise OSError(f"injected fault: {site} call {call}")
+        if kind == "runtime":
+            raise FaultInjected(f"injected fault: {site} call {call}")
+        if kind == "sigterm":
+            os.kill(os.getpid(), signal.SIGTERM)
+        with self._lock:
+            if kind == "nan":
+                self._poisoned.add(site)
+            elif kind in ("corrupt", "delay", "dup"):
+                self._wire_actions.setdefault(site, []).append((kind, arg))
+            elif kind == "partition":
+                if arg is None:
+                    self._partition_all = True
+                else:
+                    self._partitioned.add(int(arg))
+            elif kind == "heal":
+                if arg is None:
+                    self._partition_all = False
+                    self._partitioned.clear()
+                else:
+                    self._partitioned.discard(int(arg))
+
+    def consume_poison(self, site: str) -> bool:
+        """True exactly once per triggered ``nan`` rule at ``site``."""
+        with self._lock:
+            if site in self._poisoned:
+                self._poisoned.discard(site)
+                return True
+        return False
+
+    def consume_wire_fault(self, site: str) -> Optional[Tuple[str, Optional[str]]]:
+        """The next queued ``(kind, arg)`` wire action at ``site`` (FIFO, each
+        once), or None."""
+        with self._lock:
+            queue = self._wire_actions.get(site)
+            if queue:
+                return queue.pop(0)
+        return None
+
+    def partitioned(self, peer: Any) -> bool:
+        """Is traffic with ``peer`` severed?"""
+        with self._lock:
+            if self._partition_all:
+                return True
+            try:
+                return int(peer) in self._partitioned
+            except (TypeError, ValueError):
+                return False
+
+
+_ACTIVE_PLAN: Optional[FaultPlan] = None
+
+
+def set_fault_plan(plan: Optional[FaultPlan]) -> Optional[FaultPlan]:
+    """Install (None clears) the active plan; returns the previous one."""
+    global _ACTIVE_PLAN
+    prev = _ACTIVE_PLAN
+    _ACTIVE_PLAN = plan
+    return prev
+
+
+def get_fault_plan() -> Optional[FaultPlan]:
+    return _ACTIVE_PLAN
+
+
+def activate_env_fault_plan() -> Optional[FaultPlan]:
+    """Read :data:`FAULT_PLAN_ENV` and install its plan with fresh counters
+    (at the start of a training run, so a relaunched child takes it from its
+    environment); an empty variable leaves the active plan as it is."""
+    spec = os.environ.get(FAULT_PLAN_ENV, "").strip()
+    if not spec:
+        return _ACTIVE_PLAN
+    set_fault_plan(FaultPlan.parse(spec))
+    return _ACTIVE_PLAN
+
+
+def maybe_fail(site: str) -> None:
+    """The fault hook of ``site``: one global read without a plan."""
+    plan = _ACTIVE_PLAN
+    if plan is not None:
+        plan.check(site)
+
+
+def consume_poison(site: str) -> bool:
+    """Did a ``nan`` rule trigger at ``site`` since the last poll?"""
+    plan = _ACTIVE_PLAN
+    if plan is not None:
+        return plan.consume_poison(site)
+    return False
+
+
+def consume_wire_fault(site: str) -> Optional[Tuple[str, Optional[str]]]:
+    """The next queued wire action (corrupt, delay, dup) at ``site``, or None."""
+    plan = _ACTIVE_PLAN
+    if plan is not None:
+        return plan.consume_wire_fault(site)
+    return None
+
+
+def partitioned(peer: Any) -> bool:
+    """Is ``peer`` behind an injected partition? The fleet's wire sites raise
+    the OSError a severed link raises when it is."""
+    plan = _ACTIVE_PLAN
+    if plan is not None:
+        return plan.partitioned(peer)
+    return False
+
+
+def corrupt_bytes(body: bytes) -> bytes:
+    """``body`` with its middle byte flipped: the ``corrupt`` kind's damage."""
+    if not body:
+        return body
+    b = bytearray(body)
+    b[len(b) // 2] ^= 0xFF
+    return bytes(b)
 
 
 def terminate_with_grace(proc: "subprocess.Popen", grace_s: float = 10.0,

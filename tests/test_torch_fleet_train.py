@@ -458,6 +458,11 @@ def test_fleet_trains_and_learns(fleet_run):
             assert all(0 <= a <= b for a, b in zip(fl["codec_steps_s"][part],
                                                    fl["phase_steps_s"][phase])), part
         assert sum(fl["codec_steps_s"]["push_encode"]) > 0
+        # the CRC-32 of each push and pull reply, timed apart from the codec
+        assert fl["frames_crc_refused"] == 0 and sum(fl["codec_steps_s"]["crc"]) > 0
+        assert all(0 <= a <= b for a, b in zip(
+            fl["codec_steps_s"]["crc"],
+            [p + q for p, q in zip(fl["phase_steps_s"]["push"], fl["phase_steps_s"]["pull"])]))
         ledger = json.loads((out / f"fleet-worker-{k}.json").read_text("utf8"))
         assert ledger["counters"] == c and ledger["steps"] == 12
         assert len(ledger["step_losses"]) == 12 and "launches" in ledger

@@ -217,3 +217,13 @@ def test_train_and_serve_without_a_card_fails_before_spawning_anything(tmp_path)
         assert out.returncode == 1, (extra, out.stderr)
         assert "train-and-serve: no CUDA device is available" in out.stderr
         assert "training pid" not in out.stdout and not (tmp_path / "out").exists()
+
+
+def test_the_trainer_telemetry_and_resilience_modules_are_checked():
+    """The modules of the trainer's telemetry and resilience, and those that
+    hold their sites, are among the files the checks above read."""
+    checked = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for rel in ("telemetry.py", "telemetry_http.py", "resilience.py", "loggers.py", "loop.py",
+                "corpus.py", "checkpoint.py", "fleet/worker.py", "fleet/peer.py",
+                "fleet/wire.py"):
+        assert f"spacy_ray_tpu_torch/training/{rel}" in checked

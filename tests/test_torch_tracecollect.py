@@ -278,11 +278,24 @@ def test_collect_trace_argument_errors_exit_2_as_jax(argv, says, tmp_path, capsy
 def test_telemetry_subcommands_that_wait_exit_2_and_unknown_ones_print_usage(capsys):
     from spacy_ray_tpu_torch.__main__ import main
 
-    for sub in ("summarize", "top", "postmortem", "report", "ledger"):
+    for sub in ("top", "postmortem", "report", "ledger"):
         assert main(["telemetry", sub, "x"]) == 2
         assert f"telemetry {sub} is not part of the port yet" in capsys.readouterr().err
     assert main(["telemetry"]) == 1 and main(["telemetry", "nope"]) == 1
-    assert "collect-trace" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "collect-trace" in err and "summarize" in err
+
+
+def test_telemetry_summarize_is_ported(tmp_path, capsys):
+    from spacy_ray_tpu_torch.__main__ import main
+
+    path = tmp_path / "metrics.jsonl"
+    path.write_text(json.dumps({"kind": "step", "step": 1, "step_seconds": 0.25,
+                                "words": 10}) + "\n", encoding="utf8")
+    assert main(["telemetry", "summarize", str(path)]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith(f"telemetry summary: {path}") and "step-time p50 250.0ms" in out
+    assert "not part of the port yet" not in capsys.readouterr().err
 
 
 def _two_free_ports():

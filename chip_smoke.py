@@ -334,7 +334,30 @@ Run from the root of a checkout. Phases, each printing one JSON line:
               of the 5 steps after the re-shard. It runs the
               wire's defaults, which resolve to bf16 pushes and a delta
               window of 4 on the card: pushes at most 0.55 of their f32
-              frames, pulls below 1.0, printed as for 23.
+              frames, pulls below 1.0, printed as for 23. It runs with its
+              telemetry at its defaults (``--metrics-dir <out>/metrics``,
+              ``[training] incident_dir``, the anomaly detectors on): before
+              the kill, with all three at version
+              >= 3, each worker's ``/metrics?format=prometheus`` carries the
+              eight dynamics families with its ``worker`` label, their
+              counts within what the scrape's counters allow and no
+              accepted push staler than S, and ``telemetry collect-trace
+              --fleet-base-port P --workers 3`` merges three tracks; after
+              the run each survivor's ``metrics.jsonl`` holds a row a step
+              and one ``kind: "fleet"`` exit row whose apply and
+              quorum-wait counts equal its applies and each phase's its
+              steps; ``fleet-owner-evicted`` goes to firing on worker 0
+              within 5 s (the alert interval) + its longest step after
+              the kill of the ``evict`` row, no other rule fires on any
+              worker (but ``anomaly-burst`` on one that counted 5
+              anomalies) and every anomaly row is a step-time regression
+              (no ``fleet-divergence``); the lead's recorder holds one
+              bundle in the 30 s up to that alert (the recorder's rate
+              limit: its source the alert or a step-time anomaly,
+              whichever trips first), which ``telemetry postmortem``
+              renders naming it; ``telemetry report`` over the run
+              directory has a row and a loss trajectory per survivor; K1
+              fwd, K1 bwd and K5 launched in each survivor.
 
 25. serve:fleet (after serve:watch) — the serving fleet: ``python -m
               spacy_ray_tpu_torch serve-fleet <train:cnn's best-model>
@@ -422,7 +445,11 @@ Run from the root of a checkout. Phases, each printing one JSON line:
               thread dump naming the callback, the supervisor restarts it
               with ``--resume`` (a ``resume`` event at step 10) and the run
               ends 0 with ``last-model/``. K1 fwd, K1 bwd and K5 launch in
-              each attempt (the callback writes its process's counts).
+              each attempt (the callback writes its process's counts). With
+              ``--training.incident_dir`` each attempt's flight recorder
+              leaves one ``anomaly-nan-loss`` bundle (steps 10 and 20: the
+              plan poisons the 7th step of each process), which
+              ``telemetry postmortem`` renders.
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -1930,7 +1957,8 @@ def hang_once(marker: str, at_step: int, seconds: float, launches: str):
 
 def start_train_faults(corpus) -> dict:
     """train:faults started: ``train configs/cnn.cfg --max-restarts 1
-    --metrics-dir`` with the fault plan :data:`FAULTS_PLAN`, the watchdog at
+    --metrics-dir --training.incident_dir`` with the fault plan
+    :data:`FAULTS_PLAN`, the watchdog at
     :data:`FAULTS_WATCHDOG_S` and a ``--code`` callback that hangs twice that
     once, as a subprocess; reader threads stamp its lines.
     :func:`phase_train_faults` reads it."""
@@ -1946,7 +1974,7 @@ def start_train_faults(corpus) -> dict:
             "launches": str(work / "launches")}
     log = {"@loggers": "spacy_ray_tpu.JsonlLogger.v1", "path": str(work / "train_log.jsonl")}
     run = {"work": work, "out": work / "out", "metrics": work / "metrics", "lines": [],
-           "t0": time.perf_counter()}
+           "incidents": work / "incidents", "t0": time.perf_counter()}
     run["proc"] = subprocess.Popen(
         [sys.executable, "-m", "spacy_ray_tpu_torch", "train", "configs/cnn.cfg",
          "--device", "cuda", "--max-restarts", "1", "--output", str(run["out"]),
@@ -1954,6 +1982,7 @@ def start_train_faults(corpus) -> dict:
          "--paths.train", str(corpus[0]), "--paths.dev", str(corpus[1]),
          "--training.watchdog_timeout_s", str(FAULTS_WATCHDOG_S),
          "--training.io_retry_base_s", str(FAULTS_RETRY_BASE_S),
+         "--training.incident_dir", str(run["incidents"]),
          "--training.eval_frequency", str(FAULTS_EVAL),
          "--training.max_steps", str(FAULTS_STEPS),
          "--training.before_update", json.dumps(hang), "--training.logger", json.dumps(log)],
@@ -1982,7 +2011,12 @@ def phase_train_faults(run) -> dict:
     evaluations after each attempt's poisoned step report a non-finite
     ``loss_total`` and a ``nan-loss`` anomaly (``metrics.jsonl``, the
     ``JsonlLogger.v1`` rows); the resumed attempt logged its resume from
-    step 10; and K1 fwd, K1 bwd and K5 launched in both attempts."""
+    step 10; K1 fwd, K1 bwd and K5 launched in both attempts; and each
+    attempt's poisoned evaluation left one ``anomaly-nan-loss`` bundle (the
+    flight recorder of each attempt's process: steps 10 and 20), which
+    ``telemetry postmortem`` renders naming its source and step."""
+    from spacy_ray_tpu_torch.__main__ import main as cli
+
     import os
     import signal
 
@@ -2040,6 +2074,23 @@ def phase_train_faults(run) -> dict:
         bad.append(f"JsonlLogger events {logged}")
     if len(attempts) != 2 or not all(a[k] > 0 for a in attempts for k in need):
         bad.append(f"launches by attempt {attempts}")
+    bundles = sorted(b for b in run["incidents"].iterdir() if (b / "incident.json").exists()) \
+        if run["incidents"].is_dir() else []
+    manifests = {b.name: json.loads((b / "incident.json").read_text()) for b in bundles}
+    nan_bundles = [b for b in bundles if manifests[b.name]["source"] == "anomaly-nan-loss"]
+    if sorted((manifests[b.name]["process"], manifests[b.name].get("step"))
+              for b in nan_bundles) != [("trainer", 10), ("trainer", 20)]:
+        bad.append(f"nan-loss bundles {manifests}")
+    postmortems = []
+    for b in nan_bundles:
+        said = io.StringIO()
+        with redirect_stdout(said):
+            pm_rc = cli(["telemetry", "postmortem", str(b)])
+        text = said.getvalue()
+        postmortems.append({"bundle": b.name, "rc": pm_rc, "head": text.splitlines()[:6]})
+        if pm_rc != 0 or "source: anomaly-nan-loss  process: trainer" not in text \
+                or "step=" not in text:
+            bad.append(f"postmortem of {b.name}: rc {pm_rc} {text[:300]}")
     if bad:
         fail(f"{phase}: " + "; ".join(bad) + "\n" + "\n".join(
             text for _, _, text in lines if not text.startswith(("  File", "    ")))[-6000:])
@@ -2052,6 +2103,8 @@ def phase_train_faults(run) -> dict:
         "anomalies": anomalies, "retries": retries, "jsonl_events": logged,
         "launches_by_attempt": attempts, "launches": launches,
         "steps_rows": sum(1 for r in rows if r["kind"] == "step"),
+        "bundles": {name: (m["source"], m.get("step")) for name, m in manifests.items()},
+        "postmortems": postmortems,
     }
     emit(result)
     shutil.rmtree(run["work"], ignore_errors=True)
@@ -3887,6 +3940,21 @@ FLEET_ELASTIC_KILL_GENERATION = 40  # ... and once this step's generation is com
 FLEET_ELASTIC_PEER_TIMEOUT_S, FLEET_ELASTIC_PROBE_TIMEOUT_S = 2.0, 1.0
 FLEET_ELASTIC_TAG_FLOOR = 0.95     # dev tag_acc at the last evaluation
 FLEET_ELASTIC_AGREEMENT = 0.99     # the final model's tags, card vs CPU
+# its telemetry, at its defaults: every worker's under <out>/metrics/fleet-worker-k/,
+# the flight recorder's bundles under <work>/incidents. Each worker's recorder
+# writes at most one bundle per FLEET_TRIP_INTERVAL_S over every source (JAX's
+# rate limit), so the bundle that holds the eviction's alert on the acting lead
+# is the first of its sources to trip in the interval before it: a step-time
+# anomaly (an evaluation's or a generation's step, a push stalled on the dead
+# peer) or the alert itself
+FLEET_ALERT_INTERVAL_S = 5.0       # the worker's alert_interval_s (its default)
+FLEET_TRIP_INTERVAL_S = 30.0       # the recorder's min_trip_interval_s (its default)
+FLEET_STORM_SOURCES = ("anomaly-step-time-regression", "alert-fleet-owner-evicted")
+FLEET_ANOMALY_BURST = 5            # default_training_rules' anomaly_burst
+FLEET_DYNAMICS = ("staleness", "quorum_wait_seconds", "apply_seconds", "phase_data_seconds",
+                  "phase_pull_seconds", "phase_grad_seconds", "phase_push_seconds",
+                  "phase_apply_wait_seconds")
+FLEET_PHASES = ("data", "pull", "grad", "push", "apply_wait")
 # the fleets' wire: each run's flags, and the codec and delta window its
 # workers must resolve (train:fleet_elastic runs the defaults: bf16 and 4 on
 # the card); a push may weigh at most PUSH_RATIO_MAX of its f32 frame
@@ -4445,6 +4513,216 @@ def fleet_worker_pid(coordinator_pid: int, worker_id: int) -> int:
     fail(f"no process of fleet worker {worker_id} under pid {coordinator_pid}")
 
 
+def prom_values(text: str, worker: int) -> dict:
+    """``{series name with its other labels: value}`` of one worker's
+    Prometheus text, its ``worker="k"`` label dropped; a series without that
+    label is kept under its full name."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        name, _, value = line.rpartition(" ")
+        out[name.replace(f',worker="{worker}"', "").replace(f'{{worker="{worker}"}}', "")] = \
+            float(value)
+    return out
+
+
+def fleet_observer(port: int, n: int, max_staleness: int, work: Path, done: threading.Event,
+                   seen: dict) -> None:
+    """The mid-run reading of a fleet with telemetry: once every worker's
+    version is >= 3, each worker's ``/metrics?format=prometheus`` (the
+    dynamics families with its ``worker`` label; within the one snapshot of
+    a scrape the histograms' counts sit within what their counters allow;
+    no accepted push staler than S), then ``telemetry collect-trace
+    --fleet-base-port P --workers n`` through the CLI's entry point. Every
+    request is bounded in time. What it read goes into ``seen``."""
+    from spacy_ray_tpu_torch.__main__ import main as cli
+
+    deadline = time.monotonic() + 240
+    try:
+        while time.monotonic() < deadline:
+            try:
+                versions = [get(port + k, "/metrics")[1]["gauges"]["param_version"]
+                            for k in range(n)]
+            except (OSError, ValueError, KeyError):
+                versions = []
+            if len(versions) == n and min(versions) >= 3:
+                break
+            time.sleep(0.05)
+        problems, per_worker = [], {}
+        for k in range(n):
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port + k}/metrics?format=prometheus", timeout=5) as r:
+                v = prom_values(r.read().decode("utf8"), k)
+            missing = [f for f in FLEET_DYNAMICS if f"srt_training_{f}_count" not in v]
+            if missing or f'srt_training_staleness_bucket{{le="0"}}' not in v:
+                problems.append(f"worker {k}: no {missing} series with its worker label")
+                continue
+            count = {f: v[f"srt_training_{f}_count"] for f in FLEET_DYNAMICS}
+            steps, applies = v["srt_training_steps_total"], v["srt_training_applies_total"]
+            received = v["srt_training_grad_received_total"]
+            stale_top = v[f'srt_training_staleness_bucket{{le="+Inf"}}']
+            stale_s = v[f'srt_training_staleness_bucket{{le="{max_staleness}"}}']
+            # one scrape is one registry snapshot: the owner observes after its
+            # lock and the worker its phases before the step's stamp
+            if not (count["apply_seconds"] <= applies
+                    and count["quorum_wait_seconds"] <= applies
+                    and count["staleness"] <= received and stale_top == stale_s
+                    and all(steps <= count[f"phase_{p}_seconds"] <= steps + 1
+                            for p in FLEET_PHASES)):
+                problems.append(f"worker {k}: counts {count} against steps {steps}, applies "
+                                f"{applies}, received {received}, staleness le={max_staleness} "
+                                f"{stale_s} and +Inf {stale_top}")
+            per_worker[k] = {"steps": steps, "applies": applies, "received": received,
+                             "counts": count, "alerts_rules": sum(
+                                 1 for name in v if name.startswith("srt_alert_state"))}
+        out = io.StringIO()
+        trace_path = work / "fleet_trace.json"
+        t = time.perf_counter()
+        with redirect_stdout(out):
+            rc = cli(["telemetry", "collect-trace", "--fleet-base-port", str(port),
+                      "--workers", str(n), "--out", str(trace_path)])
+        merged = json.loads(trace_path.read_text()) if rc == 0 else {}
+        names = (merged.get("otherData") or {}).get("merged_from") or []
+        tracks = {e["pid"] for e in merged.get("traceEvents", []) if e.get("ph") != "M"}
+        if rc != 0 or len(names) != n or len(tracks) != n:
+            problems.append(f"collect-trace: rc {rc}, merged from {names}, {len(tracks)} tracks")
+        seen.update(scrape=per_worker, problems=problems, collect_trace_rc=rc,
+                    collect_trace_s=time.perf_counter() - t, said=out.getvalue().strip(),
+                    merged_from=names, trace_events=sum(
+                        1 for e in merged.get("traceEvents", []) if e.get("ph") != "M"),
+                    trace_spans={name: sum(1 for e in merged.get("traceEvents", [])
+                                           if e.get("name") == name)
+                                 for name in ("grad_push", "grad_apply", "phase_grad", "step")})
+    except Exception as e:  # read by the phase: never a silent thread
+        seen.update(problems=[f"the observer failed: {type(e).__name__}: {e}"])
+    finally:
+        done.set()
+
+
+def fleet_telemetry_checks(out: Path, incidents: Path, survivors, victim: int, ledgers,
+                           evict_row, killed, max_staleness: int) -> tuple:
+    """``(row, problems)`` of an elastic fleet's telemetry, at its defaults,
+    read after its end: each survivor's ``metrics.jsonl`` (a step row a step
+    with its loss, one ``kind: "fleet"`` exit row whose histograms' counts
+    equal their counters: apply and quorum wait the owner's applies, each
+    phase the worker's steps, staleness between the applied and received
+    pushes); its anomaly rows step-time regressions only (a healthy fleet:
+    no NaN, loss spike, recompile or ``fleet-divergence``); the acting
+    lead's ``fleet-owner-evicted`` alert going to firing within
+    ``FLEET_ALERT_INTERVAL_S`` plus its longest step after the kill of the
+    ``evict`` row, and no other rule firing on any worker but
+    ``anomaly-burst`` where a worker counted ``FLEET_ANOMALY_BURST``
+    anomalies; every bundle's source one of ``FLEET_STORM_SOURCES`` (the
+    alert's on the lead only), and exactly one bundle of the lead's in the
+    ``FLEET_TRIP_INTERVAL_S`` up to the alert's firing, the one the rate
+    limit gives the alert, which ``telemetry postmortem`` renders naming
+    its source; and ``telemetry report`` over the run directory with a row
+    and a loss trajectory per survivor."""
+    from spacy_ray_tpu_torch.__main__ import main as cli
+
+    problems, per_worker, anomalies = [], {}, {}
+    lead = survivors[0]
+    firing = {}
+    for k in [*survivors, victim]:
+        mdir = out / "metrics" / f"fleet-worker-{k}"
+        alerts = [json.loads(x) for x in open(mdir / "alerts.jsonl", encoding="utf8")] \
+            if (mdir / "alerts.jsonl").exists() else []
+        firing[k] = [(r["alert"], r["from"], r["to"], r["unix_time"]) for r in alerts
+                     if r["to"] == "firing"]
+        if k == victim:
+            continue
+        rows = [json.loads(x) for x in open(mdir / "metrics.jsonl", encoding="utf8")]
+        steps = [r for r in rows if r["kind"] == "step"]
+        exits = [r for r in rows if r["kind"] == "fleet"]
+        anomalies[k] = [(r["anomaly"], r.get("step")) for r in rows if r["kind"] == "anomaly"]
+        if any(a != "step-time-regression" for a, _ in anomalies[k]):
+            problems.append(f"worker {k}: anomalies {anomalies[k]}")
+        led = ledgers[k]
+        if len(steps) != led["steps"] or any("loss" not in r for r in steps):
+            problems.append(f"worker {k}: {len(steps)} step rows for {led['steps']} steps")
+        if len(exits) != 1:
+            problems.append(f"worker {k}: {len(exits)} kind fleet rows")
+            continue
+        h, c = exits[0]["histograms"], exits[0]["counters"]
+        count = {f: h.get(f, {}).get("count") for f in FLEET_DYNAMICS}
+        if not (count["apply_seconds"] == count["quorum_wait_seconds"] == c["applies"]
+                and all(count[f"phase_{p}_seconds"] == led["steps"] for p in FLEET_PHASES)
+                and c["grad_applied"] <= count["staleness"] <= c["grad_received"]):
+            problems.append(f"worker {k}: exit row counts {count} against {c} and "
+                            f"{led['steps']} steps")
+        stale = dict((float(le), n) for le, n in h["staleness"]["buckets"])
+        if stale[float(max_staleness)] != h["staleness"]["count"]:
+            problems.append(f"worker {k}: an accepted push staler than S {stale}")
+        per_worker[k] = {"step_rows": len(steps), "exit_counts": count,
+                         "applies": c["applies"], "grad_applied": c["grad_applied"],
+                         "grad_received": c["grad_received"],
+                         "anomalies": anomalies[k],
+                         "staleness_buckets": h["staleness"]["buckets"],
+                         "quorum_wait_p50_ms": (h["quorum_wait_seconds"].get("p50") or 0) * 1e3,
+                         "apply_p50_ms": (h["apply_seconds"].get("p50") or 0) * 1e3}
+    evicted_alert = [f for f in firing[lead] if f[0] == "fleet-owner-evicted"]
+    others = {k: [f for f in v if not (k == lead and f[0] == "fleet-owner-evicted")
+                  and not (f[0] == "anomaly-burst"
+                           and len(anomalies.get(k, ())) >= FLEET_ANOMALY_BURST)]
+              for k, v in firing.items()}
+    led = ledgers[lead]
+    totals = [sum(v[i] for v in led["phase_steps_s"].values()) for i in range(led["steps"])]
+    done = list(itertools.accumulate(totals))
+    after_kill = totals[bisect.bisect_right(done, killed["phase_s"][lead]):] or [0.0]
+    alert_bound_s = FLEET_ALERT_INTERVAL_S + max(after_kill)
+    alert_s = evicted_alert[0][3] - evict_row["ts"] if evicted_alert and evict_row else None
+    if len(evicted_alert) != 1 or evicted_alert[0][1] != "inactive":
+        problems.append(f"worker {lead}: fleet-owner-evicted went to firing {evicted_alert}")
+    elif not 0 <= alert_s <= alert_bound_s:
+        problems.append(f"fleet-owner-evicted fired {alert_s} s after the evict row "
+                        f"(bound {alert_bound_s:.2f} s)")
+    if any(others.values()):
+        problems.append(f"other rules fired: {others}")
+    bundles = sorted(b for b in incidents.iterdir() if (b / "incident.json").exists()) \
+        if incidents.is_dir() else []
+    manifests = {b: json.loads((b / "incident.json").read_text()) for b in bundles}
+    listed = [(b.name, m["source"], m["process"], round(m["unix_time"] - killed["wall"], 3))
+              for b, m in manifests.items()]
+    if any(m["source"] not in FLEET_STORM_SOURCES or (
+            m["source"] == "alert-fleet-owner-evicted"
+            and m["process"] != f"fleet-worker-{lead}") for m in manifests.values()):
+        problems.append(f"bundles (name, source, process, s after the kill) {listed}")
+    # the alert's: the lead's one bundle in the trip interval up to the
+    # firing (its own is stamped after the firing row, within the same pass)
+    alert_t = evicted_alert[0][3] if evicted_alert else killed["wall"] + alert_bound_s
+    storm = [b for b, m in manifests.items() if m["process"] == f"fleet-worker-{lead}"
+             and alert_t - FLEET_TRIP_INTERVAL_S <= m["unix_time"] <= alert_t + 1.0]
+    rendered, pm_rc, storm_source = "", None, None
+    if len(storm) != 1:
+        problems.append(f"{len(storm)} bundles of worker {lead} in the "
+                        f"{FLEET_TRIP_INTERVAL_S:.0f} s up to its alert: {listed}")
+    else:
+        storm_source = manifests[storm[0]]["source"]
+        said = io.StringIO()
+        with redirect_stdout(said):
+            pm_rc = cli(["telemetry", "postmortem", str(storm[0])])
+        rendered = said.getvalue()
+        if pm_rc != 0 or f"source: {storm_source}  process: fleet-worker-{lead}" \
+                not in rendered:
+            problems.append(f"postmortem rc {pm_rc}: {rendered[:400]}")
+    said = io.StringIO()
+    with redirect_stdout(said):
+        report_rc = cli(["telemetry", "report", str(out)])
+    report = said.getvalue()
+    for k in survivors:
+        if f"\n| {k} | {ledgers[k]['steps']} |" not in report or f"\n- worker {k} (" not in report:
+            problems.append(f"the report has no row or loss trajectory for worker {k}")
+    if report_rc != 0:
+        problems.append(f"telemetry report exited {report_rc}")
+    row = {"per_worker": per_worker, "firing": firing, "evict_to_alert_s": alert_s,
+           "alert_bound_s": alert_bound_s, "bundles": listed, "storm_source": storm_source,
+           "postmortem_rc": pm_rc, "postmortem_head": rendered.splitlines()[:6],
+           "report_rc": report_rc, "report_sections": [x for x in report.splitlines()
+                                                       if x.startswith("## ")]}
+    return row, problems
+
+
 def phase_train_fleet_elastic(torch, corpus, info, k5_rows, beside=None) -> dict:
     """``python -m spacy_ray_tpu_torch train configs/cnn.cfg --fleet-workers
     3 --peer-lease-s 2`` (quorum auto = 2, S 1; peer requests and probes
@@ -4485,19 +4763,27 @@ def phase_train_fleet_elastic(torch, corpus, info, k5_rows, beside=None) -> dict
     from spacy_ray_tpu_torch.training.resilience import terminate_with_grace
 
     phase, n, victim = "train:fleet_elastic", FLEET_ELASTIC_N, FLEET_ELASTIC_VICTIM
+    work = WORK / phase.replace(":", "_")  # start_fleet's
+    incidents = work / "incidents"
     run = start_fleet(phase, corpus, FLEET_ELASTIC_STEPS, 0, 1, n=n,
                       eval_every=FLEET_ELASTIC_EVAL,
                       extra=("--peer-lease-s", str(FLEET_ELASTIC_LEASE_S),
                              "--training.fleet_peer_timeout_s", str(FLEET_ELASTIC_PEER_TIMEOUT_S),
                              "--training.fleet_probe_timeout_s",
-                             str(FLEET_ELASTIC_PROBE_TIMEOUT_S), *FLEET_WIRE[phase][0]))
+                             str(FLEET_ELASTIC_PROBE_TIMEOUT_S), *FLEET_WIRE[phase][0],
+                             "--metrics-dir", str(work / "out" / "metrics"),
+                             "--training.incident_dir", str(incidents)))
     proc, out, port = run["proc"], run["out"], run["port"]
     streams, readers = read_streams(proc)
-    killed = {}
+    killed, seen, observed = {}, {}, threading.Event()
+    observer = threading.Thread(target=fleet_observer, daemon=True,
+                                args=(port, n, 1, run["work"], observed, seen))
+    observer.start()
     gen_meta = out / "last-model" / f"train_meta-{FLEET_ELASTIC_KILL_GENERATION}.json"
 
     def kill_when_ready():
         deadline = time.monotonic() + 300
+        observed.wait(timeout=250)  # the mid-run reading sees all three alive
         while proc.poll() is None and time.monotonic() < deadline:
             try:
                 snaps = [get(port + k, "/metrics")[1] for k in range(n)]
@@ -4524,6 +4810,7 @@ def phase_train_fleet_elastic(torch, corpus, info, k5_rows, beside=None) -> dict
             beside()
             beside_s = time.perf_counter() - t
         killer.join(timeout=330)
+        observer.join(timeout=10)
         proc.wait(timeout=600)
     finally:  # SIGTERM first: the coordinator stops its workers
         terminate_with_grace(proc, grace_s=150.0)
@@ -4625,6 +4912,15 @@ def phase_train_fleet_elastic(torch, corpus, info, k5_rows, beside=None) -> dict
         })
     if not ledgers[survivors[0]]["counters"]["evictions"] >= 1:
         problems.append("the acting lead counted no eviction")
+    for k in survivors:
+        if not all(ledgers[k]["launches"].get(name, 0) > 0 for name in (
+                "hash_embed_gather_sum", "hash_embed_table_grad", "fused_update")):
+            problems.append(f"worker {k}: K1 fwd, K1 bwd or K5 not launched "
+                            f"{ledgers[k]['launches']}")
+    problems += seen.get("problems", ["the mid-run reading never ran"])
+    telemetry, tel_problems = fleet_telemetry_checks(
+        out, incidents, survivors, victim, ledgers, evicts[0] if evicts else None, killed, 1)
+    problems += tel_problems
     wire, wire_problems = fleet_wire(phase, list(ledgers.values()), stderr)
     problems += wire_problems
     gen = TrainCheckpoint.load(out / "last-model")
@@ -4656,6 +4952,8 @@ def phase_train_fleet_elastic(torch, corpus, info, k5_rows, beside=None) -> dict
         "evict_rows": evicts, "final_generation_fleet": gen_fleet,
         "dev_scores": dev, "final_model_tags_card_vs_cpu": agree, "dev_tokens": len(tags["cpu"]),
         "wire": wire, "per_worker": per_worker,
+        "mid_run": {k: v for k, v in seen.items() if k != "problems"},
+        "telemetry": telemetry,
         "launches": {name: sum(led["launches"].get(name, 0) for led in ledgers.values())
                      for name in ledgers[survivors[0]]["launches"]},
         "problems": problems,

@@ -4,7 +4,8 @@
         [--code F] [--resume] [--max-restarts N] [--metrics-dir DIR [--metrics-port P]]
         [--paths.train x.jsonl --training.max_steps 40 ...]
         [--fleet-workers N [--quorum Q] [--max-staleness S] [--fleet-base-port P]
-        [--peer-lease-s S] [--grad-compression C] [--param-delta-window K]]
+        [--peer-lease-s S] [--grad-compression C] [--param-delta-window K]
+        [--cpu-cores MASKS]]
     python -m spacy_ray_tpu_torch pretrain <config.cfg> <output-dir> [--device cuda|cpu]
         [--code F] [--section.key value ...]
     python -m spacy_ray_tpu_torch evaluate <model-dir> <data.jsonl> [--device cuda|cpu]
@@ -15,6 +16,9 @@
     python -m spacy_ray_tpu_torch train-and-serve <config.cfg> --output <dir> [options]
     python -m spacy_ray_tpu_torch telemetry collect-trace [<url>...] --out FILE
     python -m spacy_ray_tpu_torch telemetry summarize <metrics.jsonl | run-dir>
+    python -m spacy_ray_tpu_torch telemetry postmortem <bundle | incidents-dir>
+        [--trace-out F]
+    python -m spacy_ray_tpu_torch telemetry report <run-dir> [--out F]
     python -m spacy_ray_tpu_torch init-vectors <input> <output.npz> [--truncate N]
 
 ``train`` trains the config's pipeline on one device, evaluating every
@@ -26,9 +30,13 @@ training as a child process and starts it again with ``--resume`` after a
 nonzero exit, at most N times (a relayed signal is not restarted), a hung
 step's watchdog exit (79, ``[training] watchdog_timeout_s``) included.
 ``--metrics-dir DIR`` turns telemetry on (``DIR/metrics.jsonl``,
-``DIR/trace.json``, the anomaly detectors) and ``--metrics-port P`` serves
-it over HTTP (``/metrics``, ``/healthz``, ``/trace``); both override their
-``[training]`` knobs and reach a supervised child.
+``DIR/trace.json``, the anomaly detectors, the alert engine's
+``DIR/alerts.jsonl``, and with ``[training] incident_dir`` the flight
+recorder's bundles) and ``--metrics-port P`` serves it over HTTP
+(``/metrics``, ``/healthz``, ``/trace``, ``/admin/alerts``); both override
+their ``[training]`` knobs and reach a supervised child. ``--metrics-dir``
+reaches every fleet worker too, which writes under ``DIR/fleet-worker-{k}/``
+and serves on its peer port: a fleet refuses ``--metrics-port`` (exit 2).
 Dotted ``--section.key value`` arguments override the config.
 ``--fleet-workers N`` trains as N worker processes (the asynchronous
 trainer fleet, ``training/fleet/``): each owns a slice of every parameter,
@@ -44,6 +52,9 @@ first bad worker's code. ``--grad-compression`` (``auto``: bf16 on
 the card, int8 on the CPU) and ``--param-delta-window`` (4) set the fleet's
 wire: the codec of gradient pushes, with error feedback, and how many
 versions of compressed parameter deltas an owner keeps for pulls.
+``--cpu-cores`` (workers on ``--device cpu`` only; 'auto' there by default)
+pins each worker with ``taskset -c``, the masks cycled over the workers;
+with ``--device cuda`` it exits 2.
 ``--code`` imports a Python file first, so that the functions it registers
 (callbacks, architectures, readers, augmenters) resolve in the config.
 ``pretrain`` runs the config's ``[pretraining]`` block (the characters or
@@ -88,9 +99,14 @@ run's first ``best-model`` unless ``--model`` is given); one SIGTERM drains
 both, and it exits 0 when the fleet drained clean and the trainer exited 0
 or 75. ``telemetry collect-trace`` merges the ``/trace`` buffers of the
 given endpoints (a fleet router's URL brings its replicas) into one
-Chrome-trace file by their clock anchors; ``telemetry summarize`` prints
-the digest of a ``metrics.jsonl`` (a trainer's or a server's) or of a run
-directory. Every command runs on the card
+Chrome-trace file by their clock anchors (a trainer fleet's workers with
+``--fleet-base-port N --workers K``); ``telemetry summarize`` prints the
+digest of a ``metrics.jsonl`` (a trainer's, a server's or a fleet worker's)
+or of a run directory; ``telemetry postmortem`` renders an incident bundle
+(or the newest under an incidents directory), ``--trace-out`` writing its
+merged timeline; ``telemetry report`` writes a run directory's markdown
+report (per-worker table, membership, phases, losses, staleness, wire,
+timings, host, alerts). Every command runs on the card
 unless ``--device cpu`` is given (``--serve-device cpu`` for
 ``train-and-serve``'s replicas), and fails without one (``serve-fleet`` and
 ``train-and-serve`` before they spawn anything).
@@ -118,7 +134,7 @@ USAGE = (
     " [--fleet-workers N [--quorum Q]"
     " [--max-staleness S]"
     " [--fleet-base-port P] [--peer-lease-s S] [--grad-compression C]"
-    " [--param-delta-window K]] [--section.key value ...]\n"
+    " [--param-delta-window K] [--cpu-cores MASKS]] [--section.key value ...]\n"
     "       python -m spacy_ray_tpu_torch pretrain <config.cfg> <output-dir> [--device cuda|cpu]"
     " [--code F] [--section.key value ...]\n"
     "       python -m spacy_ray_tpu_torch evaluate <model-dir> <data.jsonl> [--device cuda|cpu]"
@@ -140,6 +156,9 @@ USAGE = (
     "       python -m spacy_ray_tpu_torch telemetry collect-trace [<url>...]"
     " [--fleet-base-port N --workers K] --out FILE\n"
     "       python -m spacy_ray_tpu_torch telemetry summarize <metrics.jsonl | run-dir>\n"
+    "       python -m spacy_ray_tpu_torch telemetry postmortem <bundle | incidents-dir>"
+    " [--trace-out F]\n"
+    "       python -m spacy_ray_tpu_torch telemetry report <run-dir> [--out F]\n"
     "       python -m spacy_ray_tpu_torch init-vectors <input> <output.npz> [--truncate N]"
 )
 
@@ -580,22 +599,25 @@ def train_and_serve_command(argv: List[str]) -> int:
 
 
 #: ``telemetry`` subcommands of the JAX package that wait for the port's
-#: observability (its alerting, incidents, run ledger and reports)
-TELEMETRY_WAITING = ("top", "postmortem", "report", "ledger")
+#: serving-side observability (``top.py``, ``training/runledger.py``)
+TELEMETRY_WAITING = ("top", "ledger")
 
 
 def telemetry_command(argv: List[str]) -> int:
     """``telemetry summarize``: the digest of a ``metrics.jsonl`` (a
-    trainer's or a server's) or of a run directory; ``telemetry
-    collect-trace``: merge the ``/trace`` buffers of a serving fleet's router
-    and replicas (discovered from the router's ``/healthz``), or of any
-    endpoints (a trainer's ``--metrics-port`` among them), into one
-    Chrome-trace file aligned by their clock anchors (JAX ``cli.py``
-    ``telemetry_command``). The JAX package's other subcommands exit 2."""
+    trainer's, a server's or a fleet worker's) or of a run directory;
+    ``collect-trace``: merge the ``/trace`` buffers of a serving fleet's
+    router and replicas (discovered from the router's ``/healthz``), of a
+    trainer fleet's workers, or of any endpoints, into one Chrome-trace file
+    aligned by their clock anchors; ``postmortem``: render an incident
+    bundle; ``report``: a run directory's markdown report (JAX ``cli.py``
+    ``telemetry_command``). ``top`` and ``ledger`` exit 2."""
     usage = ("Usage: python -m spacy_ray_tpu_torch telemetry {summarize "
              "<metrics.jsonl-or-run-dir> | collect-trace [<url>...] "
-             "[--fleet-base-port N --workers K] --out FILE}")
-    if not argv or argv[0] not in ("summarize", "collect-trace", *TELEMETRY_WAITING):
+             "[--fleet-base-port N --workers K] --out FILE | postmortem "
+             "<bundle-or-incidents-dir> [--trace-out F] | report <run-dir> [--out F]}")
+    if not argv or argv[0] not in ("summarize", "collect-trace", "postmortem", "report",
+                                   *TELEMETRY_WAITING):
         print(usage, file=sys.stderr)
         return 1
     sub, rest = argv[0], argv[1:]
@@ -603,6 +625,70 @@ def telemetry_command(argv: List[str]) -> int:
         print(f"telemetry {sub} is not part of the port yet (ROADMAP.md Queue A item 4.4, "
               "observability)", file=sys.stderr)
         return 2
+    if sub == "report":
+        parser = argparse.ArgumentParser(prog="python -m spacy_ray_tpu_torch telemetry report")
+        parser.add_argument("run_dir", type=Path,
+                            help="a training run's output directory (fleet-worker-*.json "
+                            "ledgers + metrics/, or a plain metrics.jsonl run)")
+        parser.add_argument("--metrics-dir", type=Path, default=None, dest="metrics_dir",
+                            help="where the run's telemetry landed (default: <run-dir>/metrics)")
+        parser.add_argument("--out", type=Path, default=None,
+                            help="also write the markdown report here")
+        args = parser.parse_args(rest)
+
+        from .training.report import build_run_report
+
+        try:
+            report = build_run_report(args.run_dir, args.metrics_dir)
+        except ValueError as e:
+            print(str(e), file=sys.stderr)
+            return 1
+        except OSError as e:
+            print(f"Cannot read {args.run_dir}: {e}", file=sys.stderr)
+            return 1
+        print(report)
+        if args.out is not None:
+            try:
+                args.out.parent.mkdir(parents=True, exist_ok=True)
+                args.out.write_text(report, encoding="utf8")
+            except OSError as e:
+                print(f"Cannot write {args.out}: {e}", file=sys.stderr)
+                return 1
+            print(f"run report written to {args.out}", file=sys.stderr)
+        return 0
+    if sub == "postmortem":
+        parser = argparse.ArgumentParser(
+            prog="python -m spacy_ray_tpu_torch telemetry postmortem")
+        parser.add_argument("bundle", type=Path,
+                            help="an incident bundle directory (incidents/<stamp>-<source>/) "
+                            "or the incidents root (the newest bundle is rendered)")
+        parser.add_argument("--trace-out", type=Path, default=None,
+                            help="also write the bundle's merged cross-process Chrome trace "
+                            "here (open in ui.perfetto.dev)")
+        args = parser.parse_args(rest)
+
+        from .incidents import find_bundle, load_bundle, merged_bundle_trace, render_bundle
+
+        try:
+            # loaded once: the report and the --trace-out merge share it
+            bundle = load_bundle(find_bundle(args.bundle))
+            print(render_bundle(bundle))
+        except FileNotFoundError as e:
+            print(str(e), file=sys.stderr)
+            return 1
+        except (OSError, ValueError) as e:
+            print(f"Cannot render {args.bundle}: {e}", file=sys.stderr)
+            return 1
+        if args.trace_out is not None:
+            from .serving.tracecollect import write_merged_trace
+
+            try:
+                path = write_merged_trace(merged_bundle_trace(bundle), args.trace_out)
+            except OSError as e:
+                print(f"Cannot write {args.trace_out}: {e}", file=sys.stderr)
+                return 1
+            print(f"merged bundle trace written to {path}")
+        return 0
     if sub == "summarize":
         parser = argparse.ArgumentParser(prog="python -m spacy_ray_tpu_torch telemetry summarize")
         parser.add_argument("metrics_path", type=Path,
@@ -719,7 +805,8 @@ def train_command(argv: List[str]) -> int:
                         "JSON or ?format=prometheus, /healthz clock anchor, /trace) — "
                         "requires telemetry on via --metrics-dir/[training] metrics_dir; "
                         "overrides [training] metrics_port. Binds 127.0.0.1 unless "
-                        "[training] metrics_host (or --training.metrics_host) says otherwise")
+                        "[training] metrics_host (or --training.metrics_host) says otherwise. "
+                        "Refused with --fleet-workers: a worker serves on its peer port")
     parser.add_argument("--verbose", "-V", action="store_true")
     parser.add_argument("--fleet-workers", type=int, default=0, dest="fleet_workers",
                         help="asynchronous trainer fleet: spawn N worker processes that own "
@@ -752,6 +839,10 @@ def train_command(argv: List[str]) -> int:
                         "pulls")
     parser.add_argument("--fleet-worker-id", type=int, default=None, dest="fleet_worker_id",
                         help="(set by the coordinator) run as fleet worker K")
+    parser.add_argument("--cpu-cores", type=str, default=None, dest="cpu_cores",
+                        help="fleet coordinator on --device cpu: taskset -c core masks cycled "
+                        "per worker ('auto', the default there = round-robin over this "
+                        "process's affinity set, '' = unpinned); refused on cuda")
     args, extra = parser.parse_known_args(argv)
     logging.basicConfig(level=logging.INFO if args.verbose else logging.WARNING,
                         format="%(levelname)s %(name)s: %(message)s")
@@ -765,24 +856,29 @@ def train_command(argv: List[str]) -> int:
         parser.error("--max-restarts must be >= 0")
     if args.metrics_port is not None and not 0 <= args.metrics_port <= 65535:
         parser.error(f"--metrics-port {args.metrics_port} outside [0, 65535]")
-    if args.fleet_workers > 0 and (args.metrics_dir is not None or args.metrics_port):
-        # before any worker starts (each would refuse it on its own)
-        from .training.fleet.worker import refuse_fleet_telemetry
+    if args.cpu_cores and args.device != "cpu":
+        # the masks pin CPU workers; every worker shares the one card
+        print("--cpu-cores pins CPU fleet workers and needs --device cpu", file=sys.stderr)
+        return 2
+    if args.fleet_workers > 0 and args.metrics_port is not None:
+        from .training.loop import FLEET_METRICS_PORT_REFUSED
 
-        try:
-            refuse_fleet_telemetry(args.metrics_dir, args.metrics_port)
-        except ValueError as e:
-            parser.error(str(e))
+        print(FLEET_METRICS_PORT_REFUSED, file=sys.stderr)
+        return 2
     if args.fleet_workers > 0 and args.fleet_worker_id is None:
         # the coordinator: supervises the workers and waits; never touches the
-        # card. --max-restarts is each worker's cap and reaches no child
+        # card. --max-restarts is each worker's cap and --cpu-cores its masks:
+        # neither reaches a child
         from .training.fleet.coordinator import run_fleet
         from .training.fleet.worker import resolve_quorum
 
         if not 1 <= resolve_quorum(args.quorum, args.fleet_workers) <= args.fleet_workers:
             parser.error(f"--quorum {args.quorum} outside [1, {args.fleet_workers}]")
-        return run_fleet(_strip_flags(argv, ["--max-restarts"]), n_workers=args.fleet_workers,
-                         max_restarts=args.max_restarts)
+        cpu_cores = (_cpu_core_masks("auto" if args.cpu_cores is None else args.cpu_cores)
+                     if args.device == "cpu" else None)
+        return run_fleet(_strip_flags(argv, ["--max-restarts", "--cpu-cores"]),
+                         n_workers=args.fleet_workers, max_restarts=args.max_restarts,
+                         cpu_cores=cpu_cores)
     if args.max_restarts > 0:
         # the supervisor: runs and relaunches the training child; never
         # touches the card
@@ -807,7 +903,7 @@ def train_command(argv: List[str]) -> int:
                                else DEFAULT_FLEET_BASE_PORT)}
     import_code(str(args.code) if args.code else None)
     config = load_config(args.config_path, parse_cli_overrides(extra))
-    # the telemetry flags a user gave (a fleet worker refused them above)
+    # the telemetry flags a user gave
     telemetry = {k: v for k, v in (("metrics_dir", args.metrics_dir),
                                    ("metrics_port", args.metrics_port)) if v is not None}
     nlp, result = train(config, args.output, device=args.device, resume=args.resume,

@@ -16,9 +16,10 @@ The merged file keeps one Chrome-trace ``pid`` per source process, with
 the replica's ``request`` and ``serve_batch``, all with its
 ``request_id``) show as one hop across tracks.
 
-A worker of the port's trainer fleet serves no ``/trace`` and no anchor
-yet: :func:`collect_fleet_traces` skips it, as it skips any endpoint that
-gives no trace. Standard library only; it runs anywhere.
+A trainer fleet's workers (``--fleet-base-port N --workers K``) serve their
+``/trace`` and anchor on their peer ports when their telemetry is on; an
+endpoint that gives no trace (telemetry off) is skipped and named. Standard
+library only; it runs anywhere.
 """
 
 from __future__ import annotations
@@ -144,8 +145,8 @@ def collect_fleet_traces(base_urls: List[str], *, discover: bool = True,
     """``/healthz`` (the anchor) and ``/trace`` of every endpoint, merged. An
     endpoint whose ``/healthz`` lists ``replicas`` (the fleet's router) has
     each of them collected too when ``discover`` is on. Endpoints that do
-    not answer or give no trace (telemetry off; a trainer-fleet worker of
-    the port) are named in ``otherData.skipped``."""
+    not answer or give no trace (telemetry off) are named in
+    ``otherData.skipped``."""
     # (name, url, the /healthz payload of discovery or None): each endpoint
     # costs one /healthz
     targets: List[Tuple[str, str, Optional[Dict[str, Any]]]] = []

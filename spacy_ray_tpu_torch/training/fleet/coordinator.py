@@ -18,14 +18,21 @@ worker returned it, else the first non-zero code (a worker killed by signal
 to every supervisor (SIGTERM to its worker, then SIGKILL after
 :data:`FLEET_SHUTDOWN_GRACE_S`) and the coordinator returns
 ``RC_PREEMPTED``. No worker outlives it on any of these paths.
+
+With ``cpu_cores`` (workers on the CPU) each worker starts under ``taskset -c``
+with the masks cycled over the workers, as the serving fleet pins its
+replicas: co-scheduled processes that share every core thrash each other's
+thread pools. Without ``taskset`` on the host they run unpinned, with a
+``fleet-pinning-unavailable`` event.
 """
 
 from __future__ import annotations
 
+import shutil
 import signal
 import sys
 import threading
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 from ..resilience import RC_PREEMPTED, Supervisor, log_event, relaunch_argv
 
@@ -35,11 +42,14 @@ from ..resilience import RC_PREEMPTED, Supervisor, log_event, relaunch_argv
 FLEET_SHUTDOWN_GRACE_S = 120.0
 
 
-def worker_cmd(child_argv: List[str], worker_id: int, attempt: int = 0) -> List[str]:
-    """Worker ``worker_id``'s argv for launch ``attempt``: a relaunch
-    resumes from the last committed generation."""
-    return relaunch_argv([sys.executable, "-m", "spacy_ray_tpu_torch", "train", *child_argv,
-                          "--fleet-worker-id", str(worker_id)], attempt)
+def worker_cmd(child_argv: List[str], worker_id: int, attempt: int = 0,
+               taskset_prefix: Optional[List[str]] = None) -> List[str]:
+    """Worker ``worker_id``'s argv for launch ``attempt`` (behind
+    ``taskset_prefix`` when pinned): a relaunch resumes from the last
+    committed generation."""
+    return [*(taskset_prefix or []), *relaunch_argv(
+        [sys.executable, "-m", "spacy_ray_tpu_torch", "train", *child_argv,
+         "--fleet-worker-id", str(worker_id)], attempt)]
 
 
 def _exit_code(rc: int) -> int:
@@ -68,13 +78,22 @@ def fleet_exit_code(codes: List[int]) -> int:
     return first_bad
 
 
-def run_fleet(child_argv: List[str], *, n_workers: int, max_restarts: int = 0) -> int:
+def run_fleet(child_argv: List[str], *, n_workers: int, max_restarts: int = 0,
+              cpu_cores: Optional[List[str]] = None) -> int:
     """Run the fleet to its end; returns the exit code described above.
     ``child_argv`` is the workers' ``train`` argv without
-    ``--fleet-worker-id`` and ``--max-restarts``; ``max_restarts`` is each
-    worker's own cap."""
+    ``--fleet-worker-id``, ``--max-restarts`` and ``--cpu-cores``;
+    ``max_restarts`` is each worker's own cap; worker ``k`` is pinned to
+    ``cpu_cores[k % len(cpu_cores)]`` when given."""
     n_workers = int(n_workers)
-    supervisors = [Supervisor(lambda attempt, w=w: worker_cmd(child_argv, w, attempt),
+    taskset = shutil.which("taskset") if cpu_cores else None
+    if cpu_cores and taskset is None:
+        log_event("fleet-pinning-unavailable", "cpu_cores set but taskset is unavailable; "
+                  "fleet workers run unpinned")
+    prefixes = [[taskset, "-c", cpu_cores[w % len(cpu_cores)]] if taskset and cpu_cores
+                else None for w in range(n_workers)]
+    supervisors = [Supervisor(lambda attempt, w=w: worker_cmd(child_argv, w, attempt,
+                                                              prefixes[w]),
                               max_restarts, grace_s=FLEET_SHUTDOWN_GRACE_S)
                    for w in range(n_workers)]
     rcs: Dict[int, int] = {}

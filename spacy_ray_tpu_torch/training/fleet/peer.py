@@ -14,8 +14,13 @@ HTTP handler thread for a peer's push), under the owner's lock.
 when ``V`` is current; with ``X-SRT-Accept: delta`` the owner's compressed
 pieces since ``V`` when it still holds them all and they are smaller, named
 by ``X-SRT-Codec``), ``GET /healthz`` (worker id, layout signature,
-version, the codecs it decodes, its delta window), ``GET /metrics``
-(counters, version and the worker's phase seconds, as JSON), ``GET
+version, the codecs it decodes, its delta window, and with telemetry the
+trace's clock anchor), ``GET /metrics`` (the worker's telemetry registry
+with the alert summary, or without telemetry its counters and version; the
+worker's phase seconds; as JSON, or with ``?format=prometheus`` as
+Prometheus text with a ``worker`` label on every family), ``GET /trace``
+(the worker's live trace and anchor, 404 without telemetry), ``GET
+/admin/alerts`` (the worker's alert states), ``GET
 /membership`` and ``POST /membership`` (a lead's broadcast, adopted only
 at a strictly newer epoch and queued for the worker's next step boundary),
 ``POST /membership/join``, ``POST /finalize`` and ``POST /checkpoint`` (the
@@ -25,8 +30,12 @@ frame of its slices whose meta holds the part's ``digest``, the ``version``
 and ``part`` it was cut at, the worker's ``step`` and ``rng``).
 ``/grad``, ``/params`` and ``/checkpoint`` fence a frame stamped with
 another membership epoch than the live one (counted, ``epoch_fenced``). A
-body over :data:`MAX_BODY_BYTES` gets 413 and a counted discard. The JAX
-package's trace and alert routes answer 404 here.
+body over :data:`MAX_BODY_BYTES` gets 413 and a counted discard.
+
+With telemetry the owner observes the fleet's dynamics histograms (the
+staleness of each accepted push, the wait of each round for its quorum, each
+apply's seconds) and a forced ``grad_apply`` span, after it releases its
+lock: the apply's critical section is not lengthened by them.
 """
 
 from __future__ import annotations
@@ -79,11 +88,15 @@ COUNTER_NAMES = (
 
 
 class FleetCounters:
-    """The fleet's ledger: thread-safe ints."""
+    """The fleet's ledger: thread-safe ints that exist with or without
+    telemetry, mirrored into a ``MetricsRegistry``'s counters when one is
+    given (so ``/metrics`` and the alert rules read the same numbers)."""
 
-    def __init__(self) -> None:
+    def __init__(self, registry: Any = None) -> None:
         self._v: Dict[str, int] = {n: 0 for n in COUNTER_NAMES}
         self._lock = threading.Lock()
+        self._mirror = ({n: registry.counter(n) for n in COUNTER_NAMES}
+                        if registry is not None else None)
         #: frames refused by their CRC-32: pushes at the owner, pull and
         #: checkpoint replies at the worker. The port's own (JAX sends no
         #: CRC, ROADMAP C80), so kept out of the JAX package's names
@@ -92,6 +105,8 @@ class FleetCounters:
     def inc(self, name: str, n: int = 1) -> None:
         with self._lock:
             self._v[name] += int(n)
+        if self._mirror is not None:
+            self._mirror[name].inc(n)
 
     def refuse_crc(self) -> None:
         with self._lock:
@@ -133,12 +148,20 @@ class OwnerState:
     puller that follows the pieces lands exactly on ``wire_v`` however many
     versions it skipped, within one quantization step of the parameters; a
     pull the pieces cannot serve gets the full f32 frame.
+
+    With a ``registry`` (telemetry on) the owner observes ``staleness``,
+    ``quorum_wait_seconds`` and ``apply_seconds`` on the shared bucket
+    tables, and with a ``trace`` a forced ``grad_apply`` span per apply,
+    each after the lock is released; ``on_version(version)`` is called at
+    construction and after each apply (the ``param_version`` gauge).
     """
 
     def __init__(self, *, worker_id: int, n_workers: int, quorum: int, max_staleness: int,
                  apply_fn: Callable, slice_params: Dict[str, Any], opt_state: Any,
                  counters: FleetCounters, version: int = 0, delta_window: int = 0,
-                 delta_codec: str = "int8", delta_budget_bytes: int = 8 << 20) -> None:
+                 delta_codec: str = "int8", delta_budget_bytes: int = 8 << 20,
+                 registry: Any = None, trace: Any = None,
+                 on_version: Optional[Callable[[int], None]] = None) -> None:
         if not (1 <= quorum <= n_workers):
             raise ValueError(f"quorum must be in [1, {n_workers}], got {quorum}")
         if max_staleness < 0:
@@ -170,6 +193,19 @@ class OwnerState:
         self._delta_cache: Dict[int, bytes] = {}  # known -> its assembled frame
         self.apply_seconds = 0.0
         self.retired = False
+        self.trace = trace
+        self.on_version = on_version
+        self._staleness_hist = self._quorum_wait_hist = self._apply_hist = None
+        if registry is not None:
+            from ..telemetry import FLEET_DYNAMICS_HISTOGRAMS as H
+
+            self._staleness_hist = registry.histogram("staleness", buckets=H["staleness"])
+            self._quorum_wait_hist = registry.histogram(
+                "quorum_wait_seconds", buckets=H["quorum_wait_seconds"])
+            self._apply_hist = registry.histogram("apply_seconds", buckets=H["apply_seconds"])
+        self._round_start: Optional[float] = None
+        if self.on_version is not None:
+            self.on_version(self.version)
 
     def submit(self, worker: int, stamp: int,
                grads: Dict[str, np.ndarray]) -> Tuple[bool, int]:
@@ -178,6 +214,7 @@ class OwnerState:
         sender's id, the stamp's lag, then the keys and shapes (a payload
         that does not match the owned slices is a counted discard, never a
         buffered entry that would make the next apply raise)."""
+        applied: Optional[Tuple[Optional[float], float, Optional[float], int]] = None
         with self._cond:
             if self.retired:
                 # a re-shard replaced this owner between the fence and here
@@ -198,21 +235,33 @@ class OwnerState:
                                "from worker %s discarded (peer running a different "
                                "parameter layout?)", self.worker_id, worker)
                 return False, self.version
+            if not self._buffer:
+                # a round's quorum wait runs from its first contribution to its apply
+                self._round_start = time.monotonic()
             self._buffer[int(worker)] = grads
             if len(self._buffer) >= self.quorum:
                 try:
-                    self._apply_locked()
+                    applied = self._apply_locked()
                 except Exception:
                     # an apply that raises drops its round (counted) instead of
-                    # leaving a buffer that raises again at every quorum
+                    # leaving a buffer that raises again at every quorum (its
+                    # pushes still count as accepted in the staleness histogram)
                     self.counters.inc("grad_discarded", len(self._buffer))
                     self._buffer.clear()
+                    self._round_start = None
                     logger.exception("fleet owner %d: quorum apply failed; round dropped",
                                      self.worker_id)
-            return True, self.version
+            version = self.version
+        self._observe(lag, applied, version)
+        return True, version
 
-    def _apply_locked(self) -> None:
+    def _apply_locked(self) -> Tuple[Optional[float], float, Optional[float], int]:
+        """The quorum's mean through the optimizer; returns what
+        :meth:`_observe` records once the lock is released: (the trace's
+        start stamp, the apply's seconds, the round's quorum wait, the
+        contributors)."""
         t0 = time.monotonic()
+        trace_t0 = self.trace.now() if self.trace is not None else None
         n = len(self._buffer)
         mean_flat: Dict[str, np.ndarray] = {}
         for flat in self._buffer.values():
@@ -230,8 +279,34 @@ class OwnerState:
         self.counters.inc("grad_applied", n)
         self.counters.inc("applies")
         self._buffer.clear()
-        self.apply_seconds += time.monotonic() - t0
+        dur = time.monotonic() - t0
+        self.apply_seconds += dur
+        wait = t0 - self._round_start if self._round_start is not None else None
+        self._round_start = None
         self._cond.notify_all()
+        return trace_t0, dur, wait, n
+
+    def _observe(self, lag: int, applied: Optional[Tuple[Optional[float], float,
+                                                          Optional[float], int]],
+                 version: int) -> None:
+        """The dynamics of one accepted push (and of the apply it completed),
+        outside the owner's lock."""
+        if self._staleness_hist is not None:
+            self._staleness_hist.observe(float(lag))
+        if applied is None:
+            return
+        trace_t0, dur, wait, n = applied
+        if self._apply_hist is not None:
+            self._apply_hist.observe(dur)
+        if self._quorum_wait_hist is not None and wait is not None:
+            self._quorum_wait_hist.observe(wait)
+        if trace_t0 is not None:
+            # the owner's half of a push's hop on the merged fleet timeline
+            # (the sender's is its grad_push span); forced past the step window
+            self.trace.add_span("grad_apply", trace_t0, dur, cat="fleet", force=True,
+                                args={"version": version, "contributors": n})
+        if self.on_version is not None:
+            self.on_version(self.version)
 
     def _record_delta_locked(self) -> None:
         """Advance the wire chain past the apply that just bumped the version
@@ -269,6 +344,7 @@ class OwnerState:
             self.retired = True
             self.counters.inc("grad_discarded", len(self._buffer))
             self._buffer.clear()
+            self._round_start = None
             self._wire_flat = None
             self._delta_pieces.clear()
             self._delta_bytes = 0
@@ -384,6 +460,7 @@ class _PeerHTTPD(ThreadingHTTPServer):
     layout_signature: str
     finalize_event: threading.Event
     counters: FleetCounters
+    tel: Any  # the worker's Telemetry, or None
     phases: Callable[[], Dict[str, float]]
     max_body_bytes: int
     # the epoch every frame is fenced against, the advertised membership, a
@@ -422,11 +499,14 @@ class _PeerHandler(BaseHTTPRequestHandler):
         parsed = urlparse(self.path)
         srv = self.server
         if parsed.path == "/healthz":
-            self._reply_json(200, {
+            payload: Dict[str, Any] = {
                 "status": "ok", "role": "fleet-worker", "worker": srv.worker_id,
                 "version": srv.owner.version, "layout": srv.layout_signature,
                 "codecs": list(WIRE_CODECS), "delta_window": srv.owner.delta_window,
-                "epoch": srv.epoch})
+                "epoch": srv.epoch}
+            if srv.tel is not None:
+                payload["anchor"] = srv.tel.trace.anchor()
+            self._reply_json(200, payload)
         elif parsed.path == "/membership":
             with srv.membership_lock:
                 payload = dict(srv.membership or {})
@@ -435,13 +515,51 @@ class _PeerHandler(BaseHTTPRequestHandler):
         elif parsed.path == "/params":
             self._params(parsed)
         elif parsed.path == "/metrics":
-            self._reply_json(200, {"counters": srv.counters.snapshot(),
-                                   "gauges": {"fleet_worker": srv.worker_id,
-                                              "param_version": srv.owner.version,
-                                              "membership_epoch": srv.epoch},
-                                   "phases": srv.phases()})
+            self._metrics(parsed)
+        elif parsed.path == "/admin/alerts":
+            from ..telemetry_http import alerts_reply
+
+            self._reply_json(200, {"alerts": "disabled"} if srv.tel is None
+                             else alerts_reply(srv.tel))
+        elif parsed.path == "/trace":
+            if srv.tel is None:
+                self._reply_json(404, {"error": "telemetry_disabled"})
+            else:
+                from ..telemetry_http import trace_reply
+
+                self._reply_json(200, trace_reply(srv.tel, "fleet-worker"))
         else:
             self._reply_json(404, {"error": "not_found", "message": parsed.path})
+
+    def _metrics(self, parsed: Any) -> None:
+        """The worker's registry through the trainer's reply function with a
+        ``worker`` label (a Prometheus server scraping N workers gets N
+        series, not one colliding); without telemetry its counters, version
+        and epoch, built from the ledger alone. The JSON carries the
+        worker's phase seconds besides."""
+        srv = self.server
+        fmt = (parse_qs(parsed.query).get("format") or [""])[0]
+        if srv.tel is None:
+            snap: Dict[str, Any] = {"counters": srv.counters.snapshot(),
+                                    "gauges": {"fleet_worker": srv.worker_id,
+                                               "param_version": srv.owner.version,
+                                               "membership_epoch": srv.epoch}}
+            if fmt == "prometheus":
+                from ..prometheus import EXPOSITION_CONTENT_TYPE, render_snapshot
+
+                self._reply_bytes(200, render_snapshot(
+                    snap, prefix="srt_training",
+                    labels={"worker": str(srv.worker_id)}).encode("utf8"),
+                    EXPOSITION_CONTENT_TYPE)
+            else:
+                self._reply_json(200, {**snap, "phases": srv.phases()})
+            return
+        from ..telemetry_http import metrics_reply
+
+        body, content_type = metrics_reply(
+            srv.tel, fmt, labels={"worker": str(srv.worker_id)},
+            json_extra={"worker": srv.worker_id, "phases": srv.phases()})
+        self._reply_bytes(200, body, content_type)
 
     def _params(self, parsed: Any) -> None:
         srv = self.server
@@ -616,13 +734,15 @@ class _PeerHandler(BaseHTTPRequestHandler):
 
 
 class PeerServer:
-    """One worker's peer endpoint on a daemon thread. ``phases`` returns the
-    worker's per-phase seconds for ``/metrics``; ``checkpoint_cb(dir,
-    stamp)`` writes this owner's part for ``POST /checkpoint`` and returns
-    ``{"meta": ..., "params": owned slices}``."""
+    """One worker's peer endpoint on a daemon thread. ``tel`` is the
+    worker's :class:`~..telemetry.Telemetry` (None: telemetry off);
+    ``phases`` returns the worker's per-phase seconds for ``/metrics``;
+    ``checkpoint_cb(dir, stamp)`` writes this owner's part for ``POST
+    /checkpoint`` and returns ``{"meta": ..., "params": owned slices}``."""
 
     def __init__(self, owner: OwnerState, *, worker_id: int, layout_signature: str,
-                 counters: FleetCounters, host: str = "127.0.0.1", port: int = 0,
+                 counters: FleetCounters, tel: Any = None, host: str = "127.0.0.1",
+                 port: int = 0,
                  phases: Optional[Callable[[], Dict[str, float]]] = None,
                  checkpoint_cb: Optional[Callable[[str, int], Dict[str, Any]]] = None) -> None:
         try:
@@ -634,6 +754,7 @@ class PeerServer:
         self.httpd.worker_id = int(worker_id)
         self.httpd.layout_signature = layout_signature
         self.httpd.counters = counters
+        self.httpd.tel = tel
         self.httpd.finalize_event = threading.Event()
         self.httpd.phases = phases or dict
         self.httpd.max_body_bytes = int(MAX_BODY_BYTES)

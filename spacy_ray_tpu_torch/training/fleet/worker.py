@@ -86,8 +86,25 @@ receiver refuses a frame whose bytes do not match it (a push: HTTP 400, a
 counted discard at the owner and a failed push at the sender; a pull: a failed
 pull; a checkpoint reply: the generation aborted).
 
-Out of this piece (ROADMAP): the telemetry of a worker (``metrics_dir`` and
-``metrics_port`` are refused), the dynamics histograms and alerts.
+Telemetry (``metrics_dir``, or ``[training] metrics_dir``): each worker runs
+a :class:`~..telemetry.Telemetry` under ``<metrics_dir>/fleet-worker-{k}/``
+(its ``metrics.jsonl`` with a row and the loss for each step and a ``kind:
+"fleet"`` exit row holding the dynamics histograms, ``trace.json``,
+``alerts.jsonl``), whose alert engine runs ``default_training_rules(fleet=
+True)`` and whose flight recorder, with ``[training] incident_dir``, names
+its bundles' process ``fleet-worker-{k}``. Its registry holds the fleet's
+counters, the ``param_version``, ``membership_epoch`` and ``fleet_worker``
+gauges, the owner's dynamics histograms and one histogram per phase of the
+step (``phase_{data,pull,grad,push,apply_wait}_seconds``); its trace holds
+the phases' spans, the pushes' ``grad_push`` and the owner's ``grad_apply``.
+The peer server is its endpoint (``/metrics`` with Prometheus text,
+``/trace``, ``/admin/alerts``; ``[training] metrics_port`` is not used). Worker 0 runs
+the fleet's divergence watch: a thread that polls every peer's ``/metrics``
+every :data:`WATCH_INTERVAL_S` (each poll bounded by the probe timeout, so a
+hung peer never reaches the step loop) and feeds a
+:class:`~..telemetry.FleetDivergenceDetector`, whose flags count in
+``divergence_flags`` and go through the anomaly chain (a row, an instant, a
+bundle naming the worker). With telemetry off none of it is built.
 """
 
 from __future__ import annotations
@@ -95,6 +112,7 @@ from __future__ import annotations
 import http.client
 import io
 import json
+import logging
 import random
 import signal
 import socket
@@ -130,6 +148,8 @@ from .wire import (
     encode_arrays, frame_crc, negotiate_push_codec, resolve_grad_compression,
 )
 
+logger = logging.getLogger("spacy_ray_tpu_torch.training")
+
 DEFAULT_FLEET_BASE_PORT = 47200
 PHASES = ("data", "pull", "grad", "push", "apply_wait")
 #: the wire codec's share of the push and pull phases, timed on its own;
@@ -150,6 +170,9 @@ FINALIZE_WAIT_S = 600.0
 CHECKPOINT_TIMEOUT_S = 600.0
 #: the stamp a worker has pushed to an owner before its first push
 _NEVER = -(10 ** 9)
+#: with telemetry: seconds between worker 0's polls of its peers for the
+#: divergence watch
+WATCH_INTERVAL_S = 5.0
 
 
 def resolve_quorum(quorum: Optional[int], n_workers: int) -> int:
@@ -286,17 +309,6 @@ def owner_optimizer(optimizer: "_optimizers.Optimizer") -> Tuple["_optimizers.Op
     return optimizer, 0.0
 
 
-def refuse_fleet_telemetry(metrics_dir: Any, metrics_port: Any) -> None:
-    """A fleet worker's telemetry (its metrics rows, endpoint, divergence
-    detector and dynamics histograms) waits for ROADMAP Queue A item 4.3:
-    asking for it raises instead of training without it."""
-    if metrics_dir or metrics_port:
-        raise ValueError(
-            "fleet mode: a fleet worker's telemetry (metrics_dir / metrics_port) is not "
-            "part of the port yet (ROADMAP.md Queue A item 4.3, fleet telemetry) — drop "
-            "--metrics-dir/--metrics-port or train in one process")
-
-
 def _check_fleet_config(T: Dict[str, Any], nlp: Pipeline, optimizer: Any) -> None:
     if int(T.get("accumulate_gradient") or 1) != 1:
         raise ValueError("fleet mode: accumulate_gradient > 1 is not supported — the quorum "
@@ -339,7 +351,6 @@ def train_fleet_worker(
     grad_error_feedback: bool = True,
     resume: bool = False,
     metrics_dir: Optional[Path] = None,
-    metrics_port: Optional[int] = None,
 ) -> Tuple[Pipeline, Any]:
     """Run one fleet worker; returns ``(nlp, TrainResult)`` as
     :func:`~..loop.train` does (whose ``fleet=`` mode calls this), with
@@ -365,9 +376,10 @@ def train_fleet_worker(
     there is none (``resume-failed``); :data:`CHECKPOINT_TIMEOUT_S` bounds
     the lead's ``POST /checkpoint`` to each peer. On the main thread, SIGTERM and
     SIGINT stop the worker at its next step (``result.interrupted``). Runs on
-    ``cuda`` unless ``device`` is ``"cpu"``. A worker's telemetry is not part
-    of the port yet: ``metrics_dir`` or ``metrics_port`` (here or in
-    ``[training]``) raises."""
+    ``cuda`` unless ``device`` is ``"cpu"``. ``metrics_dir`` (or ``[training]
+    metrics_dir``) turns the worker's telemetry on (the module docstring):
+    worker 0 polls its peers every :data:`WATCH_INTERVAL_S`, and the peer
+    server is the worker's endpoint."""
     from ..loop import (
         TrainResult, _named_params, _resolve_corpus, check_component_lists,
         default_pipeline_score_weights, resolve_training, weighted_score,
@@ -398,8 +410,6 @@ def train_fleet_worker(
 
     config = config.interpolate()
     T = resolve_training(config)
-    refuse_fleet_telemetry(metrics_dir or T["metrics_dir"],
-                           metrics_port if metrics_port is not None else T["metrics_port"])
     dev = resolve_device(device)
     peer_timeout = float(T.get("fleet_peer_timeout_s") or 10.0)
     probe_timeout = float(probe_timeout_s if probe_timeout_s is not None
@@ -489,7 +499,38 @@ def train_fleet_worker(
     log_event("fleet-wire-codec", f"worker {worker_id}: grad compression {grad_compression} "
               f"-> {wire_codec} ({wire_reason}); param delta window {param_delta_window}",
               worker=worker_id, codec=wire_codec, delta_window=param_delta_window)
-    counters = FleetCounters()
+    # telemetry, under a directory of this worker's own (its peer server serves it)
+    tel = None
+    tel_dir = str(metrics_dir) if metrics_dir is not None else str(T["metrics_dir"] or "")
+    if tel_dir:
+        from ...alerting import default_training_rules
+        from ..telemetry import Telemetry
+
+        tel = Telemetry(Path(tel_dir) / f"fleet-worker-{worker_id}",
+                        trace_steps=tuple(T["trace_steps"]),
+                        anomaly_detection=bool(T["anomaly_detection"]), device=dev,
+                        process_index=worker_id, alerting=bool(T["alerting"]),
+                        alert_rules=default_training_rules(fleet=True),
+                        incident_dir=Path(T["incident_dir"]) if T["incident_dir"] else None,
+                        process_name=f"fleet-worker-{worker_id}")
+        tel.registry.gauge("fleet_worker").set(worker_id)
+
+    counters = FleetCounters(registry=tel.registry if tel is not None else None)
+    version_gauge = tel.registry.gauge("param_version") if tel is not None else None
+    epoch_gauge = tel.registry.gauge("membership_epoch") if tel is not None else None
+    if epoch_gauge is not None:
+        epoch_gauge.set(membership.epoch)
+    # the worker's half of the dynamics: one histogram per phase of the step
+    phase_hists: Optional[Dict[str, Any]] = None
+    if tel is not None:
+        from ..telemetry import FLEET_DYNAMICS_HISTOGRAMS
+
+        phase_hists = {p: tel.registry.histogram(
+            f"phase_{p}_seconds", buckets=FLEET_DYNAMICS_HISTOGRAMS[f"phase_{p}_seconds"])
+            for p in PHASES}
+    owner_tel = {"registry": tel.registry if tel is not None else None,
+                 "trace": tel.trace if tel is not None else None,
+                 "on_version": version_gauge.set if version_gauge is not None else None}
     slice_apply = SliceApply(owner_opt, dev)
     slice_flat = layout.flat_slices(params_host, worker_id)
     opt_source, opt_step = "init", None
@@ -504,7 +545,7 @@ def train_fleet_worker(
                        max_staleness=max_staleness, apply_fn=slice_apply,
                        slice_params=slice_params, opt_state=slice_opt, counters=counters,
                        version=version, delta_window=param_delta_window,
-                       delta_codec=wire_codec)
+                       delta_codec=wire_codec, **owner_tel)
     owns_any = bool(layout.owned_keys(worker_id))
     if worker_id not in membership:
         # the generation was committed after this worker's eviction: it asks
@@ -575,11 +616,16 @@ def train_fleet_worker(
                 "params": host_flat}
 
     server = PeerServer(owner, worker_id=worker_id, layout_signature=layout.signature(),
-                        counters=counters,
+                        counters=counters, tel=tel,
                         port=int(port) if port is not None else int(base_port) + worker_id,
                         phases=lambda: dict(phases), checkpoint_cb=checkpoint_cb)
     server.set_membership(membership, layout.signature())
     server.start()
+    if tel is not None:
+        host, bound = server.address
+        log_event("telemetry-endpoint", f"fleet worker {worker_id} telemetry on "
+                  f"http://{host}:{bound} (/metrics, /trace, /admin/alerts), its peer port",
+                  level=logging.INFO, port=bound)
     urls = list(peer_urls) if peer_urls is not None else [
         f"http://127.0.0.1:{int(base_port) + i}" for i in range(n_workers)]
     if len(urls) != n_workers:
@@ -764,11 +810,14 @@ def train_fleet_worker(
                                max_staleness=max_staleness, apply_fn=slice_apply,
                                slice_params=slice_params, opt_state=slice_opt,
                                counters=counters, version=old_owner.version,
-                               delta_window=param_delta_window, delta_codec=wire_codec)
+                               delta_window=param_delta_window, delta_codec=wire_codec,
+                               **owner_tel)
         with swap_lock:
             membership, layout, owner = new_m, new_layout, new_owner
         server.set_owner(owner)
         server.set_membership(membership, layout.signature())
+        if epoch_gauge is not None:
+            epoch_gauge.set(membership.epoch)
         owns_any = bool(owned)
         for w in [w for w in clients if w not in membership]:
             clients.pop(w).close()
@@ -987,6 +1036,8 @@ def train_fleet_worker(
                 except (ValueError, AttributeError):
                     pass
 
+            t_send = time.perf_counter()
+            delivered = False
             try:
                 retry_io("grad-push", send, policy=push_policy)
                 counters.inc("grad_pushed")
@@ -994,8 +1045,15 @@ def train_fleet_worker(
                 # an f32 frame is its own uncompressed size (ROADMAP C51)
                 counters.inc("wire_push_bytes_uncompressed",
                              len(body) if codec_w == "f32" else wire_full_bytes.get(w, len(body)))
+                delivered = True
             except (OSError, resilience.FaultInjected):
                 counters.inc("push_failed")  # dropped: a dead owner never stalls the fleet
+            if tel is not None:
+                # the sender's half of a push's hop (the owner's is grad_apply)
+                tel.trace.add_span("grad_push", t_send, time.perf_counter() - t_send,
+                                   cat="fleet", args={"to": w, "stamp": stamp,
+                                                      "delivered": delivered, "codec": codec_w,
+                                                      "bytes": len(body)})
             last_stamp[w] = stamp
         if fenced_peer:
             refresh_membership(fenced_peer[0])
@@ -1134,8 +1192,14 @@ def train_fleet_worker(
                 return
 
     def note_phase(name: str, t0: float, t1: float) -> None:
+        """One phase's seconds: the ledger's, its histogram's and, inside
+        the trace window, a span on this worker's track."""
         phases[name] += t1 - t0
         phase_steps[name].append(t1 - t0)
+        if phase_hists is not None:
+            phase_hists[name].observe(t1 - t0)
+            tel.trace.add_span(f"phase_{name}", t0, t1 - t0, cat="fleet",
+                               args={"step": step + 1})
 
     last_saved = [resumed_from if resumed_from is not None else -1]
     committed: List[int] = []
@@ -1222,10 +1286,61 @@ def train_fleet_worker(
         for signum in (signal.SIGTERM, signal.SIGINT):
             prev_handlers[signum] = signal.signal(signum, _on_signal)
 
+    # the divergence watch (worker 0): its own clients, since the training
+    # thread's are not thread-safe, each request bounded by the probe timeout
+    watch_stop = threading.Event()
+    watch_thread: Optional[threading.Thread] = None
+    if tel is not None and worker_id == 0 and n_workers > 1:
+        from ..telemetry import FleetDivergenceDetector
+
+        div_counter = tel.registry.counter("divergence_flags")
+
+        def emit_divergence(event: str, message: str, **fields: Any) -> None:
+            div_counter.inc()
+            tel._emit_anomaly(event, message, **fields)
+
+        divergence = FleetDivergenceDetector(emit_divergence)
+
+        def watch_stats(payload: Dict[str, Any]) -> Dict[str, Any]:
+            counters_p = payload.get("counters") or {}
+            loss_h = (payload.get("histograms") or {}).get("loss") or {}
+            return {"loss": loss_h.get("p50"), "steps": counters_p.get("steps"),
+                    "received": counters_p.get("grad_received"),
+                    "discarded": counters_p.get("grad_discarded"),
+                    "loss_nonfinite": counters_p.get("loss_nonfinite")}
+
+        def watch_loop() -> None:
+            watch_clients = {w: _PeerClient(urls[w], timeout=probe_timeout)
+                             for w in range(n_workers) if w != worker_id}
+            try:
+                while not watch_stop.wait(WATCH_INTERVAL_S):
+                    stats = {worker_id: watch_stats(tel.registry.snapshot())}
+                    for w, client in watch_clients.items():
+                        try:
+                            status, _, body = client.request("GET", "/metrics")
+                            if status == 200:
+                                stats[w] = watch_stats(json.loads(body.decode("utf8")))
+                        except (OSError, ValueError):
+                            continue  # a peer that is gone: no signal, no crash
+                    try:
+                        divergence.observe(stats)
+                    except Exception:
+                        logger.exception("fleet divergence watch failed")
+            finally:
+                for client in watch_clients.values():
+                    client.close()
+
+        watch_thread = threading.Thread(target=watch_loop, name="fleet-watch", daemon=True)
+
     watchdog: Optional[Watchdog] = None
     if float(T["watchdog_timeout_s"]) > 0:
-        watchdog = Watchdog(float(T["watchdog_timeout_s"]), stats_fn=lambda: {
-            "fleet_worker": worker_id, "version": owner.version, **counters.snapshot()})
+        def watchdog_stats() -> Dict[str, Any]:
+            if tel is not None:
+                tel.emergency_flush()
+            return {"fleet_worker": worker_id, "version": owner.version,
+                    **counters.snapshot()}
+
+        watchdog = Watchdog(float(T["watchdog_timeout_s"]), stats_fn=watchdog_stats)
         watchdog.start()
     clean_exit = False
     start_time = last_log_time = time.perf_counter()
@@ -1235,6 +1350,10 @@ def train_fleet_worker(
             refresh_membership(w)
         if n_workers > 1 and worker_id not in membership:
             request_join(membership)
+        if tel is not None:
+            tel.loop_start()
+        if watch_thread is not None:
+            watch_thread.start()
         if member_thread is not None:
             member_thread.start()
         batch_iter = batches()
@@ -1323,6 +1442,11 @@ def train_fleet_worker(
             result.step_head_losses.append(head_losses)
             for key, value in head_losses.items():
                 loss_accum[key] = loss_accum.get(key, 0.0) + value
+            if tel is not None:
+                # the step's row and loss: the report's trajectories, and the
+                # recent median the lead's divergence watch polls
+                tel.step_boundary(step=step, epoch=epoch, n_words=n_words,
+                                  steps_run=step - (resumed_from or 0), loss=loss_val)
 
             info: Optional[Dict[str, Any]] = None
             if worker_id == 0 and step % eval_frequency == 0:
@@ -1346,10 +1470,14 @@ def train_fleet_worker(
                     if out is not None:
                         nlp.to_disk(out / "best-model")
                 fleet_checkpoint()
+                if tel is not None:
+                    tel.rearm_step_clock()  # the evaluation is not the next step's time
             elif worker_id == membership.lead and step % eval_frequency == 0:
                 # an acting lead other than worker 0 keeps the generations
                 # going, without scores (the dev corpus stays with worker 0)
                 fleet_checkpoint()
+                if tel is not None:
+                    tel.rearm_step_clock()
             step_cut[0] = (step, generator_state_hex(seeds))
             if worker_id == 0:
                 log_step(info)
@@ -1374,8 +1502,11 @@ def train_fleet_worker(
         if watchdog is not None:
             watchdog.stop()
         member_stop.set()
+        watch_stop.set()
         if member_thread is not None and member_thread.is_alive():
             member_thread.join(timeout=probe_timeout + lease_poll_s)
+        if watch_thread is not None and watch_thread.is_alive():
+            watch_thread.join(timeout=probe_timeout * n_workers + 1.0)
         for signum, prev in prev_handlers.items():
             signal.signal(signum, prev)
         try:
@@ -1438,9 +1569,28 @@ def train_fleet_worker(
                           **result.fleet}
                 (out / f"fleet-worker-{worker_id}.json").write_text(
                     json.dumps(ledger, indent=2), encoding="utf8")
+            if tel is not None:
+                # the kind "fleet" exit row: the dynamics histograms outlive
+                # the process in metrics.jsonl (report, summarize)
+                snap_h = tel.registry.snapshot().get("histograms") or {}
+                tel.append_row({
+                    "kind": "fleet", "worker": worker_id, "n_workers": n_workers,
+                    "quorum": quorum, "max_staleness": max_staleness,
+                    "version": owner.version, "membership_epoch": int(membership.epoch),
+                    "active": list(membership.active), "grad_compression": wire_codec,
+                    "param_delta_window": param_delta_window,
+                    "counters": counters.snapshot(),
+                    "phases": {p: round(v, 6) for p, v in phases.items()},
+                    "histograms": {k: v for k, v in snap_h.items()
+                                   if k in ("staleness", "quorum_wait_seconds",
+                                            "apply_seconds", "loss")
+                                   or k.startswith("phase_")},
+                })
             for client in [*clients.values(), *ckpt_clients.values()]:
                 client.close()
             server.stop()
+            if tel is not None:
+                tel.finalize()
     nlp.requires_grad_(False)
     if worker_id == 0:
         log_finalize()

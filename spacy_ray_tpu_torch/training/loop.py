@@ -5,7 +5,7 @@ matter on one device:
 
 * ``[training]`` is validated against the JAX package's key surface
   (:data:`DEFAULT_TRAINING`); knobs that only shape multiple devices, the
-  profiler, alerting or compiled programs are accepted and ignored
+  profiler or compiled programs are accepted and ignored
   (:data:`IGNORED_KNOBS`), and a run says once which of them its config set;
 * labels are collected from the train corpus at initialize;
 * an update takes ``accumulate_gradient`` raw batches, each padded to the
@@ -47,8 +47,12 @@ matter on one device:
 * telemetry (``metrics_dir``, or ``train(metrics_dir=...)``): a
   :class:`~.telemetry.Telemetry` with one clock stamp a step, its
   ``metrics.jsonl``, ``trace.json`` (``trace_steps``), anomaly detectors
-  (``anomaly_detection``) and, with ``metrics_port`` > 0, the endpoint of
-  :mod:`.telemetry_http` on ``metrics_host``; ``info["telemetry"]`` carries
+  (``anomaly_detection``), the alert engine over the training rules
+  (``alerting``, its transitions in ``alerts.jsonl``), the flight recorder
+  when ``incident_dir`` is set (bundles for ``telemetry postmortem``; like
+  every part of telemetry it needs ``metrics_dir``) and, with
+  ``metrics_port`` > 0, the endpoint of :mod:`.telemetry_http` on
+  ``metrics_host``; ``info["telemetry"]`` carries
   its snapshot at each evaluation. Off, nothing of it is constructed or
   called, and on it changes no result.
 
@@ -126,15 +130,19 @@ DEFAULT_TRAINING: Dict[str, Any] = {
     "fleet_probe_timeout_s": 5.0,
 }
 _TRAINING_BLOCK_KEYS = {"optimizer", "batcher", "logger", "before_update"}
-#: knobs of the JAX loop that shape multiple devices, the profiler, alerting
-#: and incidents, or compiled programs: validated, then ignored
-#: (``fleet_peer_timeout_s`` and ``fleet_probe_timeout_s`` bound a fleet
-#: worker's peer requests and liveness probes)
+#: knobs of the JAX loop that shape multiple devices, the profiler or
+#: compiled programs: validated, then ignored (``fleet_peer_timeout_s`` and
+#: ``fleet_probe_timeout_s`` bound a fleet worker's peer requests and
+#: liveness probes)
 IGNORED_KNOBS = (
     "zero1", "update_sharding", "mesh", "prefetch_batches", "collate_workers",
-    "collate_cache_mb", "profile_window", "alerting", "incident_dir", "fused_update",
-    "bf16_shadow",
+    "collate_cache_mb", "profile_window", "fused_update", "bf16_shadow",
 )
+#: why a trainer fleet refuses ``metrics_port`` (``train(fleet=...)`` and
+#: ``train --fleet-workers``)
+FLEET_METRICS_PORT_REFUSED = (
+    "--metrics-port is the one-process trainer's: a fleet worker serves its telemetry "
+    "(/metrics, /trace, /admin/alerts) on its peer port, --fleet-base-port + its id")
 
 
 def _int(lo: int):
@@ -382,14 +390,16 @@ def train(
     override ``[training] metrics_dir`` and ``metrics_port``. ``fleet``
     (``worker_id``, ``n_workers`` and the other keywords of
     :func:`~.fleet.worker.train_fleet_worker`) runs this process as one
-    worker of a trainer fleet instead."""
+    worker of a trainer fleet instead, whose endpoint is its peer port: it
+    refuses ``metrics_port``."""
     if fleet is not None:
         from .fleet.worker import train_fleet_worker
 
+        if metrics_port is not None:
+            raise ValueError(FLEET_METRICS_PORT_REFUSED)
         return train_fleet_worker(config, output_path, device=device, resume=resume,
                                   max_steps_override=max_steps_override,
-                                  stdout_log=stdout_log, metrics_dir=metrics_dir,
-                                  metrics_port=metrics_port, **fleet)
+                                  stdout_log=stdout_log, metrics_dir=metrics_dir, **fleet)
     config = config.interpolate()
     T = resolve_training(config)
     dev = resolve_device(device)
@@ -398,8 +408,8 @@ def train(
     np.random.seed(seed)
     ignored = sorted(k for k in config.get("training", {}) if k in IGNORED_KNOBS)
     if ignored:
-        logger.warning("[training] %s: multi-device, profiler, alerting and compiled-program "
-                       "knobs, accepted and ignored on one device", ", ".join(ignored))
+        logger.warning("[training] %s: multi-device, profiler and compiled-program knobs, "
+                       "accepted and ignored on one device", ", ".join(ignored))
 
     # the fault plan of the environment (a relaunched child reads its own),
     # the retry policy of the knobs, and no event left over from an earlier
@@ -420,7 +430,9 @@ def train(
         from .telemetry import Telemetry, warm_flop_counter
 
         tel = Telemetry(Path(tel_dir), trace_steps=tuple(T["trace_steps"]),
-                        anomaly_detection=bool(T["anomaly_detection"]), device=dev)
+                        anomaly_detection=bool(T["anomaly_detection"]), device=dev,
+                        alerting=bool(T["alerting"]),
+                        incident_dir=Path(T["incident_dir"]) if T["incident_dir"] else None)
         warm_flop_counter()  # before the watchdog's first window
         if tel_port > 0:
             from .telemetry_http import TelemetryHTTPServer
@@ -428,7 +440,8 @@ def train(
             tel_http = TelemetryHTTPServer(tel, host=str(T["metrics_host"]), port=tel_port)
             host, bound = tel_http.start()
             log_event("telemetry-endpoint", f"trainer telemetry on http://{host}:{bound} "
-                      "(/metrics, /healthz, /trace)", level=logging.INFO, port=bound)
+                      "(/metrics, /healthz, /trace, /admin/alerts)", level=logging.INFO,
+                      port=bound)
     try:
         return _train(config, T, dev, seed, output_path, resume, max_steps_override,
                       stdout_log, tel)

@@ -14,11 +14,19 @@ training share, the trainer's facade, and the offline summary
   allocator's counters), :func:`program_flops` (a FLOP counter over one
   microbatch's forward and backward plus the hand kernels' analytic
   count) and :func:`device_peak_flops` (a datasheet table), behind ``mfu``;
+  The facade also holds the trainer's alert engine (``alerts.jsonl``,
+  rate-limited at step boundaries and by a slow ticker thread) and, with an
+  ``incident_dir``, the flight recorder that dumps a bundle when a
+  detector or an alert trips (:mod:`~..alerting`, :mod:`~..incidents`);
+* the trainer fleet's parts: the dynamics histograms' shared bucket tables
+  (``STALENESS_BUCKETS``, ``FLEET_DYNAMICS_HISTOGRAMS``), the wire
+  counters' names (``FLEET_WIRE_COUNTERS``), :class:`FleetDivergenceDetector`
+  (the lead's cross-worker watch);
 * :func:`summarize_metrics`: the text of ``telemetry summarize`` over a
-  trainer's or a server's ``metrics.jsonl`` or a run directory.
+  trainer's, a server's or a fleet worker's ``metrics.jsonl`` or a run
+  directory (discovered by :func:`~.report.load_run`).
 
-The JAX facade's alert engine and flight recorder are not part of the port
-yet. Stdlib-only at import; torch is imported by the functions that need it.
+Stdlib-only at import; torch is imported by the functions that need it.
 """
 
 from __future__ import annotations
@@ -38,6 +46,10 @@ __all__ = [
     "LATENCY_BUCKETS",
     "STEP_SECONDS_BUCKETS",
     "OCCUPANCY_BUCKETS",
+    "STALENESS_BUCKETS",
+    "FLEET_DYNAMICS_HISTOGRAMS",
+    "FLEET_WIRE_COUNTERS",
+    "FleetDivergenceDetector",
     "sanitize_json",
     "merge_serving_snapshots",
     "Telemetry",
@@ -63,6 +75,36 @@ STEP_SECONDS_BUCKETS = (
     10.0, 30.0, 60.0, 120.0,
 )
 OCCUPANCY_BUCKETS = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0)
+# the version lag of each ACCEPTED gradient push (shard versions, not
+# seconds): the fleet's bounded-staleness evidence. A lag past max_staleness
+# is discarded before it is observed, so the +Inf bin stays empty
+STALENESS_BUCKETS = (0.0, 1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 16.0)
+
+# the trainer fleet's dynamics families and the bucket table of each: one
+# definition for the owner side (fleet/peer.py), the worker side
+# (fleet/worker.py), the run report and the tests. Keys are registry names
+# (rendered as srt_training_* with a worker label)
+FLEET_DYNAMICS_HISTOGRAMS = {
+    "staleness": STALENESS_BUCKETS,
+    "quorum_wait_seconds": LATENCY_BUCKETS,
+    "apply_seconds": LATENCY_BUCKETS,
+    "phase_data_seconds": STEP_SECONDS_BUCKETS,
+    "phase_pull_seconds": STEP_SECONDS_BUCKETS,
+    "phase_grad_seconds": STEP_SECONDS_BUCKETS,
+    "phase_push_seconds": STEP_SECONDS_BUCKETS,
+    "phase_apply_wait_seconds": STEP_SECONDS_BUCKETS,
+}
+
+# the fleet's wire-byte counters (fleet/peer.py COUNTER_NAMES mirrors them
+# into each worker's registry): the _uncompressed twins count what the same
+# payloads would cost as f32 full frames, so any two scrapes give the
+# compression ratio
+FLEET_WIRE_COUNTERS = (
+    "wire_push_bytes",
+    "wire_push_bytes_uncompressed",
+    "wire_pull_bytes",
+    "wire_pull_bytes_uncompressed",
+)
 
 
 # ----------------------------------------------------------------------
@@ -950,6 +992,231 @@ class AnomalyDetectors:
                        steps_run=steps_run, new_compiles=count - prev, compile_count=count)
 
 
+class FleetDivergenceDetector:
+    """Cross-worker convergence watch for the trainer fleet — the
+    fleet-LEVEL twin of :class:`AnomalyDetectors` (which only sees one
+    process's series). The lead worker polls every peer's ``/metrics``
+    and feeds one ``observe(stats)`` call per poll; the detector flags a
+    worker whose behavior diverges from the REST of the fleet:
+
+    * ``nan`` — the worker's ``loss_nonfinite`` counter moved: it is
+      training on NaN/Inf losses right now. Fires immediately (a NaN is
+      unambiguous; no fleet comparison needed).
+    * ``loss-outlier`` — the worker's recent-median loss exceeds
+      ``spike_factor`` × the median of its PEERS' recent medians for
+      ``confirm_polls`` consecutive polls. Comparing against peers (not
+      history) is what keeps a uniformly-slow/uniformly-hot fleet quiet:
+      when every worker's loss rises together the peer median rises with
+      it and no one is an outlier. When the polled stats carry ``steps``
+      the comparison is PACE-GATED: a worker is only judged once it has
+      run ``min_steps`` (its loss ring must mean something), and only
+      against peers within 2× of its step count — early training's
+      steep loss decay makes rings at different step counts
+      incomparable, and a worker merely running BEHIND is the slow-peer
+      signal's business (push-stall, phase histograms), not a
+      divergence.
+    * ``discard-outlier`` — the share of gradients ARRIVING at this
+      worker (it is the owner; discards are owner-side) that were
+      discarded as stale since the last poll exceeds ``discard_rate``
+      while the peer median share stays below half of it: ONE worker's
+      shard version is outrunning its peers' pulls (a speed/placement
+      outlier), not a fleet-wide knob problem (that is the
+      fleet-discard-burn alert's job).
+
+    No-signal discipline: a worker is only judged once it has been seen
+    in ``min_polls`` polls (a just-joined/just-restarted worker's first
+    samples are warmup, not divergence), loss modes need a finite loss
+    median on BOTH sides, and each (worker, mode) pair re-arms only
+    after ``rearm_s`` so a persistently-diverged worker emits a beat,
+    not a storm. Pure host arithmetic with an injected clock — the test
+    matrix drives it deterministically.
+    """
+
+    def __init__(
+        self,
+        emit: Callable[..., Any],
+        *,
+        spike_factor: float = 3.0,
+        discard_rate: float = 0.5,
+        min_polls: int = 3,
+        confirm_polls: int = 2,
+        min_received_delta: int = 4,
+        min_steps: int = 8,
+        pace_factor: float = 2.0,
+        rearm_s: float = 120.0,
+        clock: Callable[[], float] = time.monotonic,
+    ) -> None:
+        self.emit = emit
+        self.spike_factor = float(spike_factor)
+        self.discard_rate = float(discard_rate)
+        self.min_polls = int(min_polls)
+        self.confirm_polls = int(confirm_polls)
+        self.min_received_delta = int(min_received_delta)
+        self.min_steps = int(min_steps)
+        self.pace_factor = float(pace_factor)
+        self.rearm_s = float(rearm_s)
+        self.clock = clock
+        self._polls: Dict[int, int] = {}
+        self._prev: Dict[int, Dict[str, float]] = {}
+        self._loss_strikes: Dict[int, int] = {}
+        self._disc_strikes: Dict[int, int] = {}
+        self._last_fire: Dict[Tuple[int, str], float] = {}
+        self.fired: Dict[str, int] = {}
+
+    def _fire(
+        self, worker: int, mode: str, message: str, **fields: Any
+    ) -> bool:
+        now = self.clock()
+        last = self._last_fire.get((worker, mode))
+        if last is not None and now - last < self.rearm_s:
+            return False
+        self._last_fire[(worker, mode)] = now
+        self.fired[mode] = self.fired.get(mode, 0) + 1
+        self.emit(
+            "fleet-divergence",
+            message,
+            worker=int(worker),
+            mode=mode,
+            **fields,
+        )
+        return True
+
+    @staticmethod
+    def _median(values: List[float]) -> Optional[float]:
+        if not values:
+            return None
+        s = sorted(values)
+        return s[len(s) // 2]
+
+    def observe(self, stats: Dict[int, Dict[str, Any]]) -> List[str]:
+        """One fleet poll: ``stats[worker]`` carries whatever that
+        worker's ``/metrics`` exposed — ``loss`` (recent median, may be
+        None), ``received``/``discarded``/``loss_nonfinite`` counter
+        values. Returns the modes fired this poll."""
+        fired: List[str] = []
+        deltas: Dict[int, Dict[str, float]] = {}
+        for w, row in stats.items():
+            self._polls[w] = self._polls.get(w, 0) + 1
+            prev = self._prev.get(w) or {}
+            cur = {
+                k: float(row.get(k) or 0.0)
+                for k in ("received", "discarded", "loss_nonfinite")
+            }
+            deltas[w] = {
+                k: max(cur[k] - float(prev.get(k) or 0.0), 0.0) for k in cur
+            }
+            self._prev[w] = cur
+            # first poll: the counter's CURRENT value is the delta — a
+            # worker whose NaNs all landed before the watch's first
+            # scrape of it (fast fault inside the first poll interval)
+            # must not have them baselined away forever
+            nan_delta = (
+                deltas[w]["loss_nonfinite"] if prev
+                else cur["loss_nonfinite"]
+            )
+            if nan_delta > 0:
+                if self._fire(
+                    w,
+                    "nan",
+                    f"fleet worker {w} is training on non-finite losses "
+                    f"({int(nan_delta)} NaN/Inf step(s) since the last "
+                    "poll)",
+                    nonfinite=int(nan_delta),
+                ):
+                    fired.append("nan")
+
+        def judgeable(w: int) -> bool:
+            return self._polls.get(w, 0) >= self.min_polls
+
+        finite_loss = {
+            w: float(row["loss"])
+            for w, row in stats.items()
+            if isinstance(row.get("loss"), (int, float))
+            and math.isfinite(float(row["loss"]))
+        }
+        steps_of = {
+            w: float(row["steps"])
+            for w, row in stats.items()
+            if isinstance(row.get("steps"), (int, float))
+        }
+
+        def pace_ok(w: int, pw: int) -> bool:
+            """Loss rings are only comparable between workers at a
+            similar point in training (absent step counts, compare
+            unconditionally — the unit-test/bare-ledger shape)."""
+            sw, sp = steps_of.get(w), steps_of.get(pw)
+            if sw is None or sp is None:
+                return True
+            hi, lo = max(sw, sp), min(sw, sp)
+            return lo > 0 and hi / lo <= self.pace_factor
+
+        for w in sorted(stats):
+            loss = finite_loss.get(w)
+            if loss is not None and steps_of.get(w) is not None and (
+                steps_of[w] < self.min_steps
+            ):
+                loss = None  # ring too young to mean anything
+            peers = [v for pw, v in finite_loss.items()
+                     if pw != w and judgeable(pw) and pace_ok(w, pw)]
+            peer_median = self._median(peers)
+            outlier = (
+                judgeable(w)
+                and loss is not None
+                and peer_median is not None
+                and peer_median > 0
+                and loss > self.spike_factor * peer_median
+            )
+            self._loss_strikes[w] = (
+                self._loss_strikes.get(w, 0) + 1 if outlier else 0
+            )
+            if self._loss_strikes[w] >= self.confirm_polls:
+                if self._fire(
+                    w,
+                    "loss-outlier",
+                    f"fleet worker {w} loss {loss:.4g} is "
+                    f"{loss / peer_median:.1f}x the peer median "
+                    f"{peer_median:.4g} ({self._loss_strikes[w]} "
+                    "consecutive polls)",
+                    loss=loss,
+                    peer_median=peer_median,
+                ):
+                    fired.append("loss-outlier")
+
+        disc_share: Dict[int, float] = {}
+        for w, d in deltas.items():
+            if d["received"] >= self.min_received_delta:
+                disc_share[w] = d["discarded"] / d["received"]
+        for w in sorted(stats):
+            share = disc_share.get(w)
+            peers = [v for pw, v in disc_share.items()
+                     if pw != w and judgeable(pw)]
+            peer_median = self._median(peers)
+            outlier = (
+                judgeable(w)
+                and share is not None
+                and peer_median is not None
+                and share >= self.discard_rate
+                and peer_median < self.discard_rate / 2
+            )
+            self._disc_strikes[w] = (
+                self._disc_strikes.get(w, 0) + 1 if outlier else 0
+            )
+            if self._disc_strikes[w] >= self.confirm_polls:
+                if self._fire(
+                    w,
+                    "discard-outlier",
+                    f"fleet worker {w}: {share * 100:.0f}% of the "
+                    "gradients arriving at it were discarded as stale "
+                    f"since the last poll (peer median "
+                    f"{peer_median * 100:.0f}%) — its shard version is "
+                    "outrunning its peers",
+                    discard_share=share,
+                    peer_median=peer_median,
+                ):
+                    fired.append("discard-outlier")
+        return fired
+
+
 # ----------------------------------------------------------------------
 # The trainer's facade
 # ----------------------------------------------------------------------
@@ -966,13 +1233,25 @@ class Telemetry:
     ``anomaly`` rows) and ``trace.json`` (Chrome trace; ``step`` spans only
     for the steps in ``trace_steps``, rarer spans always). ``device`` is
     the training device, for the memory gauges and the datasheet peak
-    behind ``mfu``. The JAX facade's alert engine and flight recorder are
-    not part of the port yet: :attr:`alerts` and :attr:`recorder` are None
-    (ROADMAP C78)."""
+    behind ``mfu``; ``process_index`` is the trace's pid (a fleet worker's
+    id).
+
+    With ``alerting`` the facade holds an :class:`~..alerting.AlertEngine`
+    over ``alert_rules`` (``default_training_rules()`` when None), sinking
+    its transitions into ``alerts.jsonl``; it is evaluated at most once per
+    ``alert_interval_s``, at step boundaries and, so that a wedged loop
+    still pages, by a daemon ticker thread on wall time that
+    :meth:`loop_start` starts; an evaluation boundary forces a pass. With ``incident_dir`` a
+    :class:`~..incidents.FlightRecorder` named ``process_name`` keeps the
+    same snapshots and dumps a bundle when a detector trips or an alert
+    fires (once per storm)."""
 
     def __init__(self, metrics_dir: Path, *, trace_steps: Tuple[int, int] = (0, 50),
                  anomaly_detection: bool = True, clock: Callable[[], float] = time.perf_counter,
-                 device: Any = None):
+                 device: Any = None, process_index: int = 0,
+                 alerting: bool = True,
+                 alert_rules: Optional[List[Any]] = None, alert_interval_s: float = 5.0,
+                 incident_dir: Optional[Path] = None, process_name: str = "trainer"):
         self.metrics_dir = Path(metrics_dir)
         self.metrics_dir.mkdir(parents=True, exist_ok=True)
         self.metrics_path = self.metrics_dir / "metrics.jsonl"
@@ -981,7 +1260,7 @@ class Telemetry:
         self.device = device
         self.trace_steps = (int(trace_steps[0]), int(trace_steps[1]))
         self.registry = MetricsRegistry(clock=clock)
-        self.trace = TraceBuffer(clock=clock, pid=0)
+        self.trace = TraceBuffer(clock=clock, pid=int(process_index))
         # the host sampler lives inside the facade: telemetry off reads no /proc
         from .hoststats import ProcessSampler
 
@@ -989,8 +1268,37 @@ class Telemetry:
         self.detectors: Optional[AnomalyDetectors] = None
         if anomaly_detection:
             self.detectors = AnomalyDetectors(self._emit_anomaly, clock=clock)
-        self.alerts = None
+        # the diagnosis layer lives inside the facade too: telemetry off
+        # builds neither the engine nor the recorder
         self.recorder = None
+        if incident_dir:
+            from ..incidents import FlightRecorder
+
+            # a fleet-wide incidents dir gets bundles whose flight files and
+            # timeline tracks name the worker that wrote them
+            self.recorder = FlightRecorder(incident_dir=Path(incident_dir),
+                                           process_name=str(process_name), clock=clock)
+        self.alerts = None
+        self.alert_interval_s = float(alert_interval_s)
+        self._last_alert_eval: Optional[float] = None
+        if alerting:
+            from ..alerting import AlertEngine, default_training_rules
+
+            self.alerts = AlertEngine(
+                alert_rules if alert_rules is not None else default_training_rules(),
+                clock=clock, sink_path=self.metrics_dir / "alerts.jsonl",
+                on_firing=self.recorder.alert_hook() if self.recorder is not None else None,
+                source="trainer")
+        if self.recorder is not None:
+            self.recorder.attach(trace=self.trace,
+                                 alerts_fn=self.alerts.states if self.alerts is not None else None)
+        # a hung step reaches no boundary, and every boundary that runs has
+        # just moved the steps counter: without a ticker on wall time the
+        # training-stalled rule could never fire in the failure it exists
+        # for. It shares the boundaries' rate limit, so it adds nothing to a
+        # healthy loop (and an unadvanced fake clock keeps tests exact)
+        self._alert_stop = threading.Event()
+        self._alert_ticker: Optional[threading.Thread] = None
         self._compiles_at_start = compile_count()
         self._step_hist = self.registry.histogram("step_seconds", buckets=STEP_SECONDS_BUCKETS)
         self._words = self.registry.counter("words")
@@ -1011,6 +1319,17 @@ class Telemetry:
         self._handle: Optional[Any] = None
         self._finalized = False
 
+    def _alert_tick_loop(self) -> None:
+        import logging
+
+        logger = logging.getLogger("spacy_ray_tpu_torch.training")
+        while not self._alert_stop.wait(self.alert_interval_s):
+            try:
+                self.maybe_evaluate_alerts()
+            except Exception:
+                # a ticker that died silently would take the stall rule with it
+                logger.exception("telemetry alert ticker pass failed")
+
     def _emit_anomaly(self, event: str, message: str, **fields: Any) -> None:
         from .resilience import log_event
 
@@ -1018,10 +1337,41 @@ class Telemetry:
         self._anomalies.inc()
         self._append_row({"kind": "anomaly", "anomaly": event, "message": message, **fields})
         self.trace.add_instant(event, args={"message": message})
+        if self.recorder is not None:
+            # the moment the last N seconds are worth keeping (the recorder's
+            # rate limit makes a storm one bundle); a fleet divergence names
+            # its worker and mode in incident.json
+            self.recorder.trip(f"anomaly-{event}", message,
+                               **{k: fields[k] for k in ("step", "worker", "mode")
+                                  if fields.get(k) is not None})
+
+    def maybe_evaluate_alerts(self, *, force: bool = False) -> None:
+        """One alert pass when ``alert_interval_s`` has passed since the
+        last (or ``force``): the registry snapshot with the host sample under
+        ``process`` goes to the flight recorder's ring and the engine. The
+        hot path pays one clock compare; the ticker thread calls it too."""
+        if self.alerts is None and self.recorder is None:
+            return
+        now = self.clock()
+        if (not force and self._last_alert_eval is not None
+                and now - self._last_alert_eval < self.alert_interval_s):
+            return
+        self._last_alert_eval = now
+        snap = self.registry.snapshot()
+        snap["process"] = self.hoststats.sample()
+        if self.recorder is not None:
+            self.recorder.record(snap)
+        if self.alerts is not None:
+            self.alerts.evaluate(snap)
 
     def _append_row(self, row: Dict[str, Any]) -> None:
         with self._rows_lock:
             self._rows.append(row)
+
+    def append_row(self, row: Dict[str, Any]) -> None:
+        """Buffer one more ``metrics.jsonl`` row, written with the next
+        flush (a fleet worker's ``kind: "fleet"`` exit row)."""
+        self._append_row(dict(row))
 
     def _flush_rows(self) -> None:
         with self._rows_lock:
@@ -1036,9 +1386,15 @@ class Telemetry:
         self._handle.flush()
 
     def loop_start(self) -> None:
-        """Arm the step clock right before the first step."""
+        """Arm the step clock and start the alert ticker right before the
+        first step: a run that fails in its set-up leaves no thread behind,
+        and its set-up time counts toward no stall."""
         self._last_boundary = self.clock()
         self.trace.set_recording(self.trace_steps[0] <= 0 < self.trace_steps[1])
+        if self.alerts is not None and self._alert_ticker is None and not self._finalized:
+            self._alert_ticker = threading.Thread(target=self._alert_tick_loop,
+                                                  name="telemetry-alerts", daemon=True)
+            self._alert_ticker.start()
 
     def step_boundary(self, *, step: int, epoch: int, n_words: int, steps_run: int,
                       inner_steps: int = 1, loss: Optional[float] = None) -> None:
@@ -1048,7 +1404,8 @@ class Telemetry:
         the ``loss`` histogram, non-finite ones count ``loss_nonfinite``.
         ``inner_steps`` > 1 splits one stamp's window and words evenly over
         that many steps (kept for the JAX package's ``steps_per_dispatch`` callers;
-        the port's loop runs single steps)."""
+        the port's loop runs single steps). Then the rate-limited alert
+        pass (:meth:`maybe_evaluate_alerts`)."""
         now = self.clock()
         prev = self._last_boundary
         self._last_boundary = now
@@ -1085,6 +1442,7 @@ class Telemetry:
                 self._append_row(row)
                 if self.detectors is not None:
                     self.detectors.check_step_time(step_i, dur)
+        self.maybe_evaluate_alerts()
         # the span above was gated at the previous boundary (the completed
         # step's own index); this gates the next step
         start, stop = self.trace_steps
@@ -1146,6 +1504,7 @@ class Telemetry:
         row["process"] = self.hoststats.sample()
         self._append_row(row)
         self._flush_rows()
+        self.maybe_evaluate_alerts(force=True)
         return {
             "step_seconds_p50": p50, "step_seconds_p95": p95,
             "hbm_peak_bytes": device["hbm_peak_bytes"], "live_buffers": device["live_buffers"],
@@ -1173,6 +1532,10 @@ class Telemetry:
         if self._finalized:
             return
         self._finalized = True
+        self._alert_stop.set()
+        if self._alert_ticker is not None:
+            self._alert_ticker.join(timeout=2.0)
+            self._alert_ticker = None
         self._flush_rows()
         self.trace.flush(self.trace_path)
         if self._handle is not None:
@@ -1266,85 +1629,138 @@ def _summarize_serving_rows(servings: List[Dict[str, Any]]) -> List[str]:
     return lines
 
 
-def load_run(run_dir: Path) -> Dict[str, Any]:
-    """A run directory's per-worker ledgers (``fleet-worker-*.json``), or
-    its one ``metrics.jsonl`` (in the directory or under ``metrics/``) as
-    worker 0: the layout of JAX ``training/report.py`` ``load_run``, the
-    files ``summarize`` reads, but for the fleet workers' own metrics files
-    (``metrics/fleet-worker-*/``), which wait for the fleet's telemetry
-    (ROADMAP C83). Raises ValueError when it holds neither."""
-    run_dir = Path(run_dir)
-    mdir = run_dir / "metrics"
-    workers: Dict[int, Dict[str, Any]] = {}
-    for p in sorted(run_dir.glob("fleet-worker-*.json")):
-        try:
-            ledger = json.loads(p.read_text(encoding="utf8"))
-        except ValueError:
-            continue
-        w = ledger.get("worker")
+def _summarize_fleet_rows(fleet_rows: List[Dict[str, Any]]) -> List[str]:
+    """The trainer-fleet section of ``telemetry summarize``: built from
+    the ``kind: "fleet"`` exit row each fleet worker appends at finalize
+    (the newest per worker wins) — per-worker version/counters, the
+    phase-share split, and the dynamics-histogram digest (staleness,
+    quorum wait, apply)."""
+    by_worker: Dict[int, Dict[str, Any]] = {}
+    for row in fleet_rows:
+        w = row.get("worker")
         if isinstance(w, int):
-            workers.setdefault(w, {})["ledger"] = ledger
-    if not workers:
-        for candidate in (run_dir / "metrics.jsonl", mdir / "metrics.jsonl"):
-            if candidate.is_file():
-                return {"run_dir": run_dir, "workers": {0: {"metrics_path": candidate}}}
-        raise ValueError(
-            f"{run_dir} holds no fleet-worker-*.json ledgers, no "
-            f"{mdir}/fleet-worker-*/metrics.jsonl, and no "
-            "metrics.jsonl — not a run directory this report reads"
+            by_worker[w] = row
+    if not by_worker:
+        return []
+    any_row = next(iter(by_worker.values()))
+    lines = [
+        f"trainer fleet: {any_row.get('n_workers')} worker(s)  "
+        f"quorum {any_row.get('quorum')}  "
+        f"max_staleness {any_row.get('max_staleness')}"
+    ]
+    for w in sorted(by_worker):
+        row = by_worker[w]
+        c = row.get("counters") or {}
+        hists = row.get("histograms") or {}
+        phases = row.get("phases") or {}
+        total = sum(float(v) for v in phases.values()) or 1.0
+        share = "  ".join(
+            f"{p} {100 * float(phases.get(p, 0.0)) / total:.0f}%"
+            for p in ("data", "pull", "grad", "push", "apply_wait")
+            if p in phases
         )
-    return {"run_dir": run_dir, "workers": workers}
+        lines.append(
+            f"  worker {w}: version {row.get('version')}  "
+            f"pushed {int(c.get('grad_pushed') or 0)}  "
+            f"received {int(c.get('grad_received') or 0)}  "
+            f"applied {int(c.get('grad_applied') or 0)}  "
+            f"discarded {int(c.get('grad_discarded') or 0)}  "
+            f"push-failed {int(c.get('push_failed') or 0)}"
+        )
+        if share:
+            lines.append(f"    phases: {share}")
+        st = hists.get("staleness") or {}
+        if st.get("count"):
+            buckets = st.get("buckets") or []
+            bl = "  ".join(
+                f"<={int(le)}: {int(cum)}" for le, cum in buckets
+                if cum
+            )
+            lines.append(
+                f"    staleness (accepted pushes): n={st['count']}  "
+                f"max {st.get('max')}  {bl}"
+            )
+        qw, ap = hists.get("quorum_wait_seconds") or {}, hists.get(
+            "apply_seconds"
+        ) or {}
+        if qw.get("count") or ap.get("count"):
+            lines.append(
+                f"    quorum-wait p50 {_fmt_ms(qw.get('p50'))} "
+                f"p99 {_fmt_ms(qw.get('p99'))}  "
+                f"apply p50 {_fmt_ms(ap.get('p50'))} "
+                f"p99 {_fmt_ms(ap.get('p99'))}"
+            )
+    return lines
 
 
 def _summarize_run_dir(run_dir: Path) -> str:
     """``telemetry summarize <run-dir>``: a trainer-fleet run directory
-    (``fleet-worker-*.json`` ledgers) gets a fleet digest; a plain run
-    directory holding one ``metrics.jsonl`` falls through to the file
-    summary. Discovery is :func:`load_run`."""
+    (``fleet-worker-*.json`` ledgers + ``metrics/fleet-worker-*/
+    metrics.jsonl``) gets a fleet digest; a plain run directory holding
+    one ``metrics.jsonl`` falls through to the file summary. Discovery
+    is :func:`~.report.load_run` — the ONE definition of the run-dir
+    layout, shared with ``telemetry report``."""
+    from .report import load_run
+
     run_dir = Path(run_dir)
     run = load_run(run_dir)  # ValueError when not a run directory
     workers = run["workers"]
     ledgers = {
         w: e["ledger"] for w, e in workers.items() if "ledger" in e
     }
-    if not ledgers:
+    metrics_paths = [
+        workers[w]["metrics_path"]
+        for w in sorted(workers)
+        if workers[w].get("metrics_path")
+    ]
+    if not ledgers and len(metrics_paths) == 1:
         # a plain single-process run: the file summary IS the digest
-        return summarize_metrics(workers[0]["metrics_path"])
+        return summarize_metrics(metrics_paths[0])
     lines: List[str] = [f"telemetry summary (fleet run dir): {run_dir}"]
-    rows = [ledgers[w] for w in sorted(ledgers)]
-    total_words = sum(int(r.get("words_seen") or 0) for r in rows)
-    slowest = max(float(r.get("seconds") or 0.0) for r in rows)
-    lines.append(
-        f"workers: {len(rows)}  total words {total_words:,}  "
-        f"slowest worker {slowest:.1f}s"
-        + (
-            f"  ({total_words / slowest:,.0f} words/s fleet-wide)"
-            if slowest > 0
-            else ""
-        )
-    )
-    for r in rows:
-        c = r.get("counters") or {}
-        phases = r.get("phases") or {}
-        total = sum(float(v) for v in phases.values()) or 1.0
-        wait_pct = 100 * float(phases.get("apply_wait") or 0.0) / total
+    if ledgers:
+        rows = [ledgers[w] for w in sorted(ledgers)]
+        total_words = sum(int(r.get("words_seen") or 0) for r in rows)
+        slowest = max(float(r.get("seconds") or 0.0) for r in rows)
         lines.append(
-            f"  worker {r.get('worker')}: steps {r.get('steps')}  "
-            f"words {int(r.get('words_seen') or 0):,}  "
-            f"version {r.get('version')}  "
-            f"discarded {int(c.get('grad_discarded') or 0)}  "
-            f"push-failed {int(c.get('push_failed') or 0)}  "
-            f"apply-wait {wait_pct:.0f}%"
-            + ("  [interrupted]" if r.get("interrupted") else "")
+            f"workers: {len(rows)}  total words {total_words:,}  "
+            f"slowest worker {slowest:.1f}s"
+            + (
+                f"  ({total_words / slowest:,.0f} words/s fleet-wide)"
+                if slowest > 0
+                else ""
+            )
         )
+        for r in rows:
+            c = r.get("counters") or {}
+            phases = r.get("phases") or {}
+            total = sum(float(v) for v in phases.values()) or 1.0
+            wait_pct = 100 * float(phases.get("apply_wait") or 0.0) / total
+            lines.append(
+                f"  worker {r.get('worker')}: steps {r.get('steps')}  "
+                f"words {int(r.get('words_seen') or 0):,}  "
+                f"version {r.get('version')}  "
+                f"discarded {int(c.get('grad_discarded') or 0)}  "
+                f"push-failed {int(c.get('push_failed') or 0)}  "
+                f"apply-wait {wait_pct:.0f}%"
+                + ("  [interrupted]" if r.get("interrupted") else "")
+            )
+    for mp in metrics_paths:
+        try:
+            lines.append("")
+            lines.append(summarize_metrics(mp))
+        except (OSError, ValueError) as e:
+            lines.append(f"  ({Path(mp).parent.name}: {e})")
     return "\n".join(lines)
 
 
 def summarize_metrics(path: Path) -> str:
     """Digest a ``metrics.jsonl``: training rows (step-time percentiles,
     device gauges), serving rows (``kind: "serving"`` snapshots: SLO
-    window, rejects, by-generation split), plus the anomaly digest. Given a DIRECTORY, digests a fleet run dir (per-worker
-    ledgers + metrics files) or its single ``metrics.jsonl``. Pure
+    window, rejects, by-generation split), trainer-fleet rows (``kind:
+    "fleet"`` exit rows: counters, phase share, staleness/quorum-wait/apply
+    digest), plus the anomaly digest. Given a DIRECTORY, digests a fleet run
+    dir (per-worker ledgers + metrics files) or its single
+    ``metrics.jsonl``. Pure
     file-in/text-out so the CLI subcommand and the round-trip test share
     one implementation.
 
@@ -1357,6 +1773,7 @@ def summarize_metrics(path: Path) -> str:
     evals: List[Dict[str, Any]] = []
     anomalies: List[Dict[str, Any]] = []
     servings: List[Dict[str, Any]] = []
+    fleet_rows: List[Dict[str, Any]] = []
     with open(path, encoding="utf8") as f:
         for line in f:
             line = line.strip()
@@ -1375,12 +1792,19 @@ def summarize_metrics(path: Path) -> str:
                 anomalies.append(row)
             elif kind == "serving":
                 servings.append(row)
-    if not steps and not evals and not anomalies and not servings:
+            elif kind == "fleet":
+                fleet_rows.append(row)
+    if (
+        not steps and not evals and not anomalies and not servings
+        and not fleet_rows
+    ):
         raise ValueError(f"{path} contains no telemetry rows")
 
     lines: List[str] = [f"telemetry summary: {path}"]
     if servings:
         lines.extend(_summarize_serving_rows(servings))
+    if fleet_rows:
+        lines.extend(_summarize_fleet_rows(fleet_rows))
     if steps:
         durs = sorted(float(s["step_seconds"]) for s in steps)
         words = sum(int(s.get("words") or 0) for s in steps)

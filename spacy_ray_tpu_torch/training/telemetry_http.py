@@ -2,15 +2,16 @@
 ``/metrics`` (JSON, or Prometheus text with ``?format=prometheus``),
 ``/healthz`` (liveness and the clock anchor with which ``telemetry
 collect-trace`` places the trainer's spans on a fleet's timeline),
-``/trace`` (the live Chrome-trace buffer) and ``/admin/alerts``, which
-answers ``{"alerts": "disabled"}`` while the port has no alert engine (as
-the serving fleet answers, ROADMAP C61).
+``/trace`` (the live Chrome-trace buffer) and ``/admin/alerts`` (the alert
+engine's per-rule states, or ``{"alerts": "disabled"}`` with
+``[training] alerting = false``).
 
 On with ``[training] metrics_port`` or ``train --metrics-port`` (0 = off),
 and only with telemetry on: the server serves the :class:`~.telemetry.
 Telemetry` it is given and is never built without one. Its handler threads
-only read the registry snapshot and the trace payload, never the loop's
-state.
+only read the registry snapshot, the trace payload and the alert states,
+never the loop's state. The reply functions are shared with a trainer-fleet
+worker's peer server (``fleet/peer.py``), which adds its ``worker`` label.
 """
 
 from __future__ import annotations
@@ -33,45 +34,58 @@ __all__ = [
 
 logger = logging.getLogger("spacy_ray_tpu_torch.training")
 
-#: what ``/healthz`` and ``/trace`` name this process (``telemetry
-#: collect-trace`` titles its track with it)
+#: what this server's ``/healthz`` and ``/trace`` name the process
+#: (``telemetry collect-trace`` titles its track with it)
 ROLE = "trainer"
 
 
 # -- reply builders: what /metrics, /trace and /admin/alerts serve ---------
 
 
-def metrics_reply(tel: Any, fmt: str) -> Tuple[bytes, str]:
+def metrics_reply(tel: Any, fmt: str, *, labels: Optional[Dict[str, Any]] = None,
+                  json_extra: Optional[Dict[str, Any]] = None) -> Tuple[bytes, str]:
     """``(body, content_type)`` of a trainer's ``/metrics``: the registry
     snapshot and the host sample (``srt_process_*``, one family across every
-    role) as Prometheus text, or as JSON with the sample under
-    ``process``."""
+    role) as Prometheus text with ``labels`` on every family (a fleet
+    worker's ``worker``), then the alert series; or as JSON with the sample
+    under ``process``, ``json_extra`` merged in and the engine's summary
+    under ``alerts``."""
+    alerts = tel.alerts
     sampler = tel.hoststats
     if fmt == "prometheus":
         from .hoststats import add_process_family
         from .prometheus import EXPOSITION_CONTENT_TYPE, PromFamilies
 
         fam = PromFamilies()
-        fam.add_snapshot(tel.registry.snapshot(), prefix="srt_training")
-        add_process_family(fam, sampler.sample())
+        fam.add_snapshot(tel.registry.snapshot(), prefix="srt_training", labels=labels)
+        add_process_family(fam, sampler.sample(), labels=labels)
+        if alerts is not None:
+            alerts.add_prometheus(fam)
         return fam.render().encode("utf8"), EXPOSITION_CONTENT_TYPE
     snap = tel.registry.snapshot()
     snap["process"] = sampler.sample()
+    if json_extra:
+        snap.update(json_extra)
+    if alerts is not None:
+        snap["alerts"] = alerts.summary()
     return json.dumps(sanitize_json(snap)).encode("utf8"), "application/json"
 
 
-def trace_reply(tel: Any) -> Dict[str, Any]:
+def trace_reply(tel: Any, role: str) -> Dict[str, Any]:
     """The live Chrome-trace payload + the clock anchor a cross-process
-    collector needs to place it on a shared timeline."""
+    collector needs to place it on a shared timeline, and the ``role``
+    (``trainer``, ``fleet-worker``) its track is titled with."""
     payload = tel.trace.payload()
     payload["anchor"] = tel.trace.anchor()
-    payload["role"] = ROLE
+    payload["role"] = role
     return payload
 
 
 def alerts_reply(tel: Any) -> Dict[str, Any]:
-    """The port's trainer has no alert engine yet (ROADMAP C78)."""
-    return {"alerts": "disabled"}
+    """``/admin/alerts``: every rule's state, firing first."""
+    if tel.alerts is None:
+        return {"alerts": "disabled"}
+    return {"alerts": tel.alerts.states()}
 
 
 class _TelemetryHTTPD(ThreadingHTTPServer):
@@ -117,7 +131,7 @@ class _Handler(BaseHTTPRequestHandler):
         elif parsed.path == "/admin/alerts":
             self._reply_json(200, alerts_reply(tel))
         elif parsed.path == "/trace":
-            self._reply_json(200, trace_reply(tel))
+            self._reply_json(200, trace_reply(tel, ROLE))
         else:
             self._reply_json(
                 404, {"error": "not_found", "message": parsed.path}

@@ -422,7 +422,8 @@ def _http(port, method, path, body=None, headers=None):
 
 
 def test_peer_server_routes_and_a_jax_client():
-    """The routes a peer calls, the 413 cap, 404 for the unported routes,
+    """The routes a peer calls, the 413 cap, 404 for ``/trace`` without
+    telemetry and JAX's ``{"alerts": "disabled"}`` on ``/admin/alerts``,
     JAX's 503 for ``POST /checkpoint`` on a server without a checkpoint
     callback, the membership of a server no worker has set one on, and
     JAX's own peer client pulling from and pushing to the port."""
@@ -461,8 +462,10 @@ def test_peer_server_routes_and_a_jax_client():
         assert _http(port, "POST", "/grad", b"x" * 11)[0] == 413
         status, _, body = _http(port, "GET", "/membership")
         assert status == 200 and json.loads(body) == {"epoch": 0}
-        for path in ("/checkpoint", "/trace", "/admin/alerts"):
+        for path in ("/checkpoint", "/trace"):  # /trace: no telemetry here
             assert _http(port, "GET", path)[0] == 404
+        status, _, body = _http(port, "GET", "/admin/alerts")
+        assert status == 200 and json.loads(body) == {"alerts": "disabled"}  # JAX's
         status, _, body = _http(port, "POST", "/checkpoint", b"{}")
         assert status == 503 and json.loads(body) == {"error": "not_ready"}
         status, _, body = _http(port, "GET", "/metrics")

@@ -9,7 +9,7 @@ port's loops: the ``corpus-read`` and ``checkpoint-write`` sites through a
 plan, the retry policy from the knobs, ``train --max-restarts 1`` over a
 hung step (the watchdog's exit 79, then a resumed run that ends 0), the
 ``nan`` poison in the loop, a two-worker thread fleet taking a corrupted
-gradient push, and a fleet worker refusing the telemetry it does not have.
+gradient push, and a fleet worker running its telemetry.
 """
 
 import io
@@ -600,20 +600,68 @@ def test_a_fleet_takes_a_corrupted_push_as_jax_s_drill_counts(tagger_config_text
 
 
 def test_a_fleet_worker_refuses_telemetry_naming_item_4_3(tagger_config_text, data, tmp_path):
-    cfg = _config(tagger_config_text, data)
-    for kw in ({"metrics_dir": tmp_path / "tel"}, {"metrics_port": 9100}):
-        with pytest.raises(ValueError, match="item 4.3"):
-            p_train(cfg, device="cpu", fleet={"worker_id": 0, "n_workers": 2}, **kw)
-    cfg["training"]["metrics_dir"] = str(tmp_path / "tel")
-    with pytest.raises(ValueError, match="item 4.3"):
-        p_worker.train_fleet_worker(cfg, worker_id=0, n_workers=2, device="cpu")
-    out = subprocess.run(
-        [sys.executable, "-m", "spacy_ray_tpu_torch", "train", "configs/cnn.cfg", "--device",
-         "cpu", "--fleet-workers", "2", "--metrics-dir", str(tmp_path / "tel")],
-        cwd=REPO, capture_output=True, text=True, timeout=120,
-        env={**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"})
-    assert out.returncode == 2 and "item 4.3" in out.stderr
-    assert not (tmp_path / "tel").exists()
+    """The telemetry a fleet worker once refused (ROADMAP item 4.3) it now
+    runs: a one-worker fleet given ``metrics_dir`` writes a row a step, its
+    ``kind: "fleet"`` exit row and the trace under ``fleet-worker-0/``, and
+    while it trains its peer port serves Prometheus text with its ``worker``
+    label, its live ``/admin/alerts`` and its ``/trace``. A
+    ``metrics_port``, the one-process trainer's endpoint, is refused: by
+    ``train(fleet=...)`` with a ValueError and by ``train --fleet-workers``
+    with exit 2, as ``--cpu-cores`` on the card is, before anything
+    starts."""
+    from spacy_ray_tpu_torch.__main__ import train_command
+
+    (port,) = _free_ports(1)
+    cfg = _config(tagger_config_text, data, **{"training.max_steps": 40})
+    seen, stop = {}, threading.Event()
+
+    def poll():
+        import http.client
+
+        while not stop.is_set():
+            try:
+                got = {}
+                for path in ("/metrics?format=prometheus", "/admin/alerts", "/trace"):
+                    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=5.0)
+                    conn.request("GET", path)
+                    got[path] = conn.getresponse().read().decode()
+                    conn.close()
+                if 'srt_training_steps_total{worker="0"}' in got["/metrics?format=prometheus"]:
+                    seen.update(got)
+                    return
+            except OSError:
+                pass
+            stop.wait(0.02)
+
+    poller = threading.Thread(target=poll, daemon=True)
+    poller.start()
+    try:
+        _, result = p_train(cfg, device="cpu", stdout_log=False, metrics_dir=tmp_path / "tel",
+                            fleet={"worker_id": 0, "n_workers": 1, "base_port": port})
+    finally:
+        stop.set()
+        poller.join(timeout=10.0)
+    assert result.final_step == 40
+    rows = [json.loads(x) for x in open(tmp_path / "tel" / "fleet-worker-0" / "metrics.jsonl")]
+    assert sum(r["kind"] == "step" for r in rows) == 40
+    assert [r["worker"] for r in rows if r["kind"] == "fleet"] == [0]
+    assert (tmp_path / "tel" / "fleet-worker-0" / "trace.json").exists()
+    assert seen, "the worker's peer port never served its telemetry"
+    assert "srt_training_phase_grad_seconds_bucket" in seen["/metrics?format=prometheus"]
+    assert 'srt_alert_state{alert="fleet-owner-evicted",severity="page"}' in \
+        seen["/metrics?format=prometheus"]
+    assert {r["alert"] for r in json.loads(seen["/admin/alerts"])["alerts"]} >= {
+        "training-stalled", "fleet-grad-push-stalled", "fleet-owner-evicted"}
+    assert json.loads(seen["/trace"])["role"] == "fleet-worker"
+    with pytest.raises(ValueError, match="peer port"):
+        p_train(cfg, device="cpu", stdout_log=False, metrics_dir=tmp_path / "tel2",
+                metrics_port=9100, fleet={"worker_id": 0, "n_workers": 1, "base_port": port})
+    assert not (tmp_path / "tel2").exists()
+    assert train_command(["configs/cnn.cfg", "--fleet-workers", "2", "--cpu-cores", "0"]) == 2
+    assert train_command(["configs/cnn.cfg", "--fleet-workers", "2", "--device", "cpu",
+                          "--metrics-dir", str(tmp_path / "tel2"), "--metrics-port",
+                          "9100"]) == 2
+    assert not (tmp_path / "out").exists() and not (tmp_path / "tel2").exists()
 
 
 def test_a_corrupted_frame_decodes_but_its_crc_refuses_it():

@@ -401,6 +401,24 @@ def _get(port, path):
         conn.close()
 
 
+def test_a_taken_metrics_port_fails_the_run_and_leaves_no_alert_ticker(
+        tagger_config_text, data, tmp_path):
+    """The endpoint's port is taken: the run fails in its set-up, before its
+    first step, and leaves no ``telemetry-alerts`` thread evaluating rules
+    (and writing ``alerts.jsonl``) for it."""
+    cfg = _config(tagger_config_text, data, **{"training.max_steps": 2})
+    before = set(threading.enumerate())
+    with socket.socket() as held:
+        held.bind(("127.0.0.1", 0))
+        held.listen(1)
+        with pytest.raises(OSError):
+            p_train(cfg, device="cpu", stdout_log=False, metrics_dir=tmp_path / "tel",
+                    metrics_port=held.getsockname()[1])
+    assert not [t for t in set(threading.enumerate()) - before
+                if t.name == "telemetry-alerts" and t.is_alive()]
+    assert not (tmp_path / "tel" / "alerts.jsonl").exists()
+
+
 def test_metrics_port_serves_during_training(tagger_config_text, data, tmp_path):
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -442,7 +460,12 @@ def test_metrics_port_serves_during_training(tagger_config_text, data, tmp_path)
     assert "srt_process_" in scraped["prometheus"]
     assert "steps" in scraped["json"]["counters"] and "process" in scraped["json"]
     assert scraped["trace"]["role"] == "trainer" and "anchor" in scraped["trace"]
-    assert scraped["alerts"] == {"alerts": "disabled"}
+    # the alert engine's live states over the training rules, none firing
+    states = {r["alert"]: r["state"] for r in scraped["alerts"]["alerts"]}
+    assert set(states) == {"training-stalled", "anomaly-burst", "process-rss-growth",
+                           "process-fd-leak"} and set(states.values()) == {"inactive"}
+    assert 'srt_alert_state{alert="training-stalled",severity="page"} 0' in \
+        scraped["prometheus"] and scraped["json"]["alerts"]["rules"] == 4
     # telemetry collect-trace takes the trainer's spans, on its own track
     merged = scraped["merged"]
     assert merged["otherData"]["merged_from"] and not merged["otherData"].get("skipped")
@@ -602,14 +625,16 @@ def test_the_knobs_this_slice_honours_left_the_ignored_list():
     from spacy_ray_tpu_torch.training.loop import IGNORED_KNOBS, validate_training
 
     honoured = ("watchdog_timeout_s", "io_retries", "io_retry_base_s", "metrics_dir",
-                "trace_steps", "metrics_port", "metrics_host", "anomaly_detection")
+                "trace_steps", "metrics_port", "metrics_host", "anomaly_detection",
+                "alerting", "incident_dir")
     assert not set(honoured) & set(IGNORED_KNOBS)
-    assert {"alerting", "incident_dir", "profile_window"} <= set(IGNORED_KNOBS)
+    assert {"profile_window", "fused_update", "bf16_shadow"} <= set(IGNORED_KNOBS)
     validate_training({"metrics_dir": "tel", "trace_steps": [0, 100], "metrics_port": 9100,
                        "metrics_host": "0.0.0.0", "anomaly_detection": False,
-                       "watchdog_timeout_s": 30, "io_retries": 0, "io_retry_base_s": 0.1})
+                       "watchdog_timeout_s": 30, "io_retries": 0, "io_retry_base_s": 0.1,
+                       "alerting": False, "incident_dir": "incidents"})
     for key, value in (("trace_steps", [5, 1]), ("metrics_port", 70000), ("metrics_dir", 5),
                        ("anomaly_detection", "yes"), ("io_retry_base_s", 0),
-                       ("watchdog_timeout_s", -1)):
+                       ("watchdog_timeout_s", -1), ("alerting", "on"), ("incident_dir", 1)):
         with pytest.raises(ValueError, match=f"\\[training\\] {key}"):
             validate_training({key: value})

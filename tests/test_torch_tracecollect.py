@@ -3,8 +3,8 @@ collect-trace``) held against the JAX package's, on the CPU: the merge of
 fake clocks gives equal events; both collectors over one live port fleet
 (a port server behind a port router) give the same merged structure; the
 trainer fleet's endpoints and the command's argument errors are equal;
-and the port's trainer-fleet workers, which serve no trace yet, are
-skipped with JAX's message."""
+and the port's trainer-fleet workers' traces merge, a worker with its
+telemetry off skipped as JAX skips an untraced endpoint."""
 
 import json
 import socket
@@ -278,12 +278,13 @@ def test_collect_trace_argument_errors_exit_2_as_jax(argv, says, tmp_path, capsy
 def test_telemetry_subcommands_that_wait_exit_2_and_unknown_ones_print_usage(capsys):
     from spacy_ray_tpu_torch.__main__ import main
 
-    for sub in ("top", "postmortem", "report", "ledger"):
+    for sub in ("top", "ledger"):
         assert main(["telemetry", sub, "x"]) == 2
         assert f"telemetry {sub} is not part of the port yet" in capsys.readouterr().err
     assert main(["telemetry"]) == 1 and main(["telemetry", "nope"]) == 1
     err = capsys.readouterr().err
-    assert "collect-trace" in err and "summarize" in err
+    for sub in ("collect-trace", "summarize", "postmortem", "report"):
+        assert sub in err
 
 
 def test_telemetry_summarize_is_ported(tmp_path, capsys):
@@ -298,7 +299,62 @@ def test_telemetry_summarize_is_ported(tmp_path, capsys):
     assert "not part of the port yet" not in capsys.readouterr().err
 
 
-def _two_free_ports():
+def test_collect_trace_skips_port_trainer_fleet_workers_as_jax_skips_untraced(tmp_path,
+                                                                              capsys):
+    """Three port peer servers (a trainer fleet's endpoints): workers 0 and
+    1 run their telemetry and serve ``/trace`` with an anchor, worker 2's is
+    off. Both CLIs' ``collect-trace --fleet-base-port B --workers 3`` merge
+    the two traced workers' ``grad_apply`` spans onto two ``fleet-worker``
+    tracks and skip worker 2 as untraced, with the same output."""
+    from spacy_ray_tpu_torch.training.fleet import peer as ppeer
+
+    base = _three_free_ports()
+    servers = []
+    try:
+        for k in range(3):
+            tel = (p_tel.Telemetry(tmp_path / f"fleet-worker-{k}", process_index=k,
+                                   anomaly_detection=False, alerting=False)
+                   if k < 2 else None)
+            counters = ppeer.FleetCounters(registry=tel.registry if tel else None)
+            owner = ppeer.OwnerState(
+                worker_id=k, n_workers=3, quorum=1, max_staleness=1,
+                apply_fn=lambda p, s, g: ({"x": p["x"] + g["x"]}, s),
+                slice_params={"x": np.zeros(2, np.float32)}, opt_state={}, counters=counters,
+                registry=tel.registry if tel else None, trace=tel.trace if tel else None)
+            owner.submit((k + 1) % 3, 0, {"x": np.ones(2, np.float32)})
+            srv = ppeer.PeerServer(owner, worker_id=k, layout_signature="sig",
+                                   counters=counters, tel=tel, port=base + k)
+            srv.start()
+            servers.append((srv, tel))
+
+        def run(pkg):
+            out = tmp_path / f"{id(pkg)}.json"
+            rc = pkg.cli.main(["telemetry", "collect-trace", "--fleet-base-port", str(base),
+                               "--workers", "3", "--out", str(out)])
+            said = capsys.readouterr().out.replace(str(out), "<out>")
+            for k in range(3):
+                said = said.replace(str(base + k), f"<b{k}>")
+            merged = json.loads(out.read_text())
+            tracks = sorted(e["args"]["name"].replace(str(base), "<b0>").replace(
+                str(base + 1), "<b1>") for e in merged["traceEvents"]
+                if e.get("name") == "process_name")
+            spans = sorted(e["name"] for e in merged["traceEvents"] if e.get("ph") == "X")
+            return rc, said, tracks, spans
+
+        rc, said, tracks, spans = both(run)
+        assert rc == 0 and said.startswith("merged 2 event(s) from 2 process(es) into <out>")
+        assert "(skipped: ['fleet-worker http://127.0.0.1:<b2>'])" in said
+        assert tracks == ["fleet-worker http://127.0.0.1:<b0>",
+                          "fleet-worker http://127.0.0.1:<b1>"]
+        assert spans == ["grad_apply", "grad_apply"]
+    finally:
+        for srv, tel in servers:
+            srv.stop()
+            if tel is not None:
+                tel.finalize()
+
+
+def _three_free_ports():
     for _ in range(50):
         socks = []
         try:
@@ -306,52 +362,17 @@ def _two_free_ports():
             s.bind(("127.0.0.1", 0))
             base = s.getsockname()[1]
             socks.append(s)
-            s2 = socket.socket()
-            s2.bind(("127.0.0.1", base + 1))
-            socks.append(s2)
+            for k in (1, 2):
+                sk = socket.socket()
+                socks.append(sk)
+                sk.bind(("127.0.0.1", base + k))
             return base
         except OSError:
             continue
         finally:
             for s in socks:
                 s.close()
-    raise RuntimeError("no two consecutive free ports")
-
-
-def test_collect_trace_skips_port_trainer_fleet_workers_as_jax_skips_untraced(tmp_path,
-                                                                              capsys):
-    """Two port peer servers (the trainer fleet's endpoints) answer /healthz
-    as fleet workers and serve no /trace: each is skipped, and both CLIs
-    exit 1 with JAX's message."""
-    from spacy_ray_tpu_torch.training.fleet import peer as ppeer
-
-    base = _two_free_ports()
-    servers = []
-    try:
-        for k in range(2):
-            owner = ppeer.OwnerState(
-                worker_id=k, n_workers=2, quorum=1, max_staleness=1,
-                apply_fn=lambda p, s, g: ({"x": p["x"] + g["x"]}, s),
-                slice_params={"x": np.zeros(2, np.float32)}, opt_state={},
-                counters=ppeer.FleetCounters())
-            srv = ppeer.PeerServer(owner, worker_id=k, layout_signature="sig",
-                                   counters=owner.counters, port=base + k)
-            srv.start()
-            servers.append(srv)
-
-        def run(pkg):
-            rc = pkg.cli.main(["telemetry", "collect-trace", "--fleet-base-port", str(base),
-                               "--workers", "2", "--out", str(tmp_path / "t.json")])
-            err = capsys.readouterr().err.replace(str(base), "<b0>").replace(
-                str(base + 1), "<b1>")
-            return rc, err
-
-        rc, err = both(run)
-        assert rc == 1 and err.startswith("no traces collected (skipped: ")
-        assert "fleet-worker http://127.0.0.1:<b0>" in err and not (tmp_path / "t.json").exists()
-    finally:
-        for srv in servers:
-            srv.stop()
+    raise RuntimeError("no three consecutive free ports")
 
 
 def test_collect_trace_writes_the_merged_file(tmp_path, capsys):

@@ -257,7 +257,14 @@ Run from the root of a checkout. Phases, each printing one JSON line:
               flips, no client's generation going back, the torn stamp never
               served and logged once, every batch bit-equal to its replay on
               a fresh engine of its generation; each flip's delay from its
-              meta file, stage and flip s. The trainer starts beside the
+              meta file, stage and flip s. The server runs with
+              ``--incidents-dir``, ``--observe-interval-s 0.25`` and
+              ``--alert-p99-ms 0.05`` (below every request's latency): the
+              clients go on until ``serving-latency-slo`` fires (its 30 s
+              pending), which must dump an alert bundle that ``telemetry
+              postmortem`` renders and log pending and firing in the sink's
+              ``alerts.jsonl``; the window p50 and p99 are printed beside the
+              target. The trainer starts beside the
               server's warmup, and serve:fleet's three processes boot
               beside both (two replicas warm and capture on the same card),
               so its flips and step times are read under that load.
@@ -378,8 +385,17 @@ Run from the root of a checkout. Phases, each printing one JSON line:
               agree with the CPU's on >= 0.99 of tokens, each replica's
               ``/healthz`` counts K1 fwd launches, the router's ``/metrics``
               counts the retries and every request sent through it, and
-              SIGTERM ends the fleet with exit 0 and no replica left; printed
-              beside the card's name and power limit: p50/p99 of the load,
+              SIGTERM ends the fleet with exit 0 and no replica left. With
+              ``--incidents-dir`` and ``--observe-interval-s 0.25`` (two
+              requests go straight to replica 0 first, until its black box,
+              rewritten at most every ~10 s, holds their spans): the kill
+              leaves one crash bundle with exit signal SIGKILL, the banner in
+              its ``stderr.txt``, a non-empty pre-crash span ring from the
+              black box, ``health.json`` and the router's flight, which
+              ``telemetry postmortem`` renders as "killed by SIGKILL" (its
+              delay after the kill printed), and the router's
+              ``/admin/alerts`` lists the six router rules with their states.
+              Printed beside the card's name and power limit: p50/p99 of the load,
               via the router and direct, the hit rate, retries, the seconds
               from the kill to ready, each replica's peak memory and K1
               launches. The fleet runs with ``--model-manifest`` (cnn, the
@@ -428,7 +444,13 @@ Run from the root of a checkout. Phases, each printing one JSON line:
               no request failed, the tree exits 0 with the trainer's 75
               (interrupted at a step boundary, its generation written) and
               no process of it is left; printed: the seconds to the
-              bootstrap, to ready, to the flip and of the drain.
+              bootstrap, to ready, to the flip and of the drain. The trainer
+              runs with ``--metrics-dir`` and ``--metrics-port``: after the
+              flip and before the SIGTERM, ``telemetry top --iterations 2``
+              over the router, its replica and the trainer must print two
+              screens of one row each and no scrape failure; after the exit
+              ``telemetry ledger list --run-dir`` over the trainer's output
+              must list its ``telemetry_run|gpu`` row.
 
 27. train:faults (beside train:fleet_async, cli:train_and_serve and
               the host's own work) — ``train configs/cnn.cfg --max-restarts
@@ -450,6 +472,19 @@ Run from the root of a checkout. Phases, each printing one JSON line:
               leaves one ``anomaly-nan-loss`` bundle (steps 10 and 20: the
               plan poisons the 7th step of each process), which
               ``telemetry postmortem`` renders.
+
+The ``slice:auto`` server of 4. arms the flight recorder with a black box
+and ticks its observer every 0.25 s; each tick's host time is kept, and
+whether it rewrote the black box. After its 16 requests, 8 clients keep
+sending single texts until 2048 are answered (the latency ring full) and the
+recorder holds 150 snapshots (a default ``serve``'s steady ring), so black-box
+rewrites fall among the timed ticks (``observer``: the median, p99 and max
+over all ticks and over the rewrites, the black box's bytes, snapshots and
+spans, the ring's samples, the rule evaluations equal to the ticks). An
+``observability`` line then gathers those, the crash bundle's delay
+after the kill, the router's alert states, the latency alert's bundle and
+the top and ledger rows, beside the card's name and power limit; the
+``done`` line gives the script's seconds beside them too.
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -1324,16 +1359,98 @@ def build_model_dir(torch) -> Path:
     return out
 
 
+def sustain_observed_load(server, port: int) -> dict:
+    """OBSERVE_LOAD_CLIENTS closed-loop clients of one text each against the
+    observed server, until OBSERVE_LOAD_REQUESTS are answered and the recorder
+    holds OBSERVE_LOAD_SNAPSHOTS snapshots; the latency ring's samples and the
+    window's, read from the last snapshot."""
+    texts = make_texts(512, seed=3)
+    stop = threading.Event()
+    lock = threading.Lock()
+    latencies, bad = [], []
+
+    def client(c):
+        i = c
+        while not stop.is_set():
+            t = time.perf_counter()
+            try:
+                status, body = post(port, [texts[i % len(texts)]])
+            except Exception as e:  # an HTTP error status raises
+                with lock:
+                    bad.append(f"{type(e).__name__}: {e}")
+                return
+            with lock:
+                latencies.append(time.perf_counter() - t)
+                if status != 200 or len(body["docs"]) != 1:
+                    bad.append(status)
+            i += OBSERVE_LOAD_CLIENTS
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(OBSERVE_LOAD_CLIENTS)]
+    for th in threads:
+        th.start()
+    try:
+        while (len(latencies) < OBSERVE_LOAD_REQUESTS
+               or server.recorder.records < OBSERVE_LOAD_SNAPSHOTS):
+            if bad:
+                break
+            if time.perf_counter() - t0 > OBSERVE_LOAD_CAP_S:
+                fail(f"sustained load: {len(latencies)} requests and "
+                     f"{server.recorder.records} snapshots in {OBSERVE_LOAD_CAP_S} s")
+            time.sleep(OBSERVE_TICK_S)
+    finally:
+        stop.set()
+        for th in threads:
+            th.join(timeout=60)
+    seconds = time.perf_counter() - t0
+    if bad:
+        fail(f"sustained load: {len(bad)} requests failed: {sorted(set(map(str, bad)))}")
+    snap = server.tel.snapshot()
+    lat = snap["histograms"]["request_latency_seconds"]
+    return {"clients": OBSERVE_LOAD_CLIENTS, "requests": len(latencies), "seconds": seconds,
+            "latency_p50_ms": percentile(latencies, 0.50) * 1e3,
+            "latency_p99_ms": percentile(latencies, 0.99) * 1e3,
+            "latency_ring_samples": min(lat["count"], 2048),
+            "latency_window_samples": snap.get("slo_window", {}).get("samples")}
+
+
 def phase_slice(torch, model_dir: Path, precision: str):
     from spacy_ray_tpu_torch.__main__ import build_server
     from spacy_ray_tpu_torch.ops import _cuda
     from spacy_ray_tpu_torch.pipeline.doc import Example
 
     t0 = time.perf_counter()
+    # slice:auto arms the flight recorder with a black box and ticks the
+    # observer every OBSERVE_TICK_S: each tick's host time is kept, and
+    # whether it rewrote the black box
+    blackbox = WORK / "slice_incidents" / "blackbox.json"
+    observe = ["--incidents-dir", str(WORK / "slice_incidents"), "--blackbox", str(blackbox),
+               "--observe-interval-s", str(OBSERVE_TICK_S)] if precision == "auto" else []
     server = build_server([str(model_dir), "--port", "0", "--max-batch", "8",
-                           "--max-doc-len", "128", "--precision", precision])
+                           "--max-doc-len", "128", "--precision", precision, *observe])
     engine = server.engine
     nlp = engine.nlp
+    tick_s, rewrite_s = [], []
+    if observe:
+        tick = server.observe_tick
+
+        def written():
+            try:
+                return blackbox.stat().st_mtime_ns
+            except FileNotFoundError:
+                return None
+
+        def timed_tick():
+            before = written()
+            t = time.perf_counter()
+            tick()
+            dt = time.perf_counter() - t
+            tick_s.append(dt)
+            if written() != before:
+                rewrite_s.append(dt)
+
+        server.observe_tick = timed_tick
     try:
         _, port = server.start()
         engine.start()
@@ -1389,6 +1506,7 @@ def phase_slice(torch, model_dir: Path, precision: str):
         missing = [k for k in need if launches[k] == 0]
         if missing:
             fail(f"precision={precision}: kernels never launched on the main path: {missing}")
+        sustained = sustain_observed_load(server, port) if observe else None
 
         # trunk output of one batch: kernels vs plain versions, same pipeline
         docs = [nlp.tokenizer(t) for t in texts[:8]]
@@ -1430,6 +1548,9 @@ def phase_slice(torch, model_dir: Path, precision: str):
         rc = server.wait()
         if rc != 0:
             fail(f"serve drain returned {rc}")
+        if observe and (not tick_s or server.alerts.evaluations != len(tick_s)):
+            fail(f"slice:{precision}: {len(tick_s)} observer ticks timed, "
+                 f"{server.alerts.evaluations} rule evaluations")
         result = {
             "phase": f"slice:{precision}", "precision_label": engine.overlay.label,
             "requests": len(answers), "tokens": n_tokens, "batches_seen": sorted(batches),
@@ -1441,6 +1562,24 @@ def phase_slice(torch, model_dir: Path, precision: str):
             "forward_B8_T128_enqueue_ms": forward_enqueue_ms,
             "forward_B8_T128_plain_ms": forward_plain_ms,
         }
+        if observe:
+            if not rewrite_s:
+                fail(f"slice:{precision}: no timed observer tick rewrote the black box")
+            box = json.loads(blackbox.read_text(encoding="utf8"))
+            result["observer"] = {
+                "interval_s": OBSERVE_TICK_S, "ticks": len(tick_s),
+                "tick_host_ms_median": statistics.median(tick_s) * 1e3,
+                "tick_host_ms_p99": percentile(tick_s, 0.99) * 1e3,
+                "tick_host_ms_max": max(tick_s) * 1e3,
+                "blackbox_rewrite_ticks": len(rewrite_s),
+                "blackbox_rewrite_ms_median": statistics.median(rewrite_s) * 1e3,
+                "blackbox_rewrite_ms_max": max(rewrite_s) * 1e3,
+                "blackbox_bytes": blackbox.stat().st_size,
+                "blackbox_snapshots": len(box["snapshots"]),
+                "blackbox_trace_events": len(box.get("trace", {}).get("traceEvents", [])),
+                "recorder_snapshots": server.recorder.records,
+                "sustained": sustained,
+                "alerts_firing": server.alerts.summary()["firing"]}
         emit(result)
         return result
     finally:
@@ -1451,8 +1590,19 @@ def phase_slice(torch, model_dir: Path, precision: str):
         server.httpd.server_close()
         del server, engine, nlp
         torch.cuda.empty_cache()
+        shutil.rmtree(WORK / "slice_incidents", ignore_errors=True)
 
 
+OBSERVE_TICK_S = 0.25        # slice:auto's and serve:fleet's observer ticks
+# slice:auto's sustained load, at which its observer ticks are timed: clients
+# send single-text requests until the latency ring (2048 samples,
+# ServingTelemetry) is full and the recorder holds as many snapshots as a
+# default serve's steady ring (its 300-s window over 2-s ticks), with black-box
+# rewrites (every 10 s) among the timed ticks
+OBSERVE_LOAD_CLIENTS = 8
+OBSERVE_LOAD_REQUESTS = 2048
+OBSERVE_LOAD_SNAPSHOTS = 150
+OBSERVE_LOAD_CAP_S = 150.0
 FLEET_SERVE_CLIENTS = 4      # serve:fleet: closed-loop clients through the router
 FLEET_SERVE_REQUESTS = 300   # requests of 1-8 dev texts; replica 0 SIGKILLed at the half
 FLEET_SERVE_REPEAT = 0.3     # share of requests that repeat an answered body (cache hits)
@@ -1527,9 +1677,10 @@ def start_serve_fleet(cnn_dir: Path, device: str = "cuda") -> dict:
     --replicas 2 --port 0`` with a manifest (cnn, the default, and "hot",
     the same directory), an empty watched directory and the autoscaler
     held at two replicas (the router and two replica processes take ~25 s
-    to come up, most of it importing torch); its output (``--verbose``: the
-    controller's and the placement's events) is read on a thread.
-    :func:`phase_serve_fleet` drives it."""
+    to come up, most of it importing torch), the flight recorder armed
+    (``--incidents-dir``, ticks every ``OBSERVE_TICK_S``); its output
+    (``--verbose``: the controller's and the placement's events) is read on
+    a thread. :func:`phase_serve_fleet` drives it."""
     import os
 
     work = WORK / "fleet_serve"
@@ -1552,7 +1703,9 @@ def start_serve_fleet(cnn_dir: Path, device: str = "cuda") -> dict:
          "--canary-fraction", str(FLEET_CANARY_FRACTION),
          "--guard-min-samples", str(FLEET_GUARD_MIN_SAMPLES),
          "--autoscale", "--min-replicas", "2", "--max-replicas", "2",
-         "--autoscale-interval-s", "1", "--up-consecutive", "2", "--verbose"],
+         "--autoscale-interval-s", "1", "--up-consecutive", "2",
+         "--incidents-dir", str(work / "incidents"), "--observe-interval-s",
+         str(OBSERVE_TICK_S), "--verbose"],
         cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         env={**os.environ, "PYTHONPATH": str(ROOT)}, start_new_session=True)
 
@@ -1658,6 +1811,56 @@ def stop_serve_fleet(run: dict) -> None:
         run["proc"].wait(timeout=30)
 
 
+def blackbox_spans(path: Path) -> int:
+    """The complete spans of the black box at ``path`` (0 while none)."""
+    try:
+        box = json.loads(path.read_text(encoding="utf8"))
+    except (OSError, ValueError):
+        return 0
+    return sum(1 for e in (box.get("trace") or {}).get("traceEvents") or []
+               if e.get("ph") == "X")
+
+
+def postmortem(bundle: Path) -> str:
+    """``telemetry postmortem <bundle>``'s report (the command, in this
+    process); fails unless it exits 0."""
+    from spacy_ray_tpu_torch.__main__ import telemetry_command
+
+    with redirect_stdout(io.StringIO()) as out:
+        rc = telemetry_command(["postmortem", str(bundle)])
+    if rc != 0:
+        fail(f"telemetry postmortem {bundle} exited {rc}")
+    return out.getvalue()
+
+
+def crash_bundle_checks(phase: str, incidents: Path, kill_unix: float) -> dict:
+    """The crash bundle the fleet wrote for the replica SIGKILLed at
+    ``kill_unix``: the signal, the banner in its output tail, a non-empty
+    pre-crash span ring from its black box, the router's health history, and
+    the postmortem's "killed by SIGKILL"."""
+    bundles = sorted(d for d in incidents.iterdir()
+                     if d.is_dir() and d.name.endswith("-crash-replica-0"))
+    if len(bundles) != 1:
+        fail(f"{phase}: crash bundles of replica 0: {[d.name for d in bundles]}")
+    bundle = bundles[0]
+    manifest = json.loads((bundle / "incident.json").read_text(encoding="utf8"))
+    tail = (bundle / "stderr.txt").read_text(encoding="utf8")
+    spans = sum(blackbox_spans(f) for f in bundle.glob("flight-replica*.json"))
+    health = (json.loads((bundle / "health.json").read_text(encoding="utf8"))
+              if (bundle / "health.json").is_file() else [])
+    report = postmortem(bundle)
+    if manifest["exit_signal"] != "SIGKILL" or "serving on http://" not in tail or \
+            not spans or not health or manifest["blackbox"] != "ok" or \
+            "killed by SIGKILL" not in report:
+        fail(f"{phase}: crash bundle {bundle.name}: {manifest}, {spans} pre-crash spans, "
+             f"{len(health)} health payloads, banner in tail "
+             f"{'serving on http://' in tail}:\n{report[:2000]}")
+    return {"bundle": bundle.name, "after_kill_s": manifest["unix_time"] - kill_unix,
+            "exit_signal": manifest["exit_signal"], "pre_crash_spans": spans,
+            "health_payloads": len(health), "files": sorted(f.name for f in bundle.iterdir()),
+            "postmortem_lines": len(report.splitlines())}
+
+
 def phase_serve_fleet(torch, run: dict, dev_path: Path, smi: str, gens: dict,
                       beside=None) -> dict:
     """The serving fleet :func:`start_serve_fleet` started on train:cnn's
@@ -1675,8 +1878,11 @@ def phase_serve_fleet(torch, run: dict, dev_path: Path, smi: str, gens: dict,
     shows no ``route`` span for) is byte-equal to its body's first answer and
     their count is the router's ``cache_hits``, the served tags equal the
     CPU's for >= 0.99 of tokens, every replica's ``/healthz`` counts K1 fwd
-    launches, the router's ``/metrics`` counts the retries and as many
-    requests as were sent through it, and SIGTERM ends the fleet with exit 0
+    launches, the killed replica left a crash bundle
+    (:func:`crash_bundle_checks`; its black box held spans of two requests
+    sent straight to it before the load), the router's ``/admin/alerts``
+    lists the router rules, the router's ``/metrics`` counts the retries and
+    as many requests as were sent through it, and SIGTERM ends the fleet with exit 0
     and no replica left. Before the SIGTERM, :func:`fleet_rollout` and
     :func:`fleet_refusal_and_placement` (``gens``: the generation to roll
     out, ``{"dir", "stamp"}``, and ``"mismatch"``, a checkpoint directory of
@@ -1686,6 +1892,7 @@ def phase_serve_fleet(torch, run: dict, dev_path: Path, smi: str, gens: dict,
     import signal
 
     from spacy_ray_tpu_torch import Pipeline
+    from spacy_ray_tpu_torch.alerting import default_router_rules
     from spacy_ray_tpu_torch.training.checkpoint import Checkpoints
     from spacy_ray_tpu_torch.training.corpus import Corpus
 
@@ -1731,12 +1938,24 @@ def phase_serve_fleet(torch, run: dict, dev_path: Path, smi: str, gens: dict,
             fail(f"{phase}: roster {roster}")
         pids = {r["pid"] for r in roster.values()}
         victim = roster[0]["pid"]
+        # replica 0's black box (rewritten at most every ~10 s) must hold a
+        # request's spans before the kill: two requests straight to it, then
+        # the wait for a rewrite
+        blackbox = run["work"] / "incidents" / "blackbox" / f"slot-{roster[0]['slot']}.json"
+        t = time.perf_counter()
+        for i in range(2):
+            fleet_request(roster[0]["port"], fresh[i], f"blackbox-{i}")
+        while time.perf_counter() - t < 30 and not blackbox_spans(blackbox):
+            time.sleep(0.1)
+        if not blackbox_spans(blackbox):
+            fail(f"{phase}: replica 0's black box {blackbox} holds no span after 30 s")
+        blackbox_wait_s = time.perf_counter() - t
 
         # the load, replica 0 SIGKILLed at the half
         bodies, answered, first = [], [], {}
         rows, lock, slots = [], threading.Lock(), iter(range(FLEET_SERVE_REQUESTS))
         pick = random.Random(1)
-        t_kill = []
+        t_kill, kill_unix = [], []
 
         def client():
             while True:
@@ -1752,6 +1971,7 @@ def phase_serve_fleet(torch, run: dict, dev_path: Path, smi: str, gens: dict,
                     if slot == FLEET_SERVE_REQUESTS // 2:
                         os.kill(victim, signal.SIGKILL)
                         t_kill.append(time.perf_counter())
+                        kill_unix.append(time.time())
                 status, raw, s = fleet_request(port, bodies[b], f"fleet-{slot}")
                 with lock:
                     rows.append((slot, b, status, raw, s))
@@ -1818,6 +2038,11 @@ def phase_serve_fleet(torch, run: dict, dev_path: Path, smi: str, gens: dict,
                  "its SIGKILL")
         back_s, restarted = back
         pids.add(restarted["pid"])
+        crash = crash_bundle_checks(phase, run["work"] / "incidents", kill_unix[0])
+        _, router_alerts = get(port, "/admin/alerts")
+        router_rules = sorted(r["alert"] for r in router_alerts.get("alerts") or [])
+        if router_rules != sorted(r.name for r in default_router_rules()):
+            fail(f"{phase}: the router's /admin/alerts lists {router_alerts}")
 
         _, trace = get(port, "/trace")
         forwarded = {e["args"].get("request_id") for e in trace["traceEvents"]
@@ -1901,6 +2126,8 @@ def phase_serve_fleet(torch, run: dict, dev_path: Path, smi: str, gens: dict,
         "direct_p99_ms": percentile(direct, 0.99) * 1e3,
         "router_cost_median_ms": statistics.median(a - b for a, b in zip(via, direct)) * 1e3,
         "kill_to_ready_s": back_s, "restarts": restarted["restarts"],
+        "blackbox_wait_s": blackbox_wait_s, "crash_bundle": crash,
+        "router_alerts": {r["alert"]: r["state"] for r in router_alerts["alerts"]},
         "card_vs_cpu_agreement": agree,
         "replicas": {str(rid): {"pid": next(r["pid"] for r in metrics["replicas"]
                                             if r["id"] == rid),
@@ -2125,7 +2352,8 @@ def start_train_and_serve(corpus) -> dict:
     its fleet, sends one client's requests until their answers carry two
     generations (the controller's direct rollout of a newer one between
     two requests), and then sends the one SIGTERM. :func:`phase_train_and_serve`
-    reads it."""
+    reads it. Before the SIGTERM the thread runs ``telemetry top`` over the
+    router, the replica and the trainer's ``--metrics-port``."""
     import os
     import signal
 
@@ -2139,13 +2367,17 @@ def start_train_and_serve(corpus) -> dict:
     egs = list(Corpus(corpus[1])())
     write_docbin(dev, [eg.reference for eg in egs][:TNS_DEV_DOCS])
     texts = [" ".join(eg.reference.words) for eg in egs if len(eg.reference.words) <= 100]
-    # patience 0: no early stop, so the trainer is still running at the SIGTERM
+    # patience 0: no early stop, so the trainer is still running at the SIGTERM;
+    # its telemetry on, served on a port of its own for telemetry top
+    metrics_port = free_base_port(1)
     train_args = ["--paths.train", str(corpus[0]), "--paths.dev", str(dev),
                   "--training.max_steps", str(TNS_MAX_STEPS), "--training.patience", "0",
                   "--training.eval_frequency", str(TNS_EVERY),
-                  "--training.keep_checkpoints", str(TNS_KEEP)]
+                  "--training.keep_checkpoints", str(TNS_KEEP),
+                  "--metrics-dir", str(work / "out" / "metrics"),
+                  "--metrics-port", str(metrics_port)]
     run = {"work": work, "out": work / "out", "lines": [], "marks": {}, "rows": [],
-           "t0": time.perf_counter()}
+           "t0": time.perf_counter(), "metrics_port": metrics_port}
     run["proc"] = subprocess.Popen(
         [sys.executable, "-m", "spacy_ray_tpu_torch", "train-and-serve", "configs/cnn.cfg",
          "--output", str(run["out"]), "--replicas", "1", "--port", "0", "--max-batch", "8",
@@ -2193,7 +2425,11 @@ def start_train_and_serve(corpus) -> dict:
                 if status != 200 or len(seen) >= 2:
                     break
             run["health"] = get(roster[0]["port"], "/healthz")[1]
-        except (OSError, ValueError, KeyError, IndexError) as e:
+            # the router, its replica and the trainer, while all three run
+            run["top"] = telemetry_top([f"http://127.0.0.1:{port}",
+                                        f"http://127.0.0.1:{roster[0]['port']}",
+                                        f"http://127.0.0.1:{metrics_port}"])
+        except (OSError, ValueError, KeyError, IndexError, subprocess.TimeoutExpired) as e:
             run["error"] = repr(e)
         finally:
             marks["sigterm"] = time.perf_counter() - run["t0"]
@@ -2212,12 +2448,43 @@ def start_train_and_serve(corpus) -> dict:
     return run
 
 
+def telemetry_top(urls) -> dict:
+    """``python -m spacy_ray_tpu_torch telemetry top <urls> --iterations 2``
+    as a subprocess: its exit code, output and seconds."""
+    import os
+
+    t = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "spacy_ray_tpu_torch", "telemetry", "top",
+                          *urls, "--iterations", "2", "--interval-s", "1"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(ROOT)})
+    return {"rc": out.returncode, "out": out.stdout, "err": out.stderr, "urls": urls,
+            "seconds": time.perf_counter() - t}
+
+
+def telemetry_ledger_rows(phase: str, run_dir: Path) -> list:
+    """``telemetry ledger list telemetry_run --run-dir <run_dir>`` over the
+    repo's bench session: the run's row, keyed on the card's platform."""
+    from spacy_ray_tpu_torch.__main__ import telemetry_command
+
+    with redirect_stdout(io.StringIO()) as out:
+        rc = telemetry_command(["ledger", "list", "telemetry_run", "--session",
+                                str(ROOT / "BENCH_SESSION.jsonl"), "--run-dir", str(run_dir)])
+    lines = out.getvalue().splitlines()
+    if rc != 0 or not any(x.strip() == "telemetry_run|gpu" for x in lines):
+        fail(f"{phase}: telemetry ledger exited {rc}:\n{out.getvalue()}")
+    return lines
+
+
 def phase_train_and_serve(run) -> dict:
     """cli:train_and_serve (:func:`start_train_and_serve`) read: fails
     unless the client saw a generation swapped into the replica with no
     failed request, and the one SIGTERM ended the tree with exit 0, the
     fleet's drain clean and the trainer's exit 75 after a step-boundary
-    generation, with none of its processes left."""
+    generation, with none of its processes left; ``telemetry top`` printed
+    two screens, each with one row for the router, the replica and the
+    trainer and no scrape failure, and ``telemetry ledger`` lists the
+    trainer's run directory."""
     import os
     import signal
 
@@ -2247,6 +2514,16 @@ def phase_train_and_serve(run) -> dict:
              + "\n".join([l for l in lines if not l.startswith("[train] ")][-40:]
                           + lines[-5:]))
     health = run["health"]
+    top = run["top"]
+    screens = [x for x in top["out"].split("\x1b[2J\x1b[H") if x]
+    # each screen: one row a URL, of the kind that URL is
+    rows = [re.findall(r"^  (router|replica|trainer) +(\S+)", x, re.M) for x in screens]
+    want = list(zip(("router", "replica", "trainer"), top["urls"]))
+    if top["rc"] != 0 or len(screens) != 2 or rows != [want] * 2 or \
+            "UNREACHABLE" in top["out"] or "scrape-fail 0 " not in screens[-1]:
+        fail(f"{phase}: telemetry top exited {top['rc']}:\n{top['out'][-3000:]}"
+             f"{top['err'][-2000:]}")
+    ledger = telemetry_ledger_rows(phase, run["out"])
     result = {
         "phase": phase, "seconds": marks["exit"],
         "to_bootstrap_s": marks["bootstrapped serving model"],
@@ -2259,6 +2536,10 @@ def phase_train_and_serve(run) -> dict:
         "trainer_interrupted_at": step,
         "generations_kept": len(gens), "exit": rc, "trainer_exit": 75,
         "replica_peak_memory_bytes": health.get("peak_memory_bytes"),
+        "telemetry_top": {"rc": top["rc"], "seconds": top["seconds"], "screens": 2,
+                          "rows": [k for k, _ in rows[-1]],
+                          "last_screen": screens[-1].splitlines()},
+        "telemetry_ledger": ledger,
         # the replica's; the trainer's launches (K1 fwd, K1 bwd, K5) stay in its process
         "launches": health["kernel_launches"],
     }
@@ -7440,6 +7721,42 @@ def phase_window_batching(torch, cnn_dir: Path, texts) -> dict:
     return out
 
 
+WATCH_ALERT_P99_MS = 0.05  # serve:watch's --alert-p99-ms: below any request's latency
+
+
+def slo_firing(port: int) -> bool:
+    """Whether the server's ``serving-latency-slo`` rule fires."""
+    _, body = get(port, "/admin/alerts")
+    return any(r["alert"] == "serving-latency-slo" and r["state"] == "firing"
+               for r in body.get("alerts") or [])
+
+
+def alert_bundle_checks(incidents: Path, snap: dict) -> dict:
+    """The bundle ``serving-latency-slo`` dumped under ``incidents``, read
+    by the postmortem, and the sink's transitions; fails unless the window
+    p50 of ``snap`` (the server's last ``/metrics``) lies above the target."""
+    p50 = (snap.get("slo_window") or {}).get("request_latency_p50")
+    bundles = sorted(d for d in incidents.iterdir()
+                     if d.is_dir() and d.name.endswith("-alert-serving-latency-slo"))
+    sink = [json.loads(x) for x in open(incidents / "alerts.jsonl", encoding="utf8")]
+    fired = [r for r in sink if r["alert"] == "serving-latency-slo" and r["to"] == "firing"]
+    if not bundles or not fired or not (p50 or 0) * 1e3 > WATCH_ALERT_P99_MS:
+        fail(f"serve:watch: serving-latency-slo at {WATCH_ALERT_P99_MS} ms (window p50 "
+             f"{p50} s): bundles {[d.name for d in incidents.iterdir()]}, sink {sink}")
+    manifest = json.loads((bundles[0] / "incident.json").read_text(encoding="utf8"))
+    report = postmortem(bundles[0])
+    if "serving-latency-slo" not in report or manifest["source"] != \
+            "alert-serving-latency-slo":
+        fail(f"serve:watch: alert bundle {bundles[0].name}: {manifest}\n{report[:2000]}")
+    return {"target_ms": WATCH_ALERT_P99_MS, "window_p50_ms": p50 * 1e3,
+            "window_p99_ms": snap["slo_window"].get("request_latency_p99", 0) * 1e3,
+            "bundles": len(bundles), "bundle": bundles[0].name,
+            "files": sorted(f.name for f in bundles[0].iterdir()),
+            "transitions": [(r["from"], r["to"]) for r in sink
+                            if r["alert"] == "serving-latency-slo"],
+            "postmortem_lines": len(report.splitlines())}
+
+
 def phase_serve_watch(torch, cnn_dir: Path, corpus, cnn_step_ms, beside=None,
                       keep: Path = None) -> dict:
     """``python -m spacy_ray_tpu_torch serve <train:cnn's model> --watch
@@ -7450,8 +7767,11 @@ def phase_serve_watch(torch, cnn_dir: Path, corpus, cnn_step_ms, beside=None,
     generation (a higher stamp, its params file cut short) is planted. Fails
     unless the trainer exits 0, the watcher flips at least twice, no client
     sees its generation go back, the torn stamp is never served and logged
-    once, every request succeeds, and every batch replays bit-equal on a
-    fresh engine of its stamped generation (``replay_batches``). ``beside``
+    once, every request succeeds, every batch replays bit-equal on a fresh
+    engine of its stamped generation (``replay_batches``), and
+    ``serving-latency-slo``, its target at ``WATCH_ALERT_P99_MS`` (below the
+    window p50), fired and dumped a bundle the postmortem renders
+    (:func:`alert_bundle_checks`). ``beside``
     runs once the server and the trainer are started: the whole phase runs
     beside it. ``keep``: a directory that receives the last generation's
     params file and meta (serve:fleet rolls it out)."""
@@ -7466,9 +7786,12 @@ def phase_serve_watch(torch, cnn_dir: Path, corpus, cnn_step_ms, beside=None,
     ckpt = out / "last-model"
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
     cli = [sys.executable, "-m", "spacy_ray_tpu_torch"]
+    incidents = work / "incidents"
     serve = subprocess.Popen(
         cli + ["serve", str(cnn_dir), "--port", "0", "--max-batch", "8", "--max-doc-len", "128",
-               "--watch", str(ckpt), "--watch-interval-s", "0.5"],
+               "--watch", str(ckpt), "--watch-interval-s", "0.5", "--incidents-dir",
+               str(incidents), "--alert-p99-ms", str(WATCH_ALERT_P99_MS),
+               "--observe-interval-s", str(OBSERVE_TICK_S)],
         cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
     lines, errors, ready = [], [], threading.Event()
 
@@ -7562,6 +7885,12 @@ def phase_serve_watch(torch, cnn_dir: Path, corpus, cnn_step_ms, beside=None,
                 f"params-{torn}.npz": meta["digests"][f"params-{last}.npz"]})
             (ckpt / f"train_meta-{torn}.json").write_text(json.dumps(meta), encoding="utf8")
         time.sleep(2.5)  # five polls past the torn generation
+        # the latency rule's target lies below every request's latency: it
+        # fires once the window p99 stayed above it for the rule's 30 s
+        t = time.perf_counter()
+        while time.perf_counter() - t < 90 and not slo_firing(port):
+            time.sleep(0.25)
+        alert_wait_s = time.perf_counter() - t
         stop.set()
         for th in clients:
             th.join()
@@ -7593,6 +7922,8 @@ def phase_serve_watch(torch, cnn_dir: Path, corpus, cnn_step_ms, beside=None,
         skipped = [l for l in errors if "[live-generation-skipped]" in l
                    and f"generation {torn} " in l]
         flips = snap["swap_count"]
+        alert = alert_bundle_checks(incidents, snap)
+        alert["waited_after_trainer_s"] = alert_wait_s
         if failed or backwards or torn in served or len(skipped) != 1 or flips < 2 or \
                 health["generation"] != last:
             fail(f"serve:watch: failed {failed[:5]}, clients going back {backwards}, served "
@@ -7660,6 +7991,7 @@ def phase_serve_watch(torch, cnn_dir: Path, corpus, cnn_step_ms, beside=None,
         "trainer_ms_per_step_between_generations":
             (mtimes[-1] - mtimes[0]) / (gens[-1] - gens[0]) * 1e3 if len(gens) > 1 else None,
         "train_cnn_step_ms_median": cnn_step_ms,
+        "latency_alert": alert,
         "launches": health["kernel_launches"],  # the server process's, warmup included
     }
     emit(result)
@@ -7960,8 +8292,23 @@ def main() -> int:
                 " (one optimizer step over trf.cfg's leaves)" if name == "fused_update" else ""),
             "shapes": kernels[name],
         })
+    # the serving side's alerts and incidents, gathered from their phases
+    emit({"phase": "observability", "card": smi,
+          "observer": {k: runs["auto"]["observer"][k] for k in (
+              "interval_s", "ticks", "tick_host_ms_median", "tick_host_ms_p99",
+              "tick_host_ms_max", "blackbox_rewrite_ticks", "blackbox_rewrite_ms_median",
+              "blackbox_rewrite_ms_max", "blackbox_bytes", "blackbox_snapshots",
+              "blackbox_trace_events")},
+          "observer_load": {k: runs["auto"]["observer"]["sustained"][k] for k in (
+              "requests", "seconds", "latency_ring_samples", "latency_window_samples")},
+          "crash_bundle_after_kill_s": runs["serve:fleet"]["crash_bundle"]["after_kill_s"],
+          "crash_bundle_pre_crash_spans": runs["serve:fleet"]["crash_bundle"]["pre_crash_spans"],
+          "router_alerts": runs["serve:fleet"]["router_alerts"],
+          "latency_alert_bundle": runs["serve:watch"]["latency_alert"]["bundle"],
+          "telemetry_top_rows": runs["cli:train_and_serve"]["telemetry_top"]["rows"],
+          "telemetry_ledger": runs["cli:train_and_serve"]["telemetry_ledger"]})
     emit({"kernels": line})
-    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start, "card": smi})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -16,9 +16,12 @@
     python -m spacy_ray_tpu_torch train-and-serve <config.cfg> --output <dir> [options]
     python -m spacy_ray_tpu_torch telemetry collect-trace [<url>...] --out FILE
     python -m spacy_ray_tpu_torch telemetry summarize <metrics.jsonl | run-dir>
+    python -m spacy_ray_tpu_torch telemetry top <url>... [--interval-s S] [--iterations N]
     python -m spacy_ray_tpu_torch telemetry postmortem <bundle | incidents-dir>
         [--trace-out F]
     python -m spacy_ray_tpu_torch telemetry report <run-dir> [--out F]
+    python -m spacy_ray_tpu_torch telemetry ledger {list|show|diff|regress} [SEL ...]
+        [--session F] [--run-dir D ...] [--record F] [--floor X] [--json-out F]
     python -m spacy_ray_tpu_torch init-vectors <input> <output.npz> [--truncate N]
 
 ``train`` trains the config's pipeline on one device, evaluating every
@@ -68,9 +71,10 @@ package's).
 ``serve`` loads a model directory (written by this package or by the JAX
 package), builds the precision overlay, starts the HTTP listener (the bound
 port is printed), runs the bucket warmup sweep and serves ``/v1/parse``
-with ``/metrics``, ``/trace`` and ``/admin/exemplars`` (``--no-telemetry``
-turns them off) and, for each ``--swap-dir``, ``/admin/swap`` and
-``/admin/rollback`` between that directory's checkpoint generations,
+with ``/metrics``, ``/trace``, ``/admin/exemplars`` and ``/admin/alerts``
+(``--no-telemetry`` turns them off: no alert engine, no recorder) and, for
+each ``--swap-dir``, ``/admin/swap`` and ``/admin/rollback`` between that
+directory's checkpoint generations,
 until SIGTERM/SIGINT, which drains in-flight work and exits.
 ``--batching window --max-wait-ms N`` coalesces a batch for up to N ms
 (continuous admission is the default); ``--watch DIR`` follows a training
@@ -78,7 +82,14 @@ run's ``last-model/`` and hot-swaps each new intact generation;
 ``--model-manifest M`` serves the manifest's models (``/v1/models/<name>/
 parse``), its tenants' quotas and SLO classes, with ``--resident-models``
 engines warm at once (the default model pinned); ``--metrics-dir`` writes
-the trace and the last metrics snapshot at exit.
+the trace and the last metrics snapshot at exit. An observer thread
+evaluates the serving alert rules every ``--observe-interval-s``
+(``serving-latency-slo`` against ``--alert-p99-ms``); ``--incidents-dir``
+arms the flight recorder (a firing alert dumps a bundle there, the
+transitions go to its ``alerts.jsonl``) and ``--blackbox F`` persists the
+recorder's payload for a supervisor's crash bundle. ``--continuous`` and
+``--window-ms`` are JAX's aliases of ``--batching continuous`` and
+``--max-wait-ms``.
 ``serve-fleet`` runs ``--replicas`` ``serve`` processes behind one router
 (``serving/fleet/``): least-outstanding picks over the replicas whose
 ``/healthz`` answers 200, retries elsewhere when one fails or drains, the
@@ -93,6 +104,9 @@ generation, then promoted fleet-wide or rolled back by the guard
 (``--guard-*``: error rate, window p99, samples, a verdict timeout). With
 ``--autoscale --model-manifest`` each scaling tick also loads a model whose
 window p99 breaches its class target onto another replica (placement).
+The router evaluates its alert rules every ``--observe-interval-s``
+(``/admin/alerts``); ``--incidents-dir`` arms its recorder and every
+replica's, and a replica that dies leaves a crash bundle there.
 ``train-and-serve`` runs ``train`` as a child process writing
 ``<output>/last-model`` and a fleet watching it (bootstrapped from the
 run's first ``best-model`` unless ``--model`` is given); one SIGTERM drains
@@ -106,7 +120,12 @@ or of a run directory; ``telemetry postmortem`` renders an incident bundle
 (or the newest under an incidents directory), ``--trace-out`` writing its
 merged timeline; ``telemetry report`` writes a run directory's markdown
 report (per-worker table, membership, phases, losses, staleness, wire,
-timings, host, alerts). Every command runs on the card
+timings, host, alerts); ``telemetry top`` polls endpoints' ``/metrics`` (a
+router, a replica, a trainer's ``--metrics-port``, a fleet worker) into one
+refreshing screen; ``telemetry ledger`` reads ``BENCH_SESSION.jsonl`` and
+``--run-dir`` directories as history (``list``, ``show``, ``diff``, which
+refuses two platforms, and ``regress``, exit 1 on a confirmed regression).
+Every command runs on the card
 unless ``--device cpu`` is given (``--serve-device cpu`` for
 ``train-and-serve``'s replicas), and fails without one (``serve-fleet`` and
 ``train-and-serve`` before they spawn anything).
@@ -144,21 +163,27 @@ USAGE = (
     " [--batching continuous|window] [--max-wait-ms MS] [--queue-size N] [--timeout-ms MS]"
     " [--drain-timeout-s S] [--no-telemetry] [--swap-dir CKPT_DIR ...] [--watch CKPT_DIR]"
     " [--watch-interval-s S] [--no-warmup] [--model-manifest M] [--resident-models N]"
-    " [--metrics-dir DIR]\n"
+    " [--metrics-dir DIR] [--incidents-dir DIR] [--blackbox F] [--alert-p99-ms MS]"
+    " [--observe-interval-s S]\n"
     "       python -m spacy_ray_tpu_torch serve-fleet <model-dir> [--replicas N] [--port N]"
     " [--device cuda|cpu] [--min-replicas N] [--max-replicas N] [--cache-mb MB]"
     " [--length-routing] [--autoscale [--p99-target-ms MS]] [--watch CKPT_DIR"
     " [--canary-fraction F] [--guard-p99-frac X] [--guard-error-rate R]"
-    " [--guard-min-samples N] [--guard-verdict-timeout-s S]] [serve's replica options]\n"
+    " [--guard-min-samples N] [--guard-verdict-timeout-s S]] [--incidents-dir DIR]"
+    " [--observe-interval-s S] [serve's replica options]\n"
     "       python -m spacy_ray_tpu_torch train-and-serve <config.cfg> --output DIR"
     " [--model DIR] [--device cuda|cpu] [--serve-device cuda|cpu] [--replicas N]"
     " [--port N] [--train-arg ARG ...] [serve-fleet's rollout options]\n"
     "       python -m spacy_ray_tpu_torch telemetry collect-trace [<url>...]"
     " [--fleet-base-port N --workers K] --out FILE\n"
     "       python -m spacy_ray_tpu_torch telemetry summarize <metrics.jsonl | run-dir>\n"
+    "       python -m spacy_ray_tpu_torch telemetry top <url>... [--interval-s S]"
+    " [--iterations N]\n"
     "       python -m spacy_ray_tpu_torch telemetry postmortem <bundle | incidents-dir>"
     " [--trace-out F]\n"
     "       python -m spacy_ray_tpu_torch telemetry report <run-dir> [--out F]\n"
+    "       python -m spacy_ray_tpu_torch telemetry ledger {list|show|diff|regress} [SEL ...]"
+    " [--session F] [--run-dir D ...] [--record F] [--floor X] [--json-out F]\n"
     "       python -m spacy_ray_tpu_torch init-vectors <input> <output.npz> [--truncate N]"
 )
 
@@ -167,7 +192,8 @@ def _serve_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m spacy_ray_tpu_torch serve",
         description="Serve a saved pipeline as a JSON HTTP API (/v1/parse, /healthz, "
-                    "/metrics, /trace, /admin/exemplars, /admin/swap, /admin/rollback; "
+                    "/metrics, /trace, /admin/exemplars, /admin/alerts, /admin/swap, "
+                    "/admin/rollback; "
                     "with a manifest /v1/models/<name>/parse and /admin/models/load).",
     )
     p.add_argument("model_path", type=Path)
@@ -181,7 +207,9 @@ def _serve_parser() -> argparse.ArgumentParser:
                    help="admission: 'continuous' (default) fills the next dispatch with "
                         "whatever is queued; 'window' coalesces up to --max-wait-ms from "
                         "the first queued request")
-    p.add_argument("--max-wait-ms", type=float, dest="max_wait_ms",
+    p.add_argument("--continuous", action="store_const", const="continuous", dest="batching",
+                   help="alias for --batching continuous")
+    p.add_argument("--max-wait-ms", "--window-ms", type=float, dest="max_wait_ms",
                    default=SERVING_DEFAULTS["max_wait_s"] * 1e3,
                    help="window batching only: the coalescing window")
     p.add_argument("--queue-size", type=int, default=SERVING_DEFAULTS["max_queue_docs"],
@@ -224,6 +252,20 @@ def _serve_parser() -> argparse.ArgumentParser:
     p.add_argument("--metrics-dir", type=Path, default=None,
                    help="write serving_trace.json and the final metrics snapshot "
                         "(serving_metrics.json, a row of metrics.jsonl) here at exit")
+    p.add_argument("--incidents-dir", type=Path, default=None,
+                   help="arm the flight recorder: a firing alert dumps the recent snapshot "
+                        "ring and span ring to <dir>/<utc-stamp>-<source>/ (telemetry "
+                        "postmortem renders it); alert transitions append to "
+                        "<dir>/alerts.jsonl")
+    p.add_argument("--blackbox", type=Path, default=None,
+                   help="persist the flight recorder's payload to this file (atomic "
+                        "replace, at most every ~10 s): the copy a SIGKILL leaves, which "
+                        "serve-fleet folds into the crash bundle")
+    p.add_argument("--alert-p99-ms", type=float, default=500.0,
+                   help="the window p99 target of the 'serving-latency-slo' alert rule")
+    p.add_argument("--observe-interval-s", type=float, default=2.0,
+                   help="how often the observer evaluates the alert rules and feeds the "
+                        "flight recorder")
     return p
 
 
@@ -282,10 +324,33 @@ def build_server(argv: List[str]):
             engine.swap_params(state["params"], stamp)
 
         watcher = CheckpointWatcher(args.watch, swap, interval_s=args.watch_interval_s)
+    # the alert engine rides along with telemetry, the flight recorder only
+    # with an incidents directory or a black box; with --no-telemetry neither
+    # is built and no observer runs
+    alerts = recorder = None
+    if tel is not None:
+        from .alerting import AlertEngine, default_serving_rules
+        from .incidents import FlightRecorder
+
+        if args.incidents_dir is not None or args.blackbox is not None:
+            recorder = FlightRecorder(incident_dir=args.incidents_dir,
+                                      blackbox_path=args.blackbox,
+                                      process_name=f"replica-pid{os.getpid()}")
+        alerts = AlertEngine(
+            default_serving_rules(p99_target_s=args.alert_p99_ms / 1e3),
+            sink_path=(args.incidents_dir / "alerts.jsonl"
+                       if args.incidents_dir is not None else None),
+            on_firing=recorder.alert_hook() if recorder is not None else None,
+            source="replica")
+        if recorder is not None:
+            recorder.attach(trace=tel.trace, alerts_fn=alerts.states,
+                            exemplars_fn=tel.exemplars)
     server = Server(engine, args.host, args.port, telemetry=tel,
                     drain_timeout_s=args.drain_timeout_s,
                     swap_dirs=[str(d) for d in args.swap_dir], watcher=watcher,
-                    registry=registry, residency=residency, admission=admission)
+                    registry=registry, residency=residency, admission=admission,
+                    alerts=alerts, recorder=recorder,
+                    observe_interval_s=args.observe_interval_s)
     server.args = args
     return server
 
@@ -367,9 +432,10 @@ def _cpu_core_masks(spec: Optional[str]) -> Optional[List[str]]:
 
 def serve_fleet_command(argv: List[str]) -> int:
     """``serve-fleet``: a router over ``--replicas`` ``serve`` processes
-    (JAX ``cli.py`` ``serve_fleet_command``, less the incident recorder).
-    This process proxies, probes, spawns and rolls generations out; the
-    replicas run the model on the card."""
+    (JAX ``cli.py`` ``serve_fleet_command``). This process proxies, probes,
+    spawns, rolls generations out, evaluates the router's alert rules and,
+    with ``--incidents-dir``, writes crash bundles; the replicas run the
+    model on the card."""
     parser = argparse.ArgumentParser(
         prog="python -m spacy_ray_tpu_torch serve-fleet", allow_abbrev=False,
         description="Serve a saved pipeline from N replica processes behind one "
@@ -397,12 +463,15 @@ def serve_fleet_command(argv: List[str]) -> int:
                         "over this process's affinity) or comma-separated taskset -c masks "
                         "cycled per replica slot")
     parser.add_argument("--max-batch", type=int, default=None)
-    parser.add_argument("--max-wait-ms", type=float, dest="max_wait_ms", default=None)
+    parser.add_argument("--max-wait-ms", "--window-ms", type=float, dest="max_wait_ms",
+                        default=None)
     parser.add_argument("--queue-size", type=int, default=None)
     parser.add_argument("--timeout-ms", type=float, default=None)
     parser.add_argument("--max-doc-len", type=int, default=None)
     parser.add_argument("--batching", choices=["continuous", "window"], default=None,
                         help="the replicas' admission (default: serve's, continuous)")
+    parser.add_argument("--continuous", action="store_const", const="continuous",
+                        dest="batching", help="alias for --batching continuous")
     parser.add_argument("--precision", choices=PRECISION_CHOICES, default=None,
                         help="the replicas' precision overlay (default: serve's, auto)")
     parser.add_argument("--model-manifest", type=Path, default=None,
@@ -441,8 +510,17 @@ def serve_fleet_command(argv: List[str]) -> int:
     parser.add_argument("--drain-timeout-s", type=float, default=60.0,
                         help="the router's wait for its in-flight requests at shutdown")
     parser.add_argument("--ready-timeout-s", type=float, default=300.0)
+    parser.add_argument("--incidents-dir", type=Path, default=None,
+                        help="arm the fleet's flight recorder: firing alerts dump router and "
+                        "replica bundles here, every replica persists a black box under "
+                        "<dir>/blackbox/, and a crashed replica leaves a crash bundle (exit "
+                        "signal, output tail, argv, generation, pre-crash span ring) that "
+                        "telemetry postmortem renders")
+    parser.add_argument("--observe-interval-s", type=float, default=2.0,
+                        help="how often the router and the replicas evaluate their alert "
+                        "rules and feed their flight recorders")
     parser.add_argument("--no-telemetry", action="store_true",
-                        help="no router or replica telemetry")
+                        help="no router or replica telemetry (no alerts, no recorder)")
     parser.add_argument("--verbose", "-V", action="store_true")
     args = parser.parse_args(argv)
 
@@ -487,7 +565,9 @@ def serve_fleet_command(argv: List[str]) -> int:
         p99_target_ms=args.p99_target_ms, autoscale_interval_s=args.autoscale_interval_s,
         up_consecutive=args.up_consecutive, down_consecutive=args.down_consecutive,
         cooldown_s=args.cooldown_s, drain_timeout_s=args.drain_timeout_s,
-        ready_timeout_s=args.ready_timeout_s, telemetry=not args.no_telemetry)
+        ready_timeout_s=args.ready_timeout_s,
+        incidents_dir=str(args.incidents_dir) if args.incidents_dir is not None else None,
+        observe_interval_s=args.observe_interval_s, telemetry=not args.no_telemetry)
     try:
         fleet = Fleet(config)
     except RuntimeError as e:  # no card: nothing was spawned
@@ -598,33 +678,43 @@ def train_and_serve_command(argv: List[str]) -> int:
     return rc
 
 
-#: ``telemetry`` subcommands of the JAX package that wait for the port's
-#: serving-side observability (``top.py``, ``training/runledger.py``)
-TELEMETRY_WAITING = ("top", "ledger")
-
-
 def telemetry_command(argv: List[str]) -> int:
     """``telemetry summarize``: the digest of a ``metrics.jsonl`` (a
     trainer's, a server's or a fleet worker's) or of a run directory;
-    ``collect-trace``: merge the ``/trace`` buffers of a serving fleet's
-    router and replicas (discovered from the router's ``/healthz``), of a
-    trainer fleet's workers, or of any endpoints, into one Chrome-trace file
-    aligned by their clock anchors; ``postmortem``: render an incident
-    bundle; ``report``: a run directory's markdown report (JAX ``cli.py``
-    ``telemetry_command``). ``top`` and ``ledger`` exit 2."""
+    ``top``: a live dashboard over endpoints' ``/metrics``; ``collect-trace``:
+    merge the ``/trace`` buffers of a serving fleet's router and replicas
+    (discovered from the router's ``/healthz``), of a trainer fleet's workers,
+    or of any endpoints, into one Chrome-trace file aligned by their clock
+    anchors; ``postmortem``: render an incident bundle; ``report``: a run
+    directory's markdown report; ``ledger``: the run ledger over a bench
+    session file and run directories (JAX ``cli.py`` ``telemetry_command``,
+    its exit codes: ``regress`` 1 on a confirmed regression, 2 on a refused
+    comparison or an unreadable session)."""
     usage = ("Usage: python -m spacy_ray_tpu_torch telemetry {summarize "
-             "<metrics.jsonl-or-run-dir> | collect-trace [<url>...] "
-             "[--fleet-base-port N --workers K] --out FILE | postmortem "
-             "<bundle-or-incidents-dir> [--trace-out F] | report <run-dir> [--out F]}")
-    if not argv or argv[0] not in ("summarize", "collect-trace", "postmortem", "report",
-                                   *TELEMETRY_WAITING):
+             "<metrics.jsonl-or-run-dir> | top <url>... [--interval-s S] [--iterations N] | "
+             "collect-trace [<url>...] [--fleet-base-port N --workers K] --out FILE | "
+             "postmortem <bundle-or-incidents-dir> [--trace-out F] | report <run-dir> "
+             "[--out F] | ledger {list|show|diff|regress} [--session FILE] ...}")
+    if not argv or argv[0] not in ("summarize", "top", "collect-trace", "postmortem", "report",
+                                   "ledger"):
         print(usage, file=sys.stderr)
         return 1
     sub, rest = argv[0], argv[1:]
-    if sub in TELEMETRY_WAITING:
-        print(f"telemetry {sub} is not part of the port yet (ROADMAP.md Queue A item 4.4, "
-              "observability)", file=sys.stderr)
-        return 2
+    if sub == "ledger":
+        return _telemetry_ledger(rest)
+    if sub == "top":
+        parser = argparse.ArgumentParser(prog="python -m spacy_ray_tpu_torch telemetry top")
+        parser.add_argument("urls", nargs="+", metavar="URL",
+                            help="endpoint base URLs (a router, a replica, a trainer's "
+                            "--metrics-port, a trainer-fleet worker), e.g. http://127.0.0.1:8090")
+        parser.add_argument("--interval-s", type=float, default=2.0)
+        parser.add_argument("--iterations", type=int, default=None,
+                            help="stop after N refreshes (default: until Ctrl-C)")
+        args = parser.parse_args(rest)
+
+        from .top import run_top
+
+        return run_top(args.urls, interval_s=args.interval_s, iterations=args.iterations)
     if sub == "report":
         parser = argparse.ArgumentParser(prog="python -m spacy_ray_tpu_torch telemetry report")
         parser.add_argument("run_dir", type=Path,
@@ -747,6 +837,105 @@ def telemetry_command(argv: List[str]) -> int:
     print(f"merged {n} event(s) from {len(info['merged_from'])} process(es) into {path}"
           + (f" (skipped: {info['skipped']})" if info.get("skipped") else ""))
     return 0
+
+
+def _telemetry_ledger(argv: List[str]) -> int:
+    """``telemetry ledger list|show|diff|regress``: 0, or 1 for a confirmed
+    regression, 2 for a refused comparison, an unknown selector or an
+    unreadable session file."""
+    parser = argparse.ArgumentParser(prog="python -m spacy_ray_tpu_torch telemetry ledger")
+    parser.add_argument("action", choices=("list", "show", "diff", "regress"))
+    parser.add_argument("selectors", nargs="*", metavar="SEL",
+                        help="show: a record NAME; diff: exactly two selectors, each "
+                        "NAME[@IDX] (an index into that name's history, default -1 = newest) "
+                        "or a records .jsonl (its last record); list: optional NAME filters")
+    parser.add_argument("--session", type=Path, default=Path("BENCH_SESSION.jsonl"),
+                        help="the bench session file, the ledger's history (default "
+                        "./BENCH_SESSION.jsonl)")
+    parser.add_argument("--run-dir", type=Path, action="append", default=[], dest="run_dirs",
+                        help="also read a training run directory as ledger rows (repeatable)")
+    parser.add_argument("--record", type=Path, default=None,
+                        help="regress: a fresh records .jsonl judged against the session; "
+                        "without it each key's newest record is judged against its "
+                        "predecessors")
+    parser.add_argument("--floor", type=float, default=None,
+                        help="the noise band's floor as a ratio (default 0.05)")
+    parser.add_argument("--json-out", type=Path, default=None,
+                        help="diff/regress: also write the verdict as JSON")
+    args = parser.parse_args(argv)
+
+    from .training import runledger as rl
+
+    floor = args.floor if args.floor is not None else rl.NOISE_FLOOR
+
+    def write_json(payload: dict) -> None:
+        if args.json_out is None:
+            return
+        args.json_out.parent.mkdir(parents=True, exist_ok=True)
+        args.json_out.write_text(json.dumps(payload, indent=2, sort_keys=True) + "\n",
+                                 encoding="utf8")
+        print(f"verdict written to {args.json_out}", file=sys.stderr)
+
+    def pick(rows, sel: str):
+        # a records file (its last row) or NAME[@IDX] into the history
+        path = Path(sel)
+        if path.is_file():
+            file_rows, _ = rl.ingest_session(path)
+            if not file_rows:
+                raise rl.LedgerError(f"no ledger rows in {sel}")
+            return file_rows[-1]
+        name, _, idx = sel.partition("@")
+        hist = [r for r in rows if r["name"] == name]
+        if not hist:
+            raise rl.LedgerError(f"no ledger rows named {name!r} "
+                                 f"(try: telemetry ledger list --session {args.session})")
+        try:
+            return hist[int(idx) if idx else -1]
+        except (IndexError, ValueError):
+            raise rl.LedgerError(f"bad index {idx!r} for {name!r} "
+                                 f"({len(hist)} record(s) in history)")
+
+    try:
+        rows, skipped = rl.ingest_session(args.session)
+        for run_dir in args.run_dirs:
+            rows.extend(rl.ingest_run_dir(run_dir))
+        if args.action == "list":
+            if args.selectors:
+                rows = [r for r in rows if r["name"] in args.selectors]
+            print(rl.render_rows(rows, skipped=skipped))
+            return 0
+        if args.action == "show":
+            if len(args.selectors) != 1:
+                parser.error("show takes exactly one record NAME")
+            print(rl.render_history(rows, args.selectors[0]))
+            return 0
+        if args.action == "diff":
+            if len(args.selectors) != 2:
+                parser.error("diff takes exactly two selectors (NAME[@IDX] or a records file)")
+            d = rl.diff_rows(pick(rows, args.selectors[0]), pick(rows, args.selectors[1]),
+                             floor=floor)
+            print(rl.render_diff(d))
+            write_json(d)
+            return 0
+        if args.record is not None:
+            fresh, _ = rl.ingest_session(args.record)
+            pool = rows
+        else:
+            by_key: dict = {}
+            for r in rows:
+                by_key.setdefault(rl.row_key(r), []).append(r)
+            fresh = [h[-1] for h in by_key.values()]
+            pool = [r for h in by_key.values() for r in h[:-1]]
+        if not fresh:
+            print("no fresh records to judge", file=sys.stderr)
+            return 2
+        verdicts = rl.regress(fresh, pool, floor=floor)
+        print(rl.render_verdicts(verdicts))
+        write_json({"floor": floor, "session": str(args.session), "verdicts": verdicts})
+        return 1 if any(v["verdict"] == "regression" for v in verdicts) else 0
+    except (rl.LedgerError, OSError) as e:
+        print(str(e), file=sys.stderr)
+        return 2
 
 
 #: a supervised one-process run's SIGTERM -> SIGKILL window

@@ -5,6 +5,7 @@ rollout controller under one lifecycle (``spacy_ray_tpu/serving/fleet/fleet.py``
                |
         RouterHTTPServer (:port)           this process, no CUDA
          /v1/parse /healthz /metrics[?format=prometheus] /trace /admin/exemplars
+         /admin/alerts
                |
         Router (least outstanding, probed, retries, canary split, response cache)
           |          |           |
@@ -26,8 +27,19 @@ router's split, the guard's verdict, promotion or rollback); it starts with
 the fleet and stops first in the drain, so no swap reaches a draining fleet.
 With a manifest and ``autoscale`` a :class:`~..multimodel.PlacementPolicy`
 also decides which replicas host which models (:meth:`Fleet.placement_tick`),
-and ``incidents_dir`` keeps its ledger. Not here yet: the alert engine and
-the incident recorder that ``incidents_dir`` also arms in the JAX package.
+and ``incidents_dir`` keeps its ledger.
+
+With telemetry on, the router's :class:`~...alerting.AlertEngine` (the
+router rules) is evaluated by an observer thread every
+``observe_interval_s`` over the router's snapshot, the roster, the scrape
+failures and the process sample (:meth:`Fleet.observe_tick`).
+``incidents_dir`` also arms the router's
+:class:`~...incidents.FlightRecorder` (a firing alert dumps a bundle there),
+every replica's ``--incidents-dir``, ``--blackbox <dir>/blackbox/slot-N.json``
+and ``--observe-interval-s``, and a crash bundle for each replica that dies
+(:func:`~...incidents.write_crash_bundle`: the exit signal, its output tail,
+argv, generation, the router's health history, its black box and the
+router's own flight payload). With telemetry off none of it is built.
 """
 
 from __future__ import annotations
@@ -107,9 +119,13 @@ class FleetConfig:
     up_consecutive: int = 3
     down_consecutive: int = 10
     cooldown_s: float = 30.0
-    # the placement ledger's directory (placement.jsonl); JAX's flight
-    # recorder, which it also arms there, is not ported
+    # the flight recorder's directory, fleet-wide (the router's bundles, the
+    # replicas' alert bundles and black boxes, crash bundles) and the
+    # placement ledger's (placement.jsonl); the recorder needs telemetry
     incidents_dir: Optional[str] = None
+    observe_interval_s: float = 2.0
+    # the router's reject burn-rate rule's SLO
+    alert_slo: float = 0.99
     drain_timeout_s: float = 60.0
     ready_timeout_s: float = 300.0
     telemetry: bool = True
@@ -126,13 +142,23 @@ class FleetConfig:
                                "spawns unpinned", slot)
             else:
                 prefix = [taskset, "-c", self.cpu_cores[slot % len(self.cpu_cores)]]
+        incidents = self.incidents_dir if self.telemetry else None
         return prefix + build_serve_cmd(
             self.model_path, device=self.device, port=port, host="127.0.0.1",
             max_batch=self.max_batch, max_wait_ms=self.max_wait_ms, queue_size=self.queue_size,
             timeout_ms=self.timeout_ms, max_doc_len=self.max_doc_len,
             drain_timeout_s=REPLICA_DRAIN_TIMEOUT_S, batching=self.batching,
-            precision=self.precision, swap_dir=self.watch_dir, no_telemetry=not self.telemetry,
-            model_manifest=self.model_manifest, resident_models=self.resident_models)
+            precision=self.precision, swap_dir=self.watch_dir, incidents_dir=incidents,
+            blackbox=self.blackbox_path(slot) if incidents is not None else None,
+            observe_interval_s=self.observe_interval_s if incidents is not None else None,
+            no_telemetry=not self.telemetry, model_manifest=self.model_manifest,
+            resident_models=self.resident_models)
+
+    def blackbox_path(self, slot: int) -> str:
+        """The black box of the replica in ``slot``: one file a slot, so a
+        restarted replica's recorder takes over the file its predecessor's
+        crash bundle was copied from."""
+        return str(Path(self.incidents_dir) / "blackbox" / f"slot-{int(slot)}.json")
 
     def build_env(self, slot: int) -> Dict[str, str]:
         env: Dict[str, str] = {}
@@ -156,7 +182,30 @@ class Fleet:
             resolve_device(config.device)
         self.config = config
         self.tel = RouterTelemetry() if config.telemetry else None
-        self.supervisor = ReplicaSupervisor(config.build_cmd, build_env=config.build_env)
+        # the alert engine whenever telemetry is on, the recorder and the
+        # crash bundles only with an incidents directory; with telemetry off
+        # neither exists, whatever incidents_dir says
+        self.alerts = None
+        self.recorder = None
+        on_crash = None
+        if config.telemetry:
+            from ...alerting import AlertEngine, default_router_rules
+            from ...incidents import FlightRecorder
+
+            inc_dir = Path(config.incidents_dir) if config.incidents_dir else None
+            if inc_dir is not None:
+                self.recorder = FlightRecorder(incident_dir=inc_dir, process_name="router")
+            self.alerts = AlertEngine(
+                default_router_rules(p99_target_s=config.p99_target_ms / 1e3,
+                                     slo=config.alert_slo),
+                sink_path=inc_dir / "alerts.jsonl" if inc_dir is not None else None,
+                on_firing=self.recorder.alert_hook() if self.recorder is not None else None,
+                source="router")
+            if self.recorder is not None:
+                self.recorder.attach(trace=self.tel.trace, alerts_fn=self.alerts.states)
+                on_crash = self._on_replica_crash
+        self.supervisor = ReplicaSupervisor(config.build_cmd, build_env=config.build_env,
+                                            on_crash=on_crash)
         self.registry = None
         if config.model_manifest:
             from ..multimodel import ModelRegistry
@@ -205,10 +254,50 @@ class Fleet:
                 inc = Path(config.incidents_dir)
                 inc.mkdir(parents=True, exist_ok=True)
                 self._placement_ledger = inc / "placement.jsonl"
+        self.router.alerts = self.alerts
+        self.router.recorder = self.recorder
         self.httpd = RouterHTTPServer((config.host, config.port), self.router)
         self._stop = threading.Event()
         self._serve_thread: Optional[threading.Thread] = None
         self._autoscale_thread: Optional[threading.Thread] = None
+        self._observer_thread: Optional[threading.Thread] = None
+
+    def _on_replica_crash(self, handle: Any, rc: int) -> None:
+        """The supervisor's crash hook: one bundle for the dead replica, with
+        the router's flight payload beside its black box so the postmortem's
+        timeline crosses the two processes."""
+        from ...incidents import write_crash_bundle
+
+        write_crash_bundle(
+            self.config.incidents_dir, process_name=f"replica-{handle.replica_id}", rc=rc,
+            argv=self.config.build_cmd(handle.slot), output_tail=list(handle.tail),
+            generation=handle.generation, health_history=list(handle.health_history),
+            blackbox_path=self.config.blackbox_path(handle.slot),
+            process_started_unix=handle.spawned_at_unix,
+            extra_flights={"router": self.recorder.payload()}, replica_id=handle.replica_id,
+            slot=handle.slot)
+
+    def observe_tick(self) -> None:
+        """One observer tick: the router's snapshot, the roster, the scrape
+        failures and the router process's sample, into the recorder's ring
+        and through the router rules (no replica is scraped)."""
+        snap = {"router": self.tel.snapshot(),
+                "replicas": [h.describe() for h in self.supervisor.handles()],
+                "scrape_failures": self.router.scrape_failure_stats(),
+                "process": self.tel.hoststats.sample()}
+        if self.recorder is not None:
+            self.recorder.record(snap)
+        if self.alerts is not None:
+            self.alerts.evaluate(snap)
+
+    def _observe_loop(self) -> None:
+        while True:
+            try:
+                self.observe_tick()
+            except Exception:  # the observer must survive anything
+                logger.exception("fleet observer tick failed")
+            if self._stop.wait(self.config.observe_interval_s):
+                return
 
     @property
     def address(self) -> Tuple[str, int]:
@@ -226,6 +315,10 @@ class Fleet:
             self._autoscale_thread = threading.Thread(target=self._autoscale_loop,
                                                       name="fleet-autoscaler", daemon=True)
             self._autoscale_thread.start()
+        if self.alerts is not None or self.recorder is not None:
+            self._observer_thread = threading.Thread(target=self._observe_loop,
+                                                     name="fleet-observer", daemon=True)
+            self._observer_thread.start()
         if self.controller is not None:
             self.controller.start()
         return self.address

@@ -8,7 +8,9 @@ the generation it serves, pooled keep-alive connections);
 its banner (:data:`BANNER_RE`), restarts a crashed one with backoff up to a
 cap, scales the set with slot reuse and stops them all with the replica's
 own graceful drain (:func:`~...training.resilience.terminate_with_grace`).
-:func:`build_serve_cmd` is the one place that writes a replica's argv.
+Its ``on_crash`` hook sees each crash before the restart wipes the handle
+(the fleet writes a crash bundle there). :func:`build_serve_cmd` is the one
+place that writes a replica's argv.
 
 On the card every replica runs the kernels of its model's path (K1 fwd in
 every trunk; K2, and K4 under ``--precision int8``, in a transformer's):
@@ -83,6 +85,12 @@ class ReplicaHandle:
         self.restarts = 0
         self.stopping = False
         self.tail: "deque[str]" = deque(maxlen=40)  # its last output lines
+        # the router's last /healthz payloads ({"unix_time", "health"}): a
+        # crash bundle's "what the fleet last knew"
+        self.health_history: "deque[Dict[str, Any]]" = deque(maxlen=8)
+        # when this process incarnation was spawned (unix time; None for a
+        # handle without a process): a black box older than it is stale
+        self.spawned_at_unix: Optional[float] = None
         self._pool_lock = threading.Lock()
         self._pool: List[http.client.HTTPConnection] = []
         self.pool_cap = 16
@@ -191,7 +199,10 @@ class ReplicaSupervisor:
     replica's recycled slot, so masks and base-port offsets stay within the
     configured layout however many replicas have ever existed.
 
-    An exit while not ``stopping`` is a crash: the restart waits the
+    An exit while not ``stopping`` is a crash: ``on_crash(handle, rc)``, if
+    given, is called once for it while the handle still holds the dead
+    process's generation, output tail and health history (an exception in it
+    is logged and swallowed); the restart waits the
     backoff's delay and at most :data:`MAX_RESTARTS_PER_REPLICA` restarts
     are made; past the cap the replica
     leaves the active set (logged ``replica-giving-up``), its slot frees and a
@@ -203,9 +214,11 @@ class ReplicaSupervisor:
         build_cmd: Callable[[int], List[str]],
         *,
         build_env: Optional[Callable[[int], Dict[str, str]]] = None,
+        on_crash: Optional[Callable[[ReplicaHandle, int], None]] = None,
     ) -> None:
         self.build_cmd = build_cmd
         self.build_env = build_env
+        self.on_crash = on_crash
         self._backoff = RetryPolicy(max_retries=MAX_RESTARTS_PER_REPLICA,
                                     base_delay=RESTART_BASE_DELAY_S,
                                     max_delay=RESTART_MAX_DELAY_S)
@@ -226,6 +239,7 @@ class ReplicaSupervisor:
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                 text=True, env=env)
         handle.proc = proc
+        handle.spawned_at_unix = time.time()
         log_event("replica-spawn", f"replica {handle.replica_id} spawned (pid {proc.pid})",
                   level=logging.INFO, replica=handle.replica_id, pid=proc.pid)
         threading.Thread(target=self._read_stdout, args=(handle, proc), daemon=True,
@@ -302,8 +316,15 @@ class ReplicaSupervisor:
             self._stop.wait(MONITOR_POLL_S)
 
     def _on_exit(self, handle: ReplicaHandle, rc: int, now: float) -> None:
-        """A fresh crash: schedule the restart after its backoff, or give
-        the replica up past the cap."""
+        """A fresh crash: the crash hook first (clearing the handle wipes
+        what it reads), then the restart after its backoff, or give the
+        replica up past the cap."""
+        if self.on_crash is not None:
+            try:
+                self.on_crash(handle, rc)
+            except Exception:
+                logger.exception("crash-incident hook failed for replica %d",
+                                 handle.replica_id)
         handle.clear_address()
         handle.restarts += 1
         if handle.restarts > MAX_RESTARTS_PER_REPLICA:
@@ -412,6 +433,9 @@ def build_serve_cmd(
     batching: Optional[str] = None,
     precision: Optional[str] = None,
     swap_dir: Optional[str] = None,
+    incidents_dir: Optional[str] = None,
+    blackbox: Optional[str] = None,
+    observe_interval_s: Optional[float] = None,
     no_telemetry: bool = False,
     model_manifest: Optional[str] = None,
     resident_models: Optional[int] = None,
@@ -419,7 +443,9 @@ def build_serve_cmd(
     """A replica's ``python -m spacy_ray_tpu_torch serve`` argv (``None``
     leaves a flag at the server's default). ``device`` is ``cuda`` unless the
     fleet was asked for the CPU. ``swap_dir`` is the one directory the
-    replica's ``/admin/swap`` may load from (the rollout controller's)."""
+    replica's ``/admin/swap`` may load from (the rollout controller's);
+    ``incidents_dir`` takes the replica's alert bundles, ``blackbox`` the
+    payload its recorder persists for a crash bundle."""
     cmd = [sys.executable, "-m", "spacy_ray_tpu_torch", "serve", str(model_path),
            "--host", host, "--port", str(int(port)), "--device", device]
     if max_batch is not None:
@@ -440,6 +466,12 @@ def build_serve_cmd(
         cmd += ["--precision", str(precision)]
     if swap_dir is not None:
         cmd += ["--swap-dir", str(swap_dir)]
+    if incidents_dir is not None:
+        cmd += ["--incidents-dir", str(incidents_dir)]
+    if blackbox is not None:
+        cmd += ["--blackbox", str(blackbox)]
+    if observe_interval_s is not None:
+        cmd += ["--observe-interval-s", str(float(observe_interval_s))]
     if model_manifest is not None:
         cmd += ["--model-manifest", str(model_manifest)]
     if resident_models is not None:

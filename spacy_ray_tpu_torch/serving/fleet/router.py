@@ -26,10 +26,11 @@ one HTTP front end balancing ``/v1/parse`` over N replicas.
 * ``/metrics`` is the fleet's view: every ready replica's snapshot merged
   by :func:`~...training.telemetry.merge_serving_snapshots`, with the
   router's own counters, the cache's ledger and the roster of replicas
-  (``?format=prometheus``: per-replica series labelled ``replica_id``).
-
-There is no alert engine in the port yet: ``/admin/alerts`` answers
-``{"alerts": "disabled"}`` as the JAX router does without one.
+  (``?format=prometheus``: per-replica series labelled ``replica_id``),
+  and with an alert engine its ``alerts`` summary and ``srt_alert_*``
+  families. ``/admin/alerts`` lists every router rule's state
+  (``{"alerts": "disabled"}`` without an engine). Each probe's ``/healthz``
+  payload joins the replica's ``health_history``.
 """
 
 from __future__ import annotations
@@ -348,6 +349,9 @@ class Router:
         self.canary_generation: Optional[int] = None
         self._split_lock = threading.Lock()
         self._split_acc = 0.0
+        # the fleet's alert engine and flight recorder (None with telemetry off)
+        self.alerts: Optional[Any] = None
+        self.recorder: Optional[Any] = None
         self._stop = threading.Event()
         self._prober: Optional[threading.Thread] = None
         self._scrape_lock = threading.Lock()
@@ -396,6 +400,8 @@ class Router:
                          for m, info in resident.items()}
                         if isinstance(resident, dict) else {})
                     h.default_model = default_model if isinstance(default_model, str) else None
+                    h.health_history.append({"unix_time": round(time.time(), 3),
+                                             "health": health})
             self._mark_ready(h)
             n_ready += 1
         if self.tel is not None:
@@ -791,6 +797,8 @@ class Router:
         if self.tel is not None:
             out["router"] = self.tel.snapshot()
             out["process"] = self.tel.hoststats.sample()
+        if self.alerts is not None:
+            out["alerts"] = self.alerts.summary()
         cache_stats = self.cache_stats()
         if cache_stats is not None:
             out["cache"] = cache_stats
@@ -856,6 +864,8 @@ class Router:
         for rid, n in self.scrape_failure_stats().items():
             fam.add("srt_router_replica_scrape_failures_total", "counter", n,
                     {"replica_id": rid})
+        if self.alerts is not None:
+            self.alerts.add_prometheus(fam)
         cache_stats = self.cache_stats()
         if cache_stats is not None:
             for key in ("cache_hits", "cache_misses", "cache_evictions",
@@ -974,7 +984,10 @@ class _RouterHandler(BaseHTTPRequestHandler):
         elif self.path == "/admin/exemplars":
             self._reply(200, sanitize_json({"replicas": router.scrape_replica_exemplars()}))
         elif self.path == "/admin/alerts":
-            self._reply(200, {"alerts": "disabled"})
+            if router.alerts is None:
+                self._reply(200, {"alerts": "disabled"})
+            else:
+                self._reply(200, sanitize_json({"alerts": router.alerts.states()}))
         else:
             self._reply(404, {"error": "not_found", "message": self.path})
 

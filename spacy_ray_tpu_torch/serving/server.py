@@ -24,9 +24,12 @@ a stdlib ``ThreadingHTTPServer`` and graceful drain.
   ``generation`` and ``swap_count``, with a manifest a ``models`` block of
   each resident engine's snapshot and the residency's counts
   (``?format=prometheus``: the text exposition, the models' series
-  labelled ``model``); with telemetry off, ``{"telemetry": "disabled", ...}`` and
-  a comment-only exposition. ``GET /trace`` — the Chrome trace of the
-  telemetry's buffer. ``GET /admin/exemplars`` — the p99-outlier ring.
+  labelled ``model``); with an alert engine an ``alerts`` summary and the
+  ``srt_alert_*`` families; with telemetry off, ``{"telemetry": "disabled",
+  ...}`` and a comment-only exposition. ``GET /trace`` — the Chrome trace of
+  the telemetry's buffer. ``GET /admin/exemplars`` — the p99-outlier ring.
+  ``GET /admin/alerts`` — every rule's state (``{"alerts": "disabled"}``
+  without an engine).
 * ``POST /admin/swap`` ``{"dir": <checkpoint dir>, "generation": optional}``
   — hot-swap to a checkpoint generation (the newest intact one by
   default); ``POST /admin/rollback`` — back to the previous resident. With
@@ -37,7 +40,11 @@ a stdlib ``ThreadingHTTPServer`` and graceful drain.
   nothing to roll back to; the server keeps serving.
 
 A :class:`~.live.CheckpointWatcher` (``serve --watch``) starts once the
-engine is warm and stops when the drain begins. SIGTERM/SIGINT stop
+engine is warm and stops when the drain begins. With telemetry on and an
+:class:`~..alerting.AlertEngine` or a :class:`~..incidents.FlightRecorder`
+given, an observer thread snapshots the telemetry every
+``observe_interval_s`` (the first tick at once), feeds the recorder's ring
+and black box and evaluates the rules; it stops before the drain. SIGTERM/SIGINT stop
 admission, let every queued and in-flight batch finish (every resident
 engine's), close the listener and exit 0 (1 when the drain timed out).
 """
@@ -98,6 +105,9 @@ class ServingHTTPServer(ThreadingHTTPServer):
         self.registry = None
         self.residency = None
         self.admission = None
+        #: the alert engine /admin/alerts and the /metrics alerts block read
+        #: (None unless telemetry is on and one was built)
+        self.alerts = None
         self.draining = False
         #: the checkpoint directories /admin/swap may load from; empty turns
         #: the admin surface off (403): a client-supplied path must never
@@ -150,6 +160,7 @@ class _Handler(BaseHTTPRequestHandler):
         parsed = urlparse(self.path)
         route = {"/metrics": lambda: self._get_metrics(parse_qs(parsed.query)),
                  "/trace": self._get_trace, "/admin/exemplars": self._get_exemplars,
+                 "/admin/alerts": self._get_alerts,
                  "/healthz": self._get_healthz}.get(parsed.path)
         if route is None:
             self._reply(404, {"error": "not_found", "message": self.path})
@@ -217,6 +228,9 @@ class _Handler(BaseHTTPRequestHandler):
             if models:
                 snap["models"] = models
             snap["residency"] = residency.stats()
+        alerts = self.server.alerts
+        if alerts is not None:
+            snap["alerts"] = alerts.summary()
         if not prometheus:
             self._reply(200, sanitize_json(snap))
             return
@@ -242,6 +256,8 @@ class _Handler(BaseHTTPRequestHandler):
                             mwin.get(f"request_latency_{q}"),
                             {"model": name, "quantile": q.replace("p", "0."),
                              "window_s": int(mwin.get("window_s") or 0)})
+        if alerts is not None:
+            alerts.add_prometheus(fam)
         self._reply_text(200, fam.render(), EXPOSITION_CONTENT_TYPE)
 
     def _get_trace(self) -> None:
@@ -260,6 +276,13 @@ class _Handler(BaseHTTPRequestHandler):
             self._reply(200, {"exemplars": "disabled"})
             return
         self._reply(200, sanitize_json(tel.exemplars()))
+
+    def _get_alerts(self) -> None:
+        alerts = self.server.alerts
+        if alerts is None:
+            self._reply(200, {"alerts": "disabled"})
+            return
+        self._reply(200, sanitize_json({"alerts": alerts.states()}))
 
     def do_POST(self) -> None:  # noqa: N802
         try:
@@ -498,21 +521,31 @@ class Server:
     watcher, if any), wait for a shutdown request (signal or
     :meth:`request_shutdown`), drain, exit. ``registry``, ``residency`` and
     ``admission`` are multi-model serving's (all None without a manifest);
-    the watcher's directory joins the swap allowlist."""
+    the watcher's directory joins the swap allowlist. ``alerts`` and
+    ``recorder`` (built only with telemetry on) are fed by the observer
+    thread every ``observe_interval_s``."""
 
     def __init__(self, engine: InferenceEngine, host: str = "127.0.0.1",
                  port: int = 8080, *, telemetry: Optional[ServingTelemetry] = None,
                  drain_timeout_s: float = 30.0, swap_dirs: Optional[List[str]] = None,
                  watcher: Optional[Any] = None, registry: Optional[Any] = None,
-                 residency: Optional[Any] = None, admission: Optional[Any] = None) -> None:
+                 residency: Optional[Any] = None, admission: Optional[Any] = None,
+                 alerts: Optional[Any] = None, recorder: Optional[Any] = None,
+                 observe_interval_s: float = 2.0) -> None:
         self.engine = engine
         self.tel = telemetry
+        self.alerts = alerts
+        self.recorder = recorder
+        self.observe_interval_s = float(observe_interval_s)
+        self._observer: Optional[threading.Thread] = None
+        self._observer_stop = threading.Event()
         self.drain_timeout_s = float(drain_timeout_s)
         self.watcher = watcher
         self.registry = registry
         self.residency = residency
         self.admission = admission
         self.httpd = ServingHTTPServer((host, port), engine, telemetry)
+        self.httpd.alerts = alerts
         self.httpd.registry = registry
         self.httpd.residency = residency
         self.httpd.admission = admission
@@ -530,13 +563,41 @@ class Server:
 
     def start(self) -> Tuple[str, int]:
         """Start the listener thread (the engine is started separately, so
-        /healthz answers "warming" during the sweep)."""
+        /healthz answers "warming" during the sweep) and, with telemetry on
+        and an alert engine or a recorder, the observer thread."""
         self._serve_thread = threading.Thread(
             target=self.httpd.serve_forever, kwargs={"poll_interval": 0.1},
             name="serve-http", daemon=True,
         )
         self._serve_thread.start()
+        if self.tel is not None and (self.alerts is not None or self.recorder is not None):
+            self._observer = threading.Thread(target=self._observe_loop, name="serve-observer",
+                                              daemon=True)
+            self._observer.start()
         return self.address
+
+    def observe_tick(self) -> None:
+        """One observer tick: the telemetry's snapshot (with the served
+        generation and swap count) into the recorder's ring, whose black box
+        survives a SIGKILL, and through the alert rules."""
+        snap = self.tel.snapshot()
+        snap["generation"] = self.engine.serving_generation
+        snap["swap_count"] = self.engine.swap_count
+        if self.recorder is not None:
+            self.recorder.record(snap)
+        if self.alerts is not None:
+            self.alerts.evaluate(snap)
+
+    def _observe_loop(self) -> None:
+        """The first tick at once, so that a replica that dies young still
+        leaves a black box; a failing tick is logged and serving goes on."""
+        while True:
+            try:
+                self.observe_tick()
+            except Exception:
+                logger.exception("observer tick failed")
+            if self._observer_stop.wait(self.observe_interval_s):
+                return
 
     def request_shutdown(self, signum: Optional[int] = None, frame: Any = None) -> None:
         """Signal-safe: flag writes and an Event only."""
@@ -554,6 +615,10 @@ class Server:
         drain, 1 when in-flight work was abandoned at the timeout."""
         self._stop.wait()
         self.httpd.draining = True
+        self._observer_stop.set()
+        if self._observer is not None:
+            self._observer.join(timeout=5.0)
+            self._observer = None
         if self.watcher is not None:
             self.watcher.stop()  # a swap mid-drain serves nobody
         self.engine.batcher.begin_drain()

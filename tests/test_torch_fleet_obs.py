@@ -709,10 +709,17 @@ def test_a_cli_fleet_names_its_diverging_workers_and_an_evicted_worker_rejoins(
     out, metrics, incidents = tmp_path / "out", tmp_path / "out" / "metrics", tmp_path / "inc"
     base = _two_free_consecutive_ports()
     # the first run: both workers poison their 3rd step; worker 1 is
-    # SIGKILLed once the lead's watch flagged it, and evicted
+    # SIGKILLed once the lead's watch flagged it, and evicted. The anomaly
+    # detectors are off, so that the watch is the lead's one source of
+    # bundles: its recorder writes one bundle a 30-s storm over every source,
+    # and a step-time regression past the detector's 20-step warmup, before
+    # the watch's first poll (a step slowed by the host's load), would take it.
+    # chip_smoke.py's train:fleet_elastic runs the detectors beside the watch
+    # and holds the lead to one bundle in that storm
     first = subprocess.Popen(
         _cli(cfg_path, data, out, base, "--metrics-dir", str(metrics),
-             "--training.incident_dir", str(incidents), steps=100000),
+             "--training.incident_dir", str(incidents), "--training.anomaly_detection",
+             "false", steps=100000),
         cwd=REPO, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
         env=_env(SPACY_RAY_TPU_FAULT_PLAN="step:3:nan"))
     try:

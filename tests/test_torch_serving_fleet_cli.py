@@ -152,10 +152,6 @@ def test_serve_fleet_answers_restarts_a_killed_replica_and_drains(tmp_path):
     (["--canary-fraction", "1.5"], "--canary-fraction 1.5 must lie within 0..1"),
     (["--guard-error-rate", "2"], "error_rate_high must be within 0..1"),
     (["--guard-p99-frac", "0"], "p99_frac must be > 0"),
-    (["--incidents-dir", "d"], "unrecognized arguments: --incidents-dir"),
-    (["--observe-interval-s", "1"], "unrecognized arguments: --observe-interval-s"),
-    (["--continuous"], "unrecognized arguments: --continuous"),
-    (["--window-ms", "5"], "unrecognized arguments: --window-ms"),
     (["--replicas", "5"], "must lie within --min-replicas 1 .. --max-replicas 4"),
     (["--replicas", "0"], "--replicas/--min-replicas must be >= 1"),
     # the later --device wins: core masks without the CPU are refused
@@ -171,3 +167,41 @@ def test_serve_fleet_refuses_what_waits_and_bad_bounds_with_exit_2(argv, says, c
     out = capsys.readouterr()
     assert rc == 2 and says in out.err
     assert "fleet serving on" not in out.out
+
+
+@pytest.mark.parametrize("argv, config, replica_flag", [
+    (["--incidents-dir", "inc"], {"incidents_dir": "inc"}, ["--incidents-dir", "inc"]),
+    (["--incidents-dir", "inc", "--observe-interval-s", "0.25"],
+     {"incidents_dir": "inc", "observe_interval_s": 0.25}, ["--observe-interval-s", "0.25"]),
+    (["--batching", "window", "--continuous"], {"batching": "continuous"},
+     ["--batching", "continuous"]),
+    (["--window-ms", "5"], {"max_wait_ms": 5.0}, ["--max-wait-ms", "5.0"]),
+])
+def test_serve_fleet_incident_and_alias_flags_reach_the_config_and_the_replicas(
+        argv, config, replica_flag, monkeypatch, capsys):
+    """The flags JAX's serve-fleet takes: parsed into the ``FleetConfig`` the
+    fleet is built from, and on to every replica's ``serve`` argv (with
+    ``--incidents-dir``, each slot's black box too)."""
+    import spacy_ray_tpu_torch.serving.fleet as fleet_pkg
+    from spacy_ray_tpu_torch.__main__ import main
+
+    built = []
+
+    class Recorded:
+        def __init__(self, cfg):
+            built.append(cfg)
+
+        def run(self):
+            return 0
+
+    monkeypatch.setattr(fleet_pkg, "Fleet", Recorded)
+    assert main(["serve-fleet", "m", "--device", "cpu", *argv]) == 0
+    assert "fleet drained; exiting 0" in capsys.readouterr().out
+    [cfg] = built
+    assert {k: getattr(cfg, k) for k in config} == config
+    cmd = cfg.build_cmd(1)
+    i = cmd.index(replica_flag[0])
+    assert cmd[i:i + 2] == replica_flag
+    assert ("--blackbox" in cmd) == ("incidents_dir" in config)
+    if "incidents_dir" in config:
+        assert cmd[cmd.index("--blackbox") + 1] == str(Path("inc") / "blackbox" / "slot-1.json")

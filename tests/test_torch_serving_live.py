@@ -383,7 +383,9 @@ def test_metrics_trace_and_exemplars_over_http(dense_gens):
         assert trace["role"] == "replica" and "anchor" in trace
         status, body, _ = _get(port, "/admin/exemplars")
         assert status == 200 and set(json.loads(body)) == {"threshold_s", "count", "exemplars"}
-        assert _get(port, "/admin/alerts")[0] == 404
+        # a Server given no alert engine answers JAX's disabled form
+        status, body, _ = _get(port, "/admin/alerts")
+        assert status == 200 and json.loads(body) == {"alerts": "disabled"}
         # telemetry off: the disabled forms
         off_snap = json.loads(_get(off_port, "/metrics")[1])
         assert off_snap == {"telemetry": "disabled", "generation": None, "swap_count": 0}

@@ -275,16 +275,30 @@ def test_collect_trace_argument_errors_exit_2_as_jax(argv, says, tmp_path, capsy
     assert both(run) == (2, True)
 
 
-def test_telemetry_subcommands_that_wait_exit_2_and_unknown_ones_print_usage(capsys):
+def test_telemetry_subcommands_that_wait_exit_2_and_unknown_ones_print_usage(
+        tmp_path, capsys):
+    """``top`` and ``ledger`` are listed in the usage and run (0 with their
+    arguments, argparse's 2 without); no subcommand or an unknown one prints
+    the usage (1)."""
     from spacy_ray_tpu_torch.__main__ import main
 
-    for sub in ("top", "ledger"):
-        assert main(["telemetry", sub, "x"]) == 2
-        assert f"telemetry {sub} is not part of the port yet" in capsys.readouterr().err
     assert main(["telemetry"]) == 1 and main(["telemetry", "nope"]) == 1
     err = capsys.readouterr().err
-    for sub in ("collect-trace", "summarize", "postmortem", "report"):
+    for sub in ("collect-trace", "summarize", "postmortem", "report", "top <url>",
+                "ledger {list|show|diff|regress}"):
         assert sub in err
+    session = tmp_path / "session.jsonl"
+    session.write_text(json.dumps({"name": "x", "value": 1.0, "platform": "gpu"}) + "\n",
+                       encoding="utf8")
+    assert main(["telemetry", "ledger", "list", "--session", str(session)]) == 0
+    assert capsys.readouterr().out.startswith("run ledger: 1 records, 1 keys")
+    assert main(["telemetry", "top", "http://127.0.0.1:9", "--iterations", "1",
+                 "--interval-s", "0"]) == 0
+    for sub in ("top", "ledger"):
+        with pytest.raises(SystemExit) as e:
+            main(["telemetry", sub])
+        assert e.value.code == 2
+    assert "not part of the port yet" not in capsys.readouterr().err
 
 
 def test_telemetry_summarize_is_ported(tmp_path, capsys):
